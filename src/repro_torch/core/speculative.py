@@ -1,0 +1,305 @@
+"""The speculative decoding step (port of ``repro/core/speculative.py``).
+
+One ``spec_decode_step`` = draft (a tree, via Medusa/Hydra heads) ->
+verify (ONE base-model forward over the T tree tokens) -> accept (greedy)
+-> commit caches -> emit tokens.
+
+The port decodes greedily only: typical acceptance and sampling draw from
+``jax.random`` on the JAX side and wait for a later slice.  PyTorch runs
+eagerly, so there is no compiled step; caches are updated in place and a
+step's ``state`` shares the cache tensors of the state it was given.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.heads import (draft_tree_tokens, init_prefix_cache,
+                                    prefix_forward)
+from repro_torch.core.trees import device_arrays
+from repro_torch.core.verify import greedy_verify
+from repro_torch.device import torch_dtype
+from repro_torch.models.model import forward, init_cache
+from repro_torch.serving.cache import commit_cache
+
+PAD_TOKEN = -1
+
+
+class DecodeState(NamedTuple):
+    cache: Any                          # committed model cache
+    cache_len: torch.Tensor             # (B,) int32
+    last_token: torch.Tensor            # (B,) int64, not yet forwarded
+    last_hidden: torch.Tensor           # (B, d) head-input hidden state
+    prefix_k: Optional[torch.Tensor]    # PrefixAttention cache (hydra++)
+    prefix_v: Optional[torch.Tensor]
+
+
+class StepResult(NamedTuple):
+    state: DecodeState
+    emitted: torch.Tensor               # (B, D+1) tokens, PAD-filled
+    n_emitted: torch.Tensor             # (B,) = n_accept + 1 (incl. bonus)
+
+
+def _has_prefix(draft_params) -> bool:
+    return draft_params is not None and "prefix" in draft_params
+
+
+def _first_token(params, h_last):
+    """Greedy first token of a freshly prefilled request from the hidden
+    state of its last real prompt token."""
+    return torch.argmax(h_last.float() @ params["unembed_f32"], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# prefill
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def init_decode_state(params, draft_params, cfg: ModelConfig, prompt,
+                      max_len: int) -> DecodeState:
+    """prompt: (B, P) equal-length tokens.  Runs prefill, picks the first
+    token, initializes all caches (on the prompt's device)."""
+    B, P = prompt.shape
+    dev = prompt.device
+    pos = torch.arange(P, device=dev).expand(B, P)
+    cache = init_cache(cfg, B, max_len, dev)
+    # want_logits=False: only the last position's logits are needed
+    out = forward(params, cfg, prompt, pos, mode="full", cache=cache,
+                  want_logits=False)
+    tok0 = _first_token(params, out.hidden[:, -1])
+    h = out.hidden[:, -1]
+    pk = pv = None
+    if _has_prefix(draft_params):
+        ph, nk, nv = prefix_forward(draft_params, cfg, out.hidden, pos)
+        pc = init_prefix_cache(cfg, B, max_len, dev)
+        pk, pv = pc["k"], pc["v"]
+        pk[:, :P] = nk.to(pk.dtype)
+        pv[:, :P] = nv.to(pv.dtype)
+        h = ph[:, -1]
+    return DecodeState(cache=cache,
+                       cache_len=torch.full((B,), P, dtype=torch.int32,
+                                            device=dev),
+                       last_token=tok0, last_hidden=h,
+                       prefix_k=pk, prefix_v=pv)
+
+
+def init_pool_state(params, draft_params, cfg: ModelConfig, max_batch: int,
+                    max_len: int, device) -> DecodeState:
+    """Empty slot-pool state for a continuous-batching engine: all caches
+    zeroed, every row idle (cache_len 0).  Rows become live via
+    ``join_slot`` and are stepped with an ``active`` mask."""
+    pk = pv = None
+    if _has_prefix(draft_params):
+        pc = init_prefix_cache(cfg, max_batch, max_len, device)
+        pk, pv = pc["k"], pc["v"]
+    return DecodeState(
+        cache=init_cache(cfg, max_batch, max_len, device),
+        cache_len=torch.zeros((max_batch,), dtype=torch.int32, device=device),
+        last_token=torch.zeros((max_batch,), dtype=torch.long, device=device),
+        last_hidden=torch.zeros((max_batch, cfg.d_model),
+                                dtype=torch_dtype(cfg.dtype), device=device),
+        prefix_k=pk, prefix_v=pv)
+
+
+@torch.no_grad()
+def prefill_row(params, draft_params, cfg: ModelConfig, prompt,
+                real_len: int):
+    """Prefill one right-padded prompt (P,) into a fresh row cache of
+    length P.  Returns (row cache, prefix (k, v) or None, first token,
+    head-input hidden state).  With right padding and causal masking,
+    positions < real_len never see the pad tail; the pads' entries sit at
+    or beyond ``cache_len = real_len``, where every later step masks or
+    overwrites them."""
+    P = prompt.shape[0]
+    dev = prompt.device
+    pos = torch.arange(P, device=dev)[None, :]
+    row = init_cache(cfg, 1, P, dev)
+    out = forward(params, cfg, prompt[None, :], pos, mode="full", cache=row,
+                  want_logits=False)
+    idx = max(real_len - 1, 0)
+    h = out.hidden[0, idx]
+    tok0 = _first_token(params, h)
+    prefix = None
+    if _has_prefix(draft_params):
+        ph, nk, nv = prefix_forward(draft_params, cfg, out.hidden, pos)
+        prefix = (nk[0], nv[0])
+        h = ph[0, idx]
+    return row, prefix, tok0, h
+
+
+def join_slot(params, draft_params, cfg: ModelConfig, state: DecodeState,
+              prompt, real_len: int, slot: int) -> DecodeState:
+    """Prefill one request and install it in row ``slot`` of the pool (in
+    place).  prompt: (P,) right-padded to P; ``real_len`` <= P is the true
+    prompt length.  Only [0, P) of the row is written: positions past P
+    are never read before a verify step overwrites them."""
+    P = prompt.shape[0]
+    row, prefix, tok0, h = prefill_row(params, draft_params, cfg, prompt,
+                                       real_len)
+    for pool, r in zip(state.cache, row):
+        for key in ("k", "v"):
+            pool[key][:, slot, :P] = r[key][:, 0]
+    if prefix is not None:
+        state.prefix_k[slot, :P] = prefix[0]
+        state.prefix_v[slot, :P] = prefix[1]
+    state.cache_len[slot] = real_len
+    state.last_token[slot] = tok0
+    state.last_hidden[slot] = h.to(state.last_hidden.dtype)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# the speculative step
+# ---------------------------------------------------------------------------
+
+
+def _freeze_inactive(active, state: DecodeState, emitted, n_emitted,
+                     cache_len, last_token, last_hidden):
+    """Rows outside ``active`` emit PAD, advance no cache and keep their
+    token/hidden state; their attention writes stayed in their scratch
+    region beyond the frozen ``cache_len``."""
+    emitted = torch.where(active[:, None], emitted, PAD_TOKEN)
+    n_emitted = torch.where(active, n_emitted, 0)
+    cache_len = torch.where(active, cache_len, state.cache_len)
+    last_token = torch.where(active, last_token, state.last_token)
+    last_hidden = torch.where(active[:, None], last_hidden, state.last_hidden)
+    return emitted, n_emitted, cache_len, last_token, last_hidden
+
+
+@torch.no_grad()
+def spec_decode_step(params, draft_params, cfg: ModelConfig, tree,
+                     state: DecodeState, *,
+                     active: Optional[torch.Tensor] = None,
+                     block_table: Optional[torch.Tensor] = None
+                     ) -> StepResult:
+    """``active`` (B,) bool: rows that hold a live request (None: all).
+    ``block_table`` (B, M) int32 switches the cache layout: ``state.cache``
+    attention arrays (and the Hydra++ prefix cache) are then global block
+    pools streamed through the table by the paged kernel, and the commit
+    moves accepted entries inside slot-owned blocks."""
+    B = state.last_token.shape[0]
+    dev = state.last_token.device
+    ta = device_arrays(tree, dev)
+
+    # 1. draft: populate the candidate tree (root = last_token)
+    tokens, _ = draft_tree_tokens(draft_params, cfg, params, tree,
+                                  state.last_hidden, state.last_token)
+
+    # 2. verify: one base forward over the T tree tokens
+    positions = state.cache_len[:, None] + ta["depth"][None, :]
+    out = forward(params, cfg, tokens, positions, mode="verify",
+                  cache=state.cache, cache_len=state.cache_len,
+                  tree_mask=ta["mask"], block_table=block_table)
+
+    # 3. accept
+    res = greedy_verify(tree, tokens, out.logits)
+
+    # 4. commit
+    commit_cache(out.cache, state.cache_len, res.path_nodes,
+                 block_table=block_table)
+    D1 = res.path_nodes.shape[1]
+    bidx = torch.arange(B, device=dev)
+    acc_hidden = out.hidden[bidx[:, None], res.path_nodes]     # (B, D1, d)
+
+    pk, pv = state.prefix_k, state.prefix_v
+    if _has_prefix(draft_params):
+        ppos = state.cache_len[:, None] + torch.arange(D1, device=dev)[None]
+        ph, pk, pv = prefix_forward(
+            draft_params, cfg, acc_hidden, ppos, cache_k=pk, cache_v=pv,
+            cache_len=state.cache_len, tree_mask=None,         # chain mask
+            block_table=block_table)
+        # the chain write already left path step j at scratch entry j, so
+        # the prefix cache is committed (JAX's commit is the identity gather)
+        h_next = ph[bidx, res.n_accept]
+    else:
+        h_next = acc_hidden[bidx, res.n_accept]
+
+    # 5. emitted tokens: accepted candidates then the bonus token
+    tok_path = tokens[bidx[:, None], res.path_nodes]           # (B, D1)
+    j = torch.arange(D1, device=dev)[None, :]
+    pad = torch.full((B, 1), PAD_TOKEN, dtype=tok_path.dtype, device=dev)
+    shifted = torch.cat([tok_path[:, 1:], pad], dim=1)
+    emitted = torch.where(j < res.n_accept[:, None], shifted, PAD_TOKEN)
+    emitted = torch.where(j == res.n_accept[:, None],
+                          res.bonus_token[:, None], emitted)
+
+    n_emitted = res.n_accept + 1
+    cache_len = (state.cache_len + n_emitted).to(torch.int32)
+    last_token, last_hidden = res.bonus_token, h_next
+    if active is not None:
+        emitted, n_emitted, cache_len, last_token, last_hidden = \
+            _freeze_inactive(active, state, emitted, n_emitted, cache_len,
+                             last_token, last_hidden)
+    new_state = DecodeState(cache=out.cache, cache_len=cache_len,
+                            last_token=last_token, last_hidden=last_hidden,
+                            prefix_k=pk, prefix_v=pv)
+    return StepResult(new_state, emitted, n_emitted)
+
+
+# ---------------------------------------------------------------------------
+# autoregressive baseline step (T=1 "tree")
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def autoregressive_step(params, cfg: ModelConfig, state: DecodeState, *,
+                        active: Optional[torch.Tensor] = None,
+                        block_table: Optional[torch.Tensor] = None
+                        ) -> StepResult:
+    """One greedy token per row.  The new entry was written at
+    ``cache_len``, where it stays: there is nothing to compact."""
+    tokens = state.last_token[:, None]
+    positions = state.cache_len[:, None]
+    out = forward(params, cfg, tokens, positions, mode="verify",
+                  cache=state.cache, cache_len=state.cache_len,
+                  tree_mask=None, block_table=block_table)
+    nxt = torch.argmax(out.logits[:, 0], dim=-1)
+    emitted = nxt[:, None]
+    n_emitted = torch.ones_like(nxt)
+    cache_len = (state.cache_len + 1).to(torch.int32)
+    last_hidden = out.hidden[:, 0]
+    if active is not None:
+        emitted, n_emitted, cache_len, nxt, last_hidden = _freeze_inactive(
+            active, state, emitted, n_emitted, cache_len, nxt, last_hidden)
+    new_state = DecodeState(cache=out.cache, cache_len=cache_len,
+                            last_token=nxt, last_hidden=last_hidden,
+                            prefix_k=state.prefix_k, prefix_v=state.prefix_v)
+    return StepResult(new_state, emitted, n_emitted)
+
+
+# ---------------------------------------------------------------------------
+# generation loop
+# ---------------------------------------------------------------------------
+
+
+def generate(params, draft_params, cfg: ModelConfig, tree, prompt, *,
+             max_new_tokens: int = 64, max_len: int = 1024,
+             use_speculative: bool = True):
+    """Greedy generation for a (B, P) prompt on its device.  Returns
+    (tokens (B, N) with PAD tails inside step segments, steps_taken,
+    accept_lengths (B, steps) fp32)."""
+    state = init_decode_state(params, draft_params, cfg, prompt, max_len)
+    B = prompt.shape[0]
+    outs = [state.last_token[:, None]]  # first token from prefill
+    produced = 1
+    steps = 0
+    accept_lens = []
+    while produced < max_new_tokens:
+        if use_speculative:
+            res = spec_decode_step(params, draft_params, cfg, tree, state)
+        else:
+            res = autoregressive_step(params, cfg, state)
+        state = res.state
+        outs.append(res.emitted)
+        accept_lens.append(res.n_emitted)
+        produced += int(res.n_emitted.min())
+        steps += 1
+        if steps > 4 * max_new_tokens:
+            break
+    toks = torch.cat(outs, dim=1)
+    acc = (torch.stack(accept_lens, 1).float() if accept_lens
+           else torch.ones((B, 1)))
+    return toks, steps, acc

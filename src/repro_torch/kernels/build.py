@@ -1,0 +1,109 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each source under ``src/repro_torch/csrc/`` is compiled by ``nvcc`` for
+Hopper (``sm_90a``) into a shared library with a plain C interface and
+loaded with ctypes, so no PyTorch header is ever compiled.  Libraries go
+into ``build/kernels/`` at the repository root (listed in ``.gitignore``)
+under a name that carries a hash of the source and flags, so an edited
+source is rebuilt and a stale library is never loaded.  ``build()``
+starts one ``nvcc`` per missing library, all at once, and waits for all.
+``defines`` (``("K1_PHASE_CLOCKS",)``, ``("K1_MAX_ROWS=48",)``) build a
+measurement variant of a source beside the plain library; the port itself
+loads only the plain ones.
+
+Nothing here runs at import time: the CPU tests import every module of
+the port, and this machine class has no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR.parents[1] / "build" / "kernels"
+
+# library name -> source file under csrc/
+SOURCES = {"tree_attention_paged": "tree_attention_paged.cu"}
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: dict = {}
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on "
+                           "a machine with the CUDA toolkit")
+    return found
+
+
+def _flags(defines) -> list:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def library_path(name: str, defines=()) -> Path:
+    src = CSRC_DIR / SOURCES[name]
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(_flags(defines)).encode()
+                            ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names=None, defines=()) -> dict:
+    """Compile every missing library in ``names`` (default: all), one
+    ``nvcc`` process per source, all started together.  Returns
+    ``{name: (seconds, ptxas report)}`` for the ones built; raises with
+    the compiler's output if any build fails."""
+    names = list(SOURCES if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for name in names:
+        out = library_path(name, defines)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *_flags(defines), "-o", str(tmp),
+               str(CSRC_DIR / SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
+    built, failed = {}, []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{name} (exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+        built[name] = (secs, "\n".join(
+            ln for ln in log.splitlines()
+            if "ptxas info" in ln or "bytes stack frame" in ln))
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return built
+
+
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library for ``name``, built first if missing."""
+    key = (name, tuple(defines))
+    lib = _loaded.get(key)
+    if lib is None:
+        path = library_path(name, defines)
+        if not path.exists():
+            build([name], defines)
+        lib = ctypes.CDLL(str(path))
+        _loaded[key] = lib
+    return lib

@@ -1,0 +1,97 @@
+"""Paged tree-verify attention: the Hopper kernel's launch and its plain
+PyTorch version.
+
+The CUDA source is ``src/repro_torch/csrc/tree_attention_paged.cu``; its
+header says which TPU kernel it replaces
+(``repro/kernels/tree_attention/kernel.py::tree_attention_paged``), what
+bounds it and how it is laid out.  ``tree_attention_paged_plain`` is a
+torch port of ``repro/kernels/tree_attention/ref.py::
+tree_attention_paged_ref``: the slot's logical view gathered through the
+block table, NULL-table positions and positions past ``cache_len``
+masked.  The CPU tests run it and ``chip_smoke.py`` holds the kernel
+against it on the card.
+
+Both take the MODEL layout (q/out ``(B, T, Hq, D)``, tree K/V
+``(B, T, Hkv, D)``) with T already padded by the wrapper (``ops.py``),
+which is the port's only caller of ``launch``; ``phases.py`` calls it
+too, to time the measurement builds.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import build
+
+NULL_BLOCK = 0                 # physical pool block 0 is never read unmasked
+HEAD_DIMS = (64, 128)          # head dims the CUDA source instantiates
+MAX_ROWS = 128                 # G * T query rows one thread block holds
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def kernel_fn(defines=()):
+    """The C entry point of the library built with ``defines`` (none for
+    the port; measurement variants otherwise)."""
+    fn = build.load("tree_attention_paged", defines).tree_attention_paged
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_void_p])
+    return fn
+
+
+def launch(q, pool_k, pool_v, tree_k, tree_v, tree_mask, cache_len,
+           block_table, out, fn=None) -> int:
+    """Launch the kernel on the current CUDA stream (no synchronisation).
+    All arguments must already be validated by the wrapper.  ``fn`` is a
+    measurement variant's entry point (``kernel_fn(defines)``); the port
+    passes none.  Returns the CUDA error code of the launch: 0 on success."""
+    B, T, Hq, D = q.shape
+    _, bs, Hkv, _ = pool_k.shape
+    M = block_table.shape[1]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    return (fn or kernel_fn())(
+        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+        tree_k.data_ptr(), tree_v.data_ptr(), tree_mask.data_ptr(),
+        cache_len.data_ptr(), block_table.data_ptr(), out.data_ptr(),
+        B, T, Hq, Hkv, D, bs, M, DTYPE_CODES[q.dtype],
+        1.0 / math.sqrt(D), stream)
+
+
+def tree_attention_paged_plain(q, pool_k, pool_v, tree_k, tree_v, tree_mask,
+                               cache_len, block_table):
+    """q: (B,T,Hq,D); pool_k/v: (N,bs,Hkv,D); tree_k/v: (B,T,Hkv,D);
+    tree_mask: (T,T) bool; cache_len: (B,) int; block_table: (B,M) int.
+    Returns (B,T,Hq,D) in q's dtype.
+
+    Excluded positions are removed by selection, never by multiplication:
+    scores become -inf and weights 0 through ``torch.where``, and the
+    gathered K/V are selected to 0 as well, because ``0 * NaN`` is NaN and
+    a NULL block may hold NaN or inf."""
+    B, T, Hq, D = q.shape
+    bs, Hkv = pool_k.shape[1], pool_k.shape[2]
+    M = block_table.shape[1]
+    G = Hq // Hkv
+    S = M * bs
+    table = block_table.long()
+    ck = pool_k[table].reshape(B, S, Hkv, D)
+    cv = pool_v[table].reshape(B, S, Hkv, D)
+    kv_pos = torch.arange(S, device=q.device)
+    covered = (table != NULL_BLOCK).repeat_interleave(bs, dim=1)
+    in_cache = covered & (kv_pos[None, :] < cache_len[:, None])     # (B,S)
+    keep = torch.cat([in_cache, torch.ones((B, T), dtype=torch.bool,
+                                           device=q.device)], dim=1)
+    keep4 = keep[:, :, None, None]
+    kx = torch.where(keep4, torch.cat([ck, tree_k], dim=1).float(), 0.0)
+    vx = torch.where(keep4, torch.cat([cv, tree_v], dim=1).float(), 0.0)
+    mask = torch.cat([in_cache[:, None, :].expand(B, T, S),
+                      tree_mask[None].expand(B, T, T)], dim=2)      # (B,T,S+T)
+    mask = mask[:, :, None, None, :]
+    qf = q.float().reshape(B, T, Hkv, G, D)
+    s = torch.einsum("bthgd,bshd->bthgs", qf, kx) / math.sqrt(D)
+    s = torch.where(mask, s, -math.inf)
+    p = torch.where(mask, torch.softmax(s, dim=-1), 0.0)
+    out = torch.einsum("bthgs,bshd->bthgd", p, vx)
+    return out.reshape(B, T, Hq, D).to(q.dtype)

@@ -1,0 +1,104 @@
+"""Model-layout wrapper of the paged tree-verify kernel (port of
+``repro/kernels/tree_attention/ops.py::tree_attention_paged_bshd``).
+
+The wrapper pads the tree axis T (pad rows self-attend, so their softmax
+is well defined), validates what the kernel takes, and dispatches on the
+device the tensors lie on: CPU tensors take the plain version, CUDA
+tensors launch the kernel or raise.  There is no fallback from one to the
+other.  ``launches`` counts kernel launches, and only those.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.tree_attention import kernel as _k
+
+launches = 0                  # kernel launches since the last reset
+T_PAD = 8                     # the tree axis is padded to a multiple of this
+
+
+def _pad_tree(q, tree_k, tree_v, tree_mask):
+    """Pad the tree axis T up to a multiple of ``T_PAD``; padded query
+    rows attend only to themselves."""
+    T = q.shape[1]
+    Tp = -(-T // T_PAD) * T_PAD
+    if Tp == T:
+        return q, tree_k, tree_v, tree_mask, T
+    pad = lambda t: F.pad(t, (0, 0, 0, 0, 0, Tp - T))
+    tm = torch.zeros((Tp, Tp), dtype=torch.bool, device=tree_mask.device)
+    tm[:T, :T] = tree_mask
+    idx = torch.arange(T, Tp, device=tree_mask.device)
+    tm[idx, idx] = True
+    return pad(q), pad(tree_k), pad(tree_v), tm, T
+
+
+def _check(q, pool_k, pool_v, tree_k, tree_v, tree_mask, cache_len,
+           block_table):
+    B, T, Hq, D = q.shape
+    N, bs, Hkv, Dk = pool_k.shape
+    if pool_v.shape != pool_k.shape or Dk != D:
+        raise ValueError(f"pool shapes {tuple(pool_k.shape)} / "
+                         f"{tuple(pool_v.shape)} do not match q {tuple(q.shape)}")
+    if tree_k.shape != (B, T, Hkv, D) or tree_v.shape != tree_k.shape:
+        raise ValueError(f"tree K/V must be {(B, T, Hkv, D)}, got "
+                         f"{tuple(tree_k.shape)} / {tuple(tree_v.shape)}")
+    if Hq % Hkv != 0:
+        raise ValueError(f"{Hq} query heads do not group over {Hkv} kv heads")
+    if tree_mask.shape != (T, T) or tree_mask.dtype != torch.bool:
+        raise ValueError(f"tree_mask must be ({T}, {T}) bool")
+    if cache_len.shape != (B,) or block_table.dim() != 2 \
+            or block_table.shape[0] != B:
+        raise ValueError("cache_len must be (B,) and block_table (B, M)")
+    if bs % 8 != 0:
+        raise ValueError(f"pool block_size {bs} must be a multiple of 8")
+
+
+def _check_cuda(q, pool_k, pool_v, tree_k, tree_v, tree_mask, cache_len,
+                block_table):
+    tensors = (q, pool_k, pool_v, tree_k, tree_v, tree_mask, cache_len,
+               block_table)
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("all operands must lie on one CUDA device")
+    if q.dtype not in _k.DTYPE_CODES:
+        raise ValueError(f"unsupported dtype {q.dtype}")
+    if any(t.dtype != q.dtype for t in (pool_k, pool_v, tree_k, tree_v)):
+        raise ValueError("q, pools and tree K/V must share one dtype")
+    if cache_len.dtype != torch.int32 or block_table.dtype != torch.int32:
+        raise ValueError("cache_len and block_table must be int32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the kernel takes contiguous operands only")
+    D = q.shape[-1]
+    if D not in _k.HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {_k.HEAD_DIMS}")
+    rows = (q.shape[2] // pool_k.shape[2]) * q.shape[1]
+    if rows > _k.MAX_ROWS:
+        raise ValueError(f"{rows} query rows per kv head exceed the "
+                         f"kernel's {_k.MAX_ROWS}")
+
+
+def tree_attention_paged_bshd(q, pool_k, pool_v, tree_k, tree_v, tree_mask,
+                              cache_len, block_table):
+    """q/tree k,v: (B,T,H*,D) model layout; pool_k/v: the global pool
+    (num_blocks, block_size, Hkv, D), streamed in place, never gathered
+    on the card; tree_mask (T,T) bool; cache_len (B,) and block_table
+    (B, M) int32.  Returns (B,T,Hq,D) in q's dtype."""
+    global launches
+    q, tree_k, tree_v, tree_mask, T = _pad_tree(q, tree_k, tree_v,
+                                                tree_mask)
+    args = (q, pool_k, pool_v, tree_k, tree_v, tree_mask, cache_len,
+            block_table)
+    _check(*args)
+    if q.device.type == "cpu":
+        out = _k.tree_attention_paged_plain(*args)
+    elif q.device.type == "cuda":
+        _check_cuda(*args)
+        out = torch.empty_like(q)
+        rc = _k.launch(*args, out)
+        if rc != 0:
+            raise RuntimeError(f"tree_attention_paged launch failed: CUDA "
+                               f"error {rc}")
+        launches += 1
+    else:
+        raise ValueError(f"no tree_attention_paged for device {q.device}")
+    return out[:, :T]

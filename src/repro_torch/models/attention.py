@@ -1,0 +1,177 @@
+"""GQA attention block (port of the GQA half of
+``repro/models/attention.py``).
+
+Three branches of ``gqa_fwd``:
+
+* full-seq (prefill): blocked flash-style attention over the sequence;
+* dense verify: T new tokens (a candidate tree or chain) are written into
+  the per-slot cache at ``cache_len + arange(T)`` and attend to the cache
+  plus themselves under ``_verify_mask``;
+* paged verify: the cache is the global block pool ``(N, bs, Hkv, D)``;
+  the T new K/V scatter through the block table (``_paged_scatter``) and
+  attention streams the pool natively through the paged tree-verify
+  kernel (``_paged_verify_gqa``).
+
+Unlike JAX, the port writes caches IN PLACE: the verify branches update
+the cache/pool tensors they are handed (one layer's view of the stacked
+``(L, ...)`` arrays) and return those same tensors.  That saves a copy of
+the whole cache per layer; the caller owns the aliasing.
+
+MLA, sliding-window groups and the chunked-prefill continuation are not
+ported yet (ROADMAP).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.kernels.tree_attention.ops import tree_attention_paged_bshd
+from repro_torch.models.layers import (apply_rope, blocked_attention,
+                                       dense_init, masked_attention,
+                                       rope_sincos)
+
+
+class AttnInputs(NamedTuple):
+    """Everything the attention core needs besides x and params."""
+
+    q_pos: torch.Tensor                  # (B, T) absolute positions
+    cache_k: Optional[torch.Tensor]      # (B, S, Hkv, D), or the pool
+    cache_v: Optional[torch.Tensor]      # (N, bs, Hkv, D) with block_table
+    cache_len: Optional[torch.Tensor]    # (B,) valid length
+    tree_mask: Optional[torch.Tensor]    # (T, T) ancestor-or-self bool
+    window: int                          # 0 => full attention
+    causal: bool
+    block_table: Optional[torch.Tensor] = None   # (B, M) int32 => pool
+
+
+# ---------------------------------------------------------------------------
+# GQA
+# ---------------------------------------------------------------------------
+
+
+def init_gqa(gen, cfg, dtype, device):
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    hq = cfg.n_heads_padded
+    p = {
+        "wq": dense_init(gen, d, hq * hd, dtype, device),
+        "wk": dense_init(gen, d, cfg.n_kv_heads * hd, dtype, device),
+        "wv": dense_init(gen, d, cfg.n_kv_heads * hd, dtype, device),
+        "wo": dense_init(gen, hq * hd, d, dtype, device),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((hq * hd,), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((cfg.n_kv_heads * hd,), dtype=dtype,
+                              device=device)
+        p["bv"] = torch.zeros((cfg.n_kv_heads * hd,), dtype=dtype,
+                              device=device)
+    return p
+
+
+def gqa_fwd(p, cfg, x, ai: AttnInputs):
+    """Returns (out (B,T,d), k, v): the new (B,T,Hkv,D) K/V on the
+    full-seq path, the updated cache/pool tensors on the verify paths."""
+    B, T, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, T, cfg.n_heads_padded, hd)
+    k = k.reshape(B, T, cfg.n_kv_heads, hd)
+    v = v.reshape(B, T, cfg.n_kv_heads, hd)
+
+    sin, cos = rope_sincos(ai.q_pos, hd, cfg.rope_theta)
+    q = apply_rope(q, sin, cos)
+    k = apply_rope(k, sin, cos)
+
+    if ai.cache_k is None:
+        # full-sequence path (prefill): blocked flash attention
+        kv_pos = ai.q_pos[0]  # assumes aligned positions across batch
+        out = blocked_attention(q, k, v, ai.q_pos, kv_pos,
+                                window=ai.window, causal=ai.causal)
+    elif ai.block_table is not None:
+        # paged verify: scatter scratch through the table, stream the pool
+        out, k, v = _paged_verify_gqa(q, k, v, ai)
+    else:
+        # dense verify: write the new K/V into the scratch region, attend
+        S = ai.cache_k.shape[1]
+        _dense_scatter(ai.cache_k, k, ai.cache_len)
+        _dense_scatter(ai.cache_v, v, ai.cache_len)
+        mask = _verify_mask(ai, B, T, S)
+        out = masked_attention(q, ai.cache_k, ai.cache_v, mask)
+        k, v = ai.cache_k, ai.cache_v
+    out = out.reshape(B, T, cfg.n_heads_padded * hd)
+    return out @ p["wo"], k, v
+
+
+def _dense_scatter(cache, new, cache_len):
+    """In place: cache[b, cache_len[b] + t] = new[b, t].  Writes past the
+    cache's end are dropped, as JAX's out-of-bounds scatter drops them."""
+    B, T = new.shape[:2]
+    slot = cache_len[:, None] + torch.arange(T, device=new.device)[None, :]
+    ok = slot < cache.shape[1]
+    bidx = torch.arange(B, device=new.device)[:, None].expand(B, T)
+    cache[bidx[ok], slot[ok]] = new[ok].to(cache.dtype)
+
+
+# ---------------------------------------------------------------------------
+# paged (block-pool) verify path
+# ---------------------------------------------------------------------------
+
+
+def _paged_scatter(pool, new, cache_len, block_table):
+    """In place: write T per-token entries into the pool at the scratch
+    region ``[cache_len, cache_len + T)``, mapped through the block table.
+    pool: (N, bs, ...); new: (B, T, ...).  Positions past the table's
+    reach clamp to the last logical slot (the engine guarantees coverage
+    for live rows; dead rows' tables are all-NULL, so their writes land in
+    the reserved garbage block)."""
+    bs = pool.shape[1]
+    M = block_table.shape[1]
+    T = new.shape[1]
+    logical = cache_len[:, None] + torch.arange(T, device=new.device)[None, :]
+    logical = torch.clamp_max(logical, M * bs - 1).long()
+    phys = torch.gather(block_table.long(), 1, logical // bs)       # (B,T)
+    pool[phys, logical % bs] = new.to(pool.dtype)
+    return pool
+
+
+def _paged_verify_gqa(q, k, v, ai: AttnInputs):
+    """Pool-layout verify for GQA: persist the T new K/V through the block
+    table (token-granular scatter, the only writes of the step), then
+    attend with the paged tree-verify kernel.  This is the single dispatch
+    point of paged attention: every paged layer (the base stack and the
+    Hydra++ prefix layer) comes through here.  The kernel reads the pool
+    only below ``cache_len`` and takes the T new K/V as its tree operands,
+    so the entries just scattered are counted once."""
+    T = q.shape[1]
+    npk = _paged_scatter(ai.cache_k, k, ai.cache_len, ai.block_table)
+    npv = _paged_scatter(ai.cache_v, v, ai.cache_len, ai.block_table)
+    tm = ai.tree_mask
+    if tm is None:   # chain: lower-triangular
+        tm = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+    out = tree_attention_paged_bshd(q, npk, npv, k, v, tm, ai.cache_len,
+                                    ai.block_table)
+    return out, npk, npv
+
+
+def _verify_mask(ai: AttnInputs, B: int, T: int, S: int):
+    """(B, T, S) mask: past-cache causal+window plus tree ancestor block."""
+    dev = ai.cache_len.device
+    kv_pos = torch.arange(S, device=dev)
+    in_past = kv_pos[None, :] < ai.cache_len[:, None]                 # (B,S)
+    j = kv_pos[None, :] - ai.cache_len[:, None]                       # (B,S)
+    in_tree = (j >= 0) & (j < T)
+    jc = torch.clamp(j, 0, T - 1)
+    if ai.tree_mask is not None:
+        tm = ai.tree_mask
+    else:  # chain: lower-triangular
+        tm = torch.ones((T, T), dtype=torch.bool, device=dev).tril()
+    tree_bit = tm[:, jc].permute(1, 0, 2)                             # (B,T,S)
+    mask = (in_past[:, None, :] & ~in_tree[:, None, :]) | (
+        in_tree[:, None, :] & tree_bit)
+    if ai.window > 0:
+        mask &= ai.q_pos[:, :, None] - kv_pos[None, None, :] < ai.window
+    return mask

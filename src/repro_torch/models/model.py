@@ -1,0 +1,184 @@
+"""Model assembly for dense GQA stacks (port of the ``attn_stack_dense``
+group of ``repro/models/model.py``).
+
+The params keep the JAX pytree's layout so the bridge converts one-to-one:
+``embed (V, d)``, ``final_norm``, ``lm_head (d, V)`` unless embeddings are
+tied, and ``groups[0]`` with every leaf stacked on a leading layer axis.
+One more entry, ``unembed_f32``, holds the fp32 unembedding the logits
+multiply with.  JAX upcasts the ``(d, V)`` unembedding on every call; the
+port makes that copy once, at load (3.1 GB at minitron-4b, see PERF.md).
+
+Caches are a list with one ``{"k", "v"}`` dict per group: dense
+``(L, B, S, Hkv, D)`` per-slot arrays, or — with a block table — global
+pools ``(L, N, bs, Hkv, D)``.  ``forward`` updates them IN PLACE (JAX
+returns new arrays) and returns the same tensors.
+
+Execution modes:
+  'full'   — prefill over the whole sequence; fills ``cache`` at [0, T)
+  'verify' — T speculative tokens (tree or chain) against a populated
+             cache; dense, or paged through ``block_table``
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.models.attention import AttnInputs, gqa_fwd, init_gqa
+from repro_torch.models.layers import embed_init, init_mlp, mlp_fwd, rms_norm
+
+
+class ModelOutputs(NamedTuple):
+    hidden: torch.Tensor                 # (B, T, d) final-norm hidden states
+    logits: Optional[torch.Tensor]       # (B, T, V) fp32
+    cache: Any                           # the (updated in place) cache
+
+
+def group_program(cfg: ModelConfig):
+    """Returns a list of (kind, n_layers) describing the stack."""
+    if (cfg.block_kind != "attn" or cfg.moe or cfg.mla or cfg.encoder_only
+            or any(w > 0 for w in cfg.window_pattern)):
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves dense full-attention GQA stacks "
+            "only so far")
+    return [("attn_stack_dense", cfg.n_layers)]
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _init_attn_layer(gen, cfg, dtype, device):
+    d = cfg.d_model
+    return {
+        "norm1": torch.zeros((d,), dtype=dtype, device=device),
+        "norm2": torch.zeros((d,), dtype=dtype, device=device),
+        "attn": init_gqa(gen, cfg, dtype, device),
+        "mlp": init_mlp(gen, d, cfg.d_ff, dtype, device),
+    }
+
+
+def _stack(layers):
+    """List of per-layer dicts -> one dict with (L, ...) leaves."""
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stack([lp[k] for lp in layers]) for k in first}
+    return torch.stack(layers)
+
+
+def layer(tree, i: int):
+    """Layer ``i``'s params (views) from a stacked group."""
+    if isinstance(tree, dict):
+        return {k: layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def add_unembed_f32(params, cfg: ModelConfig):
+    """Attach the fp32 unembedding ``(d, V)`` the logits use (one copy,
+    made at load; a no-op view when params are already fp32)."""
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    params["unembed_f32"] = w.float().contiguous()
+    return params
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
+    """Random params drawn on ``device`` from a seeded torch.Generator,
+    with the JAX init's distributions (not its numbers)."""
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg.dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    group_program(cfg)
+    params: dict = {
+        "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, dev),
+        "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                       dtype, dev).T.contiguous()
+    params["groups"] = [_stack([_init_attn_layer(gen, cfg, dtype, dev)
+                                for _ in range(cfg.n_layers)])]
+    return add_unembed_f32(params, cfg)
+
+
+# ---------------------------------------------------------------------------
+# cache
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
+               dtype=None):
+    """Committed cache: one {"k", "v"} entry per group, zeros.  With
+    (batch=num_blocks, max_len=block_size) this is exactly the pool."""
+    dtype = dtype or torch_dtype(cfg.dtype)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+            for _ in group_program(cfg)]
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def _attn_layer_fwd(lp, cfg, h, ai: AttnInputs):
+    a, nk, nv = gqa_fwd(lp["attn"], cfg, rms_norm(h, lp["norm1"],
+                                                  cfg.rms_eps), ai)
+    h = h + a
+    h = h + mlp_fwd(lp["mlp"], rms_norm(h, lp["norm2"], cfg.rms_eps))
+    return h, nk, nv
+
+
+@torch.no_grad()
+def forward(params, cfg: ModelConfig, inputs, positions, *, mode: str = "full",
+            cache=None, cache_len=None, tree_mask=None, block_table=None,
+            valid_len=None, want_logits: bool = True) -> ModelOutputs:
+    """inputs: (B,T) int tokens; positions: (B,T) absolute positions.
+
+    mode='full':   causal over the T tokens.  If ``cache`` is given it is
+                   filled at positions [0, T) in place and returned.
+    mode='verify': T speculative tokens against the populated cache;
+                   ``cache_len`` (B,) is the committed length, ``tree_mask``
+                   (T,T) the ancestor mask (None => chain).  ``block_table``
+                   (B, M) int32 switches the caches to the pool layout
+                   ``(L, N, bs, Hkv, D)``, streamed by the paged kernel.
+
+    ``valid_len`` (B,), full mode only, counts the non-pad tokens; an
+    attention-only stack needs no mask for right-pads (causality hides
+    them), so it is accepted for the JAX signature and not read.
+    """
+    if mode not in ("full", "verify"):
+        raise ValueError(f"mode must be 'full' or 'verify': {mode}")
+    is_verify = mode == "verify"
+    if is_verify and (cache is None or cache_len is None):
+        raise ValueError("verify mode needs a cache and cache_len")
+    if block_table is not None and not is_verify:
+        raise ValueError("the paged layout needs verify mode")
+    del valid_len
+    T = inputs.shape[1]
+    h = params["embed"][inputs.long()]
+
+    for gi, (_, n) in enumerate(group_program(cfg)):
+        gp = params["groups"][gi]
+        gc = cache[gi] if cache is not None else None
+        for i in range(n):
+            ai = AttnInputs(
+                q_pos=positions,
+                cache_k=gc["k"][i] if is_verify else None,
+                cache_v=gc["v"][i] if is_verify else None,
+                cache_len=cache_len if is_verify else None,
+                tree_mask=tree_mask if is_verify else None,
+                window=cfg.window_for_layer(i), causal=True,
+                block_table=block_table)
+            h, nk, nv = _attn_layer_fwd(layer(gp, i), cfg, h, ai)
+            if gc is not None and not is_verify:     # prefill: write [0, T)
+                gc["k"][i, :, :T] = nk.to(gc["k"].dtype)
+                gc["v"][i, :, :T] = nv.to(gc["v"].dtype)
+
+    h = rms_norm(h, params["final_norm"], cfg.rms_eps)
+    logits = h.float() @ params["unembed_f32"] if want_logits else None
+    return ModelOutputs(hidden=h, logits=logits, cache=cache)

@@ -1,0 +1,613 @@
+"""Speculative serving engines (port of ``repro/serving/engine.py``, the
+synchronous loop: the JAX engines' ``inflight=1`` behaviour).
+
+``SpeculativeEngine`` — continuous batching over a dense cache.  A fixed
+pool of ``max_batch`` slots and a FIFO request queue.  A request joins the
+pool the moment a slot is free (per-slot prefill via ``join_slot``; prompt
+lengths are right-padded to a bucket), decodes with its own per-slot
+``cache_len``/budget/EOS, and its slot is freed and refilled the moment
+it finishes.  Idle rows ride along in the step with ``active=False``: they
+emit PAD, advance no cache and keep their state.
+
+``PagedSpeculativeEngine`` — the same scheduler over a paged KV cache
+(``serving/paged.py``).  The pool may be smaller than
+``max_batch × max_len``; per-slot block tables grow on demand.  Exhaustion
+is never a crash: a request that does not fit waits in the queue
+(admission control), and when an active slot cannot grow, the most
+recently joined slot is preempted: its blocks are freed and its request
+requeued at the front, to be re-prefilled later from prompt + tokens so
+far (byte-exact under greedy decoding).
+
+Each loop iteration: join queued requests into free slots (the first
+token is read back at once), grow tables (paged), run one step, read its
+emissions.  The async ``inflight>=2`` window, the live ``submit()`` queue
+with its feeder thread, chunked prefill and ``BucketedEngine`` are not
+ported yet (ROADMAP).
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Iterable, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.speculative import (autoregressive_step,
+                                          init_pool_state, join_slot,
+                                          spec_decode_step)
+from repro_torch.device import resolve_device
+from repro_torch.serving.paged import (NULL_BLOCK, BlockAllocator,
+                                       init_paged_state,
+                                       paged_autoregressive_step,
+                                       paged_join_slot,
+                                       paged_spec_decode_step)
+
+
+def _snapshot(host_array: np.ndarray, device) -> torch.Tensor:
+    """Device operand from a MUTABLE host array, copy-guaranteed.
+
+    The host keeps rewriting the ``active`` mask and the block tables
+    while a step may still be queued on the device.  ``torch.tensor``
+    copies the numpy buffer before the upload, so no later host mutation
+    can race with a pending host-to-device copy (the aliasing race of the
+    JAX engine's ``_snapshot``; a ``non_blocking`` copy straight from the
+    live buffer would reopen it)."""
+    return torch.tensor(host_array, device=device)
+
+
+@dataclass
+class Request:
+    """One generation request.
+
+    ``prompt`` is the token context; the engine appends every generated
+    token (including the one picked at prefill) to ``output`` and sets
+    ``done`` when the budget is exhausted or ``eos_token`` is produced.
+    ``output`` survives preemption: a preempted request resumes by
+    re-prefilling ``prompt + output``.
+    """
+
+    prompt: np.ndarray
+    max_new_tokens: int = 64
+    eos_token: Optional[int] = None
+    output: List[int] = field(default_factory=list)
+    done: bool = False
+    # serving timeline (wall-clock seconds, filled in by the engine)
+    t_enqueue: Optional[float] = None
+    t_join: Optional[float] = None
+    t_first_token: Optional[float] = None
+    t_last_emit: Optional[float] = None
+    t_done: Optional[float] = None
+
+    @property
+    def latency_s(self) -> Optional[float]:
+        if self.t_done is None or self.t_enqueue is None:
+            return None
+        return self.t_done - self.t_enqueue
+
+    @property
+    def ttft_s(self) -> Optional[float]:
+        if self.t_first_token is None or self.t_enqueue is None:
+            return None
+        return self.t_first_token - self.t_enqueue
+
+
+@dataclass
+class EngineStats:
+    """Accumulated serving counters (one instance per engine, across every
+    ``serve`` call).
+
+    steps            decode steps executed and read (prefills and warm-up
+                     excluded)
+    warmup_steps     steps run before the clock starts (all rows idle)
+    tokens           tokens delivered to requests post-prefill (clamped at
+                     each request's budget)
+    wall_s           wall-clock seconds inside the serving loop
+    host_stall_s     seconds of host bookkeeping while no device work was
+                     queued: from each blocking read to the start of the
+                     next dispatch (join or step).  The eager dispatch of
+                     a step's operators is not in it; it is in ``step_s``
+    read_wait_s      seconds blocked in device-to-host reads
+    step_s           per step: dispatch to emissions read, seconds
+    accept_lengths   per-step mean accepted+bonus length over live rows
+    active_slot_steps / capacity_slot_steps
+                     slot occupancy: live rows vs ``max_batch`` per step
+    request_latency_s, ttft_s, itl_s
+                     per request queue-to-finish and queue-to-first-token,
+                     and per token the inter-token gap (a read delivering
+                     n tokens after a gap g adds n samples of g/n)
+
+    Paged-cache accounting (zero for the dense engine): ``block_size``,
+    ``num_blocks`` (incl. the NULL block), ``pool_tokens`` (usable
+    positions), ``dense_equiv_tokens`` (``max_batch × max_len``),
+    ``peak_blocks_in_use``, ``preemptions`` and ``step_transient_tokens``
+    (positions a step writes beyond the persistent pool: the
+    ``max_batch × T`` scratch of the native kernel path).
+    """
+
+    steps: int = 0
+    warmup_steps: int = 0
+    tokens: int = 0
+    wall_s: float = 0.0
+    host_stall_s: float = 0.0
+    read_wait_s: float = 0.0
+    step_s: List[float] = field(default_factory=list)
+    accept_lengths: List[float] = field(default_factory=list)
+    active_slot_steps: int = 0
+    capacity_slot_steps: int = 0
+    request_latency_s: List[float] = field(default_factory=list)
+    ttft_s: List[float] = field(default_factory=list)
+    itl_s: List[float] = field(default_factory=list)
+    block_size: int = 0
+    num_blocks: int = 0
+    pool_tokens: int = 0
+    dense_equiv_tokens: int = 0
+    peak_blocks_in_use: int = 0
+    preemptions: int = 0
+    step_transient_tokens: int = 0
+
+    @property
+    def tokens_per_step(self) -> float:
+        return self.tokens / max(self.steps, 1)
+
+    @property
+    def host_stall_frac(self) -> float:
+        return self.host_stall_s / max(self.wall_s, 1e-9)
+
+    @property
+    def tokens_per_s(self) -> float:
+        return self.tokens / max(self.wall_s, 1e-9)
+
+    @property
+    def slot_utilization(self) -> float:
+        return self.active_slot_steps / max(self.capacity_slot_steps, 1)
+
+    @staticmethod
+    def _mean(xs) -> float:
+        return float(np.mean(xs)) if xs else 0.0
+
+    @staticmethod
+    def _p99(xs) -> float:
+        return float(np.percentile(xs, 99)) if xs else 0.0
+
+    @property
+    def mean_latency_s(self) -> float:
+        return self._mean(self.request_latency_s)
+
+    @property
+    def p99_latency_s(self) -> float:
+        return self._p99(self.request_latency_s)
+
+    @property
+    def mean_ttft_s(self) -> float:
+        return self._mean(self.ttft_s)
+
+    @property
+    def p99_ttft_s(self) -> float:
+        return self._p99(self.ttft_s)
+
+    @property
+    def mean_itl_s(self) -> float:
+        return self._mean(self.itl_s)
+
+    @property
+    def p99_itl_s(self) -> float:
+        return self._p99(self.itl_s)
+
+    @property
+    def mean_step_s(self) -> float:
+        return self._mean(self.step_s)
+
+    @property
+    def peak_pool_tokens(self) -> int:
+        return self.peak_blocks_in_use * self.block_size
+
+    @property
+    def kv_pool_frac(self) -> float:
+        """Pool reservation as a fraction of the dense-equivalent one."""
+        if not self.dense_equiv_tokens:
+            return 1.0
+        return self.pool_tokens / self.dense_equiv_tokens
+
+
+class SpeculativeEngine:
+    """Continuous-batching speculative engine over a dense cache.
+
+    ``serve(requests, *, max_batch=8, warmup=True) -> EngineStats`` runs
+    the loop until the queue drains; ``stats`` accumulates across calls.
+    Per request: **enqueue** -> **join** the moment a slot frees (bucketed
+    prefill, first token read back at once) -> one emission read per step
+    (accepted + bonus tokens appended to ``Request.output``, clamped at
+    ``max_new_tokens``, cut at ``eos_token``) -> **finish** (slot freed and
+    refilled from the queue).  ``warmup`` runs one step over the idle pool
+    before the clock starts (it builds the kernels and brings up the
+    libraries the step calls).
+
+    Subclass hooks (``_init_pool`` / ``_admit`` / ``_before_step`` /
+    ``_advance`` / ``_release`` / ``_post_serve``) are trivial here; the
+    paged engine overrides them for block accounting.
+    """
+
+    def __init__(self, params, draft_params, cfg: ModelConfig, tree, *,
+                 max_len: int = 2048, use_speculative: bool = True,
+                 prefill_bucket: int = 32, device="cuda"):
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"params lie on {params['embed'].device}, the "
+                             f"engine runs on {self.device}")
+        self.params = params
+        self.draft_params = draft_params
+        self.cfg = cfg
+        self.tree = tree
+        self.max_len = max_len
+        self.use_speculative = use_speculative
+        self.prefill_bucket = max(int(prefill_bucket), 1)
+        self.stats = EngineStats()
+        self._starve_t0: Optional[float] = None
+
+    # -- the step and the join (the paged engine swaps the layout) -----------
+
+    def _run_step(self, state, active):
+        if self.use_speculative:
+            return spec_decode_step(self.params, self.draft_params, self.cfg,
+                                    self.tree, state, active=active)
+        return autoregressive_step(self.params, self.cfg, state,
+                                   active=active)
+
+    def _join(self, state, slot: int, r: Request):
+        padded, n = self._padded_context(r)
+        return join_slot(self.params, self.draft_params, self.cfg, state,
+                         torch.tensor(padded, device=self.device), n, slot)
+
+    # -- prefill-on-join -----------------------------------------------------
+
+    def _pad_len(self, n: int) -> int:
+        b = self.prefill_bucket
+        return max(-(-n // b) * b, b)
+
+    @property
+    def _scratch(self) -> int:
+        """Cache positions one verify step writes past ``cache_len``."""
+        return self.tree.size if self.use_speculative else 1
+
+    def _context(self, r: Request) -> np.ndarray:
+        """Prefill context: the prompt, plus tokens already generated when
+        the request is resuming after a preemption."""
+        ctx = np.asarray(r.prompt, np.int64)
+        if r.output:
+            ctx = np.concatenate([ctx, np.asarray(r.output, np.int64)])
+        return ctx
+
+    def _padded_context(self, r: Request):
+        """(bucket-padded context array, real length) for a join/rejoin."""
+        ctx = self._context(r)
+        n = len(ctx)
+        padded = np.zeros(self._pad_len(n), np.int64)
+        padded[:n] = ctx
+        return padded, n
+
+    def _check_capacity(self, r: Request) -> None:
+        need = self._pad_len(len(r.prompt)) + r.max_new_tokens + self._scratch
+        if need > self.max_len:
+            raise ValueError(
+                f"request needs {need} cache slots (padded prompt "
+                f"{self._pad_len(len(r.prompt))} + budget {r.max_new_tokens} "
+                f"+ {self._scratch} verify scratch) but max_len="
+                f"{self.max_len}")
+
+    # -- scheduler hooks (the paged engine overrides them) --------------------
+
+    def _init_pool(self, max_batch: int):
+        self.stats.dense_equiv_tokens = max_batch * self.max_len
+        return init_pool_state(self.params, self.draft_params, self.cfg,
+                               max_batch, self.max_len, self.device)
+
+    def _admit(self, r: Request) -> bool:
+        return True
+
+    def _before_step(self, state, slots, active, pending):
+        return state
+
+    def _advance(self, slot: int, n_tokens: int) -> None:
+        pass
+
+    def _release(self, slot: int) -> None:
+        pass
+
+    def _post_serve(self) -> None:
+        pass
+
+    # -- serving -------------------------------------------------------------
+
+    def serve(self, requests: Iterable[Request] = (), *, max_batch: int = 8,
+              warmup: bool = True) -> EngineStats:
+        pending: deque = deque()
+        for r in requests:
+            self._check_capacity(r)
+            pending.append(r)          # enqueue-stamped after warmup
+        slots: List[Optional[Request]] = [None] * max_batch
+        active = np.zeros(max_batch, bool)
+        state = self._init_pool(max_batch)
+
+        if warmup:   # one step over the idle pool, outside the clock
+            res = self._run_step(state, _snapshot(active, self.device))
+            res.n_emitted.cpu()
+            self.stats.warmup_steps += 1
+
+        now = time.time()
+        for r in pending:
+            if r.t_enqueue is None:
+                r.t_enqueue = now
+        t0 = time.time()
+        self._starve_t0 = t0
+        while pending or active.any():
+            joined = False
+            for si in range(max_batch):
+                if active[si] or not pending:
+                    continue
+                if not self._admit(pending[0]):
+                    break              # strict FIFO: head blocks the tail
+                r = pending.popleft()
+                r.t_join = time.time()
+                self._device_fed()
+                state = self._join(state, si, r)
+                joined = True
+                slots[si] = r
+                active[si] = True
+                if self._absorb_first_token(r, self._read(
+                        state.last_token[si])):
+                    self._vacate(si, slots, active)
+            # paged: grow block tables for the coming step, preempting the
+            # most-recently-joined slots back into `pending` on exhaustion
+            state = self._before_step(state, slots, active, pending)
+            if active.any():
+                t_step = time.time()
+                self._device_fed()
+                res = self._run_step(state, _snapshot(active, self.device))
+                state = res.state
+                self._harvest(res, active.copy(), list(slots), t_step)
+                for si in np.where(active)[0]:
+                    if slots[si].done:
+                        self._vacate(si, slots, active)
+            elif pending and not joined:
+                raise RuntimeError(
+                    "pool deadlock: no active slots and the queue head "
+                    "cannot be admitted: the block pool is too small for "
+                    "this request stream")
+        self.stats.wall_s += time.time() - t0
+        self._post_serve()
+        return self.stats
+
+    def _device_fed(self) -> None:
+        """Close an open starvation window: device work starts now."""
+        if self._starve_t0 is not None:
+            self.stats.host_stall_s += time.time() - self._starve_t0
+            self._starve_t0 = None
+
+    def _read(self, t: torch.Tensor) -> np.ndarray:
+        """Blocking device-to-host read; opens a starvation window."""
+        t0 = time.time()
+        out = t.cpu().numpy()
+        self._starve_t0 = time.time()
+        self.stats.read_wait_s += self._starve_t0 - t0
+        return out
+
+    def _vacate(self, si: int, slots, active) -> None:
+        slots[si] = None
+        active[si] = False
+        self._release(si)
+
+    def _harvest(self, res, active: np.ndarray, slots, t_step: float) -> None:
+        """Read one step's emissions and apply them to the requests it ran
+        over (budget clamp, EOS cut, finish)."""
+        emitted = self._read(res.emitted)
+        n_em = self._read(res.n_emitted)
+        self.stats.step_s.append(time.time() - t_step)
+        for si in np.where(active)[0]:
+            r = slots[si]
+            self._advance(si, int(n_em[si]))
+            appended = 0
+            for t in emitted[si][:n_em[si]]:
+                # tokens past max_new_tokens are dropped even when
+                # accepted mid-step
+                if len(r.output) >= r.max_new_tokens:
+                    break
+                r.output.append(int(t))
+                appended += 1
+                if r.eos_token is not None and t == r.eos_token:
+                    r.done = True
+                    break
+            self.stats.tokens += appended
+            if appended:
+                self._note_emission(r, appended)
+            if r.done or len(r.output) >= r.max_new_tokens:
+                self._finish(r)
+        self.stats.steps += 1
+        self.stats.accept_lengths.append(float(n_em[active].mean()))
+        self.stats.active_slot_steps += int(active.sum())
+        self.stats.capacity_slot_steps += len(active)
+
+    def _note_emission(self, r: Request, appended: int) -> None:
+        now = time.time()
+        if r.t_last_emit is not None:
+            gap = (now - r.t_last_emit) / appended
+            self.stats.itl_s.extend([gap] * appended)
+        r.t_last_emit = now
+
+    def _absorb_first_token(self, r: Request, tok0) -> bool:
+        """Append a join's first token; True if that finished the request
+        outright (budget 1 or EOS at t=0).  A resumed request keeps its
+        original first-token time."""
+        now = time.time()
+        if r.t_first_token is None:
+            r.t_first_token = now
+            if r.t_enqueue is not None:
+                self.stats.ttft_s.append(now - r.t_enqueue)
+        r.t_last_emit = now
+        tok0 = int(tok0)
+        r.output.append(tok0)
+        if (len(r.output) >= r.max_new_tokens or
+                (r.eos_token is not None and tok0 == r.eos_token)):
+            self._finish(r)
+            return True
+        return False
+
+    def _finish(self, r: Request) -> None:
+        r.done = True
+        r.t_done = time.time()
+        self.stats.request_latency_s.append(r.latency_s)
+
+
+class PagedSpeculativeEngine(SpeculativeEngine):
+    """Continuous batching over a paged KV cache.
+
+    Same scheduler and byte-identical greedy outputs as
+    ``SpeculativeEngine``, but attention caches (and the Hydra++ prefix
+    cache) live in a global block pool of ``num_blocks × block_size``
+    positions.  ``num_blocks=None`` sizes the pool to the dense
+    equivalent; a smaller pool oversubscribes device memory and relies on:
+
+      * **admission control**: a queued request joins only when its
+        initial coverage (padded prompt + verify scratch) plus one growth
+        block per joined slot fits the free list; the queue head blocks
+        the tail (strict FIFO);
+      * **growth**: before every step each active slot's table is grown
+        to cover ``cache_len + scratch``;
+      * **preemption**: when growth exhausts the pool, the most recently
+        joined slot is evicted (blocks freed, request requeued at the
+        FRONT, resumed later by re-prefilling prompt + output so far).
+
+    A request's worst-case footprint must fit the pool outright (checked
+    up front), so a lone slot can always grow and preemption always makes
+    progress.  Verify attention streams the pool through the paged
+    tree-verify kernel; the step writes only ``max_batch × T`` scratch
+    positions beyond the pool.
+    """
+
+    def __init__(self, params, draft_params, cfg: ModelConfig, tree, *,
+                 block_size: int = 16, num_blocks: Optional[int] = None,
+                 **kw):
+        super().__init__(params, draft_params, cfg, tree, **kw)
+        self.block_size = int(block_size)
+        self.blocks_per_slot = -(-self.max_len // self.block_size)   # M
+        self.num_blocks = num_blocks   # None => dense-equivalent
+
+    def _run_step(self, state, active):
+        table = _snapshot(self._tables, self.device)
+        if self.use_speculative:
+            return paged_spec_decode_step(self.params, self.draft_params,
+                                          self.cfg, self.tree, state, table,
+                                          active=active)
+        return paged_autoregressive_step(self.params, self.cfg, state, table,
+                                         active=active)
+
+    def _join(self, state, slot: int, r: Request):
+        padded, n = self._padded_context(r)
+        got = self._alloc.alloc(self._alloc.blocks_for(
+            max(len(padded), n + self._scratch)))
+        if got is None:
+            raise RuntimeError("join without free blocks: _admit must have "
+                               "checked the free list")
+        self._owned[slot] = got
+        self._tables[slot, :] = NULL_BLOCK
+        self._tables[slot, :len(got)] = got
+        self._slot_len[slot] = n
+        self._seq += 1
+        self._join_seq[slot] = self._seq
+        return paged_join_slot(self.params, self.draft_params, self.cfg,
+                               state, torch.tensor(padded, device=self.device),
+                               n, slot, _snapshot(self._tables[slot],
+                                                  self.device))
+
+    # -- block accounting ----------------------------------------------------
+
+    def _init_pool(self, max_batch: int):
+        nb = self.num_blocks or 1 + max_batch * self.blocks_per_slot
+        self._alloc = BlockAllocator(nb, self.block_size)
+        B, M = max_batch, self.blocks_per_slot
+        self._tables = np.zeros((B, M), np.int32)       # all rows -> NULL
+        self._owned: List[List[int]] = [[] for _ in range(B)]
+        self._slot_len = np.zeros(B, np.int64)          # committed tokens
+        self._join_seq = np.zeros(B, np.int64)          # preemption order
+        self._seq = 0
+        st = self.stats
+        st.block_size = self.block_size
+        st.num_blocks = nb
+        st.pool_tokens = (nb - 1) * self.block_size
+        st.dense_equiv_tokens = max_batch * self.max_len
+        st.step_transient_tokens = max_batch * self._scratch
+        return init_paged_state(self.params, self.draft_params, self.cfg,
+                                max_batch, nb, self.block_size, self.device)
+
+    def _check_capacity(self, r: Request) -> None:
+        # worst-case lifetime coverage: the (padded) resumed context can
+        # reach prompt+budget tokens, plus one verify-scratch region
+        worst = (self._pad_len(len(r.prompt) + r.max_new_tokens)
+                 + self._scratch)
+        view_len = self.blocks_per_slot * self.block_size
+        if worst > view_len:
+            raise ValueError(
+                f"request needs {worst} cache slots but the per-slot view "
+                f"caps at {view_len} (max_len={self.max_len})")
+        if self.num_blocks is not None:
+            need = -(-worst // self.block_size)
+            usable = self.num_blocks - 1
+            if need > usable:
+                raise ValueError(
+                    f"request needs {need} cache blocks at its peak but the "
+                    f"pool only has {usable} usable blocks "
+                    f"(num_blocks={self.num_blocks} incl. the NULL block)")
+
+    def _admit(self, r: Request) -> bool:
+        n = len(r.prompt) + len(r.output)
+        need = self._alloc.blocks_for(max(self._pad_len(n),
+                                          n + self._scratch))
+        # headroom: one growth block per already-joined slot, so admitting
+        # this request does not immediately force a preemption (which
+        # would thrash: evict, readmit, re-prefill, evict ...)
+        headroom = sum(1 for o in self._owned if o)
+        return need + headroom <= self._alloc.free_blocks
+
+    def _before_step(self, state, slots, active, pending):
+        """Grow every active slot's table to cover the coming step's
+        scratch region; preempt newest-first when the pool runs dry."""
+        order = sorted(np.where(active)[0], key=lambda s: self._join_seq[s])
+        for si in order:
+            while active[si]:   # a preemption below may evict si itself
+                need = (self._alloc.blocks_for(
+                    int(self._slot_len[si]) + self._scratch)
+                    - len(self._owned[si]))
+                if need <= 0:
+                    break
+                got = self._alloc.alloc(need)
+                if got is not None:
+                    base = len(self._owned[si])
+                    self._owned[si].extend(got)
+                    self._tables[si, base:base + len(got)] = got
+                    break
+                victim = max(np.where(active)[0],
+                             key=lambda s: self._join_seq[s])
+                self._preempt(int(victim), slots, active, pending)
+        return state
+
+    def _preempt(self, si: int, slots, active, pending) -> None:
+        r = slots[si]
+        self._vacate(si, slots, active)
+        pending.appendleft(r)           # resume ASAP, FIFO preserved
+        self.stats.preemptions += 1
+
+    def _advance(self, slot: int, n_tokens: int) -> None:
+        self._slot_len[slot] += n_tokens    # host mirror of cache_len
+
+    def _release(self, slot: int) -> None:
+        if self._owned[slot]:
+            self._alloc.free(self._owned[slot])
+            self._owned[slot] = []
+        self._tables[slot, :] = NULL_BLOCK
+        self._slot_len[slot] = 0
+
+    def _post_serve(self) -> None:
+        self.stats.peak_blocks_in_use = max(self.stats.peak_blocks_in_use,
+                                            self._alloc.peak_in_use)

@@ -1,0 +1,206 @@
+"""Paged KV cache: block tables over a global block pool (port of
+``repro/serving/paged.py``).
+
+Attention caches live in a global **block pool** per cache array,
+``(L, num_blocks, block_size, Hkv, D)``, instead of ``(L, B, max_len, ...)``
+per-slot stripes; a per-slot **block table** ``(B, blocks_per_slot)`` maps
+logical token-block j of a slot to a physical pool block.  The Hydra++
+PrefixAttention cache rides the same tables in pools of its own.
+
+Physical block 0 is the reserved **NULL block**: every unallocated table
+entry points at it.  It accumulates garbage writes (inactive rows'
+scratch, warm-up steps) and is never read: the paged kernel skips NULL
+table entries outright.
+
+The step runs natively: ``paged_spec_decode_step`` hands the pools and
+the block table to ``spec_decode_step``, whose verify forward streams
+K/V blocks through the paged tree-verify kernel and whose commit compacts
+accepted entries through the table.  Join (``paged_join_slot``) prefills
+one request into a fresh row and scatters its [0, P) entries through the
+slot's table row.  The host-side ``BlockAllocator`` lives here too; the
+serving policy around it is ``serving/engine.py::PagedSpeculativeEngine``.
+"""
+from __future__ import annotations
+
+import heapq
+from typing import Any, List, NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.heads import init_prefix_cache
+from repro_torch.core.speculative import (DecodeState, StepResult,
+                                          autoregressive_step, prefill_row,
+                                          spec_decode_step)
+from repro_torch.device import torch_dtype
+from repro_torch.models.model import init_cache
+
+NULL_BLOCK = 0
+
+
+# ---------------------------------------------------------------------------
+# host-side block allocator
+# ---------------------------------------------------------------------------
+
+
+class BlockAllocator:
+    """Allocator over the global block pool (host side).
+
+    Block ids are ``[1, num_blocks)``: physical block 0 is the reserved
+    NULL block and is never handed out.  ``alloc`` is all-or-nothing: a
+    request for more blocks than are free returns ``None`` and changes
+    nothing, which lets the engine turn exhaustion into queueing or
+    preemption.  The free pool is a min-heap mirrored by a membership set:
+    ``free`` raises ``ValueError`` on a double or foreign free, and
+    ``alloc`` hands out the lowest free ids first, which keeps block
+    placement deterministic.
+    """
+
+    def __init__(self, num_blocks: int, block_size: int):
+        if num_blocks < 2:
+            raise ValueError("need >= 2 blocks (one is the reserved NULL)")
+        self.num_blocks = int(num_blocks)
+        self.block_size = int(block_size)
+        # ascending list == valid min-heap; heappop hands out 1, 2, ...
+        self._free_heap: List[int] = list(range(1, num_blocks))
+        self._allocated: set = set()
+        self.peak_in_use = 0
+
+    @property
+    def usable_blocks(self) -> int:
+        """Pool capacity excluding the NULL block."""
+        return self.num_blocks - 1
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free_heap)
+
+    @property
+    def blocks_in_use(self) -> int:
+        return len(self._allocated)
+
+    def blocks_for(self, n_tokens: int) -> int:
+        """Blocks needed to cover ``n_tokens`` logical cache positions."""
+        return -(-int(n_tokens) // self.block_size)
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        if n > len(self._free_heap):
+            return None
+        got = [heapq.heappop(self._free_heap) for _ in range(n)]
+        self._allocated.update(got)
+        self.peak_in_use = max(self.peak_in_use, len(self._allocated))
+        return got
+
+    def free(self, blocks: List[int]) -> None:
+        for b in blocks:
+            if b not in self._allocated:
+                raise ValueError(f"double/foreign free of block {b}")
+            self._allocated.discard(b)
+            heapq.heappush(self._free_heap, b)
+
+
+# ---------------------------------------------------------------------------
+# device-side pool state
+# ---------------------------------------------------------------------------
+
+
+class PagedState(NamedTuple):
+    """DecodeState with the attention caches in pool layout.  The block
+    table is NOT part of the state: the engine owns it host-side and
+    passes a copy into each step."""
+
+    pools: Any                             # [{"k","v": (L, N, bs, Hkv, D)}]
+    prefix_k: Optional[torch.Tensor]       # (N, bs, Hkv, D) or None
+    prefix_v: Optional[torch.Tensor]
+    cache_len: torch.Tensor                # (B,) int32
+    last_token: torch.Tensor               # (B,) int64
+    last_hidden: torch.Tensor              # (B, d)
+
+
+def init_paged_state(params, draft_params, cfg: ModelConfig, max_batch: int,
+                     num_blocks: int, block_size: int, device) -> PagedState:
+    """Empty paged pool, every row idle.  ``init_cache`` with
+    (batch=num_blocks, max_len=block_size) is exactly the pool shape."""
+    pk = pv = None
+    if draft_params is not None and "prefix" in draft_params:
+        pc = init_prefix_cache(cfg, num_blocks, block_size, device)
+        pk, pv = pc["k"], pc["v"]
+    return PagedState(
+        pools=init_cache(cfg, num_blocks, block_size, device),
+        prefix_k=pk, prefix_v=pv,
+        cache_len=torch.zeros((max_batch,), dtype=torch.int32, device=device),
+        last_token=torch.zeros((max_batch,), dtype=torch.long, device=device),
+        last_hidden=torch.zeros((max_batch, cfg.d_model),
+                                dtype=torch_dtype(cfg.dtype), device=device))
+
+
+def _pools_as_state(ps: PagedState) -> DecodeState:
+    """Relabel: the pools ARE the step state in the native path
+    (spec_decode_step reads the layout off the block table's presence)."""
+    return DecodeState(cache=ps.pools, cache_len=ps.cache_len,
+                       last_token=ps.last_token, last_hidden=ps.last_hidden,
+                       prefix_k=ps.prefix_k, prefix_v=ps.prefix_v)
+
+
+def _state_as_pools(state: DecodeState) -> PagedState:
+    return PagedState(pools=state.cache, prefix_k=state.prefix_k,
+                      prefix_v=state.prefix_v, cache_len=state.cache_len,
+                      last_token=state.last_token,
+                      last_hidden=state.last_hidden)
+
+
+def paged_spec_decode_step(params, draft_params, cfg: ModelConfig, tree,
+                           pstate: PagedState, table, *,
+                           active: Optional[torch.Tensor] = None
+                           ) -> StepResult:
+    """One speculative step over the paged pools: the block table rides
+    into ``spec_decode_step`` and the verify forward streams pool blocks
+    with the paged kernel; no dense view is ever built."""
+    res = spec_decode_step(params, draft_params, cfg, tree,
+                           _pools_as_state(pstate), active=active,
+                           block_table=table)
+    return StepResult(_state_as_pools(res.state), res.emitted, res.n_emitted)
+
+
+def paged_autoregressive_step(params, cfg: ModelConfig, pstate: PagedState,
+                              table, *, active: Optional[torch.Tensor] = None
+                              ) -> StepResult:
+    """T=1 baseline step over the paged pools."""
+    res = autoregressive_step(params, cfg, _pools_as_state(pstate),
+                              active=active, block_table=table)
+    return StepResult(_state_as_pools(res.state), res.emitted, res.n_emitted)
+
+
+def _scatter_rows(pool, rows, table_row):
+    """pool (..., N, bs, Hkv, D) <- rows (..., P, Hkv, D) at logical
+    positions [0, P) of one slot, through its table row (M,).  Positions
+    past the row's reach clamp to its last slot; entries pointing at NULL
+    land in the garbage block."""
+    bs = pool.shape[-3]
+    P = rows.shape[-3]
+    logical = torch.arange(P, device=pool.device)
+    logical = torch.clamp_max(logical, table_row.shape[0] * bs - 1)
+    phys = table_row.long()[logical // bs]
+    pool[..., phys, logical % bs, :, :] = rows.to(pool.dtype)
+
+
+def paged_join_slot(params, draft_params, cfg: ModelConfig,
+                    pstate: PagedState, prompt, real_len: int, slot: int,
+                    table_row) -> PagedState:
+    """Prefill one request into row ``slot``, writing through the slot's
+    (freshly allocated) block-table row (M,) int32, in place.  The engine
+    must have pointed ``table_row`` at blocks covering
+    ``[0, max(P, real_len + scratch))``: the padded prefill writes [0, P)
+    and the next verify step writes scratch at [real_len, real_len + T)."""
+    row, prefix, tok0, h = prefill_row(params, draft_params, cfg, prompt,
+                                       real_len)
+    for pool, r in zip(pstate.pools, row):
+        for key in ("k", "v"):
+            _scatter_rows(pool[key], r[key][:, 0], table_row)
+    if prefix is not None:
+        _scatter_rows(pstate.prefix_k, prefix[0], table_row)
+        _scatter_rows(pstate.prefix_v, prefix[1], table_row)
+    pstate.cache_len[slot] = real_len
+    pstate.last_token[slot] = tok0
+    pstate.last_hidden[slot] = h.to(pstate.last_hidden.dtype)
+    return pstate
