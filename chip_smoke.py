@@ -7,24 +7,44 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 
 1. the card's name and power limit, torch and CUDA versions;
 2. build every CUDA kernel of the port from ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, started together);
-3. hold the paged tree-verify kernel against its plain PyTorch version at
-   minitron-4b head shapes (B=4, Hq=24, Hkv=8, D=128, block 16, T=16 and
-   T=5): ragged lengths (0 and a partial last block), NULL holes below
-   ``cache_len``, block 0 poisoned with 0, +-1e4, NaN and inf (outputs
-   must be bitwise equal), fp32 with TF32 off (atol = rtol = 1e-4) and
-   bf16 (atol = rtol = 2e-2); time the kernel, its plain version and
-   ``scaled_dot_product_attention`` on the gathered view (a yardstick the
-   port never calls), beside the least time the card needs;
-4. tiny fp32 parity: ``minitron-4b.reduced()`` Hydra++ served through the
-   paged engine (the kernel) equals the port's dense ``generate()``;
-5. full width: ``minitron-4b`` in bf16, random weights drawn on the card
-   from a seeded ``torch.Generator``; one verify step paged (the kernel)
-   against dense (plain attention); then the paged engine serves 8
-   requests (prompts 64-256, 32 new tokens, max_batch 4, block 16,
-   max_len 512, pool half the dense footprint) and the kernel's launch
-   count must equal 33 per decode step (32 layers + the prefix layer),
-   the warm-up step included;
+   (one ``nvcc`` per source, started together) and print, for each
+   instantiation, the registers and spills ``ptxas -v`` reports; fail
+   unless the bf16 head-dim-256 builds of K1, K4 and K3 are each found
+   in the report and show no spill;
+3. hold each kernel against its plain PyTorch version on the card, fp32
+   with TF32 off (atol = rtol = 1e-4) and bf16 (atol = rtol = 2e-2), and
+   time the kernel, its plain version and ``scaled_dot_product_attention``
+   (a yardstick the port never calls) beside the least time the card
+   needs for the same work:
+   a. K1, paged tree verify, at minitron-4b head shapes (B=4, Hq=24,
+      Hkv=8, D=128, block 16, T=16 and T=5): ragged lengths, NULL holes
+      below ``cache_len``, block 0 poisoned with 0, +-1e4, NaN and inf
+      (outputs must be bitwise equal);
+   b. K1 at gemma3-1b head shapes (Hq=4, Hkv=1, D=256; the prefix layer);
+   c. K4, windowed paged verify, at gemma3-1b head shapes (B=4, block 16,
+      T=16 and T=5, lens 0/37/700/1500, NULL holes, windows 0 and 512):
+      outputs bitwise equal with block 0 poisoned and with every pool
+      position at or behind ``cache_len - 512`` poisoned, and K4 at
+      window 0 bitwise equal to K1;
+   d. K3, prefill attention, at gemma3-1b and minitron-4b head shapes,
+      S in {37, 300, 1536}, windows 0 and 512;
+4. tiny fp32 parity: ``minitron-4b.reduced()`` and a reduced gemma3-1b
+   whose 16-token window binds, Hydra++ served through the paged engine
+   (K1, K4, K3), equal the port's dense ``generate()``;
+5. full width, bf16, random weights drawn on the card from a seeded
+   ``torch.Generator``; for each model one verify step paged against
+   dense from the same prefill (prefill through K3, then through K3's
+   plain version; with K3, argmax must agree on at least 14 of the 16
+   tree positions), then the paged engine serves 8 requests with every kernel
+   launch counted:
+   - minitron-4b: prompts 64-256, 32 new tokens, max_batch 4, block 16,
+     max_len 512, pool half the dense footprint; 33 K1 launches per
+     decode step (32 layers + the prefix layer) and 33 K3 launches per
+     prefill;
+   - gemma3-1b: prompts 600-1500 (every context passes the 512 window),
+     32 new tokens, max_batch 4, block 16, max_len 2048, pool half the
+     dense footprint; 26 K4 + 1 K1 launches per decode step and 27 K3
+     launches per prefill, re-prefills after a preemption included;
 6. a JSON line with each kernel's numbers, then the result line.
 
 The script stands alone: it puts ``src/`` on ``sys.path`` itself, and it
@@ -46,6 +66,8 @@ SRC = Path(__file__).resolve().parent / "src"
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
+TOLS = (("float32", 1e-4), ("bfloat16", 2e-2))
+POISONS = (0.0, 1e4, -1e4, math.nan, math.inf)
 
 
 def log(*a):
@@ -70,76 +92,176 @@ def time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-# ---------------------------------------------------------------------------
-# phase 3: the paged tree-verify kernel against its plain version
-# ---------------------------------------------------------------------------
-
-B, HQ, HKV, D, BS, M = 4, 24, 8, 128, 16, 32        # minitron-4b, max_len 512
-LENS = (0, 37, 144, 300)                            # empty, partial, exact
-HOLES = ((2, 3), (3, 0))                            # NULL below cache_len
+def cycle(sets):
+    """A function returning the operand sets in turn."""
+    it = iter(range(10 ** 9))
+    return lambda: sets[next(it) % len(sets)]
 
 
-def _k1_inputs(T: int, dtype, seed: int, poison: float = 0.0):
-    """One set of K1 operands on the card (model layout)."""
-    import torch
-    from repro_torch.core.trees import default_tree
-
-    table = torch.zeros((B, M), dtype=torch.int32)
-    nxt = 1
-    for b, n in enumerate(LENS):
-        need = -(-(n + T) // BS)
-        table[b, :need] = torch.arange(nxt, nxt + need, dtype=torch.int32)
-        nxt += need
-    for b, j in HOLES:
-        table[b, j] = 0
-    N = nxt
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    r = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)
-    pool_k, pool_v = r(N, BS, HKV, D), r(N, BS, HKV, D)
-    pool_k[0] = poison
-    pool_v[0] = poison
-    return (r(B, T, HQ, D), pool_k, pool_v, r(B, T, HKV, D), r(B, T, HKV, D),
-            torch.as_tensor(default_tree(T, 4, 4).ancestor_mask,
-                            device="cuda"),
-            torch.tensor(LENS, dtype=torch.int32, device="cuda"),
-            table.cuda())
-
-
-def _k1_bound_ms(T: int, dtype_name: str, table) -> tuple:
-    """Least time for one call: bytes it must move (each input read
-    once, the output written once; cache positions counted only where
-    this run's table holds a real block below cache_len) over HBM rate,
-    against its operations over the peak rate for the type."""
-    elt = 2 if dtype_name != "float32" else 4
-    tbl = table.cpu()
-    keys = []
-    for b, n in enumerate(LENS):
-        keys.append(sum(min(BS, n - j * BS) for j in range(-(-n // BS))
-                        if int(tbl[b, j]) != 0))
-    kv_bytes = sum(keys) * HKV * D * 2 * elt
-    io_bytes = (2 * B * T * HQ * D + 2 * B * T * HKV * D) * elt
-    small = B * M * 4 + B * 4 + T * T
-    nbytes = kv_bytes + io_bytes + small
-    flops = sum(4 * HQ * T * D * (k + T) for k in keys)
+def bound(nbytes: float, flops: float, dtype_name: str) -> tuple:
+    """(least ms, "bytes" or "operations"): the larger of the bytes over
+    the HBM rate and the operations over the type's peak rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _sdpa_args(args):
+def ptxas_lines(report: str) -> list:
+    """One line per kernel instantiation of a ``ptxas -v`` report: its
+    template arguments, registers, stack frame and spills."""
+    import re
+
+    out, name, frame = [], None, ""
+    for ln in report.splitlines():
+        m = re.search(r"Function properties for \S*?([a-z_]+_kernel)"
+                      r"I(13__nv_bfloat16|f)Li(\d+)E(Lb([01])E)?", ln)
+        if m:
+            name = (f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}, "
+                    f"D={m.group(3)}{', windowed' if m.group(5) == '1' else ''}>")
+        elif name and "stack frame" in ln:
+            frame = ln.strip()
+        elif name and "registers" in ln:
+            regs = ln.split("Used", 1)[1].split(",")[0].strip()
+            out.append(f"{name}: {regs}; {frame}")
+            name = None
+    return out
+
+
+def assert_bitwise(outs, what: str) -> None:
+    import torch
+
+    torch.cuda.synchronize()
+    for o in outs[1:]:
+        if not torch.equal(o, outs[0]):
+            raise AssertionError(f"{what}: outputs are not bitwise equal")
+
+
+def compare(out, ref, tol: float, what: str) -> float:
+    """Max abs error of the kernel against its plain version; raises past
+    the tolerance or on a non-finite output."""
+    import torch
+
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{what}: output not finite")
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol,
+                               msg=lambda m: f"{what}: {m}")
+    return (out.float() - ref.float()).abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# phase 3a-c: paged verify kernels K1 and K4 against their plain versions
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedCase:
+    """Head shapes, slot lengths, NULL holes and table width of a run."""
+    hq: int
+    hkv: int
+    d: int
+    lens: tuple
+    holes: tuple          # (slot, logical block) entries punched to NULL
+    m: int                # table entries per slot
+    bs: int = 16
+
+
+# minitron-4b heads, max_len 512; gemma3-1b heads, max_len 1536
+MINITRON = PagedCase(24, 8, 128, (0, 37, 144, 300), ((2, 3), (3, 0)), 32)
+GEMMA3 = PagedCase(4, 1, 256, (0, 37, 700, 1500),
+                   ((2, 20), (3, 70), (3, 0)), 96)
+WINDOW = 512
+# the full-width paged-vs-dense verify check: at most 2 of the 16 tree
+# positions may take another argmax (random weights give near ties)
+MIN_ARGMAX_AGREEMENT = 14 / 16
+# the bf16 head-dim-256 builds gemma3-1b runs (K1, K4, K3), as
+# ``ptxas_lines`` names them
+GEMMA3_INSTANTIATIONS = frozenset({
+    "tree_attention_paged_kernel<bf16, D=256>",
+    "tree_attention_paged_kernel<bf16, D=256, windowed>",
+    "flash_attention_kernel<bf16, D=256>"})
+
+
+def paged_inputs(c: PagedCase, T: int, dtype, seed: int,
+                 poison: float = 0.0):
+    """K1 operands on the card (model layout) and the verify positions
+    ``cache_len + depth`` K4 takes besides."""
+    import torch
+    from repro_torch.core.trees import default_tree
+
+    B = len(c.lens)
+    table = torch.zeros((B, c.m), dtype=torch.int32)
+    nxt = 1
+    for b, n in enumerate(c.lens):
+        need = -(-(n + T) // c.bs)
+        table[b, :need] = torch.arange(nxt, nxt + need, dtype=torch.int32)
+        nxt += need
+    for b, j in c.holes:
+        table[b, j] = 0
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)
+    pool_k, pool_v = r(nxt, c.bs, c.hkv, c.d), r(nxt, c.bs, c.hkv, c.d)
+    pool_k[0] = poison
+    pool_v[0] = poison
+    tree = default_tree(T, 4, 4)
+    lens = torch.tensor(c.lens, dtype=torch.int32, device="cuda")
+    q_pos = lens[:, None] + torch.as_tensor(tree.depth, device="cuda")[None]
+    return (r(B, T, c.hq, c.d), pool_k, pool_v, r(B, T, c.hkv, c.d),
+            r(B, T, c.hkv, c.d),
+            torch.as_tensor(tree.ancestor_mask, device="cuda"), lens,
+            table.cuda()), q_pos.to(torch.int32)
+
+
+def poison_behind_window(args, window: int, fill: float):
+    """A copy of the operands with every pool position at or behind
+    ``cache_len - window`` of each slot set to ``fill``."""
+    q, pool_k, pool_v, tk, tv, tm, lens, table = args
+    pool_k, pool_v = pool_k.clone(), pool_v.clone()
+    bs = pool_k.shape[1]
+    tbl = table.cpu()
+    for b, n in enumerate(lens.tolist()):
+        for p in range(0, n - window + 1):
+            blk = int(tbl[b, p // bs])
+            if blk != 0:
+                pool_k[blk, p % bs] = fill
+                pool_v[blk, p % bs] = fill
+    return (q, pool_k, pool_v, tk, tv, tm, lens, table)
+
+
+def paged_bound(c: PagedCase, T: int, dtype_name: str, table,
+                window: int = 0) -> tuple:
+    """Least time for one call: the cache positions this run's data needs
+    (below cache_len, in a real block and, with a window, within reach of
+    the root row at cache_len), each read once, plus q, tree K/V and the
+    output, against the operations on those keys."""
+    elt = 2 if dtype_name != "float32" else 4
+    tbl = table.cpu()
+    keys = []
+    for b, n in enumerate(c.lens):
+        lo = max(0, n - window + 1) if window > 0 else 0
+        keys.append(sum(1 for p in range(lo, n)
+                        if int(tbl[b, p // c.bs]) != 0))
+    B = len(c.lens)
+    kv_bytes = sum(keys) * c.hkv * c.d * 2 * elt
+    io_bytes = (2 * B * T * c.hq * c.d + 2 * B * T * c.hkv * c.d) * elt
+    small = B * c.m * 4 + B * 4 + T * T + (B * T * 4 if window else 0)
+    flops = sum(4 * c.hq * T * c.d * (k + T) for k in keys)
+    return bound(kv_bytes + io_bytes + small, flops, dtype_name)
+
+
+def paged_sdpa_args(c: PagedCase, args, q_pos=None, window: int = 0):
     """The gathered view + boolean mask SDPA takes (built outside the
-    timed call)."""
+    timed call), with the window folded into the mask."""
     import torch
 
     q, pool_k, pool_v, tk, tv, tm, lens, table = args
-    T = q.shape[1]
-    S = M * BS
+    B, T = q.shape[:2]
+    S = c.m * c.bs
     t = table.long()
-    ck = pool_k[t].reshape(B, S, HKV, D)
-    cv = pool_v[t].reshape(B, S, HKV, D)
+    ck = pool_k[t].reshape(B, S, c.hkv, c.d)
+    cv = pool_v[t].reshape(B, S, c.hkv, c.d)
     pos = torch.arange(S, device="cuda")
-    valid = (t != 0).repeat_interleave(BS, 1) & (pos[None] < lens[:, None])
-    G = HQ // HKV
+    valid = (t != 0).repeat_interleave(c.bs, 1) & (pos[None] < lens[:, None])
+    G = c.hq // c.hkv
     k = torch.cat([ck, tk], 1).transpose(1, 2).repeat_interleave(G, 1)
     v = torch.cat([cv, tv], 1).transpose(1, 2).repeat_interleave(G, 1)
     # NULL holes hold garbage: zero them so masked-out NaN cannot leak
@@ -148,78 +270,228 @@ def _sdpa_args(args):
     k = torch.where(keep[:, None, :, None], k, 0)
     v = torch.where(keep[:, None, :, None], v, 0)
     mask = torch.cat([valid[:, None, :].expand(B, T, S),
-                      tm[None].expand(B, T, T)], 2)[:, None]
-    return q.transpose(1, 2).contiguous(), k, v, mask
+                      tm[None].expand(B, T, T)], 2)
+    if window > 0:
+        abs_kv = torch.cat([pos[None].expand(B, S),
+                            lens[:, None] + torch.arange(T, device="cuda")],
+                           1)
+        mask = mask & (q_pos[:, :, None] - abs_kv[:, None, :] < window)
+    return q.transpose(1, 2).contiguous(), k, v, mask[:, None]
 
 
-def check_k1() -> dict:
-    import torch
+def _time_paged(c, T, dtype, dtype_name, kernel, plain, window=0) -> dict:
+    """Kernel, plain and SDPA times over 32 operand sets (more than the
+    50 MB L2 holds, as a step's layers cycle through their pools)."""
     import torch.nn.functional as F
+
+    sets = [paged_inputs(c, T, dtype, seed=100 + i) for i in range(32)]
+    pick = cycle(sets)
+    ms = time_ms(lambda: kernel(*pick()))
+    plain_ms = time_ms(lambda: plain(*pick()), iters=10)
+    sd = cycle([paged_sdpa_args(c, a, qp, window) for a, qp in sets[:8]])
+
+    def sdpa():
+        q, k, v, mask = sd()
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    lib_ms = time_ms(sdpa)
+    bound_ms, bound_by = paged_bound(c, T, dtype_name, sets[0][0][-1], window)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def check_k1(c: PagedCase, tag: str) -> dict:
+    """K1 against its plain version at the head shapes of ``c``."""
+    import torch
     from repro_torch.kernels.tree_attention import ops
     from repro_torch.kernels.tree_attention.kernel import (
         tree_attention_paged_plain)
 
     record = {}
-    for dtype_name, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+    for dtype_name, tol in TOLS:
         dtype = getattr(torch, dtype_name)
         for T in (16, 5):
             outs = []
-            for poison in (0.0, 1e4, -1e4, math.nan, math.inf):
-                args = _k1_inputs(T, dtype, seed=T, poison=poison)
+            for poison in POISONS:
+                args, _ = paged_inputs(c, T, dtype, seed=T, poison=poison)
                 outs.append(ops.tree_attention_paged_bshd(*args))
-            torch.cuda.synchronize()
-            for o in outs[1:]:
-                if not torch.equal(o, outs[0]):
-                    raise AssertionError(f"K1 {dtype_name} T={T}: a poisoned "
-                                         "NULL block changed the output")
-            ref = tree_attention_paged_plain(*args)
-            err = (outs[0].float() - ref.float()).abs().max().item()
-            torch.testing.assert_close(outs[0].float(), ref.float(),
-                                       atol=tol, rtol=tol)
-            if not torch.isfinite(outs[0]).all():
-                raise AssertionError("K1 output not finite")
+            assert_bitwise(outs, f"K1 {tag} {dtype_name} T={T}: poisoned "
+                                 "NULL block")
+            err = compare(outs[0], tree_attention_paged_plain(*args), tol,
+                          f"K1 {tag} {dtype_name} T={T}")
+            rec = dict(max_abs_err=err, **_time_paged(
+                c, T, dtype, dtype_name,
+                lambda *a: ops.tree_attention_paged_bshd(*a[0]),
+                lambda *a: tree_attention_paged_plain(*a[0])))
+            record[(dtype_name, T)] = rec
+            log(f"[k1 {tag}] {dtype_name} T={T}: max_abs_err={err:.3e} "
+                f"kernel={rec['ms'] * 1e3:.1f}us "
+                f"bound={rec['bound_ms'] * 1e3:.2f}us ({rec['bound_by']}) "
+                f"plain={rec['plain_ms'] * 1e3:.1f}us "
+                f"sdpa={rec['library_ms'] * 1e3:.1f}us")
+    return record
 
-            # timing: 32 operand sets (> the 50 MB L2 for bf16), cycled,
-            # as the 33 layers of a step cycle through their pools
-            sets = [_k1_inputs(T, dtype, seed=100 + i) for i in range(32)]
-            it = iter(range(10 ** 9))
-            pick = lambda: sets[next(it) % len(sets)]
-            ms = time_ms(lambda: ops.tree_attention_paged_bshd(*pick()))
-            plain_ms = time_ms(lambda: tree_attention_paged_plain(*pick()),
-                               iters=10)
-            sd = [_sdpa_args(s) for s in sets[:8]]
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                *sd[next(it) % len(sd)][:3],
-                attn_mask=sd[0][3]), iters=50)
-            bound_ms, bound_by = _k1_bound_ms(T, dtype_name, args[-1])
-            record[(dtype_name, T)] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
-            log(f"[k1] {dtype_name} T={T}: max_abs_err={err:.3e} "
-                f"kernel={ms * 1e3:.1f}us bound={bound_ms * 1e3:.2f}us "
-                f"({bound_by}) plain={plain_ms * 1e3:.1f}us "
-                f"sdpa={lib_ms * 1e3:.1f}us")
-            del sets, sd
+
+def check_k4(c: PagedCase = GEMMA3) -> dict:
+    """K4 against its plain version, its poisoning invariants and its
+    bitwise identity with K1 at window 0."""
+    import torch
+    from repro_torch.kernels.attention_template import ops as wops
+    from repro_torch.kernels.attention_template.ref import (
+        tree_attention_paged_windowed_plain)
+    from repro_torch.kernels.tree_attention import ops
+
+    record = {}
+    for dtype_name, tol in TOLS:
+        dtype = getattr(torch, dtype_name)
+        for T in (16, 5):
+            for w in (WINDOW, 0):
+                what = f"K4 {dtype_name} T={T} window={w}"
+                outs = []
+                for poison in POISONS:
+                    args, q_pos = paged_inputs(c, T, dtype, seed=T,
+                                               poison=poison)
+                    outs.append(wops.tree_attention_paged_windowed_bshd(
+                        *args, q_pos, w))
+                assert_bitwise(outs, f"{what}: poisoned NULL block")
+                if w > 0:
+                    far = [wops.tree_attention_paged_windowed_bshd(
+                        *poison_behind_window(args, w, f), q_pos, w)
+                        for f in (math.nan, math.inf, -1e4)]
+                    assert_bitwise([outs[0]] + far,
+                                   f"{what}: poison behind the window")
+                else:
+                    assert_bitwise([outs[0],
+                                    ops.tree_attention_paged_bshd(*args)],
+                                   f"{what}: K4 against K1")
+                err = compare(outs[0], tree_attention_paged_windowed_plain(
+                    *args, q_pos, w), tol, what)
+                rec = dict(max_abs_err=err, **_time_paged(
+                    c, T, dtype, dtype_name,
+                    lambda a, qp: wops.tree_attention_paged_windowed_bshd(
+                        *a, qp, w),
+                    lambda a, qp: tree_attention_paged_windowed_plain(
+                        *a, qp, w), window=w))
+                record[(dtype_name, T, w)] = rec
+                log(f"[k4] {dtype_name} T={T} window={w}: "
+                    f"max_abs_err={err:.3e} kernel={rec['ms'] * 1e3:.1f}us "
+                    f"bound={rec['bound_ms'] * 1e3:.2f}us "
+                    f"({rec['bound_by']}) "
+                    f"plain={rec['plain_ms'] * 1e3:.1f}us "
+                    f"sdpa={rec['library_ms'] * 1e3:.1f}us")
+    log("[k4] poisoned NULL block and poison behind the window: bitwise "
+        "equal; K4 at window 0 == K1 bitwise")
     return record
 
 
 # ---------------------------------------------------------------------------
-# phase 4: tiny fp32 parity, paged engine (kernel) == dense generate()
+# phase 3d: the prefill kernel K3 against its plain version
+# ---------------------------------------------------------------------------
+
+K3_HEADS = {"gemma3-1b": (4, 1, 256), "minitron-4b": (24, 8, 128)}
+
+
+def _k3_pairs(S: int, window: int) -> int:
+    """Admitted (query, key) pairs of a causal S x S run."""
+    if window <= 0:
+        return S * (S + 1) // 2
+    return sum(min(i + 1, window) for i in range(S))
+
+
+def check_k3() -> dict:
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_plain)
+
+    record = {}
+    for model, (hq, hkv, d) in K3_HEADS.items():
+        for dtype_name, tol in TOLS:
+            dtype = getattr(torch, dtype_name)
+            for S in (37, 300, 1536):
+                for w in (WINDOW, 0):
+                    g = torch.Generator(device="cuda").manual_seed(S + w)
+                    mk = lambda h: torch.randn(
+                        (1, S, h, d), generator=g, device="cuda").to(dtype)
+                    q, k, v = mk(hq), mk(hkv), mk(hkv)
+                    out = ops.flash_attention_bshd(q, k, v, window=w)
+                    what = f"K3 {model} {dtype_name} S={S} window={w}"
+                    err = compare(out, flash_attention_plain(
+                        q, k, v, window=w), tol, what)
+                    rec = dict(max_abs_err=err)
+                    if S == 1536 or (model == "minitron-4b" and S == 300):
+                        rec.update(_time_k3(q, k, v, w, dtype_name))
+                    record[(model, dtype_name, S, w)] = rec
+                    log(f"[k3] {model} {dtype_name} S={S} window={w}: "
+                        f"max_abs_err={err:.3e}" + (
+                            f" kernel={rec['ms'] * 1e3:.1f}us "
+                            f"bound={rec['bound_ms'] * 1e3:.2f}us "
+                            f"({rec['bound_by']}) "
+                            f"plain={rec['plain_ms'] * 1e3:.1f}us "
+                            f"sdpa={rec['library_ms'] * 1e3:.1f}us"
+                            if "ms" in rec else ""))
+    return record
+
+
+def _time_k3(q, k, v, w: int, dtype_name: str) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_plain)
+
+    B, S, hq, d = q.shape
+    hkv = k.shape[2]
+    ms = time_ms(lambda: ops.flash_attention_bshd(q, k, v, window=w))
+    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, window=w),
+                       iters=5)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    if w > 0:
+        i = torch.arange(S, device="cuda")
+        diff = i[:, None] - i[None, :]
+        mask = (diff >= 0) & (diff < w)
+        lib = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    else:
+        lib = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_ms = time_ms(lib)
+    elt = 2 if dtype_name != "float32" else 4
+    nbytes = (2 * B * S * hq * d + 2 * B * S * hkv * d) * elt
+    flops = 4 * d * hq * B * _k3_pairs(S, w)
+    bound_ms, bound_by = bound(nbytes, flops, dtype_name)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+# ---------------------------------------------------------------------------
+# phase 4: tiny fp32 parity, paged engine (kernels) == dense generate()
 # ---------------------------------------------------------------------------
 
 
-def check_tiny_parity() -> None:
+def kernel_counters():
+    """The launch counters of every kernel wrapper, by kernel name."""
+    from repro_torch.kernels.attention_template import ops as k4
+    from repro_torch.kernels.flash_attention import ops as k3
+    from repro_torch.kernels.tree_attention import ops as k1
+
+    return {"tree_attention_paged": k1,
+            "tree_attention_paged_windowed": k4, "flash_attention": k3}
+
+
+def check_tiny_parity(base, lens) -> None:
     import numpy as np
     import torch
-    from repro_torch.configs import get_config, tree_for
+    from repro_torch.configs import tree_for
     from repro_torch.core.heads import init_draft_params
     from repro_torch.core.speculative import PAD_TOKEN, generate
-    from repro_torch.kernels.tree_attention import ops
-    from repro_torch.models.model import init_params
+    from repro_torch.models.model import group_has_window, init_params
     from repro_torch.serving.engine import PagedSpeculativeEngine, Request
 
-    base = dataclasses.replace(get_config("minitron-4b").reduced(),
-                               dtype="float32")
+    counters = kernel_counters()
+    paged_verify = ("tree_attention_paged_windowed"
+                    if group_has_window(base, 0, base.n_layers)
+                    else "tree_attention_paged")
     # the reduced vocabulary, and 16 tokens so random heads get accepted
     for cfg in (base, dataclasses.replace(base, vocab_size=16)):
         params = init_params(cfg, seed=0, device="cuda")
@@ -227,7 +499,7 @@ def check_tiny_parity() -> None:
         tree = tree_for(cfg)
         rs = np.random.RandomState(0)
         reqs, refs = [], []
-        for n, budget in zip((16, 23, 32, 9, 40, 12), (12, 14, 8, 10, 13, 9)):
+        for n, budget in zip(lens, (12, 14, 8, 10, 13, 9)):
             prompt = rs.randint(0, cfg.vocab_size, n).astype(np.int32)
             t, _, _ = generate(params, dp, cfg, tree,
                                torch.as_tensor(prompt, device="cuda")[None]
@@ -235,30 +507,35 @@ def check_tiny_parity() -> None:
             row = [int(x) for x in t[0].tolist() if x != PAD_TOKEN]
             refs.append(row[:budget])
             reqs.append(Request(prompt=prompt, max_new_tokens=budget))
-        before = ops.launches
+        for mod in counters.values():
+            mod.launches = 0
         eng = PagedSpeculativeEngine(params, dp, cfg, tree, max_len=128,
                                      block_size=16, num_blocks=6)
         st = eng.serve(reqs, max_batch=4)
         for r, ref in zip(reqs, refs):
             if r.output != ref:
-                raise AssertionError(f"tiny parity (V={cfg.vocab_size}): "
-                                     f"paged {r.output} != dense {ref}")
-        if ops.launches == before:
-            raise AssertionError("tiny parity never launched the kernel")
-        log(f"[tiny] V={cfg.vocab_size}: paged engine == dense generate() "
-            f"for {len(reqs)} requests; steps={st.steps} "
+                raise AssertionError(f"tiny parity {cfg.name} "
+                                     f"(V={cfg.vocab_size}): paged "
+                                     f"{r.output} != dense {ref}")
+        counts = {k: m.launches for k, m in counters.items()}
+        for name in (paged_verify, "flash_attention"):
+            if counts[name] == 0:
+                raise AssertionError(f"tiny parity {cfg.name} never "
+                                     f"launched {name}")
+        log(f"[tiny] {cfg.name} V={cfg.vocab_size}: paged engine == dense "
+            f"generate() for {len(reqs)} requests; steps={st.steps} "
             f"tok/step={st.tokens_per_step:.2f} "
-            f"preemptions={st.preemptions}")
+            f"preemptions={st.preemptions} launches={counts}")
 
 
 # ---------------------------------------------------------------------------
-# phase 5: full-width minitron-4b Hydra++ through the paged engine
+# phase 5: full width, through the paged engine
 # ---------------------------------------------------------------------------
 
 
-def check_full_verify(params, dp, cfg) -> None:
-    """One full-width verify forward, paged (kernel) against dense (plain
-    attention), from the same prefill."""
+def _verify_pair(params, dp, cfg, P: int, S: int):
+    """Paged and dense verify logits of one full-width verify forward,
+    from the same prefill of P tokens into a cache of S."""
     import torch
     from repro_torch.configs import tree_for
     from repro_torch.core.heads import draft_tree_tokens
@@ -268,7 +545,6 @@ def check_full_verify(params, dp, cfg) -> None:
 
     tree = tree_for(cfg)
     g = torch.Generator(device="cuda").manual_seed(5)
-    P, S = 100, 256
     prompt = torch.randint(0, cfg.vocab_size, (1, P), generator=g,
                            device="cuda")
     st = init_decode_state(params, dp, cfg, prompt, S)
@@ -289,27 +565,81 @@ def check_full_verify(params, dp, cfg) -> None:
     paged = forward(params, cfg, tokens, pos, mode="verify", cache=pools,
                     cache_len=st.cache_len, tree_mask=ta["mask"],
                     block_table=table)
-    if not torch.isfinite(paged.logits).all():
-        raise AssertionError("full-width paged logits not finite")
-    rel = ((paged.logits - dense.logits).abs().max()
-           / dense.logits.abs().max()).item()
-    agree = (paged.logits.argmax(-1) == dense.logits.argmax(-1)).float()
-    log(f"[full] verify paged vs dense: max rel logit diff={rel:.3e} "
-        f"argmax agreement={agree.mean().item():.3f}")
-    if rel > 0.1:
-        raise AssertionError(f"paged and dense verify disagree: rel {rel}")
+    return paged.logits[0], dense.logits[0]
 
 
-def serve_full_width() -> int:
+def check_full_verify(params, dp, cfg, P: int, S: int) -> None:
+    """One full-width verify forward, paged (K1/K4) against dense (plain
+    attention), from the same prefill: first through K3 (the serving
+    path, held to ``MIN_ARGMAX_AGREEMENT``), then through K3's plain
+    version, logged only, which shows whether K3's cache moves the
+    agreement.  At a position where the argmax differs, ``margin`` is
+    dense's lead of its choice over paged's, in units of that position's
+    largest paged-vs-dense logit difference: below 2, the two choices are
+    a near tie that bf16 rounding of the attention sums can flip."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_plain
+    from repro_torch.models import attention
+
+    for prefill in ("K3", "plain"):
+        kernel_fn = attention.flash_attention_bshd
+        if prefill == "plain":
+            attention.flash_attention_bshd = flash_attention_plain
+        try:
+            paged, dense = _verify_pair(params, dp, cfg, P, S)
+        finally:
+            attention.flash_attention_bshd = kernel_fn
+        if not torch.isfinite(paged).all():
+            raise AssertionError(f"{cfg.name}: full-width paged logits not "
+                                 "finite")
+        diff = (paged - dense).abs()
+        rel = (diff.max() / dense.abs().max()).item()
+        pa, da = paged.argmax(-1), dense.argmax(-1)
+        agree = (pa == da).float().mean().item()
+        lead = (dense.gather(-1, da[:, None]) - dense.gather(-1, pa[:, None]))
+        margins = [round(m, 3) for m in
+                   (lead[:, 0] / diff.max(-1).values)[pa != da].tolist()]
+        log(f"[full] {cfg.name} verify paged vs dense (prompt {P}, prefill "
+            f"through {prefill}): max rel logit diff={rel:.3e} argmax "
+            f"agreement={agree:.3f} margins={margins}")
+        if rel > 0.1:
+            raise AssertionError(f"paged and dense verify disagree: rel {rel}")
+        if prefill == "K3" and agree < MIN_ARGMAX_AGREEMENT:
+            raise AssertionError(f"paged and dense verify argmax agree on "
+                                 f"{agree:.3f} of the tree only")
+
+
+@dataclasses.dataclass(frozen=True)
+class Workload:
+    arch: str
+    prompts: tuple        # prompt length range [lo, hi]
+    max_len: int
+    verify: dict          # kernel name -> launches per decode step
+    prefill: dict         # kernel name -> launches per prefill
+    check_prompt: int     # the paged-vs-dense verify step's prompt
+
+
+WORKLOADS = (
+    Workload("minitron-4b", (64, 256), 512, {"tree_attention_paged": 33},
+             {"flash_attention": 33}, 100),
+    Workload("gemma3-1b", (600, 1500), 2048,
+             {"tree_attention_paged_windowed": 26, "tree_attention_paged": 1},
+             {"flash_attention": 27}, 1000),
+)
+
+
+def serve_full_width(wl: Workload) -> dict:
+    """Serve 8 requests of ``wl`` at full width; returns the kernels'
+    launch counts of this run."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config, tree_for
     from repro_torch.core.heads import init_draft_params
-    from repro_torch.kernels.tree_attention import ops
     from repro_torch.models.model import init_params
     from repro_torch.serving.engine import PagedSpeculativeEngine, Request
 
-    cfg = get_config("minitron-4b")
+    cfg = get_config(wl.arch)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda")
     dp = init_draft_params(cfg, seed=1, device="cuda")
@@ -317,42 +647,58 @@ def serve_full_width() -> int:
     log(f"[full] {cfg.name}: {cfg.n_params / 1e9:.2f}B params ({cfg.dtype}) "
         f"initialised on the card in {time.perf_counter() - t0:.1f}s; fp32 "
         f"unembedding {params['unembed_f32'].numel() * 4 / 1e9:.2f} GB")
-    check_full_verify(params, dp, cfg)
+    check_full_verify(params, dp, cfg, wl.check_prompt,
+                      -(-(wl.check_prompt + 64) // 256) * 256)
 
     tree = tree_for(cfg)
-    max_batch, max_len, bs, budget = 4, 512, 16, 32
-    usable = int(0.5 * max_batch * max_len) // bs
-    eng = PagedSpeculativeEngine(params, dp, cfg, tree, max_len=max_len,
+    max_batch, bs, budget = 4, 16, 32
+    usable = int(0.5 * max_batch * wl.max_len) // bs
+    eng = PagedSpeculativeEngine(params, dp, cfg, tree, max_len=wl.max_len,
                                  block_size=bs, num_blocks=usable + 1)
     rs = np.random.RandomState(0)
+    lo, hi = wl.prompts
     reqs = [Request(prompt=rs.randint(0, cfg.vocab_size,
-                                      rs.randint(64, 257)).astype(np.int32),
+                                      rs.randint(lo, hi + 1)).astype(np.int32),
                     max_new_tokens=budget) for _ in range(8)]
-    per_step = cfg.n_layers + (1 if "prefix" in dp else 0)
+    counters = kernel_counters()
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ops.launches = 0                      # count the main path only
+    for mod in counters.values():          # count the main path only
+        mod.launches = 0
     st = eng.serve(reqs, max_batch=max_batch)
     torch.cuda.synchronize()
-    launches = ops.launches
+    counts = {k: m.launches for k, m in counters.items()}
     for r in reqs:
         if len(r.output) != budget or not all(0 <= t < cfg.vocab_size
                                               for t in r.output):
             raise AssertionError(f"bad output: {len(r.output)} tokens")
-    expect = per_step * (st.steps + st.warmup_steps)
-    if launches != expect:
-        raise AssertionError(f"kernel launches {launches} != {per_step} x "
-                             f"{st.steps + st.warmup_steps} steps")
-    log(f"[full] served {len(reqs)} requests x {budget} tokens: "
-        f"steps={st.steps} (+{st.warmup_steps} warm-up) "
-        f"tok/step={st.tokens_per_step:.3f} tok/s={st.tokens_per_s:.1f} "
-        f"step={st.mean_step_s * 1e3:.1f}ms ttft={st.mean_ttft_s * 1e3:.1f}ms "
+    steps = st.steps + st.warmup_steps
+    prefills = len(reqs) + st.preemptions
+    expect = {k: 0 for k in counters}
+    for k, n in wl.verify.items():
+        expect[k] += n * steps
+    for k, n in wl.prefill.items():
+        expect[k] += n * prefills
+    if counts != expect:
+        raise AssertionError(f"{cfg.name}: kernel launches {counts} != "
+                             f"{expect} ({steps} steps, {prefills} "
+                             "prefills)")
+    log(f"[full] {cfg.name} served {len(reqs)} requests x {budget} tokens "
+        f"(prompts {lo}-{hi}): steps={st.steps} (+{st.warmup_steps} "
+        f"warm-up) tok/step={st.tokens_per_step:.3f} "
+        f"tok/s={st.tokens_per_s:.1f} step={st.mean_step_s * 1e3:.1f}ms "
+        f"ttft={st.mean_ttft_s * 1e3:.1f}ms "
         f"p99_itl={st.p99_itl_s * 1e3:.1f}ms "
         f"host_stall={st.host_stall_s * 1e3:.1f}ms wall={st.wall_s:.2f}s "
-        f"preemptions={st.preemptions} peak_blocks={st.peak_blocks_in_use}/"
-        f"{st.num_blocks - 1} max_memory_allocated="
+        f"preemptions={st.preemptions} prefills={prefills} "
+        f"peak_blocks={st.peak_blocks_in_use}/{st.num_blocks - 1} "
+        f"max_memory_allocated="
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}GiB "
-        f"launches={launches} ({per_step}/step)")
-    return launches
+        f"launches={counts} (per step {wl.verify}, per prefill "
+        f"{wl.prefill})")
+    del params, dp, eng
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main() -> int:
@@ -367,6 +713,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -375,34 +722,75 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     built = build.build()
     log(f"[build] {sorted(built) or 'nothing to build'} in "
         f"{time.perf_counter() - t0:.1f}s")
-    for name, (secs, ptxas) in built.items():
-        log(f"[build] {name}: {secs:.1f}s\n{ptxas}")
+    parsed = set()
+    for name in sorted(build.SOURCES):
+        if name in built:
+            log(f"[build] {name}: {built[name][0]:.1f}s")
+        for line in ptxas_lines(build.ptxas_report(name)):
+            log(f"[ptxas] {line}")
+            parsed.add(line.split(":")[0])
+            # gemma3-1b runs the D=256 builds: they must keep the
+            # accumulator in registers
+            if "D=256" in line and "0 bytes spill stores, 0 bytes spill " \
+                    "loads" not in line:
+                raise AssertionError(f"a D=256 build spills: {line}")
+    missing = sorted(GEMMA3_INSTANTIATIONS - parsed)
+    if missing:
+        raise AssertionError(f"no ptxas line parsed for {missing}: the "
+                             "D=256 spill check could not run")
 
-    k1 = check_k1()
-    check_tiny_parity()
-    launches = serve_full_width()
+    k1 = check_k1(MINITRON, "minitron D=128")
+    check_k1(GEMMA3, "gemma3 D=256")
+    k4 = check_k4()
+    k3 = check_k3()
+    log(f"[time] kernel checks done at {time.perf_counter() - t_start:.0f}s")
 
-    main_case = k1[("bfloat16", 16)]
-    kernels = [{
-        "name": "tree_attention_paged",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/tree_attention_paged.cu",
-        "replaces": "src/repro/kernels/tree_attention/kernel.py:63",
-        "launches": launches,
-        "max_abs_err": max(k1[("bfloat16", T)]["max_abs_err"]
-                           for T in (16, 5)),
-        "ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-    }]
+    check_tiny_parity(dataclasses.replace(
+        get_config("minitron-4b").reduced(), dtype="float32"),
+        (16, 23, 32, 9, 40, 12))
+    check_tiny_parity(dataclasses.replace(
+        get_config("gemma3-1b").reduced(), dtype="float32",
+        window_pattern=(16, 0)), (17, 23, 30, 19, 40, 21))
+    launches = {}
+    for wl in WORKLOADS:
+        for k, n in serve_full_width(wl).items():
+            launches[k] = launches.get(k, 0) + n
+        log(f"[time] {wl.arch} done at {time.perf_counter() - t_start:.0f}s")
+
+    def entry(name, source, replaces, rec, err):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": err, "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"],
+                "library_ms": rec["library_ms"]}
+
+    kernels = [
+        entry("tree_attention_paged",
+              "src/repro_torch/csrc/tree_attention_paged.cu",
+              "src/repro/kernels/tree_attention/kernel.py:63",
+              k1[("bfloat16", 16)],
+              max(k1[("bfloat16", T)]["max_abs_err"] for T in (16, 5))),
+        entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention/kernel.py:23",
+              k3[("gemma3-1b", "bfloat16", 1536, WINDOW)],
+              max(r["max_abs_err"] for key, r in k3.items()
+                  if key[1] == "bfloat16")),
+        entry("tree_attention_paged_windowed",
+              "src/repro_torch/csrc/tree_attention_paged.cu",
+              "src/repro/kernels/attention_template/ops.py:37",
+              k4[("bfloat16", 16, WINDOW)],
+              max(r["max_abs_err"] for key, r in k4.items()
+                  if key[0] == "bfloat16")),
+    ]
     log(json.dumps({"kernels": kernels}))
+    log(f"[time] total {time.perf_counter() - t_start:.0f}s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

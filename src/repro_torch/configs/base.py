@@ -281,8 +281,9 @@ def list_configs() -> list:
     return sorted(_REGISTRY)
 
 
-# dense GQA stacks only: the other families wait for their kernels (ROADMAP)
-ARCH_MODULES = ["minitron_4b", "vicuna_tiny"]
+# dense GQA stacks (full-attention or sliding-window) only: the other
+# families wait for their kernels (ROADMAP)
+ARCH_MODULES = ["gemma3_1b", "minitron_4b", "vicuna_tiny"]
 
 
 def _load_all() -> None:

@@ -1,9 +1,16 @@
-// Paged tree-verify attention for Hopper (sm_90a), plain C interface.
+// Paged tree-verify attention for Hopper (sm_90a), plain C interface, with
+// its sliding-window form.
 //
-// Replaces the TPU kernel
-//   src/repro/kernels/tree_attention/kernel.py::tree_attention_paged
-//   (-> attention_template/kernel.py::tree_attention_template with
-//    TemplateSpec(kind="tree", layout="paged")).
+// Replaces two TPU kernels, both instantiations of
+// src/repro/kernels/attention_template/kernel.py::tree_attention_template
+// with layout="paged":
+//   K1  tree_attention/kernel.py::tree_attention_paged
+//       -> entry point tree_attention_paged (windowed = false);
+//   K4  attention_template/ops.py::tree_attention_paged_windowed_bshd
+//       (TemplateSpec windowed=True)
+//       -> entry point tree_attention_paged_windowed (windowed = true).
+// As in the template, one kernel body carries both: `kWindowed` is a
+// template flag, and a runtime window <= 0 is an exact no-op of the mask.
 //
 // What it computes: T tree queries per (b, query head) attend to the
 // slot's committed K/V, read block by block from the global pool
@@ -12,13 +19,28 @@
 // entries that are NULL (block 0) or start at/after cache_len[b] are
 // skipped outright, so whatever the NULL block holds (NaN, inf, garbage
 // from dead rows) can never reach the output.  fp32 online softmax with
-// the template's conventions: masked score -1e30, denominator floor 1e-30.
+// the template's conventions (online_softmax.cuh).
+//
+// Windowed (K4): also q_pos (B, T) int32 absolute query positions and an
+// int window w.  With w > 0, row r admits key position k only if
+// q_pos[r] - k < w; tree token j sits at position cache_len + j.  Every
+// real query row sits at q_pos >= cache_len (verify positions are
+// cache_len + depth), so a table entry j whose last position
+// (j+1)*bs - 1 <= cache_len - w is out of every row's reach and is skipped
+// for the whole block (JAX kernel.py:284-290); inside a block still in
+// reach, each row masks keys by its own q_pos, and keys at or behind
+// cache_len - w are loaded as zeros (selected, never read from the pool),
+// so whatever the pool holds there cannot reach the output.  Pad rows the
+// wrapper adds carry q_pos 0 and break the precondition; their outputs are
+// sliced away.
 //
 // Layout: every tensor is in the model layout the wrapper receives,
 //   q, out       (B, T, Hq, D)     tree_k, tree_v  (B, T, Hkv, D)
 //   pool_k/v     (N, bs, Hkv, D)   tree_mask (T, T) uint8
 //   cache_len    (B,) int32        block_table (B, M) int32
+//   q_pos        (B, T) int32 (windowed only)
 // contiguous; q, pools, tree K/V and out share one type, fp32 or bf16.
+// D is 64, 128 or 256.
 //
 // Design (first, simple version): the TPU's sequential grid axis over
 // table entries becomes a loop inside one thread block per (b, kv head).
@@ -28,25 +50,28 @@
 // query head.  Keys stream through shared memory in tiles of 16; each
 // tile does scores -> per-row online softmax -> accumulate, with the
 // accumulator in registers (thread = one feature column d, a strided set
-// of rows).
+// of rows).  At D = 256 a block holds at most 64 rows (gemma3-1b: G*T =
+// 4*16), so the accumulator stays at 64 registers; its shared memory
+// (about 104 KB) goes through the dynamic shared-memory opt-in.
 //
 // Bound: bytes.  The work must move
-//   sum_b ceil(len_b / bs) * bs * Hkv * D * 2 * elt + q + tree K/V + out
-// bytes; at minitron-4b shapes (B=4, Hq=24, Hkv=8, D=128, T=16) that is a
-// few MB per call against ~0.2 GFLOP, far below the tensor cores' ratio.
-// This version does its arithmetic on the fp32 CUDA cores, and each block
-// walks its slot's key tiles one after another, so a call lasts as long as
-// the longest slot's chain of tiles: it is far from that bound.  Splitting
-// the cache sweep across blocks, wgmma and TMA are later work.
+//   sum_b (keys read for b) * Hkv * D * 2 * elt + q + tree K/V + out
+// bytes, where a windowed call reads at most w + bs keys per slot; at
+// minitron-4b and gemma3-1b shapes that is a few MB per call against well
+// under a GFLOP, far below the tensor cores' ratio.  This version does
+// its arithmetic on the fp32 CUDA cores, and each block walks its slot's
+// key tiles one after another, so a call lasts as long as the longest
+// slot's chain of tiles: it is far from that bound.  Splitting the cache
+// sweep across blocks, wgmma and TMA are later work.
 //
 // Measurement builds (never used by the wrapper):
-//   -DK1_MAX_ROWS=n      size the per-thread accumulator for n rows, not 128;
+//   -DK1_MAX_ROWS=n      cap a block's rows (and so the accumulator) at n,
+//                        not 128;
 //   -DK1_PHASE_CLOCKS    thread 0 of each block sums clock64() cycles per
 //                        phase (prologue, K/V load, scores, softmax,
 //                        accumulate, epilogue) and counts key tiles; read
 //                        them with k1_phase_clocks().  See
 //                        repro_torch/kernels/tree_attention/phases.py.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,11 +80,6 @@
 #endif
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kMaxRows = K1_MAX_ROWS;  // G * T query rows per (b, kv head)
-constexpr int kKeyTile = 16;    // keys per shared-memory tile
-constexpr float kNegInf = -1e30f;
 
 enum Phase { kPrologue, kLoad, kScore, kSoftmax, kAccum, kEpilogue, kPhases };
 #ifdef K1_PHASE_CLOCKS
@@ -76,25 +96,34 @@ __shared__ long long clk_s[kClockSlots + 1];  // + the last timestamp
       clk_s[kClockSlots] = t_;                     \
     }                                              \
   } while (0)
+#define K1_TILE_DONE()                             \
+  do {                                             \
+    if (threadIdx.x == 0) clk_s[kPhases] += 1;     \
+  } while (0)
 #else
 #define K1_MARK(ph) \
   do {              \
   } while (0)
+#define K1_TILE_DONE() \
+  do {                 \
+  } while (0)
 #endif
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+}  // namespace
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+#define TILE_MARK(ph) K1_MARK(ph)
+#include "online_softmax.cuh"
+
+namespace {
+
+using attn::from_f32;
+using attn::kKeyTile;
+using attn::kNegInf;
+using attn::kThreads;
+using attn::Smem;
+using attn::to_f32;
+
+constexpr int kRowCap = K1_MAX_ROWS;  // G * T query rows per (b, kv head)
 
 struct Args {
   const void* q;
@@ -105,82 +134,18 @@ struct Args {
   const uint8_t* tree_mask;
   const int* cache_len;
   const int* block_table;
+  const int* q_pos;  // windowed only
   void* out;
-  int B, n_tree, Hq, Hkv, bs, M;
+  int B, n_tree, Hq, Hkv, bs, M, window;
   float scale;
 };
 
-// One key tile: scores, online-softmax update, accumulate.  `n` keys sit
-// in k_s/v_s rows [0, n); key kk of row r is admitted iff
-// `admit(r, kk)`.  Rejected keys are excluded by selection (score -1e30,
-// weight 0 selected, never multiplied in), so their values are never
-// combined with anything.
-template <int D, int KMAX, typename Admit>
-__device__ __forceinline__ void tile_update(
-    int R, int n, const float* q_s, const float* k_s, const float* v_s,
-    float* s_s, float* m_s, float* l_s, float* c_s, float (&acc)[KMAX],
-    Admit admit) {
-  constexpr int DP = D + 1;
-  constexpr int NRG = kThreads / D;
-  for (int i = threadIdx.x; i < R * n; i += kThreads) {
-    const int r = i / n, kk = i % n;
-    float s = kNegInf;
-    if (admit(r, kk)) {
-      s = 0.f;
-      const float* qr = q_s + r * DP;
-      const float* kr = k_s + kk * DP;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) s += qr[d] * kr[d];
-    }
-    s_s[r * kKeyTile + kk] = s;
-  }
-  __syncthreads();
-  K1_MARK(kScore);
-  for (int r = threadIdx.x; r < R; r += kThreads) {
-    const float m_prev = m_s[r];
-    float m_new = m_prev;
-    for (int kk = 0; kk < n; ++kk) m_new = fmaxf(m_new, s_s[r * kKeyTile + kk]);
-    float sum = 0.f;
-    for (int kk = 0; kk < n; ++kk) {
-      const float p = admit(r, kk) ? expf(s_s[r * kKeyTile + kk] - m_new) : 0.f;
-      s_s[r * kKeyTile + kk] = p;
-      sum += p;
-    }
-    const float corr = expf(m_prev - m_new);
-    l_s[r] = l_s[r] * corr + sum;
-    m_s[r] = m_new;
-    c_s[r] = corr;
-  }
-  __syncthreads();
-  K1_MARK(kSoftmax);
-  const int d = threadIdx.x % D;
-  const int rg = threadIdx.x / D;
-#pragma unroll
-  for (int k = 0; k < KMAX; ++k) {
-    const int r = rg + k * NRG;
-    if (r < R) acc[k] *= c_s[r];
-  }
-  for (int kk = 0; kk < n; ++kk) {
-    const float v = v_s[kk * DP + d];
-#pragma unroll
-    for (int k = 0; k < KMAX; ++k) {
-      const int r = rg + k * NRG;
-      if (r < R && admit(r, kk)) acc[k] += s_s[r * kKeyTile + kk] * v;
-    }
-  }
-  __syncthreads();  // the next tile overwrites k_s, v_s and s_s
-  K1_MARK(kAccum);
-#ifdef K1_PHASE_CLOCKS
-  if (threadIdx.x == 0) clk_s[kPhases] += 1;
-#endif
-}
-
-template <typename T, int D>
+template <typename T, int D, bool kWindowed>
 __global__ void __launch_bounds__(kThreads)
     tree_attention_paged_kernel(Args p) {
-  constexpr int DP = D + 1;  // padded row stride: conflict-free row reads
+  constexpr int DP = D + 1;
   constexpr int NRG = kThreads / D;
-  constexpr int KMAX = kMaxRows / NRG;
+  constexpr int KMAX = attn::max_rows(D, kRowCap) / NRG;
   const int b = blockIdx.x / p.Hkv;
   const int h = blockIdx.x % p.Hkv;
   const int G = p.Hq / p.Hkv;
@@ -188,13 +153,7 @@ __global__ void __launch_bounds__(kThreads)
   const int R = G * T_;
 
   extern __shared__ float smem[];
-  float* q_s = smem;                  // R x DP
-  float* k_s = q_s + R * DP;          // kKeyTile x DP
-  float* v_s = k_s + kKeyTile * DP;   // kKeyTile x DP
-  float* s_s = v_s + kKeyTile * DP;   // R x kKeyTile
-  float* m_s = s_s + R * kKeyTile;    // R running max
-  float* l_s = m_s + R;               // R running denominator
-  float* c_s = l_s + R;               // R correction of the current tile
+  const Smem sm = attn::carve_smem<D>(smem, R);
 
   const T* q = static_cast<const T*>(p.q);
   const T* pool_k = static_cast<const T*>(p.pool_k);
@@ -212,11 +171,12 @@ __global__ void __launch_bounds__(kThreads)
     const int r = i / D, d = i % D;
     const int g = r / T_, t = r % T_;
     const size_t off = ((static_cast<size_t>(b) * T_ + t) * p.Hq + h * G + g) * D + d;
-    q_s[r * DP + d] = to_f32(q[off]) * p.scale;
+    sm.q[r * DP + d] = to_f32(q[off]) * p.scale;
   }
   for (int r = threadIdx.x; r < R; r += kThreads) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
+    sm.m[r] = kNegInf;
+    sm.l[r] = 0.f;
+    sm.pos[r] = kWindowed ? p.q_pos[b * T_ + r % T_] : 0;
   }
   float acc[KMAX];
 #pragma unroll
@@ -224,50 +184,64 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   K1_MARK(kPrologue);
 
-  // cache sweep: table entries below cache_len, NULL entries skipped
+  // cache sweep: table entries below cache_len, NULL entries skipped, and
+  // (windowed, w > 0) entries wholly at or behind cache_len - w skipped
   const int len = p.cache_len[b];
+  const int w = kWindowed ? p.window : 0;
   const int* table = p.block_table + static_cast<size_t>(b) * p.M;
-  auto all_keys = [](int, int) { return true; };
   for (int j = 0; j < p.M && j * p.bs < len; ++j) {
     const int blk = table[j];
     if (blk == 0) continue;  // uniform across the block: no divergence
+    if (w > 0 && (j + 1) * p.bs - 1 <= len - w) continue;
     for (int k0 = 0; k0 < p.bs; k0 += kKeyTile) {
       const int pos0 = j * p.bs + k0;
       if (pos0 >= len) break;
-      // only positions < cache_len are loaded and scored
+      // only positions < cache_len are loaded and scored; (windowed)
+      // positions at or behind cache_len - w, out of every real row's
+      // reach, are loaded as zeros, whatever the pool holds there
       const int n = min(min(kKeyTile, p.bs - k0), len - pos0);
       for (int i = threadIdx.x; i < n * D; i += kThreads) {
         const int kk = i / D, d = i % D;
-        const size_t off =
-            ((static_cast<size_t>(blk) * p.bs + k0 + kk) * p.Hkv + h) * D + d;
-        k_s[kk * DP + d] = to_f32(pool_k[off]);
-        v_s[kk * DP + d] = to_f32(pool_v[off]);
+        float kx = 0.f, vx = 0.f;
+        if (w <= 0 || pos0 + kk > len - w) {
+          const size_t off =
+              ((static_cast<size_t>(blk) * p.bs + k0 + kk) * p.Hkv + h) * D + d;
+          kx = to_f32(pool_k[off]);
+          vx = to_f32(pool_v[off]);
+        }
+        sm.k[kk * DP + d] = kx;
+        sm.v[kk * DP + d] = vx;
       }
       __syncthreads();
       K1_MARK(kLoad);
-      tile_update<D, KMAX>(R, n, q_s, k_s, v_s, s_s, m_s, l_s, c_s, acc,
-                           all_keys);
+      auto in_window = [sm, w, pos0](int r, int kk) {
+        return w <= 0 || sm.pos[r] - (pos0 + kk) < w;
+      };
+      attn::tile_update<D, KMAX>(R, n, sm, acc, in_window);
+      K1_TILE_DONE();
     }
   }
 
-  // tree step: the T new K/V under the ancestor mask
+  // tree step: the T new K/V under the ancestor mask; tree token j sits
+  // at position cache_len + j
   for (int k0 = 0; k0 < T_; k0 += kKeyTile) {
     const int n = min(kKeyTile, T_ - k0);
     for (int i = threadIdx.x; i < n * D; i += kThreads) {
       const int kk = i / D, d = i % D;
       const size_t off =
           ((static_cast<size_t>(b) * T_ + k0 + kk) * p.Hkv + h) * D + d;
-      k_s[kk * DP + d] = to_f32(tree_k[off]);
-      v_s[kk * DP + d] = to_f32(tree_v[off]);
+      sm.k[kk * DP + d] = to_f32(tree_k[off]);
+      sm.v[kk * DP + d] = to_f32(tree_v[off]);
     }
     __syncthreads();
     K1_MARK(kLoad);
     const uint8_t* tm = p.tree_mask;
-    auto ancestor = [tm, T_, k0](int r, int kk) {
-      return tm[(r % T_) * T_ + k0 + kk] != 0;
+    auto ancestor = [sm, tm, T_, k0, w, len](int r, int kk) {
+      return tm[(r % T_) * T_ + k0 + kk] != 0 &&
+             (w <= 0 || sm.pos[r] - (len + k0 + kk) < w);
     };
-    tile_update<D, KMAX>(R, n, q_s, k_s, v_s, s_s, m_s, l_s, c_s, acc,
-                         ancestor);
+    attn::tile_update<D, KMAX>(R, n, sm, acc, ancestor);
+    K1_TILE_DONE();
   }
 
   T* out = static_cast<T*>(p.out);
@@ -279,7 +253,7 @@ __global__ void __launch_bounds__(kThreads)
     if (r < R) {
       const int g = r / T_, t = r % T_;
       const size_t off = ((static_cast<size_t>(b) * T_ + t) * p.Hq + h * G + g) * D + d;
-      out[off] = from_f32<T>(acc[k] / fmaxf(l_s[r], 1e-30f));
+      out[off] = from_f32<T>(acc[k] / fmaxf(sm.l[r], 1e-30f));
     }
   }
 #ifdef K1_PHASE_CLOCKS
@@ -291,55 +265,77 @@ __global__ void __launch_bounds__(kThreads)
 #endif
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kWindowed>
 int launch(const Args& a, cudaStream_t stream) {
-  const int R = (a.Hq / a.Hkv) * a.n_tree;
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(R) * (D + 1) + 2 * kKeyTile * (D + 1) +
-                       static_cast<size_t>(R) * kKeyTile + 3 * R);
+  const size_t smem = attn::smem_bytes((a.Hq / a.Hkv) * a.n_tree, D);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        tree_attention_paged_kernel<T, D>,
+        tree_attention_paged_kernel<T, D, kWindowed>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  tree_attention_paged_kernel<T, D>
+  tree_attention_paged_kernel<T, D, kWindowed>
       <<<a.B * a.Hkv, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool kWindowed>
 int launch_dim(const Args& a, int D, cudaStream_t stream) {
   switch (D) {
-    case 64: return launch<T, 64>(a, stream);
-    case 128: return launch<T, 128>(a, stream);
+    case 64: return launch<T, 64, kWindowed>(a, stream);
+    case 128: return launch<T, 128, kWindowed>(a, stream);
+    case 256: return launch<T, 256, kWindowed>(a, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Validates the shape, then launches the instantiation for dtype
+// (0 float32, 1 bfloat16) and D.  Returns the CUDA error code.
+template <bool kWindowed>
+int dispatch(const Args& a, int D, int dtype, void* stream) {
+  if (a.B <= 0 || a.n_tree <= 0 || a.Hkv <= 0 || a.Hq % a.Hkv != 0 ||
+      (a.Hq / a.Hkv) * a.n_tree > attn::max_rows(D, kRowCap) || a.bs <= 0 ||
+      a.M <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return launch_dim<float, kWindowed>(a, D, s);
+    case 1: return launch_dim<__nv_bfloat16, kWindowed>(a, D, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  Returns the CUDA error code of
-// the launch (0 on success); the wrapper raises on anything else.
+// K1.  dtype: 0 float32, 1 bfloat16.  Returns the CUDA error code of the
+// launch (0 on success); the wrapper raises on anything else.
 extern "C" int tree_attention_paged(
     const void* q, const void* pool_k, const void* pool_v, const void* tree_k,
     const void* tree_v, const void* tree_mask, const void* cache_len,
     const void* block_table, void* out, int B, int T, int Hq, int Hkv, int D,
     int bs, int M, int dtype, float scale, void* stream) {
-  if (B <= 0 || T <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
-      (Hq / Hkv) * T > kMaxRows || bs <= 0 || M <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
   Args a{q, pool_k, pool_v, tree_k, tree_v,
          static_cast<const uint8_t*>(tree_mask),
          static_cast<const int*>(cache_len),
-         static_cast<const int*>(block_table), out, B, T, Hq, Hkv, bs, M,
+         static_cast<const int*>(block_table), nullptr, out, B, T, Hq, Hkv,
+         bs, M, 0, scale};
+  return dispatch<false>(a, D, dtype, stream);
+}
+
+// K4: K1 plus q_pos (B, T) int32 and a window (<= 0: full attention).
+extern "C" int tree_attention_paged_windowed(
+    const void* q, const void* pool_k, const void* pool_v, const void* tree_k,
+    const void* tree_v, const void* tree_mask, const void* cache_len,
+    const void* block_table, const void* q_pos, void* out, int B, int T,
+    int Hq, int Hkv, int D, int bs, int M, int window, int dtype, float scale,
+    void* stream) {
+  Args a{q, pool_k, pool_v, tree_k, tree_v,
+         static_cast<const uint8_t*>(tree_mask),
+         static_cast<const int*>(cache_len),
+         static_cast<const int*>(block_table),
+         static_cast<const int*>(q_pos), out, B, T, Hq, Hkv, bs, M, window,
          scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return launch_dim<float>(a, D, s);
-    case 1: return launch_dim<__nv_bfloat16>(a, D, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch<true>(a, D, dtype, stream);
 }
 
 #ifdef K1_PHASE_CLOCKS

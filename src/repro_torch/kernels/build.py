@@ -4,8 +4,9 @@ Each source under ``src/repro_torch/csrc/`` is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into a shared library with a plain C interface and
 loaded with ctypes, so no PyTorch header is ever compiled.  Libraries go
 into ``build/kernels/`` at the repository root (listed in ``.gitignore``)
-under a name that carries a hash of the source and flags, so an edited
-source is rebuilt and a stale library is never loaded.  ``build()``
+under a name that carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and a stale library is never loaded.  ``build()``
 starts one ``nvcc`` per missing library, all at once, and waits for all.
 ``defines`` (``("K1_PHASE_CLOCKS",)``, ``("K1_MAX_ROWS=48",)``) build a
 measurement variant of a source beside the plain library; the port itself
@@ -29,7 +30,8 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parents[1] / "build" / "kernels"
 
 # library name -> source file under csrc/
-SOURCES = {"tree_attention_paged": "tree_attention_paged.cu"}
+SOURCES = {"tree_attention_paged": "tree_attention_paged.cu",
+           "flash_attention": "flash_attention.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -54,10 +56,11 @@ def _flags(defines) -> list:
 
 
 def library_path(name: str, defines=()) -> Path:
-    src = CSRC_DIR / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(_flags(defines)).encode()
-                            ).hexdigest()[:16]
+    h = hashlib.sha256((CSRC_DIR / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(_flags(defines)).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -65,7 +68,8 @@ def build(names=None, defines=()) -> dict:
     """Compile every missing library in ``names`` (default: all), one
     ``nvcc`` process per source, all started together.  Returns
     ``{name: (seconds, ptxas report)}`` for the ones built; raises with
-    the compiler's output if any build fails."""
+    the compiler's output if any build fails.  Each report is also saved
+    beside its library, for ``ptxas_report``."""
     names = list(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
@@ -87,13 +91,23 @@ def build(names=None, defines=()) -> dict:
         if proc.returncode != 0:
             failed.append(f"{name} (exit {proc.returncode}):\n{log}")
             continue
+        report = "\n".join(ln for ln in log.splitlines()
+                           if "ptxas info" in ln or "bytes stack frame" in ln)
+        out.with_suffix(".ptxas").write_text(report)
         os.replace(tmp, out)
-        built[name] = (secs, "\n".join(
-            ln for ln in log.splitlines()
-            if "ptxas info" in ln or "bytes stack frame" in ln))
+        built[name] = (secs, report)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return built
+
+
+def ptxas_report(name: str, defines=()) -> str:
+    """The ``ptxas -v`` report (registers, stack frame, spills) saved
+    beside the library when it was built; builds it first if missing."""
+    path = library_path(name, defines)
+    if not path.exists():
+        build([name], defines)
+    return path.with_suffix(".ptxas").read_text()
 
 
 def load(name: str, defines=()) -> ctypes.CDLL:

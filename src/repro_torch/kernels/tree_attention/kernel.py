@@ -1,20 +1,23 @@
-"""Paged tree-verify attention: the Hopper kernel's launch and its plain
-PyTorch version.
+"""Paged tree-verify attention (K1): the Hopper kernel's launch and its
+plain PyTorch version.
 
 The CUDA source is ``src/repro_torch/csrc/tree_attention_paged.cu``; its
 header says which TPU kernel it replaces
 (``repro/kernels/tree_attention/kernel.py::tree_attention_paged``), what
-bounds it and how it is laid out.  ``tree_attention_paged_plain`` is a
-torch port of ``repro/kernels/tree_attention/ref.py::
+bounds it and how it is laid out.  The same source carries the windowed
+form K4, whose launch is here too (``launch(..., q_pos=, window=)``); its
+plain version and wrapper live in ``kernels/attention_template/``.
+``tree_attention_paged_plain`` is a torch port of
+``repro/kernels/tree_attention/ref.py::
 tree_attention_paged_ref``: the slot's logical view gathered through the
 block table, NULL-table positions and positions past ``cache_len``
 masked.  The CPU tests run it and ``chip_smoke.py`` holds the kernel
 against it on the card.
 
 Both take the MODEL layout (q/out ``(B, T, Hq, D)``, tree K/V
-``(B, T, Hkv, D)``) with T already padded by the wrapper (``ops.py``),
-which is the port's only caller of ``launch``; ``phases.py`` calls it
-too, to time the measurement builds.
+``(B, T, Hkv, D)``) with T already padded by the wrappers (``ops.py``
+here, ``attention_template/ops.py`` for K4), the port's only callers of
+``launch``; ``phases.py`` calls it too, to time the measurement builds.
 """
 from __future__ import annotations
 
@@ -26,38 +29,54 @@ import torch
 from repro_torch.kernels import build
 
 NULL_BLOCK = 0                 # physical pool block 0 is never read unmasked
-HEAD_DIMS = (64, 128)          # head dims the CUDA source instantiates
-MAX_ROWS = 128                 # G * T query rows one thread block holds
+# head dim -> G * T query rows one thread block holds (the CUDA source
+# instantiates these head dims; at 256 the accumulator caps the rows at 64)
+MAX_ROWS = {64: 128, 128: 128, 256: 64}
+HEAD_DIMS = tuple(MAX_ROWS)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def kernel_fn(defines=()):
+def kernel_fn(defines=(), windowed: bool = False):
     """The C entry point of the library built with ``defines`` (none for
-    the port; measurement variants otherwise)."""
-    fn = build.load("tree_attention_paged", defines).tree_attention_paged
+    the port; measurement variants otherwise): K1's, or K4's when
+    ``windowed``."""
+    lib = build.load("tree_attention_paged", defines)
+    if windowed:
+        fn = lib.tree_attention_paged_windowed
+        argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                    + [ctypes.c_float, ctypes.c_void_p])
+    else:
+        fn = lib.tree_attention_paged
+        argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+                    + [ctypes.c_float, ctypes.c_void_p])
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = argtypes
     return fn
 
 
 def launch(q, pool_k, pool_v, tree_k, tree_v, tree_mask, cache_len,
-           block_table, out, fn=None) -> int:
-    """Launch the kernel on the current CUDA stream (no synchronisation).
-    All arguments must already be validated by the wrapper.  ``fn`` is a
-    measurement variant's entry point (``kernel_fn(defines)``); the port
+           block_table, out, fn=None, *, q_pos=None, window=None) -> int:
+    """Launch K1, or K4 when ``q_pos`` (B, T) int32 and ``window`` (int)
+    are given, on the current CUDA stream (no synchronisation).  All
+    arguments must already be validated by the wrapper.  ``fn`` is a
+    measurement variant's K1 entry point (``kernel_fn(defines)``); the port
     passes none.  Returns the CUDA error code of the launch: 0 on success."""
     B, T, Hq, D = q.shape
     _, bs, Hkv, _ = pool_k.shape
     M = block_table.shape[1]
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+            tree_k.data_ptr(), tree_v.data_ptr(), tree_mask.data_ptr(),
+            cache_len.data_ptr(), block_table.data_ptr())
+    scale = 1.0 / math.sqrt(D)
+    if q_pos is not None:
+        return kernel_fn(windowed=True)(
+            *ptrs, q_pos.data_ptr(), out.data_ptr(), B, T, Hq, Hkv, D, bs, M,
+            int(window), DTYPE_CODES[q.dtype], scale, stream)
     return (fn or kernel_fn())(
-        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-        tree_k.data_ptr(), tree_v.data_ptr(), tree_mask.data_ptr(),
-        cache_len.data_ptr(), block_table.data_ptr(), out.data_ptr(),
-        B, T, Hq, Hkv, D, bs, M, DTYPE_CODES[q.dtype],
-        1.0 / math.sqrt(D), stream)
+        *ptrs, out.data_ptr(), B, T, Hq, Hkv, D, bs, M, DTYPE_CODES[q.dtype],
+        scale, stream)
 
 
 def tree_attention_paged_plain(q, pool_k, pool_v, tree_k, tree_v, tree_mask,

@@ -5,7 +5,9 @@ The wrapper pads the tree axis T (pad rows self-attend, so their softmax
 is well defined), validates what the kernel takes, and dispatches on the
 device the tensors lie on: CPU tensors take the plain version, CUDA
 tensors launch the kernel or raise.  There is no fallback from one to the
-other.  ``launches`` counts kernel launches, and only those.
+other.  ``launches`` counts kernel launches, and only those.  The padding
+and the checks are shared with the windowed wrapper (K4,
+``kernels/attention_template/ops.py``).
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ launches = 0                  # kernel launches since the last reset
 T_PAD = 8                     # the tree axis is padded to a multiple of this
 
 
-def _pad_tree(q, tree_k, tree_v, tree_mask):
+def pad_tree(q, tree_k, tree_v, tree_mask):
     """Pad the tree axis T up to a multiple of ``T_PAD``; padded query
     rows attend only to themselves."""
     T = q.shape[1]
@@ -33,8 +35,8 @@ def _pad_tree(q, tree_k, tree_v, tree_mask):
     return pad(q), pad(tree_k), pad(tree_v), tm, T
 
 
-def _check(q, pool_k, pool_v, tree_k, tree_v, tree_mask, cache_len,
-           block_table):
+def check_operands(q, pool_k, pool_v, tree_k, tree_v, tree_mask, cache_len,
+                   block_table):
     B, T, Hq, D = q.shape
     N, bs, Hkv, Dk = pool_k.shape
     if pool_v.shape != pool_k.shape or Dk != D:
@@ -54,8 +56,8 @@ def _check(q, pool_k, pool_v, tree_k, tree_v, tree_mask, cache_len,
         raise ValueError(f"pool block_size {bs} must be a multiple of 8")
 
 
-def _check_cuda(q, pool_k, pool_v, tree_k, tree_v, tree_mask, cache_len,
-                block_table):
+def check_cuda_operands(q, pool_k, pool_v, tree_k, tree_v, tree_mask,
+                        cache_len, block_table):
     tensors = (q, pool_k, pool_v, tree_k, tree_v, tree_mask, cache_len,
                block_table)
     if any(t.device != q.device for t in tensors):
@@ -69,12 +71,12 @@ def _check_cuda(q, pool_k, pool_v, tree_k, tree_v, tree_mask, cache_len,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the kernel takes contiguous operands only")
     D = q.shape[-1]
-    if D not in _k.HEAD_DIMS:
+    if D not in _k.MAX_ROWS:
         raise ValueError(f"head dim {D} not in {_k.HEAD_DIMS}")
     rows = (q.shape[2] // pool_k.shape[2]) * q.shape[1]
-    if rows > _k.MAX_ROWS:
+    if rows > _k.MAX_ROWS[D]:
         raise ValueError(f"{rows} query rows per kv head exceed the "
-                         f"kernel's {_k.MAX_ROWS}")
+                         f"kernel's {_k.MAX_ROWS[D]} at head dim {D}")
 
 
 def tree_attention_paged_bshd(q, pool_k, pool_v, tree_k, tree_v, tree_mask,
@@ -84,15 +86,14 @@ def tree_attention_paged_bshd(q, pool_k, pool_v, tree_k, tree_v, tree_mask,
     on the card; tree_mask (T,T) bool; cache_len (B,) and block_table
     (B, M) int32.  Returns (B,T,Hq,D) in q's dtype."""
     global launches
-    q, tree_k, tree_v, tree_mask, T = _pad_tree(q, tree_k, tree_v,
-                                                tree_mask)
+    q, tree_k, tree_v, tree_mask, T = pad_tree(q, tree_k, tree_v, tree_mask)
     args = (q, pool_k, pool_v, tree_k, tree_v, tree_mask, cache_len,
             block_table)
-    _check(*args)
+    check_operands(*args)
     if q.device.type == "cpu":
         out = _k.tree_attention_paged_plain(*args)
     elif q.device.type == "cuda":
-        _check_cuda(*args)
+        check_cuda_operands(*args)
         out = torch.empty_like(q)
         rc = _k.launch(*args, out)
         if rc != 0:

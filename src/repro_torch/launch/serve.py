@@ -3,12 +3,15 @@
     python -m repro_torch.launch.serve --arch minitron-4b --full-config \\
         --engine paged
 
-Without ``--full-config`` the reduced config runs in fp32 (a smoke run);
-with it, the published widths in ``cfg.dtype``.  Weights are random,
-drawn on the device from a seeded ``torch.Generator``.  The engine runs
-on CUDA unless ``--device cpu`` is given.  Prints the same ``[serve]``
-lines as ``repro/launch/serve.py`` where the port has the fields (the
-port's loop is synchronous: no chunked prefill, no in-flight window).
+Any arch of the port's registry serves: the full-attention stacks
+(``minitron-4b``, ``vicuna-tiny``) and the sliding-window one
+(``gemma3-1b``).  Without ``--full-config`` the reduced config runs in
+fp32 (a smoke run); with it, the published widths in ``cfg.dtype``.
+Weights are random, drawn on the device from a seeded
+``torch.Generator``.  The engine runs on CUDA unless ``--device cpu`` is
+given.  Prints the same ``[serve]`` lines as ``repro/launch/serve.py``
+where the port has the fields (the port's loop is synchronous: no
+chunked prefill, no asynchronous in-flight dispatch).
 """
 from __future__ import annotations
 

@@ -3,22 +3,25 @@
 
 Three branches of ``gqa_fwd``:
 
-* full-seq (prefill): blocked flash-style attention over the sequence;
+* full-seq (prefill): causal attention over the sequence, optionally
+  sliding-window, through the prefill kernel K3
+  (``kernels/flash_attention``);
 * dense verify: T new tokens (a candidate tree or chain) are written into
   the per-slot cache at ``cache_len + arange(T)`` and attend to the cache
-  plus themselves under ``_verify_mask``;
+  plus themselves under ``_verify_mask`` (which carries the window);
 * paged verify: the cache is the global block pool ``(N, bs, Hkv, D)``;
   the T new K/V scatter through the block table (``_paged_scatter``) and
-  attention streams the pool natively through the paged tree-verify
-  kernel (``_paged_verify_gqa``).
+  attention streams the pool natively (``_paged_verify_gqa``): through
+  the paged tree-verify kernel K1, or, for a group with sliding-window
+  layers (``AttnInputs.windowed``), its windowed form K4, which takes the
+  layer's window at run time (0 for the group's global layers).
 
 Unlike JAX, the port writes caches IN PLACE: the verify branches update
 the cache/pool tensors they are handed (one layer's view of the stacked
 ``(L, ...)`` arrays) and return those same tensors.  That saves a copy of
 the whole cache per layer; the caller owns the aliasing.
 
-MLA, sliding-window groups and the chunked-prefill continuation are not
-ported yet (ROADMAP).
+MLA and the chunked-prefill continuation are not ported yet (ROADMAP).
 """
 from __future__ import annotations
 
@@ -26,10 +29,12 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels.attention_template.ops import (
+    tree_attention_paged_windowed_bshd)
+from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
 from repro_torch.kernels.tree_attention.ops import tree_attention_paged_bshd
-from repro_torch.models.layers import (apply_rope, blocked_attention,
-                                       dense_init, masked_attention,
-                                       rope_sincos)
+from repro_torch.models.layers import (apply_rope, dense_init,
+                                       masked_attention, rope_sincos)
 
 
 class AttnInputs(NamedTuple):
@@ -43,6 +48,8 @@ class AttnInputs(NamedTuple):
     window: int                          # 0 => full attention
     causal: bool
     block_table: Optional[torch.Tensor] = None   # (B, M) int32 => pool
+    windowed: bool = False               # group has sliding-window layers
+    #                                      => paged verify takes K4
 
 
 # ---------------------------------------------------------------------------
@@ -87,10 +94,11 @@ def gqa_fwd(p, cfg, x, ai: AttnInputs):
     k = apply_rope(k, sin, cos)
 
     if ai.cache_k is None:
-        # full-sequence path (prefill): blocked flash attention
-        kv_pos = ai.q_pos[0]  # assumes aligned positions across batch
-        out = blocked_attention(q, k, v, ai.q_pos, kv_pos,
-                                window=ai.window, causal=ai.causal)
+        # full-sequence path (prefill): the K3 kernel.  Positions are
+        # consecutive and aligned across the batch (every prefill starts
+        # at 0), so the masks depend on index differences only
+        out = flash_attention_bshd(q, k, v, causal=ai.causal,
+                                   window=ai.window)
     elif ai.block_table is not None:
         # paged verify: scatter scratch through the table, stream the pool
         out, k, v = _paged_verify_gqa(q, k, v, ai)
@@ -141,19 +149,27 @@ def _paged_scatter(pool, new, cache_len, block_table):
 def _paged_verify_gqa(q, k, v, ai: AttnInputs):
     """Pool-layout verify for GQA: persist the T new K/V through the block
     table (token-granular scatter, the only writes of the step), then
-    attend with the paged tree-verify kernel.  This is the single dispatch
-    point of paged attention: every paged layer (the base stack and the
-    Hydra++ prefix layer) comes through here.  The kernel reads the pool
-    only below ``cache_len`` and takes the T new K/V as its tree operands,
-    so the entries just scattered are counted once."""
+    attend with the paged tree-verify kernel: K4 for a group with
+    sliding-window layers (``ai.windowed``; the layer's window and the
+    query positions ride along, and a window of 0 is an exact no-op), K1
+    otherwise.  This is the single dispatch point of paged attention:
+    every paged layer (the base stack and the Hydra++ prefix layer) comes
+    through here.  The kernel reads the pool only below ``cache_len`` and
+    takes the T new K/V as its tree operands, so the entries just
+    scattered are counted once."""
     T = q.shape[1]
     npk = _paged_scatter(ai.cache_k, k, ai.cache_len, ai.block_table)
     npv = _paged_scatter(ai.cache_v, v, ai.cache_len, ai.block_table)
     tm = ai.tree_mask
     if tm is None:   # chain: lower-triangular
         tm = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
-    out = tree_attention_paged_bshd(q, npk, npv, k, v, tm, ai.cache_len,
-                                    ai.block_table)
+    if ai.windowed:
+        out = tree_attention_paged_windowed_bshd(
+            q, npk, npv, k, v, tm, ai.cache_len, ai.block_table, ai.q_pos,
+            ai.window)
+    else:
+        out = tree_attention_paged_bshd(q, npk, npv, k, v, tm, ai.cache_len,
+                                        ai.block_table)
     return out, npk, npv
 
 

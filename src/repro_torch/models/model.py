@@ -1,5 +1,5 @@
-"""Model assembly for dense GQA stacks (port of the ``attn_stack_dense``
-group of ``repro/models/model.py``).
+"""Model assembly for dense GQA stacks, full-attention or sliding-window
+(port of the ``attn_stack_dense`` group of ``repro/models/model.py``).
 
 The params keep the JAX pytree's layout so the bridge converts one-to-one:
 ``embed (V, d)``, ``final_norm``, ``lm_head (d, V)`` unless embeddings are
@@ -12,6 +12,11 @@ Caches are a list with one ``{"k", "v"}`` dict per group: dense
 ``(L, B, S, Hkv, D)`` per-slot arrays, or — with a block table — global
 pools ``(L, N, bs, Hkv, D)``.  ``forward`` updates them IN PLACE (JAX
 returns new arrays) and returns the same tensors.
+
+A group with sliding-window layers (gemma3's 5 local : 1 global pattern)
+runs its paged verify through the windowed kernel K4, each layer with its
+own window (0 for the global layers), as JAX picks the windowed template
+variant per group.
 
 Execution modes:
   'full'   — prefill over the whole sequence; fills ``cache`` at [0, T)
@@ -38,12 +43,24 @@ class ModelOutputs(NamedTuple):
 
 def group_program(cfg: ModelConfig):
     """Returns a list of (kind, n_layers) describing the stack."""
-    if (cfg.block_kind != "attn" or cfg.moe or cfg.mla or cfg.encoder_only
-            or any(w > 0 for w in cfg.window_pattern)):
+    if cfg.block_kind != "attn" or cfg.moe or cfg.mla or cfg.encoder_only:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense full-attention GQA stacks "
-            "only so far")
+            f"{cfg.name}: the port serves dense GQA stacks only so far")
     return [("attn_stack_dense", cfg.n_layers)]
+
+
+def _window_array(cfg: ModelConfig, n_layers: int, offset: int = 0):
+    """Per-layer windows of layers ``[offset, offset + n_layers)`` (0 =>
+    full attention).  JAX makes them a traced int32 scan operand; the
+    port runs eagerly, so they are plain ints."""
+    return [cfg.window_for_layer(i + offset) for i in range(n_layers)]
+
+
+def group_has_window(cfg: ModelConfig, offset: int, n: int) -> bool:
+    """True when any layer in ``[offset, offset + n)`` is sliding-window:
+    the group's paged verify then takes the windowed kernel K4 (0 is an
+    exact mask no-op for the group's global layers)."""
+    return any(cfg.window_for_layer(offset + i) > 0 for i in range(n))
 
 
 # ---------------------------------------------------------------------------
@@ -139,8 +156,9 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, mode: str = "full",
             valid_len=None, want_logits: bool = True) -> ModelOutputs:
     """inputs: (B,T) int tokens; positions: (B,T) absolute positions.
 
-    mode='full':   causal over the T tokens.  If ``cache`` is given it is
-                   filled at positions [0, T) in place and returned.
+    mode='full':   causal over the T tokens, whose positions are
+                   consecutive (a prefill from 0).  If ``cache`` is given
+                   it is filled at positions [0, T) in place and returned.
     mode='verify': T speculative tokens against the populated cache;
                    ``cache_len`` (B,) is the committed length, ``tree_mask``
                    (T,T) the ancestor mask (None => chain).  ``block_table``
@@ -162,9 +180,14 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, mode: str = "full",
     T = inputs.shape[1]
     h = params["embed"][inputs.long()]
 
+    layer_offset = 0
     for gi, (_, n) in enumerate(group_program(cfg)):
         gp = params["groups"][gi]
         gc = cache[gi] if cache is not None else None
+        windows = _window_array(cfg, n, layer_offset)
+        # the choice of paged kernel is per GROUP, as in JAX: a group with
+        # any sliding-window layer runs K4 on all its layers
+        win_group = group_has_window(cfg, layer_offset, n)
         for i in range(n):
             ai = AttnInputs(
                 q_pos=positions,
@@ -172,12 +195,13 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, mode: str = "full",
                 cache_v=gc["v"][i] if is_verify else None,
                 cache_len=cache_len if is_verify else None,
                 tree_mask=tree_mask if is_verify else None,
-                window=cfg.window_for_layer(i), causal=True,
-                block_table=block_table)
+                window=windows[i], causal=True,
+                block_table=block_table, windowed=win_group)
             h, nk, nv = _attn_layer_fwd(layer(gp, i), cfg, h, ai)
             if gc is not None and not is_verify:     # prefill: write [0, T)
                 gc["k"][i, :, :T] = nk.to(gc["k"].dtype)
                 gc["v"][i, :, :T] = nv.to(gc["v"].dtype)
+        layer_offset += n
 
     h = rms_norm(h, params["final_norm"], cfg.rms_eps)
     logits = h.float() @ params["unembed_f32"] if want_logits else None

@@ -537,6 +537,8 @@ class PagedSpeculativeEngine(SpeculativeEngine):
         st.num_blocks = nb
         st.pool_tokens = (nb - 1) * self.block_size
         st.dense_equiv_tokens = max_batch * self.max_len
+        # every group streams the pool through a paged kernel (K1 or K4),
+        # so the step's transient is just its scratch writes
         st.step_transient_tokens = max_batch * self._scratch
         return init_paged_state(self.params, self.draft_params, self.cfg,
                                 max_batch, nb, self.block_size, self.device)
