@@ -9,8 +9,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 2. build every CUDA kernel of the port from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, started together) and print, for each
    instantiation, the registers and spills ``ptxas -v`` reports; fail
-   unless the bf16 head-dim-256 builds of K1, K4 and K3 are each found
-   in the report and show no spill;
+   unless the bf16 head-dim-256 builds of K1, K4 and K3 and K5's builds
+   over bf16 pools are each found in the report and show no spill;
 3. hold each kernel against its plain PyTorch version on the card, fp32
    with TF32 off (atol = rtol = 1e-4) and bf16 (atol = rtol = 2e-2), and
    time the kernel, its plain version and ``scaled_dot_product_attention``
@@ -27,10 +27,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
       position at or behind ``cache_len - 512`` poisoned, and K4 at
       window 0 bitwise equal to K1;
    d. K3, prefill attention, at gemma3-1b and minitron-4b head shapes,
-      S in {37, 300, 1536}, windows 0 and 512;
-4. tiny fp32 parity: ``minitron-4b.reduced()`` and a reduced gemma3-1b
-   whose 16-token window binds, Hydra++ served through the paged engine
-   (K1, K4, K3), equal the port's dense ``generate()``;
+      S in {37, 300, 1536}, windows 0 and 512; and at deepseek-v2-lite's
+      MLA prefill (16 heads over 16, q/k 192 and v 128 zero-padded to
+      256, scale 1/sqrt(192), S=1536) against ``blocked_attention`` at
+      the unpadded widths;
+   e. K5, absorbed-MLA paged verify, at deepseek-v2-lite shapes (B=4,
+      16 heads, latent 512, rope 64, block 16, T=16, lens
+      0/37/700/1500, NULL holes): fp32 throughout, then bf16 pools, with
+      block 0 poisoned (outputs bitwise equal); SDPA on the gathered
+      view (Dk 576, Dv 512, a boolean mask) as the yardstick;
+4. tiny fp32 parity: ``minitron-4b.reduced()``, a reduced gemma3-1b
+   whose 16-token window binds and ``deepseek-v2-lite-16b.reduced()``,
+   Hydra++ served through the paged engine (K1, K4, K5, K3), equal the
+   port's dense ``generate()``;
 5. full width, bf16, random weights drawn on the card from a seeded
    ``torch.Generator``; for each model one verify step paged against
    dense from the same prefill (prefill through K3, then through K3's
@@ -45,6 +54,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      32 new tokens, max_batch 4, block 16, max_len 2048, pool half the
      dense footprint; 26 K4 + 1 K1 launches per decode step and 27 K3
      launches per prefill, re-prefills after a preemption included;
+   - deepseek-v2-lite-16b (MLA + MoE, ~15.7B parameters; the earlier
+     models are freed first): the same traffic as gemma3-1b; 27 K5 + 1
+     K1 launches per decode step and 28 K3 launches per prefill.  Top-k
+     routing amplifies rounding layer by layer, so its verify step is
+     held at full width with depth cut (fp32 at 5 layers: relative
+     logit difference 1e-4 and every argmax; bf16 at 2 layers: 0.03 and
+     14 of 16; each must fail a K5 whose output is 1% off) and printed
+     as a reading at full depth;
 6. a JSON line with each kernel's numbers, then the result line.
 
 The script stands alone: it puts ``src/`` on ``sys.path`` itself, and it
@@ -54,6 +71,7 @@ beside it.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -116,8 +134,13 @@ def ptxas_lines(report: str) -> list:
         m = re.search(r"Function properties for \S*?([a-z_]+_kernel)"
                       r"I(13__nv_bfloat16|f)Li(\d+)E(Lb([01])E)?", ln)
         if m:
-            name = (f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}, "
-                    f"D={m.group(3)}{', windowed' if m.group(5) == '1' else ''}>")
+            kernel, n = m.group(1), m.group(3)
+            dt = "f32" if m.group(2) == "f" else "bf16"
+            # K5 is templated on its KV type and row cap, the others on
+            # their type and head dim
+            name = (f"{kernel}<kv {dt}, rows={n}>" if kernel.startswith("mla")
+                    else f"{kernel}<{dt}, D={n}"
+                    f"{', windowed' if m.group(5) == '1' else ''}>")
         elif name and "stack frame" in ln:
             frame = ln.strip()
         elif name and "registers" in ln:
@@ -173,12 +196,15 @@ WINDOW = 512
 # the full-width paged-vs-dense verify check: at most 2 of the 16 tree
 # positions may take another argmax (random weights give near ties)
 MIN_ARGMAX_AGREEMENT = 14 / 16
-# the bf16 head-dim-256 builds gemma3-1b runs (K1, K4, K3), as
-# ``ptxas_lines`` names them
+# the bf16 head-dim-256 builds gemma3-1b (K1, K4, K3) and deepseek's MLA
+# prefill (K3) run, as ``ptxas_lines`` names them
 GEMMA3_INSTANTIATIONS = frozenset({
     "tree_attention_paged_kernel<bf16, D=256>",
     "tree_attention_paged_kernel<bf16, D=256, windowed>",
     "flash_attention_kernel<bf16, D=256>"})
+# K5's builds over bf16 pools (deepseek-v2-lite's verify runs rows=16)
+MLA_INSTANTIATIONS = frozenset(
+    f"mla_attention_paged_kernel<kv bf16, rows={n}>" for n in (8, 16))
 
 
 def paged_inputs(c: PagedCase, T: int, dtype, seed: int,
@@ -464,6 +490,187 @@ def _time_k3(q, k, v, w: int, dtype_name: str) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+# deepseek-v2-lite-16b's MLA widths: 16 heads, nope 128 + rope 64 for q/k,
+# 128 for v, latent rank 512
+MLA_HEADS, MLA_NOPE, MLA_ROPE, MLA_V, MLA_LAT = 16, 128, 64, 128, 512
+MLA_SCALE = 1.0 / math.sqrt(MLA_NOPE + MLA_ROPE)
+
+
+def check_k3_mla(S: int = 1536) -> dict:
+    """K3 at deepseek's MLA prefill: q/k (192) and v (128) zero-padded to
+    head dim 256, 16 heads over 16 kv heads (G = 1), scale 1/sqrt(192),
+    through the port's prefill helper, against ``blocked_attention`` at
+    the unpadded widths.  Times the K3 launch on the padded operands."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_plain)
+    from repro_torch.models import attention
+    from repro_torch.models.layers import blocked_attention
+
+    record = {}
+    H, dk, dv = MLA_HEADS, MLA_NOPE + MLA_ROPE, MLA_V
+    pos = torch.arange(S, device="cuda")
+    ai = attention.AttnInputs(q_pos=pos[None], cache_k=None, cache_v=None,
+                              cache_len=None, tree_mask=None, window=0,
+                              causal=True)
+    for dtype_name, tol in TOLS:
+        dtype = getattr(torch, dtype_name)
+        g = torch.Generator(device="cuda").manual_seed(S)
+        mk = lambda d: torch.randn((1, S, H, d), generator=g,
+                                   device="cuda").to(dtype)
+        q, k, v = mk(dk), mk(dk), mk(dv)
+        out = attention._mla_prefill_attention(q, k, v, ai, MLA_SCALE)
+        what = f"K3 MLA prefill {dtype_name} S={S}"
+        err = compare(out, blocked_attention(q, k, v, pos[None], pos,
+                                             scale=MLA_SCALE), tol, what)
+        qp, kp, vp = (F.pad(t, (0, 256 - t.shape[-1])) for t in (q, k, v))
+        ms = time_ms(lambda: ops.flash_attention_bshd(qp, kp, vp,
+                                                      scale=MLA_SCALE))
+        plain_ms = time_ms(lambda: flash_attention_plain(
+            qp, kp, vp, scale=MLA_SCALE), iters=5)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=MLA_SCALE))
+        elt = 2 if dtype_name != "float32" else 4
+        nbytes = S * H * (2 * dk + 2 * dv) * elt
+        flops = 2 * (dk + dv) * H * _k3_pairs(S, 0)
+        bound_ms, bound_by = bound(nbytes, flops, dtype_name)
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+        record[dtype_name] = rec
+        log(f"[k3 mla] {dtype_name} S={S} heads={H} D={dk}/{dv}->256: "
+            f"max_abs_err={err:.3e} kernel={ms * 1e3:.1f}us "
+            f"bound={bound_ms * 1e3:.2f}us ({bound_by}) "
+            f"plain={plain_ms * 1e3:.1f}us sdpa={lib_ms * 1e3:.1f}us")
+    return record
+
+
+# ---------------------------------------------------------------------------
+# phase 3e: the absorbed-MLA paged verify kernel K5 against its plain version
+# ---------------------------------------------------------------------------
+
+# deepseek-v2-lite heads, 4 slots, max_len 1536, NULL holes below cache_len
+MLA_CASE = PagedCase(MLA_HEADS, 1, MLA_LAT + MLA_ROPE, (0, 37, 700, 1500),
+                     ((2, 20), (3, 70), (3, 0)), 96)
+
+
+def mla_inputs(c: PagedCase, T: int, dtype, seed: int, poison: float = 0.0):
+    """K5 operands on the card (model layout): q fp32, pools and tree
+    latents in ``dtype``."""
+    import torch
+    from repro_torch.core.trees import default_tree
+
+    B = len(c.lens)
+    table = torch.zeros((B, c.m), dtype=torch.int32)
+    nxt = 1
+    for b, n in enumerate(c.lens):
+        need = -(-(n + T) // c.bs)
+        table[b, :need] = torch.arange(nxt, nxt + need, dtype=torch.int32)
+        nxt += need
+    for b, j in c.holes:
+        table[b, j] = 0
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device="cuda")
+    pool_lat = r(nxt, c.bs, MLA_LAT).to(dtype)
+    pool_rope = r(nxt, c.bs, MLA_ROPE).to(dtype)
+    pool_lat[0] = poison
+    pool_rope[0] = poison
+    tree = default_tree(T, 4, 4)
+    return (r(B, T, c.hq, MLA_LAT), r(B, T, c.hq, MLA_ROPE), pool_lat,
+            pool_rope, r(B, T, MLA_LAT).to(dtype), r(B, T, MLA_ROPE).to(dtype),
+            torch.as_tensor(tree.ancestor_mask, device="cuda"),
+            torch.tensor(c.lens, dtype=torch.int32, device="cuda"),
+            table.cuda())
+
+
+def mla_bound(c: PagedCase, T: int, dtype_name: str, table) -> tuple:
+    """Least time for one K5 call: the cache positions this run's data
+    needs (below cache_len, in a real block), each read once, plus q, the
+    tree latents and the output, against (r + rd) + r multiply-adds per
+    admitted (head, row, key), the T tree keys included."""
+    elt = 2 if dtype_name != "float32" else 4
+    tbl = table.cpu()
+    keys = [sum(1 for p in range(n) if int(tbl[b, p // c.bs]) != 0)
+            for b, n in enumerate(c.lens)]
+    B, dk = len(c.lens), MLA_LAT + MLA_ROPE
+    nbytes = (sum(keys) * dk * elt + B * T * c.hq * dk * 4
+              + B * T * dk * elt + B * T * c.hq * MLA_LAT * 4
+              + B * c.m * 4 + B * 4 + T * T)
+    flops = sum(2 * c.hq * T * (k + T) * (dk + MLA_LAT) for k in keys)
+    return bound(nbytes, flops, dtype_name)
+
+
+def mla_sdpa_args(c: PagedCase, args):
+    """The gathered view SDPA takes (K = [latent || rope], V = latent, one
+    kv head, a boolean mask), built outside the timed call, in the pools'
+    type."""
+    import torch
+
+    ql, qr, pl, pr, tl, trp, tm, lens, table = args
+    B, T = ql.shape[:2]
+    S = c.m * c.bs
+    t = table.long()
+    pos = torch.arange(S, device="cuda")
+    valid = (t != 0).repeat_interleave(c.bs, 1) & (pos[None] < lens[:, None])
+    keep = torch.cat([valid, torch.ones(B, T, dtype=torch.bool,
+                                        device="cuda")], 1)[:, :, None]
+    lat = torch.where(keep, torch.cat([pl[t].reshape(B, S, -1), tl], 1), 0)
+    rope = torch.where(keep, torch.cat([pr[t].reshape(B, S, -1), trp], 1), 0)
+    k = torch.cat([lat, rope], -1)[:, None]                 # (B,1,S+T,576)
+    q = torch.cat([ql, qr], -1).transpose(1, 2).to(pl.dtype).contiguous()
+    mask = torch.cat([valid[:, None, :].expand(B, T, S),
+                      tm[None].expand(B, T, T)], 2)[:, None]
+    return q, k, lat[:, None].contiguous(), mask
+
+
+def check_k5(c: PagedCase = MLA_CASE, T: int = 16) -> dict:
+    """K5 against its plain version: fp32 and bf16 pools, block 0
+    poisoned (bitwise equal outputs), then kernel, plain and SDPA
+    times."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.mla_attention import ops
+    from repro_torch.kernels.mla_attention.ref import (
+        mla_attention_paged_plain)
+
+    kernel = lambda *a: ops.mla_attention_paged_bshd(*a, scale=MLA_SCALE)
+    plain = lambda *a: mla_attention_paged_plain(*a, scale=MLA_SCALE)
+    record = {}
+    for dtype_name, tol in TOLS:
+        dtype = getattr(torch, dtype_name)
+        what = f"K5 {dtype_name} T={T}"
+        outs = []
+        for poison in POISONS:
+            args = mla_inputs(c, T, dtype, seed=T, poison=poison)
+            outs.append(kernel(*args))
+        assert_bitwise(outs, f"{what}: poisoned NULL block")
+        err = compare(outs[0], plain(*args), tol, what)
+        sets = [mla_inputs(c, T, dtype, seed=100 + i) for i in range(32)]
+        pick = cycle(sets)
+        ms = time_ms(lambda: kernel(*pick()))
+        plain_ms = time_ms(lambda: plain(*pick()), iters=10)
+        sd = cycle([mla_sdpa_args(c, a) for a in sets[:8]])
+
+        def sdpa():
+            q, k, v, mask = sd()
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=MLA_SCALE, enable_gqa=True)
+
+        lib_ms = time_ms(sdpa)
+        bound_ms, bound_by = mla_bound(c, T, dtype_name, sets[0][-1])
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+        record[(dtype_name, T)] = rec
+        log(f"[k5] {dtype_name} T={T}: max_abs_err={err:.3e} "
+            f"kernel={ms * 1e3:.1f}us bound={bound_ms * 1e3:.2f}us "
+            f"({bound_by}) plain={plain_ms * 1e3:.1f}us "
+            f"sdpa={lib_ms * 1e3:.1f}us")
+    log("[k5] poisoned NULL block: bitwise equal")
+    return record
+
+
 # ---------------------------------------------------------------------------
 # phase 4: tiny fp32 parity, paged engine (kernels) == dense generate()
 # ---------------------------------------------------------------------------
@@ -473,10 +680,12 @@ def kernel_counters():
     """The launch counters of every kernel wrapper, by kernel name."""
     from repro_torch.kernels.attention_template import ops as k4
     from repro_torch.kernels.flash_attention import ops as k3
+    from repro_torch.kernels.mla_attention import ops as k5
     from repro_torch.kernels.tree_attention import ops as k1
 
     return {"tree_attention_paged": k1,
-            "tree_attention_paged_windowed": k4, "flash_attention": k3}
+            "tree_attention_paged_windowed": k4, "flash_attention": k3,
+            "mla_attention_paged": k5}
 
 
 def check_tiny_parity(base, lens) -> None:
@@ -489,9 +698,12 @@ def check_tiny_parity(base, lens) -> None:
     from repro_torch.serving.engine import PagedSpeculativeEngine, Request
 
     counters = kernel_counters()
-    paged_verify = ("tree_attention_paged_windowed"
-                    if group_has_window(base, 0, base.n_layers)
-                    else "tree_attention_paged")
+    if base.mla:           # K5 on the base layers, K1 on the prefix layer
+        used = ("mla_attention_paged", "tree_attention_paged")
+    elif group_has_window(base, 0, base.n_layers):
+        used = ("tree_attention_paged_windowed",)
+    else:
+        used = ("tree_attention_paged",)
     # the reduced vocabulary, and 16 tokens so random heads get accepted
     for cfg in (base, dataclasses.replace(base, vocab_size=16)):
         params = init_params(cfg, seed=0, device="cuda")
@@ -518,7 +730,7 @@ def check_tiny_parity(base, lens) -> None:
                                      f"(V={cfg.vocab_size}): paged "
                                      f"{r.output} != dense {ref}")
         counts = {k: m.launches for k, m in counters.items()}
-        for name in (paged_verify, "flash_attention"):
+        for name in (*used, "flash_attention"):
             if counts[name] == 0:
                 raise AssertionError(f"tiny parity {cfg.name} never "
                                      f"launched {name}")
@@ -552,14 +764,17 @@ def _verify_pair(params, dp, cfg, P: int, S: int):
                                   st.last_token)
     ta = device_arrays(tree, prompt.device)
     pos = st.cache_len[:, None] + ta["depth"][None]
-    table = torch.arange(1, S // 16 + 1, dtype=torch.int32,
-                         device="cuda")[None]
-    pools = [{k: torch.zeros((cfg.n_layers, S // 16 + 1, 16) + v.shape[3:],
-                             dtype=v.dtype, device="cuda")
-              for k, v in st.cache[0].items()}]
-    for k in ("k", "v"):
-        pools[0][k][:, 1:] = st.cache[0][k][:, 0].reshape(
-            cfg.n_layers, S // 16, 16, *st.cache[0][k].shape[3:])
+    nb = S // 16
+    table = torch.arange(1, nb + 1, dtype=torch.int32, device="cuda")[None]
+    pools = []
+    for group in st.cache:                 # (L, 1, S, tail...) per array
+        pool = {}
+        for k, v in group.items():
+            pool[k] = torch.zeros((v.shape[0], nb + 1, 16) + v.shape[3:],
+                                  dtype=v.dtype, device="cuda")
+            pool[k][:, 1:] = v[:, 0].reshape(v.shape[0], nb, 16,
+                                             *v.shape[3:])
+        pools.append(pool)
     dense = forward(params, cfg, tokens, pos, mode="verify", cache=st.cache,
                     cache_len=st.cache_len, tree_mask=ta["mask"])
     paged = forward(params, cfg, tokens, pos, mode="verify", cache=pools,
@@ -568,15 +783,28 @@ def _verify_pair(params, dp, cfg, P: int, S: int):
     return paged.logits[0], dense.logits[0]
 
 
+def _paged_vs_dense(paged, dense) -> tuple:
+    """(max relative logit difference, argmax agreement, margins).  At a
+    position where the argmax differs, its margin is dense's lead of its
+    choice over paged's, in units of that position's largest paged-vs-dense
+    logit difference: below 1, the two choices are a near tie that the
+    difference can flip."""
+    diff = (paged - dense).abs()
+    rel = (diff.max() / dense.abs().max()).item()
+    pa, da = paged.argmax(-1), dense.argmax(-1)
+    agree = (pa == da).float().mean().item()
+    lead = dense.gather(-1, da[:, None]) - dense.gather(-1, pa[:, None])
+    margins = [round(m, 3) for m in
+               (lead[:, 0] / diff.max(-1).values)[pa != da].tolist()]
+    return rel, agree, margins
+
+
 def check_full_verify(params, dp, cfg, P: int, S: int) -> None:
     """One full-width verify forward, paged (K1/K4) against dense (plain
     attention), from the same prefill: first through K3 (the serving
     path, held to ``MIN_ARGMAX_AGREEMENT``), then through K3's plain
     version, logged only, which shows whether K3's cache moves the
-    agreement.  At a position where the argmax differs, ``margin`` is
-    dense's lead of its choice over paged's, in units of that position's
-    largest paged-vs-dense logit difference: below 2, the two choices are
-    a near tie that bf16 rounding of the attention sums can flip."""
+    agreement."""
     import torch
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_plain
@@ -593,13 +821,7 @@ def check_full_verify(params, dp, cfg, P: int, S: int) -> None:
         if not torch.isfinite(paged).all():
             raise AssertionError(f"{cfg.name}: full-width paged logits not "
                                  "finite")
-        diff = (paged - dense).abs()
-        rel = (diff.max() / dense.abs().max()).item()
-        pa, da = paged.argmax(-1), dense.argmax(-1)
-        agree = (pa == da).float().mean().item()
-        lead = (dense.gather(-1, da[:, None]) - dense.gather(-1, pa[:, None]))
-        margins = [round(m, 3) for m in
-                   (lead[:, 0] / diff.max(-1).values)[pa != da].tolist()]
+        rel, agree, margins = _paged_vs_dense(paged, dense)
         log(f"[full] {cfg.name} verify paged vs dense (prompt {P}, prefill "
             f"through {prefill}): max rel logit diff={rel:.3e} argmax "
             f"agreement={agree:.3f} margins={margins}")
@@ -608,6 +830,81 @@ def check_full_verify(params, dp, cfg, P: int, S: int) -> None:
         if prefill == "K3" and agree < MIN_ARGMAX_AGREEMENT:
             raise AssertionError(f"paged and dense verify argmax agree on "
                                  f"{agree:.3f} of the tree only")
+
+
+# (dtype, layers, max relative logit difference, least argmax agreement)
+# of the depth-cut paged-vs-dense verify checks of an MoE model
+MOE_VERIFY_CHECKS = (("float32", 5, 1e-4, 1.0),
+                     ("bfloat16", 2, 0.03, MIN_ARGMAX_AGREEMENT))
+# each check must also fail a K5 whose output is off by this factor
+K5_OFF = 0.99
+
+
+def check_moe_verify(arch: str, P: int, S: int) -> None:
+    """Paged (K5, K1) against dense verify of an MoE model at full width,
+    depth cut as ``MOE_VERIFY_CHECKS`` says.  Top-k routing with a
+    capacity is discontinuous: a rounding difference of the attention
+    output can flip an expert choice or which token overflows, and each
+    layer adds such flips, so at full depth in bf16 the difference
+    outgrows what a wrong K5 gives at shallow depth.  At 2 layers (the
+    dense layer and one MoE layer) the bf16 serving path (bf16 latent
+    pools, bf16 K5) is held tightly; in fp32 at 5 layers the two paths
+    must agree to rounding.  Each check is run again with K5's output
+    scaled by ``K5_OFF`` and must then fail its bound."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.heads import init_draft_params
+    from repro_torch.models import attention
+    from repro_torch.models.model import init_params
+
+    k5 = attention.mla_attention_paged_bshd
+    for dtype, n_layers, max_rel, min_agree in MOE_VERIFY_CHECKS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
+                                  dtype=dtype)
+        params = init_params(cfg, seed=0, device="cuda")
+        dp = init_draft_params(cfg, seed=1, device="cuda")
+        paged, dense = _verify_pair(params, dp, cfg, P, S)
+        finite = bool(torch.isfinite(paged).all())
+        rel, agree, margins = _paged_vs_dense(paged, dense)
+        attention.mla_attention_paged_bshd = \
+            lambda *a, **kw: k5(*a, **kw) * K5_OFF
+        try:
+            rel_off = _paged_vs_dense(*_verify_pair(params, dp, cfg, P, S))[0]
+        finally:
+            attention.mla_attention_paged_bshd = k5
+        log(f"[full] {cfg.name} {dtype}, {n_layers} layers, verify paged vs "
+            f"dense (prompt {P}): max rel logit diff={rel:.3e} argmax "
+            f"agreement={agree:.3f} margins={margins}; with K5's output "
+            f"x{K5_OFF}: {rel_off:.3e}")
+        del params, dp, paged, dense
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not (finite and rel <= max_rel and agree >= min_agree):
+            raise AssertionError(f"{cfg.name} {dtype}, {n_layers} layers: "
+                                 f"paged and dense verify disagree: rel "
+                                 f"{rel} (bound {max_rel}), agreement "
+                                 f"{agree} (least {min_agree}), finite "
+                                 f"{finite}")
+        if rel_off <= max_rel:
+            raise AssertionError(f"{cfg.name} {dtype}, {n_layers} layers: "
+                                 f"a K5 {K5_OFF}x off reads {rel_off}, "
+                                 f"within the bound {max_rel}")
+
+
+def log_moe_verify(params, dp, cfg, P: int, S: int) -> None:
+    """The full-depth bf16 paged-vs-dense verify step of an MoE model,
+    printed as a reading (agreement and near-tie leads); only a logit
+    that is not finite fails it.  ``check_moe_verify`` holds the path."""
+    import torch
+
+    paged, dense = _verify_pair(params, dp, cfg, P, S)
+    if not torch.isfinite(paged).all():
+        raise AssertionError(f"{cfg.name}: full-width paged logits not "
+                             "finite")
+    rel, agree, margins = _paged_vs_dense(paged, dense)
+    log(f"[full] {cfg.name} verify paged vs dense (prompt {P}, prefill "
+        f"through K3; a reading): max rel logit diff={rel:.3e} argmax "
+        f"agreement={agree:.3f} margins={margins}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -626,6 +923,9 @@ WORKLOADS = (
     Workload("gemma3-1b", (600, 1500), 2048,
              {"tree_attention_paged_windowed": 26, "tree_attention_paged": 1},
              {"flash_attention": 27}, 1000),
+    Workload("deepseek-v2-lite-16b", (600, 1500), 2048,
+             {"mla_attention_paged": 27, "tree_attention_paged": 1},
+             {"flash_attention": 28}, 1000),
 )
 
 
@@ -640,6 +940,11 @@ def serve_full_width(wl: Workload) -> dict:
     from repro_torch.serving.engine import PagedSpeculativeEngine, Request
 
     cfg = get_config(wl.arch)
+    gc.collect()                           # the previous model's tensors
+    torch.cuda.empty_cache()
+    S_check = -(-(wl.check_prompt + 64) // 256) * 256
+    if cfg.moe:
+        check_moe_verify(wl.arch, wl.check_prompt, S_check)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda")
     dp = init_draft_params(cfg, seed=1, device="cuda")
@@ -647,8 +952,8 @@ def serve_full_width(wl: Workload) -> dict:
     log(f"[full] {cfg.name}: {cfg.n_params / 1e9:.2f}B params ({cfg.dtype}) "
         f"initialised on the card in {time.perf_counter() - t0:.1f}s; fp32 "
         f"unembedding {params['unembed_f32'].numel() * 4 / 1e9:.2f} GB")
-    check_full_verify(params, dp, cfg, wl.check_prompt,
-                      -(-(wl.check_prompt + 64) // 256) * 256)
+    (log_moe_verify if cfg.moe else check_full_verify)(
+        params, dp, cfg, wl.check_prompt, S_check)
 
     tree = tree_for(cfg)
     max_batch, bs, budget = 4, 16, 32
@@ -735,20 +1040,25 @@ def main() -> int:
         for line in ptxas_lines(build.ptxas_report(name)):
             log(f"[ptxas] {line}")
             parsed.add(line.split(":")[0])
-            # gemma3-1b runs the D=256 builds: they must keep the
-            # accumulator in registers
-            if "D=256" in line and "0 bytes spill stores, 0 bytes spill " \
-                    "loads" not in line:
-                raise AssertionError(f"a D=256 build spills: {line}")
-    missing = sorted(GEMMA3_INSTANTIATIONS - parsed)
+            # gemma3-1b and the MLA prefill run the D=256 builds, and
+            # deepseek's verify K5 over bf16 pools: they must keep their
+            # accumulators in registers
+            if ("D=256" in line or line.startswith(tuple(
+                    MLA_INSTANTIATIONS))) and "0 bytes spill stores, " \
+                    "0 bytes spill loads" not in line:
+                raise AssertionError(f"a build the main path runs spills: "
+                                     f"{line}")
+    missing = sorted((GEMMA3_INSTANTIATIONS | MLA_INSTANTIATIONS) - parsed)
     if missing:
         raise AssertionError(f"no ptxas line parsed for {missing}: the "
-                             "D=256 spill check could not run")
+                             "spill check could not run")
 
     k1 = check_k1(MINITRON, "minitron D=128")
     check_k1(GEMMA3, "gemma3 D=256")
     k4 = check_k4()
     k3 = check_k3()
+    k3_mla = check_k3_mla()
+    k5 = check_k5()
     log(f"[time] kernel checks done at {time.perf_counter() - t_start:.0f}s")
 
     check_tiny_parity(dataclasses.replace(
@@ -757,6 +1067,9 @@ def main() -> int:
     check_tiny_parity(dataclasses.replace(
         get_config("gemma3-1b").reduced(), dtype="float32",
         window_pattern=(16, 0)), (17, 23, 30, 19, 40, 21))
+    check_tiny_parity(dataclasses.replace(
+        get_config("deepseek-v2-lite-16b").reduced(), dtype="float32"),
+        (17, 23, 30, 19, 40, 21))
     launches = {}
     for wl in WORKLOADS:
         for k, n in serve_full_width(wl).items():
@@ -780,14 +1093,19 @@ def main() -> int:
         entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention/kernel.py:23",
               k3[("gemma3-1b", "bfloat16", 1536, WINDOW)],
-              max(r["max_abs_err"] for key, r in k3.items()
-                  if key[1] == "bfloat16")),
+              max([r["max_abs_err"] for key, r in k3.items()
+                   if key[1] == "bfloat16"]
+                  + [k3_mla["bfloat16"]["max_abs_err"]])),
         entry("tree_attention_paged_windowed",
               "src/repro_torch/csrc/tree_attention_paged.cu",
               "src/repro/kernels/attention_template/ops.py:37",
               k4[("bfloat16", 16, WINDOW)],
               max(r["max_abs_err"] for key, r in k4.items()
                   if key[0] == "bfloat16")),
+        entry("mla_attention_paged",
+              "src/repro_torch/csrc/mla_attention_paged.cu",
+              "src/repro/kernels/attention_template/ops.py:70",
+              k5[("bfloat16", 16)], k5[("bfloat16", 16)]["max_abs_err"]),
     ]
     log(json.dumps({"kernels": kernels}))
     log(f"[time] total {time.perf_counter() - t_start:.0f}s")

@@ -6,13 +6,19 @@ tree into the port's params, so the bridge itself needs no JAX.  The port
 keeps the JAX layout, so conversion is leaf by leaf, with checks of the
 parts whose layout matters:
 
-* ``groups``: one dense attention group, every leaf stacked on a leading
-  ``(L, ...)`` layer axis;
+* ``groups``: one entry per group of ``group_program`` (an MoE config has
+  a dense group and then an MoE group, whose routed experts are
+  ``(L, E, ...)`` leaves), every leaf stacked on a leading ``(L, ...)``
+  layer axis;
 * ``lm_head``: stored as ``(d, V)`` (JAX inits it as ``embed_init(...).T``),
   and the fp32 unembedding the port derives from it at load;
 * draft params: a list of per-head dicts (``w_in``, ``out_norm``,
   ``w_res{m}`` for the deeper Hydra++ MLPs, ``unembed`` when untied) and
   the Hydra++ ``prefix`` layer.
+
+Every leaf keeps its own float type: bf16 stays bf16 and fp32 stays
+fp32, so the MoE router, which JAX keeps in fp32 in a bf16 model, is not
+rounded.
 
 ``to_numpy`` is the way back (for round-trip checks): the derived fp32
 unembedding is left out.
@@ -23,20 +29,23 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.device import resolve_device
 from repro_torch.models.model import add_unembed_f32, group_program
 
 
-def _convert(tree, dtype, device):
+def _convert(tree, device):
     if isinstance(tree, dict):
-        return {k: _convert(v, dtype, device) for k, v in tree.items()}
+        return {k: _convert(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_convert(v, dtype, device) for v in tree]
+        return [_convert(v, device) for v in tree]
+    a = np.asarray(tree)
+    dtype = getattr(torch, a.dtype.name, None)   # "bfloat16", "float32", ..
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"param leaf of type {a.dtype} is not a float")
     # bf16 arrives as ml_dtypes.bfloat16, which torch cannot wrap: go
     # through fp32, which holds every bf16 value exactly.  torch.tensor
     # copies, so the params never alias the caller's (read-only) buffers
-    return torch.tensor(np.asarray(tree, dtype=np.float32), dtype=dtype,
-                        device=device)
+    return torch.tensor(a.astype(np.float32), dtype=dtype, device=device)
 
 
 def _expect(cond: bool, what: str) -> None:
@@ -47,23 +56,26 @@ def _expect(cond: bool, what: str) -> None:
 def params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
     """Base-model params from the JAX pytree (numpy leaves)."""
     dev = resolve_device(device)
-    (_, n_layers), = group_program(cfg)
+    prog = group_program(cfg)
     d, V = cfg.d_model, cfg.vocab_size
-    params = _convert(np_tree, torch_dtype(cfg.dtype), dev)
+    params = _convert(np_tree, dev)
     _expect(params["embed"].shape == (V, d), "embed must be (V, d)")
     if not cfg.tie_embeddings:
         _expect(params["lm_head"].shape == (d, V), "lm_head must be (d, V)")
-    _expect(len(params["groups"]) == 1, "one dense attention group")
+    _expect(len(params["groups"]) == len(prog),
+            f"{len(prog)} groups {[kind for kind, _ in prog]}")
 
-    def check_stacked(t):
+    def check_stacked(t, kind, n):
         if isinstance(t, dict):
             for v in t.values():
-                check_stacked(v)
+                check_stacked(v, kind, n)
         else:
-            _expect(t.shape[0] == n_layers,
-                    f"group leaves stacked on ({n_layers}, ...)")
+            _expect(t.shape[0] == n, f"{kind} leaves stacked on ({n}, ...)")
 
-    check_stacked(params["groups"][0])
+    for (kind, n), g in zip(prog, params["groups"]):
+        _expect(("moe" in g) == (kind == "attn_stack_moe"),
+                f"{kind} has {'an MoE' if 'moe' in g else 'a dense'} FFN")
+        check_stacked(g, kind, n)
     return add_unembed_f32(params, cfg)
 
 
@@ -71,7 +83,7 @@ def draft_params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
     """Draft-head params (Medusa / Hydra / Hydra++) from the JAX pytree."""
     dev = resolve_device(device)
     dc = cfg.draft
-    dp = _convert(np_tree, torch_dtype(cfg.dtype), dev)
+    dp = _convert(np_tree, dev)
     _expect(len(dp["heads"]) == dc.n_heads, f"{dc.n_heads} heads")
     for i, hp in enumerate(dp["heads"]):
         in_dim = cfg.d_model * (1 if dc.kind == "medusa" else i + 2)

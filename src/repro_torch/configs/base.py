@@ -281,9 +281,10 @@ def list_configs() -> list:
     return sorted(_REGISTRY)
 
 
-# dense GQA stacks (full-attention or sliding-window) only: the other
-# families wait for their kernels (ROADMAP)
-ARCH_MODULES = ["gemma3_1b", "minitron_4b", "vicuna_tiny"]
+# dense GQA stacks (full-attention or sliding-window) and the MLA + MoE
+# stack: the other families wait for their kernels (ROADMAP)
+ARCH_MODULES = ["deepseek_v2_lite_16b", "gemma3_1b", "minitron_4b",
+                "vicuna_tiny"]
 
 
 def _load_all() -> None:

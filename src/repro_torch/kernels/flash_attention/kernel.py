@@ -41,23 +41,26 @@ def kernel_fn():
     return fn
 
 
-def launch(q, k, v, out, *, causal: bool, window: int) -> int:
+def launch(q, k, v, out, *, causal: bool, window: int,
+           scale: float | None = None) -> int:
     """Launch the kernel on the current CUDA stream (no synchronisation).
-    All arguments must already be validated by the wrapper.  Returns the
-    CUDA error code of the launch: 0 on success."""
+    All arguments must already be validated by the wrapper.  ``scale``
+    defaults to 1/sqrt(D).  Returns the CUDA error code of the launch: 0
+    on success."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     return kernel_fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, S, Hq, Hkv, D, int(causal), int(window), DTYPE_CODES[q.dtype],
-        1.0 / math.sqrt(D), stream)
+        1.0 / math.sqrt(D) if scale is None else float(scale), stream)
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B,S,Hq,D); k/v: (B,S,Hkv,D); query and key i sit at position i.
-    Returns (B,S,Hq,D) in q's dtype."""
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          scale: float | None = None):
+    """q: (B,S,Hq,D); k/v: (B,S,Hkv,D); query and key i sit at position i;
+    ``scale`` defaults to 1/sqrt(D).  Returns (B,S,Hq,D) in q's dtype."""
     B, S = q.shape[:2]
     pos = torch.arange(S, device=q.device)
     return blocked_attention(q, k, v, pos[None].expand(B, S), pos,
-                             window=window, causal=causal)
+                             window=window, causal=causal, scale=scale)

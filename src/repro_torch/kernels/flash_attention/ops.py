@@ -45,22 +45,26 @@ def _check_cuda(q, k, v):
                          f"{_k.MAX_ROWS[D]} rows at head dim {D}")
 
 
-def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0,
+                         scale: float | None = None):
     """q: (B,S,Hq,D); k/v: (B,S,Hkv,D), the model layout; query and key i
     sit at position i (the sequence starts at 0, or at any offset: the
     masks depend only on position differences).  ``window`` (int) > 0
-    admits keys less than ``window`` positions back.  Returns (B,S,Hq,D)
-    in q's dtype."""
+    admits keys less than ``window`` positions back.  ``scale`` multiplies
+    the scores (default 1/sqrt(D); MLA's prefill passes 1/sqrt(nd + rd)
+    for q/k zero-padded to a head dim the kernel takes).  Returns
+    (B,S,Hq,D) in q's dtype."""
     global launches
     _check(q, k, v)
     window = int(window)
     if q.device.type == "cpu":
-        return _k.flash_attention_plain(q, k, v, causal=causal, window=window)
+        return _k.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                        scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention for device {q.device}")
     _check_cuda(q, k, v)
     out = torch.empty_like(q)
-    rc = _k.launch(q, k, v, out, causal=causal, window=window)
+    rc = _k.launch(q, k, v, out, causal=causal, window=window, scale=scale)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
     launches += 1

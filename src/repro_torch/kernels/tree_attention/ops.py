@@ -20,6 +20,17 @@ launches = 0                  # kernel launches since the last reset
 T_PAD = 8                     # the tree axis is padded to a multiple of this
 
 
+def pad_tree_mask(tree_mask, Tp: int):
+    """The (T, T) ancestor mask grown to (Tp, Tp); padded query rows
+    attend only to themselves, so their softmax is well defined."""
+    T = tree_mask.shape[0]
+    tm = torch.zeros((Tp, Tp), dtype=torch.bool, device=tree_mask.device)
+    tm[:T, :T] = tree_mask
+    idx = torch.arange(T, Tp, device=tree_mask.device)
+    tm[idx, idx] = True
+    return tm
+
+
 def pad_tree(q, tree_k, tree_v, tree_mask):
     """Pad the tree axis T up to a multiple of ``T_PAD``; padded query
     rows attend only to themselves."""
@@ -28,11 +39,7 @@ def pad_tree(q, tree_k, tree_v, tree_mask):
     if Tp == T:
         return q, tree_k, tree_v, tree_mask, T
     pad = lambda t: F.pad(t, (0, 0, 0, 0, 0, Tp - T))
-    tm = torch.zeros((Tp, Tp), dtype=torch.bool, device=tree_mask.device)
-    tm[:T, :T] = tree_mask
-    idx = torch.arange(T, Tp, device=tree_mask.device)
-    tm[idx, idx] = True
-    return pad(q), pad(tree_k), pad(tree_v), tm, T
+    return pad(q), pad(tree_k), pad(tree_v), pad_tree_mask(tree_mask, Tp), T
 
 
 def check_operands(q, pool_k, pool_v, tree_k, tree_v, tree_mask, cache_len,

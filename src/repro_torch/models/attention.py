@@ -16,22 +16,40 @@ Three branches of ``gqa_fwd``:
   layers (``AttnInputs.windowed``), its windowed form K4, which takes the
   layer's window at run time (0 for the group's global layers).
 
+and three of ``mla_fwd`` (DeepSeek-V2 multi-head latent attention: the
+cache holds the latent ``c_kv (.., r)`` and the rope key ``(.., rd)``
+instead of K/V):
+
+* full-seq (prefill): the latent expanded to per-head K (nd + rd) and V
+  (vd), zero-padded to a head dim K3 takes and run through K3 with the
+  scale 1/sqrt(nd + rd) (zero columns add exact zeros to every score);
+* dense verify: absorbed attention against the per-slot latent cache
+  (``q_nope @ w_uk`` scores the latent directly, the latent is V, and
+  ``w_uv`` maps the result back to the head space);
+* paged verify: the same absorbed math streaming the two pools through
+  the absorbed-MLA kernel K5 (``kernels/mla_attention``).
+
 Unlike JAX, the port writes caches IN PLACE: the verify branches update
 the cache/pool tensors they are handed (one layer's view of the stacked
 ``(L, ...)`` arrays) and return those same tensors.  That saves a copy of
 the whole cache per layer; the caller owns the aliasing.
 
-MLA and the chunked-prefill continuation are not ported yet (ROADMAP).
+The chunked-prefill continuation (GQA and MLA) is not ported yet
+(ROADMAP).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.attention_template.ops import (
     tree_attention_paged_windowed_bshd)
+from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS as K3_DIMS
 from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
+from repro_torch.kernels.mla_attention.ops import mla_attention_paged_bshd
 from repro_torch.kernels.tree_attention.ops import tree_attention_paged_bshd
 from repro_torch.models.layers import (apply_rope, dense_init,
                                        masked_attention, rope_sincos)
@@ -191,3 +209,104 @@ def _verify_mask(ai: AttnInputs, B: int, T: int, S: int):
     if ai.window > 0:
         mask &= ai.q_pos[:, :, None] - kv_pos[None, None, :] < ai.window
     return mask
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): low-rank KV latent cache + decoupled RoPE key.  The
+# cache stores c_kv (.., r) as "k" and k_rope (.., rd) as "v".
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen, cfg, dtype, device):
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    nd, rd, vd, r = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim, m.kv_lora_rank
+    return {
+        "w_dq": dense_init(gen, d, H * (nd + rd), dtype, device),
+        "w_dkv": dense_init(gen, d, r, dtype, device),
+        "w_krope": dense_init(gen, d, rd, dtype, device),
+        "w_uk": dense_init(gen, r, H * nd, dtype, device),
+        "w_uv": dense_init(gen, r, H * vd, dtype, device),
+        "wo": dense_init(gen, H * vd, d, dtype, device),
+    }
+
+
+def mla_fwd(p, cfg, x, ai: AttnInputs):
+    """Returns (out (B,T,d), c_kv, k_rope): the new (B,T,r) and (B,T,rd)
+    latents on the full-seq path, the updated cache/pool tensors on the
+    verify paths."""
+    m = cfg.mla
+    B, T, _ = x.shape
+    H = cfg.n_heads
+    nd, rd, vd, r = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim, m.kv_lora_rank
+
+    q = (x @ p["w_dq"]).reshape(B, T, H, nd + rd)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    c_kv = x @ p["w_dkv"]                                   # (B,T,r)
+    k_rope = x @ p["w_krope"]                               # (B,T,rd)
+
+    sin, cos = rope_sincos(ai.q_pos, rd, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, sin, cos)
+    k_rope = apply_rope(k_rope[:, :, None, :], sin, cos)[:, :, 0, :]
+
+    scale = 1.0 / math.sqrt(nd + rd)
+
+    if ai.cache_k is None:
+        # prefill: expand the latent to full K/V, attend through K3
+        k_nope = (c_kv @ p["w_uk"]).reshape(B, T, H, nd)
+        v = (c_kv @ p["w_uv"]).reshape(B, T, H, vd)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, T, H, rd)],
+                      dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        out = _mla_prefill_attention(q_full, k, v, ai, scale)
+        return out.reshape(B, T, H * vd) @ p["wo"], c_kv, k_rope
+
+    w_uk = p["w_uk"].reshape(r, H, nd).float()
+    q_lat = torch.einsum("bthn,rhn->bthr", q_nope.float(), w_uk)  # (B,T,H,r)
+    if ai.block_table is not None:
+        # paged: scatter the T new latents through the table, then K5
+        # streams the latent + rope pools as the K concat and the latent
+        # as V, returning o_lat
+        table = ai.block_table
+        new_k = _paged_scatter(ai.cache_k, c_kv, ai.cache_len, table)
+        new_v = _paged_scatter(ai.cache_v, k_rope, ai.cache_len, table)
+        tm = ai.tree_mask
+        if tm is None:   # chain: lower-triangular
+            tm = torch.ones((T, T), dtype=torch.bool, device=x.device).tril()
+        o_lat = mla_attention_paged_bshd(
+            q_lat, q_rope.float(), new_k, new_v, c_kv, k_rope, tm,
+            ai.cache_len, table, scale=scale,
+            q_pos=ai.q_pos if ai.windowed else None,
+            window=ai.window if ai.windowed else None)
+    else:
+        # dense: write the new latents into the scratch region, attend
+        # absorbed against the latent cache
+        S = ai.cache_k.shape[1]
+        _dense_scatter(ai.cache_k, c_kv, ai.cache_len)
+        _dense_scatter(ai.cache_v, k_rope, ai.cache_len)
+        new_k, new_v = ai.cache_k, ai.cache_v
+        mask = _verify_mask(ai, B, T, S)
+        ckv = new_k.float()
+        s = (torch.einsum("bthr,bsr->bths", q_lat, ckv)
+             + torch.einsum("bthr,bsr->bths", q_rope.float(), new_v.float()))
+        s = torch.where(mask[:, :, None, :], s * scale, -math.inf)
+        pw = torch.softmax(s, dim=-1)
+        pw = torch.where(torch.isnan(pw), 0.0, pw)
+        o_lat = torch.einsum("bths,bsr->bthr", pw, ckv)
+    w_uv = p["w_uv"].reshape(r, H, vd).float()
+    out = torch.einsum("bthr,rhv->bthv", o_lat, w_uv)
+    out = out.reshape(B, T, H * vd).to(x.dtype)
+    return out @ p["wo"], new_k, new_v
+
+
+def _mla_prefill_attention(q, k, v, ai: AttnInputs, scale: float):
+    """q/k (B,S,H,nd+rd) and v (B,S,H,vd), zero-padded to the least head
+    dim K3 takes and run through it with the given scale; the output is
+    sliced back to vd.  Zero columns add exact zeros to every score and
+    leave the padded output columns at zero."""
+    dv = v.shape[-1]
+    D = min(d for d in K3_DIMS if d >= max(q.shape[-1], dv))
+    pad = lambda t: F.pad(t, (0, D - t.shape[-1]))
+    out = flash_attention_bshd(pad(q), pad(k), pad(v), causal=ai.causal,
+                               window=ai.window, scale=scale)
+    return out[..., :dv]

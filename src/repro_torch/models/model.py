@@ -1,22 +1,27 @@
-"""Model assembly for dense GQA stacks, full-attention or sliding-window
-(port of the ``attn_stack_dense`` group of ``repro/models/model.py``).
+"""Model assembly for attention stacks (port of the ``attn_stack_dense``
+and ``attn_stack_moe`` groups of ``repro/models/model.py``): GQA,
+full-attention or sliding-window, or DeepSeek-V2's MLA; dense or MoE FFN.
 
 The params keep the JAX pytree's layout so the bridge converts one-to-one:
 ``embed (V, d)``, ``final_norm``, ``lm_head (d, V)`` unless embeddings are
-tied, and ``groups[0]`` with every leaf stacked on a leading layer axis.
-One more entry, ``unembed_f32``, holds the fp32 unembedding the logits
-multiply with.  JAX upcasts the ``(d, V)`` unembedding on every call; the
-port makes that copy once, at load (3.1 GB at minitron-4b, see PERF.md).
+tied, and one entry of ``groups`` per group of ``group_program`` (an MoE
+config has a dense group of ``n_dense_layers`` and then an MoE group),
+with every leaf stacked on a leading layer axis.  One more entry,
+``unembed_f32``, holds the fp32 unembedding the logits multiply with.
+JAX upcasts the ``(d, V)`` unembedding on every call; the port makes that
+copy once, at load (3.1 GB at minitron-4b, see PERF.md).
 
 Caches are a list with one ``{"k", "v"}`` dict per group: dense
 ``(L, B, S, Hkv, D)`` per-slot arrays, or — with a block table — global
-pools ``(L, N, bs, Hkv, D)``.  ``forward`` updates them IN PLACE (JAX
-returns new arrays) and returns the same tensors.
+pools ``(L, N, bs, Hkv, D)``.  An MLA group caches the latent and the
+rope key instead: ``k`` is ``(L, B|N, S|bs, r)``, ``v`` ``(L, ..., rd)``.
+``forward`` updates them IN PLACE (JAX returns new arrays) and returns the
+same tensors.
 
 A group with sliding-window layers (gemma3's 5 local : 1 global pattern)
 runs its paged verify through the windowed kernel K4, each layer with its
 own window (0 for the global layers), as JAX picks the windowed template
-variant per group.
+variant per group.  An MLA stack runs its paged verify through K5.
 
 Execution modes:
   'full'   — prefill over the whole sequence; fills ``cache`` at [0, T)
@@ -31,8 +36,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
-from repro_torch.models.attention import AttnInputs, gqa_fwd, init_gqa
+from repro_torch.models.attention import (AttnInputs, gqa_fwd, init_gqa,
+                                          init_mla, mla_fwd)
 from repro_torch.models.layers import embed_init, init_mlp, mlp_fwd, rms_norm
+from repro_torch.models.moe import init_moe, moe_fwd
 
 
 class ModelOutputs(NamedTuple):
@@ -43,9 +50,14 @@ class ModelOutputs(NamedTuple):
 
 def group_program(cfg: ModelConfig):
     """Returns a list of (kind, n_layers) describing the stack."""
-    if cfg.block_kind != "attn" or cfg.moe or cfg.mla or cfg.encoder_only:
+    if cfg.block_kind != "attn" or cfg.encoder_only:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense GQA stacks only so far")
+            f"{cfg.name}: the port serves attention stacks only so far")
+    if cfg.moe:
+        nd = cfg.moe.n_dense_layers
+        out = [("attn_stack_dense", nd)] if nd else []
+        out.append(("attn_stack_moe", cfg.n_layers - nd))
+        return out
     return [("attn_stack_dense", cfg.n_layers)]
 
 
@@ -68,22 +80,45 @@ def group_has_window(cfg: ModelConfig, offset: int, n: int) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _init_attn_layer(gen, cfg, dtype, device):
+def _init_attn_layer(gen, cfg, dtype, device, moe_ffn: bool):
     d = cfg.d_model
-    return {
+    p = {
         "norm1": torch.zeros((d,), dtype=dtype, device=device),
         "norm2": torch.zeros((d,), dtype=dtype, device=device),
-        "attn": init_gqa(gen, cfg, dtype, device),
-        "mlp": init_mlp(gen, d, cfg.d_ff, dtype, device),
+        "attn": (init_mla(gen, cfg, dtype, device) if cfg.mla
+                 else init_gqa(gen, cfg, dtype, device)),
     }
+    if moe_ffn:
+        p["moe"] = init_moe(gen, cfg, dtype, device)
+    else:
+        p["mlp"] = init_mlp(gen, d, cfg.d_ff, dtype, device)
+    return p
 
 
-def _stack(layers):
-    """List of per-layer dicts -> one dict with (L, ...) leaves."""
-    first = layers[0]
-    if isinstance(first, dict):
-        return {k: _stack([lp[k] for lp in layers]) for k in first}
-    return torch.stack(layers)
+def _init_stacked(n: int, init_layer):
+    """A group of ``n`` layers with (n, ...) leaves, each leaf allocated
+    once and filled layer by layer, so at most one layer's params exist
+    beside the stack (stacking a list of layers would hold the group
+    twice: ~58 GB for deepseek-v2-lite's MoE group)."""
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        return torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
+
+    def fill(dst, src, i):
+        if isinstance(dst, dict):
+            for k in dst:
+                fill(dst[k], src[k], i)
+        else:
+            dst[i] = src
+
+    first = init_layer()
+    stacked = alloc(first)
+    fill(stacked, first, 0)
+    del first
+    for i in range(1, n):
+        fill(stacked, init_layer(), i)
+    return stacked
 
 
 def layer(tree, i: int):
@@ -107,7 +142,6 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    group_program(cfg)
     params: dict = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, dev),
         "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
@@ -115,8 +149,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     if not cfg.tie_embeddings:
         params["lm_head"] = embed_init(gen, cfg.vocab_size, cfg.d_model,
                                        dtype, dev).T.contiguous()
-    params["groups"] = [_stack([_init_attn_layer(gen, cfg, dtype, dev)
-                                for _ in range(cfg.n_layers)])]
+    params["groups"] = [
+        _init_stacked(n, lambda kind=kind: _init_attn_layer(
+            gen, cfg, dtype, dev, moe_ffn=kind == "attn_stack_moe"))
+        for kind, n in group_program(cfg)]
     return add_unembed_f32(params, cfg)
 
 
@@ -130,11 +166,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
     """Committed cache: one {"k", "v"} entry per group, zeros.  With
     (batch=num_blocks, max_len=block_size) this is exactly the pool."""
     dtype = dtype or torch_dtype(cfg.dtype)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
-    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
-             "v": torch.zeros(shape, dtype=dtype, device=device)}
-            for _ in group_program(cfg)]
+    caches = []
+    for _, n in group_program(cfg):
+        if cfg.mla:
+            m = cfg.mla
+            shapes = ((n, batch, max_len, m.kv_lora_rank),
+                      (n, batch, max_len, m.qk_rope_dim))
+        else:
+            kv = (n, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+            shapes = (kv, kv)
+        caches.append({key: torch.zeros(shape, dtype=dtype, device=device)
+                       for key, shape in zip(("k", "v"), shapes)})
+    return caches
 
 
 # ---------------------------------------------------------------------------
@@ -143,11 +186,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
 
 
 def _attn_layer_fwd(lp, cfg, h, ai: AttnInputs):
-    a, nk, nv = gqa_fwd(lp["attn"], cfg, rms_norm(h, lp["norm1"],
-                                                  cfg.rms_eps), ai)
+    fwd = mla_fwd if cfg.mla else gqa_fwd
+    a, nk, nv = fwd(lp["attn"], cfg, rms_norm(h, lp["norm1"], cfg.rms_eps),
+                    ai)
     h = h + a
-    h = h + mlp_fwd(lp["mlp"], rms_norm(h, lp["norm2"], cfg.rms_eps))
-    return h, nk, nv
+    x2 = rms_norm(h, lp["norm2"], cfg.rms_eps)
+    f = moe_fwd(lp["moe"], cfg, x2) if "moe" in lp else mlp_fwd(lp["mlp"], x2)
+    return h + f, nk, nv
 
 
 @torch.no_grad()

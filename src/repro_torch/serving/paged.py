@@ -2,8 +2,9 @@
 ``repro/serving/paged.py``).
 
 Attention caches live in a global **block pool** per cache array,
-``(L, num_blocks, block_size, Hkv, D)``, instead of ``(L, B, max_len, ...)``
-per-slot stripes; a per-slot **block table** ``(B, blocks_per_slot)`` maps
+``(L, num_blocks, block_size, Hkv, D)`` (``(L, num_blocks, block_size, r)``
+and ``(..., rd)`` for MLA's latent and rope key), instead of
+``(L, B, max_len, ...)`` per-slot stripes; a per-slot **block table** ``(B, blocks_per_slot)`` maps
 logical token-block j of a slot to a physical pool block.  The Hydra++
 PrefixAttention cache rides the same tables in pools of its own.
 
@@ -171,17 +172,19 @@ def paged_autoregressive_step(params, cfg: ModelConfig, pstate: PagedState,
     return StepResult(_state_as_pools(res.state), res.emitted, res.n_emitted)
 
 
-def _scatter_rows(pool, rows, table_row):
-    """pool (..., N, bs, Hkv, D) <- rows (..., P, Hkv, D) at logical
-    positions [0, P) of one slot, through its table row (M,).  Positions
+def _scatter_rows(pool, rows, table_row, lead: int):
+    """pool (lead..., N, bs, tail...) <- rows (lead..., P, tail...) at
+    logical positions [0, P) of one slot, through its table row (M,).
+    ``lead`` counts the leading axes (1 for a group's layer axis, 0 for the
+    prefix pool); the tail is (Hkv, D), or (r,) / (rd,) for MLA.  Positions
     past the row's reach clamp to its last slot; entries pointing at NULL
     land in the garbage block."""
-    bs = pool.shape[-3]
-    P = rows.shape[-3]
+    bs = pool.shape[lead + 1]
+    P = rows.shape[lead]
     logical = torch.arange(P, device=pool.device)
     logical = torch.clamp_max(logical, table_row.shape[0] * bs - 1)
     phys = table_row.long()[logical // bs]
-    pool[..., phys, logical % bs, :, :] = rows.to(pool.dtype)
+    pool[(slice(None),) * lead + (phys, logical % bs)] = rows.to(pool.dtype)
 
 
 def paged_join_slot(params, draft_params, cfg: ModelConfig,
@@ -196,10 +199,10 @@ def paged_join_slot(params, draft_params, cfg: ModelConfig,
                                        real_len)
     for pool, r in zip(pstate.pools, row):
         for key in ("k", "v"):
-            _scatter_rows(pool[key], r[key][:, 0], table_row)
+            _scatter_rows(pool[key], r[key][:, 0], table_row, lead=1)
     if prefix is not None:
-        _scatter_rows(pstate.prefix_k, prefix[0], table_row)
-        _scatter_rows(pstate.prefix_v, prefix[1], table_row)
+        _scatter_rows(pstate.prefix_k, prefix[0], table_row, lead=0)
+        _scatter_rows(pstate.prefix_v, prefix[1], table_row, lead=0)
     pstate.cache_len[slot] = real_len
     pstate.last_token[slot] = tok0
     pstate.last_hidden[slot] = h.to(pstate.last_hidden.dtype)
