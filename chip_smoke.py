@@ -9,8 +9,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 2. build every CUDA kernel of the port from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, started together) and print, for each
    instantiation, the registers and spills ``ptxas -v`` reports; fail
-   unless the bf16 head-dim-256 builds of K1, K4 and K3 and K5's builds
-   over bf16 pools are each found in the report and show no spill;
+   unless the bf16 head-dim-256 builds of K1, K4 and K3, K5's builds
+   over bf16 pools, K2's bf16 builds at head dims 128 and 256 and K6's
+   bf16 build at chunk 64 are each found in the report and show no
+   spill;
 3. hold each kernel against its plain PyTorch version on the card, fp32
    with TF32 off (atol = rtol = 1e-4) and bf16 (atol = rtol = 2e-2), and
    time the kernel, its plain version and ``scaled_dot_product_attention``
@@ -36,10 +38,27 @@ Phases, each of which raises on failure (exit code != 0, no result line):
       0/37/700/1500, NULL holes): fp32 throughout, then bf16 pools, with
       block 0 poisoned (outputs bitwise equal); SDPA on the gathered
       view (Dk 576, Dv 512, a boolean mask) as the yardstick;
+   f. K6, chunked decay linear attention, at rwkv6-1.6b shapes (B=1,
+      32 heads, dk = dv = 64, chunk 64): S in {37, 300, 1536}, with and
+      without an initial state, a strong-decay case (log-decay down to
+      -20 a step) and a B=2 case; output and final state; a
+      length-masked pad tail
+      (k = 0, w = 0 past the real length) bitwise equal to the
+      exact-length call; no PyTorch call computes it (no yardstick);
+   g. K2, dense tree verify, at minitron-4b shapes (B=4, 24 q over 8 kv
+      heads, D=128, dense S=512, lens 0/37/144/300, T=16 and T=5) and at
+      gemma3-1b's global-layer shapes (4 over 1, D=256, S=1536, lens
+      0/37/700/1500): cache positions at or past ``cache_len`` poisoned
+      with 0, +-1e4, NaN and inf (outputs bitwise equal); SDPA on the
+      dense cache with a boolean mask as the yardstick;
+   h. K1 at deepseek-v2-lite's prefix-layer shapes (B=4, 16 q over 16 kv
+      heads, D=128, T=5, lens 0/37/700/1500), timed;
 4. tiny fp32 parity: ``minitron-4b.reduced()``, a reduced gemma3-1b
-   whose 16-token window binds and ``deepseek-v2-lite-16b.reduced()``,
-   Hydra++ served through the paged engine (K1, K4, K5, K3), equal the
-   port's dense ``generate()``;
+   whose 16-token window binds, ``deepseek-v2-lite-16b.reduced()`` and
+   ``rwkv6-1.6b.reduced()``, Hydra++ served through the paged engine
+   (K1, K4, K5, K3; K6 on every bucket-padded prefill of rwkv6, with a
+   preemption), equal the port's dense ``generate()`` (which runs K2 on
+   the window-0 GQA layers: so paged == dense holds K1 against K2);
 5. full width, bf16, random weights drawn on the card from a seeded
    ``torch.Generator``; for each model one verify step paged against
    dense from the same prefill (prefill through K3, then through K3's
@@ -54,6 +73,21 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      32 new tokens, max_batch 4, block 16, max_len 2048, pool half the
      dense footprint; 26 K4 + 1 K1 launches per decode step and 27 K3
      launches per prefill, re-prefills after a preemption included;
+   - minitron-4b again through the continuous (dense) engine: 33 K2
+     launches per decode step and 33 K3 per prefill;
+   - the dense verify of the paged-vs-dense pair check launches K2 once
+     per window-0 GQA layer: 32 at minitron-4b, 4 at gemma3-1b;
+   - rwkv6-1.6b (24 layers, d 2048, 32 wkv heads of 64, ~1.38B
+     parameters): one prefill through K6 and one through its plain
+     version from the same prompt; every layer's K6 call held against
+     the plain version on the same operands (final state to a relative
+     1e-3, output to a relative norm 3e-3 and within 2e-2; each must
+     fail a K6 whose output or state is 1% off), then the two runs'
+     final wkv states,
+     first tokens and one chain verify step's logits printed (an argmax
+     may differ only in a near tie); then the gemma3-1b traffic through
+     the paged engine, 24 K6 launches per prefill (re-prefills
+     included) and no kernel launch in a decode step;
    - deepseek-v2-lite-16b (MLA + MoE, ~15.7B parameters; the earlier
      models are freed first): the same traffic as gemma3-1b; 27 K5 + 1
      K1 launches per decode step and 28 K3 launches per prefill.  Top-k
@@ -132,15 +166,21 @@ def ptxas_lines(report: str) -> list:
     out, name, frame = [], None, ""
     for ln in report.splitlines():
         m = re.search(r"Function properties for \S*?([a-z_]+_kernel)"
-                      r"I(13__nv_bfloat16|f)Li(\d+)E(Lb([01])E)?", ln)
+                      r"I(13__nv_bfloat16|f)Li(\d+)E(Lb([01])E)?"
+                      r"(Lb([01])E)?", ln)
         if m:
             kernel, n = m.group(1), m.group(3)
             dt = "f32" if m.group(2) == "f" else "bf16"
-            # K5 is templated on its KV type and row cap, the others on
-            # their type and head dim
-            name = (f"{kernel}<kv {dt}, rows={n}>" if kernel.startswith("mla")
-                    else f"{kernel}<{dt}, D={n}"
-                    f"{', windowed' if m.group(5) == '1' else ''}>")
+            # K5 is templated on its KV type and row cap, K6 on its type
+            # and chunk, the others on their type, head dim and form
+            if kernel.startswith("mla"):
+                name = f"{kernel}<kv {dt}, rows={n}>"
+            elif kernel.startswith("linear_attn"):
+                name = f"{kernel}<{dt}, C={n}>"
+            else:
+                form = (", windowed" if m.group(5) == "1" else
+                        ", dense" if m.group(7) == "1" else "")
+                name = f"{kernel}<{dt}, D={n}{form}>"
         elif name and "stack frame" in ln:
             frame = ln.strip()
         elif name and "registers" in ln:
@@ -205,6 +245,12 @@ GEMMA3_INSTANTIATIONS = frozenset({
 # K5's builds over bf16 pools (deepseek-v2-lite's verify runs rows=16)
 MLA_INSTANTIATIONS = frozenset(
     f"mla_attention_paged_kernel<kv bf16, rows={n}>" for n in (8, 16))
+# K2's bf16 builds (minitron-4b's continuous engine runs D=128, gemma3-1b's
+# dense verify D=256) and K6's bf16 build at rwkv6-1.6b's chunk of 64
+DENSE_RWKV_INSTANTIATIONS = frozenset({
+    "tree_attention_paged_kernel<bf16, D=128, dense>",
+    "tree_attention_paged_kernel<bf16, D=256, dense>",
+    "linear_attn_chunk_kernel<bf16, C=64>"})
 
 
 def paged_inputs(c: PagedCase, T: int, dtype, seed: int,
@@ -672,6 +718,277 @@ def check_k5(c: PagedCase = MLA_CASE, T: int = 16) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3f: the chunked decay linear attention kernel K6
+# ---------------------------------------------------------------------------
+
+# rwkv6-1.6b's wkv heads and chunk
+K6_HEADS, K6_DIM, K6_CHUNK = 32, 64, 64
+# the real lengths of the pad-tail check and the bucket each is padded to
+K6_PAD_TAILS = ((37, 64), (37, 128), (300, 320), (1500, 1536))
+
+
+def k6_inputs(S: int, dtype, seed: int, *, init: bool, strong: bool = False,
+              B: int = 1):
+    """K6 operands on the card at rwkv6-1.6b shapes (B=1 unless given):
+    r, k, v in ``dtype``; log-decay, bonus and initial state fp32.
+    ``strong`` draws log-decays down to -20 a step (tests/test_kernels.py's
+    strong-decay regime)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (B, S, K6_HEADS, K6_DIM)
+    r = lambda *s_: torch.randn(s_, generator=g, device="cuda")
+    w = torch.clamp_min(-torch.exp(r(*shape) * 1.5 + 1.0), -20.0) if strong \
+        else -torch.exp(r(*shape) * 0.5)
+    s0 = r(B, K6_HEADS, K6_DIM, K6_DIM) * 0.1 if init else None
+    return (r(*shape).to(dtype), r(*shape).to(dtype), r(*shape).to(dtype), w,
+            r(K6_HEADS, K6_DIM) * 0.1, s0)
+
+
+def k6_flops(S: int, c: int) -> int:
+    """fp32 operations of one K6 call at B=1 in the pairwise chunked form
+    with chunk ``c`` (c = 1 is the sequential recurrence), per head: the
+    state read-out r S and the state update k v^T at 2 per multiply-add
+    (4 dk dv a token), the state's decay once a chunk (dk dv), the strict
+    lower pairs of each chunk at 5 per channel (difference, exponential,
+    two products, sum) plus 2 per column of A v, and per token the decay's
+    exponential and the u-bonus (4 dk + 2 dv)."""
+    d = K6_DIM
+    full, rest = divmod(S, c)
+    pairs = full * c * (c - 1) // 2 + rest * (rest - 1) // 2
+    per_head = (4 * S * d * d + -(-S // c) * d * d + pairs * (5 * d + 2 * d)
+                + S * (4 * d + 2 * d))
+    return K6_HEADS * per_head
+
+
+def k6_bound(S: int, elt: int) -> tuple:
+    """Least time for one K6 call at B=1: r, k, v read and o written in
+    their type, the log-decay, both states and u in fp32, each once;
+    against the least fp32 operations over the exact forms, the chunked
+    form at every chunk length 1..64 (``k6_flops``; the least is at
+    chunk 4, below both the recurrence and K6's chunk 64), on the CUDA
+    cores' fp32 peak: the function's arithmetic is fp32."""
+    H, d = K6_HEADS, K6_DIM
+    nbytes = (4 * S * H * d * elt + S * H * d * 4 + 2 * H * d * d * 4
+              + H * d * 4)
+    return bound(nbytes, min(k6_flops(S, c) for c in range(1, 65)),
+                 "float32")
+
+
+def check_k6() -> dict:
+    """K6 against its plain version: output and final state, fp32 and
+    bf16, with and without an initial state, strong decay, two sequences
+    (the engines prefill one at a time; ``generate()`` takes a batch),
+    the pad tail bitwise; then kernel and plain times at S=1536."""
+    import torch
+    from repro_torch.kernels.linear_attn_chunk import ops
+    from repro_torch.kernels.linear_attn_chunk.ref import (
+        decay_attention_chunked)
+
+    record = {}
+    for dtype_name, tol in TOLS:
+        dtype = getattr(torch, dtype_name)
+        cases = [(S, init, False, 1) for S in (37, 300, 1536)
+                 for init in (False, True)] + [(300, True, True, 1),
+                                               (300, True, False, 2)]
+        for S, init, strong, B in cases:
+            what = (f"K6 {dtype_name} B={B} S={S} init={init}"
+                    f"{' strong decay' if strong else ''}")
+            args = k6_inputs(S, dtype, seed=S + 7 * strong + B, init=init,
+                             strong=strong, B=B)
+            o, st = ops.linear_attn_bshd(*args, chunk=K6_CHUNK)
+            ref_o, ref_st = decay_attention_chunked(*args, chunk=K6_CHUNK)
+            err = max(compare(o, ref_o, tol, what + " output"),
+                      compare(st, ref_st, tol, what + " final state"))
+            record[(dtype_name, S, init, strong, B)] = dict(max_abs_err=err)
+            log(f"[k6] {what}: max_abs_err={err:.3e}")
+        for n, padded in K6_PAD_TAILS:
+            r, k, v, w, u, s0 = k6_inputs(padded, dtype, seed=n, init=True)
+            real = [t[:, :n].contiguous() for t in (r, k, v, w)]
+            o, st = ops.linear_attn_bshd(*real, u, s0, chunk=K6_CHUNK)
+            tail = torch.arange(padded, device="cuda")[None, :, None,
+                                                       None] < n
+            o_m, st_m = ops.linear_attn_bshd(
+                r, torch.where(tail, k, 0.0), v, torch.where(tail, w, 0.0),
+                u, s0, chunk=K6_CHUNK)
+            torch.cuda.synchronize()
+            if not (torch.equal(o_m[:, :n], o) and torch.equal(st_m, st)):
+                raise AssertionError(f"K6 {dtype_name}: a masked pad tail "
+                                     f"{n} -> {padded} changes the result")
+        log(f"[k6] {dtype_name}: masked pad tails "
+            f"{[f'{n}->{p}' for n, p in K6_PAD_TAILS]}: bitwise equal")
+        sets = [k6_inputs(1536, dtype, seed=200 + i, init=True)
+                for i in range(4)]
+        pick = cycle(sets)
+        ms = time_ms(lambda: ops.linear_attn_bshd(*pick(), chunk=K6_CHUNK),
+                     iters=20)
+        plain_ms = time_ms(lambda: decay_attention_chunked(
+            *pick(), chunk=K6_CHUNK), iters=5)
+        bound_ms, bound_by = k6_bound(1536, 2 if dtype_name != "float32"
+                                      else 4)
+        rec = record[(dtype_name, 1536, True, False, 1)]
+        rec.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                   bound_ms=bound_ms, bound_by=bound_by)
+        log(f"[k6] {dtype_name} S=1536: kernel={ms * 1e3:.1f}us "
+            f"bound={bound_ms * 1e3:.2f}us ({bound_by}) "
+            f"plain={plain_ms * 1e3:.1f}us (no library call)")
+    return record
+
+
+# ---------------------------------------------------------------------------
+# phase 3g: the dense tree-verify kernel K2; 3h: K1 at deepseek's prefix
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseCase:
+    """Head shapes, slot lengths and cache length of a K2 run."""
+    hq: int
+    hkv: int
+    d: int
+    lens: tuple
+    s: int
+
+
+K2_CASES = {"minitron": DenseCase(24, 8, 128, (0, 37, 144, 300), 512),
+            "gemma3": DenseCase(4, 1, 256, (0, 37, 700, 1500), 1536)}
+
+
+def dense_inputs(c: DenseCase, T: int, dtype, seed: int,
+                 poison: float = 0.0):
+    """K2 operands on the card (model layout); every cache position at or
+    past ``cache_len`` holds ``poison``."""
+    import torch
+    from repro_torch.core.trees import default_tree
+
+    B = len(c.lens)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s_: torch.randn(s_, generator=g, device="cuda").to(dtype)
+    ck, cv = r(B, c.s, c.hkv, c.d), r(B, c.s, c.hkv, c.d)
+    lens = torch.tensor(c.lens, dtype=torch.int32, device="cuda")
+    past = (torch.arange(c.s, device="cuda")[None] >= lens[:, None])
+    ck[past] = poison
+    cv[past] = poison
+    tree = default_tree(T, 4, 4)
+    return (r(B, T, c.hq, c.d), ck, cv, r(B, T, c.hkv, c.d),
+            r(B, T, c.hkv, c.d),
+            torch.as_tensor(tree.ancestor_mask, device="cuda"), lens)
+
+
+def dense_bound(c: DenseCase, T: int, dtype_name: str) -> tuple:
+    """Least time for one K2 call: each slot's keys below cache_len read
+    once, plus q, the tree K/V and the output, against the operations on
+    those keys and the tree."""
+    elt = 2 if dtype_name != "float32" else 4
+    B = len(c.lens)
+    kv_bytes = sum(c.lens) * c.hkv * c.d * 2 * elt
+    io_bytes = (2 * B * T * c.hq * c.d + 2 * B * T * c.hkv * c.d) * elt
+    flops = sum(4 * c.hq * T * c.d * (n + T) for n in c.lens)
+    return bound(kv_bytes + io_bytes + B * 4 + T * T, flops, dtype_name)
+
+
+def dense_sdpa_args(c: DenseCase, args):
+    """The dense cache with the tree written in at [cache_len, cache_len +
+    T), as the serving path holds it, and the verify mask, for SDPA
+    (built outside the timed call)."""
+    import torch
+
+    q, ck, cv, tk, tv, tm, lens = args
+    B, T = q.shape[:2]
+    ck, cv = ck.clone(), cv.clone()
+    pos = torch.arange(c.s, device="cuda")
+    for b, n in enumerate(c.lens):
+        ck[b, n:n + T] = tk[b]
+        cv[b, n:n + T] = tv[b]
+    j = pos[None] - lens[:, None].long()
+    in_tree = (j >= 0) & (j < T)
+    tree_bit = tm[:, j.clamp(0, T - 1)].permute(1, 0, 2)
+    mask = (j < 0)[:, None, :] | (in_tree[:, None, :] & tree_bit)
+    return (q.transpose(1, 2).contiguous(), ck.transpose(1, 2).contiguous(),
+            cv.transpose(1, 2).contiguous(), mask[:, None])
+
+
+def check_k2() -> dict:
+    """K2 against its plain version (``masked_attention`` under the
+    verify mask), bitwise invariance under poison at or past cache_len,
+    then kernel, plain and SDPA times."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.tree_attention import dense_ops
+    from repro_torch.kernels.tree_attention.kernel import (
+        tree_attention_dense_plain)
+
+    record = {}
+    for tag, c in K2_CASES.items():
+        for dtype_name, tol in TOLS:
+            dtype = getattr(torch, dtype_name)
+            for T in (16, 5):
+                what = f"K2 {tag} D={c.d} {dtype_name} T={T}"
+                outs = [dense_ops.tree_attention_bshd(
+                    *dense_inputs(c, T, dtype, seed=T, poison=f))
+                    for f in POISONS]
+                assert_bitwise(outs, f"{what}: poison at or past cache_len")
+                # masked_attention multiplies masked weights by the values:
+                # it is held on the unpoisoned (zero) operands
+                err = compare(outs[0], tree_attention_dense_plain(
+                    *dense_inputs(c, T, dtype, seed=T)), tol, what)
+                sets = [dense_inputs(c, T, dtype, seed=100 + i)
+                        for i in range(32)]
+                pick = cycle(sets)
+                ms = time_ms(lambda: dense_ops.tree_attention_bshd(*pick()))
+                plain_ms = time_ms(
+                    lambda: tree_attention_dense_plain(*pick()), iters=10)
+                sd = cycle([dense_sdpa_args(c, a) for a in sets[:8]])
+
+                def sdpa():
+                    q, k, v, mask = sd()
+                    return F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask, enable_gqa=True)
+
+                lib_ms = time_ms(sdpa)
+                bound_ms, bound_by = dense_bound(c, T, dtype_name)
+                rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           library_ms=lib_ms, bound_ms=bound_ms,
+                           bound_by=bound_by)
+                record[(tag, dtype_name, T)] = rec
+                log(f"[k2] {tag} D={c.d} {dtype_name} T={T}: "
+                    f"max_abs_err={err:.3e} kernel={ms * 1e3:.1f}us "
+                    f"bound={bound_ms * 1e3:.2f}us ({bound_by}) "
+                    f"plain={plain_ms * 1e3:.1f}us "
+                    f"sdpa={lib_ms * 1e3:.1f}us")
+    log("[k2] poison at or past cache_len: bitwise equal")
+    return record
+
+
+# deepseek-v2-lite's Hydra++ prefix layer: GQA 16 over 16, D=128, T=5
+DEEPSEEK_PREFIX = PagedCase(16, 16, 128, (0, 37, 700, 1500), (), 96)
+
+
+def check_k1_prefix(c: PagedCase = DEEPSEEK_PREFIX, T: int = 5) -> dict:
+    """K1 at deepseek's prefix-layer shapes, bf16: held against its plain
+    version, then timed beside its bound and SDPA."""
+    import torch
+    from repro_torch.kernels.tree_attention import ops
+    from repro_torch.kernels.tree_attention.kernel import (
+        tree_attention_paged_plain)
+
+    args, _ = paged_inputs(c, T, torch.bfloat16, seed=T)
+    err = compare(ops.tree_attention_paged_bshd(*args),
+                  tree_attention_paged_plain(*args), 2e-2,
+                  "K1 deepseek prefix bf16")
+    rec = dict(max_abs_err=err, **_time_paged(
+        c, T, torch.bfloat16, "bfloat16",
+        lambda *a: ops.tree_attention_paged_bshd(*a[0]),
+        lambda *a: tree_attention_paged_plain(*a[0])))
+    log(f"[k1 deepseek prefix] bfloat16 T={T}: max_abs_err={err:.3e} "
+        f"kernel={rec['ms'] * 1e3:.1f}us "
+        f"bound={rec['bound_ms'] * 1e3:.2f}us ({rec['bound_by']}) "
+        f"plain={rec['plain_ms'] * 1e3:.1f}us "
+        f"sdpa={rec['library_ms'] * 1e3:.1f}us")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # phase 4: tiny fp32 parity, paged engine (kernels) == dense generate()
 # ---------------------------------------------------------------------------
 
@@ -680,15 +997,18 @@ def kernel_counters():
     """The launch counters of every kernel wrapper, by kernel name."""
     from repro_torch.kernels.attention_template import ops as k4
     from repro_torch.kernels.flash_attention import ops as k3
+    from repro_torch.kernels.linear_attn_chunk import ops as k6
     from repro_torch.kernels.mla_attention import ops as k5
+    from repro_torch.kernels.tree_attention import dense_ops as k2
     from repro_torch.kernels.tree_attention import ops as k1
 
-    return {"tree_attention_paged": k1,
+    return {"tree_attention_paged": k1, "tree_attention_dense": k2,
             "tree_attention_paged_windowed": k4, "flash_attention": k3,
-            "mla_attention_paged": k5}
+            "mla_attention_paged": k5, "linear_attn_chunk": k6}
 
 
-def check_tiny_parity(base, lens) -> None:
+def check_tiny_parity(base, lens, budgets=(12, 14, 8, 10, 13, 9),
+                      num_blocks: int = 6) -> None:
     import numpy as np
     import torch
     from repro_torch.configs import tree_for
@@ -698,12 +1018,21 @@ def check_tiny_parity(base, lens) -> None:
     from repro_torch.serving.engine import PagedSpeculativeEngine, Request
 
     counters = kernel_counters()
-    if base.mla:           # K5 on the base layers, K1 on the prefix layer
-        used = ("mla_attention_paged", "tree_attention_paged")
-    elif group_has_window(base, 0, base.n_layers):
-        used = ("tree_attention_paged_windowed",)
+    # the kernels of the paged engine, and of the dense generate() it is
+    # held against: K2 on the window-0 GQA layers (the Hydra++ prefix
+    # layer at least) of an attention model; an RWKV6 model launches K6
+    # on every prefill and no kernel in a decode step
+    if base.block_kind == "rwkv6":
+        used, dense_used = ("linear_attn_chunk",), ("linear_attn_chunk",)
     else:
-        used = ("tree_attention_paged",)
+        dense_used = ("tree_attention_dense", "flash_attention")
+        if base.mla:       # K5 on the base layers, K1 on the prefix layer
+            used = ("mla_attention_paged", "tree_attention_paged")
+        elif group_has_window(base, 0, base.n_layers):
+            used = ("tree_attention_paged_windowed",)
+        else:
+            used = ("tree_attention_paged",)
+        used = (*used, "flash_attention")
     # the reduced vocabulary, and 16 tokens so random heads get accepted
     for cfg in (base, dataclasses.replace(base, vocab_size=16)):
         params = init_params(cfg, seed=0, device="cuda")
@@ -711,7 +1040,9 @@ def check_tiny_parity(base, lens) -> None:
         tree = tree_for(cfg)
         rs = np.random.RandomState(0)
         reqs, refs = [], []
-        for n, budget in zip(lens, (12, 14, 8, 10, 13, 9)):
+        for mod in counters.values():
+            mod.launches = 0
+        for n, budget in zip(lens, budgets):
             prompt = rs.randint(0, cfg.vocab_size, n).astype(np.int32)
             t, _, _ = generate(params, dp, cfg, tree,
                                torch.as_tensor(prompt, device="cuda")[None]
@@ -719,10 +1050,15 @@ def check_tiny_parity(base, lens) -> None:
             row = [int(x) for x in t[0].tolist() if x != PAD_TOKEN]
             refs.append(row[:budget])
             reqs.append(Request(prompt=prompt, max_new_tokens=budget))
+        dense_counts = {k: m.launches for k, m in counters.items()}
+        for name in dense_used:
+            if dense_counts[name] == 0:
+                raise AssertionError(f"tiny parity {cfg.name}: dense "
+                                     f"generate() never launched {name}")
         for mod in counters.values():
             mod.launches = 0
         eng = PagedSpeculativeEngine(params, dp, cfg, tree, max_len=128,
-                                     block_size=16, num_blocks=6)
+                                     block_size=16, num_blocks=num_blocks)
         st = eng.serve(reqs, max_batch=4)
         for r, ref in zip(reqs, refs):
             if r.output != ref:
@@ -730,14 +1066,18 @@ def check_tiny_parity(base, lens) -> None:
                                      f"(V={cfg.vocab_size}): paged "
                                      f"{r.output} != dense {ref}")
         counts = {k: m.launches for k, m in counters.items()}
-        for name in (*used, "flash_attention"):
+        for name in used:
             if counts[name] == 0:
                 raise AssertionError(f"tiny parity {cfg.name} never "
                                      f"launched {name}")
+        if base.block_kind == "rwkv6" and st.preemptions == 0:
+            raise AssertionError(f"tiny parity {cfg.name}: the pool forced "
+                                 "no preemption (no re-prefill was held)")
         log(f"[tiny] {cfg.name} V={cfg.vocab_size}: paged engine == dense "
             f"generate() for {len(reqs)} requests; steps={st.steps} "
             f"tok/step={st.tokens_per_step:.2f} "
-            f"preemptions={st.preemptions} launches={counts}")
+            f"preemptions={st.preemptions} launches={counts}; dense "
+            f"generate() launches={dense_counts}")
 
 
 # ---------------------------------------------------------------------------
@@ -747,12 +1087,14 @@ def check_tiny_parity(base, lens) -> None:
 
 def _verify_pair(params, dp, cfg, P: int, S: int):
     """Paged and dense verify logits of one full-width verify forward,
-    from the same prefill of P tokens into a cache of S."""
+    from the same prefill of P tokens into a cache of S, and the K2
+    launches of the dense one."""
     import torch
     from repro_torch.configs import tree_for
     from repro_torch.core.heads import draft_tree_tokens
     from repro_torch.core.speculative import init_decode_state
     from repro_torch.core.trees import device_arrays
+    from repro_torch.kernels.tree_attention import dense_ops
     from repro_torch.models.model import forward
 
     tree = tree_for(cfg)
@@ -775,12 +1117,14 @@ def _verify_pair(params, dp, cfg, P: int, S: int):
             pool[k][:, 1:] = v[:, 0].reshape(v.shape[0], nb, 16,
                                              *v.shape[3:])
         pools.append(pool)
+    k2_before = dense_ops.launches
     dense = forward(params, cfg, tokens, pos, mode="verify", cache=st.cache,
                     cache_len=st.cache_len, tree_mask=ta["mask"])
+    k2 = dense_ops.launches - k2_before
     paged = forward(params, cfg, tokens, pos, mode="verify", cache=pools,
                     cache_len=st.cache_len, tree_mask=ta["mask"],
                     block_table=table)
-    return paged.logits[0], dense.logits[0]
+    return paged.logits[0], dense.logits[0], k2
 
 
 def _paged_vs_dense(paged, dense) -> tuple:
@@ -800,31 +1144,37 @@ def _paged_vs_dense(paged, dense) -> tuple:
 
 
 def check_full_verify(params, dp, cfg, P: int, S: int) -> None:
-    """One full-width verify forward, paged (K1/K4) against dense (plain
-    attention), from the same prefill: first through K3 (the serving
-    path, held to ``MIN_ARGMAX_AGREEMENT``), then through K3's plain
-    version, logged only, which shows whether K3's cache moves the
-    agreement."""
+    """One full-width verify forward, paged (K1/K4) against dense (K2 on
+    the window-0 layers, plain windowed attention on the others), from the
+    same prefill: first through K3 (the serving path, held to
+    ``MIN_ARGMAX_AGREEMENT``), then through K3's plain version, logged
+    only, which shows whether K3's cache moves the agreement.  The dense
+    forward must launch K2 once per window-0 layer."""
     import torch
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_plain
     from repro_torch.models import attention
 
+    k2_expected = sum(cfg.window_for_layer(i) == 0
+                      for i in range(cfg.n_layers))
     for prefill in ("K3", "plain"):
         kernel_fn = attention.flash_attention_bshd
         if prefill == "plain":
             attention.flash_attention_bshd = flash_attention_plain
         try:
-            paged, dense = _verify_pair(params, dp, cfg, P, S)
+            paged, dense, k2 = _verify_pair(params, dp, cfg, P, S)
         finally:
             attention.flash_attention_bshd = kernel_fn
+        if k2 != k2_expected:
+            raise AssertionError(f"{cfg.name}: the dense verify launched K2 "
+                                 f"{k2} times, not {k2_expected}")
         if not torch.isfinite(paged).all():
             raise AssertionError(f"{cfg.name}: full-width paged logits not "
                                  "finite")
         rel, agree, margins = _paged_vs_dense(paged, dense)
         log(f"[full] {cfg.name} verify paged vs dense (prompt {P}, prefill "
-            f"through {prefill}): max rel logit diff={rel:.3e} argmax "
-            f"agreement={agree:.3f} margins={margins}")
+            f"through {prefill}; dense K2 launches {k2}): max rel logit "
+            f"diff={rel:.3e} argmax agreement={agree:.3f} margins={margins}")
         if rel > 0.1:
             raise AssertionError(f"paged and dense verify disagree: rel {rel}")
         if prefill == "K3" and agree < MIN_ARGMAX_AGREEMENT:
@@ -863,13 +1213,14 @@ def check_moe_verify(arch: str, P: int, S: int) -> None:
                                   dtype=dtype)
         params = init_params(cfg, seed=0, device="cuda")
         dp = init_draft_params(cfg, seed=1, device="cuda")
-        paged, dense = _verify_pair(params, dp, cfg, P, S)
+        paged, dense, _ = _verify_pair(params, dp, cfg, P, S)
         finite = bool(torch.isfinite(paged).all())
         rel, agree, margins = _paged_vs_dense(paged, dense)
         attention.mla_attention_paged_bshd = \
             lambda *a, **kw: k5(*a, **kw) * K5_OFF
         try:
-            rel_off = _paged_vs_dense(*_verify_pair(params, dp, cfg, P, S))[0]
+            rel_off = _paged_vs_dense(
+                *_verify_pair(params, dp, cfg, P, S)[:2])[0]
         finally:
             attention.mla_attention_paged_bshd = k5
         log(f"[full] {cfg.name} {dtype}, {n_layers} layers, verify paged vs "
@@ -897,7 +1248,7 @@ def log_moe_verify(params, dp, cfg, P: int, S: int) -> None:
     that is not finite fails it.  ``check_moe_verify`` holds the path."""
     import torch
 
-    paged, dense = _verify_pair(params, dp, cfg, P, S)
+    paged, dense, _ = _verify_pair(params, dp, cfg, P, S)
     if not torch.isfinite(paged).all():
         raise AssertionError(f"{cfg.name}: full-width paged logits not "
                              "finite")
@@ -907,37 +1258,178 @@ def log_moe_verify(params, dp, cfg, P: int, S: int) -> None:
         f"agreement={agree:.3f} margins={margins}")
 
 
+# a full-width prefill's K6 calls against the plain version on the same
+# operands: final state max |diff| / max |ref|, output ||diff|| / ||ref||
+K6_LAYER_STATE_REL, K6_LAYER_OUT_REL = 1e-3, 3e-3
+# the per-layer check must fail a K6 whose output or state is off by this
+K6_OFF = 0.99
+
+
+def _k6_layers(params, dp, cfg, prompt, P: int, off_o: float = 1.0,
+               off_state: float = 1.0) -> tuple:
+    """Prefill ``prompt`` through K6, each layer's K6 call repeated by the
+    plain version on the same operands (the layer's real activations).
+    ``off_o``/``off_state`` scale K6's outputs, a planted fault.  Returns
+    (the decode state, per layer (state rel, output rel, whether the
+    output is finite and within bf16's elementwise 2e-2))."""
+    from repro_torch.core.speculative import init_decode_state
+    from repro_torch.kernels.linear_attn_chunk.ref import (
+        decay_attention_chunked)
+    from repro_torch.models import ssm
+
+    kernel_fn = ssm.linear_attn_bshd
+    errs = []
+
+    def both(*args, **kw):
+        o, st = kernel_fn(*args, **kw)
+        if off_o != 1.0 or off_state != 1.0:
+            o, st = o * off_o, st * off_state
+        ref_o, ref_st = decay_attention_chunked(*args, **kw)
+        ref_o, diff = ref_o.float(), o.float() - ref_o.float()
+        close = bool((diff.abs() <= 2e-2 + 2e-2 * ref_o.abs()).all())
+        rel = lambda a, b: (a / b).nan_to_num(math.inf).item()
+        errs.append((rel((st - ref_st).abs().max(), ref_st.abs().max()),
+                     rel(diff.norm(), ref_o.norm()), close))
+        return o, st
+
+    ssm.linear_attn_bshd = both
+    try:
+        state = init_decode_state(params, dp, cfg, prompt, P + 8)
+    finally:
+        ssm.linear_attn_bshd = kernel_fn
+    return state, errs
+
+
+def _k6_layers_hold(errs, n_layers: int) -> bool:
+    return (len(errs) == n_layers and all(close for *_, close in errs)
+            and max(e[0] for e in errs) <= K6_LAYER_STATE_REL
+            and max(e[1] for e in errs) <= K6_LAYER_OUT_REL)
+
+
+def check_rwkv_prefill(params, dp, cfg, P: int) -> None:
+    """One full-width RWKV6 prefill of P tokens through K6 and one
+    through its plain version, from the same prompt.
+
+    Held: on the K6 run, every layer's K6 call is repeated by the plain
+    version on the same operands (the layer's real activations), and
+    the two must agree: the final state to a relative
+    ``K6_LAYER_STATE_REL`` (max), the output to ``K6_LAYER_OUT_REL``
+    (norm) and within bf16's elementwise 2e-2.  Two control runs scale
+    K6's output, then its final state, by ``K6_OFF``; each must fail
+    that check.  Read, printed: the two runs' final wkv states layer by
+    layer, their first tokens and one chain verify step's logits, where
+    bf16 rounding differences of each layer's output feed the next layer
+    and grow with depth (random weights); these fail only if not finite,
+    or if an argmax differs beyond a near tie (a lead of 1 or more in
+    units of that position's largest logit difference)."""
+    import torch
+    from repro_torch.configs import tree_for
+    from repro_torch.core.heads import draft_tree_tokens
+    from repro_torch.core.speculative import init_decode_state
+    from repro_torch.core.trees import device_arrays
+    from repro_torch.kernels.linear_attn_chunk.ref import (
+        decay_attention_chunked)
+    from repro_torch.models import ssm
+    from repro_torch.models.model import forward
+
+    tree = tree_for(cfg)
+    ta = device_arrays(tree, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab_size, (1, P), generator=g,
+                           device="cuda")
+    states = {}
+    states["K6"], errs = _k6_layers(params, dp, cfg, prompt, P)
+    worst = [max(e[i] for e in errs) for i in (0, 1)]
+    n_close = sum(e[2] for e in errs)
+    off = {f"{what} x{K6_OFF}": _k6_layers(params, dp, cfg, prompt, P,
+                                             **{kw: K6_OFF})[1]
+           for what, kw in (("output", "off_o"), ("state", "off_state"))}
+    log(f"[full] {cfg.name} prefill of {P}: K6 against its plain version on "
+        f"each layer's own inputs ({len(errs)} layers): final state max rel "
+        f"diff {worst[0]:.3e} (bound {K6_LAYER_STATE_REL}), output rel "
+        f"norm diff {worst[1]:.3e} (bound {K6_LAYER_OUT_REL}), {n_close} "
+        f"layers' outputs within 2e-2; with K6's "
+        + "; ".join(f"{what}: {max(e[0] for e in es):.3e} / "
+                    f"{max(e[1] for e in es):.3e}"
+                    for what, es in off.items()))
+    if not _k6_layers_hold(errs, cfg.n_layers):
+        raise AssertionError(f"{cfg.name}: K6 and its plain version disagree "
+                             f"on a layer's inputs: {errs}")
+    for what, es in off.items():
+        if _k6_layers_hold(es, cfg.n_layers):
+            raise AssertionError(f"{cfg.name}: a K6 with its {what} passes "
+                                 "the per-layer check")
+    ssm_fn = ssm.linear_attn_bshd
+    ssm.linear_attn_bshd = decay_attention_chunked
+    try:
+        states["plain"] = init_decode_state(params, dp, cfg, prompt, P + 8)
+    finally:
+        ssm.linear_attn_bshd = ssm_fn
+
+    k6, plain = states["K6"], states["plain"]
+    wk, wp = k6.cache[0]["wkv_state"], plain.cache[0]["wkv_state"]
+    layer_rel = [((a - b).abs().max() / b.abs().max()).item()
+                 for a, b in zip(wk, wp)]
+    first = [(st.last_hidden.float() @ params["unembed_f32"])[0]
+             for st in (k6, plain)]
+    tokens, _ = draft_tree_tokens(dp, cfg, params, tree, k6.last_hidden,
+                                  k6.last_token)
+    pos = k6.cache_len[:, None] + ta["depth"][None]
+    verify = [forward(params, cfg, tokens, pos, mode="verify",
+                      cache=st.cache, cache_len=st.cache_len,
+                      tree_mask=ta["mask"]).logits[0]
+              for st in (k6, plain)]
+    _, _, margins0 = _paged_vs_dense(first[0][None], first[1][None])
+    rel, agree, margins = _paged_vs_dense(*verify)
+    log(f"[full] {cfg.name} prefill of {P} through K6 vs through its plain "
+        f"version (a reading): final wkv state rel diff by layer "
+        f"{[round(r, 4) for r in layer_rel]}; first token "
+        f"{int(k6.last_token[0])} vs {int(plain.last_token[0])} (margins "
+        f"{margins0}); chain verify (T={tree.size}) max rel logit diff "
+        f"{rel:.3e} argmax agreement {agree:.3f} margins {margins}")
+    if not all(torch.isfinite(t).all() for t in (wk, *verify)):
+        raise AssertionError(f"{cfg.name}: prefill states or logits not "
+                             "finite")
+    if any(m >= 1 for m in margins0 + margins):
+        raise AssertionError(f"{cfg.name}: an argmax differs beyond a near "
+                             f"tie: {margins0} / {margins}")
+
+
 @dataclasses.dataclass(frozen=True)
 class Workload:
     arch: str
     prompts: tuple        # prompt length range [lo, hi]
     max_len: int
-    verify: dict          # kernel name -> launches per decode step
+    verify: dict          # engine -> {kernel name: launches per decode step}
     prefill: dict         # kernel name -> launches per prefill
-    check_prompt: int     # the paged-vs-dense verify step's prompt
+    check_prompt: int     # the full-width check's prompt
 
 
 WORKLOADS = (
-    Workload("minitron-4b", (64, 256), 512, {"tree_attention_paged": 33},
+    Workload("minitron-4b", (64, 256), 512,
+             {"paged": {"tree_attention_paged": 33},
+              "continuous": {"tree_attention_dense": 33}},
              {"flash_attention": 33}, 100),
     Workload("gemma3-1b", (600, 1500), 2048,
-             {"tree_attention_paged_windowed": 26, "tree_attention_paged": 1},
+             {"paged": {"tree_attention_paged_windowed": 26,
+                        "tree_attention_paged": 1}},
              {"flash_attention": 27}, 1000),
+    Workload("rwkv6-1.6b", (600, 1500), 2048, {"paged": {}},
+             {"linear_attn_chunk": 24}, 1000),
     Workload("deepseek-v2-lite-16b", (600, 1500), 2048,
-             {"mla_attention_paged": 27, "tree_attention_paged": 1},
+             {"paged": {"mla_attention_paged": 27,
+                        "tree_attention_paged": 1}},
              {"flash_attention": 28}, 1000),
 )
 
 
 def serve_full_width(wl: Workload) -> dict:
-    """Serve 8 requests of ``wl`` at full width; returns the kernels'
-    launch counts of this run."""
-    import numpy as np
+    """Serve 8 requests of ``wl`` at full width through each of its
+    engines; returns the kernels' launch counts of these runs."""
     import torch
-    from repro_torch.configs import get_config, tree_for
+    from repro_torch.configs import get_config
     from repro_torch.core.heads import init_draft_params
     from repro_torch.models.model import init_params
-    from repro_torch.serving.engine import PagedSpeculativeEngine, Request
 
     cfg = get_config(wl.arch)
     gc.collect()                           # the previous model's tensors
@@ -952,14 +1444,39 @@ def serve_full_width(wl: Workload) -> dict:
     log(f"[full] {cfg.name}: {cfg.n_params / 1e9:.2f}B params ({cfg.dtype}) "
         f"initialised on the card in {time.perf_counter() - t0:.1f}s; fp32 "
         f"unembedding {params['unembed_f32'].numel() * 4 / 1e9:.2f} GB")
-    (log_moe_verify if cfg.moe else check_full_verify)(
-        params, dp, cfg, wl.check_prompt, S_check)
+    if cfg.moe:
+        log_moe_verify(params, dp, cfg, wl.check_prompt, S_check)
+    elif cfg.block_kind == "rwkv6":
+        check_rwkv_prefill(params, dp, cfg, wl.check_prompt)
+    else:
+        check_full_verify(params, dp, cfg, wl.check_prompt, S_check)
+    launches = {}
+    for engine in wl.verify:
+        for k, n in serve_engine(wl, cfg, params, dp, engine).items():
+            launches[k] = launches.get(k, 0) + n
+    del params, dp
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_engine(wl: Workload, cfg, params, dp, engine: str) -> dict:
+    """Serve 8 requests of ``wl`` through ``engine`` ("paged" or
+    "continuous"), counting every kernel launch of the run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import tree_for
+    from repro_torch.serving.engine import (PagedSpeculativeEngine, Request,
+                                            SpeculativeEngine)
 
     tree = tree_for(cfg)
     max_batch, bs, budget = 4, 16, 32
     usable = int(0.5 * max_batch * wl.max_len) // bs
-    eng = PagedSpeculativeEngine(params, dp, cfg, tree, max_len=wl.max_len,
-                                 block_size=bs, num_blocks=usable + 1)
+    if engine == "paged":
+        eng = PagedSpeculativeEngine(params, dp, cfg, tree,
+                                     max_len=wl.max_len, block_size=bs,
+                                     num_blocks=usable + 1)
+    else:
+        eng = SpeculativeEngine(params, dp, cfg, tree, max_len=wl.max_len)
     rs = np.random.RandomState(0)
     lo, hi = wl.prompts
     reqs = [Request(prompt=rs.randint(0, cfg.vocab_size,
@@ -980,7 +1497,7 @@ def serve_full_width(wl: Workload) -> dict:
     steps = st.steps + st.warmup_steps
     prefills = len(reqs) + st.preemptions
     expect = {k: 0 for k in counters}
-    for k, n in wl.verify.items():
+    for k, n in wl.verify[engine].items():
         expect[k] += n * steps
     for k, n in wl.prefill.items():
         expect[k] += n * prefills
@@ -988,21 +1505,22 @@ def serve_full_width(wl: Workload) -> dict:
         raise AssertionError(f"{cfg.name}: kernel launches {counts} != "
                              f"{expect} ({steps} steps, {prefills} "
                              "prefills)")
-    log(f"[full] {cfg.name} served {len(reqs)} requests x {budget} tokens "
-        f"(prompts {lo}-{hi}): steps={st.steps} (+{st.warmup_steps} "
+    log(f"[full] {cfg.name} {engine} engine served {len(reqs)} requests x "
+        f"{budget} tokens (prompts {lo}-{hi}): steps={st.steps} "
+        f"(+{st.warmup_steps} "
         f"warm-up) tok/step={st.tokens_per_step:.3f} "
         f"tok/s={st.tokens_per_s:.1f} step={st.mean_step_s * 1e3:.1f}ms "
         f"ttft={st.mean_ttft_s * 1e3:.1f}ms "
         f"p99_itl={st.p99_itl_s * 1e3:.1f}ms "
         f"host_stall={st.host_stall_s * 1e3:.1f}ms wall={st.wall_s:.2f}s "
         f"preemptions={st.preemptions} prefills={prefills} "
-        f"peak_blocks={st.peak_blocks_in_use}/{st.num_blocks - 1} "
+        + (f"peak_blocks={st.peak_blocks_in_use}/{st.num_blocks - 1} "
+           if engine == "paged" else "") +
         f"max_memory_allocated="
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}GiB "
-        f"launches={counts} (per step {wl.verify}, per prefill "
+        f"launches={counts} (per step {wl.verify[engine]}, per prefill "
         f"{wl.prefill})")
-    del params, dp, eng
-    torch.cuda.empty_cache()
+    del eng
     return counts
 
 
@@ -1040,15 +1558,18 @@ def main() -> int:
         for line in ptxas_lines(build.ptxas_report(name)):
             log(f"[ptxas] {line}")
             parsed.add(line.split(":")[0])
-            # gemma3-1b and the MLA prefill run the D=256 builds, and
-            # deepseek's verify K5 over bf16 pools: they must keep their
+            # gemma3-1b and the MLA prefill run the D=256 builds,
+            # deepseek's verify K5 over bf16 pools, minitron's continuous
+            # engine K2 and rwkv6's prefill K6: they must keep their
             # accumulators in registers
             if ("D=256" in line or line.startswith(tuple(
-                    MLA_INSTANTIATIONS))) and "0 bytes spill stores, " \
-                    "0 bytes spill loads" not in line:
+                    MLA_INSTANTIATIONS | DENSE_RWKV_INSTANTIATIONS))) \
+                    and "0 bytes spill stores, 0 bytes spill loads" \
+                    not in line:
                 raise AssertionError(f"a build the main path runs spills: "
                                      f"{line}")
-    missing = sorted((GEMMA3_INSTANTIATIONS | MLA_INSTANTIATIONS) - parsed)
+    missing = sorted((GEMMA3_INSTANTIATIONS | MLA_INSTANTIATIONS
+                      | DENSE_RWKV_INSTANTIATIONS) - parsed)
     if missing:
         raise AssertionError(f"no ptxas line parsed for {missing}: the "
                              "spill check could not run")
@@ -1059,6 +1580,9 @@ def main() -> int:
     k3 = check_k3()
     k3_mla = check_k3_mla()
     k5 = check_k5()
+    k6 = check_k6()
+    k2 = check_k2()
+    check_k1_prefix()
     log(f"[time] kernel checks done at {time.perf_counter() - t_start:.0f}s")
 
     check_tiny_parity(dataclasses.replace(
@@ -1070,6 +1594,11 @@ def main() -> int:
     check_tiny_parity(dataclasses.replace(
         get_config("deepseek-v2-lite-16b").reduced(), dtype="float32"),
         (17, 23, 30, 19, 40, 21))
+    # a chain of 5 writes less scratch than a tree of 16: longer budgets
+    # over a pool of 7 blocks make the slots' growth preempt
+    check_tiny_parity(dataclasses.replace(
+        get_config("rwkv6-1.6b").reduced(), dtype="float32"),
+        (16, 23, 32, 9, 40, 12), budgets=(30,) * 6, num_blocks=8)
     launches = {}
     for wl in WORKLOADS:
         for k, n in serve_full_width(wl).items():
@@ -1106,6 +1635,17 @@ def main() -> int:
               "src/repro_torch/csrc/mla_attention_paged.cu",
               "src/repro/kernels/attention_template/ops.py:70",
               k5[("bfloat16", 16)], k5[("bfloat16", 16)]["max_abs_err"]),
+        entry("tree_attention_dense",
+              "src/repro_torch/csrc/tree_attention_paged.cu",
+              "src/repro/kernels/tree_attention/kernel.py:47",
+              k2[("minitron", "bfloat16", 16)],
+              max(r["max_abs_err"] for key, r in k2.items()
+                  if key[1] == "bfloat16")),
+        entry("linear_attn_chunk", "src/repro_torch/csrc/linear_attn_chunk.cu",
+              "src/repro/kernels/linear_attn_chunk/kernel.py:74",
+              k6[("bfloat16", 1536, True, False, 1)],
+              max(r["max_abs_err"] for key, r in k6.items()
+                  if key[0] == "bfloat16")),
     ]
     log(json.dumps({"kernels": kernels}))
     log(f"[time] total {time.perf_counter() - t_start:.0f}s")

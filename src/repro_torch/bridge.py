@@ -8,8 +8,9 @@ parts whose layout matters:
 
 * ``groups``: one entry per group of ``group_program`` (an MoE config has
   a dense group and then an MoE group, whose routed experts are
-  ``(L, E, ...)`` leaves), every leaf stacked on a leading ``(L, ...)``
-  layer axis;
+  ``(L, E, ...)`` leaves; an RWKV6 config one ``rwkv_stack`` group of
+  ``{norm1, norm2, rwkv}`` layers), every leaf stacked on a leading
+  ``(L, ...)`` layer axis;
 * ``lm_head``: stored as ``(d, V)`` (JAX inits it as ``embed_init(...).T``),
   and the fp32 unembedding the port derives from it at load;
 * draft params: a list of per-head dicts (``w_in``, ``out_norm``,
@@ -17,8 +18,8 @@ parts whose layout matters:
   the Hydra++ ``prefix`` layer.
 
 Every leaf keeps its own float type: bf16 stays bf16 and fp32 stays
-fp32, so the MoE router, which JAX keeps in fp32 in a bf16 model, is not
-rounded.
+fp32, so the MoE router and RWKV6's ``w0``, ``u_bonus``, ``gn_gamma`` and
+``gn_beta``, which JAX keeps in fp32 in a bf16 model, are not rounded.
 
 ``to_numpy`` is the way back (for round-trip checks): the derived fp32
 unembedding is left out.
@@ -73,6 +74,8 @@ def params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
             _expect(t.shape[0] == n, f"{kind} leaves stacked on ({n}, ...)")
 
     for (kind, n), g in zip(prog, params["groups"]):
+        _expect(("rwkv" in g) == (kind == "rwkv_stack"),
+                f"{kind} {'has' if 'rwkv' in g else 'lacks'} RWKV6 layers")
         _expect(("moe" in g) == (kind == "attn_stack_moe"),
                 f"{kind} has {'an MoE' if 'moe' in g else 'a dense'} FFN")
         check_stacked(g, kind, n)

@@ -281,10 +281,11 @@ def list_configs() -> list:
     return sorted(_REGISTRY)
 
 
-# dense GQA stacks (full-attention or sliding-window) and the MLA + MoE
-# stack: the other families wait for their kernels (ROADMAP)
+# dense GQA stacks (full-attention or sliding-window), the MLA + MoE stack
+# and the RWKV6 recurrent stack: the other families wait for their
+# modules (ROADMAP)
 ARCH_MODULES = ["deepseek_v2_lite_16b", "gemma3_1b", "minitron_4b",
-                "vicuna_tiny"]
+                "rwkv6_1p6b", "vicuna_tiny"]
 
 
 def _load_all() -> None:

@@ -22,7 +22,7 @@ from repro_torch.core.trees import device_arrays
 from repro_torch.core.verify import greedy_verify
 from repro_torch.device import torch_dtype
 from repro_torch.models.model import forward, init_cache
-from repro_torch.serving.cache import commit_cache
+from repro_torch.serving.cache import ATTN_KEYS, commit_cache
 
 PAD_TOKEN = -1
 
@@ -112,12 +112,15 @@ def prefill_row(params, draft_params, cfg: ModelConfig, prompt,
     head-input hidden state).  With right padding and causal masking,
     positions < real_len never see the pad tail; the pads' entries sit at
     or beyond ``cache_len = real_len``, where every later step masks or
-    overwrites them."""
+    overwrites them.  A recurrent group scans from a zero state (the row
+    is fresh, so a re-prefill after a preemption starts over), length-
+    masked at ``real_len``: the pads leave its state unchanged."""
     P = prompt.shape[0]
     dev = prompt.device
     pos = torch.arange(P, device=dev)[None, :]
     row = init_cache(cfg, 1, P, dev)
     out = forward(params, cfg, prompt[None, :], pos, mode="full", cache=row,
+                  valid_len=torch.tensor([real_len], device=dev),
                   want_logits=False)
     idx = max(real_len - 1, 0)
     h = out.hidden[0, idx]
@@ -134,14 +137,18 @@ def join_slot(params, draft_params, cfg: ModelConfig, state: DecodeState,
               prompt, real_len: int, slot: int) -> DecodeState:
     """Prefill one request and install it in row ``slot`` of the pool (in
     place).  prompt: (P,) right-padded to P; ``real_len`` <= P is the true
-    prompt length.  Only [0, P) of the row is written: positions past P
-    are never read before a verify step overwrites them."""
+    prompt length.  Only [0, P) of an attention row is written: positions
+    past P are never read before a verify step overwrites them.  A
+    recurrent state key is written whole (it has no sequence axis)."""
     P = prompt.shape[0]
     row, prefix, tok0, h = prefill_row(params, draft_params, cfg, prompt,
                                        real_len)
     for pool, r in zip(state.cache, row):
-        for key in ("k", "v"):
-            pool[key][:, slot, :P] = r[key][:, 0]
+        for key, arr in r.items():
+            if key in ATTN_KEYS:
+                pool[key][:, slot, :P] = arr[:, 0]
+            else:
+                pool[key][:, slot] = arr[:, 0]
     if prefix is not None:
         state.prefix_k[slot, :P] = prefix[0]
         state.prefix_v[slot, :P] = prefix[1]
@@ -197,9 +204,10 @@ def spec_decode_step(params, draft_params, cfg: ModelConfig, tree,
     # 3. accept
     res = greedy_verify(tree, tokens, out.logits)
 
-    # 4. commit
-    commit_cache(out.cache, state.cache_len, res.path_nodes,
-                 block_table=block_table)
+    # 4. commit (a recurrent group's inactive rows keep their state)
+    cache = commit_cache(out.cache, state.cache_len, res.path_nodes,
+                         res.n_accept, active=active, prev=state.cache,
+                         block_table=block_table)
     D1 = res.path_nodes.shape[1]
     bidx = torch.arange(B, device=dev)
     acc_hidden = out.hidden[bidx[:, None], res.path_nodes]     # (B, D1, d)
@@ -233,7 +241,7 @@ def spec_decode_step(params, draft_params, cfg: ModelConfig, tree,
         emitted, n_emitted, cache_len, last_token, last_hidden = \
             _freeze_inactive(active, state, emitted, n_emitted, cache_len,
                              last_token, last_hidden)
-    new_state = DecodeState(cache=out.cache, cache_len=cache_len,
+    new_state = DecodeState(cache=cache, cache_len=cache_len,
                             last_token=last_token, last_hidden=last_hidden,
                             prefix_k=pk, prefix_v=pv)
     return StepResult(new_state, emitted, n_emitted)
@@ -249,13 +257,21 @@ def autoregressive_step(params, cfg: ModelConfig, state: DecodeState, *,
                         active: Optional[torch.Tensor] = None,
                         block_table: Optional[torch.Tensor] = None
                         ) -> StepResult:
-    """One greedy token per row.  The new entry was written at
-    ``cache_len``, where it stays: there is nothing to compact."""
+    """One greedy token per row: a verify of the one-node tree.  The new
+    attention entry was written at ``cache_len``, where it stays (the
+    commit leaves attention groups alone for a one-node path); a
+    recurrent group commits its one candidate."""
+    B = state.last_token.shape[0]
+    dev = state.last_token.device
     tokens = state.last_token[:, None]
     positions = state.cache_len[:, None]
     out = forward(params, cfg, tokens, positions, mode="verify",
                   cache=state.cache, cache_len=state.cache_len,
                   tree_mask=None, block_table=block_table)
+    zero = torch.zeros((B,), dtype=torch.long, device=dev)
+    cache = commit_cache(out.cache, state.cache_len, zero[:, None], zero,
+                         active=active, prev=state.cache,
+                         block_table=block_table)
     nxt = torch.argmax(out.logits[:, 0], dim=-1)
     emitted = nxt[:, None]
     n_emitted = torch.ones_like(nxt)
@@ -264,7 +280,7 @@ def autoregressive_step(params, cfg: ModelConfig, state: DecodeState, *,
     if active is not None:
         emitted, n_emitted, cache_len, nxt, last_hidden = _freeze_inactive(
             active, state, emitted, n_emitted, cache_len, nxt, last_hidden)
-    new_state = DecodeState(cache=out.cache, cache_len=cache_len,
+    new_state = DecodeState(cache=cache, cache_len=cache_len,
                             last_token=nxt, last_hidden=last_hidden,
                             prefix_k=state.prefix_k, prefix_v=state.prefix_v)
     return StepResult(new_state, emitted, n_emitted)

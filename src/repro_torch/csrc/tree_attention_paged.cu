@@ -1,16 +1,18 @@
 // Paged tree-verify attention for Hopper (sm_90a), plain C interface, with
-// its sliding-window form.
+// its sliding-window form and its dense-cache form.
 //
-// Replaces two TPU kernels, both instantiations of
-// src/repro/kernels/attention_template/kernel.py::tree_attention_template
-// with layout="paged":
-//   K1  tree_attention/kernel.py::tree_attention_paged
+// Replaces three TPU kernels, all instantiations of
+// src/repro/kernels/attention_template/kernel.py::tree_attention_template:
+//   K1  tree_attention/kernel.py::tree_attention_paged (layout="paged")
 //       -> entry point tree_attention_paged (windowed = false);
 //   K4  attention_template/ops.py::tree_attention_paged_windowed_bshd
 //       (TemplateSpec windowed=True)
-//       -> entry point tree_attention_paged_windowed (windowed = true).
-// As in the template, one kernel body carries both: `kWindowed` is a
-// template flag, and a runtime window <= 0 is an exact no-op of the mask.
+//       -> entry point tree_attention_paged_windowed (windowed = true);
+//   K2  tree_attention/kernel.py::tree_attention (layout="dense")
+//       -> entry point tree_attention_dense (dense = true).
+// As in the template, one kernel body carries all three: `kWindowed` and
+// `kDense` are template flags, and a runtime window <= 0 is an exact
+// no-op of the mask.
 //
 // What it computes: T tree queries per (b, query head) attend to the
 // slot's committed K/V, read block by block from the global pool
@@ -34,10 +36,19 @@
 // wrapper adds carry q_pos 0 and break the precondition; their outputs are
 // sliced away.
 //
+// Dense (K2): the same math over a per-slot cache (B, S, Hkv, D), the
+// port's own layer view of its dense cache, read directly (no block table:
+// an identity table could not stand in, since block 0 is NULL).  Keys
+// below min(cache_len[b], S) stream in tiles of 16 as in K1; positions at
+// or past cache_len are never read, whatever they hold (the tree K/V the
+// caller scattered there come in as the tree operands).  No window: dense
+// windowed verify has no TPU kernel and stays plain PyTorch.
+//
 // Layout: every tensor is in the model layout the wrapper receives,
 //   q, out       (B, T, Hq, D)     tree_k, tree_v  (B, T, Hkv, D)
 //   pool_k/v     (N, bs, Hkv, D)   tree_mask (T, T) uint8
-//   cache_len    (B,) int32        block_table (B, M) int32
+//                (dense: the cache (B, S, Hkv, D))
+//   cache_len    (B,) int32        block_table (B, M) int32 (paged only)
 //   q_pos        (B, T) int32 (windowed only)
 // contiguous; q, pools, tree K/V and out share one type, fp32 or bf16.
 // D is 64, 128 or 256.
@@ -138,11 +149,13 @@ struct Args {
   void* out;
   int B, n_tree, Hq, Hkv, bs, M, window;
   float scale;
+  int S;  // dense only: the cache's length
 };
 
-template <typename T, int D, bool kWindowed>
+template <typename T, int D, bool kWindowed, bool kDense>
 __global__ void __launch_bounds__(kThreads)
     tree_attention_paged_kernel(Args p) {
+  static_assert(!(kWindowed && kDense), "no dense windowed form");
   constexpr int DP = D + 1;
   constexpr int NRG = kThreads / D;
   constexpr int KMAX = attn::max_rows(D, kRowCap) / NRG;
@@ -184,41 +197,62 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   K1_MARK(kPrologue);
 
-  // cache sweep: table entries below cache_len, NULL entries skipped, and
-  // (windowed, w > 0) entries wholly at or behind cache_len - w skipped
-  const int len = p.cache_len[b];
+  const int len = kDense ? min(p.cache_len[b], p.S) : p.cache_len[b];
   const int w = kWindowed ? p.window : 0;
-  const int* table = p.block_table + static_cast<size_t>(b) * p.M;
-  for (int j = 0; j < p.M && j * p.bs < len; ++j) {
-    const int blk = table[j];
-    if (blk == 0) continue;  // uniform across the block: no divergence
-    if (w > 0 && (j + 1) * p.bs - 1 <= len - w) continue;
-    for (int k0 = 0; k0 < p.bs; k0 += kKeyTile) {
-      const int pos0 = j * p.bs + k0;
-      if (pos0 >= len) break;
-      // only positions < cache_len are loaded and scored; (windowed)
-      // positions at or behind cache_len - w, out of every real row's
-      // reach, are loaded as zeros, whatever the pool holds there
-      const int n = min(min(kKeyTile, p.bs - k0), len - pos0);
+  if constexpr (kDense) {
+    // cache sweep (dense): the slot's row below cache_len, tile by tile
+    for (int pos0 = 0; pos0 < len; pos0 += kKeyTile) {
+      const int n = min(kKeyTile, len - pos0);
       for (int i = threadIdx.x; i < n * D; i += kThreads) {
         const int kk = i / D, d = i % D;
-        float kx = 0.f, vx = 0.f;
-        if (w <= 0 || pos0 + kk > len - w) {
-          const size_t off =
-              ((static_cast<size_t>(blk) * p.bs + k0 + kk) * p.Hkv + h) * D + d;
-          kx = to_f32(pool_k[off]);
-          vx = to_f32(pool_v[off]);
-        }
-        sm.k[kk * DP + d] = kx;
-        sm.v[kk * DP + d] = vx;
+        const size_t off =
+            ((static_cast<size_t>(b) * p.S + pos0 + kk) * p.Hkv + h) * D + d;
+        sm.k[kk * DP + d] = to_f32(pool_k[off]);
+        sm.v[kk * DP + d] = to_f32(pool_v[off]);
       }
       __syncthreads();
       K1_MARK(kLoad);
-      auto in_window = [sm, w, pos0](int r, int kk) {
-        return w <= 0 || sm.pos[r] - (pos0 + kk) < w;
-      };
-      attn::tile_update<D, KMAX>(R, n, sm, acc, in_window);
+      attn::tile_update<D, KMAX>(R, n, sm, acc,
+                                 [](int, int) { return true; });
       K1_TILE_DONE();
+    }
+  } else {
+    // cache sweep: table entries below cache_len, NULL entries skipped, and
+    // (windowed, w > 0) entries wholly at or behind cache_len - w skipped
+    const int* table = p.block_table + static_cast<size_t>(b) * p.M;
+    for (int j = 0; j < p.M && j * p.bs < len; ++j) {
+      const int blk = table[j];
+      if (blk == 0) continue;  // uniform across the block: no divergence
+      if (w > 0 && (j + 1) * p.bs - 1 <= len - w) continue;
+      for (int k0 = 0; k0 < p.bs; k0 += kKeyTile) {
+        const int pos0 = j * p.bs + k0;
+        if (pos0 >= len) break;
+        // only positions < cache_len are loaded and scored; (windowed)
+        // positions at or behind cache_len - w, out of every real row's
+        // reach, are loaded as zeros, whatever the pool holds there
+        const int n = min(min(kKeyTile, p.bs - k0), len - pos0);
+        for (int i = threadIdx.x; i < n * D; i += kThreads) {
+          const int kk = i / D, d = i % D;
+          float kx = 0.f, vx = 0.f;
+          if (w <= 0 || pos0 + kk > len - w) {
+            const size_t off =
+                ((static_cast<size_t>(blk) * p.bs + k0 + kk) * p.Hkv + h) *
+                    D +
+                d;
+            kx = to_f32(pool_k[off]);
+            vx = to_f32(pool_v[off]);
+          }
+          sm.k[kk * DP + d] = kx;
+          sm.v[kk * DP + d] = vx;
+        }
+        __syncthreads();
+        K1_MARK(kLoad);
+        auto in_window = [sm, w, pos0](int r, int kk) {
+          return w <= 0 || sm.pos[r] - (pos0 + kk) < w;
+        };
+        attn::tile_update<D, KMAX>(R, n, sm, acc, in_window);
+        K1_TILE_DONE();
+      }
     }
   }
 
@@ -265,42 +299,43 @@ __global__ void __launch_bounds__(kThreads)
 #endif
 }
 
-template <typename T, int D, bool kWindowed>
+template <typename T, int D, bool kWindowed, bool kDense>
 int launch(const Args& a, cudaStream_t stream) {
   const size_t smem = attn::smem_bytes((a.Hq / a.Hkv) * a.n_tree, D);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        tree_attention_paged_kernel<T, D, kWindowed>,
+        tree_attention_paged_kernel<T, D, kWindowed, kDense>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  tree_attention_paged_kernel<T, D, kWindowed>
+  tree_attention_paged_kernel<T, D, kWindowed, kDense>
       <<<a.B * a.Hkv, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kWindowed>
+template <typename T, bool kWindowed, bool kDense>
 int launch_dim(const Args& a, int D, cudaStream_t stream) {
   switch (D) {
-    case 64: return launch<T, 64, kWindowed>(a, stream);
-    case 128: return launch<T, 128, kWindowed>(a, stream);
-    case 256: return launch<T, 256, kWindowed>(a, stream);
+    case 64: return launch<T, 64, kWindowed, kDense>(a, stream);
+    case 128: return launch<T, 128, kWindowed, kDense>(a, stream);
+    case 256: return launch<T, 256, kWindowed, kDense>(a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // Validates the shape, then launches the instantiation for dtype
 // (0 float32, 1 bfloat16) and D.  Returns the CUDA error code.
-template <bool kWindowed>
+template <bool kWindowed, bool kDense>
 int dispatch(const Args& a, int D, int dtype, void* stream) {
   if (a.B <= 0 || a.n_tree <= 0 || a.Hkv <= 0 || a.Hq % a.Hkv != 0 ||
-      (a.Hq / a.Hkv) * a.n_tree > attn::max_rows(D, kRowCap) || a.bs <= 0 ||
-      a.M <= 0)
+      (a.Hq / a.Hkv) * a.n_tree > attn::max_rows(D, kRowCap))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (kDense ? a.S <= 0 : (a.bs <= 0 || a.M <= 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_dim<float, kWindowed>(a, D, s);
-    case 1: return launch_dim<__nv_bfloat16, kWindowed>(a, D, s);
+    case 0: return launch_dim<float, kWindowed, kDense>(a, D, s);
+    case 1: return launch_dim<__nv_bfloat16, kWindowed, kDense>(a, D, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -319,7 +354,7 @@ extern "C" int tree_attention_paged(
          static_cast<const int*>(cache_len),
          static_cast<const int*>(block_table), nullptr, out, B, T, Hq, Hkv,
          bs, M, 0, scale};
-  return dispatch<false>(a, D, dtype, stream);
+  return dispatch<false, false>(a, D, dtype, stream);
 }
 
 // K4: K1 plus q_pos (B, T) int32 and a window (<= 0: full attention).
@@ -335,7 +370,21 @@ extern "C" int tree_attention_paged_windowed(
          static_cast<const int*>(block_table),
          static_cast<const int*>(q_pos), out, B, T, Hq, Hkv, bs, M, window,
          scale};
-  return dispatch<true>(a, D, dtype, stream);
+  return dispatch<true, false>(a, D, dtype, stream);
+}
+
+// K2: K1's contract over a dense per-slot cache (B, S, Hkv, D) instead of
+// the pool and the block table.
+extern "C" int tree_attention_dense(
+    const void* q, const void* cache_k, const void* cache_v,
+    const void* tree_k, const void* tree_v, const void* tree_mask,
+    const void* cache_len, void* out, int B, int T, int Hq, int Hkv, int D,
+    int S, int dtype, float scale, void* stream) {
+  Args a{q, cache_k, cache_v, tree_k, tree_v,
+         static_cast<const uint8_t*>(tree_mask),
+         static_cast<const int*>(cache_len), nullptr, nullptr, out, B, T, Hq,
+         Hkv, 0, 0, 0, scale, S};
+  return dispatch<false, true>(a, D, dtype, stream);
 }
 
 #ifdef K1_PHASE_CLOCKS

@@ -32,7 +32,8 @@ BUILD_DIR = PKG_DIR.parents[1] / "build" / "kernels"
 # library name -> source file under csrc/
 SOURCES = {"tree_attention_paged": "tree_attention_paged.cu",
            "flash_attention": "flash_attention.cu",
-           "mla_attention_paged": "mla_attention_paged.cu"}
+           "mla_attention_paged": "mla_attention_paged.cu",
+           "linear_attn_chunk": "linear_attn_chunk.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

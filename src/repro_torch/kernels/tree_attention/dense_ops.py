@@ -1,0 +1,86 @@
+"""Model-layout wrapper of the dense tree-verify kernel K2 (port of
+``repro/kernels/tree_attention/ops.py::tree_attention_bshd``).
+
+K2 is K1's function over the per-slot dense cache ``(B, S, Hkv, D)``
+instead of the block pool: keys below ``cache_len[b]`` of slot b's row,
+then the T tree keys under the ancestor mask.  Its CUDA code is the
+``kDense`` form of ``csrc/tree_attention_paged.cu``.  The wrapper pads T
+to a multiple of 8 as K1's does (pad rows self-attend; sliced away),
+validates the operands, and dispatches on the device the tensors lie on:
+CPU tensors take the plain version
+(``kernel.py::tree_attention_dense_plain``), CUDA tensors launch the
+kernel or raise.  ``launches`` counts kernel launches, and only those.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.tree_attention import kernel as _k
+from repro_torch.kernels.tree_attention.ops import pad_tree
+
+launches = 0                  # kernel launches since the last reset
+
+
+def check_operands(q, cache_k, cache_v, tree_k, tree_v, tree_mask,
+                   cache_len):
+    B, T, Hq, D = q.shape
+    if cache_k.dim() != 4 or cache_k.shape[0] != B \
+            or cache_k.shape[3] != D or cache_v.shape != cache_k.shape:
+        raise ValueError(f"caches must be ({B}, S, Hkv, {D}), got "
+                         f"{tuple(cache_k.shape)} / {tuple(cache_v.shape)}")
+    Hkv = cache_k.shape[2]
+    if tree_k.shape != (B, T, Hkv, D) or tree_v.shape != tree_k.shape:
+        raise ValueError(f"tree K/V must be {(B, T, Hkv, D)}, got "
+                         f"{tuple(tree_k.shape)} / {tuple(tree_v.shape)}")
+    if Hq % Hkv != 0:
+        raise ValueError(f"{Hq} query heads do not group over {Hkv} kv heads")
+    if tree_mask.shape != (T, T) or tree_mask.dtype != torch.bool:
+        raise ValueError(f"tree_mask must be ({T}, {T}) bool")
+    if cache_len.shape != (B,):
+        raise ValueError("cache_len must be (B,)")
+
+
+def check_cuda_operands(q, cache_k, cache_v, tree_k, tree_v, tree_mask,
+                        cache_len):
+    tensors = (q, cache_k, cache_v, tree_k, tree_v, tree_mask, cache_len)
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("all operands must lie on one CUDA device")
+    if q.dtype not in _k.DTYPE_CODES:
+        raise ValueError(f"unsupported dtype {q.dtype}")
+    if any(t.dtype != q.dtype for t in (cache_k, cache_v, tree_k, tree_v)):
+        raise ValueError("q, caches and tree K/V must share one dtype")
+    if cache_len.dtype != torch.int32:
+        raise ValueError("cache_len must be int32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the kernel takes contiguous operands only")
+    D = q.shape[-1]
+    if D not in _k.MAX_ROWS:
+        raise ValueError(f"head dim {D} not in {_k.HEAD_DIMS}")
+    rows = (q.shape[2] // cache_k.shape[2]) * q.shape[1]
+    if rows > _k.MAX_ROWS[D]:
+        raise ValueError(f"{rows} query rows per kv head exceed the "
+                         f"kernel's {_k.MAX_ROWS[D]} at head dim {D}")
+
+
+def tree_attention_bshd(q, cache_k, cache_v, tree_k, tree_v, tree_mask,
+                        cache_len):
+    """q/tree k,v: (B,T,H*,D) model layout; cache_k/v: the per-slot
+    cache (B, S, Hkv, D), read only below ``cache_len`` (B,) int32;
+    tree_mask (T,T) bool.  Returns (B,T,Hq,D) in q's dtype."""
+    global launches
+    q, tree_k, tree_v, tree_mask, T = pad_tree(q, tree_k, tree_v, tree_mask)
+    args = (q, cache_k, cache_v, tree_k, tree_v, tree_mask, cache_len)
+    check_operands(*args)
+    if q.device.type == "cpu":
+        out = _k.tree_attention_dense_plain(*args)
+    elif q.device.type == "cuda":
+        check_cuda_operands(*args)
+        out = torch.empty_like(q)
+        rc = _k.launch_dense(*args, out)
+        if rc != 0:
+            raise RuntimeError(f"tree_attention_dense launch failed: CUDA "
+                               f"error {rc}")
+        launches += 1
+    else:
+        raise ValueError(f"no tree_attention_dense for device {q.device}")
+    return out[:, :T]

@@ -18,6 +18,14 @@ Both take the MODEL layout (q/out ``(B, T, Hq, D)``, tree K/V
 ``(B, T, Hkv, D)``) with T already padded by the wrappers (``ops.py``
 here, ``attention_template/ops.py`` for K4), the port's only callers of
 ``launch``; ``phases.py`` calls it too, to time the measurement builds.
+
+The same source carries the dense-cache form K2 as well (entry point
+``tree_attention_dense``): ``launch_dense`` starts it and
+``tree_attention_dense_plain`` is its plain version, the dense verify the
+port ran before K2 (the tree K/V written into a copy of the cache at
+``[cache_len, cache_len + T)``, then ``masked_attention`` under the
+verify mask), so the CPU path keeps its numbers.  Its wrapper is
+``dense_ops.py``.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.models.layers import masked_attention
 
 NULL_BLOCK = 0                 # physical pool block 0 is never read unmasked
 # head dim -> G * T query rows one thread block holds (the CUDA source
@@ -55,6 +64,16 @@ def kernel_fn(defines=(), windowed: bool = False):
     return fn
 
 
+def dense_kernel_fn():
+    """K2's C entry point (the dense form of the same library)."""
+    fn = build.load("tree_attention_paged").tree_attention_dense
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_void_p])
+    return fn
+
+
 def launch(q, pool_k, pool_v, tree_k, tree_v, tree_mask, cache_len,
            block_table, out, fn=None, *, q_pos=None, window=None) -> int:
     """Launch K1, or K4 when ``q_pos`` (B, T) int32 and ``window`` (int)
@@ -77,6 +96,54 @@ def launch(q, pool_k, pool_v, tree_k, tree_v, tree_mask, cache_len,
     return (fn or kernel_fn())(
         *ptrs, out.data_ptr(), B, T, Hq, Hkv, D, bs, M, DTYPE_CODES[q.dtype],
         scale, stream)
+
+
+def launch_dense(q, cache_k, cache_v, tree_k, tree_v, tree_mask, cache_len,
+                 out) -> int:
+    """Launch K2 on the current CUDA stream (no synchronisation); the
+    cache is the per-slot (B, S, Hkv, D) layer view.  All arguments must
+    already be validated by the wrapper.  Returns the CUDA error code of
+    the launch: 0 on success."""
+    B, T, Hq, D = q.shape
+    S, Hkv = cache_k.shape[1], cache_k.shape[2]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    return dense_kernel_fn()(
+        q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+        tree_k.data_ptr(), tree_v.data_ptr(), tree_mask.data_ptr(),
+        cache_len.data_ptr(), out.data_ptr(), B, T, Hq, Hkv, D, S,
+        DTYPE_CODES[q.dtype], 1.0 / math.sqrt(D), stream)
+
+
+def tree_attention_dense_plain(q, cache_k, cache_v, tree_k, tree_v,
+                               tree_mask, cache_len):
+    """q: (B,T,Hq,D); cache_k/v: (B,S,Hkv,D); tree_k/v: (B,T,Hkv,D);
+    tree_mask: (T,T) bool; cache_len: (B,) int.  Returns (B,T,Hq,D) in
+    q's dtype.
+
+    The tree K/V go into a copy of the cache at ``[cache_len, cache_len +
+    T)`` (writes past S dropped), then ``masked_attention`` runs under
+    the verify mask: cache positions below ``cache_len``, and tree token
+    j for row i where ``tree_mask[i, j]``.  Masked weights are exact
+    zeros, so a finite value at a masked position cannot change the
+    result; ``masked_attention`` multiplies rather than selects, so NaN or
+    inf there would."""
+    B, T = q.shape[:2]
+    S = cache_k.shape[1]
+    dev = q.device
+    slot = cache_len[:, None].long() + torch.arange(T, device=dev)[None, :]
+    ok = slot < S
+    bidx = torch.arange(B, device=dev)[:, None].expand(B, T)
+    ck, cv = cache_k.clone(), cache_v.clone()
+    ck[bidx[ok], slot[ok]] = tree_k[ok].to(ck.dtype)
+    cv[bidx[ok], slot[ok]] = tree_v[ok].to(cv.dtype)
+    kv_pos = torch.arange(S, device=dev)
+    in_past = kv_pos[None, :] < cache_len[:, None]                  # (B,S)
+    j = kv_pos[None, :] - cache_len[:, None]
+    in_tree = (j >= 0) & (j < T)
+    tree_bit = tree_mask[:, torch.clamp(j, 0, T - 1)].permute(1, 0, 2)
+    mask = (in_past[:, None, :] & ~in_tree[:, None, :]) | (
+        in_tree[:, None, :] & tree_bit)                             # (B,T,S)
+    return masked_attention(q, ck, cv, mask)
 
 
 def tree_attention_paged_plain(q, pool_k, pool_v, tree_k, tree_v, tree_mask,

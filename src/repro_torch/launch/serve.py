@@ -5,8 +5,10 @@
 
 Any arch of the port's registry serves: the full-attention stacks
 (``minitron-4b``, ``vicuna-tiny``), the sliding-window one
-(``gemma3-1b``) and the MLA + MoE one (``deepseek-v2-lite-16b``).  Without ``--full-config`` the reduced config runs in
-fp32 (a smoke run); with it, the published widths in ``cfg.dtype``.
+(``gemma3-1b``), the MLA + MoE one (``deepseek-v2-lite-16b``) and the
+recurrent one (``rwkv6-1.6b``, chain speculation).  Without
+``--full-config`` the reduced config runs in fp32 (a smoke run); with it,
+the published widths in ``cfg.dtype``.
 Weights are random, drawn on the device from a seeded
 ``torch.Generator``.  The engine runs on CUDA unless ``--device cpu`` is
 given.  Prints the same ``[serve]`` lines as ``repro/launch/serve.py``
@@ -58,8 +60,8 @@ def main(argv=None) -> None:
     device = resolve_device(args.device)
     if device.type == "cuda":
         # build every kernel before the clock starts: the engine's warm-up
-        # step does not reach the prefill kernel, whose first build would
-        # otherwise land in the first request's TTFT
+        # step does not reach the prefill kernels (K3, K6), whose first
+        # build would otherwise land in the first request's TTFT
         from repro_torch.kernels import build
         build.build()
     cfg = get_config(args.arch)

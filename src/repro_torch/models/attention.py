@@ -7,8 +7,13 @@ Three branches of ``gqa_fwd``:
   sliding-window, through the prefill kernel K3
   (``kernels/flash_attention``);
 * dense verify: T new tokens (a candidate tree or chain) are written into
-  the per-slot cache at ``cache_len + arange(T)`` and attend to the cache
-  plus themselves under ``_verify_mask`` (which carries the window);
+  the per-slot cache at ``cache_len + arange(T)`` (the commit needs them
+  there) and attend to the cache plus themselves: through the dense
+  tree-verify kernel K2 (``kernels/tree_attention/dense_ops.py``) for a
+  layer of window 0, or, for a sliding-window layer, through
+  ``masked_attention`` under ``_verify_mask`` (which carries the window).
+  No TPU kernel computes dense windowed verify, so that branch is plain
+  PyTorch by design, not a fallback;
 * paged verify: the cache is the global block pool ``(N, bs, Hkv, D)``;
   the T new K/V scatter through the block table (``_paged_scatter``) and
   attention streams the pool natively (``_paged_verify_gqa``): through
@@ -50,6 +55,7 @@ from repro_torch.kernels.attention_template.ops import (
 from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS as K3_DIMS
 from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
 from repro_torch.kernels.mla_attention.ops import mla_attention_paged_bshd
+from repro_torch.kernels.tree_attention.dense_ops import tree_attention_bshd
 from repro_torch.kernels.tree_attention.ops import tree_attention_paged_bshd
 from repro_torch.models.layers import (apply_rope, dense_init,
                                        masked_attention, rope_sincos)
@@ -121,12 +127,22 @@ def gqa_fwd(p, cfg, x, ai: AttnInputs):
         # paged verify: scatter scratch through the table, stream the pool
         out, k, v = _paged_verify_gqa(q, k, v, ai)
     else:
-        # dense verify: write the new K/V into the scratch region, attend
-        S = ai.cache_k.shape[1]
+        # dense verify: write the new K/V into the scratch region (the
+        # commit compacts them there), then attend: K2 at window 0; a
+        # sliding-window layer has no kernel of its own (none on the TPU
+        # either) and runs masked_attention under the windowed mask
         _dense_scatter(ai.cache_k, k, ai.cache_len)
         _dense_scatter(ai.cache_v, v, ai.cache_len)
-        mask = _verify_mask(ai, B, T, S)
-        out = masked_attention(q, ai.cache_k, ai.cache_v, mask)
+        if ai.window > 0:
+            mask = _verify_mask(ai, B, T, ai.cache_k.shape[1])
+            out = masked_attention(q, ai.cache_k, ai.cache_v, mask)
+        else:
+            tm = ai.tree_mask
+            if tm is None:   # chain: lower-triangular
+                tm = torch.ones((T, T), dtype=torch.bool,
+                                device=q.device).tril()
+            out = tree_attention_bshd(q, ai.cache_k, ai.cache_v, k, v, tm,
+                                      ai.cache_len)
         k, v = ai.cache_k, ai.cache_v
     out = out.reshape(B, T, cfg.n_heads_padded * hd)
     return out @ p["wo"], k, v

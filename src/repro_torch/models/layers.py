@@ -52,6 +52,18 @@ def rms_norm(x, gamma, eps: float = 1e-5):
     return (out * (1.0 + gamma.float())).to(x.dtype)
 
 
+def group_norm(x, gamma, beta, n_groups: int, eps: float = 1e-5):
+    """GroupNorm over the channel dim (RWKV6's wkv output), statistics in
+    fp32: each of ``n_groups`` contiguous channel groups is normalised by
+    its own mean and (biased) variance, then scaled and shifted."""
+    *lead, c = x.shape
+    x32 = x.float().reshape(*lead, n_groups, c // n_groups)
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, unbiased=False, keepdim=True)
+    x32 = ((x32 - mu) * torch.rsqrt(var + eps)).reshape(*lead, c)
+    return (x32 * gamma.float() + beta.float()).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------

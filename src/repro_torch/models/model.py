@@ -1,6 +1,7 @@
-"""Model assembly for attention stacks (port of the ``attn_stack_dense``
-and ``attn_stack_moe`` groups of ``repro/models/model.py``): GQA,
-full-attention or sliding-window, or DeepSeek-V2's MLA; dense or MoE FFN.
+"""Model assembly (port of ``repro/models/model.py``): attention stacks
+(the ``attn_stack_dense`` and ``attn_stack_moe`` groups: GQA,
+full-attention or sliding-window, or DeepSeek-V2's MLA; dense or MoE FFN)
+and the RWKV6 recurrent stack (``rwkv_stack``).
 
 The params keep the JAX pytree's layout so the bridge converts one-to-one:
 ``embed (V, d)``, ``final_norm``, ``lm_head (d, V)`` unless embeddings are
@@ -11,17 +12,26 @@ with every leaf stacked on a leading layer axis.  One more entry,
 JAX upcasts the ``(d, V)`` unembedding on every call; the port makes that
 copy once, at load (3.1 GB at minitron-4b, see PERF.md).
 
-Caches are a list with one ``{"k", "v"}`` dict per group: dense
-``(L, B, S, Hkv, D)`` per-slot arrays, or — with a block table — global
-pools ``(L, N, bs, Hkv, D)``.  An MLA group caches the latent and the
-rope key instead: ``k`` is ``(L, B|N, S|bs, r)``, ``v`` ``(L, ..., rd)``.
-``forward`` updates them IN PLACE (JAX returns new arrays) and returns the
-same tensors.
+Caches are a list with one dict per group.  An attention group holds
+``{"k", "v"}``: dense ``(L, B, S, Hkv, D)`` per-slot arrays, or — with a
+block table — global pools ``(L, N, bs, Hkv, D)``.  An MLA group caches
+the latent and the rope key instead: ``k`` is ``(L, B|N, S|bs, r)``, ``v``
+``(L, ..., rd)``.  An RWKV6 group holds recurrent state with no sequence
+axis, per slot under any layout: ``wkv_state (L, B, H, 64, 64)`` fp32 and
+the token-shift states ``shift_tm``/``shift_cm (L, B, 1, d)``.  ``forward``
+updates the attention caches IN PLACE (JAX returns new arrays) and
+returns the same tensors; in full mode it writes an RWKV6 group's final
+states in place too, while in verify mode it leaves the committed state
+alone and returns, for that group, new per-token CANDIDATE states
+(``(L, B, T, ...)``) that ``serving/cache.py::commit_cache`` selects from.
 
 A group with sliding-window layers (gemma3's 5 local : 1 global pattern)
 runs its paged verify through the windowed kernel K4, each layer with its
 own window (0 for the global layers), as JAX picks the windowed template
-variant per group.  An MLA stack runs its paged verify through K5.
+variant per group.  An MLA stack runs its paged verify through K5.  An
+RWKV6 stack runs its prefill scan through K6 and its verify scan (per
+token, every state kept) in plain PyTorch, ignoring the tree mask (its
+trees are chains) and any block table (it has nothing to page).
 
 Execution modes:
   'full'   — prefill over the whole sequence; fills ``cache`` at [0, T)
@@ -40,6 +50,8 @@ from repro_torch.models.attention import (AttnInputs, gqa_fwd, init_gqa,
                                           init_mla, mla_fwd)
 from repro_torch.models.layers import embed_init, init_mlp, mlp_fwd, rms_norm
 from repro_torch.models.moe import init_moe, moe_fwd
+from repro_torch.models.ssm import (_gather_last_valid, init_rwkv6,
+                                    rwkv6_chanmix, rwkv6_timemix)
 
 
 class ModelOutputs(NamedTuple):
@@ -50,9 +62,12 @@ class ModelOutputs(NamedTuple):
 
 def group_program(cfg: ModelConfig):
     """Returns a list of (kind, n_layers) describing the stack."""
+    if cfg.block_kind == "rwkv6":
+        return [("rwkv_stack", cfg.n_layers)]
     if cfg.block_kind != "attn" or cfg.encoder_only:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves attention stacks only so far")
+            f"{cfg.name}: the port serves attention stacks and RWKV6 only "
+            "so far")
     if cfg.moe:
         nd = cfg.moe.n_dense_layers
         out = [("attn_stack_dense", nd)] if nd else []
@@ -93,6 +108,13 @@ def _init_attn_layer(gen, cfg, dtype, device, moe_ffn: bool):
     else:
         p["mlp"] = init_mlp(gen, d, cfg.d_ff, dtype, device)
     return p
+
+
+def _init_rwkv_layer(gen, cfg, dtype, device):
+    d = cfg.d_model
+    return {"norm1": torch.zeros((d,), dtype=dtype, device=device),
+            "norm2": torch.zeros((d,), dtype=dtype, device=device),
+            "rwkv": init_rwkv6(gen, cfg, dtype, device)}
 
 
 def _init_stacked(n: int, init_layer):
@@ -150,8 +172,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
         params["lm_head"] = embed_init(gen, cfg.vocab_size, cfg.d_model,
                                        dtype, dev).T.contiguous()
     params["groups"] = [
-        _init_stacked(n, lambda kind=kind: _init_attn_layer(
-            gen, cfg, dtype, dev, moe_ffn=kind == "attn_stack_moe"))
+        _init_stacked(n, lambda kind=kind: (
+            _init_rwkv_layer(gen, cfg, dtype, dev) if kind == "rwkv_stack"
+            else _init_attn_layer(gen, cfg, dtype, dev,
+                                  moe_ffn=kind == "attn_stack_moe")))
         for kind, n in group_program(cfg)]
     return add_unembed_f32(params, cfg)
 
@@ -163,11 +187,24 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
                dtype=None):
-    """Committed cache: one {"k", "v"} entry per group, zeros.  With
-    (batch=num_blocks, max_len=block_size) this is exactly the pool."""
+    """Committed cache: one entry per group, zeros.  With
+    (batch=num_blocks, max_len=block_size) the attention entries are
+    exactly the pool; recurrent-state entries have no sequence axis and
+    are per slot (``batch`` rows), so ``max_len`` does not shape them."""
     dtype = dtype or torch_dtype(cfg.dtype)
     caches = []
-    for _, n in group_program(cfg):
+    for kind, n in group_program(cfg):
+        if kind == "rwkv_stack":
+            H, d = cfg.n_heads, cfg.d_model
+            hd = d // H
+            caches.append({
+                "wkv_state": torch.zeros((n, batch, H, hd, hd),
+                                         dtype=torch.float32, device=device),
+                "shift_tm": torch.zeros((n, batch, 1, d), dtype=dtype,
+                                        device=device),
+                "shift_cm": torch.zeros((n, batch, 1, d), dtype=dtype,
+                                        device=device)})
+            continue
         if cfg.mla:
             m = cfg.mla
             shapes = ((n, batch, max_len, m.kv_lora_rank),
@@ -183,6 +220,49 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
+
+
+def _rwkv_group_fwd(gp, cfg, h, n: int, gc, *, is_verify: bool, valid_len):
+    """An RWKV6 group: time-mix then channel-mix per layer, from the
+    committed states in ``gc`` (zeros when None).  Full mode writes the
+    final states into ``gc`` in place (the shift states taken at
+    ``valid_len - 1``) and returns it; verify mode returns per-token
+    candidates ``{"wkv_state": (L,B,T,H,hd,hd), "shift_tm"/"shift_cm":
+    (L,B,T,1,d)}`` and leaves ``gc`` alone."""
+    B, T, d = h.shape
+    mode = "verify" if is_verify else "full"
+    chunk = cfg.ssm.chunk_size            # the prefill's chunk, as in JAX
+    cand = None
+    if is_verify:
+        H = cfg.n_heads
+        hd = d // H
+        cand = {"wkv_state": torch.empty((n, B, T, H, hd, hd),
+                                         dtype=torch.float32,
+                                         device=h.device),
+                "shift_tm": torch.empty((n, B, T, 1, d), dtype=h.dtype,
+                                        device=h.device),
+                "shift_cm": torch.empty((n, B, T, 1, d), dtype=h.dtype,
+                                        device=h.device)}
+    for i in range(n):
+        lp = layer(gp, i)
+        st = layer(gc, i) if gc is not None else {}
+        x1 = rms_norm(h, lp["norm1"], cfg.rms_eps)
+        o, ns = rwkv6_timemix(lp["rwkv"], cfg, x1, mode=mode,
+                              wkv_state=st.get("wkv_state"),
+                              shift_last=st.get("shift_tm"), chunk=chunk,
+                              valid_len=None if is_verify else valid_len)
+        h = h + o
+        x2 = rms_norm(h, lp["norm2"], cfg.rms_eps)
+        h = h + rwkv6_chanmix(lp["rwkv"], x2, shift_last=st.get("shift_cm"))
+        if is_verify:
+            cand["wkv_state"][i] = ns["wkv_state"]
+            cand["shift_tm"][i] = ns["shift_tm"]
+            cand["shift_cm"][i] = x2[:, :, None, :]
+        elif gc is not None:
+            gc["wkv_state"][i] = ns["wkv_state"]
+            gc["shift_tm"][i] = ns["shift_tm"]
+            gc["shift_cm"][i] = _gather_last_valid(x2, valid_len)
+    return h, (cand if is_verify else gc)
 
 
 def _attn_layer_fwd(lp, cfg, h, ai: AttnInputs):
@@ -207,12 +287,15 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, mode: str = "full",
     mode='verify': T speculative tokens against the populated cache;
                    ``cache_len`` (B,) is the committed length, ``tree_mask``
                    (T,T) the ancestor mask (None => chain).  ``block_table``
-                   (B, M) int32 switches the caches to the pool layout
-                   ``(L, N, bs, Hkv, D)``, streamed by the paged kernel.
+                   (B, M) int32 switches the attention caches to the pool
+                   layout ``(L, N, bs, Hkv, D)``, streamed by the paged
+                   kernel.  An RWKV6 group returns per-token candidate
+                   states in the returned cache instead (see above).
 
-    ``valid_len`` (B,), full mode only, counts the non-pad tokens; an
-    attention-only stack needs no mask for right-pads (causality hides
-    them), so it is accepted for the JAX signature and not read.
+    ``valid_len`` (B,), full mode only, counts the non-pad tokens.
+    Attention needs no mask for right-pads (causality hides them); an
+    RWKV6 group length-masks its scan, so the state is carried past the
+    pads unchanged, and takes its final states at ``valid_len - 1``.
     """
     if mode not in ("full", "verify"):
         raise ValueError(f"mode must be 'full' or 'verify': {mode}")
@@ -221,14 +304,21 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, mode: str = "full",
         raise ValueError("verify mode needs a cache and cache_len")
     if block_table is not None and not is_verify:
         raise ValueError("the paged layout needs verify mode")
-    del valid_len
     T = inputs.shape[1]
     h = params["embed"][inputs.long()]
 
+    out_cache = list(cache) if cache is not None else None
     layer_offset = 0
-    for gi, (_, n) in enumerate(group_program(cfg)):
+    for gi, (kind, n) in enumerate(group_program(cfg)):
         gp = params["groups"][gi]
         gc = cache[gi] if cache is not None else None
+        if kind == "rwkv_stack":
+            h, new = _rwkv_group_fwd(gp, cfg, h, n, gc, is_verify=is_verify,
+                                     valid_len=valid_len)
+            if out_cache is not None:
+                out_cache[gi] = new
+            layer_offset += n
+            continue
         windows = _window_array(cfg, n, layer_offset)
         # the choice of paged kernel is per GROUP, as in JAX: a group with
         # any sliding-window layer runs K4 on all its layers
@@ -250,4 +340,4 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, mode: str = "full",
 
     h = rms_norm(h, params["final_norm"], cfg.rms_eps)
     logits = h.float() @ params["unembed_f32"] if want_logits else None
-    return ModelOutputs(hidden=h, logits=logits, cache=cache)
+    return ModelOutputs(hidden=h, logits=logits, cache=out_cache)

@@ -1,9 +1,15 @@
-"""Cache commit for speculative decoding (port of the attention half of
+"""Cache commit for speculative decoding (port of
 ``repro/serving/cache.py``).
 
-After a verify forward the attention caches hold all T tree tokens in the
-scratch region [len, len+T); commit compacts the accepted root-path
-entries to [len, len+n_accept+1).  Nothing below ``cache_len`` is touched.
+After a verify forward the caches hold *candidates*:
+
+* attention groups (``k``/``v``): all T tree tokens in the scratch region
+  [len, len+T); commit compacts the accepted root-path entries to
+  [len, len+n_accept+1).  Nothing below ``cache_len`` is touched;
+* recurrent-state groups (``wkv_state``/``shift_tm``/``shift_cm``): a
+  separate per-token candidate tensor ``(L, B, T, ...)``; commit selects
+  the candidate of the last accepted node, ``path_nodes[n_accept]``, and
+  writes it into the committed state.  Both are gathers, no recompute.
 
 Commit addresses the cache in LOGICAL coordinates either way.  Dense
 (``block_table`` None): each array is the per-slot ``(L, B, S, ...)`` view.
@@ -16,13 +22,20 @@ destination range ``len + arange`` overlap, so the move must read every
 source before it writes any destination: ``arr[dst] = arr[src]`` does,
 because advanced indexing on the right copies the gathered entries into a
 new tensor before the scatter runs.  A fused in-place copy would not.
-Rows that are not live need no masking: their writes stay in their own
-scratch region beyond the frozen ``cache_len`` (or, paged with an all-NULL
-table, in the NULL block), which no later step reads unmasked.
+Rows that are not live need no masking in an attention group: their
+writes stay in their own scratch region beyond the frozen ``cache_len``
+(or, paged with an all-NULL table, in the NULL block), which no later step
+reads unmasked.  A state group REPLACES the committed state, so there only
+the live rows (``active``) take their candidate, and the others keep
+theirs, as JAX's restore from ``prev`` does.  A one-node path (the
+autoregressive step) moves no attention entry: its source and destination
+are both ``cache_len``, so attention groups are left as they are.
 """
 from __future__ import annotations
 
 import torch
+
+ATTN_KEYS = frozenset({"k", "v"})
 
 
 def _commit_attn(arr, cache_len, path_nodes, *, block_table=None):
@@ -52,11 +65,48 @@ def _commit_attn(arr, cache_len, path_nodes, *, block_table=None):
     return arr
 
 
-def commit_cache(cache, cache_len, path_nodes, *, block_table=None):
-    """Compact every attention array of a verify forward's cache (in
-    place); returns the same cache."""
-    for group in cache:
-        for key in ("k", "v"):
-            _commit_attn(group[key], cache_len, path_nodes,
-                         block_table=block_table)
-    return cache
+def _commit_state(dst, cand, last_node, active):
+    """In place: dst[:, b] = cand[:, b, last_node[b]] where ``active[b]``
+    (every row when None); the other rows keep dst's value.  dst:
+    committed (L, B, ...); cand: (L, B, T, ...).  No host read-back."""
+    B, T = cand.shape[1:3]
+    bidx = torch.arange(B, device=cand.device)
+    sel = cand[:, bidx, torch.clamp_max(last_node.long(), T - 1)]
+    if active is None:
+        dst.copy_(sel)
+    else:
+        live = active.view((1, B) + (1,) * (sel.dim() - 2))
+        torch.where(live, sel.to(dst.dtype), dst, out=dst)
+
+
+def commit_cache(cache, cache_len, path_nodes, n_accept=None, *,
+                 active=None, prev=None, block_table=None):
+    """Commit a verify forward's ``cache`` (its candidates); returns the
+    committed cache.
+
+    Attention groups are compacted in place and returned as they are.  A
+    recurrent-state group needs ``n_accept`` (B,) and ``prev``, the
+    pre-verify committed cache: the candidate at ``path_nodes[n_accept]``
+    is written into ``prev``'s tensors in place, for the rows of
+    ``active`` (B,) bool only (all rows when None), and ``prev``'s group
+    is returned."""
+    out = []
+    last_node = None
+    for gi, group in enumerate(cache):
+        if ATTN_KEYS.issuperset(group):
+            if path_nodes.shape[1] > 1:
+                for arr in group.values():
+                    _commit_attn(arr, cache_len, path_nodes,
+                                 block_table=block_table)
+            out.append(group)
+            continue
+        if n_accept is None or prev is None:
+            raise ValueError("committing a state group needs n_accept and "
+                             "prev (the pre-verify committed cache)")
+        if last_node is None:
+            last_node = torch.gather(path_nodes, 1,
+                                     n_accept.long()[:, None])[:, 0]
+        for key, cand in group.items():
+            _commit_state(prev[gi][key], cand, last_node, active)
+        out.append(prev[gi])
+    return out

@@ -8,6 +8,11 @@ and ``(..., rd)`` for MLA's latent and rope key), instead of
 logical token-block j of a slot to a physical pool block.  The Hydra++
 PrefixAttention cache rides the same tables in pools of its own.
 
+Recurrent-state groups (RWKV6) have nothing to page: their keys keep the
+dense per-slot layout ``(L, max_batch, ...)`` in the pool state, and the
+engine's block accounting runs as for any model (blocks are allocated and
+freed, nothing reads them), as in the JAX engine.
+
 Physical block 0 is the reserved **NULL block**: every unallocated table
 entry points at it.  It accumulates garbage writes (inactive rows'
 scratch, warm-up steps) and is never read: the paged kernel skips NULL
@@ -34,7 +39,8 @@ from repro_torch.core.speculative import (DecodeState, StepResult,
                                           autoregressive_step, prefill_row,
                                           spec_decode_step)
 from repro_torch.device import torch_dtype
-from repro_torch.models.model import init_cache
+from repro_torch.models.model import group_program, init_cache
+from repro_torch.serving.cache import ATTN_KEYS
 
 NULL_BLOCK = 0
 
@@ -111,6 +117,7 @@ class PagedState(NamedTuple):
     passes a copy into each step."""
 
     pools: Any                             # [{"k","v": (L, N, bs, Hkv, D)}]
+    #                                        or per-slot state (L, B, ...)
     prefix_k: Optional[torch.Tensor]       # (N, bs, Hkv, D) or None
     prefix_v: Optional[torch.Tensor]
     cache_len: torch.Tensor                # (B,) int32
@@ -121,13 +128,22 @@ class PagedState(NamedTuple):
 def init_paged_state(params, draft_params, cfg: ModelConfig, max_batch: int,
                      num_blocks: int, block_size: int, device) -> PagedState:
     """Empty paged pool, every row idle.  ``init_cache`` with
-    (batch=num_blocks, max_len=block_size) is exactly the pool shape."""
+    (batch=num_blocks, max_len=block_size) is exactly the pool shape of
+    the attention keys, and with (batch=max_batch) the per-slot shape of
+    the recurrent-state keys, which carry no sequence axis."""
     pk = pv = None
     if draft_params is not None and "prefix" in draft_params:
         pc = init_prefix_cache(cfg, num_blocks, block_size, device)
         pk, pv = pc["k"], pc["v"]
+    paged = [kind != "rwkv_stack" for kind, _ in group_program(cfg)]
+    pool_like = (init_cache(cfg, num_blocks, block_size, device)
+                 if any(paged) else None)
+    slot_like = (init_cache(cfg, max_batch, 1, device)
+                 if not all(paged) else None)
+    pools = [pool_like[gi] if p else slot_like[gi]
+             for gi, p in enumerate(paged)]
     return PagedState(
-        pools=init_cache(cfg, num_blocks, block_size, device),
+        pools=pools,
         prefix_k=pk, prefix_v=pv,
         cache_len=torch.zeros((max_batch,), dtype=torch.int32, device=device),
         last_token=torch.zeros((max_batch,), dtype=torch.long, device=device),
@@ -198,8 +214,11 @@ def paged_join_slot(params, draft_params, cfg: ModelConfig,
     row, prefix, tok0, h = prefill_row(params, draft_params, cfg, prompt,
                                        real_len)
     for pool, r in zip(pstate.pools, row):
-        for key in ("k", "v"):
-            _scatter_rows(pool[key], r[key][:, 0], table_row, lead=1)
+        for key, arr in r.items():
+            if key in ATTN_KEYS:
+                _scatter_rows(pool[key], arr[:, 0], table_row, lead=1)
+            else:    # recurrent state: the slot's whole row
+                pool[key][:, slot] = arr[:, 0]
     if prefix is not None:
         _scatter_rows(pstate.prefix_k, prefix[0], table_row, lead=0)
         _scatter_rows(pstate.prefix_v, prefix[1], table_row, lead=0)

@@ -71,6 +71,23 @@ def test_entry_points_refuse_the_cpu_without_asking(monkeypatch, tiny):
             call()
 
 
+def test_rwkv6_entry_points_refuse_the_cpu_without_asking(monkeypatch):
+    """The recurrent slice's entry points hold the same rule."""
+    cfg = get_config("rwkv6-1.6b").reduced()
+    params = init_params(cfg, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: init_params(cfg),
+        lambda: init_draft_params(cfg),
+        lambda: SpeculativeEngine(params, None, cfg, tree_for(cfg)),
+        lambda: PagedSpeculativeEngine(params, None, cfg, tree_for(cfg)),
+        lambda: serve.main(["--arch", "rwkv6-1.6b"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
 def test_entry_points_run_on_the_cpu_when_asked(tiny):
     cfg, params = tiny
     assert resolve_device("cpu").type == "cpu"
