@@ -1,6 +1,8 @@
-// Device code shared by the port's attention kernels:
-//   tree_attention_paged.cu  (K1 paged tree verify, K4 its windowed form)
+// Device code shared by the fp32 bodies of the port's attention kernels:
+//   tree_attention_paged.cu  (K1 paged tree verify, K4 windowed, K2 dense)
 //   flash_attention.cu       (K3 prefill attention)
+// (their bf16 bodies run on the tensor cores: attention_mma.cuh), and the
+// constants and conversions mla_attention_paged.cu (K5) takes from here.
 //
 // One key tile of the fp32 online softmax, with the conventions of the
 // Pallas template (src/repro/kernels/attention_template/kernel.py::
@@ -16,14 +18,6 @@
 
 #include <cuda_bf16.h>
 #include <stddef.h>
-
-// A source that clocks its phases defines TILE_MARK(phase) before it
-// includes this header; otherwise the marks compile to nothing.
-#ifndef TILE_MARK
-#define TILE_MARK(phase) \
-  do {                   \
-  } while (0)
-#endif
 
 namespace attn {
 
@@ -115,7 +109,6 @@ __device__ __forceinline__ void tile_update(int R, int n, const Smem& sm,
     sm.s[r * kKeyTile + kk] = s;
   }
   __syncthreads();
-  TILE_MARK(kScore);
   for (int r = threadIdx.x; r < R; r += kThreads) {
     const float m_prev = sm.m[r];
     float m_new = m_prev;
@@ -134,7 +127,6 @@ __device__ __forceinline__ void tile_update(int R, int n, const Smem& sm,
     sm.c[r] = corr;
   }
   __syncthreads();
-  TILE_MARK(kSoftmax);
   const int d = threadIdx.x % D;
   const int rg = threadIdx.x / D;
 #pragma unroll
@@ -151,7 +143,6 @@ __device__ __forceinline__ void tile_update(int R, int n, const Smem& sm,
     }
   }
   __syncthreads();  // the next tile overwrites sm.k, sm.v and sm.s
-  TILE_MARK(kAccum);
 }
 
 }  // namespace attn

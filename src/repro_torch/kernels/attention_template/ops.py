@@ -9,7 +9,9 @@ multiple of 8 as the JAX wrapper does (pad rows self-attend and sit at
 position 0; their outputs are sliced away), validates the operands with
 K1's checks, and dispatches on the device the tensors lie on: CPU tensors
 take the plain version (``ref.py``), CUDA tensors launch the kernel or
-raise.  ``launches`` counts kernel launches, and only those.
+raise.  ``launches`` counts kernel launches, and only those: one per call,
+the split cache sweep; ``merge_launches`` counts the merge launched after
+it.  The split length is K1's (the planner's unless forced).
 """
 from __future__ import annotations
 
@@ -20,22 +22,27 @@ from repro_torch.kernels.attention_template.ref import (
     tree_attention_paged_windowed_plain)
 from repro_torch.kernels.tree_attention import kernel as _k
 from repro_torch.kernels.tree_attention.ops import (check_cuda_operands,
-                                                    check_operands, pad_tree)
+                                                    check_operands,
+                                                    check_split_len, pad_tree)
+from repro_torch.kernels.tree_attention.split import plan_split_len
 
-launches = 0                  # kernel launches since the last reset
+launches = 0                  # split-sweep launches since the last reset
+merge_launches = 0            # merge launches since the last reset
 
 
 def tree_attention_paged_windowed_bshd(q, pool_k, pool_v, tree_k, tree_v,
                                        tree_mask, cache_len, block_table,
-                                       q_pos, window: int):
+                                       q_pos, window: int, *,
+                                       split_len: int | None = None):
     """K1's contract (q/tree k,v (B,T,H*,D); the pool (N, bs, Hkv, D)
     streamed in place; tree_mask (T,T) bool; cache_len (B,) and
     block_table (B, M) int32) plus ``q_pos`` (B, T) absolute query
     positions (any integer type; the kernel takes them as int32) and
     ``window`` (int; <= 0 means full attention, so one kernel serves
     local and global layers).  Precondition: every real query row sits
-    at ``q_pos >= cache_len``.  Returns (B,T,Hq,D) in q's dtype."""
-    global launches
+    at ``q_pos >= cache_len``.  ``split_len`` forces the kernel's split
+    (default: the planner's).  Returns (B,T,Hq,D) in q's dtype."""
+    global launches, merge_launches
     q, tree_k, tree_v, tree_mask, T = pad_tree(q, tree_k, tree_v, tree_mask)
     args = (q, pool_k, pool_v, tree_k, tree_v, tree_mask, cache_len,
             block_table)
@@ -51,12 +58,18 @@ def tree_attention_paged_windowed_bshd(q, pool_k, pool_v, tree_k, tree_v,
         check_cuda_operands(*args)
         if q_pos.device != q.device:
             raise ValueError("q_pos must lie on the operands' device")
+        bs = pool_k.shape[1]
+        if split_len is None:
+            split_len = plan_split_len(q.shape[0], pool_k.shape[2], bs)
+        check_split_len(split_len, bs)
         out = torch.empty_like(q)
-        rc = _k.launch(*args, out, q_pos=q_pos.contiguous(), window=window)
+        rc = _k.launch(*args, out, split_len=split_len,
+                       q_pos=q_pos.contiguous(), window=window)
         if rc != 0:
             raise RuntimeError(f"tree_attention_paged_windowed launch "
                                f"failed: CUDA error {rc}")
         launches += 1
+        merge_launches += 1
     else:
         raise ValueError(f"no tree_attention_paged_windowed for device "
                          f"{q.device}")

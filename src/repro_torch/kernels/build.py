@@ -8,9 +8,6 @@ under a name that carries a hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
 and a stale library is never loaded.  ``build()``
 starts one ``nvcc`` per missing library, all at once, and waits for all.
-``defines`` (``("K1_PHASE_CLOCKS",)``, ``("K1_MAX_ROWS=48",)``) build a
-measurement variant of a source beside the plain library; the port itself
-loads only the plain ones.
 
 Nothing here runs at import time: the CPU tests import every module of
 the port, and this machine class has no ``nvcc``.
@@ -53,20 +50,16 @@ def nvcc_path() -> str:
     return found
 
 
-def _flags(defines) -> list:
-    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
-
-
-def library_path(name: str, defines=()) -> Path:
+def library_path(name: str) -> Path:
     h = hashlib.sha256((CSRC_DIR / SOURCES[name]).read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join(_flags(defines)).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(names=None, defines=()) -> dict:
+def build(names=None) -> dict:
     """Compile every missing library in ``names`` (default: all), one
     ``nvcc`` process per source, all started together.  Returns
     ``{name: (seconds, ptxas report)}`` for the ones built; raises with
@@ -77,11 +70,11 @@ def build(names=None, defines=()) -> dict:
     nvcc = nvcc_path()
     procs = {}
     for name in names:
-        out = library_path(name, defines)
+        out = library_path(name)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *_flags(defines), "-o", str(tmp),
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC_DIR / SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
@@ -103,23 +96,22 @@ def build(names=None, defines=()) -> dict:
     return built
 
 
-def ptxas_report(name: str, defines=()) -> str:
+def ptxas_report(name: str) -> str:
     """The ``ptxas -v`` report (registers, stack frame, spills) saved
     beside the library when it was built; builds it first if missing."""
-    path = library_path(name, defines)
+    path = library_path(name)
     if not path.exists():
-        build([name], defines)
+        build([name])
     return path.with_suffix(".ptxas").read_text()
 
 
-def load(name: str, defines=()) -> ctypes.CDLL:
+def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``name``, built first if missing."""
-    key = (name, tuple(defines))
-    lib = _loaded.get(key)
+    lib = _loaded.get(name)
     if lib is None:
-        path = library_path(name, defines)
+        path = library_path(name)
         if not path.exists():
-            build([name], defines)
+            build([name])
         lib = ctypes.CDLL(str(path))
-        _loaded[key] = lib
+        _loaded[name] = lib
     return lib

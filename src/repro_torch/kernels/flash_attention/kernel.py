@@ -10,9 +10,9 @@ arange(S)``: the full-seq math the port ran before K3, so the CPU path
 keeps its numbers.  The CPU tests run it and ``chip_smoke.py`` holds the
 kernel against it on the card.
 
-Both take the MODEL layout: q/out ``(B, S, Hq, D)``, k/v
-``(B, S, Hkv, D)``.  The wrapper (``ops.py``) is the port's only caller of
-``launch``.
+Both take the MODEL layout: q ``(B, S, Hq, Dqk)``, k ``(B, S, Hkv, Dqk)``,
+v ``(B, S, Hkv, Dv)``, out ``(B, S, Hq, Dv)``.  The wrapper (``ops.py``) is
+the port's only caller of ``launch``.
 """
 from __future__ import annotations
 
@@ -24,8 +24,11 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.models.layers import blocked_attention
 
-# head dim -> query rows one thread block holds (G * the query tile): the
-# G query heads of a kv head must fit in one block
+# (Dqk, Dv) of the bf16 (tensor-core) builds; (192, 128) is deepseek's MLA
+# prefill at its own widths
+BF16_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
+# fp32 (CUDA-core) builds, Dqk = Dv: head dim -> query rows one thread
+# block holds (G * the query tile): the G query heads of a kv head must fit
 MAX_ROWS = {64: 128, 128: 128, 256: 64}
 HEAD_DIMS = tuple(MAX_ROWS)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -36,7 +39,7 @@ def kernel_fn():
     fn = build.load("flash_attention").flash_attention
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
     return fn
 
@@ -45,21 +48,23 @@ def launch(q, k, v, out, *, causal: bool, window: int,
            scale: float | None = None) -> int:
     """Launch the kernel on the current CUDA stream (no synchronisation).
     All arguments must already be validated by the wrapper.  ``scale``
-    defaults to 1/sqrt(D).  Returns the CUDA error code of the launch: 0
+    defaults to 1/sqrt(Dqk).  Returns the CUDA error code of the launch: 0
     on success."""
-    B, S, Hq, D = q.shape
-    Hkv = k.shape[2]
+    B, S, Hq, Dqk = q.shape
+    Hkv, Dv = k.shape[2], v.shape[3]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     return kernel_fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, S, Hq, Hkv, D, int(causal), int(window), DTYPE_CODES[q.dtype],
-        1.0 / math.sqrt(D) if scale is None else float(scale), stream)
+        B, S, Hq, Hkv, Dqk, Dv, int(causal), int(window),
+        DTYPE_CODES[q.dtype],
+        1.0 / math.sqrt(Dqk) if scale is None else float(scale), stream)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                           scale: float | None = None):
-    """q: (B,S,Hq,D); k/v: (B,S,Hkv,D); query and key i sit at position i;
-    ``scale`` defaults to 1/sqrt(D).  Returns (B,S,Hq,D) in q's dtype."""
+    """q: (B,S,Hq,Dqk); k: (B,S,Hkv,Dqk); v: (B,S,Hkv,Dv); query and key
+    i sit at position i; ``scale`` defaults to 1/sqrt(Dqk).  Returns
+    (B,S,Hq,Dv) in q's dtype."""
     B, S = q.shape[:2]
     pos = torch.arange(S, device=q.device)
     return blocked_attention(q, k, v, pos[None].expand(B, S), pos,

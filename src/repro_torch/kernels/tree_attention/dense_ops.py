@@ -9,16 +9,21 @@ to a multiple of 8 as K1's does (pad rows self-attend; sliced away),
 validates the operands, and dispatches on the device the tensors lie on:
 CPU tensors take the plain version
 (``kernel.py::tree_attention_dense_plain``), CUDA tensors launch the
-kernel or raise.  ``launches`` counts kernel launches, and only those.
+kernel or raise.  ``launches`` counts kernel launches, and only those: one
+per call, the split cache sweep; ``merge_launches`` counts the merge
+launched after it.  The planner gives a dense call of K1's B*Hkv K1's
+split (``split.py``), whatever the two capacities.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.tree_attention import kernel as _k
-from repro_torch.kernels.tree_attention.ops import pad_tree
+from repro_torch.kernels.tree_attention.ops import check_split_len, pad_tree
+from repro_torch.kernels.tree_attention.split import plan_split_len
 
-launches = 0                  # kernel launches since the last reset
+launches = 0                  # split-sweep launches since the last reset
+merge_launches = 0            # merge launches since the last reset
 
 
 def check_operands(q, cache_k, cache_v, tree_k, tree_v, tree_mask,
@@ -54,20 +59,22 @@ def check_cuda_operands(q, cache_k, cache_v, tree_k, tree_v, tree_mask,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the kernel takes contiguous operands only")
     D = q.shape[-1]
-    if D not in _k.MAX_ROWS:
+    if D not in _k.HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {_k.HEAD_DIMS}")
     rows = (q.shape[2] // cache_k.shape[2]) * q.shape[1]
-    if rows > _k.MAX_ROWS[D]:
+    if rows > _k.MAX_ROWS:
         raise ValueError(f"{rows} query rows per kv head exceed the "
-                         f"kernel's {_k.MAX_ROWS[D]} at head dim {D}")
+                         f"kernel's {_k.MAX_ROWS}")
 
 
 def tree_attention_bshd(q, cache_k, cache_v, tree_k, tree_v, tree_mask,
-                        cache_len):
+                        cache_len, *, split_len: int | None = None):
     """q/tree k,v: (B,T,H*,D) model layout; cache_k/v: the per-slot
     cache (B, S, Hkv, D), read only below ``cache_len`` (B,) int32;
-    tree_mask (T,T) bool.  Returns (B,T,Hq,D) in q's dtype."""
-    global launches
+    tree_mask (T,T) bool.  ``split_len`` forces the kernel's split (a
+    multiple of 16; default: the planner's).  Returns (B,T,Hq,D) in q's
+    dtype."""
+    global launches, merge_launches
     q, tree_k, tree_v, tree_mask, T = pad_tree(q, tree_k, tree_v, tree_mask)
     args = (q, cache_k, cache_v, tree_k, tree_v, tree_mask, cache_len)
     check_operands(*args)
@@ -75,12 +82,16 @@ def tree_attention_bshd(q, cache_k, cache_v, tree_k, tree_v, tree_mask,
         out = _k.tree_attention_dense_plain(*args)
     elif q.device.type == "cuda":
         check_cuda_operands(*args)
+        if split_len is None:
+            split_len = plan_split_len(q.shape[0], cache_k.shape[2])
+        check_split_len(split_len)
         out = torch.empty_like(q)
-        rc = _k.launch_dense(*args, out)
+        rc = _k.launch_dense(*args, out, split_len=split_len)
         if rc != 0:
             raise RuntimeError(f"tree_attention_dense launch failed: CUDA "
                                f"error {rc}")
         launches += 1
+        merge_launches += 1
     else:
         raise ValueError(f"no tree_attention_dense for device {q.device}")
     return out[:, :T]

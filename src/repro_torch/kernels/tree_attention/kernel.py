@@ -17,7 +17,9 @@ against it on the card.
 Both take the MODEL layout (q/out ``(B, T, Hq, D)``, tree K/V
 ``(B, T, Hkv, D)``) with T already padded by the wrappers (``ops.py``
 here, ``attention_template/ops.py`` for K4), the port's only callers of
-``launch``; ``phases.py`` calls it too, to time the measurement builds.
+``launch``.  Each launch is two kernels: the split cache sweep and the
+merge (``split.py`` has the planner and the split's plain version); the
+wrappers allocate the merge's fp32 scratch (``scratch``).
 
 The same source carries the dense-cache form K2 as well (entry point
 ``tree_attention_dense``): ``launch_dense`` starts it and
@@ -35,83 +37,91 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.tree_attention.split import n_splits
 from repro_torch.models.layers import masked_attention
 
 NULL_BLOCK = 0                 # physical pool block 0 is never read unmasked
-# head dim -> G * T query rows one thread block holds (the CUDA source
-# instantiates these head dims; at 256 the accumulator caps the rows at 64)
-MAX_ROWS = {64: 128, 128: 128, 256: 64}
-HEAD_DIMS = tuple(MAX_ROWS)
+HEAD_DIMS = (64, 128, 256)     # the head dims the CUDA source instantiates
+MAX_ROWS = 64                  # G * T query rows a block holds (4 warps x 16)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def kernel_fn(defines=(), windowed: bool = False):
-    """The C entry point of the library built with ``defines`` (none for
-    the port; measurement variants otherwise): K1's, or K4's when
-    ``windowed``."""
-    lib = build.load("tree_attention_paged", defines)
-    if windowed:
-        fn = lib.tree_attention_paged_windowed
-        argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
-                    + [ctypes.c_float, ctypes.c_void_p])
-    else:
-        fn = lib.tree_attention_paged
-        argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
-                    + [ctypes.c_float, ctypes.c_void_p])
+def _entry(name: str, n_ptr: int, n_int: int):
+    fn = getattr(build.load("tree_attention_paged"), name)
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-    return fn
-
-
-def dense_kernel_fn():
-    """K2's C entry point (the dense form of the same library)."""
-    fn = build.load("tree_attention_paged").tree_attention_dense
-    if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_float, ctypes.c_void_p])
     return fn
 
 
+def kernel_fn(windowed: bool = False):
+    """The C entry point of K1, or of K4 when ``windowed``."""
+    if windowed:
+        return _entry("tree_attention_paged_windowed", 12, 11)
+    return _entry("tree_attention_paged", 11, 10)
+
+
+def dense_kernel_fn():
+    """K2's C entry point (the dense form of the same library)."""
+    return _entry("tree_attention_dense", 10, 9)
+
+
+def scratch(q, Hkv: int, capacity: int, split_len: int):
+    """The merge's fp32 scratch for a call on q (B, T, Hq, D): per
+    (b, kv head), ``n_splits + 1`` partials (the splits, then the tree) of
+    R = G*T rows: (m, l) pairs and D accumulator columns."""
+    B, T, Hq, D = q.shape
+    shape = (B * Hkv, n_splits(capacity, split_len) + 1, (Hq // Hkv) * T)
+    return (torch.empty((*shape, 2), dtype=torch.float32, device=q.device),
+            torch.empty((*shape, D), dtype=torch.float32, device=q.device))
+
+
 def launch(q, pool_k, pool_v, tree_k, tree_v, tree_mask, cache_len,
-           block_table, out, fn=None, *, q_pos=None, window=None) -> int:
+           block_table, out, *, split_len: int, q_pos=None,
+           window=None) -> int:
     """Launch K1, or K4 when ``q_pos`` (B, T) int32 and ``window`` (int)
-    are given, on the current CUDA stream (no synchronisation).  All
-    arguments must already be validated by the wrapper.  ``fn`` is a
-    measurement variant's K1 entry point (``kernel_fn(defines)``); the port
-    passes none.  Returns the CUDA error code of the launch: 0 on success."""
+    are given, on the current CUDA stream (no synchronisation): the split
+    sweep at ``split_len``, then the merge.  All arguments must already be
+    validated by the wrapper.  Returns the CUDA error code of the
+    launches: 0 on success."""
     B, T, Hq, D = q.shape
     _, bs, Hkv, _ = pool_k.shape
     M = block_table.shape[1]
+    part_ml, part_acc = scratch(q, Hkv, M * bs, split_len)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
             tree_k.data_ptr(), tree_v.data_ptr(), tree_mask.data_ptr(),
             cache_len.data_ptr(), block_table.data_ptr())
+    split = (split_len, n_splits(M * bs, split_len))
     scale = 1.0 / math.sqrt(D)
     if q_pos is not None:
         return kernel_fn(windowed=True)(
-            *ptrs, q_pos.data_ptr(), out.data_ptr(), B, T, Hq, Hkv, D, bs, M,
-            int(window), DTYPE_CODES[q.dtype], scale, stream)
-    return (fn or kernel_fn())(
-        *ptrs, out.data_ptr(), B, T, Hq, Hkv, D, bs, M, DTYPE_CODES[q.dtype],
-        scale, stream)
+            *ptrs, q_pos.data_ptr(), out.data_ptr(), part_ml.data_ptr(),
+            part_acc.data_ptr(), B, T, Hq, Hkv, D, bs, M, int(window),
+            *split, DTYPE_CODES[q.dtype], scale, stream)
+    return kernel_fn()(
+        *ptrs, out.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
+        B, T, Hq, Hkv, D, bs, M, *split, DTYPE_CODES[q.dtype], scale, stream)
 
 
 def launch_dense(q, cache_k, cache_v, tree_k, tree_v, tree_mask, cache_len,
-                 out) -> int:
+                 out, *, split_len: int) -> int:
     """Launch K2 on the current CUDA stream (no synchronisation); the
     cache is the per-slot (B, S, Hkv, D) layer view.  All arguments must
     already be validated by the wrapper.  Returns the CUDA error code of
-    the launch: 0 on success."""
+    the launches: 0 on success."""
     B, T, Hq, D = q.shape
     S, Hkv = cache_k.shape[1], cache_k.shape[2]
+    part_ml, part_acc = scratch(q, Hkv, S, split_len)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     return dense_kernel_fn()(
         q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
         tree_k.data_ptr(), tree_v.data_ptr(), tree_mask.data_ptr(),
-        cache_len.data_ptr(), out.data_ptr(), B, T, Hq, Hkv, D, S,
-        DTYPE_CODES[q.dtype], 1.0 / math.sqrt(D), stream)
+        cache_len.data_ptr(), out.data_ptr(), part_ml.data_ptr(),
+        part_acc.data_ptr(), B, T, Hq, Hkv, D, S, split_len,
+        n_splits(S, split_len), DTYPE_CODES[q.dtype], 1.0 / math.sqrt(D),
+        stream)
 
 
 def tree_attention_dense_plain(q, cache_k, cache_v, tree_k, tree_v,

@@ -5,7 +5,10 @@ The wrapper pads the tree axis T (pad rows self-attend, so their softmax
 is well defined), validates what the kernel takes, and dispatches on the
 device the tensors lie on: CPU tensors take the plain version, CUDA
 tensors launch the kernel or raise.  There is no fallback from one to the
-other.  ``launches`` counts kernel launches, and only those.  The padding
+other.  ``launches`` counts kernel launches, and only those: one per call,
+the split cache sweep; ``merge_launches`` counts the merge kernel each call
+launches after it.  The split length comes from the planner
+(``split.py::plan_split_len``) unless the caller forces one.  The padding
 and the checks are shared with the windowed wrapper (K4,
 ``kernels/attention_template/ops.py``).
 """
@@ -15,19 +18,23 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.tree_attention import kernel as _k
+from repro_torch.kernels.tree_attention.split import plan_split_len
 
-launches = 0                  # kernel launches since the last reset
+launches = 0                  # split-sweep launches since the last reset
+merge_launches = 0            # merge launches since the last reset
 T_PAD = 8                     # the tree axis is padded to a multiple of this
 
 
 def pad_tree_mask(tree_mask, Tp: int):
     """The (T, T) ancestor mask grown to (Tp, Tp); padded query rows
-    attend only to themselves, so their softmax is well defined."""
+    attend only to themselves, so their softmax is well defined.  Built
+    from slice copies: an index assignment here synchronised the host
+    with the card on every padded call."""
     T = tree_mask.shape[0]
-    tm = torch.zeros((Tp, Tp), dtype=torch.bool, device=tree_mask.device)
+    dev = tree_mask.device
+    tm = torch.zeros((Tp, Tp), dtype=torch.bool, device=dev)
     tm[:T, :T] = tree_mask
-    idx = torch.arange(T, Tp, device=tree_mask.device)
-    tm[idx, idx] = True
+    tm[T:, T:] = torch.eye(Tp - T, dtype=torch.bool, device=dev)
     return tm
 
 
@@ -78,21 +85,31 @@ def check_cuda_operands(q, pool_k, pool_v, tree_k, tree_v, tree_mask,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the kernel takes contiguous operands only")
     D = q.shape[-1]
-    if D not in _k.MAX_ROWS:
+    if D not in _k.HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {_k.HEAD_DIMS}")
     rows = (q.shape[2] // pool_k.shape[2]) * q.shape[1]
-    if rows > _k.MAX_ROWS[D]:
+    if rows > _k.MAX_ROWS:
         raise ValueError(f"{rows} query rows per kv head exceed the "
-                         f"kernel's {_k.MAX_ROWS[D]} at head dim {D}")
+                         f"kernel's {_k.MAX_ROWS}")
+
+
+def check_split_len(split_len: int, bs: int | None = None) -> None:
+    if split_len <= 0 or split_len % 16 != 0 or (bs and split_len % bs):
+        raise ValueError(f"split_len {split_len} must be a positive "
+                         f"multiple of 16" + (f" and of the block size {bs}"
+                                              if bs else ""))
 
 
 def tree_attention_paged_bshd(q, pool_k, pool_v, tree_k, tree_v, tree_mask,
-                              cache_len, block_table):
+                              cache_len, block_table, *,
+                              split_len: int | None = None):
     """q/tree k,v: (B,T,H*,D) model layout; pool_k/v: the global pool
     (num_blocks, block_size, Hkv, D), streamed in place, never gathered
     on the card; tree_mask (T,T) bool; cache_len (B,) and block_table
-    (B, M) int32.  Returns (B,T,Hq,D) in q's dtype."""
-    global launches
+    (B, M) int32.  ``split_len`` forces the kernel's split (a multiple of
+    16 and of the block size; default: the planner's).  Returns
+    (B,T,Hq,D) in q's dtype."""
+    global launches, merge_launches
     q, tree_k, tree_v, tree_mask, T = pad_tree(q, tree_k, tree_v, tree_mask)
     args = (q, pool_k, pool_v, tree_k, tree_v, tree_mask, cache_len,
             block_table)
@@ -101,12 +118,17 @@ def tree_attention_paged_bshd(q, pool_k, pool_v, tree_k, tree_v, tree_mask,
         out = _k.tree_attention_paged_plain(*args)
     elif q.device.type == "cuda":
         check_cuda_operands(*args)
+        bs = pool_k.shape[1]
+        if split_len is None:
+            split_len = plan_split_len(q.shape[0], pool_k.shape[2], bs)
+        check_split_len(split_len, bs)
         out = torch.empty_like(q)
-        rc = _k.launch(*args, out)
+        rc = _k.launch(*args, out, split_len=split_len)
         if rc != 0:
             raise RuntimeError(f"tree_attention_paged launch failed: CUDA "
                                f"error {rc}")
         launches += 1
+        merge_launches += 1
     else:
         raise ValueError(f"no tree_attention_paged for device {q.device}")
     return out[:, :T]

@@ -121,8 +121,9 @@ def main(argv=None) -> None:
 
 def _profiled_serve(eng, reqs, max_batch: int):
     """Serve under torch.profiler and print the device time per decode
-    step (warm-up step included) against the traced step time, and the
-    operators that took the most device time.  Serving numbers from a
+    step (warm-up step included) against the traced step time, the
+    operators that took the most device time, and each of the port's
+    kernels' launches and share of device time.  Serving numbers from a
     traced run carry the tracing overhead; compare busy time with an
     untraced run's step time to estimate the idle share."""
     import torch
@@ -148,7 +149,20 @@ def _profiled_serve(eng, reqs, max_batch: int):
           f"({per_step / max(stats.mean_step_s * 1e3, 1e-9):.1%} busy)")
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=15))
+    for name in PORT_KERNELS:
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and name in e.name]
+        if us:
+            print(f"[profile] {name}: {len(us)} launches, "
+                  f"{sum(us) / 1e3:.1f}ms ({sum(us) / max(busy_us, 1e-9):.1%} "
+                  f"of device time), {sum(us) / len(us):.1f}us each")
     return stats
+
+
+# the port's hand-written kernels, as the profiler names them
+PORT_KERNELS = ("tree_attention_split_kernel", "tree_attention_merge_kernel",
+                "flash_attention_kernel", "mla_attention_paged_kernel",
+                "linear_attn_chunk_kernel")
 
 
 if __name__ == "__main__":

@@ -26,8 +26,7 @@ cache holds the latent ``c_kv (.., r)`` and the rope key ``(.., rd)``
 instead of K/V):
 
 * full-seq (prefill): the latent expanded to per-head K (nd + rd) and V
-  (vd), zero-padded to a head dim K3 takes and run through K3 with the
-  scale 1/sqrt(nd + rd) (zero columns add exact zeros to every score);
+  (vd), run through K3 at those widths with the scale 1/sqrt(nd + rd);
 * dense verify: absorbed attention against the per-slot latent cache
   (``q_nope @ w_uk`` scores the latent directly, the latent is V, and
   ``w_uv`` maps the result back to the head space);
@@ -48,11 +47,9 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.attention_template.ops import (
     tree_attention_paged_windowed_bshd)
-from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS as K3_DIMS
 from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
 from repro_torch.kernels.mla_attention.ops import mla_attention_paged_bshd
 from repro_torch.kernels.tree_attention.dense_ops import tree_attention_bshd
@@ -316,13 +313,8 @@ def mla_fwd(p, cfg, x, ai: AttnInputs):
 
 
 def _mla_prefill_attention(q, k, v, ai: AttnInputs, scale: float):
-    """q/k (B,S,H,nd+rd) and v (B,S,H,vd), zero-padded to the least head
-    dim K3 takes and run through it with the given scale; the output is
-    sliced back to vd.  Zero columns add exact zeros to every score and
-    leave the padded output columns at zero."""
-    dv = v.shape[-1]
-    D = min(d for d in K3_DIMS if d >= max(q.shape[-1], dv))
-    pad = lambda t: F.pad(t, (0, D - t.shape[-1]))
-    out = flash_attention_bshd(pad(q), pad(k), pad(v), causal=ai.causal,
-                               window=ai.window, scale=scale)
-    return out[..., :dv]
+    """q/k (B,S,H,nd+rd) and v (B,S,H,vd) through K3 at their own widths
+    (deepseek-v2-lite: 192 and 128) with the given scale; returns
+    (B,S,H,vd)."""
+    return flash_attention_bshd(q, k, v, causal=ai.causal, window=ai.window,
+                                scale=scale)

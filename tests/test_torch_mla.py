@@ -11,11 +11,11 @@ against the JAX reference.
   holes, ``atol = rtol = 2e-5`` (fp32, the sums run in different
   orders); poison in the NULL block (0, +-1e4, NaN, inf) changes no
   output bit; the wrapper pads T and refuses the window hook;
-* the MLA prefill's padding: q/k (nd + rd) and v (vd) zero-padded to a
-  head dim K3 takes, through K3's plain version with the scale
-  1/sqrt(nd + rd), against JAX ``blocked_attention`` at the unpadded
-  widths, at the reduced and at deepseek's own 192/128 widths,
-  ``atol = rtol = 1e-5``.
+* the MLA prefill: q/k (nd + rd) and v (vd) through K3's plain version
+  at their own widths (K3's bf16 build takes deepseek's 192/128 unpadded;
+  the test keeps its first name) with the scale 1/sqrt(nd + rd), against
+  JAX ``blocked_attention``, at the reduced and at deepseek's own
+  widths, ``atol = rtol = 1e-5``.
 
 The CUDA kernel against its plain version is ``gpu``-marked; it skips
 without a card.  The JAX side is imported inside the helpers that run it,
