@@ -12,12 +12,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    a spill in any head-dim-256 build, and unless the bf16 builds the
    main path runs (the tree-verify split kernel at head dims 128 and 256
    in its paged, windowed and dense forms and its merge, K3 at (128,
-   128), (256, 256) and (192, 128), K5's builds over bf16 pools, K6's
-   bf16 build at chunk 64) are each found in the report and show no
-   spill; then fail unless
+   128), (256, 256) and (192, 128), K5's split sweep over bf16 pools at
+   (512, 64) and its merge, K6's bf16 chunk kernel and scan at chunk 64)
+   are each found in the report and show no spill; then fail unless
    ``cuobjdump -sass`` finds tensor-core instructions (``HMMA`` or
-   ``HGMMA``) in every bf16 build of K3 and of the tree-verify split
-   kernel;
+   ``HGMMA``) in every bf16 build of K3, of the tree-verify split
+   kernel, of K5's split sweep and of K6's two kernels;
 3. hold each kernel against its plain PyTorch version on the card, fp32
    with TF32 off (atol = rtol = 1e-4) and bf16 (atol = rtol = 2e-2), and
    time the kernel, its plain version and ``scaled_dot_product_attention``
@@ -40,21 +40,26 @@ Phases, each of which raises on failure (exit code != 0, no result line):
       (gemma3-1b heads, window 512) and K2 (minitron-4b heads) with the
       split forced to one split over the capacity, to the planner's and
       to 16, against their plain versions, and two identical calls
-      bitwise equal (the merge uses no atomics);
+      bitwise equal (the merge uses no atomics); K1 over a pool of
+      128-position blocks bitwise equal to K2 over the same keys (one
+      split rule for every block size);
    d. K3, prefill attention, at gemma3-1b and minitron-4b head shapes,
       S in {37, 300, 1536}, windows 0 and 512; and at deepseek-v2-lite's
       MLA prefill (16 heads over 16, q/k 192 and v 128 at their own
       widths, scale 1/sqrt(192), S=1536) against ``blocked_attention``,
       timed unpadded;
-   e. K5, absorbed-MLA paged verify, at deepseek-v2-lite shapes (B=4,
-      16 heads, latent 512, rope 64, block 16, T=16, lens
-      0/37/700/1500, NULL holes): fp32 throughout, then bf16 pools, with
-      block 0 poisoned (outputs bitwise equal); SDPA on the gathered
-      view (Dk 576, Dv 512, a boolean mask) as the yardstick;
+   e. K5, absorbed-MLA paged verify (split sweep + merge), at
+      deepseek-v2-lite shapes (B=4, 16 heads, latent 512, rope 64, block
+      16, T=16, lens 0/37/700/1500, NULL holes): fp32 throughout, then
+      bf16 pools, with block 0 poisoned (outputs bitwise equal), the
+      split forced to one split, the planner's and 16 (two identical
+      calls bitwise equal at each); SDPA on the gathered view (Dk 576,
+      Dv 512, a boolean mask) as the yardstick;
    f. K6, chunked decay linear attention, at rwkv6-1.6b shapes (B=1,
       32 heads, dk = dv = 64, chunk 64): S in {37, 300, 1536}, with and
-      without an initial state, a strong-decay case (log-decay down to
-      -20 a step) and a B=2 case; output and final state; a
+      without an initial state, strong-decay cases (log-decay down to
+      -20 a step; S=300 and 1536) and a B=2 case; output and final
+      state; one chunk launch and one scan launch a call; a
       length-masked pad tail
       (k = 0, w = 0 past the real length) bitwise equal to the
       exact-length call; no PyTorch call computes it (no yardstick);
@@ -77,8 +82,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    dense from the same prefill (prefill through K3, then through K3's
    plain version; with K3, argmax must agree on at least 14 of the 16
    tree positions), then the paged engine serves 8 requests with every kernel
-   launch counted (each tree-verify call also launches its merge, counted
-   apart and printed):
+   launch counted (each tree-verify or K5 call also launches its merge,
+   each K6 call its scan, counted apart, printed, and required equal to
+   the first launches):
    - minitron-4b: prompts 64-256, 32 new tokens, max_batch 4, block 16,
      max_len 512, pool half the dense footprint; 33 K1 launches per
      decode step (32 layers + the prefix layer) and 33 K3 launches per
@@ -208,8 +214,10 @@ KERNEL_PARAMS = {
     "tree_attention_split_kernel": ("", "D", "windowed", "dense"),
     "tree_attention_merge_kernel": ("", "dense"),
     "flash_attention_kernel": ("", "DQK", "DV"),
-    "mla_attention_paged_kernel": ("kv", "rows"),
+    "mla_attention_split_kernel": ("kv", "DL", "DR"),
+    "mla_attention_merge_kernel": ("DL",),
     "linear_attn_chunk_kernel": ("", "C"),
+    "linear_attn_scan_kernel": ("", "C"),
 }
 
 
@@ -335,16 +343,24 @@ TREE_VERIFY_BUILDS = frozenset({
 K3_BUILDS = frozenset(
     f"flash_attention_kernel<bf16, DQK={a}, DV={b}>"
     for a, b in ((128, 128), (256, 256), (192, 128)))
-# K5's builds over bf16 pools (deepseek-v2-lite's verify runs rows=16) and
-# K6's bf16 build at rwkv6-1.6b's chunk of 64
-MLA_INSTANTIATIONS = frozenset(
-    f"mla_attention_paged_kernel<kv bf16, rows={n}>" for n in (8, 16))
-K6_BUILDS = frozenset({"linear_attn_chunk_kernel<bf16, C=64>"})
-MAIN_PATH_BUILDS = TREE_VERIFY_BUILDS | K3_BUILDS | MLA_INSTANTIATIONS \
-    | K6_BUILDS
-# the bf16 builds that must run on the tensor cores (SASS check)
+# K5's split sweep over bf16 pools at deepseek-v2-lite's widths and its
+# merge; K6's chunk kernel and scan in bf16 at rwkv6-1.6b's chunk of 64
+MLA_BUILDS = frozenset({
+    "mla_attention_split_kernel<kv bf16, DL=512, DR=64>",
+    "mla_attention_merge_kernel<DL=512>"})
+K6_BUILDS = frozenset({"linear_attn_chunk_kernel<bf16, C=64>",
+                       "linear_attn_scan_kernel<bf16, C=64>"})
+MAIN_PATH_BUILDS = TREE_VERIFY_BUILDS | K3_BUILDS | MLA_BUILDS | K6_BUILDS
+# the bf16 builds that must run on the tensor cores (SASS check): every
+# build whose name starts so, and at least one of each
 TENSOR_CORE_KERNELS = ("tree_attention_split_kernel<bf16",
-                       "flash_attention_kernel<bf16")
+                       "flash_attention_kernel<bf16",
+                       "mla_attention_split_kernel<kv bf16",
+                       "linear_attn_chunk_kernel<bf16",
+                       "linear_attn_scan_kernel<bf16")
+# the wrappers' second counters: each call of a two-launch kernel also
+# launches its merge (tree verify, K5) or its scan (K6)
+SECOND_COUNTERS = ("merge_launches", "scan_launches")
 
 
 def paged_inputs(c: PagedCase, T: int, dtype, seed: int,
@@ -577,11 +593,11 @@ def check_splits() -> None:
         a2 = dense_inputs(c2, 16, dtype, seed=9, poison=math.nan)
         cases = (
             ("K1 minitron", MINITRON.m * MINITRON.bs,
-             plan_split_len(len(MINITRON.lens), MINITRON.hkv, MINITRON.bs),
+             plan_split_len(len(MINITRON.lens), MINITRON.hkv),
              lambda n: ops.tree_attention_paged_bshd(*a1, split_len=n),
              tree_attention_paged_plain(*a1)),
             ("K4 gemma3 window 512", GEMMA3.m * GEMMA3.bs,
-             plan_split_len(len(GEMMA3.lens), GEMMA3.hkv, GEMMA3.bs),
+             plan_split_len(len(GEMMA3.lens), GEMMA3.hkv),
              lambda n: wops.tree_attention_paged_windowed_bshd(
                  *a4, qp, WINDOW, split_len=n),
              tree_attention_paged_windowed_plain(*a4, qp, WINDOW)),
@@ -604,6 +620,21 @@ def check_splits() -> None:
                 f"{planned}, 16) max_abs_err "
                 + " / ".join(f"{e:.3e}" for e in errs)
                 + "; two identical calls bitwise equal")
+        # one split rule for every block size: K1 over 128-position pool
+        # blocks splits at the planner's 64, inside the blocks, as K2 over
+        # the same keys as a dense cache does, so the two fold alike
+        c128 = dataclasses.replace(MINITRON, holes=(), m=4, bs=128)
+        a128, _ = paged_inputs(c128, 16, dtype, seed=10, poison=math.nan)
+        q, pool_k, pool_v, tk, tv, tm, lens, table = a128
+        view = lambda pool: pool[table.long()].reshape(
+            len(c128.lens), c128.m * c128.bs, c128.hkv, c128.d).contiguous()
+        paged = ops.tree_attention_paged_bshd(*a128)
+        dense = dense_ops.tree_attention_bshd(q, view(pool_k), view(pool_v),
+                                              tk, tv, tm, lens)
+        assert_bitwise([paged, dense], f"K1 block 128 against K2 "
+                                       f"{dtype_name}")
+        log(f"[split] K1 at block 128 == K2 over the same keys, "
+            f"{dtype_name}, minitron heads, T=16: bitwise equal")
 
 
 # ---------------------------------------------------------------------------
@@ -831,16 +862,21 @@ def mla_sdpa_args(c: PagedCase, args):
 
 def check_k5(c: PagedCase = MLA_CASE, T: int = 16) -> dict:
     """K5 against its plain version: fp32 and bf16 pools, block 0
-    poisoned (bitwise equal outputs), then kernel, plain and SDPA
-    times."""
+    poisoned (bitwise equal outputs); the split forced to one split over
+    the capacity, to the planner's and to 16, each against the plain
+    version and two identical calls bitwise equal; then kernel, plain
+    and SDPA times."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.mla_attention import ops
     from repro_torch.kernels.mla_attention.ref import (
         mla_attention_paged_plain)
+    from repro_torch.kernels.tree_attention.split import plan_mla_split_len
 
-    kernel = lambda *a: ops.mla_attention_paged_bshd(*a, scale=MLA_SCALE)
+    kernel = lambda *a, **kw: ops.mla_attention_paged_bshd(
+        *a, scale=MLA_SCALE, **kw)
     plain = lambda *a: mla_attention_paged_plain(*a, scale=MLA_SCALE)
+    planned = plan_mla_split_len(len(c.lens), c.hq, T, MLA_LAT, MLA_ROPE)
     record = {}
     for dtype_name, tol in TOLS:
         dtype = getattr(torch, dtype_name)
@@ -850,7 +886,17 @@ def check_k5(c: PagedCase = MLA_CASE, T: int = 16) -> dict:
             args = mla_inputs(c, T, dtype, seed=T, poison=poison)
             outs.append(kernel(*args))
         assert_bitwise(outs, f"{what}: poisoned NULL block")
-        err = compare(outs[0], plain(*args), tol, what)
+        ref = plain(*args)
+        err = compare(outs[0], ref, tol, what)
+        errs = []
+        for n in (-(-c.m * c.bs // 16) * 16, planned, 16):
+            pair = [kernel(*args, split_len=n), kernel(*args, split_len=n)]
+            assert_bitwise(pair, f"{what} split {n}: two identical calls")
+            errs.append(compare(pair[0], ref, tol, f"{what} split {n}"))
+        log(f"[k5] {what}: splits (capacity, planner {planned}, 16) "
+            f"max_abs_err " + " / ".join(f"{e:.3e}" for e in errs)
+            + "; two identical calls bitwise equal")
+        err = max([err] + errs)
         sets = [mla_inputs(c, T, dtype, seed=100 + i) for i in range(32)]
         pick = cycle(sets)
         ms = device_ms(lambda: kernel(*pick()))
@@ -919,18 +965,33 @@ def k6_flops(S: int, c: int) -> int:
     return K6_HEADS * per_head
 
 
+# the H100's special-function units: 16 a clock per SM (Hopper white
+# paper: 4 per SM sub-partition), 132 SMs, 1.98 GHz boost clock
+SFU_PER_S = 16 * 132 * 1.98e9
+
+
 def k6_bound(S: int, elt: int) -> tuple:
     """Least time for one K6 call at B=1: r, k, v read and o written in
-    their type, the log-decay, both states and u in fp32, each once;
-    against the least fp32 operations over the exact forms, the chunked
-    form at every chunk length 1..64 (``k6_flops``; the least is at
-    chunk 4, below both the recurrence and K6's chunk 64), on the CUDA
-    cores' fp32 peak: the function's arithmetic is fp32."""
+    their type, the log-decay, both states and u in fp32, each once.
+
+    fp32 (the CUDA-core build): against the least fp32 operations over
+    the exact forms, the chunked form at every chunk length 1..64
+    (``k6_flops``; least at chunk 4), on the CUDA cores' fp32 peak.
+    bf16: the kernel runs its products on the tensor cores, so the
+    least time for its operations is the larger of the exponentials the
+    function needs on the SFUs (one per token and channel: every decay
+    factor is a product of exp(w)) and its least products (the state
+    read-out and update, 4 dk dv a token) at the tensor cores' rate."""
     H, d = K6_HEADS, K6_DIM
     nbytes = (4 * S * H * d * elt + S * H * d * 4 + 2 * H * d * d * 4
               + H * d * 4)
-    return bound(nbytes, min(k6_flops(S, c) for c in range(1, 65)),
-                 "float32")
+    if elt == 4:
+        return bound(nbytes, min(k6_flops(S, c) for c in range(1, 65)),
+                     "float32")
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(S * H * d / SFU_PER_S,
+                4 * S * H * d * d / PEAK_FLOPS["bfloat16"]) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def check_k6() -> dict:
@@ -948,13 +1009,19 @@ def check_k6() -> dict:
         dtype = getattr(torch, dtype_name)
         cases = [(S, init, False, 1) for S in (37, 300, 1536)
                  for init in (False, True)] + [(300, True, True, 1),
+                                               (1536, True, True, 1),
                                                (300, True, False, 2)]
         for S, init, strong, B in cases:
             what = (f"K6 {dtype_name} B={B} S={S} init={init}"
                     f"{' strong decay' if strong else ''}")
             args = k6_inputs(S, dtype, seed=S + 7 * strong + B, init=init,
                              strong=strong, B=B)
+            before = (ops.launches, ops.scan_launches)
             o, st = ops.linear_attn_bshd(*args, chunk=K6_CHUNK)
+            if (ops.launches - before[0], ops.scan_launches - before[1]) \
+                    != (1, 1):
+                raise AssertionError(f"{what}: not one chunk launch and "
+                                     "one scan")
             ref_o, ref_st = decay_attention_chunked(*args, chunk=K6_CHUNK)
             err = max(compare(o, ref_o, tol, what + " output"),
                       compare(st, ref_st, tol, what + " final state"))
@@ -1652,17 +1719,19 @@ def serve_engine(wl: Workload, cfg, params, dp, engine: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for mod in counters.values():          # count the main path only
         mod.launches = 0
-        if hasattr(mod, "merge_launches"):
-            mod.merge_launches = 0
+        for attr in SECOND_COUNTERS:
+            if hasattr(mod, attr):
+                setattr(mod, attr, 0)
     st = eng.serve(reqs, max_batch=max_batch)
     torch.cuda.synchronize()
     counts = {k: m.launches for k, m in counters.items()}
-    # each tree-verify call launches its split sweep (counted) and a merge
-    merges = {k: m.merge_launches for k, m in counters.items()
-              if hasattr(m, "merge_launches")}
-    if any(merges[k] != counts[k] for k in merges):
-        raise AssertionError(f"{cfg.name}: merge launches {merges} != "
-                             f"split launches {counts}")
+    # each tree-verify or K5 call launches its split sweep (counted) and a
+    # merge, each K6 call its chunk kernel (counted) and a scan
+    merges = {f"{k} {attr}": getattr(m, attr) for k, m in counters.items()
+              for attr in SECOND_COUNTERS if hasattr(m, attr)}
+    if any(n != counts[k.split()[0]] for k, n in merges.items()):
+        raise AssertionError(f"{cfg.name}: second launches {merges} != "
+                             f"first launches {counts}")
     for r in reqs:
         if len(r.output) != budget or not all(0 <= t < cfg.vocab_size
                                               for t in r.output):
@@ -1692,7 +1761,7 @@ def serve_engine(wl: Workload, cfg, params, dp, engine: str) -> dict:
         f"max_memory_allocated="
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}GiB "
         f"launches={counts} (per step {wl.verify[engine]}, per prefill "
-        f"{wl.prefill}) merge_launches={merges}")
+        f"{wl.prefill}) second launches={merges}")
     del eng
     return counts
 
@@ -1743,16 +1812,20 @@ def main() -> int:
         raise AssertionError(f"no ptxas line parsed for {missing}: the "
                              "spill check could not run")
     tensor_cores = {}
-    for name in ("tree_attention_paged", "flash_attention"):
+    for name in ("tree_attention_paged", "flash_attention",
+                 "mla_attention_paged", "linear_attn_chunk"):
         tensor_cores.update(sass_tensor_cores(build.library_path(name)))
     checked = sorted(k for k in tensor_cores
                      if k.startswith(TENSOR_CORE_KERNELS))
     without = [k for k in checked if not tensor_cores[k]]
-    if len(checked) < 8 or without:
+    unseen = [p for p in TENSOR_CORE_KERNELS
+              if not any(k.startswith(p) for k in checked)]
+    if len(checked) < 8 or without or unseen:
         raise AssertionError(f"SASS: bf16 builds without HMMA/HGMMA: "
-                             f"{without}; checked {checked}")
-    log(f"[sass] HMMA/HGMMA in every bf16 build of K3 and the tree-verify "
-        f"split kernel: {checked}")
+                             f"{without}; no build of {unseen}; checked "
+                             f"{checked}")
+    log(f"[sass] HMMA/HGMMA in every bf16 build of K3, the tree-verify "
+        f"split kernel, K5's split sweep and K6's two kernels: {checked}")
 
     k1 = check_k1(MINITRON, "minitron D=128")
     check_k1(GEMMA3, "gemma3 D=256")

@@ -89,9 +89,10 @@
 // cache_len (it stays on the device) nor on the capacity (M*bs or S).  So
 // a paged call (K1, K4) and a dense call (K2) of equal B*Hkv split at the
 // same positions, and tiles start at the same positions inside a split,
-// whatever their capacities.  split_len is a multiple of 16 and, paged, of
-// the block size; the grid covers the capacity, n_splits =
-// ceil(capacity / split_len).
+// whatever their capacities and whatever the pool block size: a paged
+// split may start and end inside a pool block (the sweep clamps each
+// block's keys to the split).  split_len is a multiple of 16; the grid
+// covers the capacity, n_splits = ceil(capacity / split_len).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -387,11 +388,13 @@ __device__ void split_f32(const Args& p, float* smem) {
     // w > 0) entries wholly at or behind cache_len - w skipped; inside an
     // entry, keys at or behind cache_len - w are loaded as zeros
     const int* table = p.block_table + static_cast<size_t>(b) * p.M;
+    // the split may start and end inside an entry: its keys are clamped
+    // to [lo, hi), so the tiles start at lo as the dense form's do
     for (int j = lo / p.bs; j * p.bs < hi; ++j) {
       const int blk = table[j];
       if (blk == 0) continue;  // uniform across the block: no divergence
       if (w > 0 && (j + 1) * p.bs - 1 <= len - w) continue;
-      for (int k0 = 0; k0 < p.bs; k0 += kKeyTile) {
+      for (int k0 = max(lo - j * p.bs, 0); k0 < p.bs; k0 += kKeyTile) {
         const int pos0 = j * p.bs + k0;
         if (pos0 >= hi) break;
         const int n = min(min(kKeyTile, p.bs - k0), hi - pos0);
@@ -510,7 +513,6 @@ int dispatch(const Args& a, int dtype, void* stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   const int cap = kDense ? a.S : a.M * a.bs;
   if (a.split_len <= 0 || a.split_len % kKeyTile != 0 ||
-      (!kDense && a.split_len % a.bs != 0) ||
       a.n_splits != (cap + a.split_len - 1) / a.split_len)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

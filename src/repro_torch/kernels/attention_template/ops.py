@@ -58,10 +58,9 @@ def tree_attention_paged_windowed_bshd(q, pool_k, pool_v, tree_k, tree_v,
         check_cuda_operands(*args)
         if q_pos.device != q.device:
             raise ValueError("q_pos must lie on the operands' device")
-        bs = pool_k.shape[1]
         if split_len is None:
-            split_len = plan_split_len(q.shape[0], pool_k.shape[2], bs)
-        check_split_len(split_len, bs)
+            split_len = plan_split_len(q.shape[0], pool_k.shape[2])
+        check_split_len(split_len)
         out = torch.empty_like(q)
         rc = _k.launch(*args, out, split_len=split_len,
                        q_pos=q_pos.contiguous(), window=window)

@@ -6,7 +6,9 @@ decay_attention_chunked`` adds).
 The wrapper validates its inputs and dispatches on the device the tensors
 lie on: CPU tensors take the plain version (``ref.py``), CUDA tensors
 launch the kernel or raise.  There is no fallback from one to the other.
-``launches`` counts kernel launches, and only those.  S need not be a
+``launches`` counts kernel launches, and only those: one per call, the
+chunk-parallel pass; ``scan_launches`` counts the scan of the state that
+each call launches after it.  S need not be a
 chunk multiple: the plain version pads with k = 0, w_log = 0 (decay 1,
 nothing added; exact), and the kernel reads the same zeros past S.  The
 scalar decay of Mamba2 (``w_log`` of last dim 1) is not taken yet.
@@ -18,7 +20,8 @@ import torch
 from repro_torch.kernels.linear_attn_chunk import kernel as _k
 from repro_torch.kernels.linear_attn_chunk.ref import decay_attention_chunked
 
-launches = 0                  # kernel launches since the last reset
+launches = 0                  # chunk-kernel launches since the last reset
+scan_launches = 0             # scan launches since the last reset
 
 
 def check_operands(r, k, v, w_log, u, initial_state, chunk: int) -> None:
@@ -68,7 +71,7 @@ def linear_attn_bshd(r, k, v, w_log, u=None, initial_state=None, *,
     initial_state: (B,H,dk,dv) fp32 or None (zeros).
 
     Returns (o (B,S,H,dv) in v's dtype, final_state (B,H,dk,dv) fp32)."""
-    global launches
+    global launches, scan_launches
     args = (r, k, v, w_log, u, initial_state)
     check_operands(*args, chunk)
     if k.device.type == "cpu":
@@ -84,4 +87,5 @@ def linear_attn_bshd(r, k, v, w_log, u=None, initial_state=None, *,
     if rc != 0:
         raise RuntimeError(f"linear_attn_chunk launch failed: CUDA error {rc}")
     launches += 1
+    scan_launches += 1
     return o, final_state

@@ -9,6 +9,12 @@ Hopper kernel.
   carried fp32 state, an optional initial state and the final state.  The
   wrapper takes it for CPU tensors, and ``chip_smoke.py`` holds the kernel
   against it on the card.
+* ``decay_attention_chunk_parallel`` repeats the CUDA kernel's own
+  decomposition: every chunk's intra-chunk part at once, its scores built
+  from secondary chunks (pairwise diagonal blocks, off-diagonal blocks
+  factored through the end of the earlier sub-chunk), then a scan of the
+  state across chunks.  The CPU tests hold it against the other forms and
+  JAX; nothing on the main path runs it.
 * ``linear_attn_ref`` is the sequential recurrence, a torch port of
   ``repro/kernels/linear_attn_chunk/ref.py::linear_attn_ref`` in its
   kernel layout ``(B, H, S, d)``; the tests keep it as an oracle.
@@ -71,6 +77,74 @@ def decay_attention_chunked(r, k, v, w_log, u=None, initial_state=None,
             "bshd,bshv->bhdv", k2, vc)
         outs.append(o)
     o = torch.stack(outs, dim=1).reshape(B, S, H, dv)[:, :S_orig]
+    return o.to(v.dtype), state
+
+
+def decay_attention_chunk_parallel(r, k, v, w_log, u=None,
+                                   initial_state=None, chunk: int = 64,
+                                   sub: int = 16, factors=None):
+    """The kernel's decomposition (``csrc/linear_attn_chunk.cu``) of the
+    function ``decay_attention_chunked`` computes, same operands and
+    results (per-channel log-decay w <= 0).
+
+    Per chunk, independently: lcw the inclusive cumulative log-decay,
+    lcw_excl = lcw - w; the scores A[t, s] (s < t) by sub-chunks of
+    ``sub``: a diagonal block pairwise, r[t] k[s] exp(min(lcw_excl[t] -
+    lcw[s], 0)); an off-diagonal block (t in sub-chunk i, s in j < i)
+    through L = lcw at the end of sub-chunk j, as the product of
+    r[t] exp(min(lcw_excl[t] - L, 0)) and k[s] exp(min(L - lcw[s], 0)),
+    each at most 1 (the min absorbs only rounding);
+    o_intra = A v + (r . u k) v, q_eff = r exp(lcw_excl), the state
+    increment k2^T v with k2 = k exp(lcw[-1] - lcw) and the decay
+    exp(lcw[-1]).  Then the scan: o = o_intra + q_eff S, S <- decay S +
+    dS.  ``factors``, a list, collects the off-diagonal factors."""
+    B, S, H, dk = k.shape
+    dv = v.shape[-1]
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+    rf, kf, vf, wf = (F.pad(t.float(), (0, 0, 0, 0, 0, pad))
+                      .reshape(B, nc, chunk, H, t.shape[-1])
+                      for t in (r, k, v, w_log))               # (B,n,c,H,d)
+    lcw = torch.cumsum(wf, dim=2)
+    excl = lcw - wf
+    ns = chunk // sub
+    A = torch.zeros((B, nc, H, chunk, chunk), device=k.device)
+    tri = torch.ones((sub, sub), dtype=torch.bool,
+                     device=k.device).tril(-1)
+    blk = lambda x, i: x[:, :, i * sub:(i + 1) * sub]
+    for i in range(ns):
+        dlt = blk(excl, i)[:, :, :, None] - blk(lcw, i)[:, :, None]
+        E = torch.exp(torch.clamp_max(dlt, 0.0))          # (B,n,t,s,H,d)
+        a = torch.einsum("bnthd,bnshd,bntshd->bnhts", blk(rf, i),
+                         blk(kf, i), E)
+        A[..., i * sub:(i + 1) * sub, i * sub:(i + 1) * sub] = \
+            torch.where(tri, a, 0.0)
+        for j in range(i):
+            ref = lcw[:, :, (j + 1) * sub - 1][:, :, None]   # (B,n,1,H,d)
+            fr = torch.exp(torch.clamp_max(blk(excl, i) - ref, 0.0))
+            fk = torch.exp(torch.clamp_max(ref - blk(lcw, j), 0.0))
+            if factors is not None:
+                factors += [fr, fk]
+            A[..., i * sub:(i + 1) * sub, j * sub:(j + 1) * sub] = \
+                torch.einsum("bnthd,bnshd->bnhts", blk(rf, i) * fr,
+                             blk(kf, j) * fk)
+    o_intra = torch.einsum("bnhts,bnshv->bnthv", A, vf)
+    if u is not None:
+        diag = torch.einsum("bnthd,bnthd->bnth", rf * u.float(), kf)
+        o_intra = o_intra + diag[..., None] * vf
+    q_eff = rf * torch.exp(excl)
+    last = lcw[:, :, -1:]                                      # (B,n,1,H,d)
+    dstate = torch.einsum("bnshd,bnshv->bnhdv",
+                          kf * torch.exp(last - lcw), vf)
+    decay = torch.exp(last[:, :, 0])                           # (B,n,H,d)
+    state = (torch.zeros((B, H, dk, dv), device=k.device)
+             if initial_state is None else initial_state.float())
+    outs = []
+    for c in range(nc):
+        outs.append(o_intra[:, c] + torch.einsum("bthd,bhdv->bthv",
+                                                 q_eff[:, c], state))
+        state = state * decay[:, c][..., None] + dstate[:, c]
+    o = torch.stack(outs, dim=1).reshape(B, nc * chunk, H, dv)[:, :S]
     return o.to(v.dtype), state
 
 

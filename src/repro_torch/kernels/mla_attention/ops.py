@@ -2,14 +2,17 @@
 (port of ``repro/kernels/attention_template/ops.py::
 mla_attention_paged_bshd``).
 
-The wrapper pads the tree axis T to a multiple of 8 as the JAX wrapper
-does (pad rows self-attend; their outputs are sliced away), joins
-``[q_lat || q_rope]`` into the kernel's one query operand, validates what
-the kernel takes, and dispatches on the device the tensors lie on: CPU
-tensors take the plain version (``ref.py``), CUDA tensors launch the
-kernel or raise.  There is no fallback from one to the other.
-``launches`` counts kernel launches, and only those.  The JAX wrapper's
-window hook is not ported: no configuration runs windowed MLA.
+The wrapper validates what the kernel takes and dispatches on the device
+the tensors lie on: CPU tensors take the plain version (``ref.py``), with
+the tree axis T padded to a multiple of 8 as the JAX wrapper pads it (pad
+rows self-attend; their outputs are sliced away); CUDA tensors launch the
+kernel, which takes any T up to 16 unpadded, or raise.  There is no
+fallback from one to the other.  ``launches`` counts kernel launches, and
+only those: one per call, the split cache sweep; ``merge_launches``
+counts the merge kernel each call launches after it.  The split length
+comes from ``kernels/tree_attention/split.py::plan_mla_split_len`` unless
+the caller forces one.  The JAX wrapper's window hook is not ported: no
+configuration runs windowed MLA.
 """
 from __future__ import annotations
 
@@ -18,9 +21,12 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.mla_attention import kernel as _k
 from repro_torch.kernels.mla_attention.ref import mla_attention_paged_plain
-from repro_torch.kernels.tree_attention.ops import T_PAD, pad_tree_mask
+from repro_torch.kernels.tree_attention.ops import (T_PAD, check_split_len,
+                                                    pad_tree_mask)
+from repro_torch.kernels.tree_attention.split import plan_mla_split_len
 
-launches = 0                  # kernel launches since the last reset
+launches = 0                  # split-sweep launches since the last reset
+merge_launches = 0            # merge launches since the last reset
 
 
 def _pad_axis1(t, Tp: int):
@@ -53,75 +59,82 @@ def _check(q_lat, q_rope, pool_lat, pool_rope, tree_lat, tree_rope,
                          "multiple of 8")
 
 
-def _check_cuda(q, pool_lat, pool_rope, tree_lat, tree_rope, tree_mask,
-                cache_len, block_table):
-    tensors = (q, pool_lat, pool_rope, tree_lat, tree_rope, tree_mask,
-               cache_len, block_table)
-    if any(t.device != q.device for t in tensors):
+def _check_cuda(q_lat, q_rope, pool_lat, pool_rope, tree_lat, tree_rope,
+                tree_mask, cache_len, block_table):
+    tensors = (q_lat, q_rope, pool_lat, pool_rope, tree_lat, tree_rope,
+               tree_mask, cache_len, block_table)
+    if any(t.device != q_lat.device for t in tensors):
         raise ValueError("all operands must lie on one CUDA device")
-    if q.dtype != torch.float32:
-        raise ValueError(f"q_lat must be float32, got {q.dtype}")
+    if q_lat.dtype != torch.float32 or q_rope.dtype != torch.float32:
+        raise ValueError(f"q_lat and q_rope must be float32, got "
+                         f"{q_lat.dtype} / {q_rope.dtype}")
     if pool_lat.dtype not in _k.KV_DTYPE_CODES:
         raise ValueError(f"unsupported pool dtype {pool_lat.dtype}")
-    if pool_rope.dtype != pool_lat.dtype:
-        raise ValueError("the two pools must share one dtype")
+    if any(t.dtype != pool_lat.dtype
+           for t in (pool_rope, tree_lat, tree_rope)):
+        raise ValueError("the pools and tree latents must share one dtype")
     if cache_len.dtype != torch.int32 or block_table.dtype != torch.int32:
         raise ValueError("cache_len and block_table must be int32")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the kernel takes contiguous operands only")
-    if pool_lat.shape[2] > _k.MAX_LATENT:
-        raise ValueError(f"latent rank {pool_lat.shape[2]} exceeds the "
-                         f"kernel's {_k.MAX_LATENT}")
-    if q.shape[-1] % 4 != 0:
-        raise ValueError(f"latent + rope width {q.shape[-1]} is not a "
-                         "multiple of 4")
-    if q.shape[1] > _k.MAX_ROWS:
-        raise ValueError(f"{q.shape[1]} (padded) tree rows exceed the "
-                         f"kernel's {_k.MAX_ROWS}")
+    widths = (pool_lat.shape[2], pool_rope.shape[2])
+    if widths not in _k.WIDTHS:
+        raise ValueError(f"latent and rope widths {widths} not in "
+                         f"{_k.WIDTHS}")
+    if q_lat.shape[1] > _k.MAX_TREE:
+        raise ValueError(f"{q_lat.shape[1]} tree rows exceed the kernel's "
+                         f"{_k.MAX_TREE}")
 
 
 def mla_attention_paged_bshd(q_lat, q_rope, pool_lat, pool_rope, tree_lat,
                              tree_rope, tree_mask, cache_len, block_table, *,
-                             scale: float, q_pos=None, window=None):
+                             scale: float, q_pos=None, window=None,
+                             split_len: int | None = None):
     """q_lat: (B,T,H,r) = q_nope @ w_uk (absorbed); q_rope: (B,T,H,rd);
     pool_lat: (N,bs,r) and pool_rope: (N,bs,rd), streamed in place, never
     gathered on the card; tree_lat: (B,T,r); tree_rope: (B,T,rd);
     tree_mask (T,T) bool; cache_len (B,) and block_table (B,M) int32.
     ``scale`` is the absorbed score scale 1/sqrt(nd + rd): NOT derivable
-    from the latent ranks.  Returns o_lat (B,T,H,r) in q_lat's dtype
-    (fp32 on the card)."""
-    global launches
+    from the latent ranks.  ``split_len`` forces the kernel's split (a
+    multiple of 16; default: the planner's).  Returns o_lat (B,T,H,r) in
+    q_lat's dtype (fp32 on the card)."""
+    global launches, merge_launches
     if q_pos is not None or window is not None:
         raise NotImplementedError("windowed MLA verify is not ported "
                                   "(no configuration runs it; ROADMAP)")
     _check(q_lat, q_rope, pool_lat, pool_rope, tree_lat, tree_rope,
            tree_mask, cache_len, block_table)
-    T = q_lat.shape[1]
-    Tp = -(-T // T_PAD) * T_PAD
-    if Tp != T:
-        q_lat, q_rope, tree_lat, tree_rope = (
-            _pad_axis1(t, Tp) for t in (q_lat, q_rope, tree_lat, tree_rope))
-        tree_mask = pad_tree_mask(tree_mask, Tp)
+    B, T, H, r = q_lat.shape
     if q_lat.device.type == "cpu":
+        Tp = -(-T // T_PAD) * T_PAD
+        if Tp != T:
+            q_lat, q_rope, tree_lat, tree_rope = (
+                _pad_axis1(t, Tp)
+                for t in (q_lat, q_rope, tree_lat, tree_rope))
+            tree_mask = pad_tree_mask(tree_mask, Tp)
         out = mla_attention_paged_plain(
             q_lat, q_rope, pool_lat, pool_rope, tree_lat, tree_rope,
             tree_mask, cache_len, block_table, scale=scale)
-    elif q_lat.device.type == "cuda":
-        q = torch.cat([q_lat, q_rope.to(q_lat.dtype)], dim=-1)
-        tree_lat = tree_lat.to(pool_lat.dtype).contiguous()
-        tree_rope = tree_rope.to(pool_rope.dtype).contiguous()
-        args = (q, pool_lat, pool_rope, tree_lat, tree_rope, tree_mask,
-                cache_len, block_table)
-        _check_cuda(*args)
-        B, _, H, r = q_lat.shape
-        out = torch.empty((B, Tp, H, r), dtype=torch.float32,
-                          device=q.device)
-        rc = _k.launch(*args, out, scale=scale)
-        if rc != 0:
-            raise RuntimeError(f"mla_attention_paged launch failed: CUDA "
-                               f"error {rc}")
-        launches += 1
-    else:
+        return out[:, :T]
+    if q_lat.device.type != "cuda":
         raise ValueError(f"no mla_attention_paged for device "
                          f"{q_lat.device}")
-    return out[:, :T]
+    q_lat = q_lat.contiguous()
+    q_rope = q_rope.to(torch.float32).contiguous()
+    tree_lat = tree_lat.to(pool_lat.dtype).contiguous()
+    tree_rope = tree_rope.to(pool_rope.dtype).contiguous()
+    args = (q_lat, q_rope, pool_lat, pool_rope, tree_lat, tree_rope,
+            tree_mask, cache_len, block_table)
+    _check_cuda(*args)
+    if split_len is None:
+        split_len = plan_mla_split_len(B, H, T, r, q_rope.shape[-1])
+    check_split_len(split_len)
+    out = torch.empty((B, T, H, r), dtype=torch.float32,
+                      device=q_lat.device)
+    rc = _k.launch(*args, out, scale=scale, split_len=split_len)
+    if rc != 0:
+        raise RuntimeError(f"mla_attention_paged launch failed: CUDA "
+                           f"error {rc}")
+    launches += 1
+    merge_launches += 1
+    return out

@@ -13,12 +13,21 @@ Excluded positions are removed by selection, never by multiplication:
 the gathered latents and rope keys are selected to 0 there, because
 ``0 * NaN`` is NaN and a NULL block may hold NaN or inf.  The CPU tests
 run it and ``chip_smoke.py`` holds the kernel against it on the card.
+
+``mla_attention_paged_split`` repeats the kernel's decomposition: the
+cache swept in splits of ``split_len`` positions, one partial
+``(m, l, acc)`` per query row and split, the tree keys' partial last,
+folded in that order by ``tree_attention/split.py::fold`` (the tree-verify
+kernel's merge rule).  The CPU tests hold it against the unsplit version
+and the JAX kernel; the wrapper's CPU path runs the unsplit one.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from repro_torch.kernels.tree_attention import split as _split
 
 NULL_BLOCK = 0                 # physical pool block 0 is never read unmasked
 
@@ -54,3 +63,38 @@ def mla_attention_paged_plain(q_lat, q_rope, pool_lat, pool_rope, tree_lat,
     p = torch.softmax(s, dim=-1)
     p = torch.where(torch.isnan(p), 0.0, p)
     return torch.einsum("bths,bsr->bthr", p, lat).to(q_lat.dtype)
+
+
+def mla_attention_paged_split(q_lat, q_rope, pool_lat, pool_rope, tree_lat,
+                              tree_rope, tree_mask, cache_len, block_table, *,
+                              scale: float, split_len: int):
+    """K5 by the kernel's split sweep and merge, same operands and result
+    as ``mla_attention_paged_plain`` (any T).  Keys the kernel never reads
+    (NULL entries, positions at or past ``cache_len``) are selected to
+    zero before any arithmetic."""
+    B, T, H, r = q_lat.shape
+    bs = pool_lat.shape[1]
+    M = block_table.shape[1]
+    C = M * bs
+    table = block_table.long()
+    pos = torch.arange(C, device=q_lat.device)
+    ok = (table != NULL_BLOCK).repeat_interleave(bs, dim=1) & (
+        pos[None, :] < cache_len.long()[:, None])                  # (B,C)
+    keys = torch.cat([pool_lat[table].reshape(B, C, r),
+                      pool_rope[table].reshape(B, C, -1)], dim=-1)
+    keys = torch.where(ok[:, :, None], keys.float(), 0.0)[:, None]  # (B,1,C,Dk)
+    # the kernel's rows: row t*H + h is tree token t of head h
+    qf = (torch.cat([q_lat.float(), q_rope.float()], dim=-1)
+          .reshape(B, 1, T * H, -1)) * scale
+    state = _split.empty_partial((B, 1, T * H), r, q_lat.device)
+    for s in range(_split.n_splits(C, split_len)):
+        lo, hi = s * split_len, min((s + 1) * split_len, C)
+        k = keys[:, :, lo:hi]
+        state = _split.fold(state, _split._partial(
+            qf, k, k[..., :r], ok[:, None, None, lo:hi]))
+    tk = torch.cat([tree_lat.float(), tree_rope.float()], dim=-1)[:, None]
+    mask = tree_mask.repeat_interleave(H, dim=0)[None, None]       # (1,1,R,T)
+    state = _split.fold(state, _split._partial(qf, tk, tk[..., :r], mask))
+    _, l, acc = state
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, T, H, r).to(q_lat.dtype)

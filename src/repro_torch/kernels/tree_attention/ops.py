@@ -93,11 +93,10 @@ def check_cuda_operands(q, pool_k, pool_v, tree_k, tree_v, tree_mask,
                          f"kernel's {_k.MAX_ROWS}")
 
 
-def check_split_len(split_len: int, bs: int | None = None) -> None:
-    if split_len <= 0 or split_len % 16 != 0 or (bs and split_len % bs):
+def check_split_len(split_len: int) -> None:
+    if split_len <= 0 or split_len % 16 != 0:
         raise ValueError(f"split_len {split_len} must be a positive "
-                         f"multiple of 16" + (f" and of the block size {bs}"
-                                              if bs else ""))
+                         "multiple of 16")
 
 
 def tree_attention_paged_bshd(q, pool_k, pool_v, tree_k, tree_v, tree_mask,
@@ -107,7 +106,7 @@ def tree_attention_paged_bshd(q, pool_k, pool_v, tree_k, tree_v, tree_mask,
     (num_blocks, block_size, Hkv, D), streamed in place, never gathered
     on the card; tree_mask (T,T) bool; cache_len (B,) and block_table
     (B, M) int32.  ``split_len`` forces the kernel's split (a multiple of
-    16 and of the block size; default: the planner's).  Returns
+    16; default: the planner's).  Returns
     (B,T,Hq,D) in q's dtype."""
     global launches, merge_launches
     q, tree_k, tree_v, tree_mask, T = pad_tree(q, tree_k, tree_v, tree_mask)
@@ -118,10 +117,9 @@ def tree_attention_paged_bshd(q, pool_k, pool_v, tree_k, tree_v, tree_mask,
         out = _k.tree_attention_paged_plain(*args)
     elif q.device.type == "cuda":
         check_cuda_operands(*args)
-        bs = pool_k.shape[1]
         if split_len is None:
-            split_len = plan_split_len(q.shape[0], pool_k.shape[2], bs)
-        check_split_len(split_len, bs)
+            split_len = plan_split_len(q.shape[0], pool_k.shape[2])
+        check_split_len(split_len)
         out = torch.empty_like(q)
         rc = _k.launch(*args, out, split_len=split_len)
         if rc != 0:

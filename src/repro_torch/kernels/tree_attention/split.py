@@ -11,9 +11,16 @@ tree partial, and divides.  No atomics, so a call is bitwise the same from
 run to run.
 
 ``plan_split_len`` is the host's rule for ``split_len``.  It depends on
-B*Hkv alone (and, paged, is a multiple of the pool block size): never on
-``cache_len``, which stays on the device, nor on the capacity.  So a paged
-call and a dense call of equal B*Hkv split at the same positions.
+B*Hkv alone: never on ``cache_len``, which stays on the device, nor on the
+capacity, nor on the pool block size (a paged split may start and end
+inside a pool block; the kernel clamps each block's keys to the split).
+So a paged call and a dense call of equal B*Hkv split at the same
+positions, whatever the block size.
+
+``plan_mla_split_len`` is the same kind of rule for K5, the absorbed-MLA
+paged verify kernel, which sweeps one latent stream in splits and merges
+them the same way (its plain version:
+``kernels/mla_attention/ref.py::mla_attention_paged_split``).
 
 ``tree_attention_paged_split`` and ``tree_attention_dense_split`` repeat
 the kernel's split and merge in plain PyTorch: the CPU tests hold them
@@ -33,20 +40,47 @@ SPLIT_HEADS = 32               # B*Hkv from which a split grows (x2 per x2)
 SPLIT_MAX_UNITS = 16
 
 
-def plan_split_len(B: int, Hkv: int, bs: int | None = None) -> int:
+def plan_split_len(B: int, Hkv: int) -> int:
     """Cache positions per split: 64 while B*Hkv < 64 (gemma3-1b's 4 and
     minitron-4b's 32 blocks per split column), doubling with each doubling
     of B*Hkv past that, up to 1024, so the grid fills the card's 132 SMs
     at a short cache without spending more on partials than a long one
-    needs; rounded up to a multiple of the pool block size ``bs`` (paged
-    calls)."""
+    needs.  Paged and dense calls alike: no block size enters."""
     units = 1
     while units < SPLIT_MAX_UNITS and B * Hkv >= SPLIT_HEADS * 2 * units:
         units *= 2
-    split = SPLIT_UNIT * units
-    if bs is not None:
-        split = split * bs // math.gcd(split, bs)
-    return split
+    return SPLIT_UNIT * units
+
+
+MLA_ROW_GROUP = 64             # K5's bf16 block: query rows of one slot
+
+
+def plan_mla_split_len(B: int, H: int, T: int, r: int, rd: int) -> int:
+    """K5's split (``csrc/mla_attention_paged.cu``): cache positions per
+    split of the one latent stream, a power-of-two multiple of 64.
+
+    A split of L keys leaves one partial per query row, r fp32 columns,
+    written once and read once by the merge: 2 * R * r * 4 bytes for the
+    R = H*T rows of a slot.  Packing the H heads into blocks of 64 rows
+    reads the stream once per row group instead of once per head, saving
+    (H - groups) * L * (r + rd) * 2 bytes on that split (bf16 pools, the
+    serving type).  The split is the least multiple of 64 whose partials
+    cost no more than that saving, so the split's own traffic never undoes
+    the packing (128 at deepseek-v2-lite: 16 heads x T = 16, 4 groups),
+    and it doubles with the grid (B * groups) as ``plan_split_len`` does
+    with B*Hkv, up to 1024.  Like the tree-verify planner it never reads
+    ``cache_len``, nor the pool's block size."""
+    R = H * T
+    groups = -(-R // MLA_ROW_GROUP)
+    saved_per_key = (H - groups) * (r + rd) * 2
+    partials = 2 * R * r * 4
+    units = 1
+    while units < SPLIT_MAX_UNITS and (
+            saved_per_key <= 0
+            or saved_per_key * SPLIT_UNIT * units < partials
+            or B * groups >= SPLIT_HEADS * 2 * units):
+        units *= 2
+    return SPLIT_UNIT * units
 
 
 def n_splits(capacity: int, split_len: int) -> int:

@@ -138,9 +138,17 @@ def _profiled_serve(eng, reqs, max_batch: int):
         if eng.device.type == "cuda":
             torch.cuda.synchronize()
     # one stream: device work never overlaps, so the kernels' durations
-    # add up to the busy time
-    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == DeviceType.CUDA)
+    # add up to the busy time; one pass over the events (a serve traces
+    # millions of them)
+    busy_us, port = 0.0, {name: [] for name in PORT_KERNELS}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        busy_us += us
+        name = next((k for k in PORT_KERNELS if k in e.name), None)
+        if name is not None:
+            port[name].append(us)
     n = stats.steps + stats.warmup_steps
     per_step = busy_us / 1e3 / max(n, 1)
     print(f"[profile] device busy {busy_us / 1e3:.1f}ms over {n} steps: "
@@ -149,9 +157,7 @@ def _profiled_serve(eng, reqs, max_batch: int):
           f"({per_step / max(stats.mean_step_s * 1e3, 1e-9):.1%} busy)")
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=15))
-    for name in PORT_KERNELS:
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == DeviceType.CUDA and name in e.name]
+    for name, us in port.items():
         if us:
             print(f"[profile] {name}: {len(us)} launches, "
                   f"{sum(us) / 1e3:.1f}ms ({sum(us) / max(busy_us, 1e-9):.1%} "
@@ -161,8 +167,9 @@ def _profiled_serve(eng, reqs, max_batch: int):
 
 # the port's hand-written kernels, as the profiler names them
 PORT_KERNELS = ("tree_attention_split_kernel", "tree_attention_merge_kernel",
-                "flash_attention_kernel", "mla_attention_paged_kernel",
-                "linear_attn_chunk_kernel")
+                "flash_attention_kernel", "mla_attention_split_kernel",
+                "mla_attention_merge_kernel", "linear_attn_chunk_kernel",
+                "linear_attn_scan_kernel")
 
 
 if __name__ == "__main__":

@@ -10,7 +10,8 @@ against the JAX reference.
   oracle ``mla_attention_paged_ref``, at block 16 and 128, with NULL
   holes, ``atol = rtol = 2e-5`` (fp32, the sums run in different
   orders); poison in the NULL block (0, +-1e4, NaN, inf) changes no
-  output bit; the wrapper pads T and refuses the window hook;
+  output bit; the wrapper pads T on the CPU path and refuses the window
+  hook (the split sweep's plain version: ``test_torch_mla_split.py``);
 * the MLA prefill: q/k (nd + rd) and v (vd) through K3's plain version
   at their own widths (K3's bf16 build takes deepseek's 192/128 unpadded;
   the test keeps its first name) with the scale 1/sqrt(nd + rd), against
@@ -300,11 +301,19 @@ def test_mla_fwd_paged_verify_matches_jax(layer, tree):
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
 @pytest.mark.parametrize("T,H,r,rd", [(16, 16, 512, 64), (5, 4, 64, 16)],
                          ids=["deepseek", "reduced"])
-def test_cuda_kernel_matches_plain(dtype, tol, T, H, r, rd):
-    """K5 against its plain version on the card: ragged lens, holes, a
-    poisoned NULL block (bitwise equal outputs for every fill)."""
+@pytest.mark.parametrize("split_len", [None, 16, 4096],
+                         ids=["planner", "split16", "one-split"])
+def test_cuda_kernel_matches_plain(dtype, tol, T, H, r, rd, split_len):
+    """K5 against its plain version on the card at the planner's split
+    and forced ones: ragged lens, holes, a poisoned NULL block (bitwise
+    equal outputs for every fill), two identical calls bitwise equal, and
+    the split's plain version at the same split."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.mla_attention.ref import (
+        mla_attention_paged_split)
+    from repro_torch.kernels.tree_attention.split import plan_mla_split_len
+
     torch.backends.cuda.matmul.allow_tf32 = False
     c = _k5_case(7, 16, B=3, T=T, H=H, r=r, rd=rd, holes=((2, 1),))
     if T != 8:
@@ -319,11 +328,19 @@ def test_cuda_kernel_matches_plain(dtype, tol, T, H, r, rd):
         t["pool_lat"][0] = fill
         t["pool_rope"][0] = fill
         scale = t.pop("scale")
-        before = ops.launches
-        outs.append(ops.mla_attention_paged_bshd(*t.values(), scale=scale))
+        before = (ops.launches, ops.merge_launches)
+        outs.append(ops.mla_attention_paged_bshd(*t.values(), scale=scale,
+                                                 split_len=split_len))
         torch.cuda.synchronize()
-        assert ops.launches == before + 1
+        assert (ops.launches, ops.merge_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    outs.append(ops.mla_attention_paged_bshd(*t.values(), scale=scale,
+                                             split_len=split_len))
+    torch.cuda.synchronize()
     for o in outs[1:]:
         assert torch.equal(o, outs[0])
     ref = mla_attention_paged_plain(*t.values(), scale=scale)
+    torch.testing.assert_close(outs[-1], ref, atol=tol, rtol=tol)
+    n = split_len or plan_mla_split_len(3, H, T, r, rd)
+    ref = mla_attention_paged_split(*t.values(), scale=scale, split_len=n)
     torch.testing.assert_close(outs[-1], ref, atol=tol, rtol=tol)

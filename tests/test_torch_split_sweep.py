@@ -18,9 +18,11 @@ split.py``).  Here the split's plain version equals, for ``split_len`` in
 with NULL holes below ``cache_len``, a slot at ``cache_len`` 0, splits
 wholly behind the window, and the dense form.  Folding an empty partial
 is bitwise the identity, and the planner splits a paged and a dense call
-of equal B*Hkv at the same positions whatever their capacities.  The
-kernel at forced split lengths against the split's plain version is the
-``gpu``-marked case; it skips without a card:
+of equal B*Hkv at the same positions whatever their capacities and pool
+block sizes (8 to 128; at 128 a split starts inside a block), so the two
+fold alike bit for bit.  The kernel at forced split lengths against the
+split's plain version, and K1 == K2 bitwise at block 128, are the
+``gpu``-marked cases; they skip without a card:
 
     python -m pytest --noconftest -m gpu tests/test_torch_split_sweep.py
 """
@@ -43,14 +45,15 @@ BS = 16
 SPLITS = [16, 32, 64, 4096]          # the last is one split over it all
 
 
-def _paged_case(seed, lens, T, Hq, Hkv, D, holes=()):
+def _paged_case(seed, lens, T, Hq, Hkv, D, holes=(), bs=BS):
     """fp32 operands from a numpy seed (model layout): ascending-id tables
-    covering [0, len + T) per slot, ``holes`` punched back to NULL, the
-    NULL block poisoned with NaN, and the verify positions."""
+    of ``bs``-position blocks covering [0, len + T) per slot, ``holes``
+    punched back to NULL, the NULL block poisoned with NaN, and the verify
+    positions."""
     rs = np.random.default_rng(seed)
     r = lambda *s: rs.standard_normal(s, dtype=np.float32)
     B = len(lens)
-    need = [-(-(n + T) // BS) for n in lens]
+    need = [-(-(n + T) // bs) for n in lens]
     M = max(need) + 1
     table = np.zeros((B, M), np.int32)
     nxt = 1
@@ -59,8 +62,8 @@ def _paged_case(seed, lens, T, Hq, Hkv, D, holes=()):
         nxt += n
     for b, j in holes:
         table[b, j] = 0
-    c = dict(q=r(B, T, Hq, D), pool_k=r(nxt, BS, Hkv, D),
-             pool_v=r(nxt, BS, Hkv, D), tree_k=r(B, T, Hkv, D),
+    c = dict(q=r(B, T, Hq, D), pool_k=r(nxt, bs, Hkv, D),
+             pool_v=r(nxt, bs, Hkv, D), tree_k=r(B, T, Hkv, D),
              tree_v=r(B, T, Hkv, D))
     c["pool_k"][0] = np.nan
     c["pool_v"][0] = np.nan
@@ -199,22 +202,48 @@ def test_folding_an_empty_partial_is_bitwise_identity():
         assert torch.equal(got, want)
 
 
+# the pool block sizes the CUDA path admits are multiples of 8
+BLOCK_SIZES = (8, 16, 32, 64, 128)
+
+
 @pytest.mark.parametrize("B,Hkv", [(1, 1), (4, 1), (4, 8), (4, 16), (1, 16),
                                    (16, 32), (64, 64)])
 def test_planner_splits_paged_and_dense_alike(B, Hkv):
-    """The split depends on B*Hkv alone: a paged call (block 16) and a
-    dense call of any capacities start their splits at the same
-    positions, and the split is a multiple of 16 and of the block."""
-    paged = split.plan_split_len(B, Hkv, bs=BS)
-    dense = split.plan_split_len(B, Hkv)
-    assert paged == dense and paged % BS == 0 and paged % 16 == 0
-    starts = lambda cap: [s * dense for s in range(split.n_splits(cap,
-                                                                  dense))]
-    for paged_cap, dense_cap in ((512, 2048), (2048, 1536), (96 * BS, 100)):
-        a, b = starts(paged_cap), starts(dense_cap)
-        n = min(len(a), len(b))
-        assert a[:n] == b[:n]
-    assert split.plan_split_len(B, Hkv, bs=48) % 48 == 0
+    """The split depends on B*Hkv alone: a paged call at every block size
+    the CUDA path admits and a dense call of any capacities start their
+    splits at the same positions, and the split is a multiple of 16 that
+    the kernel's check takes whatever the block size."""
+    split_len = split.plan_split_len(B, Hkv)
+    assert split_len % 16 == 0
+    ops.check_split_len(split_len)
+    starts = lambda cap: [s * split_len
+                          for s in range(split.n_splits(cap, split_len))]
+    for bs in BLOCK_SIZES:
+        for m, dense_cap in ((512 // bs, 2048), (2048 // bs, 1536),
+                             (96, 100)):
+            a, b = starts(m * bs), starts(dense_cap)
+            n = min(len(a), len(b))
+            assert a[:n] == b[:n]
+
+
+@pytest.mark.parametrize("bs", BLOCK_SIZES)
+def test_paged_split_at_block_size_folds_as_dense(bs):
+    """At every admitted block size (128 does not divide the planner's 64)
+    the paged split's plain version folds the same partials in the same
+    order as the dense one over the same keys: equal bit for bit."""
+    c, tm, lens, table, _ = _paged_case(8, LENS, 8, 4, 2, 64, bs=bs)
+    args = _torch(c, tm, lens, table)
+    B, M = table.shape
+    t = torch.from_numpy(table).long()
+    view = lambda pool: pool[t].reshape(B, M * bs, *pool.shape[2:])
+    split_len = split.plan_split_len(B, 2)
+    assert split_len == 64
+    dense = split.tree_attention_dense_split(
+        args[0], view(args[1]), view(args[2]), *args[3:7], split_len)
+    paged = split.tree_attention_paged_split(*args, split_len)
+    assert torch.equal(paged, dense)
+    torch.testing.assert_close(paged, tree_attention_paged_plain(*args),
+                               **PLAIN_TOL)
 
 
 def test_planner_grows_with_the_grid():
@@ -225,10 +254,11 @@ def test_planner_grows_with_the_grid():
 
 
 def test_wrapper_checks_a_forced_split():
-    ops.check_split_len(16, 16)
-    for bad, bs in ((0, None), (24, None), (16, 32)):
+    for good in (16, 48, 64, 4096):
+        ops.check_split_len(good)
+    for bad in (0, -16, 24):
         with pytest.raises(ValueError):
-            ops.check_split_len(bad, bs)
+            ops.check_split_len(bad)
 
 
 @pytest.mark.gpu
@@ -252,5 +282,34 @@ def test_cuda_kernel_at_forced_splits(dtype, tol, split_len):
     torch.cuda.synchronize()
     assert torch.equal(out, again)
     ref = split.tree_attention_paged_split(
-        *args, split_len or split.plan_split_len(4, 8, BS))
+        *args, split_len or split.plan_split_len(4, 8))
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_paged_equals_dense_at_block_128(dtype):
+    """K1 over a pool of 128-position blocks and K2 over the same keys as
+    a dense cache, at minitron-4b's heads (24 q over 8 kv, D=128) and
+    T=16: both split at the planner's 64, inside the pool blocks, and
+    fold alike, so the outputs are equal bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.tree_attention import dense_ops
+
+    c, tm, lens, table, _ = _paged_case(9, [0, 37, 300, 200], 16, 24, 8,
+                                        128, bs=128)
+    dt = getattr(torch, dtype)
+    t = {k: torch.from_numpy(v).to("cuda", dt) for k, v in c.items()}
+    tbl = torch.from_numpy(table).cuda()
+    B, M = table.shape
+    view = lambda pool: pool[tbl.long()].reshape(
+        B, M * 128, *pool.shape[2:]).contiguous()
+    common = (t["tree_k"], t["tree_v"], torch.from_numpy(tm).cuda(),
+              torch.from_numpy(lens).cuda())
+    paged = ops.tree_attention_paged_bshd(t["q"], t["pool_k"], t["pool_v"],
+                                          *common, tbl)
+    dense = dense_ops.tree_attention_bshd(t["q"], view(t["pool_k"]),
+                                          view(t["pool_v"]), *common)
+    torch.cuda.synchronize()
+    assert torch.equal(paged, dense)
