@@ -47,7 +47,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
       S in {37, 300, 1536}, windows 0 and 512; and at deepseek-v2-lite's
       MLA prefill (16 heads over 16, q/k 192 and v 128 at their own
       widths, scale 1/sqrt(192), S=1536) against ``blocked_attention``,
-      timed unpadded;
+      timed unpadded; then K3's chunk form (a query offset and
+      ``kv_valid_len``): C = 256 rows at offsets 0, 256 and 1280 over a
+      view of 2048 keys valid to offset + C, fp32 and bf16, at gemma3-1b's
+      heads (windows 512 and 0), minitron-4b's and the MLA widths, against
+      its plain version; poison (NaN, inf, +-1e4) past ``kv_valid_len``
+      must change no bit, and the chunk's rows must equal the same rows
+      of one whole-prefill call on the same operands bit for bit; bf16 at
+      offset 1280 timed against its bound and SDPA with a boolean (C,
+      view) mask;
    e. K5, absorbed-MLA paged verify (split sweep + merge), at
       deepseek-v2-lite shapes (B=4, 16 heads, latent 512, rope 64, block
       16, T=16, lens 0/37/700/1500, NULL holes): fp32 throughout, then
@@ -62,7 +70,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
       state; one chunk launch and one scan launch a call; a
       length-masked pad tail
       (k = 0, w = 0 past the real length) bitwise equal to the
-      exact-length call; no PyTorch call computes it (no yardstick);
+      exact-length call; no PyTorch call computes it (no yardstick); and
+      across a chunk boundary: two calls of 768 tokens, the second from
+      the first's final state, against one call of 1536 (K6's tolerance;
+      whether bitwise is printed);
    g. K2, dense tree verify, at minitron-4b shapes (B=4, 24 q over 8 kv
       heads, D=128, dense S=512, lens 0/37/144/300, T=16 and T=5) and at
       gemma3-1b's global-layer shapes (4 over 1, D=256, S=1536, lens
@@ -76,7 +87,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    ``rwkv6-1.6b.reduced()``, Hydra++ served through the paged engine
    (K1, K4, K5, K3; K6 on every bucket-padded prefill of rwkv6, with a
    preemption), equal the port's dense ``generate()`` (which runs K2 on
-   the window-0 GQA layers: so paged == dense holds K1 against K2);
+   the window-0 GQA layers: so paged == dense holds K1 against K2); and
+   so do the same paged engines with chunked prefill at chunk 8 and 16
+   (every K3 call in its chunk form; rwkv6's chunk snapped to its scan's
+   16);
 5. full width, bf16, random weights drawn on the card from a seeded
    ``torch.Generator``; for each model one verify step paged against
    dense from the same prefill (prefill through K3, then through K3's
@@ -116,7 +130,27 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      logit difference 1e-4 and every argmax; bf16 at 2 layers: 0.01 and
      14 of 16; each must fail a K5 whose output is 1% off) and printed
      as a reading at full depth;
-6. a JSON line with each kernel's numbers, then the result line.
+5b. chunked prefill at full width through the paged engine (chunk 256, a
+   budget of one chunk a step), phase 5's requests, against phase 5's
+   whole-prompt joins (streams token-identical printed, with both runs'
+   TTFT, p99 ITL and tok/s), every launch counted per decode step and per
+   chunk:
+   - gemma3-1b: 27 K3 launches per chunk, all in the chunk form; the
+     logits of the last 16 positions of a 1000-token prompt prefilled in
+     chunks held against one whole prefill (max |diff| / max |logit| <=
+     0.1, argmax agreement >= 14 of 16);
+   - rwkv6-1.6b: 24 K6 launches per chunk, each from the carried state;
+     the chunked prefill's logits held in fp32 at full width (relative
+     1e-3, every argmax) at the 16 positions after each chunk boundary
+     and the last 16, a chunked prefill that drops its carried state
+     failing that bound; in bf16 a reading (random weights amplify bf16
+     rounding layer by layer);
+   - deepseek-v2-lite-16b at 2 layers, the MoE check's bf16 depth
+     (widths kept): whole-prompt joins, then chunks; 3 K3 launches (the
+     (192, 128) form) per chunk; a chunk boundary changes which tokens
+     overflow an expert's capacity, so its logits are a reading;
+6. a JSON line with each kernel's numbers (K3's chunk form as its own
+   entry, ``flash_attention_chunk``), then the result line.
 
 The script stands alone: it puts ``src/`` on ``sys.path`` itself, and it
 fails (without a result line) where CUDA is missing or the package is not
@@ -724,6 +758,133 @@ def _time_k3(q, k, v, w: int, dtype_name: str) -> dict:
 MLA_HEADS, MLA_NOPE, MLA_ROPE, MLA_V, MLA_LAT = 16, 128, 64, 128, 512
 MLA_SCALE = 1.0 / math.sqrt(MLA_NOPE + MLA_ROPE)
 
+# K3's chunk form: C query rows at each offset over a cache view of
+# K3_VIEW keys, valid to offset + C; (model, Hq, Hkv, Dqk, Dv, window)
+K3_CHUNK, K3_VIEW, K3_CHUNK_OFFSETS = 256, 2048, (0, 256, 1280)
+K3_CHUNK_CASES = (("gemma3-1b", 4, 1, 256, 256, WINDOW),
+                  ("gemma3-1b", 4, 1, 256, 256, 0),
+                  ("minitron-4b", 24, 8, 128, 128, 0),
+                  ("deepseek MLA", MLA_HEADS, MLA_HEADS, MLA_NOPE + MLA_ROPE,
+                   MLA_V, 0))
+
+
+def _chunk_rows(q_off: int, C: int, window: int) -> tuple:
+    """(admitted (query, key) pairs, distinct keys read) of C causal rows
+    at ``q_off``, ``q_off + 1``, ... over keys 0.. ."""
+    rows = range(q_off, q_off + C)
+    if window <= 0:
+        return sum(i + 1 for i in rows), q_off + C
+    return (sum(min(i + 1, window) for i in rows),
+            q_off + C - max(0, q_off - window + 1))
+
+
+def check_k3_chunk() -> dict:
+    """K3's chunk form (``q_off``, ``kv_valid_len``) against its plain
+    version at each case of ``K3_CHUNK_CASES``, fp32 and bf16, C = 256 rows
+    at offsets 0, 256 and 1280 over a view of 2048 keys valid to
+    ``q_off + C``: outputs bitwise unchanged when every key past
+    ``kv_valid_len`` is poisoned (NaN, inf, +-1e4), and the chunk's rows
+    bitwise equal to the same rows of one whole-prefill call on the same
+    operands (the offsets are multiples of the query tile, and key tiles
+    start at absolute multiples of the key tile).  bf16 at offset 1280 is
+    timed against its bound (the admitted pairs' operations, the keys
+    they read) and one SDPA call with a boolean (C, view) mask."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_plain)
+
+    record = {}
+    C, S = K3_CHUNK, K3_VIEW
+    for model, hq, hkv, dk, dv, w in K3_CHUNK_CASES:
+        scale = 1.0 / math.sqrt(dk)
+        for dtype_name, tol in TOLS:
+            dtype = getattr(torch, dtype_name)
+            g = torch.Generator(device="cuda").manual_seed(hq + dk + w)
+            mk = lambda h, d: torch.randn((1, S, h, d), generator=g,
+                                          device="cuda").to(dtype)
+            q, k, v = mk(hq, dk), mk(hkv, dk), mk(hkv, dv)
+            whole = ops.flash_attention_bshd(q, k, v, window=w, scale=scale)
+            for q_off in K3_CHUNK_OFFSETS:
+                n = q_off + C
+                qc = q[:, q_off:n].contiguous()
+                kvl = torch.full((1,), n, dtype=torch.int32, device="cuda")
+                call = lambda kk, vv: ops.flash_attention_bshd(
+                    qc, kk, vv, window=w, scale=scale, q_off=q_off,
+                    kv_valid_len=kvl)
+                before = (ops.launches, ops.chunk_launches)
+                out = call(k, v)
+                if (ops.launches - before[0],
+                        ops.chunk_launches - before[1]) != (1, 1):
+                    raise AssertionError("K3 chunk form: not one launch "
+                                         "counted as a chunk launch")
+                what = (f"K3 chunk {model} {dtype_name} q_off={q_off} "
+                        f"window={w}")
+                err = compare(out, flash_attention_plain(
+                    qc, k, v, window=w, scale=scale, q_off=q_off,
+                    kv_valid_len=kvl), tol, what)
+                outs = [out]
+                for fill in POISONS[1:]:
+                    kp, vp = k.clone(), v.clone()
+                    kp[:, n:], vp[:, n:] = fill, fill
+                    outs.append(call(kp, vp))
+                assert_bitwise(outs, what + " (poison past kv_valid_len)")
+                rows = whole[:, q_off:n]
+                bitwise = torch.equal(out, rows)
+                diff = (out.float() - rows.float()).abs().max().item()
+                if not bitwise:
+                    raise AssertionError(f"{what}: rows differ from the "
+                                         f"whole prefill's by {diff:.3e}")
+                rec = dict(max_abs_err=err, whole_bitwise=bitwise,
+                           whole_diff=diff)
+                if dtype_name == "bfloat16" and q_off == K3_CHUNK_OFFSETS[-1]:
+                    rec.update(_time_k3_chunk(qc, k, v, q_off, kvl, w, scale,
+                                              dtype_name))
+                record[(model, dtype_name, q_off, w)] = rec
+                log(f"[k3 chunk] {model} {dtype_name} C={C} q_off={q_off} "
+                    f"view={S} window={w}: max_abs_err={err:.3e}; poison "
+                    f"past kv_valid_len bitwise; rows == whole prefill's "
+                    f"bitwise={bitwise} (max diff {diff:.3e})" + (
+                        f" kernel={rec['ms'] * 1e3:.1f}us "
+                        f"(call {rec['call_ms'] * 1e3:.1f}us) "
+                        f"bound={rec['bound_ms'] * 1e3:.2f}us "
+                        f"({rec['bound_by']}) "
+                        f"plain={rec['plain_ms'] * 1e3:.1f}us "
+                        f"sdpa={rec['library_ms'] * 1e3:.1f}us"
+                        if "ms" in rec else ""))
+    return record
+
+
+def _time_k3_chunk(qc, k, v, q_off: int, kvl, w: int, scale: float,
+                   dtype_name: str) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_plain)
+
+    C, hq, dk = qc.shape[1:]
+    S, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    kw = dict(window=w, scale=scale, q_off=q_off, kv_valid_len=kvl)
+    ms = device_ms(lambda: ops.flash_attention_bshd(qc, k, v, **kw))
+    call_ms = time_ms(lambda: ops.flash_attention_bshd(qc, k, v, **kw))
+    plain_ms = time_ms(lambda: flash_attention_plain(qc, k, v, **kw),
+                       iters=5)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (qc, k, v))
+    i = q_off + torch.arange(C, device="cuda")[:, None]
+    j = torch.arange(S, device="cuda")[None, :]
+    mask = (j <= i) & (j < q_off + C)
+    if w > 0:
+        mask &= i - j < w
+    lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=hq != hkv))
+    elt = 2 if dtype_name != "float32" else 4
+    pairs, keys = _chunk_rows(q_off, C, w)
+    nbytes = (C * hq * (dk + dv) + keys * hkv * (dk + dv)) * elt
+    bound_ms, bound_by = bound(nbytes, 2 * (dk + dv) * hq * pairs, dtype_name)
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
 
 def check_k3_mla(S: int = 1536) -> dict:
     """K3 at deepseek's MLA prefill: q/k (192) and v (128) at their own
@@ -1059,6 +1220,32 @@ def check_k6() -> dict:
     return record
 
 
+def check_k6_boundary(S: int = 1536) -> None:
+    """K6 across a chunk boundary, as a chunked prefill runs it: two calls
+    (the first S/2 tokens, then the next S/2 from the first call's final
+    state) against one call over S, within K6's tolerance; prints whether
+    the two are bitwise equal."""
+    import torch
+    from repro_torch.kernels.linear_attn_chunk import ops
+
+    half = S // 2
+    for dtype_name, tol in TOLS:
+        r, k, v, w, u, s0 = k6_inputs(S, getattr(torch, dtype_name),
+                                      seed=77, init=True)
+        o, st = ops.linear_attn_bshd(r, k, v, w, u, s0, chunk=K6_CHUNK)
+        first = [t[:, :half].contiguous() for t in (r, k, v, w)]
+        second = [t[:, half:].contiguous() for t in (r, k, v, w)]
+        o1, st1 = ops.linear_attn_bshd(*first, u, s0, chunk=K6_CHUNK)
+        o2, st2 = ops.linear_attn_bshd(*second, u, st1, chunk=K6_CHUNK)
+        o12 = torch.cat([o1, o2], dim=1)
+        what = f"K6 {dtype_name} S={S} in two calls of {half}"
+        err = max(compare(o12, o, tol, what + " output"),
+                  compare(st2, st, tol, what + " final state"))
+        bitwise = torch.equal(o12, o) and torch.equal(st2, st)
+        log(f"[k6 boundary] {what} from the carried state against one "
+            f"call: max_abs_err={err:.3e} bitwise={bitwise}")
+
+
 # ---------------------------------------------------------------------------
 # phase 3g: the dense tree-verify kernel K2; 3h: K1 at deepseek's prefix
 # ---------------------------------------------------------------------------
@@ -1307,6 +1494,39 @@ def check_tiny_parity(base, lens, budgets=(12, 14, 8, 10, 13, 9),
             f"tok/step={st.tokens_per_step:.2f} "
             f"preemptions={st.preemptions} launches={counts}; dense "
             f"generate() launches={dense_counts}")
+        # chunked prefill through the same paged engine: the chunks run
+        # K3's chunk form (attention) or K6 from the carried state (rwkv6)
+        k3 = counters["flash_attention"]
+        prefill_kernel = ("linear_attn_chunk" if base.block_kind == "rwkv6"
+                          else "flash_attention")
+        for chunk in (8, 16):
+            for mod in counters.values():
+                mod.launches = 0
+            k3.chunk_launches = 0
+            creqs = [Request(prompt=r.prompt.copy(),
+                             max_new_tokens=r.max_new_tokens) for r in reqs]
+            eng = PagedSpeculativeEngine(params, dp, cfg, tree, max_len=128,
+                                         block_size=16, num_blocks=num_blocks,
+                                         prefill_chunk=chunk)
+            cst = eng.serve(creqs, max_batch=4)
+            for r, ref in zip(creqs, refs):
+                if r.output != ref:
+                    raise AssertionError(
+                        f"tiny parity {cfg.name} (V={cfg.vocab_size}), "
+                        f"chunk {chunk}: paged {r.output} != dense {ref}")
+            counts = {k: m.launches for k, m in counters.items()}
+            if counts[prefill_kernel] == 0 or (
+                    prefill_kernel == "flash_attention"
+                    and k3.chunk_launches != counts["flash_attention"]):
+                raise AssertionError(
+                    f"tiny parity {cfg.name}, chunk {chunk}: prefill "
+                    f"kernel launches {counts} (K3 chunk form "
+                    f"{k3.chunk_launches})")
+            log(f"[tiny] {cfg.name} V={cfg.vocab_size} chunked prefill "
+                f"(chunk {eng.prefill_chunk}): paged engine == dense "
+                f"generate() for {len(creqs)} requests; "
+                f"chunks={cst.prefill_chunks} preemptions={cst.preemptions} "
+                f"launches={counts} (K3 chunk form {k3.chunk_launches})")
 
 
 # ---------------------------------------------------------------------------
@@ -1635,7 +1855,14 @@ class Workload:
     verify: dict          # engine -> {kernel name: launches per decode step}
     prefill: dict         # kernel name -> launches per prefill
     check_prompt: int     # the full-width check's prompt
+    # phase 5b, chunked prefill through the paged engine: (layers, or None
+    # for full depth; {kernel: launches per decode step}; {kernel:
+    # launches per chunk}), or None
+    chunked: tuple = None
 
+
+# phase 5b's chunk and per-step prefill budget (one chunk)
+PREFILL_CHUNK = 256
 
 WORKLOADS = (
     Workload("minitron-4b", (64, 256), 512,
@@ -1645,19 +1872,32 @@ WORKLOADS = (
     Workload("gemma3-1b", (600, 1500), 2048,
              {"paged": {"tree_attention_paged_windowed": 26,
                         "tree_attention_paged": 1}},
-             {"flash_attention": 27}, 1000),
+             {"flash_attention": 27}, 1000,
+             (None, {"tree_attention_paged_windowed": 26,
+                     "tree_attention_paged": 1}, {"flash_attention": 27})),
     Workload("rwkv6-1.6b", (600, 1500), 2048, {"paged": {}},
-             {"linear_attn_chunk": 24}, 1000),
+             {"linear_attn_chunk": 24}, 1000,
+             (None, {}, {"linear_attn_chunk": 24})),
+    # chunked at the bf16 depth of the MoE verify check: 2 layers (the
+    # dense one and one MoE layer) + the prefix layer
     Workload("deepseek-v2-lite-16b", (600, 1500), 2048,
              {"paged": {"mla_attention_paged": 27,
                         "tree_attention_paged": 1}},
-             {"flash_attention": 28}, 1000),
+             {"flash_attention": 28}, 1000,
+             (2, {"mla_attention_paged": 2, "tree_attention_paged": 1},
+              {"flash_attention": 3})),
 )
+
+
+def _add(total: dict, counts: dict) -> None:
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
 
 
 def serve_full_width(wl: Workload) -> dict:
     """Serve 8 requests of ``wl`` at full width through each of its
-    engines; returns the kernels' launch counts of these runs."""
+    engines (phase 5), then chunked through the paged engine (phase 5b);
+    returns the kernels' launch counts of these runs."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.heads import init_draft_params
@@ -1667,8 +1907,11 @@ def serve_full_width(wl: Workload) -> dict:
     gc.collect()                           # the previous model's tensors
     torch.cuda.empty_cache()
     S_check = -(-(wl.check_prompt + 64) // 256) * 256
+    launches = {}
     if cfg.moe:
         check_moe_verify(wl.arch, wl.check_prompt, S_check)
+    if wl.chunked and wl.chunked[0] is not None:
+        _add(launches, serve_chunked_cut(wl))
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda")
     dp = init_draft_params(cfg, seed=1, device="cuda")
@@ -1682,18 +1925,177 @@ def serve_full_width(wl: Workload) -> dict:
         check_rwkv_prefill(params, dp, cfg, wl.check_prompt)
     else:
         check_full_verify(params, dp, cfg, wl.check_prompt, S_check)
-    launches = {}
+    runs = {}
     for engine in wl.verify:
-        for k, n in serve_engine(wl, cfg, params, dp, engine).items():
-            launches[k] = launches.get(k, 0) + n
+        counts, outs, st = serve_engine(wl, cfg, params, dp, engine,
+                                        wl.verify[engine], wl.prefill)
+        runs[engine] = (outs, st)
+        _add(launches, counts)
+    if wl.chunked and wl.chunked[0] is None:
+        _add(launches, serve_chunked(wl, cfg, params, dp, runs["paged"]))
     del params, dp
     torch.cuda.empty_cache()
     return launches
 
 
-def serve_engine(wl: Workload, cfg, params, dp, engine: str) -> dict:
+def serve_chunked_cut(wl: Workload) -> dict:
+    """Phase 5b of an MoE model at full width with depth cut to
+    ``wl.chunked[0]`` layers: the unchunked paged engine, then the chunked
+    one, from the same weights."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.heads import init_draft_params
+    from repro_torch.models.model import init_params
+
+    layers, per_step, per_chunk = wl.chunked
+    cfg = dataclasses.replace(get_config(wl.arch), n_layers=layers)
+    params = init_params(cfg, seed=0, device="cuda")
+    dp = init_draft_params(cfg, seed=1, device="cuda")
+    launches = {}
+    counts, outs, st = serve_engine(wl, cfg, params, dp, "paged", per_step,
+                                    {"flash_attention": layers + 1})
+    _add(launches, counts)
+    _add(launches, serve_chunked(wl, cfg, params, dp, (outs, st)))
+    del params, dp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# phase 5b's chunked-vs-whole prefill bounds (max relative logit
+# difference, least argmax agreement), phase 5's for a dense model; an
+# MoE model's and rwkv6's bf16 comparisons are readings (a chunk boundary
+# moves MoE capacity; rwkv6 at random weights amplifies bf16 rounding
+# layer by layer), and rwkv6 is held in fp32 instead
+CHUNKED_BOUND = (0.1, MIN_ARGMAX_AGREEMENT)
+RWKV_FP32_CHUNKED_BOUND = (1e-3, 1.0)
+
+
+def serve_chunked(wl: Workload, cfg, params, dp, unchunked) -> dict:
+    """Phase 5b: the chunked prefill's last 16 prompt positions against the
+    unchunked prefill's (held for an attention model without MoE; for
+    rwkv6 held in fp32 at full width, where dropping the carried state
+    must fail the bound, and read in bf16), then the paged engine with
+    ``PREFILL_CHUNK`` and a budget of one chunk over phase 5's requests,
+    against the unchunked run ``unchunked`` = (outputs, stats)."""
+    _, per_step, per_chunk = wl.chunked
+    dense_attention = not cfg.moe and cfg.block_kind != "rwkv6"
+    check_chunked_logits(params, cfg, wl.check_prompt,
+                         CHUNKED_BOUND if dense_attention else None)
+    if cfg.block_kind == "rwkv6":
+        check_rwkv_chunked_fp32(cfg, wl.check_prompt)
+    counts, outs, st = serve_engine(wl, cfg, params, dp, "paged", per_step,
+                                    per_chunk=per_chunk,
+                                    prefill_chunk=PREFILL_CHUNK)
+    base_outs, base = unchunked
+    same = sum(a == b for a, b in zip(outs, base_outs))
+    log(f"[5b] {cfg.name} ({cfg.n_layers} layers) paged engine, chunk "
+        f"{PREFILL_CHUNK} budget {PREFILL_CHUNK} against whole-prompt "
+        f"joins: {same} of {len(outs)} streams token-identical; ttft "
+        f"{st.mean_ttft_s * 1e3:.1f} vs {base.mean_ttft_s * 1e3:.1f}ms, "
+        f"p99_itl {st.p99_itl_s * 1e3:.1f} vs {base.p99_itl_s * 1e3:.1f}ms, "
+        f"tok/s {st.tokens_per_s:.1f} vs {base.tokens_per_s:.1f}, step "
+        f"{st.mean_step_s * 1e3:.1f} vs {base.mean_step_s * 1e3:.1f}ms")
+    return counts
+
+
+def check_rwkv_chunked_fp32(cfg, P: int) -> None:
+    """rwkv6 at full width in fp32: the chunked prefill (K6 from the
+    carried state) held against one whole prefill at
+    ``RWKV_FP32_CHUNKED_BOUND`` at the 16 positions after each chunk
+    boundary (where the carried state and token shift act) and the last
+    16; the same with the recurrent state zeroed before every chunk (a
+    chunk that does not carry it) must fail it."""
+    import torch
+    from repro_torch.models.model import init_params
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_params(cfg32, seed=0, device="cuda")
+    C = -(-PREFILL_CHUNK // cfg.ssm.chunk_size) * cfg.ssm.chunk_size
+    rows = sorted({b + i for b in range(C, P, C) for i in range(16)
+                   if b + i < P} | set(range(P - 16, P)))
+    check_chunked_logits(params, cfg32, P, RWKV_FP32_CHUNKED_BOUND, rows)
+    rel, agree = check_chunked_logits(params, cfg32, P, None, rows,
+                                      drop_state=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    max_rel, min_agree = RWKV_FP32_CHUNKED_BOUND
+    if rel <= max_rel and agree >= min_agree:
+        raise AssertionError(f"{cfg32.name}: a chunked prefill that drops "
+                             f"its carried state reads rel {rel}, argmax "
+                             f"{agree}: within the bound")
+
+
+def check_chunked_logits(params, cfg, P: int, bound, rows=None,
+                         drop_state: bool = False) -> tuple:
+    """The logits at prompt positions ``rows`` (default the last 16) of a
+    P-token prompt prefilled in chunks of ``PREFILL_CHUNK`` (K3's chunk
+    form, or K6 from the carried state) against one whole prefill.
+    ``bound`` = (max |diff| / max |logit|, least argmax agreement), or
+    None for a reading that fails only on a logit that is not finite.
+    ``drop_state`` zeroes the recurrent state before every chunk (a
+    planted fault).  Returns (relative difference, argmax agreement)."""
+    import torch
+    from repro_torch.models.model import forward, init_cache
+
+    C = PREFILL_CHUNK
+    if cfg.block_kind == "rwkv6":
+        C = -(-C // cfg.ssm.chunk_size) * cfg.ssm.chunk_size
+    rows = list(range(P - 16, P)) if rows is None else rows
+    g = torch.Generator(device="cuda").manual_seed(P)
+    S = -(-P // C) * C
+    tokens = torch.zeros((1, S), dtype=torch.long, device="cuda")
+    tokens[0, :P] = torch.randint(0, cfg.vocab_size, (P,), generator=g,
+                                  device="cuda")
+    whole = forward(params, cfg, tokens[:, :P],
+                    torch.arange(P, device="cuda")[None], mode="full",
+                    want_logits=False).hidden[0, rows]
+    cache = init_cache(cfg, 1, S, "cuda")
+    full = lambda x: torch.full((1,), x, dtype=torch.int32, device="cuda")
+    hs = []
+    for start in range(0, S, C):
+        if drop_state:
+            for group in cache:
+                for key, arr in group.items():
+                    if key not in ("k", "v"):
+                        arr.zero_()
+        hs.append(forward(params, cfg, tokens[:, start:start + C],
+                          torch.arange(start, start + C, device="cuda")[None],
+                          mode="full", cache=cache, cache_len=full(start),
+                          valid_len=full(min(max(P - start, 0), C)),
+                          want_logits=False).hidden[0])
+    chunked = torch.cat(hs)[rows]
+    w = params["unembed_f32"]
+    lc, lw = chunked.float() @ w, whole.float() @ w
+    finite = bool(torch.isfinite(lc).all())
+    rel, agree, margins = _paged_vs_dense(lc, lw)
+    what = ("a reading" if bound is None
+            else f"bound {bound[0]}, {bound[1]:.3f}")
+    where = (f"last {len(rows)} positions" if rows == list(range(P - 16, P))
+             else f"{len(rows)} positions: 16 after each chunk boundary and "
+                  "the last 16")
+    log(f"[5b] {cfg.name} ({cfg.n_layers} layers, {cfg.dtype}) prefill of "
+        f"{P} tokens in chunks of {C}"
+        f"{' dropping the carried state' if drop_state else ''} against one "
+        f"whole prefill, {where}: max rel logit diff={rel:.3e} "
+        f"argmax agreement={agree:.3f} margins={margins} ({what})")
+    if not finite:
+        raise AssertionError(f"{cfg.name}: chunked prefill logits not finite")
+    if bound is not None and (rel > bound[0] or agree < bound[1]):
+        raise AssertionError(f"{cfg.name}: chunked and whole prefill "
+                             f"disagree: rel {rel}, argmax agreement {agree}")
+    return rel, agree
+
+
+def serve_engine(wl: Workload, cfg, params, dp, engine: str, per_step: dict,
+                 per_prefill: dict = None, *, per_chunk: dict = None,
+                 prefill_chunk: int = 0) -> tuple:
     """Serve 8 requests of ``wl`` through ``engine`` ("paged" or
-    "continuous"), counting every kernel launch of the run."""
+    "continuous"; chunked prefill when ``prefill_chunk``), counting every
+    kernel launch of the run against ``per_step`` launches a decode step
+    and ``per_prefill`` a whole-prompt prefill (``per_chunk`` a chunk).
+    Returns (launch counts, the requests' outputs, the engine's stats)."""
     import numpy as np
     import torch
     from repro_torch.configs import tree_for
@@ -1706,7 +2108,8 @@ def serve_engine(wl: Workload, cfg, params, dp, engine: str) -> dict:
     if engine == "paged":
         eng = PagedSpeculativeEngine(params, dp, cfg, tree,
                                      max_len=wl.max_len, block_size=bs,
-                                     num_blocks=usable + 1)
+                                     num_blocks=usable + 1,
+                                     prefill_chunk=prefill_chunk)
     else:
         eng = SpeculativeEngine(params, dp, cfg, tree, max_len=wl.max_len)
     rs = np.random.RandomState(0)
@@ -1715,6 +2118,7 @@ def serve_engine(wl: Workload, cfg, params, dp, engine: str) -> dict:
                                       rs.randint(lo, hi + 1)).astype(np.int32),
                     max_new_tokens=budget) for _ in range(8)]
     counters = kernel_counters()
+    k3 = counters["flash_attention"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for mod in counters.values():          # count the main path only
@@ -1722,6 +2126,7 @@ def serve_engine(wl: Workload, cfg, params, dp, engine: str) -> dict:
         for attr in SECOND_COUNTERS:
             if hasattr(mod, attr):
                 setattr(mod, attr, 0)
+    k3.chunk_launches = 0
     st = eng.serve(reqs, max_batch=max_batch)
     torch.cuda.synchronize()
     counts = {k: m.launches for k, m in counters.items()}
@@ -1739,14 +2144,26 @@ def serve_engine(wl: Workload, cfg, params, dp, engine: str) -> dict:
     steps = st.steps + st.warmup_steps
     prefills = len(reqs) + st.preemptions
     expect = {k: 0 for k in counters}
-    for k, n in wl.verify[engine].items():
+    for k, n in per_step.items():
         expect[k] += n * steps
-    for k, n in wl.prefill.items():
-        expect[k] += n * prefills
+    per, times = ((per_chunk, st.prefill_chunks) if prefill_chunk
+                  else (per_prefill, prefills))
+    for k, n in per.items():
+        expect[k] += n * times
     if counts != expect:
         raise AssertionError(f"{cfg.name}: kernel launches {counts} != "
                              f"{expect} ({steps} steps, {prefills} "
-                             "prefills)")
+                             f"prefills, {st.prefill_chunks} chunks)")
+    # every K3 call of a chunked run is the chunk form, of a whole-prompt
+    # run none
+    if k3.chunk_launches != (counts["flash_attention"] if prefill_chunk
+                             else 0):
+        raise AssertionError(f"{cfg.name}: {k3.chunk_launches} K3 chunk-form "
+                             f"launches of {counts['flash_attention']}")
+    counts["flash_attention_chunk"] = k3.chunk_launches
+    chunking = (f"chunk={eng.prefill_chunk} chunks={st.prefill_chunks} "
+                f"(per chunk {per_chunk}) " if prefill_chunk
+                else f"(per prefill {per_prefill}) ")
     log(f"[full] {cfg.name} {engine} engine served {len(reqs)} requests x "
         f"{budget} tokens (prompts {lo}-{hi}): steps={st.steps} "
         f"(+{st.warmup_steps} "
@@ -1760,10 +2177,11 @@ def serve_engine(wl: Workload, cfg, params, dp, engine: str) -> dict:
            if engine == "paged" else "") +
         f"max_memory_allocated="
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}GiB "
-        f"launches={counts} (per step {wl.verify[engine]}, per prefill "
-        f"{wl.prefill}) second launches={merges}")
+        f"launches={counts} (per step {per_step}) {chunking}"
+        f"second launches={merges}")
+    outs = [list(r.output) for r in reqs]
     del eng
-    return counts
+    return counts, outs, st
 
 
 def main() -> int:
@@ -1833,8 +2251,10 @@ def main() -> int:
     check_splits()
     k3 = check_k3()
     k3_mla = check_k3_mla()
+    k3_chunk = check_k3_chunk()
     k5 = check_k5()
     k6 = check_k6()
+    check_k6_boundary()
     k2 = check_k2()
     check_k1_prefix()
     log(f"[time] kernel checks done at {time.perf_counter() - t_start:.0f}s")
@@ -1855,8 +2275,7 @@ def main() -> int:
         (16, 23, 32, 9, 40, 12), budgets=(30,) * 6, num_blocks=8)
     launches = {}
     for wl in WORKLOADS:
-        for k, n in serve_full_width(wl).items():
-            launches[k] = launches.get(k, 0) + n
+        _add(launches, serve_full_width(wl))
         log(f"[time] {wl.arch} done at {time.perf_counter() - t_start:.0f}s")
 
     def entry(name, source, replaces, rec, err):
@@ -1879,6 +2298,13 @@ def main() -> int:
               max([r["max_abs_err"] for key, r in k3.items()
                    if key[1] == "bfloat16"]
                   + [k3_mla["bfloat16"]["max_abs_err"]])),
+        entry("flash_attention_chunk",
+              "src/repro_torch/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention/kernel.py:23",
+              k3_chunk[("gemma3-1b", "bfloat16", K3_CHUNK_OFFSETS[-1],
+                        WINDOW)],
+              max(r["max_abs_err"] for key, r in k3_chunk.items()
+                  if key[1] == "bfloat16")),
         entry("tree_attention_paged_windowed",
               "src/repro_torch/csrc/tree_attention_paged.cu",
               "src/repro/kernels/attention_template/ops.py:37",

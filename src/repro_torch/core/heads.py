@@ -71,17 +71,20 @@ def init_draft_params(cfg: ModelConfig, *, seed: int = 1, device="cuda"):
 @torch.no_grad()
 def prefix_forward(dp, cfg: ModelConfig, hidden, positions, *,
                    cache_k=None, cache_v=None, cache_len=None,
-                   tree_mask=None, block_table=None):
+                   tree_mask=None, block_table=None, prefill: bool = False):
     """Extra decoder layer over the base model's hidden-state stream.
 
     hidden: (B, T, d).  Full-seq (cache_* None) at prefill; the cache path
     when decoding (chain mask by default), updating the cache in place.
     ``block_table`` switches cache_k/v to the paged pool layout (same
-    per-slot tables as the KV pools).  Returns (out, new_k, new_v)."""
+    per-slot tables as the KV pools).  ``prefill=True`` (with a cache)
+    runs the chunked-prefill continuation instead of the decode path: the
+    T hiddens are one prompt chunk at ``cache_len + arange(T)``, attended
+    through K3's chunk form (DESIGN.md §8).  Returns (out, new_k, new_v)."""
     p = dp["prefix"]
     ai = AttnInputs(q_pos=positions, cache_k=cache_k, cache_v=cache_v,
                     cache_len=cache_len, tree_mask=tree_mask, window=0,
-                    causal=True, block_table=block_table)
+                    causal=True, block_table=block_table, prefill=prefill)
     a, nk, nv = gqa_fwd(p["attn"], cfg, rms_norm(hidden, p["norm1"],
                                                  cfg.rms_eps), ai)
     h = hidden + a

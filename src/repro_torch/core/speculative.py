@@ -159,6 +159,100 @@ def join_slot(params, draft_params, cfg: ModelConfig, state: DecodeState,
 
 
 # ---------------------------------------------------------------------------
+# chunked (resumable) prefill: DESIGN.md §8
+# ---------------------------------------------------------------------------
+
+
+def carried_state(arr, slot: int, start: int):
+    """Row ``slot`` of a recurrent-state array (L, B, ...) as an in-place
+    view (L, 1, ...), zeroed when the chunk is a prefill's first
+    (``start == 0``): the row still holds the slot's previous occupant's
+    state.  Stale attention entries need no reset: the chunk form masks
+    every key at or past the prefill cursor."""
+    row = arr[:, slot:slot + 1]
+    if start == 0:
+        row.zero_()
+    return row
+
+
+def chunk_operands(chunk, start: int, real_len: int):
+    """(positions (1, C), start (1,) int32, valid_len (1,)) of one chunk:
+    its tokens sit at ``start + arange(C)`` and the first ``real_len -
+    start`` of them (at most C) are real."""
+    C, dev = chunk.shape[0], chunk.device
+    pos = torch.arange(start, start + C, device=dev)[None, :]
+    start1 = torch.full((1,), start, dtype=torch.int32, device=dev)
+    valid = torch.full((1,), min(max(real_len - start, 0), C),
+                       dtype=torch.int32, device=dev)
+    return pos, start1, valid
+
+
+def install_chunk(params, state, hidden, prefix_hidden, start: int,
+                  real_len: int, slot: int, final: bool):
+    """Advance row ``slot`` of ``state`` (a ``DecodeState`` or a paged
+    state: any with ``cache_len``/``last_token``/``last_hidden``) after
+    one chunk, in place.  A non-final chunk moves the prefill cursor
+    (``cache_len = start + C``: the slot stays inactive, and the scratch
+    a concurrent decode step writes past the cursor is overwritten by
+    the next chunk); the final chunk picks the first token from the
+    hidden state of token ``real_len - 1`` and installs ``last_token``,
+    ``last_hidden`` and ``cache_len = real_len``."""
+    C = hidden.shape[1]
+    if not final:
+        state.cache_len[slot] = start + C
+        return state
+    idx = min(max(real_len - start - 1, 0), C - 1)
+    state.cache_len[slot] = real_len
+    state.last_token[slot] = _first_token(params, hidden[0, idx])
+    h = (prefix_hidden if prefix_hidden is not None else hidden)[0, idx]
+    state.last_hidden[slot] = h.to(state.last_hidden.dtype)
+    return state
+
+
+@torch.no_grad()
+def join_slot_chunk(params, draft_params, cfg: ModelConfig,
+                    state: DecodeState, chunk, start: int, real_len: int,
+                    slot: int, *, final: bool,
+                    view_len: Optional[int] = None) -> DecodeState:
+    """One chunk of a resumable prefill into row ``slot`` of the pool, in
+    place.
+
+    ``chunk``: (C,) tokens ``[start, start + C)`` of the request's
+    C-padded context; ``real_len`` is the true context length (only the
+    final chunk may carry right-pad).  The chunk runs a prefill
+    continuation (``forward(mode="full", cache_len=start)``): attention
+    writes the chunk K/V at ``[start, start + C)`` of the slot's row and
+    attends through K3's chunk form, recurrent state scans on from the
+    row's carried state (zeroed for the first chunk), so chunking is pure
+    scheduling.  The forward writes straight into views of the slot's
+    row, so there is nothing to commit afterwards (JAX's ``commit_chunk``
+    copies the chunk back from a row copy) and no position of the row
+    outside ``[start, start + C)`` changes.  ``view_len`` cuts the
+    attention view to the row's first ``view_len`` positions (it must
+    cover ``start + C``); the masked tail never changes a bit.
+
+    A non-final chunk moves the prefill cursor; the final one
+    (``final=True``) picks the first token and activates the row
+    (``install_chunk``)."""
+    pos, start1, valid = chunk_operands(chunk, start, real_len)
+    view = slice(None, view_len)
+    rows = [{key: (a[:, slot:slot + 1, view] if key in ATTN_KEYS
+                   else carried_state(a, slot, start))
+             for key, a in g.items()} for g in state.cache]
+    out = forward(params, cfg, chunk[None, :], pos, mode="full", cache=rows,
+                  cache_len=start1, valid_len=valid, want_logits=False)
+    ph = None
+    if _has_prefix(draft_params):
+        ph, _, _ = prefix_forward(
+            draft_params, cfg, out.hidden, pos,
+            cache_k=state.prefix_k[slot:slot + 1, view],
+            cache_v=state.prefix_v[slot:slot + 1, view], cache_len=start1,
+            prefill=True)
+    return install_chunk(params, state, out.hidden, ph, start, real_len, slot,
+                         final)
+
+
+# ---------------------------------------------------------------------------
 # the speculative step
 # ---------------------------------------------------------------------------
 

@@ -1,24 +1,31 @@
-// Prefill attention for Hopper (sm_90a), plain C interface: S x S
-// attention, causal, with an optional sliding window and GQA.
+// Prefill attention for Hopper (sm_90a), plain C interface: causal
+// attention with an optional sliding window and GQA, over a whole prompt
+// or over one chunk of it (the chunked prefill's continuation).
 //
 // Replaces the TPU kernel K3
 //   src/repro/kernels/flash_attention/kernel.py::flash_attention
 //   (-> attention_template/kernel.py::self_attention, TemplateSpec
 //    kind="self").
 //
-// What it computes: for each (b, query head), query position i attends to
-// key position k of the same sequence iff (not causal or k <= i) and
-// (window <= 0 or i - k < window); query head h*G + g reads kv head h.
-// Positions are the sequence indices 0..S-1: the port's prefill passes
-// consecutive positions, so the masks depend only on index differences.
-// Any S is taken: a ragged last tile is cut by its length (keys past S
-// are zero-filled, never read, and rejected), never padded.  The window is
-// a runtime int, so one build serves gemma3's local (512) and global (0)
-// layers.
+// What it computes: Sq query rows of row b sit at absolute positions
+// q_off[b] + i (i < Sq) and read Skv keys at positions 0..Skv-1; query i
+// attends to key k iff k < kv_valid_len[b] and (not causal or
+// k <= q_off[b] + i) and (window <= 0 or q_off[b] + i - k < window); query
+// head h*G + g reads kv head h.  A whole prefill is q_off = 0, Skv = Sq and
+// no kv_valid_len (null pointers: offset 0, every key valid).  A chunk of a
+// resumable prefill (the JAX package runs jnp blocked_attention with a
+// query offset and kv_valid_len there: models/attention.py::
+// _prefill_continuation) passes the cache view as K/V, its start as q_off
+// and start + Sq as kv_valid_len: keys at or past kv_valid_len (stale
+// scratch, NULL blocks of a gathered pool view) are never read.  Any Sq and
+// Skv are taken: a ragged last tile is cut by its length (keys past the
+// end are zero-filled, never read, and rejected), never padded.  The
+// window is a runtime int, so one build serves gemma3's local (512) and
+// global (0) layers.
 //
 // Layout (the model layout the wrapper receives), contiguous:
-//   q (B, S, Hq, DQK)   k (B, S, Hkv, DQK)   v (B, S, Hkv, DV)
-//   out (B, S, Hq, DV)
+//   q (B, Sq, Hq, DQK)   k (B, Skv, Hkv, DQK)   v (B, Skv, Hkv, DV)
+//   out (B, Sq, Hq, DV)  q_off, kv_valid_len (B,) int32 or null
 // q, k, v and out share one type.  bf16 builds: (DQK, DV) in (64, 64),
 // (128, 128), (256, 256) and (192, 128), deepseek-v2-lite's MLA prefill
 // (nope 128 + rope 64 for q/k, 128 for v) at its own widths.  fp32 builds
@@ -30,20 +37,25 @@
 // query, key) against q, k, v and out read or written once.
 //
 // Design (bf16), FlashAttention-2 on mma.sync: one block of four warps
-// per (tile of 64 query positions, b, query head); each warp owns 16
-// query rows.  Q comes in once; key tiles of 64 (32 at DQK = 256, to keep
-// the accumulator in registers) come in through cp.async into a
+// per (tile of 64 query rows, b, query head); each warp owns 16 query
+// rows.  Q comes in once; key tiles of 64 (32 at DQK = 256, to keep the
+// accumulator in registers) come in through cp.async into a
 // double-buffered ring in shared memory, so the next tile loads while this
 // one computes.  S = Q K^T and O += P V run on mma.sync.m16n8k16 (bf16 in,
 // fp32 accumulate); P is re-packed to bf16 in registers as the A operand;
 // the online softmax and the accumulator stay in fp32 registers, with the
 // template's conventions (attention_mma.cuh).  GQA: the G query heads of
 // kv head h read the same K/V tiles, which their blocks (launched side by
-// side) share through L2.  Causal key tiles past the query tile's last
-// position are never visited; with a window, tiles wholly before
-// q0 - window + 1 are skipped; only the tiles that cross a mask boundary
-// (or S) are masked element by element.  Query tiles are launched longest
-// causal chain first.
+// side) share through L2.  Key tiles start at absolute multiples of the
+// key tile, from position 0, whatever q_off: a query row walks the same
+// tiles in the same order in a chunk as in the whole prefill, so where
+// q_off is a multiple of the query tile (64; 16 for fp32) the chunk's rows
+// equal the whole prefill's rows bit for bit.  Tiles are skipped in
+// absolute positions: causal tiles past the query tile's last position,
+// with a window tiles wholly before q0 - window + 1, and tiles wholly at
+// or past kv_valid_len; only the tiles that cross a mask boundary (or the
+// valid end) are masked element by element.  Query tiles are launched
+// longest causal chain first.
 //
 // fp32 keeps the first version's CUDA-core body: one thread block per
 // (b, kv head, tile of at most 16 query positions) holding the G*BQ rows
@@ -53,9 +65,8 @@
 // rows, so a block's key tiles cost shared-memory bandwidth in proportion
 // to its rows; with few heads (gemma3-1b: 4) the causal critical path, the
 // last query tile's whole chain of key tiles, sits on one SM.  wgmma (one
-// read of K/V per 64 rows), splitting long query tiles' key ranges across
-// blocks and chunked prefill (a query offset with kv_valid_len) are later
-// work.
+// read of K/V per 64 rows) and splitting long query tiles' key ranges
+// across blocks are later work.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -97,9 +108,34 @@ struct Args {
   const void* k;
   const void* v;
   void* out;
-  int B, S, Hq, Hkv, bq, causal, window;
+  const int* q_off;         // (B,) first query position, or null: 0
+  const int* kv_valid_len;  // (B,) keys at or past it masked, or null
+  int B, Sq, Skv, Hq, Hkv, bq, causal, window;
   float scale;
 };
+
+// The absolute key range [k_begin, k_end) that query rows at absolute
+// positions [q_first, q_last] of row b may read: causal keys end after
+// q_last, valid keys at kv_valid_len, and a window starts at
+// q_first - window + 1, rounded down to a multiple of the key tile `kt`
+// (tiles start at absolute multiples of kt from position 0).
+struct KeyRange {
+  int begin, end;
+};
+__device__ __forceinline__ KeyRange key_range(const Args& p, int b,
+                                              int q_first, int q_last,
+                                              int kt) {
+  int valid = p.Skv;
+  if (p.kv_valid_len != nullptr) valid = min(valid, max(p.kv_valid_len[b], 0));
+  KeyRange r;
+  r.end = p.causal != 0 ? min(q_last + 1, valid) : valid;
+  r.begin = p.window > 0 ? max(0, q_first - p.window + 1) / kt * kt : 0;
+  return r;
+}
+
+__device__ __forceinline__ int query_offset(const Args& p, int b) {
+  return p.q_off != nullptr ? p.q_off[b] : 0;
+}
 
 // bf16 body: grid n_qt * B * Hq, the last query tile first.
 template <int DQK, int DV>
@@ -108,12 +144,13 @@ __device__ void flash_mma(const Args& p, unsigned char* smem_raw) {
   constexpr int QS = DQK + tc::kPad, VS = DV + tc::kPad;
   const int G = p.Hq / p.Hkv;
   const int heads = p.B * p.Hq;
-  const int n_qt = (p.S + kMmaRows - 1) / kMmaRows;
+  const int n_qt = (p.Sq + kMmaRows - 1) / kMmaRows;
   const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / heads;
   const int b = (blockIdx.x % heads) / p.Hq;
   const int hq = blockIdx.x % p.Hq;
   const int hk = hq / G;
-  const int q0 = qt * kMmaRows;
+  const int q0 = qt * kMmaRows;                 // first row of the tile
+  const int off = query_offset(p, b);           // row i sits at off + i
 
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* ks = qs + kMmaRows * QS;
@@ -123,22 +160,23 @@ __device__ void flash_mma(const Args& p, unsigned char* smem_raw) {
   const bf16* k = static_cast<const bf16*>(p.k);
   const bf16* v = static_cast<const bf16*>(p.v);
 
-  // rows past S are computed on zeros and never stored
+  // rows past Sq are computed on zeros and never stored
   tc::load_rows<DQK, kMmaRows, kMmaThreads>(
       qs, tid, q, [&](int r) -> const bf16* {
         const int i = q0 + r;
-        if (i >= p.S) return nullptr;
-        return q + ((static_cast<size_t>(b) * p.S + i) * p.Hq + hq) * DQK;
+        if (i >= p.Sq) return nullptr;
+        return q + ((static_cast<size_t>(b) * p.Sq + i) * p.Hq + hq) * DQK;
       });
 
   const bool causal = p.causal != 0;
   const int w = p.window;
-  const int q_last = min(q0 + kMmaRows, p.S) - 1;
-  const int k_end = causal ? q_last + 1 : p.S;
-  const int k_begin = w > 0 ? max(0, q0 - w + 1) / KN * KN : 0;
-  const int ntiles = (k_end - k_begin + KN - 1) / KN;
+  const int q_first = off + q0;                             // absolute
+  const int q_last = off + min(q0 + kMmaRows, p.Sq) - 1;    // absolute
+  const KeyRange kr = key_range(p, b, q_first, q_last, KN);
+  const int k_begin = kr.begin, k_end = kr.end;
+  const int ntiles = k_end > k_begin ? (k_end - k_begin + KN - 1) / KN : 0;
   auto kv_row = [&](int pos) {
-    return (static_cast<size_t>(b) * p.S + pos) * p.Hkv + hk;
+    return (static_cast<size_t>(b) * p.Skv + pos) * p.Hkv + hk;
   };
   auto issue = [&](int i) {
     const int sg = i & 1, pos0 = k_begin + i * KN;
@@ -157,9 +195,15 @@ __device__ void flash_mma(const Args& p, unsigned char* smem_raw) {
 
   tc::RowState<DV> st;
   st.init();
-  const int i0 = q0 + warp * tc::kWarpRows + lane / 4;  // row g; g+8: +8
+  const int i0 = warp * tc::kWarpRows + lane / 4;  // local row g; g+8: +8
+  const int a0 = q_first + i0;                      // its absolute position
   const float scale_log2 = p.scale * tc::kLog2e;
-  issue(0);  // the first group carries q as well
+  if (ntiles > 0) {
+    issue(0);  // the first group carries q as well
+  } else {     // no key to read (kv_valid_len 0): the rows stay zero
+    tc::cp_async_commit();
+    tc::cp_async_wait<0>();
+  }
   for (int it = 0; it < ntiles; ++it) {
     if (it + 1 < ntiles) {
       issue(it + 1);
@@ -169,15 +213,15 @@ __device__ void flash_mma(const Args& p, unsigned char* smem_raw) {
     }
     __syncthreads();
     const int sg = it & 1, pos0 = k_begin + it * KN;
-    // a tile needs element masks only where it crosses S (or the causal
-    // end), the diagonal or the window's far edge
+    // a tile needs element masks only where it crosses the key range's
+    // end, the diagonal or the window's far edge
     const bool masked = pos0 + KN > k_end ||
-                        (causal && pos0 + KN - 1 > q0) ||
+                        (causal && pos0 + KN - 1 > q_first) ||
                         (w > 0 && q_last - pos0 >= w);
     tc::tile_mma<DQK, DV, KN>(
         qs + warp * tc::kWarpRows * QS, ks + sg * KN * QS, vs + sg * KN * VS,
         scale_log2, st, masked, [&](int hh, int kk) {
-          const int key = pos0 + kk, dq = i0 + 8 * hh - key;
+          const int key = pos0 + kk, dq = a0 + 8 * hh - key;
           return key < k_end && (!causal || dq >= 0) && (w <= 0 || dq < w);
         });
     __syncthreads();  // the next issue overwrites this stage
@@ -188,10 +232,10 @@ __device__ void flash_mma(const Args& p, unsigned char* smem_raw) {
   const int t4 = lane & 3;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int i = i0 + 8 * hh;
-    if (i >= p.S) continue;
+    const int i = q0 + i0 + 8 * hh;
+    if (i >= p.Sq) continue;
     const float inv = 1.f / fmaxf(st.l[hh], 1e-30f);
-    bf16* o = out + ((static_cast<size_t>(b) * p.S + i) * p.Hq + hq) * DV;
+    bf16* o = out + ((static_cast<size_t>(b) * p.Sq + i) * p.Hq + hq) * DV;
 #pragma unroll
     for (int n = 0; n < DV / 8; ++n)
       *reinterpret_cast<uint32_t*>(o + n * 8 + 2 * t4) = tc::pack_bf16(
@@ -209,11 +253,12 @@ __device__ void flash_f32(const Args& p, float* smem) {
   const int BQ = p.bq;
   const int R = G * BQ;
   const int heads = p.B * p.Hkv;
-  const int n_qt = (p.S + BQ - 1) / BQ;
+  const int n_qt = (p.Sq + BQ - 1) / BQ;
   const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / heads;
   const int b = (blockIdx.x % heads) / p.Hkv;
   const int h = blockIdx.x % p.Hkv;
   const int q0 = qt * BQ;
+  const int off = query_offset(p, b);
 
   const Smem sm = attn::carve_smem<D>(smem, R);
   const float* q = static_cast<const float*>(p.q);
@@ -222,10 +267,10 @@ __device__ void flash_f32(const Args& p, float* smem) {
 
   for (int i = threadIdx.x; i < R * D; i += kThreads) {
     const int r = i / D, d = i % D;
-    const int g = r / BQ, pos = q0 + r % BQ;
-    float x = 0.f;  // rows past S are computed on zeros and never stored
-    if (pos < p.S)
-      x = q[((static_cast<size_t>(b) * p.S + pos) * p.Hq + h * G + g) * D +
+    const int g = r / BQ, row = q0 + r % BQ;
+    float x = 0.f;  // rows past Sq are computed on zeros and never stored
+    if (row < p.Sq)
+      x = q[((static_cast<size_t>(b) * p.Sq + row) * p.Hq + h * G + g) * D +
             d] *
           p.scale;
     sm.q[r * DP + d] = x;
@@ -233,7 +278,7 @@ __device__ void flash_f32(const Args& p, float* smem) {
   for (int r = threadIdx.x; r < R; r += kThreads) {
     sm.m[r] = kNegInf;
     sm.l[r] = 0.f;
-    sm.pos[r] = q0 + r % BQ;
+    sm.pos[r] = off + q0 + r % BQ;  // absolute
   }
   float acc[KMAX];
 #pragma unroll
@@ -242,16 +287,17 @@ __device__ void flash_f32(const Args& p, float* smem) {
 
   const bool causal = p.causal != 0;
   const int w = p.window;
-  const int k_end = causal ? min(q0 + BQ, p.S) : p.S;
-  const int k_begin = w > 0 ? max(0, q0 - w + 1) : 0;
-  for (int k0 = k_begin; k0 < k_end; k0 += kKeyTile) {
+  const KeyRange kr = key_range(p, b, off + q0,
+                                off + min(q0 + BQ, p.Sq) - 1, kKeyTile);
+  const int k_end = kr.end;
+  for (int k0 = kr.begin; k0 < k_end; k0 += kKeyTile) {
     const int n = min(kKeyTile, k_end - k0);
     for (int i = threadIdx.x; i < n * D; i += kThreads) {
       const int kk = i / D, d = i % D;
-      const size_t off =
-          ((static_cast<size_t>(b) * p.S + k0 + kk) * p.Hkv + h) * D + d;
-      sm.k[kk * DP + d] = k[off];
-      sm.v[kk * DP + d] = v[off];
+      const size_t o =
+          ((static_cast<size_t>(b) * p.Skv + k0 + kk) * p.Hkv + h) * D + d;
+      sm.k[kk * DP + d] = k[o];
+      sm.v[kk * DP + d] = v[o];
     }
     __syncthreads();
     auto admit = [sm, causal, w, k0](int r, int kk) {
@@ -268,11 +314,12 @@ __device__ void flash_f32(const Args& p, float* smem) {
   for (int kk = 0; kk < KMAX; ++kk) {
     const int r = rg + kk * NRG;
     if (r < R) {
-      const int g = r / BQ, pos = q0 + r % BQ;
-      if (pos < p.S) {
-        const size_t off =
-            ((static_cast<size_t>(b) * p.S + pos) * p.Hq + h * G + g) * D + d;
-        out[off] = acc[kk] / fmaxf(sm.l[r], 1e-30f);
+      const int g = r / BQ, row = q0 + r % BQ;
+      if (row < p.Sq) {
+        const size_t o =
+            ((static_cast<size_t>(b) * p.Sq + row) * p.Hq + h * G + g) * D +
+            d;
+        out[o] = acc[kk] / fmaxf(sm.l[r], 1e-30f);
       }
     }
   }
@@ -302,7 +349,7 @@ int launch(const Args& a, cudaStream_t stream) {
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int rows = kF32 ? a.bq : kMmaRows;
-  const int n_qt = (a.S + rows - 1) / rows;
+  const int n_qt = (a.Sq + rows - 1) / rows;
   const int blocks = n_qt * a.B * (kF32 ? a.Hkv : a.Hq);
   kern<<<blocks, kF32 ? kThreads : kMmaThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -311,15 +358,20 @@ int launch(const Args& a, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16; causal: 0 or 1; window <= 0: no window.
-// Returns the CUDA error code of the launch (0 on success); the wrapper
-// raises on anything else.
+// q_off and kv_valid_len: (B,) int32 device arrays, or null (a whole
+// prefill: offset 0, every key valid).  Returns the CUDA error code of the
+// launch (0 on success); the wrapper raises on anything else.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int B, int S, int Hq, int Hkv,
-                               int Dqk, int Dv, int causal, int window,
-                               int dtype, float scale, void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0)
+                               void* out, const void* q_off,
+                               const void* kv_valid_len, int B, int Sq,
+                               int Skv, int Hq, int Hkv, int Dqk, int Dv,
+                               int causal, int window, int dtype, float scale,
+                               void* stream) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a{q, k, v, out, B, S, Hq, Hkv, 0, causal, window, scale};
+  Args a{q,      k,  v,   out, static_cast<const int*>(q_off),
+         static_cast<const int*>(kv_valid_len),
+         B,      Sq, Skv, Hq,  Hkv, 0, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     if (Dqk == 64 && Dv == 64) return launch<bf16, 64, 64>(a, s);

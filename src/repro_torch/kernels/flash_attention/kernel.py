@@ -5,14 +5,18 @@ The CUDA source is ``src/repro_torch/csrc/flash_attention.cu``; its header
 says which TPU kernel it replaces
 (``repro/kernels/flash_attention/kernel.py::flash_attention``), what
 bounds it and how it is laid out.  ``flash_attention_plain`` is the port's
-``blocked_attention`` (``models/layers.py``) with ``q_pos = kv_pos =
-arange(S)``: the full-seq math the port ran before K3, so the CPU path
-keeps its numbers.  The CPU tests run it and ``chip_smoke.py`` holds the
-kernel against it on the card.
+``blocked_attention`` (``models/layers.py``) with ``q_pos = q_off +
+arange(Sq)`` and ``kv_pos = arange(Skv)``, as JAX's chunked-prefill
+continuation calls it (``repro/models/attention.py::
+_prefill_continuation``); a whole prefill (``q_off = 0``, ``Skv = Sq``, no
+``kv_valid_len``) keeps the numbers of the full-seq math the port ran
+before K3.  The CPU tests run it and ``chip_smoke.py`` holds the kernel
+against it on the card.
 
-Both take the MODEL layout: q ``(B, S, Hq, Dqk)``, k ``(B, S, Hkv, Dqk)``,
-v ``(B, S, Hkv, Dv)``, out ``(B, S, Hq, Dv)``.  The wrapper (``ops.py``) is
-the port's only caller of ``launch``.
+Both take the MODEL layout: q ``(B, Sq, Hq, Dqk)``, k ``(B, Skv, Hkv,
+Dqk)``, v ``(B, Skv, Hkv, Dv)``, out ``(B, Sq, Hq, Dv)``; ``q_off`` and
+``kv_valid_len`` are ``(B,)`` int32.  The wrapper (``ops.py``) is the
+port's only caller of ``launch``.
 """
 from __future__ import annotations
 
@@ -39,33 +43,42 @@ def kernel_fn():
     fn = build.load("flash_attention").flash_attention
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_void_p])
     return fn
 
 
 def launch(q, k, v, out, *, causal: bool, window: int,
-           scale: float | None = None) -> int:
+           scale: float | None = None, q_off=None,
+           kv_valid_len=None) -> int:
     """Launch the kernel on the current CUDA stream (no synchronisation).
-    All arguments must already be validated by the wrapper.  ``scale``
-    defaults to 1/sqrt(Dqk).  Returns the CUDA error code of the launch: 0
-    on success."""
-    B, S, Hq, Dqk = q.shape
-    Hkv, Dv = k.shape[2], v.shape[3]
+    All arguments must already be validated by the wrapper; ``q_off`` and
+    ``kv_valid_len`` are (B,) int32 on q's device, or None (offset 0,
+    every key valid).  ``scale`` defaults to 1/sqrt(Dqk).  Returns the
+    CUDA error code of the launch: 0 on success."""
+    B, Sq, Hq, Dqk = q.shape
+    Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     return kernel_fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, S, Hq, Hkv, Dqk, Dv, int(causal), int(window),
-        DTYPE_CODES[q.dtype],
+        ptr(q_off), ptr(kv_valid_len), B, Sq, Skv, Hq, Hkv, Dqk, Dv,
+        int(causal), int(window), DTYPE_CODES[q.dtype],
         1.0 / math.sqrt(Dqk) if scale is None else float(scale), stream)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          scale: float | None = None):
-    """q: (B,S,Hq,Dqk); k: (B,S,Hkv,Dqk); v: (B,S,Hkv,Dv); query and key
-    i sit at position i; ``scale`` defaults to 1/sqrt(Dqk).  Returns
-    (B,S,Hq,Dv) in q's dtype."""
-    B, S = q.shape[:2]
-    pos = torch.arange(S, device=q.device)
-    return blocked_attention(q, k, v, pos[None].expand(B, S), pos,
-                             window=window, causal=causal, scale=scale)
+                          scale: float | None = None, q_off=0,
+                          kv_valid_len=None):
+    """q: (B,Sq,Hq,Dqk); k: (B,Skv,Hkv,Dqk); v: (B,Skv,Hkv,Dv); query i of
+    row b sits at position ``q_off[b] + i`` (``q_off`` an int or a (B,)
+    int tensor), key j at position j; keys at or past ``kv_valid_len[b]``
+    are masked.  ``scale`` defaults to 1/sqrt(Dqk).  Returns (B,Sq,Hq,Dv)
+    in q's dtype."""
+    B, Sq = q.shape[:2]
+    q_pos = (torch.as_tensor(q_off, device=q.device).reshape(-1, 1)
+             + torch.arange(Sq, device=q.device)).expand(B, Sq)
+    return blocked_attention(q, k, v, q_pos,
+                             torch.arange(k.shape[1], device=q.device),
+                             window=window, causal=causal, scale=scale,
+                             kv_valid_len=kv_valid_len)

@@ -3,11 +3,17 @@
 
 The wrapper validates what the kernel takes and dispatches on the device
 the tensors lie on: CPU tensors take the plain version, CUDA tensors
-launch the kernel or raise, for every S (the kernel cuts a ragged tail by
-its length; nothing is padded).  There is no fallback from one to the
-other.  ``launches`` counts kernel launches, and only those.  v may have a
-head dim of its own (deepseek's MLA prefill: q/k 192, v 128) where a bf16
-build takes it.
+launch the kernel or raise, for every length (the kernel cuts a ragged
+tail by its length; nothing is padded).  There is no fallback from one to
+the other.  ``launches`` counts kernel launches, and only those;
+``chunk_launches`` counts those of them that ran the chunk form (a call
+with ``kv_valid_len``).  v may have a head dim of its own (deepseek's MLA
+prefill: q/k 192, v 128) where a bf16 build takes it.
+
+Two forms, one kernel: the whole prefill (q and k/v of one length, query
+i at position i) and the chunk form of a resumable prefill (``q_off``:
+the chunk's first position; ``kv_valid_len``: the keys written so far,
+the cache view past it is masked and never read by the kernel).
 """
 from __future__ import annotations
 
@@ -19,18 +25,32 @@ import torch.nn.functional as F
 from repro_torch.kernels.flash_attention import kernel as _k
 
 launches = 0                  # kernel launches since the last reset
+chunk_launches = 0            # of which with a query offset / kv_valid_len
 
 
-def _check(q, k, v):
+def _check(q, k, v, chunk: bool):
     B, S, Hq, D = q.shape
-    if k.dim() != 4 or k.shape[:2] != (B, S) or k.shape[3] != D \
+    Skv = k.shape[1] if chunk and k.dim() == 4 else S
+    if k.dim() != 4 or k.shape[:2] != (B, Skv) or k.shape[3] != D \
             or v.dim() != 4 or v.shape[:3] != k.shape[:3]:
-        raise ValueError(f"k/v must be (B, S, Hkv, D) = ({B}, {S}, Hkv, {D})"
-                         f" and (B, S, Hkv, Dv), got {tuple(k.shape)} / "
+        raise ValueError(f"k/v must be (B, S, Hkv, D) = ({B}, {Skv}, Hkv, "
+                         f"{D}) and (B, S, Hkv, Dv), got {tuple(k.shape)} / "
                          f"{tuple(v.shape)}")
     if Hq % k.shape[2] != 0:
         raise ValueError(f"{Hq} query heads do not group over {k.shape[2]} "
                          "kv heads")
+
+
+def _row_ints(x, B: int, device, what: str):
+    """``x`` (an int, or a (B,) integer tensor on ``device``) as (B,)
+    int32 on ``device``."""
+    if isinstance(x, int):
+        return torch.full((B,), x, dtype=torch.int32, device=device)
+    if x.shape != (B,) or x.dtype.is_floating_point or x.device != device:
+        raise ValueError(f"{what} must be an int or a ({B},) integer tensor "
+                         f"on {device}, got {tuple(x.shape)} {x.dtype} on "
+                         f"{x.device}")
+    return x.to(torch.int32).contiguous()
 
 
 def _check_cuda(q, k, v):
@@ -64,19 +84,33 @@ def _f32_dim(dqk: int, dv: int):
 
 
 def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0,
-                         scale: float | None = None):
-    """q: (B,S,Hq,D); k: (B,S,Hkv,D); v: (B,S,Hkv,Dv), the model layout;
-    query and key i sit at position i (the sequence starts at 0, or at any
-    offset: the masks depend only on position differences).  ``window``
-    (int) > 0 admits keys less than ``window`` positions back.  ``scale``
-    multiplies the scores (default 1/sqrt(D); MLA's prefill passes
-    1/sqrt(nd + rd)).  Returns (B,S,Hq,Dv) in q's dtype."""
-    global launches
-    _check(q, k, v)
+                         scale: float | None = None, q_off=0,
+                         kv_valid_len=None):
+    """q: (B,Sq,Hq,D); k: (B,Skv,Hkv,D); v: (B,Skv,Hkv,Dv), the model
+    layout.  Whole prefill (``kv_valid_len`` None): Skv = Sq, query and
+    key i sit at position i.  Chunk form (``kv_valid_len`` (B,) given):
+    query i of row b sits at position ``q_off[b] + i`` (``q_off`` an int
+    or a (B,) integer tensor), key j of the cache view at position j, and
+    keys at or past ``kv_valid_len[b]`` are masked (never read by the
+    kernel); a chunk whose first position is a multiple of 64 (16 in
+    fp32) gives its rows the whole prefill's bits.  ``window`` (int) > 0
+    admits keys less than ``window`` positions back.  ``scale`` multiplies
+    the scores (default 1/sqrt(D); MLA's prefill passes 1/sqrt(nd + rd)).
+    Returns (B,Sq,Hq,Dv) in q's dtype."""
+    global launches, chunk_launches
+    chunk = kv_valid_len is not None
+    if not chunk and not (isinstance(q_off, int) and q_off == 0):
+        raise ValueError("a query offset needs kv_valid_len (the chunk form)")
+    _check(q, k, v, chunk)
     window = int(window)
+    B = q.shape[0]
+    if chunk:
+        q_off = _row_ints(q_off, B, q.device, "q_off")
+        kv_valid_len = _row_ints(kv_valid_len, B, q.device, "kv_valid_len")
     if q.device.type == "cpu":
         return _k.flash_attention_plain(q, k, v, causal=causal, window=window,
-                                        scale=scale)
+                                        scale=scale, q_off=q_off,
+                                        kv_valid_len=kv_valid_len)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention for device {q.device}")
     _check_cuda(q, k, v)
@@ -91,8 +125,10 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0,
         D = _f32_dim(dqk, dv)
         q, k, v = (F.pad(t, (0, D - t.shape[-1])) for t in (q, k, v))
     out = q.new_empty((*q.shape[:3], v.shape[-1]))
-    rc = _k.launch(q, k, v, out, causal=causal, window=window, scale=scale)
+    rc = _k.launch(q, k, v, out, causal=causal, window=window, scale=scale,
+                   q_off=q_off if chunk else None, kv_valid_len=kv_valid_len)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
     launches += 1
+    chunk_launches += chunk
     return out[..., :dv] if out.shape[-1] != dv else out

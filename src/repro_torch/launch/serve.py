@@ -11,9 +11,12 @@ recurrent one (``rwkv6-1.6b``, chain speculation).  Without
 the published widths in ``cfg.dtype``.
 Weights are random, drawn on the device from a seeded
 ``torch.Generator``.  The engine runs on CUDA unless ``--device cpu`` is
-given.  Prints the same ``[serve]`` lines as ``repro/launch/serve.py``
-where the port has the fields (the port's loop is synchronous: no
-chunked prefill, no asynchronous in-flight dispatch).
+given.  ``--prefill-chunk N`` prefills in chunks of N tokens beside the
+decode steps (``--prefill-budget``: prompt tokens per step, default one
+chunk; continuous and paged engines); ``--engine bucketed`` runs the
+static baseline.  Prints the same ``[serve]`` lines as
+``repro/launch/serve.py`` where the port has the fields (the port's loop
+is synchronous: no asynchronous in-flight dispatch).
 """
 from __future__ import annotations
 
@@ -36,7 +39,15 @@ def main(argv=None) -> None:
     ap.add_argument("--ragged", action="store_true",
                     help="vary prompt lengths in [prompt-len/2, prompt-len]")
     ap.add_argument("--max-new-tokens", type=int, default=24)
-    ap.add_argument("--engine", choices=("continuous", "paged"),
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked prefill: split every prompt into "
+                         "fixed-size chunks the scheduler interleaves "
+                         "with decode steps (0 = whole-prompt join; "
+                         "continuous/paged engines only)")
+    ap.add_argument("--prefill-budget", type=int, default=0,
+                    help="max prompt tokens co-scheduled per decode step "
+                         "(default: one chunk)")
+    ap.add_argument("--engine", choices=("continuous", "paged", "bucketed"),
                     default="continuous")
     ap.add_argument("--block-size", type=int, default=16,
                     help="paged engine: tokens per KV block")
@@ -47,14 +58,16 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--profile", action="store_true",
                     help="trace the serve call with torch.profiler and "
-                         "print device busy time and the top kernels")
+                         "print device busy time, the top kernels and the "
+                         "prefill kernels' launches per chunk")
     args = ap.parse_args(argv)
 
     from repro_torch.configs import get_config, tree_for
     from repro_torch.core.heads import init_draft_params
     from repro_torch.device import resolve_device
     from repro_torch.models.model import init_params
-    from repro_torch.serving.engine import (PagedSpeculativeEngine, Request,
+    from repro_torch.serving.engine import (BucketedEngine,
+                                            PagedSpeculativeEngine, Request,
                                             SpeculativeEngine)
 
     device = resolve_device(args.device)
@@ -77,15 +90,23 @@ def main(argv=None) -> None:
           f"(chain={tree.max_depth + 1 == tree.size}) device={device}")
 
     max_len = 512
+    chunk_kw = {}
+    if args.prefill_chunk and args.engine != "bucketed":
+        chunk_kw = {"prefill_chunk": args.prefill_chunk,
+                    "prefill_budget": args.prefill_budget or None}
     if args.engine == "paged":
         usable = max(int(args.pool_frac * args.batch * max_len)
                      // args.block_size, 4)
         eng = PagedSpeculativeEngine(params, dp, cfg, tree, max_len=max_len,
                                      block_size=args.block_size,
-                                     num_blocks=usable + 1, device=device)
-    else:
+                                     num_blocks=usable + 1, device=device,
+                                     **chunk_kw)
+    elif args.engine == "continuous":
         eng = SpeculativeEngine(params, dp, cfg, tree, max_len=max_len,
-                                device=device)
+                                device=device, **chunk_kw)
+    else:
+        eng = BucketedEngine(params, dp, cfg, tree, max_len=max_len,
+                             device=device)
     rs = np.random.RandomState(0)
     n_requests = args.requests or args.batch
     reqs = []
@@ -111,6 +132,11 @@ def main(argv=None) -> None:
           f"({stats.host_stall_frac:.0%} of wall) "
           f"read_wait={stats.read_wait_s * 1e3:.1f}ms "
           f"step={stats.mean_step_s * 1e3:.1f}ms")
+    if eng.prefill_chunk:
+        print(f"[serve] chunked prefill: chunk={eng.prefill_chunk} "
+              f"budget={eng.prefill_budget} "
+              f"prefill_chunks={stats.prefill_chunks} "
+              f"prefill_tokens={stats.prefill_tokens}")
     if stats.pool_tokens:
         print(f"[serve] paged KV: pool={stats.pool_tokens} tok "
               f"(dense equivalent {stats.dense_equiv_tokens} tok, "
@@ -130,9 +156,13 @@ def _profiled_serve(eng, reqs, max_batch: int):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels.flash_attention import ops as k3
+    from repro_torch.kernels.linear_attn_chunk import ops as k6
+
     acts = [ProfilerActivity.CPU]
     if eng.device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
+    k3.launches = k3.chunk_launches = k6.launches = 0
     with profile(activities=acts) as prof:
         stats = eng.serve(reqs, max_batch=max_batch)
         if eng.device.type == "cuda":
@@ -162,6 +192,12 @@ def _profiled_serve(eng, reqs, max_batch: int):
             print(f"[profile] {name}: {len(us)} launches, "
                   f"{sum(us) / 1e3:.1f}ms ({sum(us) / max(busy_us, 1e-9):.1%} "
                   f"of device time), {sum(us) / len(us):.1f}us each")
+    if stats.prefill_chunks:
+        n = stats.prefill_chunks
+        print(f"[profile] prefill chunks: {n}; K3 launches per chunk "
+              f"{k3.launches / n:.2f} ({k3.chunk_launches} in the chunk "
+              f"form of {k3.launches}); K6 launches per chunk "
+              f"{k6.launches / n:.2f}")
     return stats
 
 

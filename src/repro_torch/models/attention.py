@@ -1,11 +1,19 @@
 """GQA attention block (port of the GQA half of
 ``repro/models/attention.py``).
 
-Three branches of ``gqa_fwd``:
+Four branches of ``gqa_fwd``:
 
 * full-seq (prefill): causal attention over the sequence, optionally
   sliding-window, through the prefill kernel K3
   (``kernels/flash_attention``);
+* chunked-prefill continuation (``AttnInputs.prefill``, DESIGN.md §8):
+  one chunk of a resumable prefill.  ``_cache_write`` persists the chunk
+  K/V at ``[cache_len, cache_len + T)`` (dense: in place into the slot's
+  row view the caller hands in; paged: scattered through the block table,
+  then one layer's logical view gathered), and K3's chunk form attends
+  over that view with the chunk's start as its query offset and
+  ``kv_valid_len = cache_len + T``, so the stale or NULL tail of the view
+  is masked and never read;
 * dense verify: T new tokens (a candidate tree or chain) are written into
   the per-slot cache at ``cache_len + arange(T)`` (the commit needs them
   there) and attend to the cache plus themselves: through the dense
@@ -21,12 +29,16 @@ Three branches of ``gqa_fwd``:
   layers (``AttnInputs.windowed``), its windowed form K4, which takes the
   layer's window at run time (0 for the group's global layers).
 
-and three of ``mla_fwd`` (DeepSeek-V2 multi-head latent attention: the
+and four of ``mla_fwd`` (DeepSeek-V2 multi-head latent attention: the
 cache holds the latent ``c_kv (.., r)`` and the rope key ``(.., rd)``
 instead of K/V):
 
 * full-seq (prefill): the latent expanded to per-head K (nd + rd) and V
   (vd), run through K3 at those widths with the scale 1/sqrt(nd + rd);
+* chunked-prefill continuation: the chunk's latents persisted as above,
+  the whole cached latent view expanded to K/V and run through K3's chunk
+  form at the same widths: the prefill math, not the absorbed one, so
+  chunking does not change which formulation computes a prompt token;
 * dense verify: absorbed attention against the per-slot latent cache
   (``q_nope @ w_uk`` scores the latent directly, the latent is V, and
   ``w_uv`` maps the result back to the head space);
@@ -36,10 +48,9 @@ instead of K/V):
 Unlike JAX, the port writes caches IN PLACE: the verify branches update
 the cache/pool tensors they are handed (one layer's view of the stacked
 ``(L, ...)`` arrays) and return those same tensors.  That saves a copy of
-the whole cache per layer; the caller owns the aliasing.
-
-The chunked-prefill continuation (GQA and MLA) is not ported yet
-(ROADMAP).
+the whole cache per layer; the caller owns the aliasing.  The chunk
+continuation writes in place too, so a dense row view handed in by the
+caller needs no commit afterwards (JAX's ``commit_chunk``).
 """
 from __future__ import annotations
 
@@ -71,6 +82,8 @@ class AttnInputs(NamedTuple):
     block_table: Optional[torch.Tensor] = None   # (B, M) int32 => pool
     windowed: bool = False               # group has sliding-window layers
     #                                      => paged verify takes K4
+    prefill: bool = False                # cache + prefill => chunked
+    #                                      prefill continuation (K3 chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +133,10 @@ def gqa_fwd(p, cfg, x, ai: AttnInputs):
         # at 0), so the masks depend on index differences only
         out = flash_attention_bshd(q, k, v, causal=ai.causal,
                                    window=ai.window)
+    elif ai.prefill:
+        # chunked-prefill continuation: persist the chunk K/V, then K3's
+        # chunk form over the cache view (its masked tail never read)
+        out, k, v = _prefill_continuation(q, k, v, ai)
     elif ai.block_table is not None:
         # paged verify: scatter scratch through the table, stream the pool
         out, k, v = _paged_verify_gqa(q, k, v, ai)
@@ -156,6 +173,44 @@ def _dense_scatter(cache, new, cache_len):
 
 
 # ---------------------------------------------------------------------------
+# chunked-prefill continuation (DESIGN.md §8)
+# ---------------------------------------------------------------------------
+
+
+def _cache_write(cache_k, cache_v, k, v, ai: AttnInputs):
+    """Persist T new per-token entries at logical ``[cache_len,
+    cache_len + T)``, in place, and return (cache_k, cache_v, k_view,
+    v_view): the cache tensors in their own layout and the (B, S, ...)
+    logical view attention reads.  A dense cache (for a chunk: the slot's
+    row view, its first ``view_len`` positions) is its own view; a pool
+    scatters through the block table and gathers ONE layer's view (the
+    per-layer transient)."""
+    if ai.block_table is not None:
+        _paged_scatter(cache_k, k, ai.cache_len, ai.block_table)
+        _paged_scatter(cache_v, v, ai.cache_len, ai.block_table)
+        return (cache_k, cache_v, _paged_gather_layer(cache_k, ai.block_table),
+                _paged_gather_layer(cache_v, ai.block_table))
+    _dense_scatter(cache_k, k, ai.cache_len)
+    _dense_scatter(cache_v, v, ai.cache_len)
+    return cache_k, cache_v, cache_k, cache_v
+
+
+def _prefill_continuation(q, k, v, ai: AttnInputs):
+    """One chunk of a resumable prefill: write K/V, then K3's chunk form
+    over the cache view, the queries at ``cache_len + arange(T)``.  Keys
+    at or beyond ``cache_len + T`` (stale verify scratch, later chunks'
+    zeros, NULL garbage) are masked by ``kv_valid_len``; right-pad inside
+    the chunk needs no extra mask: pads sit after every real query, so
+    causality already hides them."""
+    T = q.shape[1]
+    ck, cv, k_view, v_view = _cache_write(ai.cache_k, ai.cache_v, k, v, ai)
+    out = flash_attention_bshd(q, k_view, v_view, causal=ai.causal,
+                               window=ai.window, q_off=ai.cache_len,
+                               kv_valid_len=ai.cache_len + T)
+    return out, ck, cv
+
+
+# ---------------------------------------------------------------------------
 # paged (block-pool) verify path
 # ---------------------------------------------------------------------------
 
@@ -175,6 +230,14 @@ def _paged_scatter(pool, new, cache_len, block_table):
     phys = torch.gather(block_table.long(), 1, logical // bs)       # (B,T)
     pool[phys, logical % bs] = new.to(pool.dtype)
     return pool
+
+
+def _paged_gather_layer(pool, table):
+    """One layer's logical view (B, M*bs, ...) of a pool (N, bs, ...)
+    through the (B, M) block table, a new contiguous tensor (NULL entries
+    gather the garbage block, which the chunk form masks)."""
+    B, M = table.shape
+    return pool[table.long()].reshape(B, M * pool.shape[1], *pool.shape[2:])
 
 
 def _paged_verify_gqa(q, k, v, ai: AttnInputs):
@@ -273,6 +336,24 @@ def mla_fwd(p, cfg, x, ai: AttnInputs):
         q_full = torch.cat([q_nope, q_rope], dim=-1)
         out = _mla_prefill_attention(q_full, k, v, ai, scale)
         return out.reshape(B, T, H * vd) @ p["wo"], c_kv, k_rope
+
+    if ai.prefill:
+        # chunked-prefill continuation: persist the chunk latents, expand
+        # the WHOLE cached latent view to full K/V and run K3's chunk form
+        # (the prefill math, not the absorbed decode math)
+        new_k, new_v, ckv_view, krope_view = _cache_write(
+            ai.cache_k, ai.cache_v, c_kv, k_rope, ai)
+        S = ckv_view.shape[1]
+        k_nope = (ckv_view @ p["w_uk"]).reshape(B, S, H, nd)
+        v_full = (ckv_view @ p["w_uv"]).reshape(B, S, H, vd)
+        k_full = torch.cat([k_nope, krope_view[:, :, None, :].expand(
+            B, S, H, rd)], dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        out = flash_attention_bshd(q_full, k_full, v_full, causal=ai.causal,
+                                   window=ai.window, scale=scale,
+                                   q_off=ai.cache_len,
+                                   kv_valid_len=ai.cache_len + T)
+        return out.reshape(B, T, H * vd) @ p["wo"], new_k, new_v
 
     w_uk = p["w_uk"].reshape(r, H, nd).float()
     q_lat = torch.einsum("bthn,rhn->bthr", q_nope.float(), w_uk)  # (B,T,H,r)

@@ -34,7 +34,13 @@ token, every state kept) in plain PyTorch, ignoring the tree mask (its
 trees are chains) and any block table (it has nothing to page).
 
 Execution modes:
-  'full'   — prefill over the whole sequence; fills ``cache`` at [0, T)
+  'full'   — prefill over the whole sequence; fills ``cache`` at [0, T).
+             With ``cache`` AND ``cache_len`` it is a chunked-prefill
+             continuation (DESIGN.md §8): the T tokens sit at
+             ``cache_len + arange(T)``, attention groups write them
+             there (dense, or paged through ``block_table``) and attend
+             through K3's chunk form, and an RWKV6 group scans on from
+             its carried state (the caller zeroes it for a first chunk)
   'verify' — T speculative tokens (tree or chain) against a populated
              cache; dense, or paged through ``block_table``
 """
@@ -284,6 +290,12 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, mode: str = "full",
     mode='full':   causal over the T tokens, whose positions are
                    consecutive (a prefill from 0).  If ``cache`` is given
                    it is filled at positions [0, T) in place and returned.
+                   With ``cache_len`` (B,) as well, the T tokens are one
+                   chunk at ``cache_len + arange(T)`` (``positions``):
+                   attention caches (dense, or pools with
+                   ``block_table``) are written there and attended over
+                   through K3's chunk form; recurrent groups scan on from
+                   the states in ``cache``.
     mode='verify': T speculative tokens against the populated cache;
                    ``cache_len`` (B,) is the committed length, ``tree_mask``
                    (T,T) the ancestor mask (None => chain).  ``block_table``
@@ -300,10 +312,12 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, mode: str = "full",
     if mode not in ("full", "verify"):
         raise ValueError(f"mode must be 'full' or 'verify': {mode}")
     is_verify = mode == "verify"
+    is_chunk = not is_verify and cache is not None and cache_len is not None
     if is_verify and (cache is None or cache_len is None):
         raise ValueError("verify mode needs a cache and cache_len")
-    if block_table is not None and not is_verify:
-        raise ValueError("the paged layout needs verify mode")
+    if block_table is not None and not (is_verify or is_chunk):
+        raise ValueError("the paged layout needs verify mode or a prefill "
+                         "continuation")
     T = inputs.shape[1]
     h = params["embed"][inputs.long()]
 
@@ -323,17 +337,19 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, mode: str = "full",
         # the choice of paged kernel is per GROUP, as in JAX: a group with
         # any sliding-window layer runs K4 on all its layers
         win_group = group_has_window(cfg, layer_offset, n)
+        cached = is_verify or is_chunk
         for i in range(n):
             ai = AttnInputs(
                 q_pos=positions,
-                cache_k=gc["k"][i] if is_verify else None,
-                cache_v=gc["v"][i] if is_verify else None,
-                cache_len=cache_len if is_verify else None,
+                cache_k=gc["k"][i] if cached else None,
+                cache_v=gc["v"][i] if cached else None,
+                cache_len=cache_len if cached else None,
                 tree_mask=tree_mask if is_verify else None,
                 window=windows[i], causal=True,
-                block_table=block_table, windowed=win_group)
+                block_table=block_table, windowed=win_group,
+                prefill=is_chunk)
             h, nk, nv = _attn_layer_fwd(layer(gp, i), cfg, h, ai)
-            if gc is not None and not is_verify:     # prefill: write [0, T)
+            if gc is not None and not cached:     # prefill: write [0, T)
                 gc["k"][i, :, :T] = nk.to(gc["k"].dtype)
                 gc["v"][i, :, :T] = nv.to(gc["v"].dtype)
         layer_offset += n

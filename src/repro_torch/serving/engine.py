@@ -20,9 +20,21 @@ far (byte-exact under greedy decoding).
 
 Each loop iteration: join queued requests into free slots (the first
 token is read back at once), grow tables (paged), run one step, read its
-emissions.  The async ``inflight>=2`` window, the live ``submit()`` queue
-with its feeder thread, chunked prefill and ``BucketedEngine`` are not
-ported yet (ROADMAP).
+emissions.
+
+Chunked prefill (``prefill_chunk > 0``, DESIGN.md §8): a request joins a
+slot in the *prefilling* state and its context, right-padded to a chunk
+multiple, is prefilled one chunk at a time (``join_slot_chunk``, paged
+``paged_join_slot_chunk``), at most ``prefill_budget`` prompt tokens per
+loop iteration beside the decode step of the active slots; the final
+chunk activates the slot.  The paged engine allocates blocks one chunk at
+a time and may preempt a slot mid-prefill (it restarts from chunk 0).
+
+``BucketedEngine`` — the static baseline: requests grouped by exact
+prompt length, each batch prefilled at once and stepped to completion.
+
+The async ``inflight>=2`` window and the live ``submit()`` queue with its
+feeder thread are not ported yet (ROADMAP).
 """
 from __future__ import annotations
 
@@ -36,13 +48,15 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.speculative import (autoregressive_step,
-                                          init_pool_state, join_slot,
+                                          init_decode_state, init_pool_state,
+                                          join_slot, join_slot_chunk,
                                           spec_decode_step)
 from repro_torch.device import resolve_device
+from repro_torch.models.model import group_program
 from repro_torch.serving.paged import (NULL_BLOCK, BlockAllocator,
                                        init_paged_state,
                                        paged_autoregressive_step,
-                                       paged_join_slot,
+                                       paged_join_slot, paged_join_slot_chunk,
                                        paged_spec_decode_step)
 
 
@@ -118,6 +132,9 @@ class EngineStats:
                      per request queue-to-finish and queue-to-first-token,
                      and per token the inter-token gap (a read delivering
                      n tokens after a gap g adds n samples of g/n)
+    prefill_chunks   chunked prefill: chunks dispatched (re-prefills after
+                     a preemption included)
+    prefill_tokens   chunked prefill: real (non-pad) prompt tokens in them
 
     Paged-cache accounting (zero for the dense engine): ``block_size``,
     ``num_blocks`` (incl. the NULL block), ``pool_tokens`` (usable
@@ -140,6 +157,8 @@ class EngineStats:
     request_latency_s: List[float] = field(default_factory=list)
     ttft_s: List[float] = field(default_factory=list)
     itl_s: List[float] = field(default_factory=list)
+    prefill_chunks: int = 0
+    prefill_tokens: int = 0
     block_size: int = 0
     num_blocks: int = 0
     pool_tokens: int = 0
@@ -212,6 +231,22 @@ class EngineStats:
         return self.pool_tokens / self.dense_equiv_tokens
 
 
+@dataclass
+class _PrefillJob:
+    """Host-side progress of one chunked prefill (slot state
+    'prefilling', DESIGN.md §8).  ``ctx`` is the request's context
+    (prompt + any resumed output) right-padded to a chunk multiple;
+    ``off`` is the prefill cursor, the tokens already dispatched.  Its
+    device mirror is ``cache_len[slot]``, which each chunk advances, so a
+    decode step running beside the prefill writes its masked scratch for
+    this row AHEAD of the cursor, where the next chunk overwrites it."""
+
+    request: Request
+    ctx: np.ndarray
+    real_len: int
+    off: int = 0
+
+
 class SpeculativeEngine:
     """Continuous-batching speculative engine over a dense cache.
 
@@ -225,14 +260,22 @@ class SpeculativeEngine:
     before the clock starts (it builds the kernels and brings up the
     libraries the step calls).
 
-    Subclass hooks (``_init_pool`` / ``_admit`` / ``_before_step`` /
+    ``prefill_chunk`` (0: whole-prompt joins) prefills in chunks of that
+    many tokens, rounded up to the recurrent scan's chunk for RWKV6, so
+    a chunk boundary is a scan-chunk boundary; ``prefill_budget``
+    (default one chunk, at least one chunk) caps the prompt tokens
+    dispatched per loop iteration.
+
+    Subclass hooks (``_init_pool`` / ``_admit`` / ``_admit_prefill`` /
+    ``_grow_prefill`` / ``_advance_prefill_cursor`` / ``_before_step`` /
     ``_advance`` / ``_release`` / ``_post_serve``) are trivial here; the
     paged engine overrides them for block accounting.
     """
 
     def __init__(self, params, draft_params, cfg: ModelConfig, tree, *,
                  max_len: int = 2048, use_speculative: bool = True,
-                 prefill_bucket: int = 32, device="cuda"):
+                 prefill_bucket: int = 32, prefill_chunk: int = 0,
+                 prefill_budget: Optional[int] = None, device="cuda"):
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params lie on {params['embed'].device}, the "
@@ -244,6 +287,26 @@ class SpeculativeEngine:
         self.max_len = max_len
         self.use_speculative = use_speculative
         self.prefill_bucket = max(int(prefill_bucket), 1)
+        prefill_chunk = int(prefill_chunk or 0)
+        if prefill_chunk < 0:
+            raise ValueError(f"prefill_chunk must be >= 0: {prefill_chunk}")
+        if prefill_chunk and cfg.block_kind == "rwkv6":
+            inner = cfg.ssm.chunk_size
+            prefill_chunk = -(-prefill_chunk // inner) * inner
+        self.prefill_chunk = prefill_chunk
+        self.prefill_budget = 0
+        if prefill_chunk:
+            self.prefill_budget = int(prefill_budget or prefill_chunk)
+            if self.prefill_budget < prefill_chunk:
+                raise ValueError(
+                    f"prefill_budget {self.prefill_budget} < prefill_chunk "
+                    f"{prefill_chunk}: the scheduler could never dispatch "
+                    "a chunk")
+        # does a chunk's attention view grow with the prefill cursor?  A
+        # recurrent stack without a Hydra++ prefix cache has none
+        self._view_grows = (
+            any(kind != "rwkv_stack" for kind, _ in group_program(cfg))
+            or (draft_params is not None and "prefix" in draft_params))
         self.stats = EngineStats()
         self._starve_t0: Optional[float] = None
 
@@ -261,10 +324,20 @@ class SpeculativeEngine:
         return join_slot(self.params, self.draft_params, self.cfg, state,
                          torch.tensor(padded, device=self.device), n, slot)
 
+    def _dispatch_chunk(self, state, si: int, chunk: np.ndarray, start: int,
+                        real_len: int, final: bool):
+        view = self._chunk_view_len(start + self.prefill_chunk)
+        return join_slot_chunk(self.params, self.draft_params, self.cfg,
+                               state, torch.tensor(chunk, device=self.device),
+                               start, real_len, si, final=final,
+                               view_len=view)
+
     # -- prefill-on-join -----------------------------------------------------
 
     def _pad_len(self, n: int) -> int:
-        b = self.prefill_bucket
+        # chunked prefill pads the context to a chunk multiple instead of
+        # a bucket multiple (every chunk is exactly prefill_chunk wide)
+        b = self.prefill_chunk or self.prefill_bucket
         return max(-(-n // b) * b, b)
 
     @property
@@ -297,7 +370,103 @@ class SpeculativeEngine:
                 f"+ {self._scratch} verify scratch) but max_len="
                 f"{self.max_len}")
 
+    # -- chunked prefill (DESIGN.md §8) --------------------------------------
+
+    def _chunk_view_len(self, end: int) -> int:
+        """Attention-view extent for a chunk whose writes end at ``end``:
+        the next power of two >= max(end, 64), at most the row's capacity.
+        The masked tail never changes a bit; the extent bounds how much of
+        the cache a chunk gathers and sweeps."""
+        cap = self.max_len
+        if not self._view_grows:
+            return cap
+        v = 64
+        while v < min(end, cap):
+            v *= 2
+        return min(v, cap)
+
+    def _start_prefill(self, si: int, r: Request, slots) -> None:
+        """Move a queue head into slot ``si`` in the 'prefilling' state:
+        the slot is owned (joins skip it) but inactive (decode steps mask
+        it) until its final chunk lands."""
+        padded, n = self._padded_context(r)
+        self._prefills[si] = _PrefillJob(request=r, ctx=padded, real_len=n)
+        slots[si] = r
+        r.t_join = time.time()
+        self._seq += 1
+        self._join_seq[si] = self._seq
+
+    def _pump_prefill(self, si: int, state, active, slots, pending,
+                      budget: int):
+        """Dispatch as many of slot ``si``'s remaining chunks as ``budget``
+        allows.  The final chunk activates the slot; its first token is
+        read back at once, as a whole-prompt join's is."""
+        C = self.prefill_chunk
+        while si in self._prefills and budget >= C:
+            job = self._prefills[si]
+            if not self._grow_prefill(si, job, slots, active, pending):
+                break                      # _grow_prefill preempted si
+            start, end = job.off, job.off + C
+            final = end >= len(job.ctx)
+            self._device_fed()
+            state = self._dispatch_chunk(state, si, job.ctx[start:end],
+                                         start, job.real_len, final)
+            job.off = end
+            budget -= C
+            self.stats.prefill_chunks += 1
+            self.stats.prefill_tokens += max(min(end, job.real_len) - start,
+                                             0)
+            self._advance_prefill_cursor(si, min(end, job.real_len))
+            if final:
+                r = job.request
+                del self._prefills[si]
+                active[si] = True
+                if self._absorb_first_token(r, self._read(
+                        state.last_token[si])):
+                    self._vacate(si, slots, active)
+        return state, budget
+
+    def _advance_prefills(self, state, slots, active, pending):
+        """The chunked-prefill lane of one loop iteration: advance the
+        prefills in progress oldest first, then admit queue heads into
+        free slots, dispatching at most ``prefill_budget`` prompt tokens
+        in all.  Returns (state, whether a chunk was dispatched): a final
+        chunk may finish its request outright (budget 1, EOS, or a resumed
+        request one token short), leaving no slot live while the queue
+        waits only on the budget, not on the pool."""
+        budget = self.prefill_budget
+        dispatched = self.stats.prefill_chunks
+        for si in sorted(self._prefills, key=lambda s: self._join_seq[s]):
+            state, budget = self._pump_prefill(si, state, active, slots,
+                                               pending, budget)
+        for si in range(len(slots)):
+            if budget < self.prefill_chunk or not pending:
+                break
+            if active[si] or si in self._prefills:
+                continue
+            if not self._admit_prefill(pending[0]):
+                break                      # strict FIFO: head blocks tail
+            self._start_prefill(si, pending.popleft(), slots)
+            state, budget = self._pump_prefill(si, state, active, slots,
+                                               pending, budget)
+        return state, self.stats.prefill_chunks != dispatched
+
     # -- scheduler hooks (the paged engine overrides them) --------------------
+
+    def _admit_prefill(self, r: Request) -> bool:
+        """Admission for a chunked join (paged: priced on its first
+        chunk)."""
+        return self._admit(r)
+
+    def _grow_prefill(self, si: int, job: _PrefillJob, slots, active,
+                      pending) -> bool:
+        """Capacity for the next chunk's writes (paged: allocate its
+        blocks, preempting on exhaustion; False when ``si`` itself was
+        preempted).  A dense row always has it."""
+        return True
+
+    def _advance_prefill_cursor(self, si: int, n: int) -> None:
+        """Host mirror of the prefill cursor (paged: ``_slot_len``)."""
 
     def _init_pool(self, max_batch: int):
         self.stats.dense_equiv_tokens = max_batch * self.max_len
@@ -329,6 +498,9 @@ class SpeculativeEngine:
             pending.append(r)          # enqueue-stamped after warmup
         slots: List[Optional[Request]] = [None] * max_batch
         active = np.zeros(max_batch, bool)
+        self._prefills: dict = {}            # slot -> _PrefillJob
+        self._seq = getattr(self, "_seq", 0)
+        self._join_seq = np.zeros(max_batch, np.int64)   # preemption order
         state = self._init_pool(max_batch)
 
         if warmup:   # one step over the idle pool, outside the clock
@@ -342,23 +514,16 @@ class SpeculativeEngine:
                 r.t_enqueue = now
         t0 = time.time()
         self._starve_t0 = t0
-        while pending or active.any():
-            joined = False
-            for si in range(max_batch):
-                if active[si] or not pending:
-                    continue
-                if not self._admit(pending[0]):
-                    break              # strict FIFO: head blocks the tail
-                r = pending.popleft()
-                r.t_join = time.time()
-                self._device_fed()
-                state = self._join(state, si, r)
-                joined = True
-                slots[si] = r
-                active[si] = True
-                if self._absorb_first_token(r, self._read(
-                        state.last_token[si])):
-                    self._vacate(si, slots, active)
+        while pending or active.any() or self._prefills:
+            if self.prefill_chunk:
+                # chunked lane: at most prefill_budget prompt tokens ride
+                # beside this iteration's decode step; a slot joins the
+                # step once its final chunk is in
+                state, joined = self._advance_prefills(state, slots, active,
+                                                       pending)
+            else:
+                state, joined = self._join_free_slots(state, slots, active,
+                                                      pending)
             # paged: grow block tables for the coming step, preempting the
             # most-recently-joined slots back into `pending` on exhaustion
             state = self._before_step(state, slots, active, pending)
@@ -371,6 +536,8 @@ class SpeculativeEngine:
                 for si in np.where(active)[0]:
                     if slots[si].done:
                         self._vacate(si, slots, active)
+            elif self._prefills:
+                continue       # prefill-only interval: keep pumping chunks
             elif pending and not joined:
                 raise RuntimeError(
                     "pool deadlock: no active slots and the queue head "
@@ -379,6 +546,26 @@ class SpeculativeEngine:
         self.stats.wall_s += time.time() - t0
         self._post_serve()
         return self.stats
+
+    def _join_free_slots(self, state, slots, active, pending):
+        """Whole-prompt joins of queue heads into free slots, each first
+        token read back at once.  Returns (state, whether any joined)."""
+        joined = False
+        for si in range(len(slots)):
+            if active[si] or not pending:
+                continue
+            if not self._admit(pending[0]):
+                break              # strict FIFO: head blocks the tail
+            r = pending.popleft()
+            r.t_join = time.time()
+            self._device_fed()
+            state = self._join(state, si, r)
+            joined = True
+            slots[si] = r
+            active[si] = True
+            if self._absorb_first_token(r, self._read(state.last_token[si])):
+                self._vacate(si, slots, active)
+        return state, joined
 
     def _device_fed(self) -> None:
         """Close an open starvation window: device work starts now."""
@@ -521,6 +708,56 @@ class PagedSpeculativeEngine(SpeculativeEngine):
                                n, slot, _snapshot(self._tables[slot],
                                                   self.device))
 
+    # -- chunked prefill over the pool (DESIGN.md §8) -------------------------
+
+    def _dispatch_chunk(self, state, si: int, chunk: np.ndarray, start: int,
+                        real_len: int, final: bool):
+        view = self._chunk_view_len(start + self.prefill_chunk)
+        view_blocks = min(-(-view // self.block_size), self.blocks_per_slot)
+        return paged_join_slot_chunk(
+            self.params, self.draft_params, self.cfg, state,
+            torch.tensor(chunk, device=self.device), start, real_len, si,
+            _snapshot(self._tables[si], self.device), final=final,
+            view_blocks=view_blocks)
+
+    def _admit_prefill(self, r: Request) -> bool:
+        """Chunked admission is priced per chunk: only the FIRST chunk's
+        real-token blocks must be free (plus the one growth block of
+        headroom per joined slot); later chunks allocate as they
+        dispatch, so a long prompt need not find its whole footprint at
+        once to start prefilling."""
+        n = len(r.prompt) + len(r.output)
+        need = self._alloc.blocks_for(min(self.prefill_chunk, n))
+        headroom = sum(1 for o in self._owned if o)
+        return need + headroom <= self._alloc.free_blocks
+
+    def _grow_prefill(self, si: int, job: _PrefillJob, slots, active,
+                      pending) -> bool:
+        """Allocate blocks covering the next chunk's REAL tokens (the final
+        chunk's pads write to the NULL block and are never read).  On
+        exhaustion, evict the most recent joiner, possibly ``si`` itself:
+        its partial prefill is then dropped and the request requeued (the
+        up-front capacity check lets a lone slot cover a whole request, so
+        this ends)."""
+        cover = min(job.off + self.prefill_chunk, job.real_len)
+        while True:
+            need = self._alloc.blocks_for(cover) - len(self._owned[si])
+            if need <= 0:
+                return True
+            got = self._alloc.alloc(need)
+            if got is not None:
+                base = len(self._owned[si])
+                self._owned[si].extend(got)
+                self._tables[si, base:base + len(got)] = got
+                return True
+            victim = self._newest_joiner(slots, active)
+            self._preempt(victim, slots, active, pending)
+            if victim == si:
+                return False
+
+    def _advance_prefill_cursor(self, si: int, n: int) -> None:
+        self._slot_len[si] = n
+
     # -- block accounting ----------------------------------------------------
 
     def _init_pool(self, max_batch: int):
@@ -530,8 +767,6 @@ class PagedSpeculativeEngine(SpeculativeEngine):
         self._tables = np.zeros((B, M), np.int32)       # all rows -> NULL
         self._owned: List[List[int]] = [[] for _ in range(B)]
         self._slot_len = np.zeros(B, np.int64)          # committed tokens
-        self._join_seq = np.zeros(B, np.int64)          # preemption order
-        self._seq = 0
         st = self.stats
         st.block_size = self.block_size
         st.num_blocks = nb
@@ -589,13 +824,24 @@ class PagedSpeculativeEngine(SpeculativeEngine):
                     self._owned[si].extend(got)
                     self._tables[si, base:base + len(got)] = got
                     break
-                victim = max(np.where(active)[0],
-                             key=lambda s: self._join_seq[s])
-                self._preempt(int(victim), slots, active, pending)
+                self._preempt(self._newest_joiner(slots, active), slots,
+                              active, pending)
         return state
 
+    def _newest_joiner(self, slots, active) -> int:
+        """The eviction victim: the most recently joined slot, active or
+        prefilling (a prefilling slot holds blocks too)."""
+        return max((s for s in range(len(slots))
+                    if active[s] or s in self._prefills),
+                   key=lambda s: self._join_seq[s])
+
     def _preempt(self, si: int, slots, active, pending) -> None:
+        """Evict slot ``si``: free its blocks and requeue its request at
+        the front, to be re-prefilled from prompt + output so far.  A slot
+        evicted mid-prefill never ran a step; its resume restarts from
+        chunk 0."""
         r = slots[si]
+        self._prefills.pop(si, None)
         self._vacate(si, slots, active)
         pending.appendleft(r)           # resume ASAP, FIFO preserved
         self.stats.preemptions += 1
@@ -613,3 +859,103 @@ class PagedSpeculativeEngine(SpeculativeEngine):
     def _post_serve(self) -> None:
         self.stats.peak_blocks_in_use = max(self.stats.peak_blocks_in_use,
                                             self._alloc.peak_in_use)
+
+
+class BucketedEngine(SpeculativeEngine):
+    """The static scheduler (port of the JAX ``BucketedEngine``), kept as
+    the measured baseline for the continuous engine: requests are grouped
+    by exact prompt length into batches of at most ``max_batch``, and each
+    batch is prefilled at once (``init_decode_state``) and stepped until
+    every row is done; a finished row keeps stepping and emits nothing.
+    Batches run one after another.  No active mask, no padding, no
+    chunks; ``wall_s`` includes each batch's prefill."""
+
+    def __init__(self, params, draft_params, cfg: ModelConfig, tree, *,
+                 max_len: int = 2048, use_speculative: bool = True,
+                 device="cuda"):
+        super().__init__(params, draft_params, cfg, tree, max_len=max_len,
+                         use_speculative=use_speculative, device=device)
+
+    @staticmethod
+    def bucket(requests: List[Request], max_batch: int):
+        by_len: dict = {}
+        for r in requests:
+            by_len.setdefault(len(r.prompt), []).append(r)
+        for _, group in sorted(by_len.items()):
+            for i in range(0, len(group), max_batch):
+                yield group[i:i + max_batch]
+
+    def _prefill(self, prompts: np.ndarray):
+        return init_decode_state(
+            self.params, self.draft_params if self.use_speculative else None,
+            self.cfg, torch.tensor(prompts, device=self.device).long(),
+            self.max_len)
+
+    def serve(self, requests: Iterable[Request] = (), *, max_batch: int = 8,
+              warmup: bool = True) -> EngineStats:
+        requests = list(requests)
+        batches = list(self.bucket(requests, max_batch))
+        for batch in batches:
+            # a finished row keeps stepping until its whole batch drains,
+            # so capacity must cover the LARGEST budget in the batch per row
+            need = (len(batch[0].prompt) + max(r.max_new_tokens for r in batch)
+                    + self._scratch)
+            if need > self.max_len:
+                raise ValueError(f"batch needs {need} cache slots but "
+                                 f"max_len={self.max_len}")
+        if warmup and batches:  # one prefill and step, outside the clock
+            b0 = batches[0]
+            res = self._run_step(self._prefill(np.zeros(
+                (len(b0), len(b0[0].prompt)), np.int64)), None)
+            res.n_emitted.cpu()
+            self.stats.warmup_steps += 1
+        now = time.time()
+        for r in requests:
+            r.t_enqueue = now
+        self._starve_t0 = now
+        for batch in batches:
+            self._serve_batch(batch, max_batch)
+        return self.stats
+
+    def _serve_batch(self, batch: List[Request], max_batch: int) -> None:
+        t0 = time.time()
+        self._device_fed()
+        state = self._prefill(np.stack([r.prompt for r in batch]))
+        for r, t in zip(batch, self._read(state.last_token)):
+            r.t_join = t0
+            self._absorb_first_token(r, t)
+        budget = max(r.max_new_tokens for r in batch)
+        produced = 1
+        while produced < budget and not all(r.done for r in batch):
+            t_step = time.time()
+            self._device_fed()
+            res = self._run_step(state, None)
+            state = res.state
+            emitted = self._read(res.emitted)
+            n_em = self._read(res.n_emitted)
+            self.stats.step_s.append(time.time() - t_step)
+            live = np.array([not r.done for r in batch])
+            for bi, r in enumerate(batch):
+                if r.done:
+                    continue   # finished rows keep stepping, emit nothing
+                appended = 0
+                for t in emitted[bi][:n_em[bi]]:
+                    if len(r.output) >= r.max_new_tokens:
+                        break
+                    r.output.append(int(t))
+                    appended += 1
+                    if r.eos_token is not None and t == r.eos_token:
+                        r.done = True
+                        break
+                self.stats.tokens += appended
+                if appended:
+                    self._note_emission(r, appended)
+                if r.done or len(r.output) >= r.max_new_tokens:
+                    self._finish(r)
+            self.stats.steps += 1
+            if live.any():
+                self.stats.accept_lengths.append(float(n_em[live].mean()))
+            self.stats.active_slot_steps += int(live.sum())
+            self.stats.capacity_slot_steps += max_batch
+            produced += int(n_em.min())
+        self.stats.wall_s += time.time() - t0

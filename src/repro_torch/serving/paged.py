@@ -23,7 +23,9 @@ the block table to ``spec_decode_step``, whose verify forward streams
 K/V blocks through the paged tree-verify kernel and whose commit compacts
 accepted entries through the table.  Join (``paged_join_slot``) prefills
 one request into a fresh row and scatters its [0, P) entries through the
-slot's table row.  The host-side ``BlockAllocator`` lives here too; the
+slot's table row; a chunked join (``paged_join_slot_chunk``) writes each
+chunk through the table from inside the forward, so the engine allocates
+blocks one chunk at a time.  The host-side ``BlockAllocator`` lives here too; the
 serving policy around it is ``serving/engine.py::PagedSpeculativeEngine``.
 """
 from __future__ import annotations
@@ -34,12 +36,13 @@ from typing import Any, List, NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.heads import init_prefix_cache
+from repro_torch.core.heads import init_prefix_cache, prefix_forward
 from repro_torch.core.speculative import (DecodeState, StepResult,
-                                          autoregressive_step, prefill_row,
-                                          spec_decode_step)
+                                          autoregressive_step, carried_state,
+                                          chunk_operands, install_chunk,
+                                          prefill_row, spec_decode_step)
 from repro_torch.device import torch_dtype
-from repro_torch.models.model import group_program, init_cache
+from repro_torch.models.model import forward, group_program, init_cache
 from repro_torch.serving.cache import ATTN_KEYS
 
 NULL_BLOCK = 0
@@ -226,3 +229,39 @@ def paged_join_slot(params, draft_params, cfg: ModelConfig,
     pstate.last_token[slot] = tok0
     pstate.last_hidden[slot] = h.to(pstate.last_hidden.dtype)
     return pstate
+
+
+@torch.no_grad()
+def paged_join_slot_chunk(params, draft_params, cfg: ModelConfig,
+                          pstate: PagedState, chunk, start: int,
+                          real_len: int, slot: int, table_row, *,
+                          final: bool,
+                          view_blocks: Optional[int] = None) -> PagedState:
+    """One chunk of a resumable prefill over the paged pools (DESIGN.md
+    §8), in place: the paged twin of ``core/speculative.py::
+    join_slot_chunk``.  The chunk forward receives the pools and the
+    slot's table row (M,) int32 as a (1, M) table and writes the chunk
+    K/V token by token through it; attention gathers one layer's logical
+    view at a time for K3's chunk form.  Table entries past the
+    allocated coverage point at the NULL block, which absorbs the final
+    chunk's pad writes; the chunk form never reads them.
+    ``view_blocks`` cuts the table row to its first ``view_blocks``
+    entries (they must cover ``start + C``), so a chunk gathers only the
+    blocks up to its cursor; the masked tail never changes a bit.
+    Recurrent-state rows are per slot and scan on from the carried state
+    (zeroed for the first chunk)."""
+    t1 = table_row[:view_blocks][None, :]
+    pos, start1, valid = chunk_operands(chunk, start, real_len)
+    cache = [{key: (a if key in ATTN_KEYS else carried_state(a, slot, start))
+              for key, a in g.items()} for g in pstate.pools]
+    out = forward(params, cfg, chunk[None, :], pos, mode="full", cache=cache,
+                  cache_len=start1, valid_len=valid, block_table=t1,
+                  want_logits=False)
+    ph = None
+    if draft_params is not None and "prefix" in draft_params:
+        ph, _, _ = prefix_forward(
+            draft_params, cfg, out.hidden, pos, cache_k=pstate.prefix_k,
+            cache_v=pstate.prefix_v, cache_len=start1, block_table=t1,
+            prefill=True)
+    return install_chunk(params, pstate, out.hidden, ph, start, real_len,
+                         slot, final)
