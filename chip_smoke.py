@@ -149,7 +149,27 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      (widths kept): whole-prompt joins, then chunks; 3 K3 launches (the
      (192, 128) form) per chunk; a chunk boundary changes which tokens
      overflow an expert's capacity, so its logits are a reading;
-6. a JSON line with each kernel's numbers (K3's chunk form as its own
+6. the async window and the captured step, for each model of phase 5 at
+   full width: three replays of the captured step (one CUDA graph of the
+   whole decode step) from a state of 4 joined prompts, each bitwise
+   equal to the eager step from the same state (``emitted``,
+   ``n_emitted``, ``cache_len``, ``last_token``, ``last_hidden``); then
+   phase 5's requests through the paged engine in four modes, in turns,
+   three times (the synchronous eager loop, ``inflight=2`` eager,
+   ``inflight=2`` captured, the engines' default, and ``inflight=1``
+   captured), one engine per mode kept across its serves: every stream
+   token-identical to the synchronous eager loop's, no block left in use
+   (gemma3-1b's pool preempts under ``inflight=2``), launches per capture
+   equal to phase 5's per-step counts and one replay a step, and a serve
+   fed by a generator source reusing the one capture; each mode's step
+   time, tok/s, TTFT, p99 ITL, ``host_stall_s`` and ``read_wait_s`` per
+   turn, and the device's idle share under the graph (a traced serve's
+   device time over its wall time) printed beside the card's name and
+   power limit.  Phases 4, 5 and 5b serve through the engines' defaults
+   (``inflight=2``, the step captured): the decode step's launches are
+   counted at its capture and its eager warm-up, its replays by the
+   capture;
+7. a JSON line with each kernel's numbers (K3's chunk form as its own
    entry, ``flash_attention_chunk``), then the result line.
 
 The script stands alone: it puts ``src/`` on ``sys.path`` itself, and it
@@ -168,6 +188,8 @@ import time
 from pathlib import Path
 
 SRC = Path(__file__).resolve().parent / "src"
+# the card's name and power limit, as nvidia-smi gives them (set by main)
+CARD = ""
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -1410,17 +1432,12 @@ def check_k1_prefix(c: PagedCase = DEEPSEEK_PREFIX, T: int = 5) -> dict:
 
 
 def kernel_counters():
-    """The launch counters of every kernel wrapper, by kernel name."""
-    from repro_torch.kernels.attention_template import ops as k4
-    from repro_torch.kernels.flash_attention import ops as k3
-    from repro_torch.kernels.linear_attn_chunk import ops as k6
-    from repro_torch.kernels.mla_attention import ops as k5
-    from repro_torch.kernels.tree_attention import dense_ops as k2
-    from repro_torch.kernels.tree_attention import ops as k1
+    """The launch counters of every kernel wrapper, by kernel name.  A
+    launch recorded into the captured step's CUDA graph counts once, at
+    capture; ``CapturedStep.replays`` counts the replays."""
+    from repro_torch import kernels
 
-    return {"tree_attention_paged": k1, "tree_attention_dense": k2,
-            "tree_attention_paged_windowed": k4, "flash_attention": k3,
-            "mla_attention_paged": k5, "linear_attn_chunk": k6}
+    return kernels.counter_modules()
 
 
 def check_tiny_parity(base, lens, budgets=(12, 14, 8, 10, 13, 9),
@@ -1933,6 +1950,8 @@ def serve_full_width(wl: Workload) -> dict:
         _add(launches, counts)
     if wl.chunked and wl.chunked[0] is None:
         _add(launches, serve_chunked(wl, cfg, params, dp, runs["paged"]))
+    check_replay_step(wl, cfg, params, dp)
+    serve_modes(wl, cfg, params, dp, wl.verify["paged"], CARD)
     del params, dp
     torch.cuda.empty_cache()
     return launches
@@ -2088,45 +2107,89 @@ def check_chunked_logits(params, cfg, P: int, bound, rows=None,
     return rel, agree
 
 
+SERVE_BATCH, SERVE_BUDGET, SERVE_REQUESTS, BLOCK = 4, 32, 8, 16
+
+
+def make_engine(wl: Workload, cfg, params, dp, engine: str, **kw):
+    """The engine phases 5-6 serve ``wl`` through ("paged": a pool half the
+    dense footprint; "continuous"); ``kw`` goes to the engine (inflight,
+    capture_step, prefill_chunk)."""
+    from repro_torch.configs import tree_for
+    from repro_torch.serving.engine import (PagedSpeculativeEngine,
+                                            SpeculativeEngine)
+
+    tree = tree_for(cfg)
+    if engine == "paged":
+        usable = int(0.5 * SERVE_BATCH * wl.max_len) // BLOCK
+        return PagedSpeculativeEngine(params, dp, cfg, tree,
+                                      max_len=wl.max_len, block_size=BLOCK,
+                                      num_blocks=usable + 1, **kw)
+    return SpeculativeEngine(params, dp, cfg, tree, max_len=wl.max_len, **kw)
+
+
+def workload_requests(wl: Workload, cfg) -> list:
+    """Phase 5's 8 requests of ``wl`` (the same in every run)."""
+    import numpy as np
+    from repro_torch.serving.engine import Request
+
+    rs = np.random.RandomState(0)
+    lo, hi = wl.prompts
+    return [Request(prompt=rs.randint(0, cfg.vocab_size,
+                                      rs.randint(lo, hi + 1)).astype(np.int32),
+                    max_new_tokens=SERVE_BUDGET)
+            for _ in range(SERVE_REQUESTS)]
+
+
+def check_capture(name: str, eng, st, per_step: dict) -> int:
+    """The captured step's counts: its capture launched ``per_step``'s
+    kernels once each (and each second launch as often), nothing else,
+    and it was replayed once a step, warm-up included.  Returns the eager
+    runs of the step the launch counters saw: the capture's eager warm-up
+    and the capture itself (2), or every step when the engine runs
+    eagerly."""
+    cap = eng.captured
+    if cap is None:
+        return st.steps + st.warmup_steps
+    want = {k: 0 for k in cap.launches}
+    for k, n in per_step.items():
+        want[k] = n
+        for attr in SECOND_COUNTERS:
+            if f"{k} {attr}" in want:
+                want[f"{k} {attr}"] = n
+    if cap.launches != want:
+        raise AssertionError(f"{name}: launches per capture {cap.launches} "
+                             f"!= {want}")
+    if st.captures != 1 or cap.replays != st.steps + st.warmup_steps:
+        raise AssertionError(f"{name}: {st.captures} captures, "
+                             f"{cap.replays} replays for {st.steps} steps "
+                             f"+ {st.warmup_steps} warm-up")
+    return 2
+
+
 def serve_engine(wl: Workload, cfg, params, dp, engine: str, per_step: dict,
                  per_prefill: dict = None, *, per_chunk: dict = None,
                  prefill_chunk: int = 0) -> tuple:
     """Serve 8 requests of ``wl`` through ``engine`` ("paged" or
-    "continuous"; chunked prefill when ``prefill_chunk``), counting every
+    "continuous"; chunked prefill when ``prefill_chunk``) as a user would
+    (the async loop, the step captured as one CUDA graph), counting every
     kernel launch of the run against ``per_step`` launches a decode step
-    and ``per_prefill`` a whole-prompt prefill (``per_chunk`` a chunk).
-    Returns (launch counts, the requests' outputs, the engine's stats)."""
-    import numpy as np
+    (at the capture and its eager warm-up; the replays are counted by the
+    capture) and ``per_prefill`` a whole-prompt prefill (``per_chunk`` a
+    chunk).  Returns (launch counts, the requests' outputs, the engine's
+    stats)."""
     import torch
-    from repro_torch.configs import tree_for
-    from repro_torch.serving.engine import (PagedSpeculativeEngine, Request,
-                                            SpeculativeEngine)
+    from repro_torch import kernels
 
-    tree = tree_for(cfg)
-    max_batch, bs, budget = 4, 16, 32
-    usable = int(0.5 * max_batch * wl.max_len) // bs
-    if engine == "paged":
-        eng = PagedSpeculativeEngine(params, dp, cfg, tree,
-                                     max_len=wl.max_len, block_size=bs,
-                                     num_blocks=usable + 1,
-                                     prefill_chunk=prefill_chunk)
-    else:
-        eng = SpeculativeEngine(params, dp, cfg, tree, max_len=wl.max_len)
-    rs = np.random.RandomState(0)
+    eng = make_engine(wl, cfg, params, dp, engine,
+                      prefill_chunk=prefill_chunk)
+    reqs = workload_requests(wl, cfg)
+    budget, max_batch = SERVE_BUDGET, SERVE_BATCH
     lo, hi = wl.prompts
-    reqs = [Request(prompt=rs.randint(0, cfg.vocab_size,
-                                      rs.randint(lo, hi + 1)).astype(np.int32),
-                    max_new_tokens=budget) for _ in range(8)]
     counters = kernel_counters()
     k3 = counters["flash_attention"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for mod in counters.values():          # count the main path only
-        mod.launches = 0
-        for attr in SECOND_COUNTERS:
-            if hasattr(mod, attr):
-                setattr(mod, attr, 0)
-    k3.chunk_launches = 0
+    kernels.reset_counts()                 # count the main path only
     st = eng.serve(reqs, max_batch=max_batch)
     torch.cuda.synchronize()
     counts = {k: m.launches for k, m in counters.items()}
@@ -2141,8 +2204,11 @@ def serve_engine(wl: Workload, cfg, params, dp, engine: str, per_step: dict,
         if len(r.output) != budget or not all(0 <= t < cfg.vocab_size
                                               for t in r.output):
             raise AssertionError(f"bad output: {len(r.output)} tokens")
-    steps = st.steps + st.warmup_steps
+    steps = check_capture(f"{cfg.name} {engine}", eng, st, per_step)
     prefills = len(reqs) + st.preemptions
+    if engine == "paged" and eng._alloc.blocks_in_use:
+        raise AssertionError(f"{cfg.name}: {eng._alloc.blocks_in_use} "
+                             "blocks in use after the serve")
     expect = {k: 0 for k in counters}
     for k, n in per_step.items():
         expect[k] += n * steps
@@ -2167,7 +2233,8 @@ def serve_engine(wl: Workload, cfg, params, dp, engine: str, per_step: dict,
     log(f"[full] {cfg.name} {engine} engine served {len(reqs)} requests x "
         f"{budget} tokens (prompts {lo}-{hi}): steps={st.steps} "
         f"(+{st.warmup_steps} "
-        f"warm-up) tok/step={st.tokens_per_step:.3f} "
+        f"warm-up; {eng.captured.replays} replays of one captured step, "
+        f"inflight {eng.inflight}) tok/step={st.tokens_per_step:.3f} "
         f"tok/s={st.tokens_per_s:.1f} step={st.mean_step_s * 1e3:.1f}ms "
         f"ttft={st.mean_ttft_s * 1e3:.1f}ms "
         f"p99_itl={st.p99_itl_s * 1e3:.1f}ms "
@@ -2182,6 +2249,219 @@ def serve_engine(wl: Workload, cfg, params, dp, engine: str, per_step: dict,
     outs = [list(r.output) for r in reqs]
     del eng
     return counts, outs, st
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the async window and the captured step
+# ---------------------------------------------------------------------------
+
+# (name, inflight, capture_step): the synchronous eager loop, the async
+# window alone, the window with the step captured as one CUDA graph (the
+# default), and the captured step alone; served in turns MODE_REPS times
+MODES = (("sync eager", 1, False), ("async eager", 2, False),
+         ("async captured", 2, True), ("sync captured", 1, True))
+MODE_REPS = 3
+
+
+def _clone(x):
+    """A deep copy of a pool state's tensors (NamedTuples, lists, dicts)."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_clone(v) for v in x]
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_clone(v) for v in x))
+    return x
+
+
+def check_replay_step(wl: Workload, cfg, params, dp, steps: int = 3) -> None:
+    """One captured step replayed against the eager step from the same
+    state: phase 5's first 4 prompts joined into a paged pool, three
+    steps over 3 of the 4 rows; ``emitted``, ``n_emitted``, ``cache_len``,
+    ``last_token`` and the next step's ``last_hidden`` must be bitwise
+    equal after each."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import tree_for
+    from repro_torch.serving.graph import CapturedStep, step_in_place
+    from repro_torch.serving.paged import (init_paged_state,
+                                           paged_join_slot,
+                                           paged_spec_decode_step)
+
+    tree = tree_for(cfg)
+    B, M = SERVE_BATCH, wl.max_len // BLOCK
+    table = (1 + np.arange(B * M, dtype=np.int32)).reshape(B, M)
+    state = init_paged_state(params, dp, cfg, B, 1 + B * M, BLOCK, "cuda")
+    for si, r in enumerate(workload_requests(wl, cfg)[:B]):
+        n = len(r.prompt)
+        prompt = torch.zeros(-(-n // 32) * 32, dtype=torch.long)
+        prompt[:n] = torch.from_numpy(r.prompt)
+        paged_join_slot(params, dp, cfg, state, prompt.cuda(), n, si,
+                        torch.as_tensor(table[si], device="cuda"))
+    eager = _clone(state)
+
+    def step(st, active, tbl):
+        return paged_spec_decode_step(params, dp, cfg, tree, st, tbl,
+                                      active=active)
+
+    cap = CapturedStep(step, state, B, table.shape)
+    active = np.array([True, True, False, True])
+    dev_active = torch.as_tensor(active, device="cuda")
+    dev_table = torch.as_tensor(table, device="cuda")
+    for k in range(steps):
+        e1, n1 = (t.clone() for t in cap(active, table))
+        e2, n2 = step_in_place(step, eager, dev_active, dev_table)
+        torch.cuda.synchronize()
+        for name, a, b in (("emitted", e1, e2), ("n_emitted", n1, n2),
+                           ("cache_len", state.cache_len, eager.cache_len),
+                           ("last_token", state.last_token, eager.last_token),
+                           ("last_hidden", state.last_hidden,
+                            eager.last_hidden)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{cfg.name}: replayed step {k} "
+                                     f"differs from the eager step in {name}")
+    log(f"[6] {cfg.name}: {steps} replays of the captured step bitwise equal "
+        f"to the eager steps from the same state (emitted, n_emitted, "
+        f"cache_len, last_token, last_hidden); launches per capture "
+        f"{ {k: n for k, n in cap.launches.items() if n} }")
+    del cap, state, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_once(eng, wl: Workload, cfg, source: bool = False) -> dict:
+    """One serve of phase 5's requests (``source``: the first half
+    submitted, the rest through a generator source); this serve's numbers
+    (the engine's stats accumulate across serves) and outputs."""
+    import numpy as np
+
+    st = eng.stats
+    before = dict(steps=st.steps, tokens=st.tokens, wall=st.wall_s,
+                  stall=st.host_stall_s, wait=st.read_wait_s,
+                  step_s=len(st.step_s), ttft=len(st.ttft_s),
+                  itl=len(st.itl_s), preempt=st.preemptions)
+    reqs = workload_requests(wl, cfg)
+    if source:
+        half = len(reqs) // 2
+        for r in reqs[:half]:
+            eng.submit(r)
+        eng.serve(source=iter(reqs[half:]), max_batch=SERVE_BATCH)
+    else:
+        eng.serve(reqs, max_batch=SERVE_BATCH)
+    steps = st.steps - before["steps"]
+    wall = st.wall_s - before["wall"]
+    tokens = st.tokens - before["tokens"]
+    itl = st.itl_s[before["itl"]:]
+    return {"steps": steps, "tokens": tokens, "wall_s": wall,
+            "tok_s": tokens / wall,
+            "step_ms": float(np.mean(st.step_s[before["step_s"]:])) * 1e3,
+            "interval_ms": wall / max(steps, 1) * 1e3,
+            "host_stall_s": st.host_stall_s - before["stall"],
+            "read_wait_s": st.read_wait_s - before["wait"],
+            "ttft_ms": float(np.mean(st.ttft_s[before["ttft"]:])) * 1e3,
+            "p99_itl_ms": float(np.percentile(itl, 99)) * 1e3,
+            "preemptions": st.preemptions - before["preempt"],
+            "blocks_left": eng._alloc.blocks_in_use,
+            "outs": [list(r.output) for r in reqs]}
+
+
+def traced_busy(eng, wl: Workload, cfg) -> tuple:
+    """One serve under ``torch.profiler``: (device busy seconds, the
+    traced serve's numbers).  One stream, so kernel and copy durations
+    add up to the busy time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run = serve_once(eng, wl, cfg)
+        torch.cuda.synchronize()
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA)
+    return busy_us / 1e6, run
+
+
+def serve_modes(wl: Workload, cfg, params, dp, per_step: dict,
+                smi: str) -> None:
+    """Phase 6: phase 5's requests through the paged engine in each of
+    ``MODES``, in turns, ``MODE_REPS`` times, one engine per mode kept
+    across its serves.  Every stream must equal the synchronous eager
+    loop's token for token, no block may stay in use (a preemption under
+    ``inflight=2`` included), each captured engine must hold one capture
+    that launches ``per_step``'s kernels and is replayed once a step, and
+    a serve fed by a generator source must reuse it.  Prints each mode's
+    step time and tok/s per turn, the async loop's stall and read wait,
+    and the device's idle share under the graph."""
+    import numpy as np
+    import torch
+
+    engines = {name: make_engine(wl, cfg, params, dp, "paged",
+                                 inflight=inflight, capture_step=capture)
+               for name, inflight, capture in MODES}
+    runs = {name: [] for name in engines}
+    for _ in range(MODE_REPS):
+        for name, eng in engines.items():
+            runs[name].append(serve_once(eng, wl, cfg))
+    ref = runs["sync eager"][0]["outs"]
+    for name, rs in runs.items():
+        for run in rs:
+            same = sum(a == b for a, b in zip(run["outs"], ref))
+            if same != len(ref):
+                raise AssertionError(f"{cfg.name} {name}: {same} of "
+                                     f"{len(ref)} streams equal the "
+                                     "synchronous eager loop's")
+            if run["blocks_left"]:
+                raise AssertionError(f"{cfg.name} {name}: "
+                                     f"{run['blocks_left']} blocks in use "
+                                     "after the serve")
+    for name, inflight, capture in MODES:
+        if capture:
+            check_capture(f"{cfg.name} {name}", engines[name],
+                          engines[name].stats, per_step)
+    eng = engines["async captured"]
+    cap = eng.captured
+    fed = serve_once(eng, wl, cfg, source=True)
+    if fed["outs"] != ref or eng.stats.captures != 1 \
+            or eng.captured is not cap or fed["blocks_left"]:
+        raise AssertionError(f"{cfg.name}: a serve fed by a generator "
+                             f"source took {eng.stats.captures} captures "
+                             "or changed a stream")
+    preempted = sum(r["preemptions"] for r in runs["async captured"])
+    for name, rs in runs.items():
+        log(f"[6] {cfg.name} {name} ({smi}): step "
+            f"{[round(r['step_ms'], 2) for r in rs]} ms (dispatch to read), "
+            f"wall/step {[round(r['interval_ms'], 2) for r in rs]} ms, tok/s "
+            f"{[round(r['tok_s'], 1) for r in rs]}, ttft "
+            f"{[round(r['ttft_ms'], 1) for r in rs]} ms, p99 itl "
+            f"{[round(r['p99_itl_ms'], 1) for r in rs]} ms, host_stall "
+            f"{[round(r['host_stall_s'], 4) for r in rs]} s, read_wait "
+            f"{[round(r['read_wait_s'], 3) for r in rs]} s, steps "
+            f"{rs[0]['steps']}, steps_in_flight "
+            f"{engines[name].stats.steps_in_flight}, preemptions "
+            f"{rs[0]['preemptions']}")
+    busy, traced = traced_busy(eng, wl, cfg)
+    untraced = float(np.mean([r["wall_s"] for r in runs["async captured"]]))
+    log(f"[6] {cfg.name} async captured, traced ({smi}): device busy "
+        f"{busy * 1e3:.1f} ms over {traced['steps']} steps "
+        f"({busy / max(traced['steps'], 1) * 1e3:.2f} ms a step, prefills "
+        f"included) in a serve of {traced['wall_s'] * 1e3:.1f} ms traced, "
+        f"{untraced * 1e3:.1f} ms untraced: idle share "
+        f"{1 - busy / traced['wall_s']:.3f} traced, "
+        f"{1 - busy / untraced:.3f} against the untraced wall")
+    log(f"[6] {cfg.name}: every stream of the {len(MODES)} modes x "
+        f"{MODE_REPS} turns and of a generator-fed serve equal to the "
+        f"synchronous eager loop's; one capture per captured engine, "
+        f"{cap.replays if cap else 0} replays; {preempted} preemptions under "
+        "inflight=2, "
+        "no block left in use")
+    del engines, eng, cap
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2201,7 +2481,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
-    log(smi.splitlines()[0])
+    global CARD
+    CARD = smi.splitlines()[0]
+    log(CARD)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 

@@ -5,9 +5,11 @@ verify (ONE base-model forward over the T tree tokens) -> accept (greedy)
 -> commit caches -> emit tokens.
 
 The port decodes greedily only: typical acceptance and sampling draw from
-``jax.random`` on the JAX side and wait for a later slice.  PyTorch runs
-eagerly, so there is no compiled step; caches are updated in place and a
-step's ``state`` shares the cache tensors of the state it was given.
+``jax.random`` on the JAX side and wait for a later slice.  Caches are
+updated in place and a step's ``state`` shares the cache tensors of the
+state it was given; the serving engines run the step in place as one
+captured CUDA graph (``serving/graph.py``), so nothing on the step's path
+may wait on the device (no ``.item()``, no blocking host copy).
 """
 from __future__ import annotations
 
@@ -120,7 +122,7 @@ def prefill_row(params, draft_params, cfg: ModelConfig, prompt,
     pos = torch.arange(P, device=dev)[None, :]
     row = init_cache(cfg, 1, P, dev)
     out = forward(params, cfg, prompt[None, :], pos, mode="full", cache=row,
-                  valid_len=torch.tensor([real_len], device=dev),
+                  valid_len=torch.full((1,), real_len, device=dev),
                   want_logits=False)
     idx = max(real_len - 1, 0)
     h = out.hidden[0, idx]

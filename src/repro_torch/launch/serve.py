@@ -14,9 +14,13 @@ Weights are random, drawn on the device from a seeded
 given.  ``--prefill-chunk N`` prefills in chunks of N tokens beside the
 decode steps (``--prefill-budget``: prompt tokens per step, default one
 chunk; continuous and paged engines); ``--engine bucketed`` runs the
-static baseline.  Prints the same ``[serve]`` lines as
-``repro/launch/serve.py`` where the port has the fields (the port's loop
-is synchronous: no asynchronous in-flight dispatch).
+static baseline.  The continuous and paged engines run the async loop
+(two steps in flight) with the decode step captured as one CUDA graph;
+``--sync`` runs the synchronous loop (``inflight=1``), ``--eager`` the
+step without the graph, and ``--stream`` submits half the requests up
+front and feeds the rest through a generator source (the live queue).
+Prints the same ``[serve]`` lines as ``repro/launch/serve.py`` where the
+port has the fields.
 """
 from __future__ import annotations
 
@@ -49,6 +53,16 @@ def main(argv=None) -> None:
                          "(default: one chunk)")
     ap.add_argument("--engine", choices=("continuous", "paged", "bucketed"),
                     default="continuous")
+    ap.add_argument("--sync", action="store_true",
+                    help="disable the double-buffered host loop "
+                         "(inflight=1; continuous/paged engines only)")
+    ap.add_argument("--stream", action="store_true",
+                    help="feed requests through the live-queue API "
+                         "(submit() + a generator source) instead of a "
+                         "pre-collected list")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the decode step eagerly instead of as one "
+                         "captured CUDA graph (continuous/paged engines)")
     ap.add_argument("--block-size", type=int, default=16,
                     help="paged engine: tokens per KV block")
     ap.add_argument("--pool-frac", type=float, default=0.5,
@@ -90,20 +104,21 @@ def main(argv=None) -> None:
           f"(chain={tree.max_depth + 1 == tree.size}) device={device}")
 
     max_len = 512
-    chunk_kw = {}
+    engine_kw = {"inflight": 1 if args.sync else 2,
+                "capture_step": not args.eager}
     if args.prefill_chunk and args.engine != "bucketed":
-        chunk_kw = {"prefill_chunk": args.prefill_chunk,
-                    "prefill_budget": args.prefill_budget or None}
+        engine_kw.update(prefill_chunk=args.prefill_chunk,
+                        prefill_budget=args.prefill_budget or None)
     if args.engine == "paged":
         usable = max(int(args.pool_frac * args.batch * max_len)
                      // args.block_size, 4)
         eng = PagedSpeculativeEngine(params, dp, cfg, tree, max_len=max_len,
                                      block_size=args.block_size,
                                      num_blocks=usable + 1, device=device,
-                                     **chunk_kw)
+                                     **engine_kw)
     elif args.engine == "continuous":
         eng = SpeculativeEngine(params, dp, cfg, tree, max_len=max_len,
-                                device=device, **chunk_kw)
+                                device=device, **engine_kw)
     else:
         eng = BucketedEngine(params, dp, cfg, tree, max_len=max_len,
                              device=device)
@@ -118,6 +133,13 @@ def main(argv=None) -> None:
             max_new_tokens=args.max_new_tokens))
     if args.profile:
         stats = _profiled_serve(eng, reqs, args.batch)
+    elif args.stream and args.engine != "bucketed":
+        # the live queue: half the traffic submitted up front, the rest
+        # arriving through a generator source as slots free up
+        split = max(n_requests // 2, 1)
+        for r in reqs[:split]:
+            eng.submit(r)
+        stats = eng.serve(source=iter(reqs[split:]), max_batch=args.batch)
     else:
         stats = eng.serve(reqs, max_batch=args.batch)
     print(f"[serve] engine={args.engine} steps={stats.steps} "
@@ -131,7 +153,12 @@ def main(argv=None) -> None:
           f"host_stall={stats.host_stall_s * 1e3:.1f}ms "
           f"({stats.host_stall_frac:.0%} of wall) "
           f"read_wait={stats.read_wait_s * 1e3:.1f}ms "
+          f"inflight_peak={stats.steps_in_flight} "
           f"step={stats.mean_step_s * 1e3:.1f}ms")
+    if getattr(eng, "captured", None) is not None:
+        print(f"[serve] captured step: one CUDA graph, "
+              f"{eng.captured.replays} replays, launches per replay "
+              f"{ {k: n for k, n in eng.captured.launches.items() if n} }")
     if eng.prefill_chunk:
         print(f"[serve] chunked prefill: chunk={eng.prefill_chunk} "
               f"budget={eng.prefill_budget} "

@@ -164,12 +164,24 @@ def gqa_fwd(p, cfg, x, ai: AttnInputs):
 
 def _dense_scatter(cache, new, cache_len):
     """In place: cache[b, cache_len[b] + t] = new[b, t].  Writes past the
-    cache's end are dropped, as JAX's out-of-bounds scatter drops them."""
+    cache's end are dropped, as JAX's out-of-bounds scatter drops them,
+    without selecting them by a boolean mask (a mask's index count is a
+    host read, which a captured CUDA graph cannot hold): each such write
+    goes to the last position instead, carrying the value that position
+    gets anyway (the in-range write there, or its current value), so the
+    duplicates agree and the order of the writes does not matter."""
     B, T = new.shape[:2]
-    slot = cache_len[:, None] + torch.arange(T, device=new.device)[None, :]
-    ok = slot < cache.shape[1]
-    bidx = torch.arange(B, device=new.device)[:, None].expand(B, T)
-    cache[bidx[ok], slot[ok]] = new[ok].to(cache.dtype)
+    last = cache.shape[1] - 1
+    slot = cache_len[:, None].long() + torch.arange(T, device=new.device)
+    ok = slot <= last
+    bidx = torch.arange(B, device=new.device)
+    new = new.to(cache.dtype)
+    t_last = torch.clamp(last - cache_len.long(), 0, T - 1)
+    at_last = torch.where((cache_len <= last).view(B, *(1,) * (new.dim() - 2)),
+                          new[bidx, t_last], cache[bidx, last])
+    val = torch.where(ok.view(B, T, *(1,) * (new.dim() - 2)), new,
+                      at_last[:, None])
+    cache[bidx[:, None], torch.clamp_max(slot, last)] = val
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,4 @@
-"""Speculative serving engines (port of ``repro/serving/engine.py``, the
-synchronous loop: the JAX engines' ``inflight=1`` behaviour).
+"""Speculative serving engines (port of ``repro/serving/engine.py``).
 
 ``SpeculativeEngine`` — continuous batching over a dense cache.  A fixed
 pool of ``max_batch`` slots and a FIFO request queue.  A request joins the
@@ -18,30 +17,45 @@ recently joined slot is preempted: its blocks are freed and its request
 requeued at the front, to be re-prefilled later from prompt + tokens so
 far (byte-exact under greedy decoding).
 
-Each loop iteration: join queued requests into free slots (the first
-token is read back at once), grow tables (paged), run one step, read its
-emissions.
+The serve loop is **asynchronous** by default (DESIGN.md §7): with
+``inflight=2`` step k+1 is dispatched before step k's emissions are read
+back, so harvest, joins and the allocator run on the host while the card
+computes.  Every read (a step's emissions, the first token a join
+installs) runs one step behind the dispatch; ``inflight=1`` is the same
+loop degenerated to the synchronous one.  The overlap reorders host
+bookkeeping only, never device work, so greedy outputs are the same for
+every ``inflight``.  Requests arrive through a live queue: ``submit()``
+enqueues at any time, ``drain()`` serves what was submitted, and
+``serve(source=...)`` pulls from an iterable or callable on a feeder
+thread through a bounded handoff queue.
+
+On CUDA the decode step runs as one captured CUDA graph
+(``serving/graph.py::CapturedStep``), taken at ``serve``'s warm-up and
+replayed every step: the port's counterpart of the JAX engine's one
+compiled step per ``(max_batch, tree)``.  ``capture_step=False`` runs
+the step eagerly; on the CPU it always runs eagerly.  Joins and chunks
+run eagerly.
 
 Chunked prefill (``prefill_chunk > 0``, DESIGN.md §8): a request joins a
 slot in the *prefilling* state and its context, right-padded to a chunk
 multiple, is prefilled one chunk at a time (``join_slot_chunk``, paged
 ``paged_join_slot_chunk``), at most ``prefill_budget`` prompt tokens per
 loop iteration beside the decode step of the active slots; the final
-chunk activates the slot.  The paged engine allocates blocks one chunk at
-a time and may preempt a slot mid-prefill (it restarts from chunk 0).
+chunk activates the slot and registers its first token like a join.  The
+paged engine allocates blocks one chunk at a time and may preempt a slot
+mid-prefill (it restarts from chunk 0).
 
 ``BucketedEngine`` — the static baseline: requests grouped by exact
 prompt length, each batch prefilled at once and stepped to completion.
-
-The async ``inflight>=2`` window and the live ``submit()`` queue with its
-feeder thread are not ported yet (ROADMAP).
 """
 from __future__ import annotations
 
+import queue
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Iterable, List, Optional
+from typing import Any, Callable, Iterable, List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -53,23 +67,19 @@ from repro_torch.core.speculative import (autoregressive_step,
                                           spec_decode_step)
 from repro_torch.device import resolve_device
 from repro_torch.models.model import group_program
+from repro_torch.serving.graph import (CapturedStep, HostRead, snapshot,
+                                       step_in_place)
 from repro_torch.serving.paged import (NULL_BLOCK, BlockAllocator,
                                        init_paged_state,
                                        paged_autoregressive_step,
                                        paged_join_slot, paged_join_slot_chunk,
                                        paged_spec_decode_step)
 
-
-def _snapshot(host_array: np.ndarray, device) -> torch.Tensor:
-    """Device operand from a MUTABLE host array, copy-guaranteed.
-
-    The host keeps rewriting the ``active`` mask and the block tables
-    while a step may still be queued on the device.  ``torch.tensor``
-    copies the numpy buffer before the upload, so no later host mutation
-    can race with a pending host-to-device copy (the aliasing race of the
-    JAX engine's ``_snapshot``; a ``non_blocking`` copy straight from the
-    live buffer would reopen it)."""
-    return torch.tensor(host_array, device=device)
+# feeder-thread end-of-stream marker (see SpeculativeEngine._feed_source)
+_SOURCE_DONE = object()
+# the longest a feeder put or a feeder join waits before it looks again
+_FEED_TIMEOUT_S = 0.05
+_FEEDER_JOIN_S = 2.0
 
 
 @dataclass
@@ -119,12 +129,21 @@ class EngineStats:
     tokens           tokens delivered to requests post-prefill (clamped at
                      each request's budget)
     wall_s           wall-clock seconds inside the serving loop
-    host_stall_s     seconds of host bookkeeping while no device work was
-                     queued: from each blocking read to the start of the
-                     next dispatch (join or step).  The eager dispatch of
-                     a step's operators is not in it; it is in ``step_s``
-    read_wait_s      seconds blocked in device-to-host reads
-    step_s           per step: dispatch to emissions read, seconds
+    host_stall_s     seconds the host worked while NO step was in flight:
+                     from a harvest that drained the window to the next
+                     dispatch (join, chunk or step).  The synchronous loop
+                     (``inflight=1``) pays it at every step; the async one
+                     only where the window drains (tails, preemptions).
+                     The eager dispatch of a step's operators counts as
+                     device work queued, not as a stall
+    read_wait_s      seconds blocked in device-to-host reads (step
+                     emissions, first tokens)
+    steps_in_flight  high-water mark of dispatched-but-unharvested steps
+                     (1: the synchronous loop, 2: double-buffered)
+    captures         CUDA graphs of the step taken (one per pool shape;
+                     the replays are ``captured.replays``)
+    step_s           per step: dispatch to emissions read, seconds (under
+                     ``inflight=2`` it spans the next step's dispatch too)
     accept_lengths   per-step mean accepted+bonus length over live rows
     active_slot_steps / capacity_slot_steps
                      slot occupancy: live rows vs ``max_batch`` per step
@@ -150,6 +169,8 @@ class EngineStats:
     wall_s: float = 0.0
     host_stall_s: float = 0.0
     read_wait_s: float = 0.0
+    steps_in_flight: int = 0
+    captures: int = 0
     step_s: List[float] = field(default_factory=list)
     accept_lengths: List[float] = field(default_factory=list)
     active_slot_steps: int = 0
@@ -247,18 +268,59 @@ class _PrefillJob:
     off: int = 0
 
 
+class _StepRecord(NamedTuple):
+    """One dispatched-but-unharvested decode step (DESIGN.md §7).
+
+    Everything the harvest needs is taken at dispatch: the ``active``
+    mask and slot -> request assignment the step ran with (host state
+    moves on while it is in flight), the joins dispatched just before it,
+    each with a host copy of the first token it installed (read one step
+    later; a later replay or join overwrites the device row), and the
+    step's emissions, already on their way to the host."""
+
+    out: HostRead                   # (emitted (B, D+1), n_emitted (B,))
+    active: np.ndarray              # (B,) bool mask the step ran with
+    slots: List[Optional[Request]]  # slot -> request at dispatch
+    joins: List[tuple]              # [(slot, Request, HostRead of token)]
+    max_batch: int
+    t_dispatch: float
+
+
+# A live request source for ``serve``: an iterable (pulled lazily as slots
+# free up; exhaustion ends the stream) or a zero-argument callable polled
+# by the feeder thread (returns newly arrived requests, an empty iterable
+# for "nothing yet, keep serving", or None for "no more ever").
+RequestSource = Union[Iterable[Request], Callable[[], Any]]
+
+
 class SpeculativeEngine:
     """Continuous-batching speculative engine over a dense cache.
 
-    ``serve(requests, *, max_batch=8, warmup=True) -> EngineStats`` runs
-    the loop until the queue drains; ``stats`` accumulates across calls.
-    Per request: **enqueue** -> **join** the moment a slot frees (bucketed
-    prefill, first token read back at once) -> one emission read per step
-    (accepted + bonus tokens appended to ``Request.output``, clamped at
-    ``max_new_tokens``, cut at ``eos_token``) -> **finish** (slot freed and
-    refilled from the queue).  ``warmup`` runs one step over the idle pool
-    before the clock starts (it builds the kernels and brings up the
-    libraries the step calls).
+    ``submit(request)`` enqueues (FIFO) at any time: before, between or
+    during ``serve`` calls.  ``serve(requests=(), *, source=None,
+    max_batch=8, warmup=True) -> EngineStats`` runs the loop until the
+    queue, the optional live ``source`` (see ``RequestSource``) and every
+    step in flight drain; ``drain()`` is ``serve`` over what was
+    submitted; ``stats`` accumulates across calls.  Per request:
+    **enqueue** -> **join** the moment a slot frees (bucketed prefill; its
+    first token is read back one step later) -> **harvest** one step
+    behind dispatch (accepted + bonus tokens appended to
+    ``Request.output``, clamped at ``max_new_tokens``, cut at
+    ``eos_token``) -> **finish** (slot freed and refilled from the queue).
+    ``warmup`` runs one step over the idle pool before the clock starts.
+
+    ``inflight`` (default 2) bounds the dispatched-but-unharvested steps
+    (DESIGN.md §7); host state is then up to ``inflight - 1`` steps stale
+    at dispatch, every capacity decision budgets for it
+    (``_stale_allowance``), and a request found finished at harvest may
+    ride one dispatched step as a masked "zombie" row whose emissions are
+    dropped.  ``inflight=1`` is the synchronous loop.
+
+    ``capture_step`` (default True) runs the step as one CUDA graph on a
+    CUDA engine (``serving/graph.py``), captured at the first ``serve``'s
+    warm-up and reused across ``serve`` calls, occupancy changes and live
+    submits; a new ``max_batch`` takes a new capture (and a new pool).
+    False runs the step eagerly; the CPU always does.
 
     ``prefill_chunk`` (0: whole-prompt joins) prefills in chunks of that
     many tokens, rounded up to the recurrent scan's chunk for RWKV6, so
@@ -275,7 +337,8 @@ class SpeculativeEngine:
     def __init__(self, params, draft_params, cfg: ModelConfig, tree, *,
                  max_len: int = 2048, use_speculative: bool = True,
                  prefill_bucket: int = 32, prefill_chunk: int = 0,
-                 prefill_budget: Optional[int] = None, device="cuda"):
+                 prefill_budget: Optional[int] = None, inflight: int = 2,
+                 capture_step: bool = True, device="cuda"):
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params lie on {params['embed'].device}, the "
@@ -302,33 +365,62 @@ class SpeculativeEngine:
                     f"prefill_budget {self.prefill_budget} < prefill_chunk "
                     f"{prefill_chunk}: the scheduler could never dispatch "
                     "a chunk")
+        if inflight < 1:
+            raise ValueError(f"inflight must be >= 1: {inflight}")
+        self.inflight = int(inflight)
+        # a graph needs the card; the CPU runs the same step eagerly
+        self.capture_step = bool(capture_step) and self.device.type == "cuda"
         # does a chunk's attention view grow with the prefill cursor?  A
         # recurrent stack without a Hydra++ prefix cache has none
         self._view_grows = (
             any(kind != "rwkv_stack" for kind, _ in group_program(cfg))
             or (draft_params is not None and "prefix" in draft_params))
         self.stats = EngineStats()
+        self.captured: Optional[CapturedStep] = None
+        self._pool = None                    # (max_batch, device state)
+        self._queue: deque = deque()
+        self._inflight: deque = deque()
+        self._live_joins: dict = {}          # slot -> (Request, HostRead)
+        self._prefills: dict = {}            # slot -> _PrefillJob
+        self._src_thread: Optional[threading.Thread] = None
         self._starve_t0: Optional[float] = None
 
     # -- the step and the join (the paged engine swaps the layout) -----------
 
-    def _run_step(self, state, active):
+    def _step(self, state, active, table=None):
+        """The eager step over ``state`` (returns a ``StepResult``)."""
         if self.use_speculative:
             return spec_decode_step(self.params, self.draft_params, self.cfg,
                                     self.tree, state, active=active)
         return autoregressive_step(self.params, self.cfg, state,
                                    active=active)
 
+    def _table(self) -> Optional[np.ndarray]:
+        """The host block table a step runs with (None: dense layout)."""
+        return None
+
+    def _run_step(self, state, active: np.ndarray):
+        """Dispatch one step over ``state`` in place (a replay of the
+        captured graph, or the eager step); returns its ``(emitted,
+        n_emitted)`` device tensors, which a replay overwrites: copy them
+        out before the next dispatch."""
+        table = self._table()
+        if self.captured is not None:
+            return self.captured(active, table)
+        return step_in_place(
+            self._step, state, snapshot(active, self.device),
+            None if table is None else snapshot(table, self.device))
+
     def _join(self, state, slot: int, r: Request):
         padded, n = self._padded_context(r)
         return join_slot(self.params, self.draft_params, self.cfg, state,
-                         torch.tensor(padded, device=self.device), n, slot)
+                         snapshot(padded, self.device), n, slot)
 
     def _dispatch_chunk(self, state, si: int, chunk: np.ndarray, start: int,
                         real_len: int, final: bool):
         view = self._chunk_view_len(start + self.prefill_chunk)
         return join_slot_chunk(self.params, self.draft_params, self.cfg,
-                               state, torch.tensor(chunk, device=self.device),
+                               state, snapshot(chunk, self.device),
                                start, real_len, si, final=final,
                                view_len=view)
 
@@ -344,6 +436,20 @@ class SpeculativeEngine:
     def _scratch(self) -> int:
         """Cache positions one verify step writes past ``cache_len``."""
         return self.tree.size if self.use_speculative else 1
+
+    @property
+    def _max_emit(self) -> int:
+        """Most tokens one step can commit to a row (accepted + bonus)."""
+        return self.tree.max_depth + 1 if self.use_speculative else 1
+
+    @property
+    def _stale_allowance(self) -> int:
+        """Cache positions a row can advance past the host's knowledge:
+        up to ``inflight - 1`` unharvested steps, each committing at most
+        ``_max_emit`` tokens.  Every capacity decision (admission,
+        growth, the up-front reject) budgets it; 0 for the synchronous
+        loop."""
+        return (self.inflight - 1) * self._max_emit
 
     def _context(self, r: Request) -> np.ndarray:
         """Prefill context: the prompt, plus tokens already generated when
@@ -362,13 +468,16 @@ class SpeculativeEngine:
         return padded, n
 
     def _check_capacity(self, r: Request) -> None:
-        need = self._pad_len(len(r.prompt)) + r.max_new_tokens + self._scratch
+        # the stale allowance covers the zombie step a finished request
+        # may ride before the harvest finds it finished
+        need = (self._pad_len(len(r.prompt)) + r.max_new_tokens
+                + self._scratch + self._stale_allowance)
         if need > self.max_len:
             raise ValueError(
                 f"request needs {need} cache slots (padded prompt "
                 f"{self._pad_len(len(r.prompt))} + budget {r.max_new_tokens} "
-                f"+ {self._scratch} verify scratch) but max_len="
-                f"{self.max_len}")
+                f"+ {self._scratch} verify scratch + {self._stale_allowance} "
+                f"async staleness) but max_len={self.max_len}")
 
     # -- chunked prefill (DESIGN.md §8) --------------------------------------
 
@@ -397,10 +506,11 @@ class SpeculativeEngine:
         self._join_seq[si] = self._seq
 
     def _pump_prefill(self, si: int, state, active, slots, pending,
-                      budget: int):
+                      joins: list, budget: int):
         """Dispatch as many of slot ``si``'s remaining chunks as ``budget``
-        allows.  The final chunk activates the slot; its first token is
-        read back at once, as a whole-prompt join's is."""
+        allows.  The final chunk activates the slot and registers the
+        deferred read of its first token exactly as a whole-prompt join
+        does."""
         C = self.prefill_chunk
         while si in self._prefills and budget >= C:
             job = self._prefills[si]
@@ -418,27 +528,21 @@ class SpeculativeEngine:
                                              0)
             self._advance_prefill_cursor(si, min(end, job.real_len))
             if final:
-                r = job.request
                 del self._prefills[si]
-                active[si] = True
-                if self._absorb_first_token(r, self._read(
-                        state.last_token[si])):
-                    self._vacate(si, slots, active)
+                self._register_join(si, job.request, state, active, joins)
         return state, budget
 
-    def _advance_prefills(self, state, slots, active, pending):
+    def _advance_prefills(self, state, slots, active, pending, joins: list):
         """The chunked-prefill lane of one loop iteration: advance the
         prefills in progress oldest first, then admit queue heads into
         free slots, dispatching at most ``prefill_budget`` prompt tokens
-        in all.  Returns (state, whether a chunk was dispatched): a final
-        chunk may finish its request outright (budget 1, EOS, or a resumed
-        request one token short), leaving no slot live while the queue
-        waits only on the budget, not on the pool."""
+        in all.  Returns (state, whether a chunk was dispatched): the
+        loop's deadlock check counts a dispatched chunk as progress."""
         budget = self.prefill_budget
         dispatched = self.stats.prefill_chunks
         for si in sorted(self._prefills, key=lambda s: self._join_seq[s]):
             state, budget = self._pump_prefill(si, state, active, slots,
-                                               pending, budget)
+                                               pending, joins, budget)
         for si in range(len(slots)):
             if budget < self.prefill_chunk or not pending:
                 break
@@ -448,7 +552,7 @@ class SpeculativeEngine:
                 break                      # strict FIFO: head blocks tail
             self._start_prefill(si, pending.popleft(), slots)
             state, budget = self._pump_prefill(si, state, active, slots,
-                                               pending, budget)
+                                               pending, joins, budget)
         return state, self.stats.prefill_chunks != dispatched
 
     # -- scheduler hooks (the paged engine overrides them) --------------------
@@ -470,8 +574,30 @@ class SpeculativeEngine:
 
     def _init_pool(self, max_batch: int):
         self.stats.dense_equiv_tokens = max_batch * self.max_len
-        return init_pool_state(self.params, self.draft_params, self.cfg,
-                               max_batch, self.max_len, self.device)
+        return self._device_pool(max_batch, lambda: init_pool_state(
+            self.params, self.draft_params, self.cfg, max_batch, self.max_len,
+            self.device))
+
+    def _device_pool(self, max_batch: int, make):
+        """The device pool state for ``max_batch`` slots: the one kept from
+        the last ``serve`` zeroed in place (the captured step reads and
+        writes its tensors), or a new one from ``make()``, captured anew
+        when ``capture_step``."""
+        if self._pool is not None and self._pool[0] == max_batch:
+            state = self._pool[1]
+            for t in _tensors(state):
+                t.zero_()
+            return state
+        self.captured = self._pool = None     # free the old capture first
+        state = make()
+        self._pool = (max_batch, state)
+        if self.capture_step:
+            table = self._table()
+            self.captured = CapturedStep(
+                self._step, state, max_batch,
+                None if table is None else table.shape)
+            self.stats.captures += 1
+        return state
 
     def _admit(self, r: Request) -> bool:
         return True
@@ -488,68 +614,230 @@ class SpeculativeEngine:
     def _post_serve(self) -> None:
         pass
 
+    # -- live queue ----------------------------------------------------------
+
+    def submit(self, r: Request) -> Request:
+        """Enqueue one request (validated up front).  Legal at any time:
+        before ``serve``, between calls, or mid-serve from a ``source``;
+        the loop admits it the moment a slot (and, paged, blocks) frees."""
+        self._check_capacity(r)
+        if r.t_enqueue is None:
+            r.t_enqueue = time.time()
+        self._queue.append(r)
+        return r
+
+    def drain(self, *, max_batch: int = 8, warmup: bool = True
+              ) -> EngineStats:
+        """Serve everything ``submit``-ted so far and return the stats."""
+        return self.serve(max_batch=max_batch, warmup=warmup)
+
+    def _feed_source(self, source, q: queue.Queue,
+                     stop: threading.Event) -> None:
+        """The feeder thread: pulls from the caller's ``source`` so a slow
+        iterator or callable never stalls the dispatch path (the loop only
+        drains the bounded handoff queue, without blocking).  A callable
+        is polled (None: exhausted, an empty batch: nothing yet);
+        an iterator is pulled with the queue's bound as backpressure.  A
+        sentinel marks exhaustion; an exception is handed to the loop,
+        which raises it."""
+        try:
+            if callable(source):
+                while not stop.is_set():
+                    batch = source()
+                    if batch is None:
+                        break
+                    got = False
+                    for r in batch:
+                        got = True
+                        if not self._feed_put(q, r, stop):
+                            return
+                    if not got:
+                        # poll at about a step's cadence, not a spin: a
+                        # callable may do real work on every call
+                        time.sleep(2e-3)
+            else:
+                for r in source:
+                    if not self._feed_put(q, r, stop):
+                        return
+        except BaseException as e:             # noqa: BLE001 (relayed)
+            self._src_err.append(e)
+        finally:
+            self._feed_put(q, _SOURCE_DONE, stop)
+
+    @staticmethod
+    def _feed_put(q: queue.Queue, item, stop: threading.Event) -> bool:
+        """Bounded put that stays responsive to shutdown."""
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=_FEED_TIMEOUT_S)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _poll_source(self, pending: deque, max_batch: int) -> None:
+        """Drain the feeder's handoff queue (never blocks).  Backpressure:
+        stop once ``max_batch`` requests wait unjoined; the bounded
+        handoff then throttles the feeder."""
+        if self._src_err:
+            self._src_done = True
+            raise self._src_err[0]
+        if self._src_done or self._src_q is None:
+            return
+        while len(pending) < max_batch:
+            try:
+                item = self._src_q.get_nowait()
+            except queue.Empty:
+                return
+            if item is _SOURCE_DONE:
+                self._src_done = True
+                return
+            self.submit(item)
+
+    def _start_feeder(self, source, max_batch: int) -> None:
+        self._src_done = source is None
+        self._src_err: List[BaseException] = []
+        self._src_q: Optional[queue.Queue] = None
+        self._src_stop: Optional[threading.Event] = None
+        self._src_thread = None
+        if source is None:
+            return
+        self._src_q = queue.Queue(maxsize=max(2 * max_batch, 8))
+        self._src_stop = threading.Event()
+        self._src_thread = threading.Thread(
+            target=self._feed_source,
+            args=(source, self._src_q, self._src_stop),
+            name="engine-source-feeder", daemon=True)
+        self._src_thread.start()
+
+    def _stop_feeder(self) -> None:
+        """Stop and reap the feeder thread.  Requests it pulled from the
+        caller's source that the loop never took (an exit by a deadlock
+        raise or a relayed source exception) are parked in the engine
+        queue, so a later ``serve``/``drain`` serves them."""
+        if self._src_thread is None:
+            return
+        self._src_stop.set()
+        self._src_thread.join(timeout=_FEEDER_JOIN_S)
+        while True:
+            try:
+                item = self._src_q.get_nowait()
+            except queue.Empty:
+                break
+            if item is not _SOURCE_DONE:
+                try:
+                    self.submit(item)
+                except ValueError:
+                    pass   # unservable anyway; don't mask the exit
+        self._src_thread = self._src_q = self._src_stop = None
+
     # -- serving -------------------------------------------------------------
 
-    def serve(self, requests: Iterable[Request] = (), *, max_batch: int = 8,
+    def serve(self, requests: Iterable[Request] = (), *,
+              source: Optional[RequestSource] = None, max_batch: int = 8,
               warmup: bool = True) -> EngineStats:
-        pending: deque = deque()
         for r in requests:
             self._check_capacity(r)
-            pending.append(r)          # enqueue-stamped after warmup
-        slots: List[Optional[Request]] = [None] * max_batch
-        active = np.zeros(max_batch, bool)
-        self._prefills: dict = {}            # slot -> _PrefillJob
+            self._queue.append(r)      # enqueue-stamped after warmup
+        pending = self._queue
+        self._slots: List[Optional[Request]] = [None] * max_batch
+        self._active = np.zeros(max_batch, bool)
+        self._inflight = deque()
+        self._live_joins = {}
+        self._prefills = {}
         self._seq = getattr(self, "_seq", 0)
         self._join_seq = np.zeros(max_batch, np.int64)   # preemption order
+        slots, active = self._slots, self._active
         state = self._init_pool(max_batch)
 
         if warmup:   # one step over the idle pool, outside the clock
-            res = self._run_step(state, _snapshot(active, self.device))
-            res.n_emitted.cpu()
+            out = HostRead(*self._run_step(state, active))
+            out.get()
             self.stats.warmup_steps += 1
 
+        # enqueue after the warm-up, so latency measures serving (a live
+        # submit() carries its own arrival stamp)
         now = time.time()
         for r in pending:
             if r.t_enqueue is None:
                 r.t_enqueue = now
+        self._start_feeder(source, max_batch)
         t0 = time.time()
+        # device-starvation accounting: a window opens whenever the
+        # in-flight window drains and closes at the next dispatch
         self._starve_t0 = t0
-        while pending or active.any() or self._prefills:
-            if self.prefill_chunk:
-                # chunked lane: at most prefill_budget prompt tokens ride
-                # beside this iteration's decode step; a slot joins the
-                # step once its final chunk is in
-                state, joined = self._advance_prefills(state, slots, active,
-                                                       pending)
-            else:
-                state, joined = self._join_free_slots(state, slots, active,
-                                                      pending)
-            # paged: grow block tables for the coming step, preempting the
-            # most-recently-joined slots back into `pending` on exhaustion
-            state = self._before_step(state, slots, active, pending)
-            if active.any():
-                t_step = time.time()
-                self._device_fed()
-                res = self._run_step(state, _snapshot(active, self.device))
-                state = res.state
-                self._harvest(res, active.copy(), list(slots), t_step)
-                for si in np.where(active)[0]:
-                    if slots[si].done:
-                        self._vacate(si, slots, active)
-            elif self._prefills:
-                continue       # prefill-only interval: keep pumping chunks
-            elif pending and not joined:
-                raise RuntimeError(
-                    "pool deadlock: no active slots and the queue head "
-                    "cannot be admitted: the block pool is too small for "
-                    "this request stream")
+        try:
+            self._serve_loop(pending, max_batch, slots, active, state)
+        finally:
+            # reap the feeder on every exit, a deadlock raise or a relayed
+            # source exception included
+            self._stop_feeder()
         self.stats.wall_s += time.time() - t0
         self._post_serve()
         return self.stats
 
-    def _join_free_slots(self, state, slots, active, pending):
+    def _serve_loop(self, pending, max_batch, slots, active, state) -> None:
+        while True:
+            self._poll_source(pending, max_batch)
+            if (not pending and not active.any() and not self._inflight
+                    and not self._prefills and self._src_done):
+                break
+
+            # harvest first where a fresh read buys better scheduling than
+            # one step of overlap is worth
+            while self._inflight and self._harvest_first(pending):
+                self._harvest(self._inflight.popleft())
+
+            # refill free slots before the next step (strict FIFO).  Joins
+            # and chunks are dispatched behind the step in flight; a
+            # join's first token is read at harvest, one step behind
+            joins = []
+            if self.prefill_chunk:
+                state, progressed = self._advance_prefills(
+                    state, slots, active, pending, joins)
+            else:
+                state, progressed = self._join_free_slots(
+                    state, slots, active, pending, joins)
+            # paged: grow block tables for the coming step, preempting the
+            # most recently joined slots back into `pending` on exhaustion
+            state = self._before_step(state, slots, active, pending)
+            # a join preempted before its step dispatched was read and
+            # requeued by _preempt; drop it from this step's record
+            joins = [(si, r, tok) for si, r, tok in joins
+                     if self._live_joins.get(si, (None,))[0] is r]
+
+            if active.any():
+                t_step = time.time()
+                self._device_fed()
+                out = HostRead(*self._run_step(state, active))
+                self._inflight.append(_StepRecord(
+                    out, active.copy(), list(slots), joins, max_batch,
+                    t_step))
+                self.stats.steps_in_flight = max(self.stats.steps_in_flight,
+                                                 len(self._inflight))
+                # harvest step k only once step k+1 is in the lane
+                # (inflight=1: at once, the synchronous loop)
+                while len(self._inflight) >= self.inflight:
+                    self._harvest(self._inflight.popleft())
+            elif self._inflight:
+                # nothing to dispatch: drain the window; a harvested
+                # finish frees slots/blocks and may unblock admission
+                self._harvest(self._inflight.popleft())
+            elif self._prefills or (pending and progressed):
+                continue       # prefill-only interval: keep pumping chunks
+            elif pending:
+                raise RuntimeError(
+                    "pool deadlock: no active slots and the queue head "
+                    "cannot be admitted: the block pool is too small for "
+                    "this request stream")
+            else:
+                time.sleep(2e-4)       # idle: waiting on a live source
+                self._starve_t0 = time.time()   # no traffic is no stall
+
+    def _join_free_slots(self, state, slots, active, pending, joins: list):
         """Whole-prompt joins of queue heads into free slots, each first
-        token read back at once.  Returns (state, whether any joined)."""
+        token registered for a read one step later.  Returns (state,
+        whether any joined)."""
         joined = False
         for si in range(len(slots)):
             if active[si] or not pending:
@@ -561,11 +849,56 @@ class SpeculativeEngine:
             self._device_fed()
             state = self._join(state, si, r)
             joined = True
-            slots[si] = r
-            active[si] = True
-            if self._absorb_first_token(r, self._read(state.last_token[si])):
-                self._vacate(si, slots, active)
+            self._register_join(si, r, state, active, joins)
         return state, joined
+
+    def _register_join(self, si: int, r: Request, state, active,
+                       joins: list) -> None:
+        """Activate slot ``si`` for ``r`` after its join (or final chunk)
+        and copy the first token it installed toward the host, to be read
+        at the harvest of the step dispatched next."""
+        self._slots[si] = r
+        active[si] = True
+        tok = HostRead(state.last_token[si:si + 1])
+        self._live_joins[si] = (r, tok)
+        joins.append((si, r, tok))
+
+    def _harvest_first(self, pending: deque) -> bool:
+        """Should the loop read an in-flight step BEFORE dispatching?
+
+        Running ahead schedules on stale state: a request that finished
+        inside the window rides a zombie step and its replacement joins a
+        step late.  Harvesting first gives that back exactly where fresh
+        state is worth more than one step of overlap:
+
+          * a queued request could join now (a free slot, an admittable
+            head): join and dispatch without blocking (False);
+          * a queue but nothing joinable: harvest if ANY active row may
+            have finished inside the window (its output plus the window's
+            most commits reaches its budget), freeing a slot/blocks;
+          * an empty queue (the tail): harvest only when EVERY row may be
+            done, so no step runs that nobody needs.
+
+        Scheduling only: outputs are the same either way.  EOS is not
+        predicted.  With ``inflight=1`` the window is always empty here.
+        """
+        rows = np.where(self._active)[0]
+        if rows.size == 0:
+            return False
+        me = self._max_emit
+        possibly_done = []
+        for si in rows:
+            r = self._slots[si]
+            k = sum(1 for rec in self._inflight
+                    if rec.active[si] and rec.slots[si] is r)
+            possibly_done.append(len(r.output) + k * me >= r.max_new_tokens)
+        if pending:
+            if not self._active.all() and self._admit(pending[0]):
+                return False
+            return any(possibly_done)
+        return all(possibly_done)
+
+    # -- harvest (one step behind the dispatch frontier) ---------------------
 
     def _device_fed(self) -> None:
         """Close an open starvation window: device work starts now."""
@@ -574,7 +907,8 @@ class SpeculativeEngine:
             self._starve_t0 = None
 
     def _read(self, t: torch.Tensor) -> np.ndarray:
-        """Blocking device-to-host read; opens a starvation window."""
+        """Blocking device-to-host read (the bucketed engine's); opens a
+        starvation window."""
         t0 = time.time()
         out = t.cpu().numpy()
         self._starve_t0 = time.time()
@@ -586,35 +920,82 @@ class SpeculativeEngine:
         active[si] = False
         self._release(si)
 
-    def _harvest(self, res, active: np.ndarray, slots, t_step: float) -> None:
-        """Read one step's emissions and apply them to the requests it ran
-        over (budget clamp, EOS cut, finish)."""
-        emitted = self._read(res.emitted)
-        n_em = self._read(res.n_emitted)
-        self.stats.step_s.append(time.time() - t_step)
-        for si in np.where(active)[0]:
-            r = slots[si]
-            self._advance(si, int(n_em[si]))
-            appended = 0
-            for t in emitted[si][:n_em[si]]:
-                # tokens past max_new_tokens are dropped even when
-                # accepted mid-step
-                if len(r.output) >= r.max_new_tokens:
-                    break
-                r.output.append(int(t))
-                appended += 1
-                if r.eos_token is not None and t == r.eos_token:
-                    r.done = True
-                    break
-            self.stats.tokens += appended
-            if appended:
-                self._note_emission(r, appended)
-            if r.done or len(r.output) >= r.max_new_tokens:
-                self._finish(r)
+    def _harvest(self, rec: _StepRecord) -> None:
+        """Read one dispatched step's emissions and apply them to the
+        requests it ran over (as recorded in ``rec``: host scheduling has
+        moved on since).  The loop's only wait on the device, but for a
+        preemption's."""
+        t0 = time.time()
+        emitted, n_em = rec.out.get()      # waits for the step (and the
+        t1 = time.time()                   # joins dispatched before it)
+        self.stats.read_wait_s += t1 - t0
+        self.stats.step_s.append(t1 - rec.t_dispatch)
+        if not self._inflight and self._starve_t0 is None:
+            # the window drained: host work from here to the next
+            # dispatch runs beside an idle device
+            self._starve_t0 = t1
+
+        # first tokens of the joins dispatched just before this step (it
+        # is done, so these reads do not wait)
+        for si, r, tok in rec.joins:
+            ent = self._live_joins.get(si)
+            if ent is None or ent[0] is not r:
+                continue                # read early by a preemption
+            del self._live_joins[si]
+            self._absorb_first_token(r, tok.get()[0][0])
+
+        live = 0
+        for si in np.where(rec.active)[0]:
+            r = rec.slots[si]
+            if not r.done:
+                live += 1
+                if self._slots[si] is r:   # still owns the slot (it may
+                    self._advance(si, int(n_em[si]))   # have been preempted)
+                appended = 0
+                for t in emitted[si][:n_em[si]]:
+                    # tokens past max_new_tokens are dropped even when
+                    # accepted mid-step
+                    if len(r.output) >= r.max_new_tokens:
+                        break
+                    r.output.append(int(t))
+                    appended += 1
+                    if r.eos_token is not None and t == r.eos_token:
+                        r.done = True
+                        break
+                self.stats.tokens += appended
+                if appended:
+                    self._note_emission(r, appended)
+                if r.done or len(r.output) >= r.max_new_tokens:
+                    self._finish(r)
+            # else: a zombie row, finished before this already dispatched
+            # step was harvested; its emissions are dropped
+            if r.done and self._slots[si] is r:
+                self._vacate(si, self._slots, self._active)
         self.stats.steps += 1
-        self.stats.accept_lengths.append(float(n_em[active].mean()))
-        self.stats.active_slot_steps += int(active.sum())
-        self.stats.capacity_slot_steps += len(active)
+        if rec.active.any():
+            self.stats.accept_lengths.append(float(n_em[rec.active].mean()))
+        self.stats.active_slot_steps += live
+        self.stats.capacity_slot_steps += rec.max_batch
+
+    def _flush_join(self, si: int) -> None:
+        """Read a join's first token before its step is harvested: taken
+        only when a just-joined slot is preempted, so the requeued request
+        re-prefills with its first token (and only once)."""
+        ent = self._live_joins.pop(si, None)
+        if ent is None:
+            return
+        r, tok = ent
+        t0 = time.time()
+        tok0 = tok.get()[0][0]
+        self.stats.read_wait_s += time.time() - t0
+        self._absorb_first_token(r, tok0)
+
+    def _drain_slot(self, si: int, r: Request) -> None:
+        """Harvest every in-flight step in which slot ``si`` ran ``r``, so
+        ``r.output`` is complete before a preemption requeues it."""
+        while any(rec.active[si] and rec.slots[si] is r
+                  for rec in self._inflight):
+            self._harvest(self._inflight.popleft())
 
     def _note_emission(self, r: Request, appended: int) -> None:
         now = time.time()
@@ -623,10 +1004,10 @@ class SpeculativeEngine:
             self.stats.itl_s.extend([gap] * appended)
         r.t_last_emit = now
 
-    def _absorb_first_token(self, r: Request, tok0) -> bool:
-        """Append a join's first token; True if that finished the request
-        outright (budget 1 or EOS at t=0).  A resumed request keeps its
-        original first-token time."""
+    def _absorb_first_token(self, r: Request, tok0) -> None:
+        """Append a join's first token, finishing the request if that was
+        its budget (1) or its EOS.  A resumed request keeps its original
+        first-token time."""
         now = time.time()
         if r.t_first_token is None:
             r.t_first_token = now
@@ -638,13 +1019,21 @@ class SpeculativeEngine:
         if (len(r.output) >= r.max_new_tokens or
                 (r.eos_token is not None and tok0 == r.eos_token)):
             self._finish(r)
-            return True
-        return False
 
     def _finish(self, r: Request) -> None:
         r.done = True
         r.t_done = time.time()
         self.stats.request_latency_s.append(r.latency_s)
+
+
+def _tensors(state):
+    """Every tensor of a pool state (caches and per-slot rows)."""
+    for x in state:
+        if isinstance(x, torch.Tensor):
+            yield x
+        elif isinstance(x, (list, tuple)):
+            for group in x:
+                yield from group.values()
 
 
 class PagedSpeculativeEngine(SpeculativeEngine):
@@ -681,8 +1070,7 @@ class PagedSpeculativeEngine(SpeculativeEngine):
         self.blocks_per_slot = -(-self.max_len // self.block_size)   # M
         self.num_blocks = num_blocks   # None => dense-equivalent
 
-    def _run_step(self, state, active):
-        table = _snapshot(self._tables, self.device)
+    def _step(self, state, active, table=None):
         if self.use_speculative:
             return paged_spec_decode_step(self.params, self.draft_params,
                                           self.cfg, self.tree, state, table,
@@ -690,10 +1078,13 @@ class PagedSpeculativeEngine(SpeculativeEngine):
         return paged_autoregressive_step(self.params, self.cfg, state, table,
                                          active=active)
 
+    def _table(self) -> np.ndarray:
+        return self._tables
+
     def _join(self, state, slot: int, r: Request):
         padded, n = self._padded_context(r)
         got = self._alloc.alloc(self._alloc.blocks_for(
-            max(len(padded), n + self._scratch)))
+            max(len(padded), n + self._scratch + self._stale_allowance)))
         if got is None:
             raise RuntimeError("join without free blocks: _admit must have "
                                "checked the free list")
@@ -704,9 +1095,8 @@ class PagedSpeculativeEngine(SpeculativeEngine):
         self._seq += 1
         self._join_seq[slot] = self._seq
         return paged_join_slot(self.params, self.draft_params, self.cfg,
-                               state, torch.tensor(padded, device=self.device),
-                               n, slot, _snapshot(self._tables[slot],
-                                                  self.device))
+                               state, snapshot(padded, self.device), n, slot,
+                               snapshot(self._tables[slot], self.device))
 
     # -- chunked prefill over the pool (DESIGN.md §8) -------------------------
 
@@ -716,8 +1106,8 @@ class PagedSpeculativeEngine(SpeculativeEngine):
         view_blocks = min(-(-view // self.block_size), self.blocks_per_slot)
         return paged_join_slot_chunk(
             self.params, self.draft_params, self.cfg, state,
-            torch.tensor(chunk, device=self.device), start, real_len, si,
-            _snapshot(self._tables[si], self.device), final=final,
+            snapshot(chunk, self.device), start, real_len, si,
+            snapshot(self._tables[si], self.device), final=final,
             view_blocks=view_blocks)
 
     def _admit_prefill(self, r: Request) -> bool:
@@ -725,7 +1115,9 @@ class PagedSpeculativeEngine(SpeculativeEngine):
         real-token blocks must be free (plus the one growth block of
         headroom per joined slot); later chunks allocate as they
         dispatch, so a long prompt need not find its whole footprint at
-        once to start prefilling."""
+        once to start prefilling.  No stale allowance: a prefilling slot
+        runs in no step; its growth before its first step is
+        ``_before_step``'s, which budgets it."""
         n = len(r.prompt) + len(r.output)
         need = self._alloc.blocks_for(min(self.prefill_chunk, n))
         headroom = sum(1 for o in self._owned if o)
@@ -775,14 +1167,16 @@ class PagedSpeculativeEngine(SpeculativeEngine):
         # every group streams the pool through a paged kernel (K1 or K4),
         # so the step's transient is just its scratch writes
         st.step_transient_tokens = max_batch * self._scratch
-        return init_paged_state(self.params, self.draft_params, self.cfg,
-                                max_batch, nb, self.block_size, self.device)
+        return self._device_pool(max_batch, lambda: init_paged_state(
+            self.params, self.draft_params, self.cfg, max_batch, nb,
+            self.block_size, self.device))
 
     def _check_capacity(self, r: Request) -> None:
         # worst-case lifetime coverage: the (padded) resumed context can
-        # reach prompt+budget tokens, plus one verify-scratch region
+        # reach prompt+budget tokens, plus one verify-scratch region, plus
+        # the async staleness growth budgets per step
         worst = (self._pad_len(len(r.prompt) + r.max_new_tokens)
-                 + self._scratch)
+                 + self._scratch + self._stale_allowance)
         view_len = self.blocks_per_slot * self.block_size
         if worst > view_len:
             raise ValueError(
@@ -799,8 +1193,8 @@ class PagedSpeculativeEngine(SpeculativeEngine):
 
     def _admit(self, r: Request) -> bool:
         n = len(r.prompt) + len(r.output)
-        need = self._alloc.blocks_for(max(self._pad_len(n),
-                                          n + self._scratch))
+        need = self._alloc.blocks_for(
+            max(self._pad_len(n), n + self._scratch + self._stale_allowance))
         # headroom: one growth block per already-joined slot, so admitting
         # this request does not immediately force a preemption (which
         # would thrash: evict, readmit, re-prefill, evict ...)
@@ -809,12 +1203,18 @@ class PagedSpeculativeEngine(SpeculativeEngine):
 
     def _before_step(self, state, slots, active, pending):
         """Grow every active slot's table to cover the coming step's
-        scratch region; preempt newest-first when the pool runs dry."""
+        scratch region, plus the stale allowance (``_slot_len`` lags the
+        device by the commits of the steps in flight); preempt
+        newest-first when the pool runs dry."""
         order = sorted(np.where(active)[0], key=lambda s: self._join_seq[s])
         for si in order:
-            while active[si]:   # a preemption below may evict si itself
+            # re-checked every round: a preemption below may evict si, or
+            # its drain may harvest si's finish and release it (growing a
+            # released slot would orphan the blocks)
+            while active[si]:
                 need = (self._alloc.blocks_for(
-                    int(self._slot_len[si]) + self._scratch)
+                    int(self._slot_len[si]) + self._scratch
+                    + self._stale_allowance)
                     - len(self._owned[si]))
                 if need <= 0:
                     break
@@ -838,13 +1238,27 @@ class PagedSpeculativeEngine(SpeculativeEngine):
     def _preempt(self, si: int, slots, active, pending) -> None:
         """Evict slot ``si``: free its blocks and requeue its request at
         the front, to be re-prefilled from prompt + output so far.  A slot
-        evicted mid-prefill never ran a step; its resume restarts from
-        chunk 0."""
+        evicted mid-prefill never ran a step and has no first token
+        pending; its resume restarts from chunk 0.  An active victim's
+        output must be complete first: its join token is read if still
+        pending (``_flush_join``) and every step in flight that ran it is
+        harvested (``_drain_slot``), the async loop's only other waits."""
         r = slots[si]
-        self._prefills.pop(si, None)
+        if self._prefills.pop(si, None) is not None:
+            self._vacate(si, slots, active)
+            pending.appendleft(r)
+            self.stats.preemptions += 1
+            return
+        self._flush_join(si)
+        self._drain_slot(si, r)
+        if slots[si] is not r:
+            # the drain found the request finished and released the slot
+            active[si] = False
+            return
         self._vacate(si, slots, active)
-        pending.appendleft(r)           # resume ASAP, FIFO preserved
-        self.stats.preemptions += 1
+        if not r.done:
+            pending.appendleft(r)       # resume ASAP, FIFO preserved
+            self.stats.preemptions += 1
 
     def _advance(self, slot: int, n_tokens: int) -> None:
         self._slot_len[slot] += n_tokens    # host mirror of cache_len
@@ -874,7 +1288,8 @@ class BucketedEngine(SpeculativeEngine):
                  max_len: int = 2048, use_speculative: bool = True,
                  device="cuda"):
         super().__init__(params, draft_params, cfg, tree, max_len=max_len,
-                         use_speculative=use_speculative, device=device)
+                         use_speculative=use_speculative, inflight=1,
+                         capture_step=False, device=device)
 
     @staticmethod
     def bucket(requests: List[Request], max_batch: int):
@@ -905,7 +1320,7 @@ class BucketedEngine(SpeculativeEngine):
                                  f"max_len={self.max_len}")
         if warmup and batches:  # one prefill and step, outside the clock
             b0 = batches[0]
-            res = self._run_step(self._prefill(np.zeros(
+            res = self._step(self._prefill(np.zeros(
                 (len(b0), len(b0[0].prompt)), np.int64)), None)
             res.n_emitted.cpu()
             self.stats.warmup_steps += 1
@@ -929,7 +1344,7 @@ class BucketedEngine(SpeculativeEngine):
         while produced < budget and not all(r.done for r in batch):
             t_step = time.time()
             self._device_fed()
-            res = self._run_step(state, None)
+            res = self._step(state, None)
             state = res.state
             emitted = self._read(res.emitted)
             n_em = self._read(res.n_emitted)

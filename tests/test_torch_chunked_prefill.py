@@ -425,16 +425,19 @@ def test_prefill_budget_multiple_chunks_per_step(minitron, serial):
 
 @pytest.mark.parametrize("paged", [False, True])
 def test_request_done_at_its_first_token(minitron, serial, paged):
-    """A request that its final chunk finishes outright (budget 1) leaves
-    no slot live while the next one waits for the next iteration's
-    budget: the loop goes on (it is no pool deadlock)."""
+    """A request that its final chunk finishes outright (budget 1): its
+    first token is read one step later, as the JAX engine reads it, so
+    each request rides one step as a zombie row that emits nothing, and
+    the next one waits for the next iteration's budget: the loop goes on
+    (it is no pool deadlock)."""
     _, cfg, _, _, params, dp, tree = minitron
     refs = [(p, 1, ref[:1]) for p, _, ref in serial[:3]]
     kw = dict(max_len=MAX_LEN, prefill_chunk=32, device="cpu")
     eng = (PagedSpeculativeEngine(params, dp, cfg, tree, block_size=BS, **kw)
            if paged else SpeculativeEngine(params, dp, cfg, tree, **kw))
     stats = _serve(eng, refs, max_batch=1)
-    assert stats.steps == 0 and stats.prefill_chunks == 3
+    assert stats.steps == 3 and stats.tokens == 0
+    assert stats.prefill_chunks == 3
 
 
 def test_ttft_and_itl_stats_populated(minitron, serial):

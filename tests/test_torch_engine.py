@@ -236,9 +236,12 @@ def test_paged_engine_matches_serial_generate(serial, num_blocks):
     """Dense-equivalent pool, and an oversubscribed one that must queue
     and preempt; every request still completes byte-exactly."""
     cfg, params, dp, tree, refs = serial
+    # the synchronous loop: under inflight=2 admission budgets the
+    # stale allowance and this pool queues without preempting
+    # (tests/test_torch_engine_async.py preempts under the async loop)
     eng = PagedSpeculativeEngine(params, dp, cfg, tree, max_len=MAX_LEN,
                                  block_size=BS, num_blocks=num_blocks,
-                                 device="cpu")
+                                 inflight=1, device="cpu")
     reqs = _requests(refs)
     stats = eng.serve(reqs, max_batch=4)
     for r, (_, _, ref) in zip(reqs, refs):

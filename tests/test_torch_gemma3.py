@@ -305,9 +305,12 @@ def test_paged_engine_matches_dense_generate(serial, num_blocks):
     ``generate()`` (and so the port's) exactly."""
     cfg, params, dp, tree, refs = serial
     reqs = [Request(prompt=p.copy(), max_new_tokens=b) for p, b, _ in refs]
+    # the synchronous loop: under inflight=2 admission budgets the
+    # stale allowance and this pool queues without preempting
+    # (tests/test_torch_engine_async.py preempts under the async loop)
     eng = PagedSpeculativeEngine(params, dp, cfg, tree, max_len=MAX_LEN,
                                  block_size=BS, num_blocks=num_blocks,
-                                 device="cpu")
+                                 inflight=1, device="cpu")
     stats = eng.serve(reqs, max_batch=4)
     for r, (_, budget, ref) in zip(reqs, refs):
         assert r.done and r.output == ref and len(r.output) == budget
