@@ -17,7 +17,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    are each found in the report and show no spill; then fail unless
    ``cuobjdump -sass`` finds tensor-core instructions (``HMMA`` or
    ``HGMMA``) in every bf16 build of K3, of the tree-verify split
-   kernel, of K5's split sweep and of K6's two kernels;
+   kernel, of K5's split sweep and of K6's two kernels (the models past
+   64 query rows per kv head add no instantiation: row groups are a grid
+   axis of the D=128 builds);
 3. hold each kernel against its plain PyTorch version on the card, fp32
    with TF32 off (atol = rtol = 1e-4) and bf16 (atol = rtol = 2e-2), and
    time the kernel, its plain version and ``scaled_dot_product_attention``
@@ -82,6 +84,21 @@ Phases, each of which raises on failure (exit code != 0, no result line):
       dense cache with a boolean mask as the yardstick;
    h. K1 at deepseek-v2-lite's prefix-layer shapes (B=4, 16 q over 16 kv
       heads, D=128, T=5, lens 0/37/700/1500), timed;
+   i. the tree-verify kernel past 64 query rows per kv head: K1 and K2 at
+      starcoder2-7b (36 q over 4 kv heads: 144 rows at T=16, three row
+      groups), qwen2.5-32b (40 over 8: 80) and chameleon-34b (64 over 8:
+      128) head shapes, D=128, B=4, T=16, lens 0/37/700/1500 (NULL holes
+      for K1, dense S=1536 for K2), fp32 and bf16 against their plain
+      versions; block 0 (K1) or every position at or past ``cache_len``
+      (K2) poisoned with 0, +-1e4, NaN and inf (bitwise equal); the split
+      forced to one split, the planner's and 16, two identical calls
+      bitwise equal; the first 4 query heads of each kv head out of the
+      full call bitwise equal to a call on those heads alone at the same
+      split (row groups share nothing); bf16 timed beside its bound with
+      the keys read once (and, printed beside it, once per row group, as
+      the kernel reads them) and SDPA; and in bf16 at the split of each
+      of the planner's two candidate rules (a split column of B*Hkv
+      blocks, or of B*Hkv times the row groups), both timed;
 4. tiny fp32 parity: ``minitron-4b.reduced()``, a reduced gemma3-1b
    whose 16-token window binds, ``deepseek-v2-lite-16b.reduced()`` and
    ``rwkv6-1.6b.reduced()``, Hydra++ served through the paged engine
@@ -90,7 +107,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    the window-0 GQA layers: so paged == dense holds K1 against K2); and
    so do the same paged engines with chunked prefill at chunk 8 and 16
    (every K3 call in its chunk form; rwkv6's chunk snapped to its scan's
-   16);
+   16); then the head-preserving narrow forms of starcoder2-7b,
+   qwen2.5-32b, chameleon-34b and deepseek-moe-16b (``configs.
+   head_preserving``: the published head counts, 2 layers, d_model 256,
+   head_dim 64; 144, 80, 128 and 16 query rows per kv head), paged engine
+   == dense ``generate()``, whole prompts and in chunks of 8;
 5. full width, bf16, random weights drawn on the card from a seeded
    ``torch.Generator``; for each model one verify step paged against
    dense from the same prefill (prefill through K3, then through K3's
@@ -130,6 +151,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      logit difference 1e-4 and every argmax; bf16 at 2 layers: 0.01 and
      14 of 16; each must fail a K5 whose output is 1% off) and printed
      as a reading at full depth;
+   - the rest of the attention registry, one model at a time, each at
+     full width and full depth with gemma3-1b's traffic, its weights,
+     draft heads and fp32 unembedding printed: starcoder2-7b (33 K1
+     launches per decode step, at 144 rows per kv head, and 33 K3 per
+     prefill), qwen2.5-32b (QKV bias; 65 and 65, 80 rows), chameleon-34b
+     (token ids; 49 and 49, 128 rows; ~75 GB of weights), each with the
+     paged-vs-dense verify check (K2 at the same rows on every layer);
+     deepseek-moe-16b (GQA under the DeepSeek MoE; 29 and 29) held as
+     deepseek-v2-lite is, a K1 1% off the planted fault;
 5b. chunked prefill at full width through the paged engine (chunk 256, a
    budget of one chunk a step), phase 5's requests, against phase 5's
    whole-prompt joins (streams token-identical printed, with both runs'
@@ -165,12 +195,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    time, tok/s, TTFT, p99 ITL, ``host_stall_s`` and ``read_wait_s`` per
    turn, and the device's idle share under the graph (a traced serve's
    device time over its wall time) printed beside the card's name and
-   power limit.  Phases 4, 5 and 5b serve through the engines' defaults
+   power limit; the four models of the rest of the registry in two
+   modes, the synchronous eager loop and the default, one turn each, with
+   the peak memory of the phase.  Phases 4, 5 and 5b serve through the
+   engines' defaults
    (``inflight=2``, the step captured): the decode step's launches are
    counted at its capture and its eager warm-up, its replays by the
    capture;
 7. a JSON line with each kernel's numbers (K3's chunk form as its own
-   entry, ``flash_attention_chunk``), then the result line.
+   entry, ``flash_attention_chunk``; K1 and K2 at each model past 64 rows
+   per kv head as entries of their own, ``tree_attention_paged@<arch>``,
+   with the launches of that model's phase 5 and the bound with keys read
+   once per row group beside ``bound_ms``), then the result line.
+   ``[time]`` lines give each phase's seconds.
 
 The script stands alone: it puts ``src/`` on ``sys.path`` itself, and it
 fails (without a result line) where CUDA is missing or the package is not
@@ -466,11 +503,12 @@ def poison_behind_window(args, window: int, fill: float):
 
 
 def paged_bound(c: PagedCase, T: int, dtype_name: str, table,
-                window: int = 0) -> tuple:
+                window: int = 0, reads: int = 1) -> tuple:
     """Least time for one call: the cache positions this run's data needs
     (below cache_len, in a real block and, with a window, within reach of
-    the root row at cache_len), each read once, plus q, tree K/V and the
-    output, against the operations on those keys."""
+    the root row at cache_len), each read once (``reads`` times: once per
+    row group, what the kernel does past 64 rows), plus q, tree K/V and
+    the output, against the operations on those keys."""
     elt = 2 if dtype_name != "float32" else 4
     tbl = table.cpu()
     keys = []
@@ -479,7 +517,7 @@ def paged_bound(c: PagedCase, T: int, dtype_name: str, table,
         keys.append(sum(1 for p in range(lo, n)
                         if int(tbl[b, p // c.bs]) != 0))
     B = len(c.lens)
-    kv_bytes = sum(keys) * c.hkv * c.d * 2 * elt
+    kv_bytes = sum(keys) * c.hkv * c.d * 2 * elt * reads
     io_bytes = (2 * B * T * c.hq * c.d + 2 * B * T * c.hkv * c.d) * elt
     small = B * c.m * 4 + B * 4 + T * T + (B * T * 4 if window else 0)
     flops = sum(4 * c.hq * T * c.d * (k + T) for k in keys)
@@ -627,6 +665,19 @@ def check_k4(c: PagedCase = GEMMA3) -> dict:
     return record
 
 
+def _forced_splits(run, ref, cap: int, planned: int, tol: float,
+                   what: str) -> list:
+    """``run(split_len)`` at one split over ``cap`` positions, the
+    planner's and 16 against ``ref``, two identical calls bitwise equal at
+    each; returns the three errors."""
+    errs = []
+    for n in (-(-cap // 16) * 16, planned, 16):
+        outs = [run(n), run(n)]
+        assert_bitwise(outs, f"{what} split {n}: two identical calls")
+        errs.append(compare(outs[0], ref, tol, f"{what} split {n}"))
+    return errs
+
+
 def check_splits() -> None:
     """The tree-verify kernel with its split forced to one split over the
     capacity, to the planner's and to 16: K1 at minitron-4b heads, K4 at
@@ -665,13 +716,8 @@ def check_splits() -> None:
                                                       seed=9))),
         )
         for what, cap, planned, run, ref in cases:
-            errs = []
-            for n in (-(-cap // 16) * 16, planned, 16):
-                outs = [run(n), run(n)]
-                assert_bitwise(outs, f"{what} {dtype_name} split {n}: two "
-                                     "identical calls")
-                errs.append(compare(outs[0], ref, tol,
-                                    f"{what} {dtype_name} split {n}"))
+            errs = _forced_splits(run, ref, cap, planned, tol,
+                                  f"{what} {dtype_name}")
             log(f"[split] {what} {dtype_name}: splits (capacity, planner "
                 f"{planned}, 16) max_abs_err "
                 + " / ".join(f"{e:.3e}" for e in errs)
@@ -1308,13 +1354,14 @@ def dense_inputs(c: DenseCase, T: int, dtype, seed: int,
             torch.as_tensor(tree.ancestor_mask, device="cuda"), lens)
 
 
-def dense_bound(c: DenseCase, T: int, dtype_name: str) -> tuple:
+def dense_bound(c: DenseCase, T: int, dtype_name: str,
+                reads: int = 1) -> tuple:
     """Least time for one K2 call: each slot's keys below cache_len read
-    once, plus q, the tree K/V and the output, against the operations on
-    those keys and the tree."""
+    once (``reads`` times: once per row group), plus q, the tree K/V and
+    the output, against the operations on those keys and the tree."""
     elt = 2 if dtype_name != "float32" else 4
     B = len(c.lens)
-    kv_bytes = sum(c.lens) * c.hkv * c.d * 2 * elt
+    kv_bytes = sum(c.lens) * c.hkv * c.d * 2 * elt * reads
     io_bytes = (2 * B * T * c.hq * c.d + 2 * B * T * c.hkv * c.d) * elt
     flops = sum(4 * c.hq * T * c.d * (n + T) for n in c.lens)
     return bound(kv_bytes + io_bytes + B * 4 + T * T, flops, dtype_name)
@@ -1346,7 +1393,6 @@ def check_k2() -> dict:
     verify mask), bitwise invariance under poison at or past cache_len,
     then kernel, plain and SDPA times."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.tree_attention import dense_ops
     from repro_torch.kernels.tree_attention.kernel import (
         tree_attention_dense_plain)
@@ -1365,36 +1411,45 @@ def check_k2() -> dict:
                 # it is held on the unpoisoned (zero) operands
                 err = compare(outs[0], tree_attention_dense_plain(
                     *dense_inputs(c, T, dtype, seed=T)), tol, what)
-                sets = [dense_inputs(c, T, dtype, seed=100 + i)
-                        for i in range(32)]
-                pick = cycle(sets)
-                ms = device_ms(
-                    lambda: dense_ops.tree_attention_bshd(*pick()))
-                call_ms = time_ms(
-                    lambda: dense_ops.tree_attention_bshd(*pick()))
-                plain_ms = time_ms(
-                    lambda: tree_attention_dense_plain(*pick()), iters=5)
-                sd = cycle([dense_sdpa_args(c, a) for a in sets[:8]])
-
-                def sdpa():
-                    q, k, v, mask = sd()
-                    return F.scaled_dot_product_attention(
-                        q, k, v, attn_mask=mask, enable_gqa=True)
-
-                lib_ms = device_ms(sdpa)
-                bound_ms, bound_by = dense_bound(c, T, dtype_name)
-                rec = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
-                           plain_ms=plain_ms, library_ms=lib_ms,
-                           bound_ms=bound_ms, bound_by=bound_by)
+                rec = dict(max_abs_err=err,
+                           **_time_dense(c, T, dtype, dtype_name))
                 record[(tag, dtype_name, T)] = rec
                 log(f"[k2] {tag} D={c.d} {dtype_name} T={T}: "
-                    f"max_abs_err={err:.3e} kernel={ms * 1e3:.1f}us "
-                    f"(call {call_ms * 1e3:.1f}us) "
-                    f"bound={bound_ms * 1e3:.2f}us ({bound_by}) "
-                    f"plain={plain_ms * 1e3:.1f}us "
-                    f"sdpa={lib_ms * 1e3:.1f}us")
+                    f"max_abs_err={err:.3e} kernel={rec['ms'] * 1e3:.1f}us "
+                    f"(call {rec['call_ms'] * 1e3:.1f}us) "
+                    f"bound={rec['bound_ms'] * 1e3:.2f}us "
+                    f"({rec['bound_by']}) "
+                    f"plain={rec['plain_ms'] * 1e3:.1f}us "
+                    f"sdpa={rec['library_ms'] * 1e3:.1f}us")
     log("[k2] poison at or past cache_len: bitwise equal")
     return record
+
+
+def _time_dense(c: DenseCase, T: int, dtype, dtype_name: str) -> dict:
+    """K2 (split sweep + merge) and SDPA device times, the plain version's
+    time and the wrapper call's time with its host work (``call_ms``),
+    over 32 operand sets, beside the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.tree_attention import dense_ops
+    from repro_torch.kernels.tree_attention.kernel import (
+        tree_attention_dense_plain)
+
+    sets = [dense_inputs(c, T, dtype, seed=100 + i) for i in range(32)]
+    pick = cycle(sets)
+    ms = device_ms(lambda: dense_ops.tree_attention_bshd(*pick()))
+    call_ms = time_ms(lambda: dense_ops.tree_attention_bshd(*pick()))
+    plain_ms = time_ms(lambda: tree_attention_dense_plain(*pick()), iters=5)
+    sd = cycle([dense_sdpa_args(c, a) for a in sets[:8]])
+
+    def sdpa():
+        q, k, v, mask = sd()
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              enable_gqa=True)
+
+    lib_ms = device_ms(sdpa)
+    bound_ms, bound_by = dense_bound(c, T, dtype_name)
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 # deepseek-v2-lite's Hydra++ prefix layer: GQA 16 over 16, D=128, T=5
@@ -1427,6 +1482,154 @@ def check_k1_prefix(c: PagedCase = DEEPSEEK_PREFIX, T: int = 5) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3i: the tree-verify kernel past 64 query rows per kv head
+# ---------------------------------------------------------------------------
+
+# the head groupings whose G*T rows at T = 16 take more than one row group
+# (starcoder2-7b 144, qwen2.5-32b 80, chameleon-34b 128), D = 128, at
+# gemma3-1b's contexts and holes
+ROW_HOLES = ((2, 20), (3, 70), (3, 0))
+ROW_CASES = {arch: PagedCase(hq, hkv, 128, (0, 37, 700, 1500), ROW_HOLES, 96)
+             for arch, hq, hkv in (("starcoder2-7b", 36, 4),
+                                   ("qwen2.5-32b", 40, 8),
+                                   ("chameleon-34b", 64, 8))}
+ROW_SUBSET = 4            # query heads per kv head of the head-subset call
+
+
+def check_head_subset(run, q, hkv: int, split_len: int, what: str) -> None:
+    """The first ``ROW_SUBSET`` query heads of each kv head (at T = 16 the
+    first row group) out of a full call ``run(q, split_len)`` equal, bit
+    for bit, a call on those heads alone at the same split: row groups
+    share nothing."""
+    B, T, Hq, D = q.shape
+    G = Hq // hkv
+    pick = lambda x: x.reshape(B, T, hkv, G, D)[:, :, :, :ROW_SUBSET] \
+        .reshape(B, T, hkv * ROW_SUBSET, D).contiguous()
+    assert_bitwise([pick(run(q, split_len)), run(pick(q), split_len)],
+                   f"{what}: the first {ROW_SUBSET} heads of each kv head "
+                   "against a call on them alone")
+
+
+def time_split_rules(c: PagedCase, dc: DenseCase, T: int,
+                     groups: int) -> dict:
+    """K1 and K2 in bf16 at the split of each of two rules, a split column
+    of B*Hkv blocks or of B*Hkv*groups (a row group counted as a block),
+    device times over 32 operand sets in turns (a, b, a, b); returns
+    {"K1"/"K2": {split_len: ms}} and prints both."""
+    import torch
+    from repro_torch.kernels.tree_attention import dense_ops, ops
+    from repro_torch.kernels.tree_attention.split import plan_split_len
+
+    B = len(c.lens)
+    splits = sorted({plan_split_len(B, c.hkv),
+                     plan_split_len(B, c.hkv * groups)})
+    psets = [paged_inputs(c, T, torch.bfloat16, seed=200 + i)[0]
+             for i in range(32)]
+    dsets = [dense_inputs(dc, T, torch.bfloat16, seed=200 + i)
+             for i in range(32)]
+    runs = {"K1": (cycle(psets), ops.tree_attention_paged_bshd),
+            "K2": (cycle(dsets), dense_ops.tree_attention_bshd)}
+    out = {}
+    for key, (pick, fn) in runs.items():
+        ms = {n: [] for n in splits}
+        for _ in range(2):
+            for n in splits:
+                ms[n].append(device_ms(lambda: fn(*pick(), split_len=n)))
+        out[key] = {n: sum(v) / len(v) for n, v in ms.items()}
+        log(f"[rows] {key} {c.hq}/{c.hkv} heads bfloat16 T={T} by split "
+            f"(B*Hkv {B * c.hkv}, row groups {groups}): " + ", ".join(
+                f"{n}: {t * 1e3:.2f}us" for n, t in out[key].items()))
+    return out
+
+
+def check_rows(T: int = 16) -> dict:
+    """K1 and K2 at ``ROW_CASES``'s head groupings, fp32 and bf16 against
+    their plain versions; poison (block 0 for K1, positions at or past
+    cache_len for K2) changes no bit; the split forced to one, the
+    planner's and 16, two identical calls bitwise equal; the head-subset
+    rows bitwise; then bf16 timed beside its bound (keys read once, and
+    once per row group, as the kernel reads them) and SDPA, and at the
+    split of each rule ``time_split_rules`` compares."""
+    import torch
+    from repro_torch.kernels.tree_attention import dense_ops, ops
+    from repro_torch.kernels.tree_attention.kernel import (
+        tree_attention_dense_plain, tree_attention_paged_plain)
+    from repro_torch.kernels.tree_attention.split import row_groups
+
+    record = {}
+    for arch, c in ROW_CASES.items():
+        rows = (c.hq // c.hkv) * T
+        groups = row_groups(rows)
+        dc = DenseCase(c.hq, c.hkv, c.d, c.lens, 1536)
+        for dtype_name, tol in TOLS:
+            dtype = getattr(torch, dtype_name)
+            what = f"K1 {arch} ({rows} rows) {dtype_name}"
+            outs = []
+            for poison in POISONS:
+                args, _ = paged_inputs(c, T, dtype, seed=T, poison=poison)
+                outs.append(ops.tree_attention_paged_bshd(*args))
+            assert_bitwise(outs, f"{what}: poisoned NULL block")
+            ref = tree_attention_paged_plain(*args)
+            planned = ops.planned_split_len(args[0], c.hkv)
+            err1 = max(compare(outs[0], ref, tol, what), *_forced_splits(
+                lambda n: ops.tree_attention_paged_bshd(*args, split_len=n),
+                ref, c.m * c.bs, planned, tol, what))
+            check_head_subset(
+                lambda q, n: ops.tree_attention_paged_bshd(q, *args[1:],
+                                                           split_len=n),
+                args[0], c.hkv, planned, what)
+            what2 = f"K2 {arch} ({rows} rows) {dtype_name}"
+            douts = [dense_ops.tree_attention_bshd(
+                *dense_inputs(dc, T, dtype, seed=T, poison=f))
+                for f in POISONS]
+            assert_bitwise(douts, f"{what2}: poison at or past cache_len")
+            # masked_attention multiplies masked weights by the values:
+            # it is held on the unpoisoned (zero) operands
+            dargs = dense_inputs(dc, T, dtype, seed=T)
+            dref = tree_attention_dense_plain(*dargs)
+            err2 = max(compare(douts[0], dref, tol, what2), *_forced_splits(
+                lambda n: dense_ops.tree_attention_bshd(*dargs, split_len=n),
+                dref, dc.s, planned, tol, what2))
+            check_head_subset(
+                lambda q, n: dense_ops.tree_attention_bshd(q, *dargs[1:],
+                                                           split_len=n),
+                dargs[0], c.hkv, planned, what2)
+            for key, err in (("K1", err1), ("K2", err2)):
+                record[(arch, key, dtype_name)] = dict(
+                    max_abs_err=err, rows=rows, groups=groups,
+                    split_len=planned)
+            log(f"[rows] {arch} {c.hq} q over {c.hkv} kv heads, {rows} rows "
+                f"({groups} row groups), {dtype_name} T={T}: K1 "
+                f"max_abs_err={err1:.3e}, K2 max_abs_err={err2:.3e}; "
+                f"poison, splits (capacity, planner {planned}, 16), two "
+                f"identical calls and the first {ROW_SUBSET} heads of each "
+                "kv head alone: bitwise")
+        table = paged_inputs(c, T, torch.bfloat16, seed=T)[0][-1]
+        timed = {
+            "K1": _time_paged(c, T, torch.bfloat16, "bfloat16",
+                              lambda *a: ops.tree_attention_paged_bshd(*a[0]),
+                              lambda *a: tree_attention_paged_plain(*a[0])),
+            "K2": _time_dense(dc, T, torch.bfloat16, "bfloat16")}
+        per_group = {"K1": paged_bound(c, T, "bfloat16", table,
+                                       reads=groups)[0],
+                     "K2": dense_bound(dc, T, "bfloat16", reads=groups)[0]}
+        split_ms = time_split_rules(c, dc, T, groups)
+        for key, rec in timed.items():
+            record[(arch, key, "bfloat16")].update(
+                rec, bound_per_group_ms=per_group[key],
+                split_ms=split_ms[key])
+            log(f"[rows] {key} {arch} bfloat16 T={T} ({rows} rows): "
+                f"kernel={rec['ms'] * 1e3:.1f}us "
+                f"(call {rec['call_ms'] * 1e3:.1f}us) "
+                f"bound={rec['bound_ms'] * 1e3:.2f}us ({rec['bound_by']}; "
+                f"keys once per row group: "
+                f"{per_group[key] * 1e3:.2f}us) "
+                f"plain={rec['plain_ms'] * 1e3:.1f}us "
+                f"sdpa={rec['library_ms'] * 1e3:.1f}us")
+    return record
+
+
+# ---------------------------------------------------------------------------
 # phase 4: tiny fp32 parity, paged engine (kernels) == dense generate()
 # ---------------------------------------------------------------------------
 
@@ -1441,7 +1644,7 @@ def kernel_counters():
 
 
 def check_tiny_parity(base, lens, budgets=(12, 14, 8, 10, 13, 9),
-                      num_blocks: int = 6) -> None:
+                      num_blocks: int = 6, chunks=(8, 16)) -> None:
     import numpy as np
     import torch
     from repro_torch.configs import tree_for
@@ -1516,7 +1719,7 @@ def check_tiny_parity(base, lens, budgets=(12, 14, 8, 10, 13, 9),
         k3 = counters["flash_attention"]
         prefill_kernel = ("linear_attn_chunk" if base.block_kind == "rwkv6"
                           else "flash_attention")
-        for chunk in (8, 16):
+        for chunk in chunks:
             for mod in counters.values():
                 mod.launches = 0
             k3.chunk_launches = 0
@@ -1609,13 +1812,14 @@ def _paged_vs_dense(paged, dense) -> tuple:
     return rel, agree, margins
 
 
-def check_full_verify(params, dp, cfg, P: int, S: int) -> None:
+def check_full_verify(params, dp, cfg, P: int, S: int) -> int:
     """One full-width verify forward, paged (K1/K4) against dense (K2 on
     the window-0 layers, plain windowed attention on the others), from the
     same prefill: first through K3 (the serving path, held to
     ``MIN_ARGMAX_AGREEMENT``), then through K3's plain version, logged
     only, which shows whether K3's cache moves the agreement.  The dense
-    forward must launch K2 once per window-0 layer."""
+    forward must launch K2 once per window-0 layer; returns the K2
+    launches of the first."""
     import torch
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_plain
@@ -1646,37 +1850,42 @@ def check_full_verify(params, dp, cfg, P: int, S: int) -> None:
         if prefill == "K3" and agree < MIN_ARGMAX_AGREEMENT:
             raise AssertionError(f"paged and dense verify argmax agree on "
                                  f"{agree:.3f} of the tree only")
+    return k2_expected
 
 
 # (dtype, layers, max relative logit difference, least argmax agreement)
 # of the depth-cut paged-vs-dense verify checks of an MoE model.  The bf16
-# bound sits between the clean reading (7.2e-3-7.3e-3) and what a K5 1%
-# off gives without a routing flip (1.4e-2), so the planted fault fails
-# it whether or not a flip amplifies it
+# bound sits between deepseek-v2-lite's clean reading (7.2e-3-7.3e-3) and
+# what a K5 1% off gives without a routing flip (1.4e-2), so the planted
+# fault fails it whether or not a flip amplifies it
 MOE_VERIFY_CHECKS = (("float32", 5, 1e-4, 1.0),
                      ("bfloat16", 2, 0.01, MIN_ARGMAX_AGREEMENT))
-# each check must also fail a K5 whose output is off by this factor
+# each check must also fail a paged kernel (K5 under MLA, K1 under GQA)
+# whose output is off by this factor
 K5_OFF = 0.99
 
 
 def check_moe_verify(arch: str, P: int, S: int) -> None:
-    """Paged (K5, K1) against dense verify of an MoE model at full width,
-    depth cut as ``MOE_VERIFY_CHECKS`` says.  Top-k routing with a
+    """Paged (K5 or K1) against dense verify of an MoE model at full
+    width, depth cut as ``MOE_VERIFY_CHECKS`` says.  Top-k routing with a
     capacity is discontinuous: a rounding difference of the attention
     output can flip an expert choice or which token overflows, and each
     layer adds such flips, so at full depth in bf16 the difference
-    outgrows what a wrong K5 gives at shallow depth.  At 2 layers (the
-    dense layer and one MoE layer) the bf16 serving path (bf16 latent
-    pools, bf16 K5) is held tightly; in fp32 at 5 layers the two paths
-    must agree to rounding.  Each check is run again with K5's output
-    scaled by ``K5_OFF`` and must then fail its bound."""
+    outgrows what a wrong kernel gives at shallow depth.  At 2 layers (the
+    dense layer and one MoE layer) the bf16 serving path (bf16 pools, the
+    bf16 kernel) is held tightly; in fp32 at 5 layers the two paths must
+    agree to rounding.  Each check is run again with the paged kernel's
+    output (K5 under MLA, K1 under GQA: deepseek-moe-16b) scaled by
+    ``K5_OFF`` and must then fail its bound."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.heads import init_draft_params
     from repro_torch.models import attention
     from repro_torch.models.model import init_params
 
-    k5 = attention.mla_attention_paged_bshd
+    name = ("mla_attention_paged_bshd" if get_config(arch).mla
+            else "tree_attention_paged_bshd")
+    kernel = getattr(attention, name)
     for dtype, n_layers, max_rel, min_agree in MOE_VERIFY_CHECKS:
         cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
                                   dtype=dtype)
@@ -1685,17 +1894,17 @@ def check_moe_verify(arch: str, P: int, S: int) -> None:
         paged, dense, _ = _verify_pair(params, dp, cfg, P, S)
         finite = bool(torch.isfinite(paged).all())
         rel, agree, margins = _paged_vs_dense(paged, dense)
-        attention.mla_attention_paged_bshd = \
-            lambda *a, **kw: k5(*a, **kw) * K5_OFF
+        setattr(attention, name,
+                lambda *a, **kw: kernel(*a, **kw) * K5_OFF)
         try:
             rel_off = _paged_vs_dense(
                 *_verify_pair(params, dp, cfg, P, S)[:2])[0]
         finally:
-            attention.mla_attention_paged_bshd = k5
+            setattr(attention, name, kernel)
         log(f"[full] {cfg.name} {dtype}, {n_layers} layers, verify paged vs "
             f"dense (prompt {P}): max rel logit diff={rel:.3e} argmax "
-            f"agreement={agree:.3f} margins={margins}; with K5's output "
-            f"x{K5_OFF}: {rel_off:.3e}")
+            f"agreement={agree:.3f} margins={margins}; with {name}'s "
+            f"output x{K5_OFF}: {rel_off:.3e}")
         del params, dp, paged, dense
         gc.collect()
         torch.cuda.empty_cache()
@@ -1707,7 +1916,7 @@ def check_moe_verify(arch: str, P: int, S: int) -> None:
                                  f"{finite}")
         if rel_off <= max_rel:
             raise AssertionError(f"{cfg.name} {dtype}, {n_layers} layers: "
-                                 f"a K5 {K5_OFF}x off reads {rel_off}, "
+                                 f"{name} {K5_OFF}x off reads {rel_off}, "
                                  f"within the bound {max_rel}")
 
 
@@ -1876,6 +2085,10 @@ class Workload:
     # for full depth; {kernel: launches per decode step}; {kernel:
     # launches per chunk}), or None
     chunked: tuple = None
+    # phase 6: the loop modes served, by name (None: all of ``MODES``),
+    # and the turns (None: ``MODE_REPS``)
+    modes: tuple = None
+    mode_reps: int = None
 
 
 # phase 5b's chunk and per-step prefill budget (one chunk)
@@ -1903,6 +2116,16 @@ WORKLOADS = (
              {"flash_attention": 28}, 1000,
              (2, {"mla_attention_paged": 2, "tree_attention_paged": 1},
               {"flash_attention": 3})),
+    # the rest of the attention registry at gemma3-1b's traffic: GQA past
+    # 64 query rows per kv head (144, 80 and 128 at T = 16) and GQA under
+    # the DeepSeek MoE; K1 on every layer and the prefix layer, K3 on every
+    # prefill; phase 6 in the synchronous eager loop and the default, once
+    *(Workload(arch, (600, 1500), 2048,
+               {"paged": {"tree_attention_paged": layers + 1}},
+               {"flash_attention": layers + 1}, 1000,
+               modes=("sync eager", "async captured"), mode_reps=1)
+      for arch, layers in (("starcoder2-7b", 32), ("qwen2.5-32b", 64),
+                           ("chameleon-34b", 48), ("deepseek-moe-16b", 28))),
 )
 
 
@@ -1911,10 +2134,21 @@ def _add(total: dict, counts: dict) -> None:
         total[k] = total.get(k, 0) + n
 
 
-def serve_full_width(wl: Workload) -> dict:
+def _nbytes(tree) -> int:
+    """The bytes of every tensor of a nested dict/list of params."""
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def serve_full_width(wl: Workload) -> tuple:
     """Serve 8 requests of ``wl`` at full width through each of its
-    engines (phase 5), then chunked through the paged engine (phase 5b);
-    returns the kernels' launch counts of these runs."""
+    engines (phase 5), then chunked through the paged engine (phase 5b),
+    then phase 6; returns the kernels' launch counts of these runs and
+    the K2 launches of the paged-vs-dense verify check (0 for an MoE
+    model, whose check at full depth is a reading)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.heads import init_draft_params
@@ -1933,15 +2167,23 @@ def serve_full_width(wl: Workload) -> dict:
     params = init_params(cfg, seed=0, device="cuda")
     dp = init_draft_params(cfg, seed=1, device="cuda")
     torch.cuda.synchronize()
-    log(f"[full] {cfg.name}: {cfg.n_params / 1e9:.2f}B params ({cfg.dtype}) "
-        f"initialised on the card in {time.perf_counter() - t0:.1f}s; fp32 "
-        f"unembedding {params['unembed_f32'].numel() * 4 / 1e9:.2f} GB")
+    unembed = params["unembed_f32"].numel() * 4
+    log(f"[full] {cfg.name}: {cfg.n_params / 1e9:.2f}B params ({cfg.dtype}), "
+        f"{cfg.n_layers} layers (full depth, the config's widths), "
+        f"initialised on the card in {time.perf_counter() - t0:.1f}s: "
+        f"weights {(_nbytes(params) - unembed) / 1e9:.2f} GB, draft heads "
+        f"and prefix layer {_nbytes(dp) / 1e9:.2f} GB, fp32 unembedding "
+        f"{unembed / 1e9:.2f} GB; allocated "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB of the card's "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.2f}")
+    pair_k2 = 0
     if cfg.moe:
         log_moe_verify(params, dp, cfg, wl.check_prompt, S_check)
     elif cfg.block_kind == "rwkv6":
         check_rwkv_prefill(params, dp, cfg, wl.check_prompt)
     else:
-        check_full_verify(params, dp, cfg, wl.check_prompt, S_check)
+        pair_k2 = check_full_verify(params, dp, cfg, wl.check_prompt,
+                                    S_check)
     runs = {}
     for engine in wl.verify:
         counts, outs, st = serve_engine(wl, cfg, params, dp, engine,
@@ -1954,7 +2196,7 @@ def serve_full_width(wl: Workload) -> dict:
     serve_modes(wl, cfg, params, dp, wl.verify["paged"], CARD)
     del params, dp
     torch.cuda.empty_cache()
-    return launches
+    return launches, pair_k2
 
 
 def serve_chunked_cut(wl: Workload) -> dict:
@@ -2400,11 +2642,14 @@ def serve_modes(wl: Workload, cfg, params, dp, per_step: dict,
     import numpy as np
     import torch
 
+    modes = [m for m in MODES if wl.modes is None or m[0] in wl.modes]
+    reps = wl.mode_reps or MODE_REPS
+    torch.cuda.reset_peak_memory_stats()
     engines = {name: make_engine(wl, cfg, params, dp, "paged",
                                  inflight=inflight, capture_step=capture)
-               for name, inflight, capture in MODES}
+               for name, inflight, capture in modes}
     runs = {name: [] for name in engines}
-    for _ in range(MODE_REPS):
+    for _ in range(reps):
         for name, eng in engines.items():
             runs[name].append(serve_once(eng, wl, cfg))
     ref = runs["sync eager"][0]["outs"]
@@ -2419,7 +2664,7 @@ def serve_modes(wl: Workload, cfg, params, dp, per_step: dict,
                 raise AssertionError(f"{cfg.name} {name}: "
                                      f"{run['blocks_left']} blocks in use "
                                      "after the serve")
-    for name, inflight, capture in MODES:
+    for name, inflight, capture in modes:
         if capture:
             check_capture(f"{cfg.name} {name}", engines[name],
                           engines[name].stats, per_step)
@@ -2453,12 +2698,14 @@ def serve_modes(wl: Workload, cfg, params, dp, per_step: dict,
         f"{untraced * 1e3:.1f} ms untraced: idle share "
         f"{1 - busy / traced['wall_s']:.3f} traced, "
         f"{1 - busy / untraced:.3f} against the untraced wall")
-    log(f"[6] {cfg.name}: every stream of the {len(MODES)} modes x "
-        f"{MODE_REPS} turns and of a generator-fed serve equal to the "
+    log(f"[6] {cfg.name}: every stream of the {len(modes)} modes x "
+        f"{reps} turns and of a generator-fed serve equal to the "
         f"synchronous eager loop's; one capture per captured engine, "
         f"{cap.replays if cap else 0} replays; {preempted} preemptions under "
-        "inflight=2, "
-        "no block left in use")
+        "inflight=2, no block left in use; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+        f"{torch.cuda.max_memory_reserved() / 2 ** 30:.2f} GiB reserved "
+        "(weights, the engines' pools and the captured steps' graph pools)")
     del engines, eng, cap
     gc.collect()
     torch.cuda.empty_cache()
@@ -2487,7 +2734,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, head_preserving
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     built = build.build()
@@ -2526,6 +2773,14 @@ def main() -> int:
                              f"{checked}")
     log(f"[sass] HMMA/HGMMA in every bf16 build of K3, the tree-verify "
         f"split kernel, K5's split sweep and K6's two kernels: {checked}")
+    # row groups are a grid axis: the models past 64 rows per kv head run
+    # the D=128 builds above, so there is no new instantiation to check
+    log("[ptxas] starcoder2-7b, qwen2.5-32b, chameleon-34b and "
+        "deepseek-moe-16b run tree_attention_split_kernel<bf16, D=128> "
+        "(and its dense form) and flash_attention_kernel<bf16, DQK=128, "
+        "DV=128>, listed above without a spill")
+    log(f"[time] phase 2 (builds and their checks) done at "
+        f"{time.perf_counter() - t_start:.0f}s")
 
     k1 = check_k1(MINITRON, "minitron D=128")
     check_k1(GEMMA3, "gemma3 D=256")
@@ -2539,7 +2794,9 @@ def main() -> int:
     check_k6_boundary()
     k2 = check_k2()
     check_k1_prefix()
-    log(f"[time] kernel checks done at {time.perf_counter() - t_start:.0f}s")
+    rows = check_rows()
+    log(f"[time] phase 3 (kernel checks) done at "
+        f"{time.perf_counter() - t_start:.0f}s")
 
     check_tiny_parity(dataclasses.replace(
         get_config("minitron-4b").reduced(), dtype="float32"),
@@ -2555,10 +2812,27 @@ def main() -> int:
     check_tiny_parity(dataclasses.replace(
         get_config("rwkv6-1.6b").reduced(), dtype="float32"),
         (16, 23, 32, 9, 40, 12), budgets=(30,) * 6, num_blocks=8)
-    launches = {}
+    # the rest of the registry at their head-preserving narrow forms (the
+    # published head counts, so a verify step has 144, 80, 128 and 16
+    # rows per kv head, and K3's fp32 body packs G query tiles of up to
+    # 128 rows: 14 positions at G = 9), short prompts that make two slots
+    # share the pool, whole and in chunks of 8 (two a prompt)
+    for arch in ("starcoder2-7b", "qwen2.5-32b", "chameleon-34b",
+                 "deepseek-moe-16b"):
+        check_tiny_parity(dataclasses.replace(
+            head_preserving(get_config(arch)), dtype="float32"),
+            (9, 12, 10, 14), budgets=(14, 12, 13, 12), chunks=(8,))
+    log(f"[time] phase 4 (tiny fp32 parity) done at "
+        f"{time.perf_counter() - t_start:.0f}s")
+    launches, per_arch = {}, {}
     for wl in WORKLOADS:
-        _add(launches, serve_full_width(wl))
-        log(f"[time] {wl.arch} done at {time.perf_counter() - t_start:.0f}s")
+        t_wl = time.perf_counter()
+        counts, pair_k2 = serve_full_width(wl)
+        _add(launches, counts)
+        per_arch[wl.arch] = dict(counts, pair_k2=pair_k2)
+        log(f"[time] phases 5-6 of {wl.arch}: "
+            f"{time.perf_counter() - t_wl:.0f}s, done at "
+            f"{time.perf_counter() - t_start:.0f}s")
 
     def entry(name, source, replaces, rec, err):
         return {"name": name, "route": "cuda", "source": source,
@@ -2609,6 +2883,24 @@ def main() -> int:
               max(r["max_abs_err"] for key, r in k6.items()
                   if key[0] == "bfloat16")),
     ]
+    # K1 and K2 past 64 rows per kv head, one row each per model: launches
+    # of that model's paged serve (K1) and paged-vs-dense check (K2)
+    for arch in ROW_CASES:
+        for kname, key, replaces, count in (
+                ("tree_attention_paged", "K1",
+                 "src/repro/kernels/tree_attention/kernel.py:63",
+                 per_arch[arch]["tree_attention_paged"]),
+                ("tree_attention_dense", "K2",
+                 "src/repro/kernels/tree_attention/kernel.py:47",
+                 per_arch[arch]["pair_k2"])):
+            rec = rows[(arch, key, "bfloat16")]
+            e = entry(kname, "src/repro_torch/csrc/tree_attention_paged.cu",
+                      replaces, rec, rec["max_abs_err"])
+            e.update(name=f"{kname}@{arch}", launches=count,
+                     case=f"{arch} heads, {rec['rows']} rows per kv head "
+                          f"({rec['groups']} row groups), T=16",
+                     bound_per_group_ms=rec["bound_per_group_ms"])
+            kernels.append(e)
     log(json.dumps({"kernels": kernels}))
     log(f"[time] total {time.perf_counter() - t_start:.0f}s")
     print(json.dumps({"ok": True, "device": {

@@ -10,12 +10,16 @@ parts whose layout matters:
   a dense group and then an MoE group, whose routed experts are
   ``(L, E, ...)`` leaves; an RWKV6 config one ``rwkv_stack`` group of
   ``{norm1, norm2, rwkv}`` layers), every leaf stacked on a leading
-  ``(L, ...)`` layer axis;
+  ``(L, ...)`` layer axis.  A GQA layer's projections (under a dense or
+  an MoE FFN) are checked against the config's heads: ``wq (L, d,
+  Hq*D)``, ``wk``/``wv (L, d, Hkv*D)``, ``wo (L, Hq*D, d)``, and the QKV
+  biases ``bq (L, Hq*D)``, ``bk``/``bv (L, Hkv*D)`` present exactly when
+  ``cfg.qkv_bias`` (qwen2.5-32b);
 * ``lm_head``: stored as ``(d, V)`` (JAX inits it as ``embed_init(...).T``),
   and the fp32 unembedding the port derives from it at load;
 * draft params: a list of per-head dicts (``w_in``, ``out_norm``,
   ``w_res{m}`` for the deeper Hydra++ MLPs, ``unembed`` when untied) and
-  the Hydra++ ``prefix`` layer.
+  the Hydra++ ``prefix`` layer, a GQA layer checked as the groups' are.
 
 Every leaf keeps its own float type: bf16 stays bf16 and fp32 stays
 fp32, so the MoE router and RWKV6's ``w0``, ``u_bonus``, ``gn_gamma`` and
@@ -79,7 +83,26 @@ def params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
         _expect(("moe" in g) == (kind == "attn_stack_moe"),
                 f"{kind} has {'an MoE' if 'moe' in g else 'a dense'} FFN")
         check_stacked(g, kind, n)
+        if "attn" in g and not cfg.mla:
+            _check_gqa(g["attn"], cfg, kind, (n,))
     return add_unembed_f32(params, cfg)
+
+
+def _check_gqa(p, cfg: ModelConfig, kind: str, lead: tuple) -> None:
+    """GQA projections and QKV biases (behind ``lead``: ``(L,)`` for a
+    stacked group, ``()`` for the prefix layer) against the config's head
+    counts."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    q, kv = cfg.n_heads_padded * hd, cfg.n_kv_heads * hd
+    want = {"wq": (d, q), "wk": (d, kv), "wv": (d, kv), "wo": (q, d)}
+    if cfg.qkv_bias:
+        want.update(bq=(q,), bk=(kv,), bv=(kv,))
+    want = {k: lead + shape for k, shape in want.items()}
+    _expect(sorted(p) == sorted(want),
+            f"{kind} attention has {sorted(want)}, got {sorted(p)}")
+    for key, shape in want.items():
+        _expect(tuple(p[key].shape) == shape,
+                f"{kind} {key} must be {shape}, got {tuple(p[key].shape)}")
 
 
 def draft_params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
@@ -99,6 +122,8 @@ def draft_params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
                 f"head {i} unembedding tied={dc.tie_unembed}")
     _expect(("prefix" in dp) == dc.prefix_attention,
             f"prefix layer present={dc.prefix_attention}")
+    if dc.prefix_attention:
+        _check_gqa(dp["prefix"]["attn"], cfg, "prefix", ())
     return dp
 
 

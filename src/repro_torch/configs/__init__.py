@@ -1,4 +1,4 @@
 from repro_torch.configs.base import (DraftConfig, InputShape, INPUT_SHAPES,
                                       MLAConfig, MoEConfig, ModelConfig,
-                                      SSMConfig, get_config, list_configs,
-                                      register, tree_for)
+                                      SSMConfig, get_config, head_preserving,
+                                      list_configs, register, tree_for)

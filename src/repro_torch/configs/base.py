@@ -281,11 +281,13 @@ def list_configs() -> list:
     return sorted(_REGISTRY)
 
 
-# dense GQA stacks (full-attention or sliding-window), the MLA + MoE stack
-# and the RWKV6 recurrent stack: the other families wait for their
-# modules (ROADMAP)
-ARCH_MODULES = ["deepseek_v2_lite_16b", "gemma3_1b", "minitron_4b",
-                "rwkv6_1p6b", "vicuna_tiny"]
+# dense GQA stacks (full-attention or sliding-window, with or without QKV
+# bias; chameleon-34b's early-fusion VLM is one over token ids), GQA and
+# MLA under the MoE FFN, and the RWKV6 recurrent stack: zamba2's hybrid
+# and the encoder-only hubert wait for their modules (ROADMAP)
+ARCH_MODULES = ["chameleon_34b", "deepseek_moe_16b", "deepseek_v2_lite_16b",
+                "gemma3_1b", "minitron_4b", "qwen2p5_32b", "rwkv6_1p6b",
+                "starcoder2_7b", "vicuna_tiny"]
 
 
 def _load_all() -> None:
@@ -293,6 +295,20 @@ def _load_all() -> None:
 
     for m in ARCH_MODULES:
         importlib.import_module(f"repro_torch.configs.{m}")
+
+
+def head_preserving(cfg: ModelConfig) -> ModelConfig:
+    """``cfg.reduced()`` with the published head counts and tree kept: 2
+    layers, d_model 256, head_dim 64, small FFN, experts and vocabulary,
+    but ``n_heads``/``n_kv_heads`` as published (``reduced()`` caps them
+    at 4/2) and the draft's ``tree_size``, so a verify step has the G*T
+    query rows per kv head the full model has (144 at starcoder2-7b's 36
+    over 4 heads and T = 16).  Uses only ``dataclasses.replace``, so it
+    narrows the JAX package's config objects alike."""
+    r = cfg.reduced()
+    return replace(r, name=cfg.name + "-narrow", n_heads=cfg.n_heads,
+                   n_kv_heads=cfg.n_kv_heads,
+                   draft=replace(r.draft, tree_size=cfg.draft.tree_size))
 
 
 def tree_for(cfg: ModelConfig):

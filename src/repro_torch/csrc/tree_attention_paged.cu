@@ -46,23 +46,31 @@
 //   cache_len    (B,) int32        block_table (B, M) int32 (paged only)
 //   q_pos        (B, T) int32 (windowed only)
 // contiguous; q, pools, tree K/V and out share one type, fp32 or bf16.
-// D is 64, 128 or 256; the G*T query rows of a kv head are at most 64.
+// D is 64, 128 or 256; the R = G*T query rows of a kv head may be any
+// number (starcoder2-7b's 36 over 4 heads at T = 16: 144).
 // Scratch from the wrapper (fp32): part_ml (B*Hkv, n_splits + 1, R, 2) and
-// part_acc (B*Hkv, n_splits + 1, R, D), R = G*T.
+// part_acc (B*Hkv, n_splits + 1, R, D).
 //
 // Bound: bytes.  The work must move each live cache key's K and V once
 // (per kv head), plus q, the tree K/V and the output: a few MB per call at
 // minitron-4b and gemma3-1b shapes against well under a GFLOP, far below
 // the tensor cores' ratio of ~295 operations a byte.  So the design is
-// about keeping every SM streaming keys.
+// about keeping every SM streaming keys.  Past 64 rows a K/V tile is read
+// once per row group (below): 3 times at R = 144, twice at 80 and 128,
+// the repeats mostly from L2.
 //
 // Design: a split cache sweep with a deterministic merge, two launches.
-//  1. tree_attention_split_kernel, one block per (split, b, kv head), plus
-//     one block per (b, kv head) for the tree keys.  Split s covers cache
-//     positions [s*split_len, (s+1)*split_len) below cache_len.  The block
-//     holds the G*T query rows that share the kv head (query head h*G + g,
-//     tree token t -> row g*T + t), so each K/V tile is read once per kv
-//     head, and writes its rows' partial (m, l, acc) to the fp32 scratch.
+//  1. tree_attention_split_kernel, one block per (split, row group, b,
+//     kv head), plus one per (row group, b, kv head) for the tree keys.
+//     Split s covers cache positions [s*split_len, (s+1)*split_len) below
+//     cache_len.  The R = G*T query rows that share the kv head (query
+//     head h*G + g, tree token t -> row g*T + t) are cut into row groups
+//     of 64, [64*y, 64*y + 64): each block holds one group, so each K/V
+//     tile is read once per (kv head, row group), and writes its rows'
+//     partial (m, l, acc) to the fp32 scratch.  A row's arithmetic never
+//     depends on the other rows of its block, so at R <= 64 (one group)
+//     the kernel is the one-group kernel it was, bit for bit, and the rows
+//     of a group equal those of a call that holds only them.
 //     A split that starts at or past cache_len, (K4, w > 0) lies wholly at
 //     or behind cache_len - w, or holds only NULL entries, writes the
 //     empty partial (m = -1e30, l = 0; its acc is never read) and exits.
@@ -110,8 +118,9 @@ using attn::kThreads;
 using attn::Smem;
 using tc::bf16;
 
-constexpr int kRowCap = 64;     // G * T query rows per (b, kv head)
+constexpr int kGroupRows = 64;    // query rows a split block holds
 constexpr int kMmaThreads = 128;  // bf16: four warps of 16 rows
+constexpr int kMaxGrid = 65535;   // the grid's y and z extents
 
 // keys per bf16 tile: 16 at D = 256 keeps the accumulator (128 registers
 // a thread), the scores and the split weights in registers
@@ -124,9 +133,10 @@ __host__ __device__ constexpr int mma_keys() {
 // rows D + 8 bf16; then 2 tiles of key flags and 64 row positions (int)
 template <int D>
 __host__ __device__ constexpr size_t mma_smem_bytes() {
-  return sizeof(bf16) * static_cast<size_t>(kRowCap + 4 * mma_keys<D>()) *
+  return sizeof(bf16) *
+             static_cast<size_t>(kGroupRows + 4 * mma_keys<D>()) *
              (D + tc::kPad) +
-         sizeof(int) * static_cast<size_t>(2 * mma_keys<D>() + kRowCap);
+         sizeof(int) * static_cast<size_t>(2 * mma_keys<D>() + kGroupRows);
 }
 
 struct Args {
@@ -172,9 +182,11 @@ __device__ bool split_range(const Args& p, int b, int s, int len, int* lo,
   return true;
 }
 
-// the empty partial of rows [0, R): m = -1e30, l = 0 (acc is never read)
-__device__ void write_empty(const Args& p, size_t base, int R) {
-  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+// the empty partial of the group's rows [row0, min(row0 + 64, R)): m =
+// -1e30, l = 0 (acc is never read)
+__device__ void write_empty(const Args& p, size_t base, int row0, int R) {
+  for (int r = row0 + threadIdx.x; r < min(row0 + kGroupRows, R);
+       r += blockDim.x) {
     p.part_ml[2 * (base + r)] = kNegInf;
     p.part_ml[2 * (base + r) + 1] = 0.f;
   }
@@ -186,7 +198,7 @@ __device__ void split_mma(const Args& p, unsigned char* smem_raw) {
   constexpr int KN = mma_keys<D>();
   constexpr int RS = D + tc::kPad;  // shared row stride, bf16
   constexpr int kChunks = D / 8;    // 16-byte chunks per row
-  const int s = blockIdx.x, bh = blockIdx.y;
+  const int s = blockIdx.x, row0 = blockIdx.y * kGroupRows, bh = blockIdx.z;
   const int b = bh / p.Hkv, h = bh % p.Hkv;
   const int G = p.Hq / p.Hkv, T_ = p.n_tree, R = G * T_;
   const int len = live_len<kDense>(p, b);
@@ -195,26 +207,28 @@ __device__ void split_mma(const Args& p, unsigned char* smem_raw) {
   const size_t base = (static_cast<size_t>(bh) * (p.n_splits + 1) + s) * R;
   int lo = 0, hi = T_;
   if (!tree && !split_range<kWindowed, kDense>(p, b, s, len, &lo, &hi)) {
-    write_empty(p, base, R);
+    write_empty(p, base, row0, R);
     return;
   }
 
+  // shared row r holds the group's row row0 + r
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + kRowCap * RS;
+  bf16* ks = qs + kGroupRows * RS;
   bf16* vs = ks + 2 * KN * RS;
   int* kok = reinterpret_cast<int*>(vs + 2 * KN * RS);  // key loaded
   int* qpos = kok + 2 * KN;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const bf16* q = static_cast<const bf16*>(p.q);
-  tc::load_rows<D, kRowCap, kMmaThreads>(
+  tc::load_rows<D, kGroupRows, kMmaThreads>(
       qs, tid, q, [&](int r) -> const bf16* {
-        if (r >= R) return nullptr;  // padding: zeros
-        const int g = r / T_, t = r % T_;
+        if (row0 + r >= R) return nullptr;  // padding: zeros
+        const int g = (row0 + r) / T_, t = (row0 + r) % T_;
         return q + ((static_cast<size_t>(b) * T_ + t) * p.Hq + h * G + g) * D;
       });
-  for (int r = tid; r < kRowCap; r += kMmaThreads)
-    qpos[r] = kWindowed && r < R ? p.q_pos[b * T_ + r % T_] : 0;
+  for (int r = tid; r < kGroupRows; r += kMmaThreads)
+    qpos[r] =
+        kWindowed && row0 + r < R ? p.q_pos[b * T_ + (row0 + r) % T_] : 0;
 
   const bf16* kb = static_cast<const bf16*>(tree ? p.tree_k : p.pool_k);
   const bf16* vb = static_cast<const bf16*>(tree ? p.tree_v : p.pool_v);
@@ -249,7 +263,7 @@ __device__ void split_mma(const Args& p, unsigned char* smem_raw) {
   const float scale_log2 = p.scale * tc::kLog2e;
   tc::RowState<D> st;
   st.init();
-  const bool live = warp * tc::kWarpRows < R;  // a warp of padding only
+  const bool live = row0 + warp * tc::kWarpRows < R;  // padding only?
   const int r0 = warp * tc::kWarpRows + lane / 4;
   const int ntiles = (hi - lo + KN - 1) / KN;
   issue(0);  // the first group carries q as well
@@ -273,7 +287,7 @@ __device__ void split_mma(const Args& p, unsigned char* smem_raw) {
             qw, ks + sg * KN * RS, vs + sg * KN * RS, scale_log2, st, true,
             [&](int hh, int kk) {
               const int r = r0 + 8 * hh, j = pos0 + kk;
-              return ok[kk] && tm[(r % T_) * T_ + j] != 0 &&
+              return ok[kk] && tm[((row0 + r) % T_) * T_ + j] != 0 &&
                      (w <= 0 || qpos[r] - (len + j) < w);
             });
       } else {
@@ -292,7 +306,7 @@ __device__ void split_mma(const Args& p, unsigned char* smem_raw) {
   const int t4 = lane & 3;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int r = r0 + 8 * hh;
+    const int r = row0 + r0 + 8 * hh;
     if (r >= R) continue;
     float* acc = p.part_acc + (base + r) * D;
 #pragma unroll
@@ -313,8 +327,8 @@ template <int D, bool kWindowed, bool kDense>
 __device__ void split_f32(const Args& p, float* smem) {
   constexpr int DP = D + 1;
   constexpr int NRG = kThreads / D;
-  constexpr int KMAX = attn::max_rows(D, kRowCap) / NRG;
-  const int s = blockIdx.x, bh = blockIdx.y;
+  constexpr int KMAX = kGroupRows / NRG;
+  const int s = blockIdx.x, row0 = blockIdx.y * kGroupRows, bh = blockIdx.z;
   const int b = bh / p.Hkv, h = bh % p.Hkv;
   const int G = p.Hq / p.Hkv, T_ = p.n_tree, R = G * T_;
   const int len = live_len<kDense>(p, b);
@@ -323,25 +337,27 @@ __device__ void split_f32(const Args& p, float* smem) {
   const size_t base = (static_cast<size_t>(bh) * (p.n_splits + 1) + s) * R;
   int lo = 0, hi = T_;
   if (!tree && !split_range<kWindowed, kDense>(p, b, s, len, &lo, &hi)) {
-    write_empty(p, base, R);
+    write_empty(p, base, row0, R);
     return;
   }
 
-  const Smem sm = attn::carve_smem<D>(smem, R);
+  // shared row r holds the group's row row0 + r, r < RG
+  const int RG = min(kGroupRows, R - row0);
+  const Smem sm = attn::carve_smem<D>(smem, RG);
   const float* q = static_cast<const float*>(p.q);
   const float* kb = static_cast<const float*>(tree ? p.tree_k : p.pool_k);
   const float* vb = static_cast<const float*>(tree ? p.tree_v : p.pool_v);
-  for (int i = threadIdx.x; i < R * D; i += kThreads) {
+  for (int i = threadIdx.x; i < RG * D; i += kThreads) {
     const int r = i / D, d = i % D;
-    const int g = r / T_, t = r % T_;
+    const int g = (row0 + r) / T_, t = (row0 + r) % T_;
     const size_t off =
         ((static_cast<size_t>(b) * T_ + t) * p.Hq + h * G + g) * D + d;
     sm.q[r * DP + d] = q[off] * p.scale;
   }
-  for (int r = threadIdx.x; r < R; r += kThreads) {
+  for (int r = threadIdx.x; r < RG; r += kThreads) {
     sm.m[r] = kNegInf;
     sm.l[r] = 0.f;
-    sm.pos[r] = kWindowed ? p.q_pos[b * T_ + r % T_] : 0;
+    sm.pos[r] = kWindowed ? p.q_pos[b * T_ + (row0 + r) % T_] : 0;
   }
   float acc[KMAX];
 #pragma unroll
@@ -371,8 +387,8 @@ __device__ void split_f32(const Args& p, float* smem) {
       const int n = min(kKeyTile, T_ - k0);
       load(static_cast<size_t>(b) * T_ + k0, n, [](int) { return false; });
       const uint8_t* tm = p.tree_mask;
-      attn::tile_update<D, KMAX>(R, n, sm, acc, [&](int r, int kk) {
-        return tm[(r % T_) * T_ + k0 + kk] != 0 &&
+      attn::tile_update<D, KMAX>(RG, n, sm, acc, [&](int r, int kk) {
+        return tm[((row0 + r) % T_) * T_ + k0 + kk] != 0 &&
                (w <= 0 || sm.pos[r] - (len + k0 + kk) < w);
       });
     }
@@ -380,7 +396,7 @@ __device__ void split_f32(const Args& p, float* smem) {
     for (int pos0 = lo; pos0 < hi; pos0 += kKeyTile) {
       const int n = min(kKeyTile, hi - pos0);
       load(static_cast<size_t>(b) * p.S + pos0, n, [](int) { return false; });
-      attn::tile_update<D, KMAX>(R, n, sm, acc,
+      attn::tile_update<D, KMAX>(RG, n, sm, acc,
                                  [](int, int) { return true; });
     }
   } else {
@@ -400,7 +416,7 @@ __device__ void split_f32(const Args& p, float* smem) {
         const int n = min(min(kKeyTile, p.bs - k0), hi - pos0);
         load(static_cast<size_t>(blk) * p.bs + k0, n,
              [&](int kk) { return w > 0 && pos0 + kk <= len - w; });
-        attn::tile_update<D, KMAX>(R, n, sm, acc, [&](int r, int kk) {
+        attn::tile_update<D, KMAX>(RG, n, sm, acc, [&](int r, int kk) {
           return w <= 0 || sm.pos[r] - (pos0 + kk) < w;
         });
       }
@@ -412,15 +428,16 @@ __device__ void split_f32(const Args& p, float* smem) {
 #pragma unroll
   for (int k = 0; k < KMAX; ++k) {
     const int r = rg + k * NRG;
-    if (r < R) p.part_acc[(base + r) * D + d] = acc[k];
+    if (r < RG) p.part_acc[(base + row0 + r) * D + d] = acc[k];
   }
-  for (int r = threadIdx.x; r < R; r += kThreads) {
-    p.part_ml[2 * (base + r)] = sm.m[r];
-    p.part_ml[2 * (base + r) + 1] = sm.l[r];
+  for (int r = threadIdx.x; r < RG; r += kThreads) {
+    p.part_ml[2 * (base + row0 + r)] = sm.m[r];
+    p.part_ml[2 * (base + row0 + r) + 1] = sm.l[r];
   }
 }
 
-// grid (n_splits + 1, B * Hkv): blockIdx.x = split, the last is the tree
+// grid (n_splits + 1, row groups, B * Hkv): blockIdx.x = split, the last
+// is the tree; blockIdx.y = row group
 template <typename T, int D, bool kWindowed, bool kDense>
 __global__ void __launch_bounds__(kThreads)
     tree_attention_split_kernel(Args p) {
@@ -475,7 +492,10 @@ template <typename T, int D, bool kWindowed, bool kDense>
 int launch(const Args& a, cudaStream_t stream) {
   constexpr bool kF32 = std::is_same<T, float>::value;
   const int R = (a.Hq / a.Hkv) * a.n_tree;
-  const size_t smem = kF32 ? attn::smem_bytes(R, D) : mma_smem_bytes<D>();
+  const int groups = (R + kGroupRows - 1) / kGroupRows;
+  const size_t smem = kF32 ? attn::smem_bytes(R < kGroupRows ? R : kGroupRows,
+                                              D)
+                           : mma_smem_bytes<D>();
   auto split = tree_attention_split_kernel<T, D, kWindowed, kDense>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -483,8 +503,8 @@ int launch(const Args& a, cudaStream_t stream) {
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  split<<<dim3(a.n_splits + 1, a.B * a.Hkv), kF32 ? kThreads : kMmaThreads,
-          smem, stream>>>(a);
+  split<<<dim3(a.n_splits + 1, groups, a.B * a.Hkv),
+          kF32 ? kThreads : kMmaThreads, smem, stream>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   tree_attention_merge_kernel<T, kDense>
@@ -503,11 +523,14 @@ int launch_dim(const Args& a, cudaStream_t stream) {
 }
 
 // Validates the shape and the split, then launches the instantiation for
-// dtype (0 float32, 1 bfloat16) and D.  Returns the CUDA error code.
+// dtype (0 float32, 1 bfloat16) and D.  Returns the CUDA error code.  Any
+// number of rows per kv head is taken; only the grid's extents bound the
+// (b, kv head) pairs and the row groups.
 template <bool kWindowed, bool kDense>
 int dispatch(const Args& a, int dtype, void* stream) {
   if (a.B <= 0 || a.n_tree <= 0 || a.Hkv <= 0 || a.Hq % a.Hkv != 0 ||
-      (a.Hq / a.Hkv) * a.n_tree > kRowCap)
+      a.B * a.Hkv > kMaxGrid ||
+      ((a.Hq / a.Hkv) * a.n_tree + kGroupRows - 1) / kGroupRows > kMaxGrid)
     return static_cast<int>(cudaErrorInvalidValue);
   if (kDense ? a.S <= 0 : (a.bs <= 0 || a.M <= 0))
     return static_cast<int>(cudaErrorInvalidValue);

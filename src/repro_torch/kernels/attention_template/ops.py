@@ -23,8 +23,8 @@ from repro_torch.kernels.attention_template.ref import (
 from repro_torch.kernels.tree_attention import kernel as _k
 from repro_torch.kernels.tree_attention.ops import (check_cuda_operands,
                                                     check_operands,
-                                                    check_split_len, pad_tree)
-from repro_torch.kernels.tree_attention.split import plan_split_len
+                                                    check_split_len, pad_tree,
+                                                    planned_split_len)
 
 launches = 0                  # split-sweep launches since the last reset
 merge_launches = 0            # merge launches since the last reset
@@ -59,7 +59,7 @@ def tree_attention_paged_windowed_bshd(q, pool_k, pool_v, tree_k, tree_v,
         if q_pos.device != q.device:
             raise ValueError("q_pos must lie on the operands' device")
         if split_len is None:
-            split_len = plan_split_len(q.shape[0], pool_k.shape[2])
+            split_len = planned_split_len(q, pool_k.shape[2])
         check_split_len(split_len)
         out = torch.empty_like(q)
         rc = _k.launch(*args, out, split_len=split_len,

@@ -11,16 +11,18 @@ CPU tensors take the plain version
 (``kernel.py::tree_attention_dense_plain``), CUDA tensors launch the
 kernel or raise.  ``launches`` counts kernel launches, and only those: one
 per call, the split cache sweep; ``merge_launches`` counts the merge
-launched after it.  The planner gives a dense call of K1's B*Hkv K1's
-split (``split.py``), whatever the two capacities.
+launched after it.  A dense call gets the split a K1 call of the same
+shapes gets (``split.py``), whatever the two capacities.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.tree_attention import kernel as _k
-from repro_torch.kernels.tree_attention.ops import check_split_len, pad_tree
-from repro_torch.kernels.tree_attention.split import plan_split_len
+from repro_torch.kernels.tree_attention.ops import (check_cuda_shape,
+                                                    check_split_len,
+                                                    pad_tree,
+                                                    planned_split_len)
 
 launches = 0                  # split-sweep launches since the last reset
 merge_launches = 0            # merge launches since the last reset
@@ -58,13 +60,7 @@ def check_cuda_operands(q, cache_k, cache_v, tree_k, tree_v, tree_mask,
         raise ValueError("cache_len must be int32")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the kernel takes contiguous operands only")
-    D = q.shape[-1]
-    if D not in _k.HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {_k.HEAD_DIMS}")
-    rows = (q.shape[2] // cache_k.shape[2]) * q.shape[1]
-    if rows > _k.MAX_ROWS:
-        raise ValueError(f"{rows} query rows per kv head exceed the "
-                         f"kernel's {_k.MAX_ROWS}")
+    check_cuda_shape(q, cache_k.shape[2])
 
 
 def tree_attention_bshd(q, cache_k, cache_v, tree_k, tree_v, tree_mask,
@@ -83,7 +79,7 @@ def tree_attention_bshd(q, cache_k, cache_v, tree_k, tree_v, tree_mask,
     elif q.device.type == "cuda":
         check_cuda_operands(*args)
         if split_len is None:
-            split_len = plan_split_len(q.shape[0], cache_k.shape[2])
+            split_len = planned_split_len(q, cache_k.shape[2])
         check_split_len(split_len)
         out = torch.empty_like(q)
         rc = _k.launch_dense(*args, out, split_len=split_len)

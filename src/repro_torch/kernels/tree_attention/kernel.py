@@ -42,7 +42,8 @@ from repro_torch.models.layers import masked_attention
 
 NULL_BLOCK = 0                 # physical pool block 0 is never read unmasked
 HEAD_DIMS = (64, 128, 256)     # the head dims the CUDA source instantiates
-MAX_ROWS = 64                  # G * T query rows a block holds (4 warps x 16)
+MAX_GRID = 65535               # the grid's extent over (b, kv head) pairs
+                               # and over row groups (the .cu's kMaxGrid)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -8,9 +8,12 @@ tensors launch the kernel or raise.  There is no fallback from one to the
 other.  ``launches`` counts kernel launches, and only those: one per call,
 the split cache sweep; ``merge_launches`` counts the merge kernel each call
 launches after it.  The split length comes from the planner
-(``split.py::plan_split_len``) unless the caller forces one.  The padding
-and the checks are shared with the windowed wrapper (K4,
-``kernels/attention_template/ops.py``).
+(``split.py::plan_split_len``, through ``planned_split_len``) unless the
+caller forces one.  Any number of query rows per kv head is taken: the
+kernel cuts them into row groups of 64.  The padding, the checks and the
+planned split are shared with the windowed wrapper (K4,
+``kernels/attention_template/ops.py``) and the dense one (K2,
+``dense_ops.py``).
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.tree_attention import kernel as _k
-from repro_torch.kernels.tree_attention.split import plan_split_len
+from repro_torch.kernels.tree_attention.split import (plan_split_len,
+                                                      row_groups)
 
 launches = 0                  # split-sweep launches since the last reset
 merge_launches = 0            # merge launches since the last reset
@@ -84,13 +88,31 @@ def check_cuda_operands(q, pool_k, pool_v, tree_k, tree_v, tree_mask,
         raise ValueError("cache_len and block_table must be int32")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the kernel takes contiguous operands only")
-    D = q.shape[-1]
+    check_cuda_shape(q, pool_k.shape[2])
+
+
+def check_cuda_shape(q, Hkv: int) -> None:
+    """What the kernel cannot take: a head dim it has no build for, or a
+    grid past its extent, more (b, kv head) pairs or more row groups of
+    the G*T query rows (T padded) than ``MAX_GRID``."""
+    B, T, Hq, D = q.shape
     if D not in _k.HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {_k.HEAD_DIMS}")
-    rows = (q.shape[2] // pool_k.shape[2]) * q.shape[1]
-    if rows > _k.MAX_ROWS:
-        raise ValueError(f"{rows} query rows per kv head exceed the "
-                         f"kernel's {_k.MAX_ROWS}")
+    if B * Hkv > _k.MAX_GRID:
+        raise ValueError(f"{B * Hkv} (b, kv head) pairs exceed the "
+                         f"kernel grid's {_k.MAX_GRID}")
+    rows = (Hq // Hkv) * -(-T // T_PAD) * T_PAD
+    if row_groups(rows) > _k.MAX_GRID:
+        raise ValueError(f"{row_groups(rows)} row groups of {rows} query "
+                         f"rows per kv head exceed the kernel grid's "
+                         f"{_k.MAX_GRID}")
+
+
+def planned_split_len(q, Hkv: int) -> int:
+    """The planner's split for a call on q (B, T, Hq, D), T padded: its
+    B*Hkv blocks per split column times the row groups of G*T rows."""
+    B, T, Hq, _ = q.shape
+    return plan_split_len(B, Hkv, row_groups((Hq // Hkv) * T))
 
 
 def check_split_len(split_len: int) -> None:
@@ -118,7 +140,7 @@ def tree_attention_paged_bshd(q, pool_k, pool_v, tree_k, tree_v, tree_mask,
     elif q.device.type == "cuda":
         check_cuda_operands(*args)
         if split_len is None:
-            split_len = plan_split_len(q.shape[0], pool_k.shape[2])
+            split_len = planned_split_len(q, pool_k.shape[2])
         check_split_len(split_len)
         out = torch.empty_like(q)
         rc = _k.launch(*args, out, split_len=split_len)

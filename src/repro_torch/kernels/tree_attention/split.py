@@ -1,21 +1,23 @@
 """The split cache sweep of the tree-verify kernel (K1, K4, K2): its
 planner and its plain PyTorch version.
 
-The CUDA kernel (``csrc/tree_attention_paged.cu``) gives each (split, b,
-kv head) a block of its own: split s covers cache positions
+The CUDA kernel (``csrc/tree_attention_paged.cu``) gives each (split, row
+group, b, kv head) a block of its own: split s covers cache positions
 ``[s * split_len, (s + 1) * split_len)`` below ``cache_len`` and leaves a
 partial ``(m, l, acc)`` per query row (running max, denominator, unnormalised
-output); one more block per (b, kv head) does the T tree keys under the
-ancestor mask.  A merge then folds the partials in split order, then the
+output); one more block per (row group, b, kv head) does the T tree keys
+under the ancestor mask.  A row group is ``ROW_GROUP`` of the R = G*T
+query rows of a kv head, so any R is taken (``row_groups``).  A merge then folds the partials in split order, then the
 tree partial, and divides.  No atomics, so a call is bitwise the same from
 run to run.
 
 ``plan_split_len`` is the host's rule for ``split_len``.  It depends on
-B*Hkv alone: never on ``cache_len``, which stays on the device, nor on the
-capacity, nor on the pool block size (a paged split may start and end
-inside a pool block; the kernel clamps each block's keys to the split).
-So a paged call and a dense call of equal B*Hkv split at the same
-positions, whatever the block size.
+the blocks of a split column, B*Hkv times the row groups, alone: never on
+``cache_len``, which stays on the device, nor on the capacity, nor on the
+pool block size (a paged split may start and end inside a pool block; the
+kernel clamps each block's keys to the split).  So a paged call and a
+dense call of equal shapes split at the same positions, whatever the
+block size.
 
 ``plan_mla_split_len`` is the same kind of rule for K5, the absorbed-MLA
 paged verify kernel, which sweeps one latent stream in splits and merges
@@ -38,21 +40,39 @@ NEG = -1e30                    # a masked score; the empty partial's max
 SPLIT_UNIT = 64                # split_len is a multiple of this
 SPLIT_HEADS = 32               # B*Hkv from which a split grows (x2 per x2)
 SPLIT_MAX_UNITS = 16
+ROW_GROUP = 64                 # query rows a split block holds (K1/K4/K2, K5)
 
 
-def plan_split_len(B: int, Hkv: int) -> int:
-    """Cache positions per split: 64 while B*Hkv < 64 (gemma3-1b's 4 and
-    minitron-4b's 32 blocks per split column), doubling with each doubling
-    of B*Hkv past that, up to 1024, so the grid fills the card's 132 SMs
-    at a short cache without spending more on partials than a long one
-    needs.  Paged and dense calls alike: no block size enters."""
+def row_groups(rows: int) -> int:
+    """Blocks that hold ``rows`` query rows, ``ROW_GROUP`` each: the
+    tree-verify kernel's per (b, kv head) for its G*T rows, K5's per slot
+    for its H*T."""
+    return -(-rows // ROW_GROUP)
+
+
+def plan_split_len(B: int, Hkv: int, groups: int = 1) -> int:
+    """Cache positions per split: 64 while a split column holds fewer than
+    64 blocks, B*Hkv*groups (gemma3-1b's 4 and minitron-4b's 32, one row
+    group each), doubling with each doubling past that, up to 1024, so the
+    grid fills the card's 132 SMs at a short cache without spending more on
+    partials than a long one needs.  Paged and dense calls alike: no block
+    size enters.
+
+    ``groups`` (``row_groups(G*T)``) counts as blocks because a row group
+    is one: it takes SM time beside the others and writes R*D fp32 of
+    partials per split, as a kv head does, so at 80-144 rows (qwen2.5-32b,
+    chameleon-34b, starcoder2-7b) the partials double or triple while the
+    keys per split stay.  On the card the longer split this gives
+    qwen2.5-32b and chameleon-34b (128 against 64 at B = 4) is the faster
+    one for K1 and K2 alike (``chip_smoke.py`` phase 3i,
+    ``time_split_rules``; PERF.md section 6).  At R <= 64 (one group)
+    every split is what it was before row groups."""
     units = 1
-    while units < SPLIT_MAX_UNITS and B * Hkv >= SPLIT_HEADS * 2 * units:
+    while units < SPLIT_MAX_UNITS and \
+            B * Hkv * groups >= SPLIT_HEADS * 2 * units:
         units *= 2
     return SPLIT_UNIT * units
 
-
-MLA_ROW_GROUP = 64             # K5's bf16 block: query rows of one slot
 
 
 def plan_mla_split_len(B: int, H: int, T: int, r: int, rd: int) -> int:
@@ -71,7 +91,7 @@ def plan_mla_split_len(B: int, H: int, T: int, r: int, rd: int) -> int:
     with B*Hkv, up to 1024.  Like the tree-verify planner it never reads
     ``cache_len``, nor the pool's block size."""
     R = H * T
-    groups = -(-R // MLA_ROW_GROUP)
+    groups = row_groups(R)
     saved_per_key = (H - groups) * (r + rd) * 2
     partials = 2 * R * r * 4
     units = 1

@@ -163,12 +163,21 @@ def test_wrapper_rejects_bad_operands():
     with pytest.raises(ValueError, match="cache_len must be int32"):
         dense_ops.check_cuda_operands(c["q"], c["ck"], c["cv"], c["tk"],
                                       c["tv"], tm, lens.long())
+    # any number of query rows per kv head is taken (160: three row
+    # groups); what the grid cannot hold, more (b, kv head) pairs than
+    # its extent, is refused
+    q = torch.zeros((1, 40, 8, 256))
+    kv = torch.zeros((1, 40, 2, 256))
+    dense_ops.check_cuda_operands(
+        q, torch.zeros((1, 64, 2, 256)), torch.zeros((1, 64, 2, 256)),
+        kv, kv, torch.ones((40, 40), dtype=torch.bool), lens)
     with pytest.raises(ValueError, match="exceed"):
-        q = torch.zeros((1, 40, 8, 256))
-        kv = torch.zeros((1, 40, 2, 256))
+        B = 65536
+        q = torch.empty((B, 1, 1, 64))
         dense_ops.check_cuda_operands(
-            q, torch.zeros((1, 64, 2, 256)), torch.zeros((1, 64, 2, 256)),
-            kv, kv, torch.ones((40, 40), dtype=torch.bool), lens)
+            q, torch.empty((B, 4, 1, 64)), torch.empty((B, 4, 1, 64)), q, q,
+            torch.ones((1, 1), dtype=torch.bool),
+            torch.zeros(B, dtype=torch.int32))
 
 
 def test_cpu_path_launches_no_kernel():
