@@ -11,15 +11,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    instantiation, the registers and spills ``ptxas -v`` reports; fail on
    a spill in any head-dim-256 build, and unless the bf16 builds the
    main path runs (the tree-verify split kernel at head dims 128 and 256
-   in its paged, windowed and dense forms and its merge, K3 at (128,
-   128), (256, 256) and (192, 128), K5's split sweep over bf16 pools at
-   (512, 64) and its merge, K6's bf16 chunk kernel and scan at chunk 64)
-   are each found in the report and show no spill; then fail unless
+   in its paged, windowed and dense forms and at 64 in its paged and
+   dense forms (zamba2-1.2b's shared block), and its merge, K3 at (64,
+   64), (128, 128), (256, 256) and (192, 128), K5's split sweep over bf16
+   pools at (512, 64) and its merge, K6's bf16 chunk kernel and scan at
+   chunk 64) are each found in the report and show no spill; then fail
+   unless
    ``cuobjdump -sass`` finds tensor-core instructions (``HMMA`` or
    ``HGMMA``) in every bf16 build of K3, of the tree-verify split
    kernel, of K5's split sweep and of K6's two kernels (the models past
    64 query rows per kv head add no instantiation: row groups are a grid
-   axis of the D=128 builds);
+   axis of the D=128 builds), the D = 64 ones among them;
 3. hold each kernel against its plain PyTorch version on the card, fp32
    with TF32 off (atol = rtol = 1e-4) and bf16 (atol = rtol = 2e-2), and
    time the kernel, its plain version and ``scaled_dot_product_attention``
@@ -99,6 +101,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
       the kernel reads them) and SDPA; and in bf16 at the split of each
       of the planner's two candidate rules (a split column of B*Hkv
       blocks, or of B*Hkv times the row groups), both timed;
+   j. zamba2-1.2b's shared attention block: K1 (B=4, 32 q over 32 kv
+      heads, D=64, a chain of T=5, block 16, lens 0/37/700/1500, NULL
+      holes) and K2 at the same heads over a dense S=1536, fp32 and bf16
+      against their plain versions, block 0 (K1) or every position at or
+      past ``cache_len`` (K2) poisoned and two identical calls bitwise,
+      bf16 timed beside its bound and SDPA; K3 at (64, 64), 32 over 32,
+      window 0, S in {37, 300, 1536} and its chunk form (C=256 at offset
+      1280 over 2048 keys), as in d;
 4. tiny fp32 parity: ``minitron-4b.reduced()``, a reduced gemma3-1b
    whose 16-token window binds, ``deepseek-v2-lite-16b.reduced()`` and
    ``rwkv6-1.6b.reduced()``, Hydra++ served through the paged engine
@@ -111,7 +121,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    qwen2.5-32b, chameleon-34b and deepseek-moe-16b (``configs.
    head_preserving``: the published head counts, 2 layers, d_model 256,
    head_dim 64; 144, 80, 128 and 16 query rows per kv head), paged engine
-   == dense ``generate()``, whole prompts and in chunks of 8;
+   == dense ``generate()``, whole prompts and in chunks of 8; then
+   ``zamba2-1.2b.reduced()`` (shared, mamba 1, shared, mamba 1) and its
+   5-layer form with the block every 2 layers, with a preemption, whole
+   prompts and in chunks of 16 (K1, K2, K3 on the shared block);
 5. full width, bf16, random weights drawn on the card from a seeded
    ``torch.Generator``; for each model one verify step paged against
    dense from the same prefill (prefill through K3, then through K3's
@@ -160,6 +173,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      paged-vs-dense verify check (K2 at the same rows on every layer);
      deepseek-moe-16b (GQA under the DeepSeek MoE; 29 and 29) held as
      deepseek-v2-lite is, a K1 1% off the planted fault;
+   - zamba2-1.2b (38 Mamba2 layers, d 2048, 64 SSD heads of 64, d_state
+     64, and 7 invocations of one shared attention + MLP block, 32 heads
+     of 64; ~1.2B parameters), gemma3-1b's traffic at full depth: one
+     chain verify step paged (K1 on the 7 invocations) against dense (K2
+     on them) from the same prefill, bitwise equal; each of that
+     prefill's 7 K3 calls against its plain version on its own operands
+     (2e-2); the bf16 prefill through K3 against one through its plain
+     version, a reading only (random weights carry bf16 rounding through
+     the 38 recurrent layers to a relative logit difference near 1, past
+     telling a right K3 from a wrong one; phase 5b holds it in fp32);
+     7 K1 launches per decode step, 7 K3 per prefill, no K6;
 5b. chunked prefill at full width through the paged engine (chunk 256, a
    budget of one chunk a step), phase 5's requests, against phase 5's
    whole-prompt joins (streams token-identical printed, with both runs'
@@ -175,6 +199,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      and the last 16, a chunked prefill that drops its carried state
      failing that bound; in bf16 a reading (random weights amplify bf16
      rounding layer by layer);
+   - zamba2-1.2b: 7 K3 launches per chunk (the chunk form), the SSD
+     from the carried state; held in fp32 as rwkv6 is, the planted fault
+     a chunked prefill that drops its carried conv window; bf16 a
+     reading; and in fp32 one whole prefill through K3 against one
+     through its plain version, at the same positions and bound, a K3
+     1% off failing it;
    - deepseek-v2-lite-16b at 2 layers, the MoE check's bf16 depth
      (widths kept): whole-prompt joins, then chunks; 3 K3 launches (the
      (192, 128) form) per chunk; a chunk boundary changes which tokens
@@ -197,8 +227,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    device time over its wall time) printed beside the card's name and
    power limit; the four models of the rest of the registry in two
    modes, the synchronous eager loop and the default, one turn each, with
-   the peak memory of the phase.  Phases 4, 5 and 5b serve through the
-   engines' defaults
+   the peak memory of the phase; zamba2-1.2b in the four modes, one
+   turn.  Phases 4, 5 and 5b serve through the engines' defaults
    (``inflight=2``, the step captured): the decode step's launches are
    counted at its capture and its eager warm-up, its replays by the
    capture;
@@ -206,7 +236,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    entry, ``flash_attention_chunk``; K1 and K2 at each model past 64 rows
    per kv head as entries of their own, ``tree_attention_paged@<arch>``,
    with the launches of that model's phase 5 and the bound with keys read
-   once per row group beside ``bound_ms``), then the result line.
+   once per row group beside ``bound_ms``; K1, K2 and K3 at zamba2-1.2b's
+   shared block, ``...@zamba2-1.2b``), then the result line.
    ``[time]`` lines give each phase's seconds.
 
 The script stands alone: it puts ``src/`` on ``sys.path`` itself, and it
@@ -422,10 +453,13 @@ WINDOW = 512
 MIN_ARGMAX_AGREEMENT = 14 / 16
 # the bf16 builds the main path runs, as ``kernel_name`` names them; each
 # must be found in the ptxas report without a spill.  The tree-verify
-# split kernel: minitron-4b's K1 and K2 (D=128) and deepseek's prefix K1,
-# gemma3-1b's K4 and prefix K1 (D=256) and its dense verify's K2; K3 at
+# split kernel: zamba2-1.2b's shared-block K1 and K2 (D=64), minitron-4b's
+# K1 and K2 (D=128) and deepseek's prefix K1, gemma3-1b's K4 and prefix
+# K1 (D=256) and its dense verify's K2; K3 at zamba2-1.2b's (64),
 # minitron-4b's, gemma3-1b's and deepseek's MLA widths
 TREE_VERIFY_BUILDS = frozenset({
+    "tree_attention_split_kernel<bf16, D=64>",
+    "tree_attention_split_kernel<bf16, D=64, dense>",
     "tree_attention_split_kernel<bf16, D=128>",
     "tree_attention_split_kernel<bf16, D=256>",
     "tree_attention_split_kernel<bf16, D=256, windowed>",
@@ -435,7 +469,7 @@ TREE_VERIFY_BUILDS = frozenset({
     "tree_attention_merge_kernel<bf16, dense>"})
 K3_BUILDS = frozenset(
     f"flash_attention_kernel<bf16, DQK={a}, DV={b}>"
-    for a, b in ((128, 128), (256, 256), (192, 128)))
+    for a, b in ((64, 64), (128, 128), (256, 256), (192, 128)))
 # K5's split sweep over bf16 pools at deepseek-v2-lite's widths and its
 # merge; K6's chunk kernel and scan in bf16 at rwkv6-1.6b's chunk of 64
 MLA_BUILDS = frozenset({
@@ -457,11 +491,13 @@ SECOND_COUNTERS = ("merge_launches", "scan_launches")
 
 
 def paged_inputs(c: PagedCase, T: int, dtype, seed: int,
-                 poison: float = 0.0):
+                 poison: float = 0.0, chain: bool = False):
     """K1 operands on the card (model layout) and the verify positions
-    ``cache_len + depth`` K4 takes besides."""
+    ``cache_len + depth`` K4 takes besides; the candidate tree is
+    ``default_tree(T, 4, 4)``, or with ``chain`` a chain of T (the
+    recurrent families' speculation)."""
     import torch
-    from repro_torch.core.trees import default_tree
+    from repro_torch.core.trees import chain_tree, default_tree
 
     B = len(c.lens)
     table = torch.zeros((B, c.m), dtype=torch.int32)
@@ -477,7 +513,7 @@ def paged_inputs(c: PagedCase, T: int, dtype, seed: int,
     pool_k, pool_v = r(nxt, c.bs, c.hkv, c.d), r(nxt, c.bs, c.hkv, c.d)
     pool_k[0] = poison
     pool_v[0] = poison
-    tree = default_tree(T, 4, 4)
+    tree = chain_tree(T - 1) if chain else default_tree(T, 4, 4)
     lens = torch.tensor(c.lens, dtype=torch.int32, device="cuda")
     q_pos = lens[:, None] + torch.as_tensor(tree.depth, device="cuda")[None]
     return (r(B, T, c.hq, c.d), pool_k, pool_v, r(B, T, c.hkv, c.d),
@@ -555,14 +591,16 @@ def paged_sdpa_args(c: PagedCase, args, q_pos=None, window: int = 0):
     return q.transpose(1, 2).contiguous(), k, v, mask[:, None]
 
 
-def _time_paged(c, T, dtype, dtype_name, kernel, plain, window=0) -> dict:
+def _time_paged(c, T, dtype, dtype_name, kernel, plain, window=0,
+                chain: bool = False) -> dict:
     """Kernel (split sweep + merge) and SDPA device times, the plain
     version's time and the wrapper call's time with its host work
     (``call_ms``), over 32 operand sets (more than the 50 MB L2 holds, as
     a step's layers cycle through their pools)."""
     import torch.nn.functional as F
 
-    sets = [paged_inputs(c, T, dtype, seed=100 + i) for i in range(32)]
+    sets = [paged_inputs(c, T, dtype, seed=100 + i, chain=chain)
+            for i in range(32)]
     pick = cycle(sets)
     ms = device_ms(lambda: kernel(*pick()))
     call_ms = time_ms(lambda: kernel(*pick()))
@@ -753,18 +791,21 @@ def _k3_pairs(S: int, window: int) -> int:
     return sum(min(i + 1, window) for i in range(S))
 
 
-def check_k3() -> dict:
+def check_k3(heads: dict = K3_HEADS, windows=(WINDOW, 0)) -> dict:
+    """K3 against its plain version at each of ``heads`` ({model: (Hq,
+    Hkv, D)}), S in {37, 300, 1536}, each of ``windows``; timed at S=1536
+    (and minitron-4b's S=300)."""
     import torch
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_plain)
 
     record = {}
-    for model, (hq, hkv, d) in K3_HEADS.items():
+    for model, (hq, hkv, d) in heads.items():
         for dtype_name, tol in TOLS:
             dtype = getattr(torch, dtype_name)
             for S in (37, 300, 1536):
-                for w in (WINDOW, 0):
+                for w in windows:
                     g = torch.Generator(device="cuda").manual_seed(S + w)
                     mk = lambda h: torch.randn(
                         (1, S, h, d), generator=g, device="cuda").to(dtype)
@@ -846,10 +887,11 @@ def _chunk_rows(q_off: int, C: int, window: int) -> tuple:
             q_off + C - max(0, q_off - window + 1))
 
 
-def check_k3_chunk() -> dict:
+def check_k3_chunk(cases=K3_CHUNK_CASES, offsets=K3_CHUNK_OFFSETS) -> dict:
     """K3's chunk form (``q_off``, ``kv_valid_len``) against its plain
-    version at each case of ``K3_CHUNK_CASES``, fp32 and bf16, C = 256 rows
-    at offsets 0, 256 and 1280 over a view of 2048 keys valid to
+    version at each of ``cases`` (``K3_CHUNK_CASES``), fp32 and bf16, C =
+    256 rows at each of ``offsets`` (0, 256, 1280) over a view of 2048
+    keys valid to
     ``q_off + C``: outputs bitwise unchanged when every key past
     ``kv_valid_len`` is poisoned (NaN, inf, +-1e4), and the chunk's rows
     bitwise equal to the same rows of one whole-prefill call on the same
@@ -864,7 +906,7 @@ def check_k3_chunk() -> dict:
 
     record = {}
     C, S = K3_CHUNK, K3_VIEW
-    for model, hq, hkv, dk, dv, w in K3_CHUNK_CASES:
+    for model, hq, hkv, dk, dv, w in cases:
         scale = 1.0 / math.sqrt(dk)
         for dtype_name, tol in TOLS:
             dtype = getattr(torch, dtype_name)
@@ -873,7 +915,7 @@ def check_k3_chunk() -> dict:
                                           device="cuda").to(dtype)
             q, k, v = mk(hq, dk), mk(hkv, dk), mk(hkv, dv)
             whole = ops.flash_attention_bshd(q, k, v, window=w, scale=scale)
-            for q_off in K3_CHUNK_OFFSETS:
+            for q_off in offsets:
                 n = q_off + C
                 qc = q[:, q_off:n].contiguous()
                 kvl = torch.full((1,), n, dtype=torch.int32, device="cuda")
@@ -1334,11 +1376,12 @@ K2_CASES = {"minitron": DenseCase(24, 8, 128, (0, 37, 144, 300), 512),
 
 
 def dense_inputs(c: DenseCase, T: int, dtype, seed: int,
-                 poison: float = 0.0):
+                 poison: float = 0.0, chain: bool = False):
     """K2 operands on the card (model layout); every cache position at or
-    past ``cache_len`` holds ``poison``."""
+    past ``cache_len`` holds ``poison``; the tree as ``paged_inputs``
+    makes it."""
     import torch
-    from repro_torch.core.trees import default_tree
+    from repro_torch.core.trees import chain_tree, default_tree
 
     B = len(c.lens)
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1348,7 +1391,7 @@ def dense_inputs(c: DenseCase, T: int, dtype, seed: int,
     past = (torch.arange(c.s, device="cuda")[None] >= lens[:, None])
     ck[past] = poison
     cv[past] = poison
-    tree = default_tree(T, 4, 4)
+    tree = chain_tree(T - 1) if chain else default_tree(T, 4, 4)
     return (r(B, T, c.hq, c.d), ck, cv, r(B, T, c.hkv, c.d),
             r(B, T, c.hkv, c.d),
             torch.as_tensor(tree.ancestor_mask, device="cuda"), lens)
@@ -1425,7 +1468,8 @@ def check_k2() -> dict:
     return record
 
 
-def _time_dense(c: DenseCase, T: int, dtype, dtype_name: str) -> dict:
+def _time_dense(c: DenseCase, T: int, dtype, dtype_name: str,
+                chain: bool = False) -> dict:
     """K2 (split sweep + merge) and SDPA device times, the plain version's
     time and the wrapper call's time with its host work (``call_ms``),
     over 32 operand sets, beside the bound."""
@@ -1434,7 +1478,8 @@ def _time_dense(c: DenseCase, T: int, dtype, dtype_name: str) -> dict:
     from repro_torch.kernels.tree_attention.kernel import (
         tree_attention_dense_plain)
 
-    sets = [dense_inputs(c, T, dtype, seed=100 + i) for i in range(32)]
+    sets = [dense_inputs(c, T, dtype, seed=100 + i, chain=chain)
+            for i in range(32)]
     pick = cycle(sets)
     ms = device_ms(lambda: dense_ops.tree_attention_bshd(*pick()))
     call_ms = time_ms(lambda: dense_ops.tree_attention_bshd(*pick()))
@@ -1630,6 +1675,86 @@ def check_rows(T: int = 16) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3j: K1, K2 and K3 at zamba2-1.2b's shared attention block
+# ---------------------------------------------------------------------------
+
+# the shared block's heads: 32 q over 32 kv heads of 64 (G = 1), a chain
+# of T = 5 (padded to 8 by the wrappers), gemma3-1b's contexts and holes
+ZAMBA2 = "zamba2-1.2b"
+ZAMBA2_CASE = PagedCase(32, 32, 64, (0, 37, 700, 1500), ROW_HOLES, 96)
+ZAMBA2_T = 5
+
+
+def check_zamba2_kernels() -> dict:
+    """K1 and K2 at the shared block's verify (``ZAMBA2_CASE``, K2 over a
+    dense S = 1536), fp32 and bf16 against their plain versions: block 0
+    (K1) or every position at or past cache_len (K2) poisoned with 0,
+    +-1e4, NaN and inf, bitwise; two identical calls bitwise; bf16 timed
+    beside its bound and SDPA.  Then K3 at (64, 64), 32 over 32, window 0:
+    whole prefills at S in {37, 300, 1536} and the chunk form (C = 256 at
+    offset 1280 over 2048 keys) against their plain versions (the chunk's
+    rows bitwise equal to the whole call's, poison past kv_valid_len
+    bitwise), bf16 timed beside its bound and SDPA.  Returns {("K1" |
+    "K2", dtype): record, "K3": check_k3's, "K3 chunk": its chunk
+    records}."""
+    import torch
+    from repro_torch.kernels.tree_attention import dense_ops, ops
+    from repro_torch.kernels.tree_attention.kernel import (
+        tree_attention_dense_plain, tree_attention_paged_plain)
+
+    c, T = ZAMBA2_CASE, ZAMBA2_T
+    dc = DenseCase(c.hq, c.hkv, c.d, c.lens, 1536)
+    record = {}
+    for dtype_name, tol in TOLS:
+        dtype = getattr(torch, dtype_name)
+        what = f"K1 {ZAMBA2} ({c.hq}/{c.hkv} heads, D={c.d}) {dtype_name}"
+        outs = []
+        for poison in POISONS:
+            args, _ = paged_inputs(c, T, dtype, seed=T, poison=poison,
+                                   chain=True)
+            outs.append(ops.tree_attention_paged_bshd(*args))
+        outs.append(ops.tree_attention_paged_bshd(*args))
+        assert_bitwise(outs, f"{what}: poisoned NULL block, two calls")
+        err1 = compare(outs[0], tree_attention_paged_plain(*args), tol, what)
+        what2 = f"K2 {ZAMBA2} ({c.hq}/{c.hkv} heads, D={c.d}) {dtype_name}"
+        douts = [dense_ops.tree_attention_bshd(
+            *dense_inputs(dc, T, dtype, seed=T, poison=f, chain=True))
+            for f in POISONS]
+        # masked_attention multiplies masked weights by the values: it is
+        # held on the unpoisoned (zero) operands
+        dargs = dense_inputs(dc, T, dtype, seed=T, chain=True)
+        douts.append(dense_ops.tree_attention_bshd(*dargs))
+        assert_bitwise(douts, f"{what2}: poison at or past cache_len, two "
+                              "calls")
+        err2 = compare(douts[0], tree_attention_dense_plain(*dargs), tol,
+                       what2)
+        record[("K1", dtype_name)] = dict(max_abs_err=err1)
+        record[("K2", dtype_name)] = dict(max_abs_err=err2)
+        log(f"[zamba2] {c.hq} q over {c.hkv} kv heads, D={c.d}, chain T={T}, "
+            f"{dtype_name}: K1 max_abs_err={err1:.3e}, K2 "
+            f"max_abs_err={err2:.3e}; poison and two identical calls "
+            "bitwise")
+    timed = {
+        "K1": _time_paged(c, T, torch.bfloat16, "bfloat16",
+                          lambda *a: ops.tree_attention_paged_bshd(*a[0]),
+                          lambda *a: tree_attention_paged_plain(*a[0]),
+                          chain=True),
+        "K2": _time_dense(dc, T, torch.bfloat16, "bfloat16", chain=True)}
+    for key, rec in timed.items():
+        record[(key, "bfloat16")].update(rec)
+        log(f"[zamba2] {key} bfloat16 T={T}: kernel={rec['ms'] * 1e3:.1f}us "
+            f"(call {rec['call_ms'] * 1e3:.1f}us) "
+            f"bound={rec['bound_ms'] * 1e3:.2f}us ({rec['bound_by']}) "
+            f"plain={rec['plain_ms'] * 1e3:.1f}us "
+            f"sdpa={rec['library_ms'] * 1e3:.1f}us")
+    record["K3"] = check_k3({ZAMBA2: (c.hq, c.hkv, c.d)}, windows=(0,))
+    record["K3 chunk"] = check_k3_chunk(
+        ((ZAMBA2, c.hq, c.hkv, c.d, c.d, 0),),
+        offsets=(K3_CHUNK_OFFSETS[-1],))
+    return record
+
+
+# ---------------------------------------------------------------------------
 # phase 4: tiny fp32 parity, paged engine (kernels) == dense generate()
 # ---------------------------------------------------------------------------
 
@@ -1706,7 +1831,7 @@ def check_tiny_parity(base, lens, budgets=(12, 14, 8, 10, 13, 9),
             if counts[name] == 0:
                 raise AssertionError(f"tiny parity {cfg.name} never "
                                      f"launched {name}")
-        if base.block_kind == "rwkv6" and st.preemptions == 0:
+        if base.block_kind in ("rwkv6", "mamba2") and st.preemptions == 0:
             raise AssertionError(f"tiny parity {cfg.name}: the pool forced "
                                  "no preemption (no re-prefill was held)")
         log(f"[tiny] {cfg.name} V={cfg.vocab_size}: paged engine == dense "
@@ -1715,7 +1840,8 @@ def check_tiny_parity(base, lens, budgets=(12, 14, 8, 10, 13, 9),
             f"preemptions={st.preemptions} launches={counts}; dense "
             f"generate() launches={dense_counts}")
         # chunked prefill through the same paged engine: the chunks run
-        # K3's chunk form (attention) or K6 from the carried state (rwkv6)
+        # K3's chunk form (attention; zamba2's shared block) or K6 from the
+        # carried state (rwkv6)
         k3 = counters["flash_attention"]
         prefill_kernel = ("linear_attn_chunk" if base.block_kind == "rwkv6"
                           else "flash_attention")
@@ -1779,6 +1905,9 @@ def _verify_pair(params, dp, cfg, P: int, S: int):
     table = torch.arange(1, nb + 1, dtype=torch.int32, device="cuda")[None]
     pools = []
     for group in st.cache:                 # (L, 1, S, tail...) per array
+        if "k" not in group:               # recurrent state: per slot in
+            pools.append(group)            # both layouts (verify reads it)
+            continue
         pool = {}
         for k, v in group.items():
             pool[k] = torch.zeros((v.shape[0], nb + 1, 16) + v.shape[3:],
@@ -1851,6 +1980,73 @@ def check_full_verify(params, dp, cfg, P: int, S: int) -> int:
             raise AssertionError(f"paged and dense verify argmax agree on "
                                  f"{agree:.3f} of the tree only")
     return k2_expected
+
+
+def check_zamba2_verify(params, dp, cfg, P: int, S: int) -> int:
+    """zamba2 at full width: one chain verify step paged (K1 on the shared
+    block's invocations) against dense (K2 on them), from the same
+    prefill through K3, must be bitwise equal (the Mamba2 groups are per
+    slot in both layouts and run the same operations); the dense verify
+    launches K2 once per invocation.  Each of that prefill's K3 calls is
+    held against the plain version on the same operands (the
+    invocation's real activations), within bf16's 2e-2.  Then the same
+    prefill through K3's plain version, read against the K3 one (random
+    weights amplify bf16 rounding through the 38 recurrent layers to a
+    relative logit difference near 1, where every margin is a near tie,
+    so it cannot tell a right K3 from a wrong one;
+    ``check_k3_prefill_fp32`` holds it end to end): it fails only on a
+    logit that is not finite or an argmax that differs beyond a near
+    tie.  Returns the K2 launches of the pair."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_plain
+    from repro_torch.models import attention
+    from repro_torch.models.model import group_program
+
+    k2_expected = sum(kind == "shared_attn" for kind, _ in group_program(cfg))
+    kernel_fn = attention.flash_attention_bshd
+    errs = []
+
+    def held(q, k, v, **kw):
+        out = kernel_fn(q, k, v, **kw)
+        errs.append(compare(out, flash_attention_plain(q, k, v, **kw), 2e-2,
+                            f"{cfg.name} K3 call {len(errs)} of the prefill"))
+        return out
+
+    attention.flash_attention_bshd = held
+    try:
+        paged, dense, k2 = _verify_pair(params, dp, cfg, P, S)
+    finally:
+        attention.flash_attention_bshd = kernel_fn
+    if len(errs) != k2_expected:
+        raise AssertionError(f"{cfg.name}: the prefill called K3 "
+                             f"{len(errs)} times, not {k2_expected}")
+    if k2 != k2_expected:
+        raise AssertionError(f"{cfg.name}: the dense verify launched K2 "
+                             f"{k2} times, not {k2_expected}")
+    if not torch.isfinite(paged).all() or not torch.equal(paged, dense):
+        rel = _paged_vs_dense(paged, dense)[0]
+        raise AssertionError(f"{cfg.name}: paged and dense verify are not "
+                             f"bitwise equal (max rel diff {rel:.3e})")
+    attention.flash_attention_bshd = flash_attention_plain
+    try:
+        plain = _verify_pair(params, dp, cfg, P, S)[1]
+    finally:
+        attention.flash_attention_bshd = kernel_fn
+    rel, agree, margins = _paged_vs_dense(dense, plain)
+    log(f"[full] {cfg.name} verify paged vs dense (prompt {P}, chain "
+        f"T={ZAMBA2_T}, dense K2 launches {k2}): bitwise equal; the "
+        f"prefill's {len(errs)} K3 calls against the plain version on their "
+        f"own operands: max abs err {max(errs):.3e} (bound 2e-2 + 2e-2 "
+        f"|ref|); the prefill through K3 vs through its plain version (a "
+        f"reading; held in fp32 in phase 5b): max rel "
+        f"logit diff={rel:.3e} argmax agreement={agree:.3f} "
+        f"margins={margins}")
+    if not torch.isfinite(plain).all() or any(m >= 1 for m in margins):
+        raise AssertionError(f"{cfg.name}: the plain-K3 prefill's verify "
+                             f"logits are not finite or an argmax differs "
+                             f"beyond a near tie: {margins}")
+    return k2
 
 
 # (dtype, layers, max relative logit difference, least argmax agreement)
@@ -2126,6 +2322,13 @@ WORKLOADS = (
                modes=("sync eager", "async captured"), mode_reps=1)
       for arch, layers in (("starcoder2-7b", 32), ("qwen2.5-32b", 64),
                            ("chameleon-34b", 48), ("deepseek-moe-16b", 28))),
+    # zamba2's 38 Mamba2 layers between 7 invocations of the shared block:
+    # K1 on each invocation a step, K3 on each a prefill, no K6; chunked at
+    # full depth; phase 6 in the four modes, once
+    Workload(ZAMBA2, (600, 1500), 2048, {"paged": {"tree_attention_paged": 7}},
+             {"flash_attention": 7}, 1000,
+             (None, {"tree_attention_paged": 7}, {"flash_attention": 7}),
+             mode_reps=1),
 )
 
 
@@ -2177,23 +2380,37 @@ def serve_full_width(wl: Workload) -> tuple:
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB of the card's "
         f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.2f}")
     pair_k2 = 0
+    t_sub = time.perf_counter()
+
+    def lap(what: str) -> None:
+        nonlocal t_sub
+        log(f"[time] {cfg.name} {what}: {time.perf_counter() - t_sub:.0f}s")
+        t_sub = time.perf_counter()
+
     if cfg.moe:
         log_moe_verify(params, dp, cfg, wl.check_prompt, S_check)
     elif cfg.block_kind == "rwkv6":
         check_rwkv_prefill(params, dp, cfg, wl.check_prompt)
+    elif cfg.block_kind == "mamba2":
+        pair_k2 = check_zamba2_verify(params, dp, cfg, wl.check_prompt,
+                                      S_check)
     else:
         pair_k2 = check_full_verify(params, dp, cfg, wl.check_prompt,
                                     S_check)
+    lap("full-width verify check")
     runs = {}
     for engine in wl.verify:
         counts, outs, st = serve_engine(wl, cfg, params, dp, engine,
                                         wl.verify[engine], wl.prefill)
         runs[engine] = (outs, st)
         _add(launches, counts)
+    lap("phase 5 serves")
     if wl.chunked and wl.chunked[0] is None:
         _add(launches, serve_chunked(wl, cfg, params, dp, runs["paged"]))
+        lap("phase 5b")
     check_replay_step(wl, cfg, params, dp)
     serve_modes(wl, cfg, params, dp, wl.verify["paged"], CARD)
+    lap("phase 6")
     del params, dp
     torch.cuda.empty_cache()
     return launches, pair_k2
@@ -2225,11 +2442,17 @@ def serve_chunked_cut(wl: Workload) -> dict:
 
 # phase 5b's chunked-vs-whole prefill bounds (max relative logit
 # difference, least argmax agreement), phase 5's for a dense model; an
-# MoE model's and rwkv6's bf16 comparisons are readings (a chunk boundary
-# moves MoE capacity; rwkv6 at random weights amplifies bf16 rounding
-# layer by layer), and rwkv6 is held in fp32 instead
+# MoE model's and the recurrent models' bf16 comparisons are readings (a
+# chunk boundary moves MoE capacity; rwkv6 and zamba2 at random weights
+# amplify bf16 rounding layer by layer), and those two are held in fp32
+# instead
 CHUNKED_BOUND = (0.1, MIN_ARGMAX_AGREEMENT)
-RWKV_FP32_CHUNKED_BOUND = (1e-3, 1.0)
+RECURRENT_FP32_CHUNKED_BOUND = (1e-3, 1.0)
+# the planted fault of the fp32 check: the carried state a chunked
+# prefill drops (zeroed before every chunk); rwkv6 all of it, zamba2 the
+# Mamba2 conv window alone
+RECURRENT_DROPS = {"rwkv6": ("wkv_state", "shift_tm", "shift_cm"),
+                   "mamba2": ("conv_win",)}
 
 
 def serve_chunked(wl: Workload, cfg, params, dp, unchunked) -> dict:
@@ -2240,11 +2463,11 @@ def serve_chunked(wl: Workload, cfg, params, dp, unchunked) -> dict:
     ``PREFILL_CHUNK`` and a budget of one chunk over phase 5's requests,
     against the unchunked run ``unchunked`` = (outputs, stats)."""
     _, per_step, per_chunk = wl.chunked
-    dense_attention = not cfg.moe and cfg.block_kind != "rwkv6"
+    recurrent = cfg.block_kind in RECURRENT_DROPS
     check_chunked_logits(params, cfg, wl.check_prompt,
-                         CHUNKED_BOUND if dense_attention else None)
-    if cfg.block_kind == "rwkv6":
-        check_rwkv_chunked_fp32(cfg, wl.check_prompt)
+                         None if cfg.moe or recurrent else CHUNKED_BOUND)
+    if recurrent:
+        check_recurrent_chunked_fp32(cfg, wl.check_prompt)
     counts, outs, st = serve_engine(wl, cfg, params, dp, "paged", per_step,
                                     per_chunk=per_chunk,
                                     prefill_chunk=PREFILL_CHUNK)
@@ -2260,13 +2483,14 @@ def serve_chunked(wl: Workload, cfg, params, dp, unchunked) -> dict:
     return counts
 
 
-def check_rwkv_chunked_fp32(cfg, P: int) -> None:
-    """rwkv6 at full width in fp32: the chunked prefill (K6 from the
-    carried state) held against one whole prefill at
-    ``RWKV_FP32_CHUNKED_BOUND`` at the 16 positions after each chunk
-    boundary (where the carried state and token shift act) and the last
-    16; the same with the recurrent state zeroed before every chunk (a
-    chunk that does not carry it) must fail it."""
+def check_recurrent_chunked_fp32(cfg, P: int) -> None:
+    """A recurrent model (rwkv6, zamba2) at full width in fp32: the
+    chunked prefill (K6 or the Mamba2 SSD from the carried state, zamba2's
+    shared block through K3's chunk form) held against one whole prefill
+    at ``RECURRENT_FP32_CHUNKED_BOUND`` at the 16 positions after each
+    chunk boundary (where the carried state, token shift or conv window
+    act) and the last 16; the same with ``RECURRENT_DROPS``'s keys zeroed
+    before every chunk (a chunk that does not carry them) must fail it."""
     import torch
     from repro_torch.models.model import init_params
 
@@ -2275,33 +2499,86 @@ def check_rwkv_chunked_fp32(cfg, P: int) -> None:
     C = -(-PREFILL_CHUNK // cfg.ssm.chunk_size) * cfg.ssm.chunk_size
     rows = sorted({b + i for b in range(C, P, C) for i in range(16)
                    if b + i < P} | set(range(P - 16, P)))
-    check_chunked_logits(params, cfg32, P, RWKV_FP32_CHUNKED_BOUND, rows)
+    bound = RECURRENT_FP32_CHUNKED_BOUND
+    check_chunked_logits(params, cfg32, P, bound, rows)
+    if cfg.block_kind == "mamba2":
+        check_k3_prefill_fp32(params, cfg32, P, rows)
+    drop = RECURRENT_DROPS[cfg.block_kind]
     rel, agree = check_chunked_logits(params, cfg32, P, None, rows,
-                                      drop_state=True)
+                                      drop_keys=drop)
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    max_rel, min_agree = RWKV_FP32_CHUNKED_BOUND
-    if rel <= max_rel and agree >= min_agree:
+    if rel <= bound[0] and agree >= bound[1]:
         raise AssertionError(f"{cfg32.name}: a chunked prefill that drops "
-                             f"its carried state reads rel {rel}, argmax "
+                             f"its carried {drop} reads rel {rel}, argmax "
                              f"{agree}: within the bound")
 
 
+def check_k3_prefill_fp32(params, cfg, P: int, rows) -> None:
+    """zamba2 at full width in fp32: one whole prefill through K3 (the
+    shared block's invocations) against one through K3's plain version,
+    held at ``RECURRENT_FP32_CHUNKED_BOUND`` at ``rows`` (the bf16
+    comparison of phase 5 diverges too far through the 38 Mamba2 layers
+    to tell a right K3 from a wrong one); the same with K3's output off by
+    ``K5_OFF`` (a planted fault) must fail it."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_plain
+    from repro_torch.models import attention
+    from repro_torch.models.model import forward
+
+    g = torch.Generator(device="cuda").manual_seed(P + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, P), generator=g,
+                           device="cuda")
+    pos = torch.arange(P, device="cuda")[None]
+    kernel_fn = attention.flash_attention_bshd
+
+    def logits(fn):
+        attention.flash_attention_bshd = fn
+        try:
+            h = forward(params, cfg, tokens, pos, mode="full",
+                        want_logits=False).hidden[0, rows]
+        finally:
+            attention.flash_attention_bshd = kernel_fn
+        return h.float() @ params["unembed_f32"]
+
+    plain = logits(flash_attention_plain)
+    bound = RECURRENT_FP32_CHUNKED_BOUND
+    for what, fn in (("K3", kernel_fn),
+                     (f"K3 off by {K5_OFF}",
+                      lambda *a, **kw: kernel_fn(*a, **kw) * K5_OFF)):
+        lk = logits(fn)
+        rel, agree, margins = _paged_vs_dense(lk, plain)
+        held = bool(torch.isfinite(lk).all()) and rel <= bound[0] \
+            and agree >= bound[1]
+        log(f"[5b] {cfg.name} ({cfg.n_layers} layers, {cfg.dtype}) whole "
+            f"prefill of {P} tokens through {what} against one through "
+            f"K3's plain version, {len(rows)} positions: max rel logit "
+            f"diff={rel:.3e} argmax agreement={agree:.3f} margins={margins} "
+            f"(bound {bound[0]}, {bound[1]:.3f})")
+        if held != (what == "K3"):
+            raise AssertionError(f"{cfg.name}: the fp32 prefill through "
+                                 f"{what} reads rel {rel}, argmax {agree}: "
+                                 f"{'outside' if what == 'K3' else 'within'}"
+                                 " the bound")
+
+
 def check_chunked_logits(params, cfg, P: int, bound, rows=None,
-                         drop_state: bool = False) -> tuple:
+                         drop_keys=()) -> tuple:
     """The logits at prompt positions ``rows`` (default the last 16) of a
     P-token prompt prefilled in chunks of ``PREFILL_CHUNK`` (K3's chunk
-    form, or K6 from the carried state) against one whole prefill.
-    ``bound`` = (max |diff| / max |logit|, least argmax agreement), or
-    None for a reading that fails only on a logit that is not finite.
-    ``drop_state`` zeroes the recurrent state before every chunk (a
-    planted fault).  Returns (relative difference, argmax agreement)."""
+    form, K6 or the Mamba2 SSD from the carried state) against one whole
+    prefill.  ``bound`` = (max |diff| / max |logit|, least argmax
+    agreement), or None for a reading that fails only on a logit that is
+    not finite.  ``drop_keys``: recurrent state keys zeroed before every
+    chunk (a planted fault).  Returns (relative difference, argmax
+    agreement)."""
     import torch
     from repro_torch.models.model import forward, init_cache
 
     C = PREFILL_CHUNK
-    if cfg.block_kind == "rwkv6":
+    if cfg.block_kind in RECURRENT_DROPS:
         C = -(-C // cfg.ssm.chunk_size) * cfg.ssm.chunk_size
     rows = list(range(P - 16, P)) if rows is None else rows
     g = torch.Generator(device="cuda").manual_seed(P)
@@ -2316,11 +2593,10 @@ def check_chunked_logits(params, cfg, P: int, bound, rows=None,
     full = lambda x: torch.full((1,), x, dtype=torch.int32, device="cuda")
     hs = []
     for start in range(0, S, C):
-        if drop_state:
-            for group in cache:
-                for key, arr in group.items():
-                    if key not in ("k", "v"):
-                        arr.zero_()
+        for group in cache:
+            for key, arr in group.items():
+                if key in drop_keys:
+                    arr.zero_()
         hs.append(forward(params, cfg, tokens[:, start:start + C],
                           torch.arange(start, start + C, device="cuda")[None],
                           mode="full", cache=cache, cache_len=full(start),
@@ -2338,7 +2614,8 @@ def check_chunked_logits(params, cfg, P: int, bound, rows=None,
                   "the last 16")
     log(f"[5b] {cfg.name} ({cfg.n_layers} layers, {cfg.dtype}) prefill of "
         f"{P} tokens in chunks of {C}"
-        f"{' dropping the carried state' if drop_state else ''} against one "
+        + (f" dropping its carried {'/'.join(drop_keys)}" if drop_keys
+           else "") + " against one "
         f"whole prefill, {where}: max rel logit diff={rel:.3e} "
         f"argmax agreement={agree:.3f} margins={margins} ({what})")
     if not finite:
@@ -2614,7 +2891,10 @@ def serve_once(eng, wl: Workload, cfg, source: bool = False) -> dict:
 def traced_busy(eng, wl: Workload, cfg) -> tuple:
     """One serve under ``torch.profiler``: (device busy seconds, the
     traced serve's numbers).  One stream, so kernel and copy durations
-    add up to the busy time."""
+    add up to the busy time.  The durations are summed over the raw
+    trace (``kineto_results``): building the profiler's Python event
+    tree over a serve of captured steps (thousands of kernels a replay)
+    and eager prefills takes minutes."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2623,9 +2903,10 @@ def traced_busy(eng, wl: Workload, cfg) -> tuple:
                              ProfilerActivity.CUDA]) as prof:
         run = serve_once(eng, wl, cfg)
         torch.cuda.synchronize()
-    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == DeviceType.CUDA)
-    return busy_us / 1e6, run
+    busy_ns = sum(e.duration_ns()
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA)
+    return busy_ns / 1e9, run
 
 
 def serve_modes(wl: Workload, cfg, params, dp, per_step: dict,
@@ -2778,7 +3059,13 @@ def main() -> int:
     log("[ptxas] starcoder2-7b, qwen2.5-32b, chameleon-34b and "
         "deepseek-moe-16b run tree_attention_split_kernel<bf16, D=128> "
         "(and its dense form) and flash_attention_kernel<bf16, DQK=128, "
-        "DV=128>, listed above without a spill")
+        "DV=128>; zamba2-1.2b's shared block the D=64 forms and "
+        "flash_attention_kernel<bf16, DQK=64, DV=64>: all listed above "
+        "without a spill")
+    d64 = sorted(k for k in checked if "D=64" in k or "DQK=64" in k)
+    if len(d64) < 3 or not all(tensor_cores[k] for k in d64):
+        raise AssertionError(f"SASS: the bf16 D=64 builds {d64} lack HMMA")
+    log(f"[sass] zamba2-1.2b's bf16 D=64 builds on the tensor cores: {d64}")
     log(f"[time] phase 2 (builds and their checks) done at "
         f"{time.perf_counter() - t_start:.0f}s")
 
@@ -2795,6 +3082,7 @@ def main() -> int:
     k2 = check_k2()
     check_k1_prefix()
     rows = check_rows()
+    zk = check_zamba2_kernels()
     log(f"[time] phase 3 (kernel checks) done at "
         f"{time.perf_counter() - t_start:.0f}s")
 
@@ -2822,6 +3110,15 @@ def main() -> int:
         check_tiny_parity(dataclasses.replace(
             head_preserving(get_config(arch)), dtype="float32"),
             (9, 12, 10, 14), budgets=(14, 12, 13, 12), chunks=(8,))
+    # zamba2: reduced() (shared, mamba 1, shared, mamba 1) and 5 layers
+    # every 2 (segments 2, 2, 1: three invocations), with a preemption,
+    # whole and in chunks of 16 (the scan's chunk)
+    zamba2 = get_config(ZAMBA2).reduced()
+    for cfg in (zamba2, dataclasses.replace(zamba2, n_layers=5,
+                                            hybrid_attn_every=2)):
+        check_tiny_parity(dataclasses.replace(cfg, dtype="float32"),
+                          (16, 23, 32, 9, 40, 12), budgets=(30,) * 6,
+                          num_blocks=8, chunks=(16,))
     log(f"[time] phase 4 (tiny fp32 parity) done at "
         f"{time.perf_counter() - t_start:.0f}s")
     launches, per_arch = {}, {}
@@ -2901,6 +3198,31 @@ def main() -> int:
                           f"({rec['groups']} row groups), T=16",
                      bound_per_group_ms=rec["bound_per_group_ms"])
             kernels.append(e)
+    # K1, K2 and K3 at zamba2-1.2b's shared block (head dim 64, G = 1):
+    # K1 and K3 launches of its phase 5-6 serves, K2 of its pair check
+    for kname, rec, replaces, count, err in (
+            ("tree_attention_paged", zk[("K1", "bfloat16")],
+             "src/repro/kernels/tree_attention/kernel.py:63",
+             per_arch[ZAMBA2]["tree_attention_paged"],
+             zk[("K1", "bfloat16")]["max_abs_err"]),
+            ("tree_attention_dense", zk[("K2", "bfloat16")],
+             "src/repro/kernels/tree_attention/kernel.py:47",
+             per_arch[ZAMBA2]["pair_k2"],
+             zk[("K2", "bfloat16")]["max_abs_err"]),
+            ("flash_attention", zk["K3"][(ZAMBA2, "bfloat16", 1536, 0)],
+             "src/repro/kernels/flash_attention/kernel.py:23",
+             per_arch[ZAMBA2]["flash_attention"],
+             max(r["max_abs_err"] for key, r in zk["K3"].items()
+                 if key[1] == "bfloat16"))):
+        source = ("src/repro_torch/csrc/flash_attention.cu"
+                  if kname == "flash_attention"
+                  else "src/repro_torch/csrc/tree_attention_paged.cu")
+        e = entry(kname, source, replaces, rec, err)
+        e.update(name=f"{kname}@{ZAMBA2}", launches=count,
+                 case=("32 q over 32 kv heads, D=64, S=1536, window 0"
+                       if kname == "flash_attention" else
+                       f"32 q over 32 kv heads, D=64, chain T={ZAMBA2_T}"))
+        kernels.append(e)
     log(json.dumps({"kernels": kernels}))
     log(f"[time] total {time.perf_counter() - t_start:.0f}s")
     print(json.dumps({"ok": True, "device": {

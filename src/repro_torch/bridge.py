@@ -9,12 +9,17 @@ parts whose layout matters:
 * ``groups``: one entry per group of ``group_program`` (an MoE config has
   a dense group and then an MoE group, whose routed experts are
   ``(L, E, ...)`` leaves; an RWKV6 config one ``rwkv_stack`` group of
-  ``{norm1, norm2, rwkv}`` layers), every leaf stacked on a leading
-  ``(L, ...)`` layer axis.  A GQA layer's projections (under a dense or
-  an MoE FFN) are checked against the config's heads: ``wq (L, d,
-  Hq*D)``, ``wk``/``wv (L, d, Hkv*D)``, ``wo (L, Hq*D, d)``, and the QKV
-  biases ``bq (L, Hq*D)``, ``bk``/``bv (L, Hkv*D)`` present exactly when
+  ``{norm1, norm2, rwkv}`` layers; zamba2 ``mamba_stack`` groups of
+  ``{norm, mamba}`` layers, every Mamba2 leaf present, between empty
+  ``shared_attn`` entries), every leaf stacked on a leading ``(L, ...)``
+  layer axis.  A GQA layer's projections (under a dense or an MoE FFN)
+  are checked against the config's heads: ``wq (L, d, Hq*D)``,
+  ``wk``/``wv (L, d, Hkv*D)``, ``wo (L, Hq*D, d)``, and the QKV biases
+  ``bq (L, Hq*D)``, ``bk``/``bv (L, Hkv*D)`` present exactly when
   ``cfg.qkv_bias`` (qwen2.5-32b);
+* ``shared_attn`` (zamba2): the one shared attention + MLP layer, checked
+  as a GQA layer with no layer axis, present exactly when the program has
+  ``shared_attn`` groups;
 * ``lm_head``: stored as ``(d, V)`` (JAX inits it as ``embed_init(...).T``),
   and the fp32 unembedding the port derives from it at load;
 * draft params: a list of per-head dicts (``w_in``, ``out_norm``,
@@ -22,8 +27,9 @@ parts whose layout matters:
   the Hydra++ ``prefix`` layer, a GQA layer checked as the groups' are.
 
 Every leaf keeps its own float type: bf16 stays bf16 and fp32 stays
-fp32, so the MoE router and RWKV6's ``w0``, ``u_bonus``, ``gn_gamma`` and
-``gn_beta``, which JAX keeps in fp32 in a bf16 model, are not rounded.
+fp32, so the MoE router, RWKV6's ``w0``, ``u_bonus``, ``gn_gamma`` and
+``gn_beta``, and Mamba2's ``a_log``, ``d_skip`` and ``dt_bias``, which
+JAX keeps in fp32 in a bf16 model, are not rounded.
 
 ``to_numpy`` is the way back (for round-trip checks): the derived fp32
 unembedding is left out.
@@ -36,6 +42,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model import add_unembed_f32, group_program
+from repro_torch.models.ssm import mamba2_dims
 
 
 def _convert(tree, device):
@@ -78,14 +85,50 @@ def params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
             _expect(t.shape[0] == n, f"{kind} leaves stacked on ({n}, ...)")
 
     for (kind, n), g in zip(prog, params["groups"]):
+        if kind == "shared_attn":
+            _expect(g == {}, "a shared_attn group holds no weights of its "
+                    f"own (they are params['shared_attn']), got {sorted(g)}")
+            continue
         _expect(("rwkv" in g) == (kind == "rwkv_stack"),
                 f"{kind} {'has' if 'rwkv' in g else 'lacks'} RWKV6 layers")
+        _expect(("mamba" in g) == (kind == "mamba_stack"),
+                f"{kind} {'has' if 'mamba' in g else 'lacks'} Mamba2 layers")
         _expect(("moe" in g) == (kind == "attn_stack_moe"),
                 f"{kind} has {'an MoE' if 'moe' in g else 'a dense'} FFN")
         check_stacked(g, kind, n)
         if "attn" in g and not cfg.mla:
             _check_gqa(g["attn"], cfg, kind, (n,))
+        if kind == "mamba_stack":
+            _check_mamba2(g["mamba"], cfg, (n,))
+    shared = any(kind == "shared_attn" for kind, _ in prog)
+    _expect(("shared_attn" in params) == shared,
+            f"params['shared_attn'] {'missing' if shared else 'present'}: "
+            f"the program has {'' if shared else 'no '}shared_attn groups")
+    if shared:
+        sp = params["shared_attn"]
+        _expect(sorted(sp) == ["attn", "mlp", "norm1", "norm2"],
+                f"shared_attn is one attention + MLP layer, got {sorted(sp)}")
+        _expect(tuple(sp["norm1"].shape) == (d,),
+                f"shared_attn is one layer, not stacked: norm1 must be "
+                f"({d},), got {tuple(sp['norm1'].shape)}")
+        _check_gqa(sp["attn"], cfg, "shared_attn", ())
     return add_unembed_f32(params, cfg)
+
+
+def _check_mamba2(p, cfg: ModelConfig, lead: tuple) -> None:
+    """A Mamba2 layer's leaves (behind ``lead``) against the config."""
+    s, d = cfg.ssm, cfg.d_model
+    d_in, H, conv_ch = mamba2_dims(cfg)
+    want = {"w_in": (d, 2 * d_in + 2 * s.d_state + H),
+            "conv_w": (s.conv_width, conv_ch), "conv_b": (conv_ch,),
+            "a_log": (H,), "d_skip": (H,), "dt_bias": (H,),
+            "norm": (d_in,), "w_out": (d_in, d)}
+    _expect(sorted(p) == sorted(want),
+            f"mamba_stack layers have {sorted(want)}, got {sorted(p)}")
+    for key, shape in want.items():
+        _expect(tuple(p[key].shape) == lead + shape,
+                f"mamba_stack {key} must be {lead + shape}, got "
+                f"{tuple(p[key].shape)}")
 
 
 def _check_gqa(p, cfg: ModelConfig, kind: str, lead: tuple) -> None:

@@ -283,11 +283,12 @@ def list_configs() -> list:
 
 # dense GQA stacks (full-attention or sliding-window, with or without QKV
 # bias; chameleon-34b's early-fusion VLM is one over token ids), GQA and
-# MLA under the MoE FFN, and the RWKV6 recurrent stack: zamba2's hybrid
-# and the encoder-only hubert wait for their modules (ROADMAP)
+# MLA under the MoE FFN, the RWKV6 recurrent stack, and zamba2's hybrid
+# (Mamba2 layers with a shared attention block): only the encoder-only
+# hubert waits for its module (ROADMAP)
 ARCH_MODULES = ["chameleon_34b", "deepseek_moe_16b", "deepseek_v2_lite_16b",
                 "gemma3_1b", "minitron_4b", "qwen2p5_32b", "rwkv6_1p6b",
-                "starcoder2_7b", "vicuna_tiny"]
+                "starcoder2_7b", "vicuna_tiny", "zamba2_1p2b"]
 
 
 def _load_all() -> None:

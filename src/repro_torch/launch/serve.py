@@ -7,8 +7,9 @@ Any arch of the port's registry serves: the full-attention stacks
 (``minitron-4b``, ``vicuna-tiny``, ``starcoder2-7b``, ``qwen2.5-32b``
 with its QKV bias, ``chameleon-34b`` over token ids), the sliding-window
 one (``gemma3-1b``), the MoE ones (``deepseek-v2-lite-16b`` under MLA,
-``deepseek-moe-16b`` under GQA) and the recurrent one (``rwkv6-1.6b``,
-chain speculation).  Without
+``deepseek-moe-16b`` under GQA), the recurrent one (``rwkv6-1.6b``) and
+the hybrid one (``zamba2-1.2b``: Mamba2 layers and a shared attention
+block), the last two with chain speculation.  Without
 ``--full-config`` the reduced config runs in fp32 (a smoke run); with it,
 the published widths in ``cfg.dtype``.
 Weights are random, drawn on the device from a seeded

@@ -1,37 +1,51 @@
-"""Model assembly (port of ``repro/models/model.py``): attention stacks
-(the ``attn_stack_dense`` and ``attn_stack_moe`` groups: GQA,
-full-attention or sliding-window, or DeepSeek-V2's MLA; dense or MoE FFN)
-and the RWKV6 recurrent stack (``rwkv_stack``).
+"""Model assembly (port of ``repro/models/model.py``).  A model is a
+sequence of *groups* (``group_program``); group kinds:
+
+  attn_stack_dense, attn_stack_moe — pre-norm transformer layers (GQA,
+                 full-attention or sliding-window, or DeepSeek-V2's MLA;
+                 dense or MoE FFN)
+  rwkv_stack   — RWKV6 layers (time-mix + channel-mix)
+  mamba_stack  — Mamba2 layers (``{norm, mamba}``: pre-norm, SSD mixer)
+  shared_attn  — zamba2's shared transformer block: ONE weight set,
+                 ``params["shared_attn"]``, invoked once per such group
+                 (its ``groups`` entry is an empty dict), each invocation
+                 with a KV cache slot of its own
 
 The params keep the JAX pytree's layout so the bridge converts one-to-one:
 ``embed (V, d)``, ``final_norm``, ``lm_head (d, V)`` unless embeddings are
-tied, and one entry of ``groups`` per group of ``group_program`` (an MoE
-config has a dense group of ``n_dense_layers`` and then an MoE group),
-with every leaf stacked on a leading layer axis.  One more entry,
-``unembed_f32``, holds the fp32 unembedding the logits multiply with.
-JAX upcasts the ``(d, V)`` unembedding on every call; the port makes that
-copy once, at load (3.1 GB at minitron-4b, see PERF.md).
+tied, one entry of ``groups`` per group (an MoE config has a dense group
+of ``n_dense_layers`` and then an MoE group), with every leaf stacked on a
+leading layer axis, and ``shared_attn``, one unstacked layer, for zamba2.
+One more entry, ``unembed_f32``, holds the fp32 unembedding the logits
+multiply with.  JAX upcasts the ``(d, V)`` unembedding on every call; the
+port makes that copy once, at load (3.1 GB at minitron-4b, see PERF.md).
 
-Caches are a list with one dict per group.  An attention group holds
-``{"k", "v"}``: dense ``(L, B, S, Hkv, D)`` per-slot arrays, or — with a
-block table — global pools ``(L, N, bs, Hkv, D)``.  An MLA group caches
-the latent and the rope key instead: ``k`` is ``(L, B|N, S|bs, r)``, ``v``
-``(L, ..., rd)``.  An RWKV6 group holds recurrent state with no sequence
-axis, per slot under any layout: ``wkv_state (L, B, H, 64, 64)`` fp32 and
-the token-shift states ``shift_tm``/``shift_cm (L, B, 1, d)``.  ``forward``
-updates the attention caches IN PLACE (JAX returns new arrays) and
-returns the same tensors; in full mode it writes an RWKV6 group's final
-states in place too, while in verify mode it leaves the committed state
-alone and returns, for that group, new per-token CANDIDATE states
-(``(L, B, T, ...)``) that ``serving/cache.py::commit_cache`` selects from.
+Caches are a list with one dict per group.  An attention group
+(``attention_group``: ``attn_stack*`` and ``shared_attn``) holds ``{"k",
+"v"}``: dense ``(L, B, S, Hkv, D)`` per-slot arrays, or — with a block
+table — global pools ``(L, N, bs, Hkv, D)``; a ``shared_attn`` group has
+L = 1.  An MLA group caches the latent and the rope key instead: ``k`` is
+``(L, B|N, S|bs, r)``, ``v`` ``(L, ..., rd)``.  A recurrent group holds
+state with no sequence axis, per slot under any layout: RWKV6's
+``wkv_state (L, B, H, 64, 64)`` fp32 and the token-shift states
+``shift_tm``/``shift_cm (L, B, 1, d)``; Mamba2's ``ssd_state (L, B, H,
+ds, hd)`` fp32 and the conv window ``conv_win (L, B, W-1, C)`` in the
+model dtype.  ``forward`` updates the attention caches IN PLACE (JAX
+returns new arrays) and returns the same tensors; in full mode it writes
+a recurrent group's final states in place too, while in verify mode it
+leaves the committed state alone and returns, for that group, new
+per-token CANDIDATE states (``(L, B, T, ...)``) that
+``serving/cache.py::commit_cache`` selects from.
 
 A group with sliding-window layers (gemma3's 5 local : 1 global pattern)
 runs its paged verify through the windowed kernel K4, each layer with its
 own window (0 for the global layers), as JAX picks the windowed template
 variant per group.  An MLA stack runs its paged verify through K5.  An
-RWKV6 stack runs its prefill scan through K6 and its verify scan (per
-token, every state kept) in plain PyTorch, ignoring the tree mask (its
-trees are chains) and any block table (it has nothing to page).
+RWKV6 stack runs its prefill scan through K6, a Mamba2 stack through the
+grouped SSD; both run their verify scan (per token, every state kept) in
+plain PyTorch, ignoring the tree mask (their trees are chains) and any
+block table (they have nothing to page).  zamba2's shared block is a GQA
+layer like any other: K1 (paged) or K2 (dense) in verify, K3 in prefill.
 
 Execution modes:
   'full'   — prefill over the whole sequence; fills ``cache`` at [0, T).
@@ -39,7 +53,7 @@ Execution modes:
              continuation (DESIGN.md §8): the T tokens sit at
              ``cache_len + arange(T)``, attention groups write them
              there (dense, or paged through ``block_table``) and attend
-             through K3's chunk form, and an RWKV6 group scans on from
+             through K3's chunk form, and a recurrent group scans on from
              its carried state (the caller zeroes it for a first chunk)
   'verify' — T speculative tokens (tree or chain) against a populated
              cache; dense, or paged through ``block_table``
@@ -56,7 +70,8 @@ from repro_torch.models.attention import (AttnInputs, gqa_fwd, init_gqa,
                                           init_mla, mla_fwd)
 from repro_torch.models.layers import embed_init, init_mlp, mlp_fwd, rms_norm
 from repro_torch.models.moe import init_moe, moe_fwd
-from repro_torch.models.ssm import (_gather_last_valid, init_rwkv6,
+from repro_torch.models.ssm import (_gather_last_valid, init_mamba2,
+                                    init_rwkv6, mamba2_dims, mamba2_fwd,
                                     rwkv6_chanmix, rwkv6_timemix)
 
 
@@ -70,16 +85,32 @@ def group_program(cfg: ModelConfig):
     """Returns a list of (kind, n_layers) describing the stack."""
     if cfg.block_kind == "rwkv6":
         return [("rwkv_stack", cfg.n_layers)]
+    if cfg.block_kind == "mamba2":
+        every = cfg.hybrid_attn_every
+        if not every:
+            return [("mamba_stack", cfg.n_layers)]
+        groups, done = [], 0
+        while done < cfg.n_layers:
+            seg = min(every, cfg.n_layers - done)
+            groups += [("shared_attn", 1), ("mamba_stack", seg)]
+            done += seg
+        return groups
     if cfg.block_kind != "attn" or cfg.encoder_only:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves attention stacks and RWKV6 only "
-            "so far")
+            f"{cfg.name}: the port serves decoders only so far")
     if cfg.moe:
         nd = cfg.moe.n_dense_layers
         out = [("attn_stack_dense", nd)] if nd else []
         out.append(("attn_stack_moe", cfg.n_layers - nd))
         return out
     return [("attn_stack_dense", cfg.n_layers)]
+
+
+def attention_group(kind: str) -> bool:
+    """True for a group whose cache has a sequence axis (``k``/``v``, paged
+    under a block table): the attention stacks and zamba2's shared block.
+    The recurrent groups' state is per slot under any layout."""
+    return kind.startswith("attn_stack") or kind == "shared_attn"
 
 
 def _window_array(cfg: ModelConfig, n_layers: int, offset: int = 0):
@@ -121,6 +152,11 @@ def _init_rwkv_layer(gen, cfg, dtype, device):
     return {"norm1": torch.zeros((d,), dtype=dtype, device=device),
             "norm2": torch.zeros((d,), dtype=dtype, device=device),
             "rwkv": init_rwkv6(gen, cfg, dtype, device)}
+
+
+def _init_mamba_layer(gen, cfg, dtype, device):
+    return {"norm": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
+            "mamba": init_mamba2(gen, cfg, dtype, device)}
 
 
 def _init_stacked(n: int, init_layer):
@@ -166,7 +202,9 @@ def add_unembed_f32(params, cfg: ModelConfig):
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     """Random params drawn on ``device`` from a seeded torch.Generator,
-    with the JAX init's distributions (not its numbers)."""
+    with the JAX init's distributions (not its numbers).  zamba2's shared
+    block is drawn once, into ``params["shared_attn"]``, and every
+    ``shared_attn`` group reads it."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -177,12 +215,22 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     if not cfg.tie_embeddings:
         params["lm_head"] = embed_init(gen, cfg.vocab_size, cfg.d_model,
                                        dtype, dev).T.contiguous()
-    params["groups"] = [
-        _init_stacked(n, lambda kind=kind: (
-            _init_rwkv_layer(gen, cfg, dtype, dev) if kind == "rwkv_stack"
-            else _init_attn_layer(gen, cfg, dtype, dev,
-                                  moe_ffn=kind == "attn_stack_moe")))
-        for kind, n in group_program(cfg)]
+    layer_init = {
+        "rwkv_stack": lambda: _init_rwkv_layer(gen, cfg, dtype, dev),
+        "mamba_stack": lambda: _init_mamba_layer(gen, cfg, dtype, dev),
+        "attn_stack_dense": lambda: _init_attn_layer(gen, cfg, dtype, dev,
+                                                     moe_ffn=False),
+        "attn_stack_moe": lambda: _init_attn_layer(gen, cfg, dtype, dev,
+                                                   moe_ffn=True)}
+    groups = []
+    for kind, n in group_program(cfg):
+        if kind == "shared_attn":
+            if "shared_attn" not in params:
+                params["shared_attn"] = layer_init["attn_stack_dense"]()
+            groups.append({})             # the weights live in the shared slot
+        else:
+            groups.append(_init_stacked(n, layer_init[kind]))
+    params["groups"] = groups
     return add_unembed_f32(params, cfg)
 
 
@@ -191,36 +239,40 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
 # ---------------------------------------------------------------------------
 
 
+def group_cache(cfg: ModelConfig, kind: str, n: int, batch: int,
+                max_len: int, device, dtype=None) -> dict:
+    """One group's committed cache, zeros (see ``init_cache``)."""
+    dtype = dtype or torch_dtype(cfg.dtype)
+    zeros = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt,
+                                                 device=device)
+    if kind == "rwkv_stack":
+        H, d = cfg.n_heads, cfg.d_model
+        hd = d // H
+        return {"wkv_state": zeros(n, batch, H, hd, hd, dt=torch.float32),
+                "shift_tm": zeros(n, batch, 1, d),
+                "shift_cm": zeros(n, batch, 1, d)}
+    if kind == "mamba_stack":
+        s = cfg.ssm
+        _, H, conv_ch = mamba2_dims(cfg)
+        return {"ssd_state": zeros(n, batch, H, s.d_state, s.head_dim,
+                                   dt=torch.float32),
+                "conv_win": zeros(n, batch, s.conv_width - 1, conv_ch)}
+    if cfg.mla:
+        m = cfg.mla
+        return {"k": zeros(n, batch, max_len, m.kv_lora_rank),
+                "v": zeros(n, batch, max_len, m.qk_rope_dim)}
+    kv = (n, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": zeros(*kv), "v": zeros(*kv)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
                dtype=None):
     """Committed cache: one entry per group, zeros.  With
     (batch=num_blocks, max_len=block_size) the attention entries are
     exactly the pool; recurrent-state entries have no sequence axis and
     are per slot (``batch`` rows), so ``max_len`` does not shape them."""
-    dtype = dtype or torch_dtype(cfg.dtype)
-    caches = []
-    for kind, n in group_program(cfg):
-        if kind == "rwkv_stack":
-            H, d = cfg.n_heads, cfg.d_model
-            hd = d // H
-            caches.append({
-                "wkv_state": torch.zeros((n, batch, H, hd, hd),
-                                         dtype=torch.float32, device=device),
-                "shift_tm": torch.zeros((n, batch, 1, d), dtype=dtype,
-                                        device=device),
-                "shift_cm": torch.zeros((n, batch, 1, d), dtype=dtype,
-                                        device=device)})
-            continue
-        if cfg.mla:
-            m = cfg.mla
-            shapes = ((n, batch, max_len, m.kv_lora_rank),
-                      (n, batch, max_len, m.qk_rope_dim))
-        else:
-            kv = (n, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-            shapes = (kv, kv)
-        caches.append({key: torch.zeros(shape, dtype=dtype, device=device)
-                       for key, shape in zip(("k", "v"), shapes)})
-    return caches
+    return [group_cache(cfg, kind, n, batch, max_len, device, dtype)
+            for kind, n in group_program(cfg)]
 
 
 # ---------------------------------------------------------------------------
@@ -271,6 +323,41 @@ def _rwkv_group_fwd(gp, cfg, h, n: int, gc, *, is_verify: bool, valid_len):
     return h, (cand if is_verify else gc)
 
 
+def _mamba_group_fwd(gp, cfg, h, n: int, gc, *, is_verify: bool,
+                     valid_len):
+    """A Mamba2 group: pre-norm SSD mixer per layer, from the committed
+    states in ``gc`` (zeros when None).  Full mode writes the final states
+    into ``gc`` in place (the conv window taken after token ``valid_len -
+    1``) and returns it; verify mode returns per-token candidates
+    ``{"ssd_state": (L,B,T,H,ds,hd), "conv_win": (L,B,T,W-1,C)}`` and
+    leaves ``gc`` alone."""
+    B, T, _ = h.shape
+    mode = "verify" if is_verify else "full"
+    cand = None
+    if is_verify:
+        s = cfg.ssm
+        _, H, conv_ch = mamba2_dims(cfg)
+        cand = {"ssd_state": torch.empty((n, B, T, H, s.d_state, s.head_dim),
+                                         dtype=torch.float32,
+                                         device=h.device),
+                "conv_win": torch.empty((n, B, T, s.conv_width - 1, conv_ch),
+                                        dtype=h.dtype, device=h.device)}
+    for i in range(n):
+        lp = layer(gp, i)
+        st = layer(gc, i) if gc is not None else {}
+        y, ns = mamba2_fwd(lp["mamba"], cfg,
+                           rms_norm(h, lp["norm"], cfg.rms_eps), mode=mode,
+                           ssd_state=st.get("ssd_state"),
+                           conv_state=st.get("conv_win"),
+                           valid_len=None if is_verify else valid_len)
+        h = h + y
+        out = cand if is_verify else gc
+        if out is not None:
+            for key, val in ns.items():
+                out[key][i] = val
+    return h, (cand if is_verify else gc)
+
+
 def _attn_layer_fwd(lp, cfg, h, ai: AttnInputs):
     fwd = mla_fwd if cfg.mla else gqa_fwd
     a, nk, nv = fwd(lp["attn"], cfg, rms_norm(h, lp["norm1"], cfg.rms_eps),
@@ -301,13 +388,13 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, mode: str = "full",
                    (T,T) the ancestor mask (None => chain).  ``block_table``
                    (B, M) int32 switches the attention caches to the pool
                    layout ``(L, N, bs, Hkv, D)``, streamed by the paged
-                   kernel.  An RWKV6 group returns per-token candidate
+                   kernel.  A recurrent group returns per-token candidate
                    states in the returned cache instead (see above).
 
     ``valid_len`` (B,), full mode only, counts the non-pad tokens.
-    Attention needs no mask for right-pads (causality hides them); an
-    RWKV6 group length-masks its scan, so the state is carried past the
-    pads unchanged, and takes its final states at ``valid_len - 1``.
+    Attention needs no mask for right-pads (causality hides them); a
+    recurrent group length-masks its scan, so the state is carried past
+    the pads unchanged, and takes its final states at ``valid_len - 1``.
     """
     if mode not in ("full", "verify"):
         raise ValueError(f"mode must be 'full' or 'verify': {mode}")
@@ -326,17 +413,25 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, mode: str = "full",
     for gi, (kind, n) in enumerate(group_program(cfg)):
         gp = params["groups"][gi]
         gc = cache[gi] if cache is not None else None
-        if kind == "rwkv_stack":
-            h, new = _rwkv_group_fwd(gp, cfg, h, n, gc, is_verify=is_verify,
-                                     valid_len=valid_len)
+        if kind in ("rwkv_stack", "mamba_stack"):
+            group_fwd = (_rwkv_group_fwd if kind == "rwkv_stack"
+                         else _mamba_group_fwd)
+            h, new = group_fwd(gp, cfg, h, n, gc, is_verify=is_verify,
+                               valid_len=valid_len)
             if out_cache is not None:
                 out_cache[gi] = new
             layer_offset += n
             continue
-        windows = _window_array(cfg, n, layer_offset)
-        # the choice of paged kernel is per GROUP, as in JAX: a group with
-        # any sliding-window layer runs K4 on all its layers
-        win_group = group_has_window(cfg, layer_offset, n)
+        shared = kind == "shared_attn"
+        if shared:
+            # one weight set for every invocation, its own KV slot (L = 1);
+            # full attention; it does not advance the layer offset
+            gp, windows, win_group = params["shared_attn"], [0], False
+        else:
+            windows = _window_array(cfg, n, layer_offset)
+            # the choice of paged kernel is per GROUP, as in JAX: a group
+            # with any sliding-window layer runs K4 on all its layers
+            win_group = group_has_window(cfg, layer_offset, n)
         cached = is_verify or is_chunk
         for i in range(n):
             ai = AttnInputs(
@@ -348,11 +443,13 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, mode: str = "full",
                 window=windows[i], causal=True,
                 block_table=block_table, windowed=win_group,
                 prefill=is_chunk)
-            h, nk, nv = _attn_layer_fwd(layer(gp, i), cfg, h, ai)
+            h, nk, nv = _attn_layer_fwd(gp if shared else layer(gp, i), cfg,
+                                        h, ai)
             if gc is not None and not cached:     # prefill: write [0, T)
                 gc["k"][i, :, :T] = nk.to(gc["k"].dtype)
                 gc["v"][i, :, :T] = nv.to(gc["v"].dtype)
-        layer_offset += n
+        if not shared:
+            layer_offset += n
 
     h = rms_norm(h, params["final_norm"], cfg.rms_eps)
     logits = h.float() @ params["unembed_f32"] if want_logits else None

@@ -6,8 +6,9 @@ After a verify forward the caches hold *candidates*:
 * attention groups (``k``/``v``): all T tree tokens in the scratch region
   [len, len+T); commit compacts the accepted root-path entries to
   [len, len+n_accept+1).  Nothing below ``cache_len`` is touched;
-* recurrent-state groups (``wkv_state``/``shift_tm``/``shift_cm``): a
-  separate per-token candidate tensor ``(L, B, T, ...)``; commit selects
+* recurrent-state groups (RWKV6's ``wkv_state``/``shift_tm``/
+  ``shift_cm``, Mamba2's ``ssd_state``/``conv_win``): a separate
+  per-token candidate tensor ``(L, B, T, ...)`` per key; commit selects
   the candidate of the last accepted node, ``path_nodes[n_accept]``, and
   writes it into the committed state.  Both are gathers, no recompute.
 

@@ -66,7 +66,7 @@ from repro_torch.core.speculative import (autoregressive_step,
                                           join_slot, join_slot_chunk,
                                           spec_decode_step)
 from repro_torch.device import resolve_device
-from repro_torch.models.model import group_program
+from repro_torch.models.model import attention_group, group_program
 from repro_torch.serving.graph import (CapturedStep, HostRead, snapshot,
                                        step_in_place)
 from repro_torch.serving.paged import (NULL_BLOCK, BlockAllocator,
@@ -323,8 +323,8 @@ class SpeculativeEngine:
     False runs the step eagerly; the CPU always does.
 
     ``prefill_chunk`` (0: whole-prompt joins) prefills in chunks of that
-    many tokens, rounded up to the recurrent scan's chunk for RWKV6, so
-    a chunk boundary is a scan-chunk boundary; ``prefill_budget``
+    many tokens, rounded up to the recurrent scan's chunk for RWKV6 and
+    Mamba2, so a chunk boundary is a scan-chunk boundary; ``prefill_budget``
     (default one chunk, at least one chunk) caps the prompt tokens
     dispatched per loop iteration.
 
@@ -353,7 +353,7 @@ class SpeculativeEngine:
         prefill_chunk = int(prefill_chunk or 0)
         if prefill_chunk < 0:
             raise ValueError(f"prefill_chunk must be >= 0: {prefill_chunk}")
-        if prefill_chunk and cfg.block_kind == "rwkv6":
+        if prefill_chunk and cfg.block_kind in ("mamba2", "rwkv6"):
             inner = cfg.ssm.chunk_size
             prefill_chunk = -(-prefill_chunk // inner) * inner
         self.prefill_chunk = prefill_chunk
@@ -373,7 +373,7 @@ class SpeculativeEngine:
         # does a chunk's attention view grow with the prefill cursor?  A
         # recurrent stack without a Hydra++ prefix cache has none
         self._view_grows = (
-            any(kind != "rwkv_stack" for kind, _ in group_program(cfg))
+            any(attention_group(kind) for kind, _ in group_program(cfg))
             or (draft_params is not None and "prefix" in draft_params))
         self.stats = EngineStats()
         self.captured: Optional[CapturedStep] = None

@@ -8,10 +8,14 @@ and ``(..., rd)`` for MLA's latent and rope key), instead of
 logical token-block j of a slot to a physical pool block.  The Hydra++
 PrefixAttention cache rides the same tables in pools of its own.
 
-Recurrent-state groups (RWKV6) have nothing to page: their keys keep the
-dense per-slot layout ``(L, max_batch, ...)`` in the pool state, and the
-engine's block accounting runs as for any model (blocks are allocated and
-freed, nothing reads them), as in the JAX engine.
+Recurrent-state groups (RWKV6's ``rwkv_stack``, Mamba2's ``mamba_stack``)
+have nothing to page: their keys keep the dense per-slot layout
+``(L, max_batch, ...)`` in the pool state, and the engine's block
+accounting runs as for any model (blocks are allocated and freed; for a
+pure recurrent stack nothing reads them), as in the JAX engine.  Exactly
+the attention groups (``models/model.py::attention_group``: the
+attention stacks and zamba2's ``shared_attn`` invocations, each a pool of
+its own behind the one block table) are paged.
 
 Physical block 0 is the reserved **NULL block**: every unallocated table
 entry points at it.  It accumulates garbage writes (inactive rows'
@@ -42,7 +46,8 @@ from repro_torch.core.speculative import (DecodeState, StepResult,
                                           chunk_operands, install_chunk,
                                           prefill_row, spec_decode_step)
 from repro_torch.device import torch_dtype
-from repro_torch.models.model import forward, group_program, init_cache
+from repro_torch.models.model import (attention_group, forward,
+                                      group_cache, group_program)
 from repro_torch.serving.cache import ATTN_KEYS
 
 NULL_BLOCK = 0
@@ -130,21 +135,19 @@ class PagedState(NamedTuple):
 
 def init_paged_state(params, draft_params, cfg: ModelConfig, max_batch: int,
                      num_blocks: int, block_size: int, device) -> PagedState:
-    """Empty paged pool, every row idle.  ``init_cache`` with
-    (batch=num_blocks, max_len=block_size) is exactly the pool shape of
-    the attention keys, and with (batch=max_batch) the per-slot shape of
-    the recurrent-state keys, which carry no sequence axis."""
+    """Empty paged pool, every row idle.  Each group's cache is made once,
+    in its own layout: an attention group's with (batch=num_blocks,
+    max_len=block_size), exactly the pool shape, a recurrent group's with
+    (batch=max_batch), the per-slot shape of keys that carry no sequence
+    axis."""
     pk = pv = None
     if draft_params is not None and "prefix" in draft_params:
         pc = init_prefix_cache(cfg, num_blocks, block_size, device)
         pk, pv = pc["k"], pc["v"]
-    paged = [kind != "rwkv_stack" for kind, _ in group_program(cfg)]
-    pool_like = (init_cache(cfg, num_blocks, block_size, device)
-                 if any(paged) else None)
-    slot_like = (init_cache(cfg, max_batch, 1, device)
-                 if not all(paged) else None)
-    pools = [pool_like[gi] if p else slot_like[gi]
-             for gi, p in enumerate(paged)]
+    pools = [group_cache(cfg, kind, n, num_blocks, block_size, device)
+             if attention_group(kind)
+             else group_cache(cfg, kind, n, max_batch, 1, device)
+             for kind, n in group_program(cfg)]
     return PagedState(
         pools=pools,
         prefix_k=pk, prefix_v=pv,

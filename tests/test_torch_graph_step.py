@@ -2,9 +2,9 @@
 
 On the card (``gpu``-marked; they skip without one), for each reduced
 family (minitron-4b, a gemma3-1b whose 16-token window binds,
-deepseek-v2-lite-16b, rwkv6-1.6b; fp32 with TF32 off, as phase 4 of
-``chip_smoke.py`` runs them (K3's bf16 builds do not take the reduced
-MLA widths), a 16-token vocabulary so candidates get accepted):
+deepseek-v2-lite-16b, rwkv6-1.6b, zamba2-1.2b; fp32 with TF32 off, as
+phase 4 of ``chip_smoke.py`` runs them (K3's bf16 builds do not take the
+reduced MLA widths), a 16-token vocabulary so candidates get accepted):
 
 * a replayed step and an eager step from the same state give bitwise
   equal ``emitted``, ``n_emitted``, ``cache_len``, ``last_token`` and
@@ -60,6 +60,7 @@ FAMILIES = {
     "gemma3-1b": {"window_pattern": (16, 0)},
     "deepseek-v2-lite-16b": {},
     "rwkv6-1.6b": {},
+    "zamba2-1.2b": {},
 }
 
 
@@ -276,7 +277,8 @@ def test_captured_step_refuses_a_cpu_state():
         CapturedStep(step, state, B, table.shape)
 
 
-@pytest.mark.parametrize("arch", ["minitron-4b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["minitron-4b", "rwkv6-1.6b",
+                                  "zamba2-1.2b"])
 def test_step_in_place_equals_the_functional_step(arch):
     """The in-place step (the captured body) leaves in the state's own
     tensors what the functional step returns, and keeps the caches the
