@@ -13,7 +13,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    main path runs (the tree-verify split kernel at head dims 128 and 256
    in its paged, windowed and dense forms and at 64 in its paged and
    dense forms (zamba2-1.2b's shared block), and its merge, K3 at (64,
-   64), (128, 128), (256, 256) and (192, 128), K5's split sweep over bf16
+   64), (80, 80) (hubert-xlarge's encoder), (128, 128), (256, 256) and
+   (192, 128), K5's split sweep over bf16
    pools at (512, 64) and its merge, K6's bf16 chunk kernel and scan at
    chunk 64) are each found in the report and show no spill; then fail
    unless
@@ -21,7 +22,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    ``HGMMA``) in every bf16 build of K3, of the tree-verify split
    kernel, of K5's split sweep and of K6's two kernels (the models past
    64 query rows per kv head add no instantiation: row groups are a grid
-   axis of the D=128 builds), the D = 64 ones among them;
+   axis of the D=128 builds), the D = 64 ones and K3's (80, 80) among
+   them;
 3. hold each kernel against its plain PyTorch version on the card, fp32
    with TF32 off (atol = rtol = 1e-4) and bf16 (atol = rtol = 2e-2), and
    time the kernel, its plain version and ``scaled_dot_product_attention``
@@ -109,6 +111,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
       bf16 timed beside its bound and SDPA; K3 at (64, 64), 32 over 32,
       window 0, S in {37, 300, 1536} and its chunk form (C=256 at offset
       1280 over 2048 keys), as in d;
+   k. K3 at hubert-xlarge's encoder heads (16 over 16, D=80,
+      bidirectional), S in {37, 300, 1536}, fp32 (padded to its 128
+      build) and bf16 (the (80, 80) build) against its plain version;
+      poison (0, +-1e4, NaN, inf) in memory past the sequence changes no
+      bit; bf16 also against the plain version in fp32 on the same bf16
+      operands: relative L2 error at most 5e-3, and K3's output 1% off
+      failing that bound; bf16 at S=1536 timed beside its bound (4 S^2 D H
+      flops at the bf16 peak) and non-causal SDPA;
 4. tiny fp32 parity: ``minitron-4b.reduced()``, a reduced gemma3-1b
    whose 16-token window binds, ``deepseek-v2-lite-16b.reduced()`` and
    ``rwkv6-1.6b.reduced()``, Hydra++ served through the paged engine
@@ -228,16 +238,49 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    power limit; the four models of the rest of the registry in two
    modes, the synchronous eager loop and the default, one turn each, with
    the peak memory of the phase; zamba2-1.2b in the four modes, one
-   turn.  Phases 4, 5 and 5b serve through the engines' defaults
+   turn.  Phases 4, 5, 5b and 5c serve through the engines' defaults
    (``inflight=2``, the step captured): the decode step's launches are
    counted at its capture and its eager warm-up, its replays by the
    capture;
+5c. sampled decoding at full width, bf16, through the engines' defaults
+   (async, the step captured) with JAX's defaults (typical acceptance, τ
+   0.7, ε 0.15): gemma3-1b's and rwkv6-1.6b's phase 5 traffic through the
+   paged engine under ``criterion="typical"``, and minitron-4b's through
+   the continuous engine with ``use_speculative=False`` (tokens drawn at
+   τ): launches per capture and per prefill equal to phase 5's greedy
+   counts (26 K4 + 1 K1 at gemma3-1b, none at rwkv6-1.6b; 32 K2 a step at
+   minitron-4b's autoregressive step), no block left in use; a second
+   serve with the same seed gives the same streams; at ``max_batch=1``
+   two requests in turn give the same streams in the four loop modes of
+   phase 6; three replays of the sampled step captured as a CUDA graph
+   are bitwise equal to the eager step from the same state and the same
+   generator state; tok/s, tokens per step, the mean accepted length,
+   TTFT and p99 ITL printed beside phase 5's greedy figures.  Once, the
+   sampler itself: 2^20 Gumbel-max draws over one logit row of 1024 at
+   τ 0.7 from an engine's generator, eagerly and replayed inside a CUDA
+   graph (a replay bitwise equal to the eager draw from the same
+   generator state, two replays different), each passing a chi-square
+   test against ``softmax(logits / τ)`` over the bins with p > 1e-3 (p
+   value above 1e-4), and draws that ignore τ failing it;
+5d. hubert-xlarge (48 layers, d 1280, 16 heads of 80, FFN 5120, 504
+   targets; ~1.26B parameters drawn on the card) at full width over
+   frames (2, 1500, 1280), 30 s of audio at 50 frames a second: one bf16
+   encoder forward makes 48 K3 launches, all bidirectional at (80, 80),
+   timed with its peak memory; in a second forward each K3 call is held
+   against its plain version on its own operands (2e-2) and against the
+   plain version in fp32 on the same bf16 operands (relative L2 error at
+   most 5e-3, K3's output 1% off failing it); then in fp32 one
+   forward through K3 against one through its plain version: relative
+   logit difference at most 1e-4 and every argmax over the 504 targets
+   at 64 positions, and K3's output 1% off failing that bound;
 7. a JSON line with each kernel's numbers (K3's chunk form as its own
    entry, ``flash_attention_chunk``; K1 and K2 at each model past 64 rows
    per kv head as entries of their own, ``tree_attention_paged@<arch>``,
    with the launches of that model's phase 5 and the bound with keys read
    once per row group beside ``bound_ms``; K1, K2 and K3 at zamba2-1.2b's
-   shared block, ``...@zamba2-1.2b``), then the result line.
+   shared block, ``...@zamba2-1.2b``; K3 at hubert-xlarge's encoder,
+   ``flash_attention@hubert-xlarge``, with phase 5d's launches), then the
+   result line.
    ``[time]`` lines give each phase's seconds.
 
 The script stands alone: it puts ``src/`` on ``sys.path`` itself, and it
@@ -456,7 +499,8 @@ MIN_ARGMAX_AGREEMENT = 14 / 16
 # split kernel: zamba2-1.2b's shared-block K1 and K2 (D=64), minitron-4b's
 # K1 and K2 (D=128) and deepseek's prefix K1, gemma3-1b's K4 and prefix
 # K1 (D=256) and its dense verify's K2; K3 at zamba2-1.2b's (64),
-# minitron-4b's, gemma3-1b's and deepseek's MLA widths
+# hubert-xlarge's (80), minitron-4b's, gemma3-1b's and deepseek's MLA
+# widths
 TREE_VERIFY_BUILDS = frozenset({
     "tree_attention_split_kernel<bf16, D=64>",
     "tree_attention_split_kernel<bf16, D=64, dense>",
@@ -469,7 +513,7 @@ TREE_VERIFY_BUILDS = frozenset({
     "tree_attention_merge_kernel<bf16, dense>"})
 K3_BUILDS = frozenset(
     f"flash_attention_kernel<bf16, DQK={a}, DV={b}>"
-    for a, b in ((64, 64), (128, 128), (256, 256), (192, 128)))
+    for a, b in ((64, 64), (80, 80), (128, 128), (256, 256), (192, 128)))
 # K5's split sweep over bf16 pools at deepseek-v2-lite's widths and its
 # merge; K6's chunk kernel and scan in bf16 at rwkv6-1.6b's chunk of 64
 MLA_BUILDS = frozenset({
@@ -784,8 +828,11 @@ def check_splits() -> None:
 K3_HEADS = {"gemma3-1b": (4, 1, 256), "minitron-4b": (24, 8, 128)}
 
 
-def _k3_pairs(S: int, window: int) -> int:
-    """Admitted (query, key) pairs of a causal S x S run."""
+def _k3_pairs(S: int, window: int, causal: bool = True) -> int:
+    """Admitted (query, key) pairs of an S x S run (causal, or both ways
+    without a window)."""
+    if not causal:
+        return S * S
     if window <= 0:
         return S * (S + 1) // 2
     return sum(min(i + 1, window) for i in range(S))
@@ -830,7 +877,7 @@ def check_k3(heads: dict = K3_HEADS, windows=(WINDOW, 0)) -> dict:
     return record
 
 
-def _time_k3(q, k, v, w: int, dtype_name: str) -> dict:
+def _time_k3(q, k, v, w: int, dtype_name: str, causal: bool = True) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
@@ -839,9 +886,10 @@ def _time_k3(q, k, v, w: int, dtype_name: str) -> dict:
 
     B, S, hq, d = q.shape
     hkv = k.shape[2]
-    ms = device_ms(lambda: ops.flash_attention_bshd(q, k, v, window=w))
-    call_ms = time_ms(lambda: ops.flash_attention_bshd(q, k, v, window=w))
-    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, window=w),
+    kw = dict(window=w, causal=causal)
+    ms = device_ms(lambda: ops.flash_attention_bshd(q, k, v, **kw))
+    call_ms = time_ms(lambda: ops.flash_attention_bshd(q, k, v, **kw))
+    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, **kw),
                          iters=5)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     if w > 0:
@@ -852,11 +900,11 @@ def _time_k3(q, k, v, w: int, dtype_name: str) -> dict:
             qt, kt, vt, attn_mask=mask, enable_gqa=True)
     else:
         lib = lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
     lib_ms = device_ms(lib)
     elt = 2 if dtype_name != "float32" else 4
     nbytes = (2 * B * S * hq * d + 2 * B * S * hkv * d) * elt
-    flops = 4 * d * hq * B * _k3_pairs(S, w)
+    flops = 4 * d * hq * B * _k3_pairs(S, w, causal)
     bound_ms, bound_by = bound(nbytes, flops, dtype_name)
     return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
@@ -1755,6 +1803,106 @@ def check_zamba2_kernels() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3k: K3 at hubert-xlarge's encoder heads
+# ---------------------------------------------------------------------------
+
+HUBERT = "hubert-xlarge"
+HUBERT_HEADS = (16, 16, 80)       # 16 q over 16 kv heads of 80
+# bf16 K3 at (80, 80) against its plain version in fp32 on the same bf16
+# operands: the relative L2 error ||out - ref|| / ||ref|| is bf16's
+# rounding of P and of the output, each about 2^-9 / sqrt(3) = 1.1e-3;
+# K3's output off by K5_OFF reads about 1e-2 and must fail
+K3_BF16_REL_BOUND = 5e-3
+
+
+def rel_l2(out, ref) -> float:
+    """||out - ref|| / ||ref|| over every element, in fp32."""
+    import torch
+
+    ref = ref.float()
+    return float(torch.linalg.vector_norm(out.float() - ref)
+                 / torch.linalg.vector_norm(ref))
+
+
+def k3_bf16_rel(out, q, k, v, what: str, **kw) -> tuple:
+    """The relative L2 error of K3's bf16 ``out`` against
+    ``flash_attention_plain`` in fp32 on the bf16 operands ``q, k, v``;
+    raises past ``K3_BF16_REL_BOUND``, or if ``out`` off by ``K5_OFF``
+    stays within it (the check could not see a kernel 1% off).  Returns
+    (that error, the fp32 plain output)."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_plain)
+
+    ref = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    rel, off = rel_l2(out, ref), rel_l2(out.float() * K5_OFF, ref)
+    if not rel <= K3_BF16_REL_BOUND < off:
+        raise AssertionError(
+            f"{what}: relative L2 error against the fp32 plain version "
+            f"{rel:.3e}, off by {K5_OFF} {off:.3e} (bound "
+            f"{K3_BF16_REL_BOUND}: the first within, the second past it)")
+    return rel, ref
+
+
+def check_k3_hubert(S_all=(37, 300, 1536), pad: int = 64) -> dict:
+    """K3 bidirectional at ``HUBERT_HEADS``, fp32 (padded by the wrapper
+    to its 128 build) and bf16 (the (80, 80) build), against its plain
+    version.  The operands are the first S rows of buffers of S + ``pad``
+    rows (B = 1, so the view is contiguous): the rows past the sequence
+    are poisoned with 0, +-1e4, NaN and inf, which must change no bit.
+    bf16 is also held against the plain version in fp32 on its operands
+    (``k3_bf16_rel``), beside the bf16 plain version's reading (not held),
+    and timed at the longest S beside its bound and non-causal SDPA.
+    Returns {(dtype, S): record}."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_plain)
+
+    hq, hkv, d = HUBERT_HEADS
+    record = {}
+    for dtype_name, tol in TOLS:
+        dtype = getattr(torch, dtype_name)
+        for S in S_all:
+            g = torch.Generator(device="cuda").manual_seed(S + 80)
+            bufs = [torch.randn((1, S + pad, h, d), generator=g,
+                                device="cuda").to(dtype)
+                    for h in (hq, hkv, hkv)]
+            q, k, v = (b[:, :S] for b in bufs)
+            out = ops.flash_attention_bshd(q, k, v, causal=False)
+            what = f"K3 {HUBERT} {dtype_name} S={S} bidirectional"
+            plain = flash_attention_plain(q, k, v, causal=False)
+            err = compare(out, plain, tol, what)
+            rec = dict(max_abs_err=err)
+            if dtype_name == "bfloat16":
+                rel, ref = k3_bf16_rel(out, q, k, v, what, causal=False)
+                rec.update(rel=rel, plain_rel=rel_l2(plain, ref))
+            outs = [out]
+            for fill in POISONS:
+                for b in bufs:
+                    b[:, S:] = fill
+                outs.append(ops.flash_attention_bshd(q, k, v, causal=False))
+            assert_bitwise(outs, f"{what}: poison past the sequence")
+            if dtype_name == "bfloat16" and S == max(S_all):
+                rec.update(_time_k3(q, k, v, 0, dtype_name, causal=False))
+            record[(dtype_name, S)] = rec
+            log(f"[k3 hubert] {hq} over {hkv} heads, D={d}, {dtype_name} "
+                f"S={S}, bidirectional: max_abs_err={err:.3e}, poison past "
+                f"the sequence bitwise" + (
+                    f"; relative L2 error against the fp32 plain version "
+                    f"{rec['rel']:.3e} (the bf16 plain version "
+                    f"{rec['plain_rel']:.3e}; bound {K3_BF16_REL_BOUND}, K3 "
+                    f"off by {K5_OFF} failing it)"
+                    if "rel" in rec else "") + (
+                    f"; kernel={rec['ms'] * 1e3:.1f}us "
+                    f"(call {rec['call_ms'] * 1e3:.1f}us) "
+                    f"bound={rec['bound_ms'] * 1e3:.2f}us "
+                    f"({rec['bound_by']}) plain={rec['plain_ms'] * 1e3:.1f}us "
+                    f"sdpa={rec['library_ms'] * 1e3:.1f}us"
+                    if "ms" in rec else ""))
+    return record
+
+
+# ---------------------------------------------------------------------------
 # phase 4: tiny fp32 parity, paged engine (kernels) == dense generate()
 # ---------------------------------------------------------------------------
 
@@ -2285,25 +2433,36 @@ class Workload:
     # and the turns (None: ``MODE_REPS``)
     modes: tuple = None
     mode_reps: int = None
+    # phase 5c, sampled decoding: (engine, use_speculative, {kernel:
+    # launches per decode step}, {kernel: launches per prefill}), or None
+    sampled: tuple = None
 
 
 # phase 5b's chunk and per-step prefill budget (one chunk)
 PREFILL_CHUNK = 256
 
 WORKLOADS = (
+    # phase 5c: the autoregressive step (no draft heads, no prefix layer)
+    # on the dense cache, K2 on each of the 32 layers
     Workload("minitron-4b", (64, 256), 512,
              {"paged": {"tree_attention_paged": 33},
               "continuous": {"tree_attention_dense": 33}},
-             {"flash_attention": 33}, 100),
+             {"flash_attention": 33}, 100,
+             sampled=("continuous", False, {"tree_attention_dense": 32},
+                      {"flash_attention": 33})),
     Workload("gemma3-1b", (600, 1500), 2048,
              {"paged": {"tree_attention_paged_windowed": 26,
                         "tree_attention_paged": 1}},
              {"flash_attention": 27}, 1000,
              (None, {"tree_attention_paged_windowed": 26,
-                     "tree_attention_paged": 1}, {"flash_attention": 27})),
+                     "tree_attention_paged": 1}, {"flash_attention": 27}),
+             sampled=("paged", True, {"tree_attention_paged_windowed": 26,
+                                      "tree_attention_paged": 1},
+                      {"flash_attention": 27})),
     Workload("rwkv6-1.6b", (600, 1500), 2048, {"paged": {}},
              {"linear_attn_chunk": 24}, 1000,
-             (None, {}, {"linear_attn_chunk": 24})),
+             (None, {}, {"linear_attn_chunk": 24}),
+             sampled=("paged", True, {}, {"linear_attn_chunk": 24})),
     # chunked at the bf16 depth of the MoE verify check: 2 layers (the
     # dense one and one MoE layer) + the prefix layer
     Workload("deepseek-v2-lite-16b", (600, 1500), 2048,
@@ -2411,6 +2570,9 @@ def serve_full_width(wl: Workload) -> tuple:
     check_replay_step(wl, cfg, params, dp)
     serve_modes(wl, cfg, params, dp, wl.verify["paged"], CARD)
     lap("phase 6")
+    if wl.sampled:
+        _add(launches, serve_sampled(wl, cfg, params, dp, runs))
+        lap("phase 5c")
     del params, dp
     torch.cuda.empty_cache()
     return launches, pair_k2
@@ -2687,20 +2849,21 @@ def check_capture(name: str, eng, st, per_step: dict) -> int:
 
 def serve_engine(wl: Workload, cfg, params, dp, engine: str, per_step: dict,
                  per_prefill: dict = None, *, per_chunk: dict = None,
-                 prefill_chunk: int = 0) -> tuple:
+                 prefill_chunk: int = 0, engine_kw: dict = None) -> tuple:
     """Serve 8 requests of ``wl`` through ``engine`` ("paged" or
     "continuous"; chunked prefill when ``prefill_chunk``) as a user would
     (the async loop, the step captured as one CUDA graph), counting every
     kernel launch of the run against ``per_step`` launches a decode step
     (at the capture and its eager warm-up; the replays are counted by the
     capture) and ``per_prefill`` a whole-prompt prefill (``per_chunk`` a
-    chunk).  Returns (launch counts, the requests' outputs, the engine's
-    stats)."""
+    chunk).  ``engine_kw`` goes to the engine (phase 5c: the sampling
+    arguments).  Returns (launch counts, the requests' outputs, the
+    engine's stats)."""
     import torch
     from repro_torch import kernels
 
     eng = make_engine(wl, cfg, params, dp, engine,
-                      prefill_chunk=prefill_chunk)
+                      prefill_chunk=prefill_chunk, **(engine_kw or {}))
     reqs = workload_requests(wl, cfg)
     budget, max_batch = SERVE_BUDGET, SERVE_BATCH
     lo, hi = wl.prompts
@@ -2749,7 +2912,10 @@ def serve_engine(wl: Workload, cfg, params, dp, engine: str, per_step: dict,
     chunking = (f"chunk={eng.prefill_chunk} chunks={st.prefill_chunks} "
                 f"(per chunk {per_chunk}) " if prefill_chunk
                 else f"(per prefill {per_prefill}) ")
-    log(f"[full] {cfg.name} {engine} engine served {len(reqs)} requests x "
+    sampling = (f"criterion={eng.criterion} speculative="
+                f"{eng.use_speculative} " if engine_kw else "")
+    log(f"[full] {cfg.name} {engine} engine {sampling}served {len(reqs)} "
+        f"requests x "
         f"{budget} tokens (prompts {lo}-{hi}): steps={st.steps} "
         f"(+{st.warmup_steps} "
         f"warm-up; {eng.captured.replays} replays of one captured step, "
@@ -2797,17 +2963,23 @@ def _clone(x):
     return x
 
 
-def check_replay_step(wl: Workload, cfg, params, dp, steps: int = 3) -> None:
+def check_replay_step(wl: Workload, cfg, params, dp, steps: int = 3,
+                      sampling: dict = None) -> None:
     """One captured step replayed against the eager step from the same
     state: phase 5's first 4 prompts joined into a paged pool, three
     steps over 3 of the 4 rows; ``emitted``, ``n_emitted``, ``cache_len``,
     ``last_token`` and the next step's ``last_hidden`` must be bitwise
-    equal after each."""
+    equal after each.  ``sampling`` (phase 5c: ``use_speculative``,
+    ``criterion``, ``temperature``, ``epsilon``, ``seed``): the step
+    samples from a CUDA generator registered with the graph; each eager
+    step starts from the generator state its replay started from, must
+    leave it where the replay left it, and a replay must move it."""
     import numpy as np
     import torch
     from repro_torch.configs import tree_for
     from repro_torch.serving.graph import CapturedStep, step_in_place
     from repro_torch.serving.paged import (init_paged_state,
+                                           paged_autoregressive_step,
                                            paged_join_slot,
                                            paged_spec_decode_step)
 
@@ -2822,19 +2994,41 @@ def check_replay_step(wl: Workload, cfg, params, dp, steps: int = 3) -> None:
         paged_join_slot(params, dp, cfg, state, prompt.cuda(), n, si,
                         torch.as_tensor(table[si], device="cuda"))
     eager = _clone(state)
+    sampling = dict(sampling or {})
+    spec = sampling.pop("use_speculative", True)
+    gen = None
+    if sampling:
+        gen = torch.Generator(device="cuda").manual_seed(sampling.pop("seed"))
+        sampling["generator"] = gen
 
     def step(st, active, tbl):
-        return paged_spec_decode_step(params, dp, cfg, tree, st, tbl,
-                                      active=active)
+        if spec:
+            return paged_spec_decode_step(params, dp, cfg, tree, st, tbl,
+                                          active=active, **sampling)
+        return paged_autoregressive_step(
+            params, cfg, st, tbl, active=active, greedy=False,
+            temperature=sampling["temperature"], generator=gen)
 
-    cap = CapturedStep(step, state, B, table.shape)
+    rng0 = None if gen is None else gen.get_state()
+    cap = CapturedStep(step, state, B, table.shape, generator=gen)
+    if gen is not None and not torch.equal(gen.get_state(), rng0):
+        raise AssertionError(f"{cfg.name}: the capture moved the generator")
     active = np.array([True, True, False, True])
     dev_active = torch.as_tensor(active, device="cuda")
     dev_table = torch.as_tensor(table, device="cuda")
     for k in range(steps):
+        rng = None if gen is None else gen.get_state()
         e1, n1 = (t.clone() for t in cap(active, table))
+        if gen is not None:
+            after = gen.get_state()
+            if torch.equal(after, rng):
+                raise AssertionError(f"{cfg.name}: replay {k} drew nothing")
+            gen.set_state(rng)
         e2, n2 = step_in_place(step, eager, dev_active, dev_table)
         torch.cuda.synchronize()
+        if gen is not None and not torch.equal(gen.get_state(), after):
+            raise AssertionError(f"{cfg.name}: the eager step {k} moved the "
+                                 "generator elsewhere than its replay")
         for name, a, b in (("emitted", e1, e2), ("n_emitted", n1, n2),
                            ("cache_len", state.cache_len, eager.cache_len),
                            ("last_token", state.last_token, eager.last_token),
@@ -2843,8 +3037,11 @@ def check_replay_step(wl: Workload, cfg, params, dp, steps: int = 3) -> None:
             if not torch.equal(a, b):
                 raise AssertionError(f"{cfg.name}: replayed step {k} "
                                      f"differs from the eager step in {name}")
-    log(f"[6] {cfg.name}: {steps} replays of the captured step bitwise equal "
-        f"to the eager steps from the same state (emitted, n_emitted, "
+    tag = "[6]" if gen is None else (
+        f"[5c] sampled ({'typical' if spec else 'autoregressive'}, from the "
+        "same generator state)")
+    log(f"{tag} {cfg.name}: {steps} replays of the captured step bitwise "
+        f"equal to the eager steps from the same state (emitted, n_emitted, "
         f"cache_len, last_token, last_hidden); launches per capture "
         f"{ {k: n for k, n in cap.launches.items() if n} }")
     del cap, state, eager
@@ -2992,6 +3189,287 @@ def serve_modes(wl: Workload, cfg, params, dp, per_step: dict,
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 5c: sampled decoding at full width
+# ---------------------------------------------------------------------------
+
+# JAX's defaults (repro/serving/engine.py): typical acceptance, τ 0.7, ε 0.15
+SAMPLING = dict(criterion="typical", temperature=0.7, epsilon=0.15, seed=0)
+# a chi-square test of the sampler passes above this p-value
+CHI2_P_FLOOR = 1e-4
+
+
+def serve_sampled(wl: Workload, cfg, params, dp, greedy_runs: dict) -> dict:
+    """Phase 5c for ``wl``: phase 5's requests through ``wl.sampled``'s
+    engine under ``SAMPLING`` (the engines' defaults otherwise): launches
+    per capture and per prefill as ``wl.sampled`` says (sampling adds
+    none of the port's kernels), no block left; a second serve with the
+    same seed gives the same streams; at ``max_batch=1`` two requests in
+    turn give the same streams in the four ``MODES``; three replays of
+    the sampled step bitwise equal to the eager step from the same state
+    and generator state.  Prints the serve's numbers beside phase 5's
+    greedy ones (``greedy_runs``: engine -> (outputs, stats)).  Returns
+    the first serve's launch counts."""
+    import numpy as np
+
+    engine, spec, per_step, per_prefill = wl.sampled
+    kw = dict(SAMPLING, use_speculative=spec)
+    counts, outs, st = serve_engine(wl, cfg, params, dp, engine, per_step,
+                                    per_prefill, engine_kw=kw)
+    again = serve_engine(wl, cfg, params, dp, engine, per_step, per_prefill,
+                         engine_kw=kw)[1]
+    if again != outs:
+        raise AssertionError(f"{cfg.name}: two sampled serves with one seed "
+                             "gave different streams")
+    two = workload_requests(wl, cfg)[:2]
+    streams = {}
+    for name, inflight, capture in MODES:
+        eng = make_engine(wl, cfg, params, dp, engine, inflight=inflight,
+                          capture_step=capture, **kw)
+        reqs = [dataclasses.replace(r, output=[]) for r in two]
+        eng.serve(reqs, max_batch=1)
+        if engine == "paged" and eng._alloc.blocks_in_use:
+            raise AssertionError(f"{cfg.name} {name}: blocks left in use")
+        streams[name] = [r.output for r in reqs]
+        del eng
+    if any(v != streams["sync eager"] for v in streams.values()):
+        raise AssertionError(f"{cfg.name}: at max_batch=1 the sampled "
+                             f"streams differ across the loop modes")
+    check_replay_step(wl, cfg, params, dp, sampling=kw)
+    g_st = greedy_runs[engine][1]
+    what = "typical" if spec else "autoregressive, sampled"
+    emit, g_emit = (float(np.mean(x.accept_lengths)) for x in (st, g_st))
+    log(f"[5c] {cfg.name} {engine} engine ({CARD}), {what}, τ "
+        f"{SAMPLING['temperature']} ε {SAMPLING['epsilon']}: tok/s="
+        f"{st.tokens_per_s:.1f} tok/step={st.tokens_per_step:.3f} (over the "
+        f"batch) emitted per row a step={emit:.3f} (mean accepted "
+        f"{emit - 1:.3f}) ttft={st.mean_ttft_s * 1e3:.1f}ms "
+        f"p99_itl={st.p99_itl_s * 1e3:.1f}ms steps={st.steps}; phase 5 "
+        f"greedy (speculative) on this engine: tok/s={g_st.tokens_per_s:.1f} "
+        f"tok/step={g_st.tokens_per_step:.3f} emitted per row a "
+        f"step={g_emit:.3f} ttft={g_st.mean_ttft_s * 1e3:.1f}ms "
+        f"p99_itl={g_st.p99_itl_s * 1e3:.1f}ms steps={g_st.steps}; a second "
+        f"serve with the seed gave the same streams; at max_batch=1 the "
+        f"four loop modes gave the same streams")
+    return counts
+
+
+def chi_square_p(draws, probs) -> tuple:
+    """(p-value, statistic, degrees of freedom) of ``draws``' counts
+    against ``probs`` over the bins with p > 1e-3, the rest lumped into
+    one bin; the p-value by the Wilson-Hilferty approximation."""
+    import numpy as np
+
+    counts = np.bincount(draws, minlength=probs.shape[0]).astype(np.float64)
+    big = probs > 1e-3
+    obs = np.append(counts[big], counts[~big].sum())
+    exp = np.append(probs[big], probs[~big].sum()) * draws.size
+    keep = exp > 0
+    stat = float(((obs[keep] - exp[keep]) ** 2 / exp[keep]).sum())
+    k = int(keep.sum()) - 1
+    z = (((stat / k) ** (1 / 3) - (1 - 2 / (9 * k)))
+         / math.sqrt(2 / (9 * k)))
+    return 0.5 * math.erfc(z / math.sqrt(2)), stat, k
+
+
+def check_sampler(gen, V: int = 1024, log2_draws: int = 20,
+                  temperature: float = 0.7) -> None:
+    """2^``log2_draws`` Gumbel-max draws (``sample_categorical``) over one
+    logit row of ``V`` at ``temperature`` from ``gen`` (a CUDA generator,
+    seeded as an engine's is), eagerly and replayed inside a CUDA graph
+    registered with it: a replay equals the eager draw from the same
+    generator state bit for bit, two replays differ, and both sets pass a
+    chi-square test against ``softmax(logits / temperature)`` (p above
+    ``CHI2_P_FLOOR``); draws that ignore the temperature must fail it."""
+    import torch
+    from repro_torch.core.verify import sample_categorical
+
+    g = torch.Generator(device="cuda").manual_seed(V)
+    logits = torch.randn(V, generator=g, device="cuda") * 1.5
+    probs = torch.softmax(logits.double() / temperature, -1).cpu().numpy()
+    rows = 1 << 16
+    reps = (1 << log2_draws) // rows
+    scaled = (logits / temperature).expand(rows, V)
+    flat = logits.expand(rows, V)
+    eager = [sample_categorical(scaled, gen) for _ in range(reps)]
+    rng = gen.get_state()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sample_categorical(scaled, gen)
+    torch.cuda.current_stream().wait_stream(side)
+    gen.set_state(rng)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph):
+        out = sample_categorical(scaled, gen)
+    graph.replay()
+    first = out.clone()
+    gen.set_state(rng)
+    if not torch.equal(first, sample_categorical(scaled, gen)):
+        raise AssertionError("a replayed draw differs from the eager draw "
+                             "from the same generator state")
+    captured = [first]
+    for _ in range(reps - 1):
+        graph.replay()
+        captured.append(out.clone())
+    if torch.equal(captured[0], captured[1]):
+        raise AssertionError("two replays of the sampler drew the same")
+    ignoring = [sample_categorical(flat, gen) for _ in range(reps)]
+    results = {}
+    for what, draws in (("eager", eager), ("captured", captured),
+                        ("temperature ignored", ignoring)):
+        p, stat, k = chi_square_p(torch.cat(draws).cpu().numpy(), probs)
+        results[what] = p
+        log(f"[5c] sampler ({CARD}), {what}: {rows * reps} draws over "
+            f"V={V} at τ {temperature}: chi-square {stat:.1f} on {k} "
+            f"degrees of freedom, p={p:.3e} (passes above {CHI2_P_FLOOR})")
+    if not (results["eager"] > CHI2_P_FLOOR
+            and results["captured"] > CHI2_P_FLOOR
+            and results["temperature ignored"] < CHI2_P_FLOOR):
+        raise AssertionError(f"sampler chi-square check: {results}")
+    del graph
+
+
+# ---------------------------------------------------------------------------
+# phase 5d: hubert-xlarge's encoder at full width
+# ---------------------------------------------------------------------------
+
+# frames (B, S): 30 s of audio at HuBERT's 50 frames a second, two clips
+HUBERT_FRAMES = (2, 1500)
+# the fp32 forward through K3 against its plain version: max relative
+# logit difference, least argmax agreement, at HUBERT_ROWS positions
+HUBERT_FP32_BOUND = (1e-4, 1.0)
+HUBERT_ROWS = 32                  # per clip: 64 positions in all
+
+
+def check_hubert() -> dict:
+    """Phase 5d: hubert-xlarge at full width, random bf16 weights drawn on
+    the card, frames ``HUBERT_FRAMES``.  One encoder forward with the
+    launch counters set to 0 before and read after: 48 K3 launches, every
+    one bidirectional at (80, 80), nothing else; timed, with its peak
+    memory.  A second forward holds each K3 call against its plain version
+    on its own operands (2e-2), and against the plain version in fp32 on
+    the same bf16 operands (``k3_bf16_rel``).  Then in fp32 one forward
+    through K3 against one through its plain version at ``HUBERT_ROWS``
+    positions of each clip, held at ``HUBERT_FP32_BOUND``; K3's output
+    off by ``K5_OFF`` must fail it.  Returns {"launches": K3 launches of
+    the counted forward, "ms": its time, "max_abs_err" and "rel": the
+    per-call checks' largest errors}."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_plain
+    from repro_torch.models import attention
+    from repro_torch.models.model import forward, init_params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(HUBERT)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[5d] {cfg.name}: {cfg.n_params / 1e9:.2f}B params ({cfg.dtype}), "
+        f"{cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.resolved_head_dim}, FFN {cfg.d_ff}, {cfg.vocab_size} targets; "
+        f"weights {_nbytes(params) / 1e9:.2f} GB (the fp32 head included) "
+        f"drawn on the card in {time.perf_counter() - t0:.1f}s")
+    B, S = HUBERT_FRAMES
+    g = torch.Generator(device="cuda").manual_seed(S)
+    frames = torch.randn((B, S, cfg.d_model), generator=g, device="cuda")
+    pos = torch.arange(S, device="cuda").expand(B, S)
+    counters = kernel_counters()
+    forward(params, cfg, frames, pos)             # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()                        # count the main path only
+    t0 = time.perf_counter()
+    out = forward(params, cfg, frames, pos)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = kernels.launch_counts()
+    expect = {k: 0 for k in counts}
+    expect["flash_attention"] = cfg.n_layers
+    if counts != expect:
+        raise AssertionError(f"{cfg.name}: launches {counts} != {expect}")
+    if out.logits.shape != (B, S, cfg.vocab_size) \
+            or not torch.isfinite(out.logits).all():
+        raise AssertionError(f"{cfg.name}: logits {tuple(out.logits.shape)} "
+                             "not finite or misshapen")
+    log(f"[5d] {cfg.name} bf16 encoder forward over frames ({B}, {S}, "
+        f"{cfg.d_model}) ({CARD}): {ms:.1f} ms, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB allocated; "
+        f"launches {counters['flash_attention'].launches} K3 (all "
+        f"bidirectional at (80, 80)), none of the other kernels: {counts}")
+    kernel_fn = attention.flash_attention_bshd
+    errs, rels = [], []
+
+    def held(q, k, v, **kw):
+        if kw.get("causal", True) or q.shape[-1] != 80:
+            raise AssertionError(f"{cfg.name}: a K3 call that is causal or "
+                                 f"not at head dim 80: {kw}")
+        o = kernel_fn(q, k, v, **kw)
+        what = f"{cfg.name} K3 call {len(errs)}"
+        errs.append(compare(o, flash_attention_plain(q, k, v, **kw), 2e-2,
+                            what))
+        rels.append(k3_bf16_rel(o, q, k, v, what, **kw)[0])
+        return o
+
+    attention.flash_attention_bshd = held
+    try:
+        forward(params, cfg, frames, pos, want_logits=False)
+    finally:
+        attention.flash_attention_bshd = kernel_fn
+    if len(errs) != cfg.n_layers:
+        raise AssertionError(f"{cfg.name}: {len(errs)} K3 calls held")
+    log(f"[5d] {cfg.name}: each of the {len(errs)} K3 calls of a bf16 "
+        f"forward against its plain version on its own operands: max abs "
+        f"err {max(errs):.3e} (bound 2e-2 + 2e-2 |ref|); against the plain "
+        f"version in fp32 on the same bf16 operands: relative L2 error "
+        f"{min(rels):.3e} to {max(rels):.3e} (bound {K3_BF16_REL_BOUND}, "
+        f"each call's output off by {K5_OFF} failing it)")
+    del params, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_params(cfg32, seed=0, device="cuda")
+    rows = torch.linspace(0, S - 1, HUBERT_ROWS, device="cuda").long()
+
+    def logits(fn):
+        attention.flash_attention_bshd = fn
+        try:
+            h = forward(params, cfg32, frames, pos,
+                        want_logits=False).hidden[:, rows]
+        finally:
+            attention.flash_attention_bshd = kernel_fn
+        return h.reshape(-1, cfg.d_model).float() @ params["unembed_f32"]
+
+    plain = logits(flash_attention_plain)
+    bound = HUBERT_FP32_BOUND
+    for what, fn in (("K3", kernel_fn),
+                     (f"K3 off by {K5_OFF}",
+                      lambda *a, **kw: kernel_fn(*a, **kw) * K5_OFF)):
+        lk = logits(fn)
+        rel, agree, margins = _paged_vs_dense(lk, plain)
+        ok = bool(torch.isfinite(lk).all()) and rel <= bound[0] \
+            and agree >= bound[1]
+        log(f"[5d] {cfg.name} fp32 forward through {what} against one "
+            f"through K3's plain version, {lk.shape[0]} positions: max rel "
+            f"logit diff={rel:.3e} argmax agreement={agree:.3f} "
+            f"margins={margins} (bound {bound[0]}, {bound[1]:.3f})")
+        if ok != (what == "K3"):
+            raise AssertionError(f"{cfg.name}: the fp32 forward through "
+                                 f"{what} reads rel {rel}, argmax {agree}: "
+                                 f"{'outside' if what == 'K3' else 'within'}"
+                                 " the bound")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": counts["flash_attention"], "ms": ms,
+            "max_abs_err": max(errs), "rel": max(rels)}
+
+
 def main() -> int:
     import torch
 
@@ -3066,6 +3544,11 @@ def main() -> int:
     if len(d64) < 3 or not all(tensor_cores[k] for k in d64):
         raise AssertionError(f"SASS: the bf16 D=64 builds {d64} lack HMMA")
     log(f"[sass] zamba2-1.2b's bf16 D=64 builds on the tensor cores: {d64}")
+    d80 = "flash_attention_kernel<bf16, DQK=80, DV=80>"
+    if not tensor_cores.get(d80):
+        raise AssertionError(f"SASS: {d80} not found or without HMMA")
+    log(f"[ptxas] hubert-xlarge's encoder runs {d80}, listed above without "
+        f"a spill; [sass] it runs HMMA")
     log(f"[time] phase 2 (builds and their checks) done at "
         f"{time.perf_counter() - t_start:.0f}s")
 
@@ -3083,6 +3566,7 @@ def main() -> int:
     check_k1_prefix()
     rows = check_rows()
     zk = check_zamba2_kernels()
+    hk = check_k3_hubert()
     log(f"[time] phase 3 (kernel checks) done at "
         f"{time.perf_counter() - t_start:.0f}s")
 
@@ -3130,6 +3614,17 @@ def main() -> int:
         log(f"[time] phases 5-6 of {wl.arch}: "
             f"{time.perf_counter() - t_wl:.0f}s, done at "
             f"{time.perf_counter() - t_start:.0f}s")
+
+    t_smp = time.perf_counter()
+    check_sampler(torch.Generator(device="cuda").manual_seed(
+        SAMPLING["seed"]))
+    log(f"[time] phase 5c (the sampler): "
+        f"{time.perf_counter() - t_smp:.0f}s, done at "
+        f"{time.perf_counter() - t_start:.0f}s")
+    t_hub = time.perf_counter()
+    hubert = check_hubert()
+    log(f"[time] phase 5d ({HUBERT}): {time.perf_counter() - t_hub:.0f}s, "
+        f"done at {time.perf_counter() - t_start:.0f}s")
 
     def entry(name, source, replaces, rec, err):
         return {"name": name, "route": "cuda", "source": source,
@@ -3223,6 +3718,18 @@ def main() -> int:
                        if kname == "flash_attention" else
                        f"32 q over 32 kv heads, D=64, chain T={ZAMBA2_T}"))
         kernels.append(e)
+    # K3 at hubert-xlarge's encoder (16 over 16 heads of 80, both ways):
+    # the launches of phase 5d's counted forward
+    e = entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention/kernel.py:23",
+              hk[("bfloat16", 1536)],
+              max(r["max_abs_err"] for key, r in hk.items()
+                  if key[0] == "bfloat16"))
+    e.update(name=f"flash_attention@{HUBERT}", launches=hubert["launches"],
+             case="16 q over 16 kv heads, D=80, S=1536, bidirectional",
+             rel_l2_vs_fp32=max([hubert["rel"]] + [
+                 r["rel"] for r in hk.values() if "rel" in r]))
+    kernels.append(e)
     log(json.dumps({"kernels": kernels}))
     log(f"[time] total {time.perf_counter() - t_start:.0f}s")
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,8 @@ parts whose layout matters:
   ``shared_attn`` groups;
 * ``lm_head``: stored as ``(d, V)`` (JAX inits it as ``embed_init(...).T``),
   and the fp32 unembedding the port derives from it at load;
+* ``mask_embed (d,)``: the masked-prediction embedding of an audio config
+  (hubert-xlarge), present exactly when ``cfg.modality == "audio"``;
 * draft params: a list of per-head dicts (``w_in``, ``out_norm``,
   ``w_res{m}`` for the deeper Hydra++ MLPs, ``unembed`` when untied) and
   the Hydra++ ``prefix`` layer, a GQA layer checked as the groups' are.
@@ -74,6 +76,13 @@ def params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
     _expect(params["embed"].shape == (V, d), "embed must be (V, d)")
     if not cfg.tie_embeddings:
         _expect(params["lm_head"].shape == (d, V), "lm_head must be (d, V)")
+    audio = cfg.modality == "audio"
+    _expect(("mask_embed" in params) == audio,
+            f"params['mask_embed'] {'missing' if audio else 'present'}: "
+            f"the config's modality is {cfg.modality}")
+    if audio:
+        _expect(tuple(params["mask_embed"].shape) == (d,),
+                f"mask_embed must be ({d},)")
     _expect(len(params["groups"]) == len(prog),
             f"{len(prog)} groups {[kind for kind, _ in prog]}")
 

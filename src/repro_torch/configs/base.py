@@ -4,8 +4,8 @@ A copy of ``repro/configs/base.py`` (the port imports nothing of the JAX
 package): the same frozen dataclasses, so a config prints and hashes the
 same on both sides and the parity tests can hand one object to both.
 ``reduced()`` returns the CPU smoke-test variant of the same family
-(<=2 layers, d_model<=512, <=4 experts).  The registry holds only the
-architectures the port serves so far (``ARCH_MODULES``).
+(<=2 layers, d_model<=512, <=4 experts).  The registry holds the
+architectures of ``ARCH_MODULES``: all of the JAX package's.
 """
 from __future__ import annotations
 
@@ -283,12 +283,12 @@ def list_configs() -> list:
 
 # dense GQA stacks (full-attention or sliding-window, with or without QKV
 # bias; chameleon-34b's early-fusion VLM is one over token ids), GQA and
-# MLA under the MoE FFN, the RWKV6 recurrent stack, and zamba2's hybrid
-# (Mamba2 layers with a shared attention block): only the encoder-only
-# hubert waits for its module (ROADMAP)
+# MLA under the MoE FFN, the RWKV6 recurrent stack, zamba2's hybrid
+# (Mamba2 layers with a shared attention block) and the encoder-only
+# hubert (a bidirectional stack over frame embeddings): the whole registry
 ARCH_MODULES = ["chameleon_34b", "deepseek_moe_16b", "deepseek_v2_lite_16b",
-                "gemma3_1b", "minitron_4b", "qwen2p5_32b", "rwkv6_1p6b",
-                "starcoder2_7b", "vicuna_tiny", "zamba2_1p2b"]
+                "gemma3_1b", "hubert_xlarge", "minitron_4b", "qwen2p5_32b",
+                "rwkv6_1p6b", "starcoder2_7b", "vicuna_tiny", "zamba2_1p2b"]
 
 
 def _load_all() -> None:

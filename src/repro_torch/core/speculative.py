@@ -1,15 +1,22 @@
 """The speculative decoding step (port of ``repro/core/speculative.py``).
 
 One ``spec_decode_step`` = draft (a tree, via Medusa/Hydra heads) ->
-verify (ONE base-model forward over the T tree tokens) -> accept (greedy)
--> commit caches -> emit tokens.
+verify (ONE base-model forward over the T tree tokens) -> accept (greedy
+or typical criterion) -> commit caches -> emit tokens.
 
-The port decodes greedily only: typical acceptance and sampling draw from
-``jax.random`` on the JAX side and wait for a later slice.  Caches are
-updated in place and a step's ``state`` shares the cache tensors of the
-state it was given; the serving engines run the step in place as one
-captured CUDA graph (``serving/graph.py``), so nothing on the step's path
-may wait on the device (no ``.item()``, no blocking host copy).
+Randomness: JAX carries a key in its ``DecodeState`` and splits it per
+step and per join; the port passes one ``torch.Generator`` (on the
+state's device) to every function that samples, and draws are made in
+the order the host issues them.  Greedy draws nothing, so a greedy
+stream never depends on the generator or the schedule.  Sampling is
+Gumbel-max (``core/verify.py::sample_categorical``); the first token of
+a request is drawn at temperature 1, as JAX's ``_first_token`` draws it.
+
+Caches are updated in place and a step's ``state`` shares the cache
+tensors of the state it was given; the serving engines run the step in
+place as one captured CUDA graph (``serving/graph.py``), so nothing on
+the step's path may wait on the device (no ``.item()``, no blocking host
+copy).
 """
 from __future__ import annotations
 
@@ -21,12 +28,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.heads import (draft_tree_tokens, init_prefix_cache,
                                     prefix_forward)
 from repro_torch.core.trees import device_arrays
-from repro_torch.core.verify import greedy_verify
+from repro_torch.core.verify import (greedy_verify, sample_categorical,
+                                     typical_verify)
 from repro_torch.device import torch_dtype
 from repro_torch.models.model import forward, init_cache
 from repro_torch.serving.cache import ATTN_KEYS, commit_cache
 
 PAD_TOKEN = -1
+CRITERIA = ("greedy", "typical")
 
 
 class DecodeState(NamedTuple):
@@ -48,10 +57,21 @@ def _has_prefix(draft_params) -> bool:
     return draft_params is not None and "prefix" in draft_params
 
 
-def _first_token(params, h_last):
-    """Greedy first token of a freshly prefilled request from the hidden
-    state of its last real prompt token."""
-    return torch.argmax(h_last.float() @ params["unembed_f32"], dim=-1)
+def check_criterion(criterion: str) -> None:
+    if criterion not in CRITERIA:
+        raise ValueError(f"criterion must be one of {CRITERIA}: {criterion}")
+
+
+def _first_token(params, h_last, generator=None, greedy: bool = True,
+                 gumbel=None):
+    """First token of a freshly prefilled request from the hidden state of
+    its last real prompt token: the argmax, or (``greedy=False``) a draw
+    at temperature 1 from ``generator`` (or the given ``gumbel`` noise),
+    as JAX's ``_first_token`` draws whatever the decode temperature."""
+    logits = h_last.float() @ params["unembed_f32"]
+    if greedy:
+        return torch.argmax(logits, dim=-1)
+    return sample_categorical(logits, generator, gumbel)
 
 
 # ---------------------------------------------------------------------------
@@ -61,9 +81,11 @@ def _first_token(params, h_last):
 
 @torch.no_grad()
 def init_decode_state(params, draft_params, cfg: ModelConfig, prompt,
-                      max_len: int) -> DecodeState:
+                      max_len: int, generator=None, *,
+                      greedy: bool = True) -> DecodeState:
     """prompt: (B, P) equal-length tokens.  Runs prefill, picks the first
-    token, initializes all caches (on the prompt's device)."""
+    token (argmax, or a draw from ``generator`` unless ``greedy``),
+    initializes all caches (on the prompt's device)."""
     B, P = prompt.shape
     dev = prompt.device
     pos = torch.arange(P, device=dev).expand(B, P)
@@ -71,7 +93,7 @@ def init_decode_state(params, draft_params, cfg: ModelConfig, prompt,
     # want_logits=False: only the last position's logits are needed
     out = forward(params, cfg, prompt, pos, mode="full", cache=cache,
                   want_logits=False)
-    tok0 = _first_token(params, out.hidden[:, -1])
+    tok0 = _first_token(params, out.hidden[:, -1], generator, greedy)
     h = out.hidden[:, -1]
     pk = pv = None
     if _has_prefix(draft_params):
@@ -108,7 +130,7 @@ def init_pool_state(params, draft_params, cfg: ModelConfig, max_batch: int,
 
 @torch.no_grad()
 def prefill_row(params, draft_params, cfg: ModelConfig, prompt,
-                real_len: int):
+                real_len: int, generator=None, greedy: bool = True):
     """Prefill one right-padded prompt (P,) into a fresh row cache of
     length P.  Returns (row cache, prefix (k, v) or None, first token,
     head-input hidden state).  With right padding and causal masking,
@@ -116,7 +138,9 @@ def prefill_row(params, draft_params, cfg: ModelConfig, prompt,
     or beyond ``cache_len = real_len``, where every later step masks or
     overwrites them.  A recurrent group scans from a zero state (the row
     is fresh, so a re-prefill after a preemption starts over), length-
-    masked at ``real_len``: the pads leave its state unchanged."""
+    masked at ``real_len``: the pads leave its state unchanged.  The first
+    token is the argmax, or a draw from ``generator`` unless ``greedy``
+    (a re-prefill draws afresh)."""
     P = prompt.shape[0]
     dev = prompt.device
     pos = torch.arange(P, device=dev)[None, :]
@@ -126,7 +150,7 @@ def prefill_row(params, draft_params, cfg: ModelConfig, prompt,
                   want_logits=False)
     idx = max(real_len - 1, 0)
     h = out.hidden[0, idx]
-    tok0 = _first_token(params, h)
+    tok0 = _first_token(params, h, generator, greedy)
     prefix = None
     if _has_prefix(draft_params):
         ph, nk, nv = prefix_forward(draft_params, cfg, out.hidden, pos)
@@ -136,15 +160,17 @@ def prefill_row(params, draft_params, cfg: ModelConfig, prompt,
 
 
 def join_slot(params, draft_params, cfg: ModelConfig, state: DecodeState,
-              prompt, real_len: int, slot: int) -> DecodeState:
+              prompt, real_len: int, slot: int, generator=None, *,
+              greedy: bool = True) -> DecodeState:
     """Prefill one request and install it in row ``slot`` of the pool (in
     place).  prompt: (P,) right-padded to P; ``real_len`` <= P is the true
     prompt length.  Only [0, P) of an attention row is written: positions
     past P are never read before a verify step overwrites them.  A
-    recurrent state key is written whole (it has no sequence axis)."""
+    recurrent state key is written whole (it has no sequence axis).  The
+    first token as in ``prefill_row``."""
     P = prompt.shape[0]
     row, prefix, tok0, h = prefill_row(params, draft_params, cfg, prompt,
-                                       real_len)
+                                       real_len, generator, greedy)
     for pool, r in zip(state.cache, row):
         for key, arr in r.items():
             if key in ATTN_KEYS:
@@ -190,7 +216,8 @@ def chunk_operands(chunk, start: int, real_len: int):
 
 
 def install_chunk(params, state, hidden, prefix_hidden, start: int,
-                  real_len: int, slot: int, final: bool):
+                  real_len: int, slot: int, final: bool, generator=None,
+                  greedy: bool = True):
     """Advance row ``slot`` of ``state`` (a ``DecodeState`` or a paged
     state: any with ``cache_len``/``last_token``/``last_hidden``) after
     one chunk, in place.  A non-final chunk moves the prefill cursor
@@ -198,14 +225,16 @@ def install_chunk(params, state, hidden, prefix_hidden, start: int,
     a concurrent decode step writes past the cursor is overwritten by
     the next chunk); the final chunk picks the first token from the
     hidden state of token ``real_len - 1`` and installs ``last_token``,
-    ``last_hidden`` and ``cache_len = real_len``."""
+    ``last_hidden`` and ``cache_len = real_len`` (the first token as in
+    ``prefill_row``)."""
     C = hidden.shape[1]
     if not final:
         state.cache_len[slot] = start + C
         return state
     idx = min(max(real_len - start - 1, 0), C - 1)
     state.cache_len[slot] = real_len
-    state.last_token[slot] = _first_token(params, hidden[0, idx])
+    state.last_token[slot] = _first_token(params, hidden[0, idx], generator,
+                                          greedy)
     h = (prefix_hidden if prefix_hidden is not None else hidden)[0, idx]
     state.last_hidden[slot] = h.to(state.last_hidden.dtype)
     return state
@@ -215,7 +244,8 @@ def install_chunk(params, state, hidden, prefix_hidden, start: int,
 def join_slot_chunk(params, draft_params, cfg: ModelConfig,
                     state: DecodeState, chunk, start: int, real_len: int,
                     slot: int, *, final: bool,
-                    view_len: Optional[int] = None) -> DecodeState:
+                    view_len: Optional[int] = None, generator=None,
+                    greedy: bool = True) -> DecodeState:
     """One chunk of a resumable prefill into row ``slot`` of the pool, in
     place.
 
@@ -234,8 +264,8 @@ def join_slot_chunk(params, draft_params, cfg: ModelConfig,
     cover ``start + C``); the masked tail never changes a bit.
 
     A non-final chunk moves the prefill cursor; the final one
-    (``final=True``) picks the first token and activates the row
-    (``install_chunk``)."""
+    (``final=True``) picks the first token (a draw from ``generator``
+    unless ``greedy``) and activates the row (``install_chunk``)."""
     pos, start1, valid = chunk_operands(chunk, start, real_len)
     view = slice(None, view_len)
     rows = [{key: (a[:, slot:slot + 1, view] if key in ATTN_KEYS
@@ -251,7 +281,7 @@ def join_slot_chunk(params, draft_params, cfg: ModelConfig,
             cache_v=state.prefix_v[slot:slot + 1, view], cache_len=start1,
             prefill=True)
     return install_chunk(params, state, out.hidden, ph, start, real_len, slot,
-                         final)
+                         final, generator, greedy)
 
 
 # ---------------------------------------------------------------------------
@@ -274,11 +304,16 @@ def _freeze_inactive(active, state: DecodeState, emitted, n_emitted,
 
 @torch.no_grad()
 def spec_decode_step(params, draft_params, cfg: ModelConfig, tree,
-                     state: DecodeState, *,
+                     state: DecodeState, *, criterion: str = "greedy",
+                     temperature: float = 0.7, epsilon: float = 0.15,
+                     alpha: Optional[float] = None, generator=None,
                      active: Optional[torch.Tensor] = None,
                      block_table: Optional[torch.Tensor] = None
                      ) -> StepResult:
-    """``active`` (B,) bool: rows that hold a live request (None: all).
+    """``criterion``: ``"greedy"`` (draws nothing) or ``"typical"``
+    (typical acceptance at ``temperature``/``epsilon``/``alpha``, its
+    bonus token drawn from ``generator``); anything else raises.
+    ``active`` (B,) bool: rows that hold a live request (None: all).
     ``block_table`` (B, M) int32 switches the cache layout: ``state.cache``
     attention arrays (and the Hydra++ prefix cache) are then global block
     pools streamed through the table by the paged kernel, and the commit
@@ -298,7 +333,14 @@ def spec_decode_step(params, draft_params, cfg: ModelConfig, tree,
                   tree_mask=ta["mask"], block_table=block_table)
 
     # 3. accept
-    res = greedy_verify(tree, tokens, out.logits)
+    if criterion == "greedy":
+        res = greedy_verify(tree, tokens, out.logits)
+    elif criterion == "typical":
+        res = typical_verify(tree, tokens, out.logits, generator,
+                             temperature=temperature, epsilon=epsilon,
+                             alpha=alpha)
+    else:
+        raise ValueError(f"criterion must be one of {CRITERIA}: {criterion}")
 
     # 4. commit (a recurrent group's inactive rows keep their state)
     cache = commit_cache(out.cache, state.cache_len, res.path_nodes,
@@ -350,10 +392,13 @@ def spec_decode_step(params, draft_params, cfg: ModelConfig, tree,
 
 @torch.no_grad()
 def autoregressive_step(params, cfg: ModelConfig, state: DecodeState, *,
-                        active: Optional[torch.Tensor] = None,
-                        block_table: Optional[torch.Tensor] = None
-                        ) -> StepResult:
-    """One greedy token per row: a verify of the one-node tree.  The new
+                        greedy: bool = True, temperature: float = 1.0,
+                        generator=None, active: Optional[torch.Tensor] = None,
+                        block_table: Optional[torch.Tensor] = None,
+                        gumbel: Optional[torch.Tensor] = None) -> StepResult:
+    """One token per row: a verify of the one-node tree, then the argmax,
+    or (``greedy=False``) a draw at ``temperature`` from ``generator``
+    (``gumbel`` (B, V) replaces the draw).  The new
     attention entry was written at ``cache_len``, where it stays (the
     commit leaves attention groups alone for a one-node path); a
     recurrent group commits its one candidate."""
@@ -368,7 +413,9 @@ def autoregressive_step(params, cfg: ModelConfig, state: DecodeState, *,
     cache = commit_cache(out.cache, state.cache_len, zero[:, None], zero,
                          active=active, prev=state.cache,
                          block_table=block_table)
-    nxt = torch.argmax(out.logits[:, 0], dim=-1)
+    logits = out.logits[:, 0]
+    nxt = (torch.argmax(logits, dim=-1) if greedy else
+           sample_categorical(logits / temperature, generator, gumbel))
     emitted = nxt[:, None]
     n_emitted = torch.ones_like(nxt)
     cache_len = (state.cache_len + 1).to(torch.int32)
@@ -389,11 +436,23 @@ def autoregressive_step(params, cfg: ModelConfig, state: DecodeState, *,
 
 def generate(params, draft_params, cfg: ModelConfig, tree, prompt, *,
              max_new_tokens: int = 64, max_len: int = 1024,
-             use_speculative: bool = True):
-    """Greedy generation for a (B, P) prompt on its device.  Returns
-    (tokens (B, N) with PAD tails inside step segments, steps_taken,
-    accept_lengths (B, steps) fp32)."""
-    state = init_decode_state(params, draft_params, cfg, prompt, max_len)
+             use_speculative: bool = True, criterion: str = "greedy",
+             temperature: float = 0.7, epsilon: float = 0.15,
+             generator: Optional[torch.Generator] = None):
+    """Generation for a (B, P) prompt on its device.  ``criterion``
+    ``"greedy"`` decodes greedily; ``"typical"`` samples the first token
+    (temperature 1) and then accepts typically (speculative) or samples
+    each token at ``temperature`` (``use_speculative=False``), drawing
+    from ``generator`` (default: one on the prompt's device seeded 0, as
+    JAX's default key is ``PRNGKey(0)``).  Returns (tokens (B, N) with
+    PAD tails inside step segments, steps_taken, accept_lengths (B,
+    steps) fp32)."""
+    check_criterion(criterion)
+    greedy = criterion == "greedy"
+    if generator is None and not greedy:
+        generator = torch.Generator(device=prompt.device).manual_seed(0)
+    state = init_decode_state(params, draft_params, cfg, prompt, max_len,
+                              generator, greedy=greedy)
     B = prompt.shape[0]
     outs = [state.last_token[:, None]]  # first token from prefill
     produced = 1
@@ -401,9 +460,14 @@ def generate(params, draft_params, cfg: ModelConfig, tree, prompt, *,
     accept_lens = []
     while produced < max_new_tokens:
         if use_speculative:
-            res = spec_decode_step(params, draft_params, cfg, tree, state)
+            res = spec_decode_step(params, draft_params, cfg, tree, state,
+                                   criterion=criterion,
+                                   temperature=temperature, epsilon=epsilon,
+                                   generator=generator)
         else:
-            res = autoregressive_step(params, cfg, state)
+            res = autoregressive_step(params, cfg, state, greedy=greedy,
+                                      temperature=temperature,
+                                      generator=generator)
         state = res.state
         outs.append(res.emitted)
         accept_lens.append(res.n_emitted)

@@ -1,6 +1,7 @@
-// Prefill attention for Hopper (sm_90a), plain C interface: causal
-// attention with an optional sliding window and GQA, over a whole prompt
-// or over one chunk of it (the chunked prefill's continuation).
+// Prefill attention for Hopper (sm_90a), plain C interface: causal or
+// bidirectional attention with an optional sliding window and GQA, over a
+// whole prompt or over one chunk of it (the chunked prefill's
+// continuation); bidirectional is hubert-xlarge's encoder.
 //
 // Replaces the TPU kernel K3
 //   src/repro/kernels/flash_attention/kernel.py::flash_attention
@@ -27,10 +28,12 @@
 //   q (B, Sq, Hq, DQK)   k (B, Skv, Hkv, DQK)   v (B, Skv, Hkv, DV)
 //   out (B, Sq, Hq, DV)  q_off, kv_valid_len (B,) int32 or null
 // q, k, v and out share one type.  bf16 builds: (DQK, DV) in (64, 64),
-// (128, 128), (256, 256) and (192, 128), deepseek-v2-lite's MLA prefill
-// (nope 128 + rope 64 for q/k, 128 for v) at its own widths.  fp32 builds
-// take DQK = DV in {64, 128, 256}; the wrapper pads other widths for fp32
-// alone.
+// (80, 80), hubert-xlarge's heads (five k-steps of 16 for S = Q K^T, ten
+// n-tiles of 8 for P V, key tiles of 64 and rows of 80 + 8 in shared
+// memory: nothing padded to 128), (128, 128), (256, 256) and (192, 128),
+// deepseek-v2-lite's MLA prefill (nope 128 + rope 64 for q/k, 128 for v)
+// at its own widths.  fp32 builds take DQK = DV in {64, 128, 256}; the
+// wrapper pads other widths (80 to 128) for fp32 alone.
 //
 // Bound: operations at the prompt lengths the models prefill (S in the
 // hundreds to thousands): 2*(DQK + DV) flops per admitted (query head,
@@ -375,6 +378,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     if (Dqk == 64 && Dv == 64) return launch<bf16, 64, 64>(a, s);
+    if (Dqk == 80 && Dv == 80) return launch<bf16, 80, 80>(a, s);
     if (Dqk == 128 && Dv == 128) return launch<bf16, 128, 128>(a, s);
     if (Dqk == 256 && Dv == 256) return launch<bf16, 256, 256>(a, s);
     if (Dqk == 192 && Dv == 128) return launch<bf16, 192, 128>(a, s);

@@ -28,9 +28,9 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.models.layers import blocked_attention
 
-# (Dqk, Dv) of the bf16 (tensor-core) builds; (192, 128) is deepseek's MLA
-# prefill at its own widths
-BF16_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
+# (Dqk, Dv) of the bf16 (tensor-core) builds; (80, 80) is hubert-xlarge's
+# encoder, (192, 128) deepseek's MLA prefill at its own widths
+BF16_DIMS = ((64, 64), (80, 80), (128, 128), (256, 256), (192, 128))
 # fp32 (CUDA-core) builds, Dqk = Dv: head dim -> query rows one thread
 # block holds (G * the query tile): the G query heads of a kv head must fit
 MAX_ROWS = {64: 128, 128: 128, 256: 64}

@@ -8,7 +8,8 @@ tail by its length; nothing is padded).  There is no fallback from one to
 the other.  ``launches`` counts kernel launches, and only those;
 ``chunk_launches`` counts those of them that ran the chunk form (a call
 with ``kv_valid_len``).  v may have a head dim of its own (deepseek's MLA
-prefill: q/k 192, v 128) where a bf16 build takes it.
+prefill: q/k 192, v 128) where a bf16 build takes it; fp32 pads a width
+without a build of its own (hubert's 80) to the next one.
 
 Two forms, one kernel: the whole prefill (q and k/v of one length, query
 i at position i) and the chunk form of a resumable prefill (``q_off``:
@@ -117,11 +118,11 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0,
     dqk, dv = q.shape[-1], v.shape[-1]
     if scale is None:
         scale = 1.0 / math.sqrt(dqk)
-    if q.dtype == torch.float32 and dqk != dv:
-        # the fp32 body takes one head dim: for fp32 alone, q/k and v are
-        # zero-padded to it (zero columns add exact zeros to every score
-        # and leave the padded output columns at zero) and the output is
-        # sliced back; bf16 runs the (dqk, dv) build unpadded
+    if q.dtype == torch.float32 and not dqk == dv == _f32_dim(dqk, dv):
+        # the fp32 body takes one head dim of its builds: for fp32 alone,
+        # q/k and v are zero-padded to it (zero columns add exact zeros to
+        # every score and leave the padded output columns at zero) and the
+        # output is sliced back; bf16 runs the (dqk, dv) build unpadded
         D = _f32_dim(dqk, dv)
         q, k, v = (F.pad(t, (0, D - t.shape[-1])) for t in (q, k, v))
     out = q.new_empty((*q.shape[:3], v.shape[-1]))

@@ -9,7 +9,8 @@ with its QKV bias, ``chameleon-34b`` over token ids), the sliding-window
 one (``gemma3-1b``), the MoE ones (``deepseek-v2-lite-16b`` under MLA,
 ``deepseek-moe-16b`` under GQA), the recurrent one (``rwkv6-1.6b``) and
 the hybrid one (``zamba2-1.2b``: Mamba2 layers and a shared attention
-block), the last two with chain speculation.  Without
+block), the last two with chain speculation; the encoder-only
+``hubert-xlarge`` is refused (no decode service).  Without
 ``--full-config`` the reduced config runs in fp32 (a smoke run); with it,
 the published widths in ``cfg.dtype``.
 Weights are random, drawn on the device from a seeded
@@ -22,8 +23,10 @@ static baseline.  The continuous and paged engines run the async loop
 ``--sync`` runs the synchronous loop (``inflight=1``), ``--eager`` the
 step without the graph, and ``--stream`` submits half the requests up
 front and feeds the rest through a generator source (the live queue).
-Prints the same ``[serve]`` lines as ``repro/launch/serve.py`` where the
-port has the fields.
+``--long-prompts`` makes every 4th request 4x ``--prompt-len`` long,
+the head-of-line workload chunked prefill is for.  Prints the same
+``[serve]`` lines as ``repro/launch/serve.py`` where the port has the
+fields.
 """
 from __future__ import annotations
 
@@ -45,6 +48,10 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--ragged", action="store_true",
                     help="vary prompt lengths in [prompt-len/2, prompt-len]")
+    ap.add_argument("--long-prompts", action="store_true",
+                    help="make every 4th request a long prompt (4x "
+                         "prompt-len): the head-of-line workload chunked "
+                         "prefill is for")
     ap.add_argument("--max-new-tokens", type=int, default=24)
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="chunked prefill: split every prompt into "
@@ -87,6 +94,10 @@ def main(argv=None) -> None:
                                             PagedSpeculativeEngine, Request,
                                             SpeculativeEngine)
 
+    cfg = get_config(args.arch)
+    if not cfg.supports_decode:
+        raise SystemExit(f"{cfg.name} is encoder-only: no decode service "
+                         "(DESIGN.md §4)")
     device = resolve_device(args.device)
     if device.type == "cuda":
         # build every kernel before the clock starts: the engine's warm-up
@@ -94,9 +105,6 @@ def main(argv=None) -> None:
         # build would otherwise land in the first request's TTFT
         from repro_torch.kernels import build
         build.build()
-    cfg = get_config(args.arch)
-    if not cfg.supports_decode:
-        raise SystemExit(f"{cfg.name} is encoder-only: no decode service")
     if not args.full_config:
         cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
 
@@ -128,9 +136,11 @@ def main(argv=None) -> None:
     rs = np.random.RandomState(0)
     n_requests = args.requests or args.batch
     reqs = []
-    for _ in range(n_requests):
+    for i in range(n_requests):
         plen = (rs.randint(max(args.prompt_len // 2, 1), args.prompt_len + 1)
                 if args.ragged else args.prompt_len)
+        if args.long_prompts and i % 4 == 0:
+            plen = 4 * args.prompt_len
         reqs.append(Request(
             prompt=rs.randint(0, cfg.vocab_size, plen).astype(np.int32),
             max_new_tokens=args.max_new_tokens))

@@ -11,9 +11,14 @@ sequence of *groups* (``group_program``); group kinds:
                  (its ``groups`` entry is an empty dict), each invocation
                  with a KV cache slot of its own
 
+An encoder-only config (hubert-xlarge) is one ``attn_stack_dense`` group
+run bidirectionally over frame embeddings ``(B, S, d)``, in full mode and
+without a cache: it has no decode path (``init_cache`` refuses it).
+
 The params keep the JAX pytree's layout so the bridge converts one-to-one:
 ``embed (V, d)``, ``final_norm``, ``lm_head (d, V)`` unless embeddings are
-tied, one entry of ``groups`` per group (an MoE config has a dense group
+tied, ``mask_embed (d,)`` for an audio config (the masked-prediction
+token), one entry of ``groups`` per group (an MoE config has a dense group
 of ``n_dense_layers`` and then an MoE group), with every leaf stacked on a
 leading layer axis, and ``shared_attn``, one unstacked layer, for zamba2.
 One more entry, ``unembed_f32``, holds the fp32 unembedding the logits
@@ -95,9 +100,9 @@ def group_program(cfg: ModelConfig):
             groups += [("shared_attn", 1), ("mamba_stack", seg)]
             done += seg
         return groups
-    if cfg.block_kind != "attn" or cfg.encoder_only:
+    if cfg.block_kind != "attn":
         raise NotImplementedError(
-            f"{cfg.name}: the port serves decoders only so far")
+            f"{cfg.name}: no group program for block kind {cfg.block_kind}")
     if cfg.moe:
         nd = cfg.moe.n_dense_layers
         out = [("attn_stack_dense", nd)] if nd else []
@@ -215,6 +220,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     if not cfg.tie_embeddings:
         params["lm_head"] = embed_init(gen, cfg.vocab_size, cfg.d_model,
                                        dtype, dev).T.contiguous()
+    if cfg.modality == "audio":
+        params["mask_embed"] = (torch.randn(
+            (cfg.d_model,), generator=gen, device=dev) * 0.02).to(dtype)
     layer_init = {
         "rwkv_stack": lambda: _init_rwkv_layer(gen, cfg, dtype, dev),
         "mamba_stack": lambda: _init_mamba_layer(gen, cfg, dtype, dev),
@@ -270,7 +278,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
     """Committed cache: one entry per group, zeros.  With
     (batch=num_blocks, max_len=block_size) the attention entries are
     exactly the pool; recurrent-state entries have no sequence axis and
-    are per slot (``batch`` rows), so ``max_len`` does not shape them."""
+    are per slot (``batch`` rows), so ``max_len`` does not shape them.
+    An encoder-only config has no cache (JAX's ``init_cache`` returns
+    None for it): it raises."""
+    if not cfg.supports_decode:
+        raise ValueError(f"{cfg.name} is encoder-only: it has no cache and "
+                         "no decode path")
     return [group_cache(cfg, kind, n, batch, max_len, device, dtype)
             for kind, n in group_program(cfg)]
 
@@ -372,7 +385,10 @@ def _attn_layer_fwd(lp, cfg, h, ai: AttnInputs):
 def forward(params, cfg: ModelConfig, inputs, positions, *, mode: str = "full",
             cache=None, cache_len=None, tree_mask=None, block_table=None,
             valid_len=None, want_logits: bool = True) -> ModelOutputs:
-    """inputs: (B,T) int tokens; positions: (B,T) absolute positions.
+    """inputs: (B,T) int tokens, or (B,T,d) frame embeddings (an
+    encoder's stub frontend; cast to the model dtype); positions: (B,T)
+    absolute positions.  Attention is causal unless ``cfg.encoder_only``
+    (bidirectional, full mode without a cache).
 
     mode='full':   causal over the T tokens, whose positions are
                    consecutive (a prefill from 0).  If ``cache`` is given
@@ -405,8 +421,14 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, mode: str = "full",
     if block_table is not None and not (is_verify or is_chunk):
         raise ValueError("the paged layout needs verify mode or a prefill "
                          "continuation")
+    causal = not cfg.encoder_only
+    if not causal and cache is not None:
+        raise ValueError(f"{cfg.name} is encoder-only: forward takes no cache")
     T = inputs.shape[1]
-    h = params["embed"][inputs.long()]
+    if inputs.dim() == 2:
+        h = params["embed"][inputs.long()]
+    else:
+        h = inputs.to(torch_dtype(cfg.dtype))
 
     out_cache = list(cache) if cache is not None else None
     layer_offset = 0
@@ -440,7 +462,7 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, mode: str = "full",
                 cache_v=gc["v"][i] if cached else None,
                 cache_len=cache_len if cached else None,
                 tree_mask=tree_mask if is_verify else None,
-                window=windows[i], causal=True,
+                window=windows[i], causal=causal,
                 block_table=block_table, windowed=win_group,
                 prefill=is_chunk)
             h, nk, nv = _attn_layer_fwd(gp if shared else layer(gp, i), cfg,

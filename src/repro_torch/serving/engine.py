@@ -47,6 +47,15 @@ mid-prefill (it restarts from chunk 0).
 
 ``BucketedEngine`` — the static baseline: requests grouped by exact
 prompt length, each batch prefilled at once and stepped to completion.
+
+Sampling (``criterion="typical"``, JAX's defaults ``temperature=0.7``,
+``epsilon=0.15``): every engine holds one ``torch.Generator`` on its
+device, seeded from ``seed``, in place of the JAX engine's key that is
+split per serve, per join and per step.  Joins, chunks and steps draw
+from it in the order the host issues them, so the same seed and the same
+schedule give the same streams; a preempted request re-prefills and
+draws afresh.  Warm-up steps and the capture leave the generator as they
+found it.  Greedy decoding draws nothing.
 """
 from __future__ import annotations
 
@@ -62,9 +71,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.speculative import (autoregressive_step,
-                                          init_decode_state, init_pool_state,
-                                          join_slot, join_slot_chunk,
-                                          spec_decode_step)
+                                          check_criterion, init_decode_state,
+                                          init_pool_state, join_slot,
+                                          join_slot_chunk, spec_decode_step)
 from repro_torch.device import resolve_device
 from repro_torch.models.model import attention_group, group_program
 from repro_torch.serving.graph import (CapturedStep, HostRead, snapshot,
@@ -322,6 +331,11 @@ class SpeculativeEngine:
     submits; a new ``max_batch`` takes a new capture (and a new pool).
     False runs the step eagerly; the CPU always does.
 
+    ``criterion`` (``"greedy"`` or ``"typical"``), ``temperature`` and
+    ``epsilon`` pick the acceptance rule (and, with
+    ``use_speculative=False``, sampled tokens at ``temperature``); the
+    draws come from ``self.generator``, seeded from ``seed``.
+
     ``prefill_chunk`` (0: whole-prompt joins) prefills in chunks of that
     many tokens, rounded up to the recurrent scan's chunk for RWKV6 and
     Mamba2, so a chunk boundary is a scan-chunk boundary; ``prefill_budget``
@@ -338,17 +352,29 @@ class SpeculativeEngine:
                  max_len: int = 2048, use_speculative: bool = True,
                  prefill_bucket: int = 32, prefill_chunk: int = 0,
                  prefill_budget: Optional[int] = None, inflight: int = 2,
-                 capture_step: bool = True, device="cuda"):
+                 capture_step: bool = True, criterion: str = "greedy",
+                 temperature: float = 0.7, epsilon: float = 0.15,
+                 seed: int = 0, device="cuda"):
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params lie on {params['embed'].device}, the "
                              f"engine runs on {self.device}")
+        if not cfg.supports_decode:
+            raise ValueError(f"{cfg.name} is encoder-only: no decode "
+                             "service")
+        check_criterion(criterion)
         self.params = params
         self.draft_params = draft_params
         self.cfg = cfg
         self.tree = tree
         self.max_len = max_len
         self.use_speculative = use_speculative
+        self.criterion = criterion
+        self.greedy = criterion == "greedy"
+        self.temperature = float(temperature)
+        self.epsilon = float(epsilon)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            int(seed))
         self.prefill_bucket = max(int(prefill_bucket), 1)
         prefill_chunk = int(prefill_chunk or 0)
         if prefill_chunk < 0:
@@ -387,13 +413,23 @@ class SpeculativeEngine:
 
     # -- the step and the join (the paged engine swaps the layout) -----------
 
+    def _sampling(self) -> dict:
+        """The step's sampling arguments (nothing is drawn under greedy)."""
+        if self.use_speculative:
+            return dict(criterion=self.criterion,
+                        temperature=self.temperature, epsilon=self.epsilon,
+                        generator=self.generator)
+        return dict(greedy=self.greedy, temperature=self.temperature,
+                    generator=self.generator)
+
     def _step(self, state, active, table=None):
         """The eager step over ``state`` (returns a ``StepResult``)."""
         if self.use_speculative:
             return spec_decode_step(self.params, self.draft_params, self.cfg,
-                                    self.tree, state, active=active)
+                                    self.tree, state, active=active,
+                                    **self._sampling())
         return autoregressive_step(self.params, self.cfg, state,
-                                   active=active)
+                                   active=active, **self._sampling())
 
     def _table(self) -> Optional[np.ndarray]:
         """The host block table a step runs with (None: dense layout)."""
@@ -414,7 +450,8 @@ class SpeculativeEngine:
     def _join(self, state, slot: int, r: Request):
         padded, n = self._padded_context(r)
         return join_slot(self.params, self.draft_params, self.cfg, state,
-                         snapshot(padded, self.device), n, slot)
+                         snapshot(padded, self.device), n, slot,
+                         self.generator, greedy=self.greedy)
 
     def _dispatch_chunk(self, state, si: int, chunk: np.ndarray, start: int,
                         real_len: int, final: bool):
@@ -422,7 +459,8 @@ class SpeculativeEngine:
         return join_slot_chunk(self.params, self.draft_params, self.cfg,
                                state, snapshot(chunk, self.device),
                                start, real_len, si, final=final,
-                               view_len=view)
+                               view_len=view, generator=self.generator,
+                               greedy=self.greedy)
 
     # -- prefill-on-join -----------------------------------------------------
 
@@ -595,7 +633,8 @@ class SpeculativeEngine:
             table = self._table()
             self.captured = CapturedStep(
                 self._step, state, max_batch,
-                None if table is None else table.shape)
+                None if table is None else table.shape,
+                generator=None if self.greedy else self.generator)
             self.stats.captures += 1
         return state
 
@@ -750,9 +789,13 @@ class SpeculativeEngine:
         slots, active = self._slots, self._active
         state = self._init_pool(max_batch)
 
-        if warmup:   # one step over the idle pool, outside the clock
+        if warmup:   # one step over the idle pool, outside the clock; it
+            # leaves the generator as it found it, as JAX's warm-up step
+            # (whose new state is dropped) leaves the pool's key
+            rng = self.generator.get_state()
             out = HostRead(*self._run_step(state, active))
             out.get()
+            self.generator.set_state(rng)
             self.stats.warmup_steps += 1
 
         # enqueue after the warm-up, so latency measures serving (a live
@@ -1074,9 +1117,9 @@ class PagedSpeculativeEngine(SpeculativeEngine):
         if self.use_speculative:
             return paged_spec_decode_step(self.params, self.draft_params,
                                           self.cfg, self.tree, state, table,
-                                          active=active)
+                                          active=active, **self._sampling())
         return paged_autoregressive_step(self.params, self.cfg, state, table,
-                                         active=active)
+                                         active=active, **self._sampling())
 
     def _table(self) -> np.ndarray:
         return self._tables
@@ -1096,7 +1139,8 @@ class PagedSpeculativeEngine(SpeculativeEngine):
         self._join_seq[slot] = self._seq
         return paged_join_slot(self.params, self.draft_params, self.cfg,
                                state, snapshot(padded, self.device), n, slot,
-                               snapshot(self._tables[slot], self.device))
+                               snapshot(self._tables[slot], self.device),
+                               self.generator, greedy=self.greedy)
 
     # -- chunked prefill over the pool (DESIGN.md §8) -------------------------
 
@@ -1108,7 +1152,8 @@ class PagedSpeculativeEngine(SpeculativeEngine):
             self.params, self.draft_params, self.cfg, state,
             snapshot(chunk, self.device), start, real_len, si,
             snapshot(self._tables[si], self.device), final=final,
-            view_blocks=view_blocks)
+            view_blocks=view_blocks, generator=self.generator,
+            greedy=self.greedy)
 
     def _admit_prefill(self, r: Request) -> bool:
         """Chunked admission is priced per chunk: only the FIRST chunk's
@@ -1286,10 +1331,13 @@ class BucketedEngine(SpeculativeEngine):
 
     def __init__(self, params, draft_params, cfg: ModelConfig, tree, *,
                  max_len: int = 2048, use_speculative: bool = True,
-                 device="cuda"):
+                 criterion: str = "greedy", temperature: float = 0.7,
+                 epsilon: float = 0.15, seed: int = 0, device="cuda"):
         super().__init__(params, draft_params, cfg, tree, max_len=max_len,
                          use_speculative=use_speculative, inflight=1,
-                         capture_step=False, device=device)
+                         capture_step=False, criterion=criterion,
+                         temperature=temperature, epsilon=epsilon, seed=seed,
+                         device=device)
 
     @staticmethod
     def bucket(requests: List[Request], max_batch: int):
@@ -1304,7 +1352,7 @@ class BucketedEngine(SpeculativeEngine):
         return init_decode_state(
             self.params, self.draft_params if self.use_speculative else None,
             self.cfg, torch.tensor(prompts, device=self.device).long(),
-            self.max_len)
+            self.max_len, self.generator, greedy=self.greedy)
 
     def serve(self, requests: Iterable[Request] = (), *, max_batch: int = 8,
               warmup: bool = True) -> EngineStats:
@@ -1318,11 +1366,13 @@ class BucketedEngine(SpeculativeEngine):
             if need > self.max_len:
                 raise ValueError(f"batch needs {need} cache slots but "
                                  f"max_len={self.max_len}")
-        if warmup and batches:  # one prefill and step, outside the clock
-            b0 = batches[0]
+        if warmup and batches:  # one prefill and step, outside the clock,
+            b0 = batches[0]     # leaving the generator as it found it
+            rng = self.generator.get_state()
             res = self._step(self._prefill(np.zeros(
                 (len(b0), len(b0[0].prompt)), np.int64)), None)
             res.n_emitted.cpu()
+            self.generator.set_state(rng)
             self.stats.warmup_steps += 1
         now = time.time()
         for r in requests:

@@ -5,11 +5,11 @@ The JAX engine runs its step as one compiled executable per
 ``(max_batch, tree)``; the port's counterpart is ``CapturedStep``: one
 ``torch.cuda.CUDAGraph`` of the whole step (draft, verify forward with
 its kernels, acceptance, commit), captured once per engine and pool
-shape and replayed every step.  The engine keys it by
-``(max_batch, tree, layout, use_speculative)``: the tree, the layout
-(dense or paged) and ``use_speculative`` are fixed per engine, so a new
-capture is taken only when ``serve`` is called with another
-``max_batch``.
+shape and replayed every step.  The engine keys it by ``max_batch``
+alone: the tree, the layout (dense or paged), ``use_speculative``, the
+acceptance ``criterion`` and its ``temperature`` and ``epsilon`` are
+fixed per engine, so a new capture is taken only when ``serve`` is
+called with another ``max_batch``.
 
 A graph reads and writes fixed addresses, so the step runs *in place*
 (``step_in_place``): its inputs are the pool state's own tensors (the
@@ -26,6 +26,17 @@ The eager step and the replay run the same operators on the same
 operands in the same order, so their results are bitwise equal; a
 capture or replay that fails raises, and nothing falls back to the eager
 step.
+
+A sampling step draws inside the graph from the engine's CUDA
+generator, which is registered with the graph
+(``CUDAGraph.register_generator_state``): each replay reads the
+generator's offset when it is launched and advances it by the draws of
+one step, so two replays never repeat their draws, and a replay draws
+the numbers the eager step would draw from the same generator state.
+The capture's eager warm-up consumes draws and the capture itself
+reserves none; the constructor saves the generator's state before the
+warm-up and restores it after the capture, so a captured engine and an
+eager one with the same seed and schedule draw the same numbers.
 
 The serve loop never waits on the stream except where it reads a
 result: host operands go up from pinned copies without blocking
@@ -123,10 +134,14 @@ class CapturedStep:
     ``torch.cuda.graph``.  The kernels' Python launch counters count the
     warm-up and the capture, not the replays: ``launches`` holds the
     counts of the capture alone (the launches one replay makes),
-    ``replays`` the replays since construction."""
+    ``replays`` the replays since construction.  ``generator``: the CUDA
+    generator a sampling step draws from (None: a step that draws
+    nothing), registered with the graph and left in the state it had
+    before the warm-up."""
 
     def __init__(self, step, state, max_batch: int,
-                 table_shape: Optional[tuple] = None):
+                 table_shape: Optional[tuple] = None,
+                 generator: Optional[torch.Generator] = None):
         dev = state.cache_len.device
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA state, not {dev}")
@@ -135,6 +150,8 @@ class CapturedStep:
         self.table = (torch.zeros(table_shape, dtype=torch.int32, device=dev)
                       if table_shape is not None else None)
         self.replays = 0
+        self.generator = generator
+        rng = generator.get_state() if generator is not None else None
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
@@ -142,10 +159,14 @@ class CapturedStep:
         torch.cuda.current_stream(dev).wait_stream(side)
         before = kernels.launch_counts()
         self.graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            self.graph.register_generator_state(generator)
         with torch.cuda.graph(self.graph):
             self.emitted, self.n_emitted = step_in_place(
                 step, state, self.active, self.table)
         after = kernels.launch_counts()
+        if generator is not None:
+            generator.set_state(rng)
         self.launches = {k: after[k] - before[k] for k in after}
 
     def __call__(self, active: np.ndarray,

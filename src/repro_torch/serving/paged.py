@@ -174,23 +174,26 @@ def _state_as_pools(state: DecodeState) -> PagedState:
 
 def paged_spec_decode_step(params, draft_params, cfg: ModelConfig, tree,
                            pstate: PagedState, table, *,
-                           active: Optional[torch.Tensor] = None
-                           ) -> StepResult:
+                           active: Optional[torch.Tensor] = None,
+                           **sampling) -> StepResult:
     """One speculative step over the paged pools: the block table rides
     into ``spec_decode_step`` and the verify forward streams pool blocks
-    with the paged kernel; no dense view is ever built."""
+    with the paged kernel; no dense view is ever built.  ``sampling``
+    (``criterion``, ``temperature``, ``epsilon``, ``generator``) goes to
+    ``spec_decode_step`` as it is."""
     res = spec_decode_step(params, draft_params, cfg, tree,
                            _pools_as_state(pstate), active=active,
-                           block_table=table)
+                           block_table=table, **sampling)
     return StepResult(_state_as_pools(res.state), res.emitted, res.n_emitted)
 
 
 def paged_autoregressive_step(params, cfg: ModelConfig, pstate: PagedState,
-                              table, *, active: Optional[torch.Tensor] = None
-                              ) -> StepResult:
-    """T=1 baseline step over the paged pools."""
+                              table, *, active: Optional[torch.Tensor] = None,
+                              **sampling) -> StepResult:
+    """T=1 baseline step over the paged pools (``sampling``: ``greedy``,
+    ``temperature``, ``generator``, as ``autoregressive_step`` takes)."""
     res = autoregressive_step(params, cfg, _pools_as_state(pstate),
-                              active=active, block_table=table)
+                              active=active, block_table=table, **sampling)
     return StepResult(_state_as_pools(res.state), res.emitted, res.n_emitted)
 
 
@@ -211,14 +214,16 @@ def _scatter_rows(pool, rows, table_row, lead: int):
 
 def paged_join_slot(params, draft_params, cfg: ModelConfig,
                     pstate: PagedState, prompt, real_len: int, slot: int,
-                    table_row) -> PagedState:
+                    table_row, generator=None, *,
+                    greedy: bool = True) -> PagedState:
     """Prefill one request into row ``slot``, writing through the slot's
     (freshly allocated) block-table row (M,) int32, in place.  The engine
     must have pointed ``table_row`` at blocks covering
     ``[0, max(P, real_len + scratch))``: the padded prefill writes [0, P)
-    and the next verify step writes scratch at [real_len, real_len + T)."""
+    and the next verify step writes scratch at [real_len, real_len + T).
+    The first token as in ``core/speculative.py::prefill_row``."""
     row, prefix, tok0, h = prefill_row(params, draft_params, cfg, prompt,
-                                       real_len)
+                                       real_len, generator, greedy)
     for pool, r in zip(pstate.pools, row):
         for key, arr in r.items():
             if key in ATTN_KEYS:
@@ -238,8 +243,8 @@ def paged_join_slot(params, draft_params, cfg: ModelConfig,
 def paged_join_slot_chunk(params, draft_params, cfg: ModelConfig,
                           pstate: PagedState, chunk, start: int,
                           real_len: int, slot: int, table_row, *,
-                          final: bool,
-                          view_blocks: Optional[int] = None) -> PagedState:
+                          final: bool, view_blocks: Optional[int] = None,
+                          generator=None, greedy: bool = True) -> PagedState:
     """One chunk of a resumable prefill over the paged pools (DESIGN.md
     §8), in place: the paged twin of ``core/speculative.py::
     join_slot_chunk``.  The chunk forward receives the pools and the
@@ -252,7 +257,8 @@ def paged_join_slot_chunk(params, draft_params, cfg: ModelConfig,
     entries (they must cover ``start + C``), so a chunk gathers only the
     blocks up to its cursor; the masked tail never changes a bit.
     Recurrent-state rows are per slot and scan on from the carried state
-    (zeroed for the first chunk)."""
+    (zeroed for the first chunk).  The final chunk's first token as in
+    ``core/speculative.py::install_chunk``."""
     t1 = table_row[:view_blocks][None, :]
     pos, start1, valid = chunk_operands(chunk, start, real_len)
     cache = [{key: (a if key in ATTN_KEYS else carried_state(a, slot, start))
@@ -267,4 +273,4 @@ def paged_join_slot_chunk(params, draft_params, cfg: ModelConfig,
             cache_v=pstate.prefix_v, cache_len=start1, block_table=t1,
             prefill=True)
     return install_chunk(params, pstate, out.hidden, ph, start, real_len,
-                         slot, final)
+                         slot, final, generator, greedy)
