@@ -273,7 +273,43 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    forward through K3 against one through its plain version: relative
    logit difference at most 1e-4 and every argmax over the 504 targets
    at 64 positions, and K3's output 1% off failing that bound;
-7. a JSON line with each kernel's numbers (K3's chunk form as its own
+5e. training: (i) gemma3-1b in bf16 at full width through the train
+   launcher's own ``main`` (``--full-config --steps 3 --batch 1
+   --seq-len 1024``): 26 K3 launches a step, every one through K3's
+   autograd wrapper (``grad_launches``), finite losses, step time,
+   tokens/s and peak memory printed; then three steps on one repeated
+   batch (learning rate 0, 1e-3, 5e-4), whose loss must fall from the
+   second step to the third; (ii) gemma3-1b's Hydra++ heads (4 heads, 4
+   MLP layers, prefix attention), ``distill``, the bf16 base frozen, B=2,
+   S=512, 3 steps of ``train_heads``: 27 K3 launches a step (26 without a
+   gradient, the prefix layer's under autograd), the base params bitwise
+   unchanged and without a ``.grad``; step time and peak memory printed;
+   (iii) in fp32 at full width, B=1, S=512, one ``head_train_loss``
+   through K3 against one with K3's plain version swapped in: the loss's
+   relative difference and each draft leaf's gradient's relative L2
+   difference within ``GRAD_CHECK_BOUND``, a K3 1% off at the prefix layer
+   failing them; (iv) vicuna-tiny in fp32, the JAX example's recipe: 300
+   base steps and 300 Hydra head steps (``data``) on the synthetic corpus,
+   a checkpoint of each loaded back into fresh params bitwise, four eval
+   prompts of 32 tokens and 48 new tokens through ``generate`` and the
+   paged engine (``default_tree(16, 4, 4)``, greedy), the streams equal,
+   the mean accepted length printed beside the untrained heads'; then
+   ``measure_rank_acc``, ``grow_trees`` and ``select_tree``, the chosen
+   tree's size and expected length printed;
+5f. EAGLE: (i) minitron-4b in bf16 at full width, a K=4 chain, prompts of
+   600, 900, 1200 and 1500 tokens one at a time: 33 K3 launches a prefill
+   (32 layers and the EAGLE layer), then 32 new tokens through
+   ``eagle_spec_step``, 37 K2 launches a step (32 verify, 4 draft, 1
+   rebuild) and as many merges, each K2 call of each prompt's first step
+   held against its plain version (2e-2); step time and tokens/s printed;
+   (ii) the same in fp32: the EAGLE greedy stream equals the
+   autoregressive greedy stream for each prompt's first 16 tokens, a
+   divergence passing only at a near tie (top-2 logit gap below 1e-4),
+   which is printed; (iii) vicuna-tiny: an EAGLE layer trained 300 steps
+   on 5e(iv)'s base, as ``benchmarks/bench_fig10_eagle.py`` trains it,
+   its mean accepted length printed beside the trained Hydra heads';
+7. a JSON line with each kernel's numbers (the launches of phases 5e and
+   5f added to K3's and K2's entries) (K3's chunk form as its own
    entry, ``flash_attention_chunk``; K1 and K2 at each model past 64 rows
    per kv head as entries of their own, ``tree_attention_paged@<arch>``,
    with the launches of that model's phase 5 and the bound with keys read
@@ -3470,6 +3506,519 @@ def check_hubert() -> dict:
             "max_abs_err": max(errs), "rel": max(rels)}
 
 
+# ---------------------------------------------------------------------------
+# phase 5e: training at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "gemma3-1b"
+# the launcher's base steps: gemma3-1b, bf16, 3 steps of (1, 1024) tokens
+TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--full-config", "--steps", "3",
+              "--batch", "1", "--seq-len", "1024"]
+HEADS_BATCH = (2, 512)            # 5e(ii): Hydra++ head steps, B and S
+GRAD_CHECK_S = 512                # 5e(iii): the fp32 gradient check, B=1
+# 5e(iii)'s bounds on (the loss's relative difference, each draft leaf's
+# gradient's relative L2 difference) of a head_train_loss through K3
+# against one through its plain version, set from the clean reading
+# (NVIDIA H100 80GB HBM3, 700 W): the loss equal bit for bit (its bound is
+# 8 fp32 ulps), the gradients 1.77e-6 (the bound 5.6x that); a K3 1% off at
+# the prefix layer read 1.50e-6 and 8.67e-3, failing both
+GRAD_CHECK_BOUND = (1e-6, 1e-5)
+# 5e(iv): the tiny end-to-end recipe (examples/train_hydra_pp.py,
+# scripts/train_tiny.py): vicuna-tiny in fp32, 300 base steps and 300
+# Hydra head steps on the synthetic corpus, then 4 prompts of 32 tokens
+TINY_STEPS = 300
+TINY_PROMPTS = (4, 32)
+TINY_NEW = 48
+# 5f: EAGLE (K = 4 chain) at minitron-4b, prompts one at a time
+EAGLE_ARCH = "minitron-4b"
+EAGLE_K = 4
+EAGLE_PROMPTS = (600, 900, 1200, 1500)
+EAGLE_NEW = 32                    # 5f(i), bf16
+EAGLE_NEW_FP32 = 16               # 5f(ii), against autoregressive
+NEAR_TIE = 1e-4                   # a top-2 logit gap below it is a near tie
+
+
+def _counts_delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def _expect_counts(what: str, counts: dict, want: dict) -> None:
+    """``counts`` (nonzero launch counters) must be exactly ``want``."""
+    got = {k: n for k, n in counts.items() if n}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got} != {want}")
+
+
+def train_full_width() -> dict:
+    """Phase 5e (i)-(iii) at gemma3-1b: the launcher's base steps, Hydra++
+    head steps, the fp32 gradient check.  Returns the launch counts."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.distill import head_train_loss
+    from repro_torch.core.heads import init_draft_params
+    from repro_torch.data.synthetic import MarkovSpec, sample_corpus
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_plain
+    from repro_torch.launch import train
+    from repro_torch.models import attention
+    from repro_torch.models.model import init_params
+    from repro_torch.training import trainer
+    from repro_torch.training.optim import init_adamw
+    from repro_torch.training.pytree import tree_leaves
+
+    total = {}
+    cfg = get_config(TRAIN_ARCH)
+    # (i) base training through the launcher's own main
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()                        # count the main path only
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        history = train.main(TRAIN_ARGV)
+    counts = kernels.launch_counts()
+    for line in out.getvalue().splitlines():
+        log(f"[5e] {line}")
+    steps = len(history)
+    n3 = cfg.n_layers * steps
+    _expect_counts(f"5e(i) {cfg.name} base steps", counts, {
+        "flash_attention": n3, "flash_attention grad_launches": n3})
+    _add(total, counts)
+    losses = [loss for loss, _ in history]
+    later = [s for _, s in history[1:]]
+    step_ms = 1e3 * sum(later) / len(later)
+    tokens = 1024
+    log(f"[5e] (i) {cfg.name} bf16 base training through the launcher, "
+        f"{steps} steps of (1, 1024) ({CARD}): losses {losses}, "
+        f"{step_ms:.1f} ms a step after the first, "
+        f"{tokens / step_ms * 1e3:.0f} tokens/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB allocated; "
+        f"{cfg.n_layers} K3 launches a step, all through the autograd "
+        f"wrapper: {counts['flash_attention']} launches, "
+        f"{counts['flash_attention grad_launches']} under autograd")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"5e(i): losses {losses} not finite")
+    # the same step on a repeated batch at a learning rate that moves
+    # bf16 weights: step 0's rate is 0 (the warm-up's first), so the loss
+    # must fall from the second step to the third
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(cfg, seed=0, device="cuda")
+    tc = trainer.TrainConfig(peak_lr=1e-3, warmup=1, total_steps=3,
+                             log_every=1)
+    batch = torch.as_tensor(sample_corpus(
+        MarkovSpec(vocab_size=cfg.vocab_size, seed=0), 1, 1024),
+        device="cuda")
+    kernels.reset_counts()
+    rep = []
+    step = trainer.make_base_train_step(cfg, tc)
+    opt = init_adamw(params)
+    for _ in range(3):
+        params, opt, m = step(params, opt, batch)
+        rep.append(float(m["loss"]))
+    counts = kernels.launch_counts()
+    _expect_counts("5e(i) repeated batch", counts, {
+        "flash_attention": 3 * cfg.n_layers,
+        "flash_attention grad_launches": 3 * cfg.n_layers})
+    _add(total, counts)
+    log(f"[5e] (i) {cfg.name} bf16, one batch repeated, lr 0 then 1e-3 "
+        f"then 5e-4: losses {rep}")
+    if not (all(math.isfinite(x) for x in rep) and rep[2] < rep[1]):
+        raise AssertionError(f"5e(i): losses {rep} do not fall on a "
+                             "repeated batch")
+    del params, opt, m
+    # (ii) Hydra++ head training, the bf16 base frozen
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = init_params(cfg, seed=0, device="cuda")
+    dp = init_draft_params(cfg, seed=1, device="cuda")
+    snapshot = [p.clone() for p in tree_leaves(base)]
+    B, S = HEADS_BATCH
+    data = sample_corpus(MarkovSpec(vocab_size=cfg.vocab_size, seed=0),
+                         3 * B, S)
+    batches = [data[i * B:(i + 1) * B] for i in range(3)]
+    stamps = []
+
+    def stamp(line):
+        stamps.append(time.perf_counter())        # the line waits for the step
+        log(f"[5e] {line}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    trainer.train_heads(dp, base, cfg, trainer.TrainConfig(
+        total_steps=3, warmup=1, log_every=1), batches, objective="distill",
+        log=stamp)
+    counts = kernels.launch_counts()
+    n_prefix = 1
+    _expect_counts(f"5e(ii) {cfg.name} Hydra++ head steps", counts, {
+        "flash_attention": 3 * (cfg.n_layers + n_prefix),
+        "flash_attention grad_launches": 3 * n_prefix})
+    _add(total, counts)
+    for a, b in zip(snapshot, tree_leaves(base)):
+        if not torch.equal(a, b) or b.grad is not None:
+            raise AssertionError("5e(ii): a base param changed or holds a "
+                                 "gradient")
+    ms = [1e3 * (b - a) for a, b in zip([t0] + stamps, stamps)]
+    log(f"[5e] (ii) {cfg.name} Hydra++ heads ({cfg.draft.n_heads} heads, "
+        f"{cfg.draft.n_mlp_layers} MLP layers, prefix attention), distill, "
+        f"frozen bf16 base, B={B} S={S}, 3 steps of train_heads ({CARD}): "
+        f"{ms[1]:.1f} and {ms[2]:.1f} ms a step after the first "
+        f"({ms[0]:.1f}), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB allocated; "
+        f"{cfg.n_layers + n_prefix} K3 launches a step ({n_prefix} under "
+        f"autograd); the base params bitwise unchanged, no .grad")
+    del base, dp, snapshot
+    # (iii) the fp32 gradient check at full width
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    base = init_params(cfg32, seed=0, device="cuda")
+    dp = init_draft_params(cfg32, seed=1, device="cuda")
+    toks = torch.as_tensor(sample_corpus(
+        MarkovSpec(vocab_size=cfg.vocab_size, seed=0), 1, GRAD_CHECK_S,
+        seed=2), device="cuda")
+    kernel_fn = attention.flash_attention_bshd
+
+    def off_at_prefix(*a, **kw):      # the prefix layer is the grad call
+        o = kernel_fn(*a, **kw)
+        return o * K5_OFF if torch.is_grad_enabled() else o
+
+    def run(fn):
+        attention.flash_attention_bshd = fn
+        try:
+            loss, _, grads = trainer.value_and_grad(
+                lambda d: head_train_loss(d, base, cfg32, toks,
+                                          objective="distill"), dp)
+        finally:
+            attention.flash_attention_bshd = kernel_fn
+        return float(loss), tree_leaves(grads)
+
+    before = dict(kernels.launch_counts())
+    ref_loss, ref_grads = run(flash_attention_plain)
+    for what, fn in (("K3", kernel_fn), (f"K3 off by {K5_OFF} at the "
+                                         "prefix layer", off_at_prefix)):
+        loss, grads = run(fn)
+        lrel = abs(loss - ref_loss) / abs(ref_loss)
+        grel = max(rel_l2(a, b) for a, b in zip(grads, ref_grads))
+        ok = lrel <= GRAD_CHECK_BOUND[0] and grel <= GRAD_CHECK_BOUND[1]
+        log(f"[5e] (iii) {cfg.name} fp32 head_train_loss (distill, B=1, "
+            f"S={GRAD_CHECK_S}) through {what} against one through K3's "
+            f"plain version: loss rel diff {lrel:.3e}, largest draft-leaf "
+            f"gradient rel L2 diff {grel:.3e} over {len(grads)} leaves "
+            f"(bounds {GRAD_CHECK_BOUND[0]}, {GRAD_CHECK_BOUND[1]})")
+        if ok != (what == "K3"):
+            raise AssertionError(f"5e(iii): {what} reads loss {lrel}, "
+                                 f"grads {grel}: "
+                                 f"{'outside' if what == 'K3' else 'within'}"
+                                 " the bounds")
+    _add(total, _counts_delta(before, kernels.launch_counts()))
+    del base, dp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def _mean_accept(toks_acc) -> float:
+    return float(toks_acc.float().mean())
+
+
+def _stream(row, n: int) -> list:
+    from repro_torch.core.speculative import PAD_TOKEN
+
+    return [int(x) for x in row.tolist() if x != PAD_TOKEN][:n]
+
+
+def train_tiny_end_to_end() -> dict:
+    """Phase 5e(iv) and 5f(iii): vicuna-tiny in fp32, trained base, Hydra
+    heads and an EAGLE layer, served.  Returns the launch counts."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import DraftConfig, get_config
+    from repro_torch.core import tree_search
+    from repro_torch.core.eagle import (eagle_spec_step, eagle_train_loss,
+                                        init_eagle_decode_state,
+                                        init_eagle_params)
+    from repro_torch.core.heads import init_draft_params
+    from repro_torch.core.speculative import generate
+    from repro_torch.core.trees import chain_tree, default_tree
+    from repro_torch.data.synthetic import DataPipeline, MarkovSpec
+    from repro_torch.models.model import add_unembed_f32, init_params
+    from repro_torch.serving.engine import PagedSpeculativeEngine, Request
+    from repro_torch.training import trainer
+    from repro_torch.training.checkpoint import (load_checkpoint,
+                                                 save_checkpoint)
+    from repro_torch.training.optim import init_adamw
+    from repro_torch.training.pytree import tree_leaves
+
+    total = {}
+    cfg = dataclasses.replace(get_config("vicuna-tiny"), dtype="float32")
+    pipe = DataPipeline(MarkovSpec(cfg.vocab_size, branch=4, peak=0.7),
+                        seq_len=128, batch_size=16, n_train=256, n_eval=32)
+    tc = trainer.TrainConfig(total_steps=TINY_STEPS, warmup=30,
+                             log_every=100)
+    before = dict(kernels.launch_counts())
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    params, m = trainer.train_base(params, cfg, tc,
+                                   pipe.train_batches(TINY_STEPS),
+                                   log=lambda s: log(f"[5e] {s}"))
+    t_base = time.perf_counter() - t0
+    c2 = dataclasses.replace(cfg, draft=DraftConfig(kind="hydra", n_heads=4,
+                                                    n_mlp_layers=1))
+    tree = default_tree(16, 4, 4)
+    B, P = TINY_PROMPTS
+    prompts = torch.as_tensor(pipe.eval_batch(B)[:, :P], device="cuda").long()
+    dp = init_draft_params(c2, seed=1, device="cuda")
+    _, _, acc0 = generate(params, dp, c2, tree, prompts,
+                          max_new_tokens=TINY_NEW, max_len=512)
+    t0 = time.perf_counter()
+    dp, mh = trainer.train_heads(dp, params, c2, tc,
+                                 pipe.train_batches(TINY_STEPS),
+                                 log=lambda s: log(f"[5e] {s}"))
+    t_heads = time.perf_counter() - t0
+    log(f"[5e] (iv) vicuna-tiny fp32 ({CARD}): {TINY_STEPS} base steps in "
+        f"{t_base:.1f}s (loss {float(m['loss']):.4f} acc "
+        f"{float(m['acc']):.3f}), {TINY_STEPS} Hydra head steps in "
+        f"{t_heads:.1f}s (loss {float(mh['loss']):.4f})")
+    # a checkpoint of each, loaded into fresh params
+    (SRC.parent / "build").mkdir(exist_ok=True)
+    ckdir = Path(tempfile.mkdtemp(dir=SRC.parent / "build"))
+    save_checkpoint(str(ckdir / "base"), params)
+    save_checkpoint(str(ckdir / "heads"), dp)
+    params2 = add_unembed_f32(load_checkpoint(
+        str(ckdir / "base"), init_params(cfg, seed=5, device="cuda")), cfg)
+    dp2 = load_checkpoint(str(ckdir / "heads"),
+                          init_draft_params(c2, seed=6, device="cuda"))
+    for a, b in zip(tree_leaves(params) + tree_leaves(dp),
+                    tree_leaves(params2) + tree_leaves(dp2)):
+        if not torch.equal(a, b):
+            raise AssertionError("5e(iv): a checkpointed leaf came back "
+                                 "changed")
+    shutil.rmtree(ckdir)
+    toks, steps, acc = generate(params2, dp2, c2, tree, prompts,
+                                max_new_tokens=TINY_NEW, max_len=512)
+    want = [_stream(toks[b], TINY_NEW) for b in range(B)]
+    reqs = [Request(prompt=prompts[b].cpu().numpy().astype("int32"),
+                    max_new_tokens=TINY_NEW) for b in range(B)]
+    eng = PagedSpeculativeEngine(params2, dp2, c2, tree, max_len=512)
+    st = eng.serve(reqs, max_batch=B)
+    for b, r in enumerate(reqs):
+        if r.output != want[b]:
+            raise AssertionError(f"5e(iv): paged engine {r.output} != "
+                                 f"generate() {want[b]}")
+    _, _, acc_chain = generate(params2, dp2, c2, chain_tree(EAGLE_K),
+                               prompts, max_new_tokens=TINY_NEW, max_len=512)
+    log(f"[5e] (iv) checkpoints saved and loaded bitwise; {B} eval prompts "
+        f"of {P}, {TINY_NEW} new tokens, default_tree(16, 4, 4), greedy: "
+        f"generate() == the paged engine; mean accepted length "
+        f"{_mean_accept(acc):.3f} trained ({_mean_accept(acc0):.3f} "
+        f"untrained heads), chain of {EAGLE_K}: "
+        f"{_mean_accept(acc_chain):.3f}; engine tokens/step "
+        f"{st.tokens_per_step:.3f}")
+    rank_acc = tree_search.measure_rank_acc(
+        params2, dp2, c2, torch.as_tensor(pipe.eval_batch(), device="cuda"))
+    trees = tree_search.grow_trees(rank_acc, n_max=64)
+    best = tree_search.select_tree(trees, rank_acc)
+    log(f"[5e] (iv) tree search: rank-0 acceptance per head "
+        f"{[round(float(x), 3) for x in rank_acc[:, 0]]}; {len(trees)} "
+        f"nested trees; chosen tree of {best.size} nodes, expected accepted "
+        f"length {tree_search.expected_accept_length(best, rank_acc):.3f}")
+    # 5f(iii): an EAGLE layer on the same base, as bench_fig10_eagle.py
+    # trains it
+    ep = init_eagle_params(cfg, seed=9, device="cuda")
+    opt = init_adamw(ep)
+    etc = trainer.TrainConfig(peak_lr=1e-3, warmup=30,
+                              total_steps=TINY_STEPS)
+    t0 = time.perf_counter()
+    for i, batch in enumerate(pipe.train_batches(TINY_STEPS)):
+        batch = torch.as_tensor(batch, device="cuda")
+        _, em, grads = trainer.value_and_grad(
+            lambda e: eagle_train_loss(e, params2, cfg, batch), ep)
+        ep, opt, _ = trainer.apply_update(grads, opt, ep, etc)
+        if i % 100 == 0 or i == TINY_STEPS - 1:
+            log(f"[5f] eagle {i}: loss={float(em['loss']):.3f} "
+                f"acc={float(em['acc']):.3f}")
+    t_eagle = time.perf_counter() - t0
+    state = init_eagle_decode_state(params2, ep, cfg, prompts, 512)
+    produced, n_steps, acc_sum = 1, 0, 0.0
+    while produced < TINY_NEW:
+        res = eagle_spec_step(params2, ep, cfg, EAGLE_K, state)
+        state = res.state
+        produced += int(res.n_emitted.min())
+        acc_sum += float(res.n_emitted.float().mean())
+        n_steps += 1
+    log(f"[5f] (iii) vicuna-tiny EAGLE layer trained {TINY_STEPS} steps in "
+        f"{t_eagle:.1f}s ({CARD}); mean accepted length (chain of "
+        f"{EAGLE_K}, greedy, the same {B} prompts): EAGLE "
+        f"{acc_sum / n_steps:.3f} vs trained Hydra heads "
+        f"{_mean_accept(acc_chain):.3f} on the chain, "
+        f"{_mean_accept(acc):.3f} on default_tree(16, 4, 4) (paper Fig. 10, "
+        f"a reading)")
+    _add(total, _counts_delta(before, kernels.launch_counts()))
+    del params, params2, dp, dp2, ep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 5f: EAGLE at full width
+# ---------------------------------------------------------------------------
+
+
+def _top2_gap(params, cfg, context) -> float:
+    """The top-2 logit gap of the next token after ``context`` (1-d)."""
+    import torch
+    from repro_torch.models.model import forward
+
+    with torch.no_grad():
+        out = forward(params, cfg, context[None],
+                      torch.arange(context.shape[0], device="cuda")[None],
+                      want_logits=False)
+        lg = out.hidden[0, -1].float() @ params["unembed_f32"]
+    top = torch.topk(lg, 2).values
+    return float(top[0] - top[1])
+
+
+def eagle_full_width() -> dict:
+    """Phase 5f (i)-(ii) at minitron-4b.  Returns the launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.eagle import (eagle_spec_step,
+                                        init_eagle_decode_state,
+                                        init_eagle_params)
+    from repro_torch.core.speculative import generate
+    from repro_torch.core.trees import chain_tree
+    from repro_torch.kernels.tree_attention.kernel import \
+        tree_attention_dense_plain
+    from repro_torch.models import attention
+    from repro_torch.models.model import init_params
+
+    total = {}
+    cfg = get_config(EAGLE_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(cfg, seed=0, device="cuda")
+    ep = init_eagle_params(cfg, seed=9, device="cuda")
+    rs = np.random.RandomState(0)
+    prompts = [torch.as_tensor(rs.randint(0, cfg.vocab_size, P),
+                               device="cuda").long() for P in EAGLE_PROMPTS]
+    kernel_fn = attention.tree_attention_bshd
+    errs = []
+
+    def held(*a, **kw):
+        o = kernel_fn(*a, **kw)
+        errs.append(compare(o, tree_attention_dense_plain(*a), 2e-2,
+                            f"5f K2 call {len(errs)}"))
+        return o
+
+    per_step = cfg.n_layers + EAGLE_K + 1
+    step_s, step_tok = [], []
+    for prompt in prompts:
+        P = prompt.shape[0]
+        kernels.reset_counts()                    # count the main path only
+        state = init_eagle_decode_state(params, ep, cfg, prompt[None],
+                                        P + 2 * EAGLE_NEW)
+        counts = kernels.launch_counts()
+        _expect_counts(f"5f(i) prefill of {P}", counts,
+                       {"flash_attention": cfg.n_layers + 1})
+        _add(total, counts)
+        produced, i = 1, 0
+        while produced < EAGLE_NEW:
+            kernels.reset_counts()
+            if i == 0:
+                attention.tree_attention_bshd = held
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                res = eagle_spec_step(params, ep, cfg, EAGLE_K, state)
+                n = int(res.n_emitted.min())
+            finally:
+                attention.tree_attention_bshd = kernel_fn
+            dt = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            _expect_counts(f"5f(i) step {i} at {P}", counts, {
+                "tree_attention_dense": per_step,
+                "tree_attention_dense merge_launches": per_step})
+            _add(total, counts)
+            if i > 0:                             # the first held its checks
+                step_s.append(dt)
+                step_tok.append(int(res.n_emitted.sum()))
+            produced += n
+            state = res.state
+            i += 1
+        if not torch.isfinite(state.last_hidden.float()).all():
+            raise AssertionError("5f(i): hidden state not finite")
+    if len(errs) != len(prompts) * per_step:
+        raise AssertionError(f"5f(i): {len(errs)} K2 calls held")
+    ms = 1e3 * sum(step_s) / len(step_s)
+    log(f"[5f] (i) {cfg.name} bf16 EAGLE (K={EAGLE_K}) on prompts of "
+        f"{EAGLE_PROMPTS} tokens, one at a time ({CARD}): "
+        f"{cfg.n_layers + 1} K3 launches a prefill, {per_step} K2 a step "
+        f"({cfg.n_layers} verify, {EAGLE_K} draft, 1 rebuild) and as many "
+        f"merges; each K2 call of each prompt's first step against its "
+        f"plain version: max abs err {max(errs):.3e} (2e-2); "
+        f"{ms:.2f} ms a step (B=1), {sum(step_tok) / sum(step_s):.1f} "
+        f"tokens/s over the {len(step_s)} steps after each prompt's first")
+    del params, ep
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (ii) fp32: the EAGLE greedy stream equals the autoregressive one
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_params(cfg32, seed=0, device="cuda")
+    ep = init_eagle_params(cfg32, seed=9, device="cuda")
+    before = dict(kernels.launch_counts())
+    ties = []
+    for prompt in prompts:
+        P = prompt.shape[0]
+        state = init_eagle_decode_state(params, ep, cfg32, prompt[None],
+                                        P + 2 * EAGLE_NEW_FP32)
+        got = [int(state.last_token[0])]
+        while len(got) < EAGLE_NEW_FP32:
+            res = eagle_spec_step(params, ep, cfg32, EAGLE_K, state)
+            got += _stream(res.emitted[0], int(res.n_emitted[0]))
+            state = res.state
+        got = got[:EAGLE_NEW_FP32]
+        ar, _, _ = generate(params, None, cfg32, chain_tree(EAGLE_K),
+                            prompt[None], max_new_tokens=EAGLE_NEW_FP32,
+                            max_len=P + 2 * EAGLE_NEW_FP32,
+                            use_speculative=False)
+        want = _stream(ar[0], EAGLE_NEW_FP32)
+        if got != want:
+            k = next(j for j, (x, y) in enumerate(zip(got, want)) if x != y)
+            ctx = torch.cat([prompt, torch.as_tensor(want[:k],
+                                                     device="cuda")])
+            gap = _top2_gap(params, cfg32, ctx)
+            ties.append((P, k, gap))
+            log(f"[5f] (ii) prompt of {P}: EAGLE and autoregressive part "
+                f"at token {k} ({got[k]} vs {want[k]}), top-2 logit gap "
+                f"{gap:.3e}")
+            if gap >= NEAR_TIE:
+                raise AssertionError(f"5f(ii): EAGLE {got} != "
+                                     f"autoregressive {want}, not at a "
+                                     "near tie")
+    _add(total, _counts_delta(before, kernels.launch_counts()))
+    log(f"[5f] (ii) {cfg.name} fp32: the EAGLE greedy stream equals the "
+        f"autoregressive greedy stream for the first {EAGLE_NEW_FP32} "
+        f"tokens of {len(prompts) - len(ties)} of {len(prompts)} prompts; "
+        f"near ties (top-2 gap < {NEAR_TIE}): {ties or 'none'}")
+    del params, ep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -3625,6 +4174,17 @@ def main() -> int:
     hubert = check_hubert()
     log(f"[time] phase 5d ({HUBERT}): {time.perf_counter() - t_hub:.0f}s, "
         f"done at {time.perf_counter() - t_start:.0f}s")
+    # phases 5e and 5f: their K3 and K2 launches join those entries
+    for what, phase in (("5e (i)-(iii) (gemma3-1b training)",
+                         train_full_width),
+                        ("5e (iv) and 5f (iii) (vicuna-tiny end to end)",
+                         train_tiny_end_to_end),
+                        ("5f (i)-(ii) (EAGLE at minitron-4b)",
+                         eagle_full_width)):
+        t_ph = time.perf_counter()
+        _add(launches, phase())
+        log(f"[time] phase {what}: {time.perf_counter() - t_ph:.0f}s, "
+            f"done at {time.perf_counter() - t_start:.0f}s")
 
     def entry(name, source, replaces, rec, err):
         return {"name": name, "route": "cuda", "source": source,

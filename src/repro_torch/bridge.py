@@ -26,7 +26,9 @@ parts whose layout matters:
   (hubert-xlarge), present exactly when ``cfg.modality == "audio"``;
 * draft params: a list of per-head dicts (``w_in``, ``out_norm``,
   ``w_res{m}`` for the deeper Hydra++ MLPs, ``unembed`` when untied) and
-  the Hydra++ ``prefix`` layer, a GQA layer checked as the groups' are.
+  the Hydra++ ``prefix`` layer, a GQA layer checked as the groups' are;
+* EAGLE params: ``fc (2d, d)``, one decoder layer ``prefix`` (a GQA layer
+  and its MLP) and ``out_norm (d,)``.
 
 Every leaf keeps its own float type: bf16 stays bf16 and fp32 stays
 fp32, so the MoE router, RWKV6's ``w0``, ``u_bonus``, ``gn_gamma`` and
@@ -177,6 +179,32 @@ def draft_params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
     if dc.prefix_attention:
         _check_gqa(dp["prefix"]["attn"], cfg, "prefix", ())
     return dp
+
+
+def eagle_params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
+    """EAGLE draft params (``fc``, the ``prefix`` decoder layer,
+    ``out_norm``) from the JAX pytree."""
+    dev = resolve_device(device)
+    d = cfg.d_model
+    ep = _convert(np_tree, dev)
+    _expect(sorted(ep) == ["fc", "out_norm", "prefix"],
+            f"EAGLE params are fc, prefix and out_norm, got {sorted(ep)}")
+    _expect(tuple(ep["fc"].shape) == (2 * d, d),
+            f"EAGLE fc must be ({2 * d}, {d}), got {tuple(ep['fc'].shape)}")
+    _expect(tuple(ep["out_norm"].shape) == (d,),
+            f"EAGLE out_norm must be ({d},)")
+    p = ep["prefix"]
+    _expect(sorted(p) == ["attn", "mlp", "norm1", "norm2"],
+            f"the EAGLE layer is one attention + MLP layer, got {sorted(p)}")
+    for key in ("norm1", "norm2"):
+        _expect(tuple(p[key].shape) == (d,), f"EAGLE {key} must be ({d},)")
+    _check_gqa(p["attn"], cfg, "EAGLE", ())
+    f = cfg.d_ff
+    for key, shape in (("w_gate", (d, f)), ("w_up", (d, f)),
+                       ("w_down", (f, d))):
+        _expect(tuple(p["mlp"][key].shape) == shape,
+                f"EAGLE mlp {key} must be {shape}")
+    return ep
 
 
 def to_numpy(tree):

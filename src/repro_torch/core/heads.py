@@ -28,6 +28,7 @@ from repro_torch.core.trees import device_arrays
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models.attention import AttnInputs, gqa_fwd, init_gqa
 from repro_torch.models.layers import dense_init, init_mlp, mlp_fwd, rms_norm
+from repro_torch.models.model import unembedding
 
 # ---------------------------------------------------------------------------
 # init
@@ -68,7 +69,6 @@ def init_draft_params(cfg: ModelConfig, *, seed: int = 1, device="cuda"):
 # ---------------------------------------------------------------------------
 
 
-@torch.no_grad()
 def prefix_forward(dp, cfg: ModelConfig, hidden, positions, *,
                    cache_k=None, cache_v=None, cache_len=None,
                    tree_mask=None, block_table=None, prefill: bool = False):
@@ -80,7 +80,10 @@ def prefix_forward(dp, cfg: ModelConfig, hidden, positions, *,
     per-slot tables as the KV pools).  ``prefill=True`` (with a cache)
     runs the chunked-prefill continuation instead of the decode path: the
     T hiddens are one prompt chunk at ``cache_len + arange(T)``, attended
-    through K3's chunk form (DESIGN.md §8).  Returns (out, new_k, new_v)."""
+    through K3's chunk form (DESIGN.md §8).  Returns (out, new_k, new_v).
+    Grad mode is the caller's: Hydra++ training differentiates the
+    full-seq path (K3 through its autograd wrapper); serving calls it
+    under ``torch.no_grad()``."""
     p = dp["prefix"]
     ai = AttnInputs(q_pos=positions, cache_k=cache_k, cache_v=cache_v,
                     cache_len=cache_len, tree_mask=tree_mask, window=0,
@@ -120,7 +123,7 @@ def head_logits(dp, cfg: ModelConfig, base_params, i: int, h, path_embs):
     for m in range(cfg.draft.n_mlp_layers - 1):
         z = z + F.silu(z @ hp[f"w_res{m}"])
     z = rms_norm(z, hp["out_norm"])
-    unembed = (base_params["unembed_f32"] if cfg.draft.tie_unembed
+    unembed = (unembedding(base_params, cfg) if cfg.draft.tie_unembed
                else hp["unembed"].float())
     return z.float() @ unembed
 

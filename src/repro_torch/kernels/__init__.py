@@ -6,11 +6,30 @@ Each wrapper counts its launches in module-level counters (``launches``,
 and ``merge_launches``/``scan_launches``/``chunk_launches`` where a call
 launches a second kernel or a second form).  A launch recorded into a
 CUDA graph counts once, at capture; its replays are counted by the
-graph's owner (``serving/graph.py::CapturedStep.replays``)."""
+graph's owner (``serving/graph.py::CapturedStep.replays``).
+
+Only K3's whole prefill has a backward (``flash_attention/ops.py::
+FlashAttention``).  Every other wrapper refuses autograd: with grad mode
+on and an operand requiring a gradient it raises (``refuse_grad``)
+instead of returning a result detached from the graph."""
 from __future__ import annotations
 
+import torch
+
 # the counters a wrapper may keep beside ``launches``
-SECOND_COUNTERS = ("merge_launches", "scan_launches", "chunk_launches")
+SECOND_COUNTERS = ("merge_launches", "scan_launches", "chunk_launches",
+                   "grad_launches")
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise if autograd would need a backward of ``kernel``, which has
+    none: grad mode is on and one of ``tensors`` (None skipped) requires a
+    gradient."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward: call it under torch.no_grad(), or "
+            "with operands that require no gradient")
 
 
 def counter_modules() -> dict:

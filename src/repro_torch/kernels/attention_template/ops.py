@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.attention_template.ref import (
     tree_attention_paged_windowed_plain)
 from repro_torch.kernels.tree_attention import kernel as _k
@@ -43,6 +44,7 @@ def tree_attention_paged_windowed_bshd(q, pool_k, pool_v, tree_k, tree_v,
     at ``q_pos >= cache_len``.  ``split_len`` forces the kernel's split
     (default: the planner's).  Returns (B,T,Hq,D) in q's dtype."""
     global launches, merge_launches
+    refuse_grad("tree_attention_paged_windowed", q, pool_k, pool_v, tree_k, tree_v)
     q, tree_k, tree_v, tree_mask, T = pad_tree(q, tree_k, tree_v, tree_mask)
     args = (q, pool_k, pool_v, tree_k, tree_v, tree_mask, cache_len,
             block_table)

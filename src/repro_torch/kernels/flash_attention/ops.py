@@ -7,14 +7,25 @@ launch the kernel or raise, for every length (the kernel cuts a ragged
 tail by its length; nothing is padded).  There is no fallback from one to
 the other.  ``launches`` counts kernel launches, and only those;
 ``chunk_launches`` counts those of them that ran the chunk form (a call
-with ``kv_valid_len``).  v may have a head dim of its own (deepseek's MLA
-prefill: q/k 192, v 128) where a bf16 build takes it; fp32 pads a width
-without a build of its own (hubert's 80) to the next one.
+with ``kv_valid_len``), ``grad_launches`` those made under autograd.  v
+may have a head dim of its own (deepseek's MLA prefill: q/k 192, v 128)
+where a bf16 build takes it; fp32 pads a width without a build of its
+own (hubert's 80) to the next one.
 
 Two forms, one kernel: the whole prefill (q and k/v of one length, query
 i at position i) and the chunk form of a resumable prefill (``q_off``:
 the chunk's first position; ``kv_valid_len``: the keys written so far,
 the cache view past it is masked and never read by the kernel).
+
+Under autograd (grad mode on and q, k or v requiring a gradient) a whole
+prefill goes through ``FlashAttention``, a ``torch.autograd.Function``:
+its forward launches K3 as above, and its backward recomputes the plain
+version (``models/layers.py::blocked_attention``, the port of the jnp
+function JAX's trainer differentiates, recomputed as ``jax.checkpoint``
+recomputes it) on the saved q/k/v and returns its gradients.  JAX has no
+backward kernel either; a hand-written one is later speed work.  The
+chunk form has no backward and raises under autograd, as every other
+kernel wrapper without one does (``kernels.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -23,10 +34,12 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.flash_attention import kernel as _k
 
 launches = 0                  # kernel launches since the last reset
 chunk_launches = 0            # of which with a query offset / kv_valid_len
+grad_launches = 0             # of which under autograd (FlashAttention)
 
 
 def _check(q, k, v, chunk: bool):
@@ -98,7 +111,6 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0,
     admits keys less than ``window`` positions back.  ``scale`` multiplies
     the scores (default 1/sqrt(D); MLA's prefill passes 1/sqrt(nd + rd)).
     Returns (B,Sq,Hq,Dv) in q's dtype."""
-    global launches, chunk_launches
     chunk = kv_valid_len is not None
     if not chunk and not (isinstance(q_off, int) and q_off == 0):
         raise ValueError("a query offset needs kv_valid_len (the chunk form)")
@@ -106,8 +118,21 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0,
     window = int(window)
     B = q.shape[0]
     if chunk:
+        refuse_grad("flash_attention (chunk form)", q, k, v)
         q_off = _row_ints(q_off, B, q.device, "q_off")
         kv_valid_len = _row_ints(kv_valid_len, B, q.device, "kv_valid_len")
+    elif torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window, scale)
+    return _forward(q, k, v, causal=causal, window=window, scale=scale,
+                    q_off=q_off, kv_valid_len=kv_valid_len)
+
+
+def _forward(q, k, v, *, causal: bool, window: int, scale, q_off=0,
+             kv_valid_len=None):
+    """The plain version on the CPU, the kernel on CUDA (validated, counted);
+    operands already checked by the wrapper."""
+    global launches, chunk_launches
+    chunk = kv_valid_len is not None
     if q.device.type == "cpu":
         return _k.flash_attention_plain(q, k, v, causal=causal, window=window,
                                         scale=scale, q_off=q_off,
@@ -133,3 +158,31 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0,
     launches += 1
     chunk_launches += chunk
     return out[..., :dv] if out.shape[-1] != dv else out
+
+
+class FlashAttention(torch.autograd.Function):
+    """K3's whole prefill with a gradient: the forward launches the kernel
+    (the plain version on the CPU), the backward recomputes the plain
+    version on the saved q/k/v and differentiates it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, scale):
+        global grad_launches
+        out = _forward(q, k, v, causal=causal, window=window, scale=scale)
+        grad_launches += q.device.type == "cuda"
+        ctx.save_for_backward(q, k, v)
+        ctx.attrs = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        causal, window, scale = ctx.attrs
+        saved = [t.detach().requires_grad_(need) for t, need in
+                 zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+        wanted = [t for t in saved if t.requires_grad]
+        with torch.enable_grad():
+            out = _k.flash_attention_plain(*saved, causal=causal,
+                                           window=window, scale=scale)
+            grads = iter(torch.autograd.grad(out, wanted, grad_out))
+        return (*(next(grads) if t.requires_grad else None for t in saved),
+                None, None, None)

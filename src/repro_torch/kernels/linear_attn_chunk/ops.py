@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.linear_attn_chunk import kernel as _k
 from repro_torch.kernels.linear_attn_chunk.ref import decay_attention_chunked
 
@@ -72,6 +73,7 @@ def linear_attn_bshd(r, k, v, w_log, u=None, initial_state=None, *,
 
     Returns (o (B,S,H,dv) in v's dtype, final_state (B,H,dk,dv) fp32)."""
     global launches, scan_launches
+    refuse_grad("linear_attn_chunk", r, k, v, w_log, u, initial_state)
     args = (r, k, v, w_log, u, initial_state)
     check_operands(*args, chunk)
     if k.device.type == "cpu":

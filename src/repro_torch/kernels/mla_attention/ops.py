@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.mla_attention import kernel as _k
 from repro_torch.kernels.mla_attention.ref import mla_attention_paged_plain
 from repro_torch.kernels.tree_attention.ops import (T_PAD, check_split_len,
@@ -99,6 +100,8 @@ def mla_attention_paged_bshd(q_lat, q_rope, pool_lat, pool_rope, tree_lat,
     multiple of 16; default: the planner's).  Returns o_lat (B,T,H,r) in
     q_lat's dtype (fp32 on the card)."""
     global launches, merge_launches
+    refuse_grad("mla_attention_paged", q_lat, q_rope, pool_lat, pool_rope,
+                tree_lat, tree_rope)
     if q_pos is not None or window is not None:
         raise NotImplementedError("windowed MLA verify is not ported "
                                   "(no configuration runs it; ROADMAP)")

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.tree_attention import kernel as _k
 from repro_torch.kernels.tree_attention.ops import (check_cuda_shape,
                                                     check_split_len,
@@ -71,6 +72,7 @@ def tree_attention_bshd(q, cache_k, cache_v, tree_k, tree_v, tree_mask,
     multiple of 16; default: the planner's).  Returns (B,T,Hq,D) in q's
     dtype."""
     global launches, merge_launches
+    refuse_grad("tree_attention_dense", q, cache_k, cache_v, tree_k, tree_v)
     q, tree_k, tree_v, tree_mask, T = pad_tree(q, tree_k, tree_v, tree_mask)
     args = (q, cache_k, cache_v, tree_k, tree_v, tree_mask, cache_len)
     check_operands(*args)

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.tree_attention import kernel as _k
 from repro_torch.kernels.tree_attention.split import (plan_split_len,
                                                       row_groups)
@@ -131,6 +132,7 @@ def tree_attention_paged_bshd(q, pool_k, pool_v, tree_k, tree_v, tree_mask,
     16; default: the planner's).  Returns
     (B,T,Hq,D) in q's dtype."""
     global launches, merge_launches
+    refuse_grad("tree_attention_paged", q, pool_k, pool_v, tree_k, tree_v)
     q, tree_k, tree_v, tree_mask, T = pad_tree(q, tree_k, tree_v, tree_mask)
     args = (q, pool_k, pool_v, tree_k, tree_v, tree_mask, cache_len,
             block_table)

@@ -23,7 +23,10 @@ of ``n_dense_layers`` and then an MoE group), with every leaf stacked on a
 leading layer axis, and ``shared_attn``, one unstacked layer, for zamba2.
 One more entry, ``unembed_f32``, holds the fp32 unembedding the logits
 multiply with.  JAX upcasts the ``(d, V)`` unembedding on every call; the
-port makes that copy once, at load (3.1 GB at minitron-4b, see PERF.md).
+port makes that copy once, at load (3.1 GB at minitron-4b, see PERF.md),
+and ``refresh_unembed_f32`` copies the params into it again after a
+training step; under autograd the logits read the param itself
+(``unembedding``), so its gradient reaches ``embed``/``lm_head``.
 
 Caches are a list with one dict per group.  An attention group
 (``attention_group``: ``attn_stack*`` and ``shared_attn``) holds ``{"k",
@@ -197,12 +200,39 @@ def layer(tree, i: int):
     return tree[i]
 
 
+def unembed_param(params, cfg: ModelConfig):
+    """The ``(d, V)`` unembedding param: ``embed.T`` when tied, else
+    ``lm_head``."""
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
 def add_unembed_f32(params, cfg: ModelConfig):
     """Attach the fp32 unembedding ``(d, V)`` the logits use (one copy,
-    made at load; a no-op view when params are already fp32)."""
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    params["unembed_f32"] = w.float().contiguous()
+    made at load; the param itself when it is an fp32 ``lm_head``)."""
+    params["unembed_f32"] = unembed_param(params, cfg).float().contiguous()
     return params
+
+
+@torch.no_grad()
+def refresh_unembed_f32(params, cfg: ModelConfig):
+    """Copy ``embed``/``lm_head`` into the fp32 unembedding again, in
+    place, after a step that trained them (``training/trainer.py`` calls
+    it after every base step).  Nothing to do where it is the param."""
+    w, u = unembed_param(params, cfg), params["unembed_f32"]
+    if u is not w:
+        u.copy_(w)
+    return params
+
+
+def unembedding(params, cfg: ModelConfig):
+    """The fp32 ``(d, V)`` unembedding logits multiply with: the copy
+    made at load, or, where autograd needs the gradient of ``embed`` or
+    ``lm_head`` (grad mode on and the param requiring it), the param
+    upcast on the spot (the same values, on the graph)."""
+    w = unembed_param(params, cfg)
+    if torch.is_grad_enabled() and w.requires_grad:
+        return w.float()
+    return params["unembed_f32"]
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
@@ -381,7 +411,6 @@ def _attn_layer_fwd(lp, cfg, h, ai: AttnInputs):
     return h + f, nk, nv
 
 
-@torch.no_grad()
 def forward(params, cfg: ModelConfig, inputs, positions, *, mode: str = "full",
             cache=None, cache_len=None, tree_mask=None, block_table=None,
             valid_len=None, want_logits: bool = True) -> ModelOutputs:
@@ -411,6 +440,12 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, mode: str = "full",
     Attention needs no mask for right-pads (causality hides them); a
     recurrent group length-masks its scan, so the state is carried past
     the pads unchanged, and takes its final states at ``valid_len - 1``.
+
+    Grad mode is the caller's: the serving entry points call this under
+    ``torch.no_grad()``, the training losses with grad on, where the full
+    path's K3 calls go through its autograd wrapper and every other kernel
+    (the verify paths, K3's chunk form, K6) refuses to run.  A cache is
+    written in place, so only a cache-free full forward trains.
     """
     if mode not in ("full", "verify"):
         raise ValueError(f"mode must be 'full' or 'verify': {mode}")
@@ -474,5 +509,5 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, mode: str = "full",
             layer_offset += n
 
     h = rms_norm(h, params["final_norm"], cfg.rms_eps)
-    logits = h.float() @ params["unembed_f32"] if want_logits else None
+    logits = h.float() @ unembedding(params, cfg) if want_logits else None
     return ModelOutputs(hidden=h, logits=logits, cache=out_cache)

@@ -2,9 +2,10 @@
 
 * ``src/repro_torch`` imports neither JAX nor anything of the JAX package
   ``repro`` (it keeps its own copies of the JAX-free modules);
-* its entry points run on CUDA by default and raise where CUDA is
-  missing, unless the caller passes ``device="cpu"``: they never slip
-  onto the CPU;
+* its entry points (serving, and training's: EAGLE's params, the train
+  launcher) run on CUDA by default and raise where CUDA is missing,
+  unless the caller passes ``device="cpu"``: they never slip onto the
+  CPU;
 * ``chip_smoke.py`` exits non-zero without a result line where CUDA is
   missing.
 """
@@ -20,9 +21,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_config, tree_for  # noqa: E402
+from repro_torch.core.eagle import init_eagle_params  # noqa: E402
 from repro_torch.core.heads import init_draft_params  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models.model import init_params  # noqa: E402
 from repro_torch.serving.engine import (PagedSpeculativeEngine,  # noqa: E402
                                         SpeculativeEngine)
@@ -65,6 +67,24 @@ def test_entry_points_refuse_the_cpu_without_asking(monkeypatch, tiny):
         lambda: SpeculativeEngine(params, None, cfg, tree_for(cfg)),
         lambda: PagedSpeculativeEngine(params, None, cfg, tree_for(cfg)),
         lambda: serve.main(["--arch", "minitron-4b"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_training_entry_points_refuse_the_cpu_without_asking(monkeypatch,
+                                                             tiny):
+    """The training slice's entry points (EAGLE, the train launcher) hold
+    the same rule; the others run on their operands' device."""
+    cfg, params = tiny
+    ep = init_eagle_params(cfg, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: init_eagle_params(cfg),
+        lambda: bridge.eagle_params_from_jax(bridge.to_numpy(ep), cfg),
+        lambda: train.main(["--arch", "vicuna-tiny", "--steps", "1"]),
+        lambda: train.main(["--arch", "hubert-xlarge", "--steps", "1"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
