@@ -238,7 +238,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    power limit; the four models of the rest of the registry in two
    modes, the synchronous eager loop and the default, one turn each, with
    the peak memory of the phase; zamba2-1.2b in the four modes, one
-   turn.  Phases 4, 5, 5b and 5c serve through the engines' defaults
+   turn.  Two models run this phase at a cut depth, from weights of
+   their own (widths kept): deepseek-v2-lite-16b at 2 layers (phase
+   5b's), zamba2-1.2b at 12 layers (two invocations of the shared
+   block).  Phases 4, 5, 5b and 5c serve through the engines' defaults
    (``inflight=2``, the step captured): the decode step's launches are
    counted at its capture and its eager warm-up, its replays by the
    capture;
@@ -293,7 +296,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    a checkpoint of each loaded back into fresh params bitwise, four eval
    prompts of 32 tokens and 48 new tokens through ``generate`` and the
    paged engine (``default_tree(16, 4, 4)``, greedy), the streams equal,
-   the mean accepted length printed beside the untrained heads'; then
+   the mean accepted length printed beside the untrained heads'; the
+   port's example ``examples/torch_train_hydra_pp.py`` on the same base
+   checkpoint (its ``CKPT`` pointed at the phase's directory; the base
+   restored, not retrained): Medusa and Hydra heads (``data``) and
+   Hydra++ (4 MLP layers, prefix attention, ``distill``) trained 300 steps
+   each, each variant's mean accepted length above the untrained heads',
+   their order printed (the paper's Fig. 2); then
    ``measure_rank_acc``, ``grow_trees`` and ``select_tree``, the chosen
    tree's size and expected length printed;
 5f. EAGLE: (i) minitron-4b in bf16 at full width, a K=4 chain, prompts of
@@ -308,8 +317,28 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    which is printed; (iii) vicuna-tiny: an EAGLE layer trained 300 steps
    on 5e(iv)'s base, as ``benchmarks/bench_fig10_eagle.py`` trains it,
    its mean accepted length printed beside the trained Hydra heads';
-7. a JSON line with each kernel's numbers (the launches of phases 5e and
-   5f added to K3's and K2's entries) (K3's chunk form as its own
+5g. base training of the recurrent and MoE archs, bf16 at full width,
+   random weights drawn on the card, 3 steps of (1, 1024) tokens each:
+   (i) rwkv6-1.6b at full depth through the train launcher's own ``main``
+   (``--full-config``): 24 K6 launches (and scans) a step, every one
+   through K6's autograd wrapper (``grad_launches``); (ii) zamba2-1.2b
+   the same way: 7 K3 launches at (64, 64) a step, all under autograd
+   (its SSD is plain PyTorch, as JAX's is jnp); each then three steps on
+   one repeated batch (learning rate 0, 1e-3, 5e-4), whose loss must fall
+   from the second step to the third; (iii) deepseek-v2-lite-16b and
+   deepseek-moe-16b cut to 2 layers (the dense first layer and one MoE
+   layer) through the launcher's ``make_train_step``: 2 K3 launches a
+   step under autograd ((192, 128) and (128, 128)), the router's
+   ``aux`` finite and above 0 each step; step time, tokens/s, peak
+   memory and losses printed for each; (iv) rwkv6-1.6b in fp32 at full
+   width, 2 layers, B=1, S=500: one ``lm_loss`` through K6 against one
+   with K6's plain version swapped in, the loss's relative difference and
+   each base leaf's gradient's relative L2 difference within
+   ``K6_GRAD_BOUND``, a K6 whose odd output channels are 1% off failing
+   them (a uniform scale would cancel in RWKV6's GroupNorm);
+7. a JSON line with each kernel's numbers (the launches of phases 5e-5g
+   added to K3's, K2's and K6's entries, with ``grad_launches``, those
+   under autograd, and ``launches_5g``, K3's in 5g by build) (K3's chunk form as its own
    entry, ``flash_attention_chunk``; K1 and K2 at each model past 64 rows
    per kv head as entries of their own, ``tree_attention_paged@<arch>``,
    with the launches of that model's phase 5 and the bound with keys read
@@ -2469,6 +2498,10 @@ class Workload:
     # and the turns (None: ``MODE_REPS``)
     modes: tuple = None
     mode_reps: int = None
+    # phase 6 and its replay check at a cut depth, from weights of their
+    # own: (layers, {kernel: launches per decode step}), or None for the
+    # full-depth weights
+    modes_cut: tuple = None
     # phase 5c, sampled decoding: (engine, use_speculative, {kernel:
     # launches per decode step}, {kernel: launches per prefill}), or None
     sampled: tuple = None
@@ -2499,14 +2532,16 @@ WORKLOADS = (
              {"linear_attn_chunk": 24}, 1000,
              (None, {}, {"linear_attn_chunk": 24}),
              sampled=("paged", True, {}, {"linear_attn_chunk": 24})),
-    # chunked at the bf16 depth of the MoE verify check: 2 layers (the
-    # dense one and one MoE layer) + the prefix layer
+    # chunked, and phase 6, at the bf16 depth of the MoE verify check: 2
+    # layers (the dense one and one MoE layer) + the prefix layer
     Workload("deepseek-v2-lite-16b", (600, 1500), 2048,
              {"paged": {"mla_attention_paged": 27,
                         "tree_attention_paged": 1}},
              {"flash_attention": 28}, 1000,
              (2, {"mla_attention_paged": 2, "tree_attention_paged": 1},
-              {"flash_attention": 3})),
+              {"flash_attention": 3}),
+             modes_cut=(2, {"mla_attention_paged": 2,
+                            "tree_attention_paged": 1})),
     # the rest of the attention registry at gemma3-1b's traffic: GQA past
     # 64 query rows per kv head (144, 80 and 128 at T = 16) and GQA under
     # the DeepSeek MoE; K1 on every layer and the prefix layer, K3 on every
@@ -2519,11 +2554,12 @@ WORKLOADS = (
                            ("chameleon-34b", 48), ("deepseek-moe-16b", 28))),
     # zamba2's 38 Mamba2 layers between 7 invocations of the shared block:
     # K1 on each invocation a step, K3 on each a prefill, no K6; chunked at
-    # full depth; phase 6 in the four modes, once
+    # full depth; phase 6 in the four modes, once, at 12 layers (two
+    # invocations)
     Workload(ZAMBA2, (600, 1500), 2048, {"paged": {"tree_attention_paged": 7}},
              {"flash_attention": 7}, 1000,
              (None, {"tree_attention_paged": 7}, {"flash_attention": 7}),
-             mode_reps=1),
+             mode_reps=1, modes_cut=(12, {"tree_attention_paged": 2})),
 )
 
 
@@ -2603,15 +2639,39 @@ def serve_full_width(wl: Workload) -> tuple:
     if wl.chunked and wl.chunked[0] is None:
         _add(launches, serve_chunked(wl, cfg, params, dp, runs["paged"]))
         lap("phase 5b")
-    check_replay_step(wl, cfg, params, dp)
-    serve_modes(wl, cfg, params, dp, wl.verify["paged"], CARD)
-    lap("phase 6")
+    if wl.modes_cut is None:
+        check_replay_step(wl, cfg, params, dp)
+        serve_modes(wl, cfg, params, dp, wl.verify["paged"], CARD)
+        lap("phase 6")
     if wl.sampled:
         _add(launches, serve_sampled(wl, cfg, params, dp, runs))
         lap("phase 5c")
     del params, dp
+    gc.collect()
     torch.cuda.empty_cache()
+    if wl.modes_cut is not None:
+        serve_modes_cut(wl)
+        lap(f"phase 6 at {wl.modes_cut[0]} layers")
     return launches, pair_k2
+
+
+def serve_modes_cut(wl: Workload) -> None:
+    """Phase 6 and its replay check at full width with depth cut to
+    ``wl.modes_cut[0]`` layers, from weights of their own."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.heads import init_draft_params
+    from repro_torch.models.model import init_params
+
+    layers, per_step = wl.modes_cut
+    cfg = dataclasses.replace(get_config(wl.arch), n_layers=layers)
+    params = init_params(cfg, seed=0, device="cuda")
+    dp = init_draft_params(cfg, seed=1, device="cuda")
+    check_replay_step(wl, cfg, params, dp)
+    serve_modes(wl, cfg, params, dp, per_step, CARD)
+    del params, dp
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def serve_chunked_cut(wl: Workload) -> dict:
@@ -3734,9 +3794,24 @@ def _stream(row, n: int) -> list:
     return [int(x) for x in row.tolist() if x != PAD_TOKEN][:n]
 
 
+def _load_example():
+    """``examples/torch_train_hydra_pp.py`` as a module."""
+    import importlib.util
+
+    path = SRC.parent / "examples" / "torch_train_hydra_pp.py"
+    spec = importlib.util.spec_from_file_location("torch_train_hydra_pp",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def train_tiny_end_to_end() -> dict:
     """Phase 5e(iv) and 5f(iii): vicuna-tiny in fp32, trained base, Hydra
-    heads and an EAGLE layer, served.  Returns the launch counts."""
+    heads and an EAGLE layer, served; the example's three variants on the
+    same base.  Returns the launch counts."""
+    import contextlib
+    import io
     import shutil
     import tempfile
 
@@ -3803,7 +3878,33 @@ def train_tiny_end_to_end() -> dict:
         if not torch.equal(a, b):
             raise AssertionError("5e(iv): a checkpointed leaf came back "
                                  "changed")
+    # the paper's three variants through the port's example, on the base
+    # checkpoint just saved (its CKPT pointed at this directory)
+    example = _load_example()
+    example.CKPT = str(ckdir)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rows = example.main(["--device", "cuda"])
+    t_variants = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        if not line.startswith(("[base", "[heads")):
+            log(f"[5e] {line}")
     shutil.rmtree(ckdir)
+    untrained = _mean_accept(acc0)
+    order = " > ".join(sorted(rows, key=lambda k: -rows[k][0]))
+    log(f"[5e] (iv) examples/torch_train_hydra_pp.py on the same base "
+        f"({CARD}): three variants trained {TINY_STEPS} steps each in "
+        f"{t_variants:.1f}s; mean accepted length "
+        + ", ".join(f"{k} {a:.3f}" for k, (a, _) in rows.items())
+        + f" (untrained heads {untrained:.3f}); order {order} (the paper's "
+        "Fig. 2: hydra++ > hydra > medusa; a reading)")
+    if "base: restored from checkpoint" not in out.getvalue():
+        raise AssertionError("5e(iv): the example did not restore the base "
+                             "checkpoint")
+    if not all(a > untrained for a, _ in rows.values()):
+        raise AssertionError(f"5e(iv): a trained variant {rows} does not "
+                             f"beat the untrained heads' {untrained:.3f}")
     toks, steps, acc = generate(params2, dp2, c2, tree, prompts,
                                 max_new_tokens=TINY_NEW, max_len=512)
     want = [_stream(toks[b], TINY_NEW) for b in range(B)]
@@ -3865,6 +3966,339 @@ def train_tiny_end_to_end() -> dict:
         f"a reading)")
     _add(total, _counts_delta(before, kernels.launch_counts()))
     del params, params2, dp, dp2, ep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 5g: base training of the recurrent and MoE archs
+# ---------------------------------------------------------------------------
+
+# (i)-(ii): the launcher's base steps at full depth, bf16, 3 steps of
+# (1, 1024) tokens
+RECURRENT_TRAIN = ("rwkv6-1.6b", ZAMBA2)
+# (iii): both DeepSeek MoE archs at full width, cut to 2 layers (the dense
+# first layer and one MoE layer, ~1.0B params): at full depth 16B params
+# and their fp32 AdamW moments need ~250 GB
+MOE_TRAIN = ("deepseek-v2-lite-16b", "deepseek-moe-16b")
+MOE_TRAIN_LAYERS = 2
+TRAIN_TOKENS = (1, 1024)
+# (iv): the fp32 gradient check through K6: rwkv6-1.6b at full width, 2
+# layers, B=1, S=500 (not a chunk multiple: the tail pad runs)
+K6_GRAD_LAYERS = 2
+K6_GRAD_S = 500
+# (iv)'s bounds on (the loss's relative difference, each base leaf's
+# gradient's relative L2 difference) of an lm_loss through K6 against one
+# through its plain version, set from the clean reading (NVIDIA H100 80GB
+# HBM3, 700 W): the loss equal bit for bit, the gradients 5.44e-6 (the
+# bound 5.5x that); K6 with its odd output channels 1% off read 1.34e-5
+# and 2.03e-2, failing both
+K6_GRAD_BOUND = (1e-6, 3e-5)
+# K3's launches in 5g by arch and build, for the JSON line
+K3_BUILDS_5G = {ZAMBA2: "(64, 64)", "deepseek-v2-lite-16b": "(192, 128)",
+                "deepseek-moe-16b": "(128, 128)"}
+K3_LAUNCHES_5G = {}
+
+
+def _train_launches(cfg, steps: int) -> dict:
+    """The kernel launches ``steps`` base steps of ``cfg`` must make, every
+    one under autograd: K6 (and its scan) a layer at RWKV6, K3 a shared-
+    block invocation at zamba2, K3 an attention layer otherwise."""
+    from repro_torch.models.model import group_program
+
+    if cfg.block_kind == "rwkv6":
+        n = cfg.n_layers * steps
+        return {"linear_attn_chunk": n, "linear_attn_chunk scan_launches": n,
+                "linear_attn_chunk grad_launches": n}
+    n = steps * sum(n for kind, n in group_program(cfg)
+                    if kind.startswith("attn_stack") or kind == "shared_attn")
+    return {"flash_attention": n, "flash_attention grad_launches": n}
+
+
+def _step_line(what: str, steps_s: list, peak_gib: float) -> str:
+    later = steps_s[1:] or steps_s
+    step_ms = 1e3 * sum(later) / len(later)
+    tokens = TRAIN_TOKENS[0] * TRAIN_TOKENS[1]
+    return (f"{what}, {len(steps_s)} steps of {TRAIN_TOKENS} ({CARD}): "
+            f"{step_ms:.1f} ms a step after the first, "
+            f"{tokens / step_ms * 1e3:.0f} tokens/s, peak memory "
+            f"{peak_gib:.2f} GiB allocated")
+
+
+def _repeated_batch(cfg, total: dict) -> list:
+    """Three base steps on one batch at learning rates 0, 1e-3 and 5e-4:
+    the loss must fall from the second step to the third."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.data.synthetic import MarkovSpec, sample_corpus
+    from repro_torch.models.model import init_params
+    from repro_torch.training import trainer
+    from repro_torch.training.optim import init_adamw
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(cfg, seed=0, device="cuda")
+    tc = trainer.TrainConfig(peak_lr=1e-3, warmup=1, total_steps=3,
+                             log_every=1)
+    batch = torch.as_tensor(sample_corpus(
+        MarkovSpec(vocab_size=cfg.vocab_size, seed=0), *TRAIN_TOKENS),
+        device="cuda")
+    step = trainer.make_base_train_step(cfg, tc)
+    opt = init_adamw(params)
+    kernels.reset_counts()
+    rep = []
+    for _ in range(3):
+        params, opt, m = step(params, opt, batch)
+        rep.append(float(m["loss"]))
+    counts = kernels.launch_counts()
+    _expect_counts(f"5g {cfg.name} repeated batch", counts,
+                   _train_launches(cfg, 3))
+    _add(total, counts)
+    _add(K3_LAUNCHES_5G, {cfg.name: counts.get("flash_attention", 0)})
+    if not (all(math.isfinite(x) for x in rep) and rep[2] < rep[1]):
+        raise AssertionError(f"5g {cfg.name}: losses {rep} do not fall on a "
+                             "repeated batch")
+    del params, opt, m
+    return rep
+
+
+def _step_breakdown(cfg) -> str:
+    """Where one base step's time goes (a repeated batch, after a warm-up
+    step): the forward, the backward and, inside it, K6's recomputed
+    backward (CUDA-synchronised wall times), the update; then the wall
+    time of one untraced step, and the device busy time over one traced
+    step, whose idle share is taken against the untraced step's wall
+    time (the profiler slows the host)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.distill import lm_loss
+    from repro_torch.data.synthetic import MarkovSpec, sample_corpus
+    from repro_torch.kernels.linear_attn_chunk import ops as k6
+    from repro_torch.models.model import init_params, refresh_unembed_f32
+    from repro_torch.training import trainer
+    from repro_torch.training.optim import init_adamw
+    from repro_torch.training.pytree import tree_leaves, tree_unflatten
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(cfg, seed=0, device="cuda")
+    opt = init_adamw(params)
+    tc = trainer.TrainConfig(peak_lr=1e-3, warmup=1, total_steps=3)
+    batch = torch.as_tensor(sample_corpus(
+        MarkovSpec(vocab_size=cfg.vocab_size, seed=0), *TRAIN_TOKENS),
+        device="cuda")
+    step = trainer.make_base_train_step(cfg, tc)
+    params, opt, _ = step(params, opt, batch)               # warm-up
+    k6_s = []
+    backward = k6.LinearAttnChunk.backward
+
+    def timed(ctx, *grads):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = backward(ctx, *grads)
+        torch.cuda.synchronize()
+        k6_s.append(time.perf_counter() - t)
+        return out
+
+    leaves = tree_leaves(params)
+    stamps = [time.perf_counter()]
+    k6.LinearAttnChunk.backward = staticmethod(timed)
+    try:
+        for p in leaves:
+            p.requires_grad_(True)
+        with torch.enable_grad():
+            loss, _ = lm_loss(params, cfg, batch)
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            grads = torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+    finally:
+        k6.LinearAttnChunk.backward = backward
+        for p in leaves:
+            p.requires_grad_(False)
+    params, opt, _ = trainer.apply_update(tree_unflatten(params, list(grads)),
+                                          opt, params, tc)
+    refresh_unembed_f32(params, cfg)
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    del grads, loss
+    t = time.perf_counter()
+    params, opt, _ = step(params, opt, batch)
+    torch.cuda.synchronize()
+    untraced = time.perf_counter() - t
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    busy = 1e-9 * sum(e.duration_ns()
+                      for e in prof.profiler.kineto_results.events()
+                      if e.device_type() == DeviceType.CUDA)
+    ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    del params, opt, m
+    return (f"forward {ms[0]:.1f} ms, backward {ms[1]:.1f} ms (of it K6's "
+            f"recomputed backward {1e3 * sum(k6_s):.1f} ms over "
+            f"{len(k6_s)} calls), update {ms[2]:.1f} ms; one untraced step "
+            f"{1e3 * untraced:.1f} ms; one traced step: device busy "
+            f"{1e3 * busy:.1f} ms ({1e3 * wall:.1f} ms wall traced), idle "
+            f"share {1 - busy / untraced:.1%} against the untraced step")
+
+
+def train_recurrent_and_moe() -> dict:
+    """Phase 5g: rwkv6-1.6b and zamba2-1.2b at full depth through the
+    train launcher, both DeepSeek MoE archs at 2 layers through
+    ``make_train_step``, the fp32 gradient check through K6.  Returns the
+    launch counts."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.distill import lm_loss
+    from repro_torch.data.synthetic import MarkovSpec, sample_corpus
+    from repro_torch.kernels.linear_attn_chunk.ref import \
+        decay_attention_chunked
+    from repro_torch.launch import train
+    from repro_torch.models import ssm
+    from repro_torch.models.model import init_params
+    from repro_torch.training import trainer
+    from repro_torch.training.optim import init_adamw
+    from repro_torch.training.pytree import tree_leaves
+
+    total = {}
+    # (i)-(ii) the launcher's own main at full depth
+    for arch in RECURRENT_TRAIN:
+        cfg = get_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()                    # count the main path only
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            history = train.main(["--arch", arch, "--full-config", "--steps",
+                                  "3", "--batch", str(TRAIN_TOKENS[0]),
+                                  "--seq-len", str(TRAIN_TOKENS[1])])
+        counts = kernels.launch_counts()
+        for line in out.getvalue().splitlines():
+            log(f"[5g] {line}")
+        want = _train_launches(cfg, len(history))
+        _expect_counts(f"5g {arch} base steps", counts, want)
+        _add(total, counts)
+        _add(K3_LAUNCHES_5G, {arch: counts.get("flash_attention", 0)})
+        losses = [loss for loss, _ in history]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"5g {arch}: losses {losses} not finite")
+        per_step = {k: n // len(history) for k, n in want.items()}
+        what = (f"{arch} bf16 base training through the launcher at full "
+                f"depth ({cfg.n_layers} layers)")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[5g] {_step_line(what, [s for _, s in history], peak)}; "
+            f"losses {losses}; launches a step {per_step}, all under "
+            "autograd")
+        rep = _repeated_batch(cfg, total)
+        log(f"[5g] {arch} bf16, one batch repeated, lr 0 then 1e-3 then "
+            f"5e-4: losses {rep}")
+        if cfg.block_kind == "rwkv6":
+            log(f"[5g] {arch} bf16, where a step of {TRAIN_TOKENS} goes "
+                f"({CARD}): {_step_breakdown(cfg)}")
+    # (iii) the MoE archs at 2 layers through make_train_step
+    for arch in MOE_TRAIN:
+        cfg = dataclasses.replace(get_config(arch), n_layers=MOE_TRAIN_LAYERS)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, seed=0, device="cuda")
+        n_params = sum(p.numel() for p in tree_leaves(params))
+        opt = init_adamw(params)
+        step = train.make_train_step(cfg)
+        batches = train.make_batches(cfg, *TRAIN_TOKENS, 3, "cuda")
+        kernels.reset_counts()
+        losses, auxes, secs = [], [], []
+        for batch in batches:
+            ts = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))           # waits for the step
+            secs.append(time.perf_counter() - ts)
+            auxes.append(float(m["aux"]))
+        counts = kernels.launch_counts()
+        _expect_counts(f"5g {arch} base steps", counts,
+                       _train_launches(cfg, len(batches)))
+        _add(total, counts)
+        _add(K3_LAUNCHES_5G, {arch: counts["flash_attention"]})
+        what = (f"{arch} bf16 base training at full width, "
+                f"{MOE_TRAIN_LAYERS} layers ({n_params / 1e9:.2f}B params)")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[5g] {_step_line(what, secs, peak)}; "
+            f"losses {losses}; router aux {auxes}; "
+            f"{counts['flash_attention'] // len(batches)} K3 launches a step,"
+            " all under autograd")
+        if not (all(math.isfinite(x) for x in losses)
+                and all(math.isfinite(a) and a > 0 for a in auxes)):
+            raise AssertionError(f"5g {arch}: losses {losses}, aux {auxes}: "
+                                 "not finite, or an aux not above 0")
+        del params, opt, m
+    # (iv) the fp32 gradient check through K6
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(get_config("rwkv6-1.6b"), dtype="float32",
+                                n_layers=K6_GRAD_LAYERS)
+    params = init_params(cfg32, seed=0, device="cuda")
+    toks = torch.as_tensor(sample_corpus(
+        MarkovSpec(vocab_size=cfg32.vocab_size, seed=0), 1, K6_GRAD_S,
+        seed=2), device="cuda")
+    kernel_fn = ssm.linear_attn_bshd
+
+    def plain(r, k, v, w_log, u=None, initial_state=None, *, chunk=64):
+        return decay_attention_chunked(r, k, v, w_log, u, initial_state,
+                                       chunk=chunk)
+
+    def off(*a, **kw):
+        # GroupNorm normalises each head per token, so a uniform scale of
+        # the output would cancel: scale the odd channels alone
+        o, st = kernel_fn(*a, **kw)
+        scale = torch.ones(o.shape[-1], device=o.device)
+        scale[1::2] = K5_OFF
+        return o * scale, st
+
+    def run(fn):
+        ssm.linear_attn_bshd = fn
+        try:
+            loss, _, grads = trainer.value_and_grad(
+                lambda p: lm_loss(p, cfg32, toks), params)
+        finally:
+            ssm.linear_attn_bshd = kernel_fn
+        return float(loss), tree_leaves(grads)
+
+    before = dict(kernels.launch_counts())
+    ref_loss, ref_grads = run(plain)
+    for what, fn in (("K6", kernel_fn),
+                     (f"K6 with its odd output channels off by {K5_OFF}",
+                      off)):
+        loss, grads = run(fn)
+        lrel = abs(loss - ref_loss) / abs(ref_loss)
+        grel = max(rel_l2(a, b) for a, b in zip(grads, ref_grads)
+                   if float(torch.linalg.vector_norm(b.float())) > 0)
+        ok = lrel <= K6_GRAD_BOUND[0] and grel <= K6_GRAD_BOUND[1]
+        log(f"[5g] (iv) rwkv6-1.6b fp32 lm_loss ({K6_GRAD_LAYERS} layers, "
+            f"B=1, S={K6_GRAD_S}) through {what} against one through K6's "
+            f"plain version: loss rel diff {lrel:.3e}, largest base-leaf "
+            f"gradient rel L2 diff {grel:.3e} over {len(grads)} leaves "
+            f"(bounds {K6_GRAD_BOUND[0]}, {K6_GRAD_BOUND[1]})")
+        if ok != (what == "K6"):
+            where = "outside" if what == "K6" else "within"
+            raise AssertionError(f"5g(iv): {what} reads loss {lrel}, grads "
+                                 f"{grel}: {where} the bounds")
+    counts = _counts_delta(before, kernels.launch_counts())
+    if counts.get("linear_attn_chunk grad_launches") != 2 * K6_GRAD_LAYERS:
+        raise AssertionError(f"5g(iv): launches {counts}: K6 was not "
+                             "launched under autograd in each layer")
+    _add(total, counts)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     return total
@@ -4174,13 +4608,15 @@ def main() -> int:
     hubert = check_hubert()
     log(f"[time] phase 5d ({HUBERT}): {time.perf_counter() - t_hub:.0f}s, "
         f"done at {time.perf_counter() - t_start:.0f}s")
-    # phases 5e and 5f: their K3 and K2 launches join those entries
+    # phases 5e-5g: their K3, K2 and K6 launches join those entries
     for what, phase in (("5e (i)-(iii) (gemma3-1b training)",
                          train_full_width),
                         ("5e (iv) and 5f (iii) (vicuna-tiny end to end)",
                          train_tiny_end_to_end),
                         ("5f (i)-(ii) (EAGLE at minitron-4b)",
-                         eagle_full_width)):
+                         eagle_full_width),
+                        ("5g (rwkv6-1.6b, zamba2-1.2b and the MoE archs "
+                         "training)", train_recurrent_and_moe)):
         t_ph = time.perf_counter()
         _add(launches, phase())
         log(f"[time] phase {what}: {time.perf_counter() - t_ph:.0f}s, "
@@ -4235,6 +4671,13 @@ def main() -> int:
               max(r["max_abs_err"] for key, r in k6.items()
                   if key[0] == "bfloat16")),
     ]
+    # the launches under autograd (5e, 5g), and K3's in 5g by build
+    for e in kernels:
+        if e["name"] in ("flash_attention", "linear_attn_chunk"):
+            e["grad_launches"] = launches.get(f"{e['name']} grad_launches", 0)
+    k3_entry = next(e for e in kernels if e["name"] == "flash_attention")
+    k3_entry["launches_5g"] = {f"{arch} {build}": K3_LAUNCHES_5G[arch]
+                               for arch, build in K3_BUILDS_5G.items()}
     # K1 and K2 past 64 rows per kv head, one row each per model: launches
     # of that model's paged serve (K1) and paged-vs-dense check (K2)
     for arch in ROW_CASES:

@@ -115,21 +115,19 @@ def _ce_chunk(hc, unembed, tc, vc):
 
 def lm_loss(params, cfg: ModelConfig, tokens, *, logit_chunk: int = 256):
     """Next-token CE for base-model pretraining; returns (loss, metrics).
+    The loss adds the MoE router's load-balance loss (``forward``'s
+    ``aux_loss``, zero without MoE layers), reported as ``aux``.
 
     The CE is computed in sequence chunks of ``logit_chunk`` (the whole
     sequence where it does not divide S), each under
     ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint`` scan), so the full
     (B, S, V) logits are never held.  The unembedding is read from
-    ``embed``/``lm_head`` directly, so its gradient reaches them.  An MoE
-    config raises: its router's auxiliary loss is not ported."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE router's aux_loss is not ported, so "
-            "lm_loss would miss a term (ROADMAP §1)")
+    ``embed``/``lm_head`` directly, so its gradient reaches them."""
     B, S = tokens.shape
     tokens = tokens.long()
     pos = _positions(B, S, tokens.device)
-    out = forward(params, cfg, tokens, pos, mode="full", want_logits=False)
+    out = forward(params, cfg, tokens, pos, mode="full", want_logits=False,
+                  want_aux=True)
     h = out.hidden                                         # (B, S, d)
     unembed = unembed_param(params, cfg).float()
     # targets: next token; last position masked out
@@ -147,10 +145,10 @@ def lm_loss(params, cfg: ModelConfig, tokens, *, logit_chunk: int = 256):
         hit_sum = hit_sum + hit
     denom = B * (S - 1)
     nll_mean = nll_sum / denom
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    loss = nll_mean + aux
+    loss = nll_mean + out.aux_loss
     acc = hit_sum.float() / denom
-    return loss, {"loss": loss, "nll": nll_mean, "acc": acc, "aux": aux}
+    return loss, {"loss": loss, "nll": nll_mean, "acc": acc,
+                  "aux": out.aux_loss}
 
 
 def masked_prediction_loss(params, cfg: ModelConfig, features, targets,

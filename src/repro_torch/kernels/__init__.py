@@ -8,10 +8,13 @@ launches a second kernel or a second form).  A launch recorded into a
 CUDA graph counts once, at capture; its replays are counted by the
 graph's owner (``serving/graph.py::CapturedStep.replays``).
 
-Only K3's whole prefill has a backward (``flash_attention/ops.py::
-FlashAttention``).  Every other wrapper refuses autograd: with grad mode
-on and an operand requiring a gradient it raises (``refuse_grad``)
-instead of returning a result detached from the graph."""
+Two wrappers have a backward: K3's whole prefill (``flash_attention/
+ops.py::FlashAttention``) and K6 (``linear_attn_chunk/ops.py::
+LinearAttnChunk``); each counts its calls under autograd in
+``grad_launches``.  Every other wrapper (K1, K2, K4, K5 and K3's chunk
+form) refuses autograd: with grad mode on and an operand requiring a
+gradient it raises (``refuse_grad``) instead of returning a result
+detached from the graph."""
 from __future__ import annotations
 
 import torch

@@ -8,21 +8,30 @@ lie on: CPU tensors take the plain version (``ref.py``), CUDA tensors
 launch the kernel or raise.  There is no fallback from one to the other.
 ``launches`` counts kernel launches, and only those: one per call, the
 chunk-parallel pass; ``scan_launches`` counts the scan of the state that
-each call launches after it.  S need not be a
+each call launches after it; ``grad_launches`` those calls made under
+autograd.  S need not be a
 chunk multiple: the plain version pads with k = 0, w_log = 0 (decay 1,
 nothing added; exact), and the kernel reads the same zeros past S.  The
 scalar decay of Mamba2 (``w_log`` of last dim 1) is not taken yet.
+
+Under autograd (grad mode on and an operand requiring a gradient) a call
+goes through ``LinearAttnChunk``, a ``torch.autograd.Function``: its
+forward launches K6 as above, and its backward recomputes the plain
+version in fp32 on the saved operands and differentiates it.  JAX has no
+backward kernel either: its trainer differentiates the jnp
+``decay_attention_chunked`` that ``ref.py`` ports.  The final state's
+gradient may be absent (training never reads the state).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.linear_attn_chunk import kernel as _k
 from repro_torch.kernels.linear_attn_chunk.ref import decay_attention_chunked
 
 launches = 0                  # chunk-kernel launches since the last reset
 scan_launches = 0             # scan launches since the last reset
+grad_launches = 0             # of which under autograd (LinearAttnChunk)
 
 
 def check_operands(r, k, v, w_log, u, initial_state, chunk: int) -> None:
@@ -72,10 +81,19 @@ def linear_attn_bshd(r, k, v, w_log, u=None, initial_state=None, *,
     initial_state: (B,H,dk,dv) fp32 or None (zeros).
 
     Returns (o (B,S,H,dv) in v's dtype, final_state (B,H,dk,dv) fp32)."""
-    global launches, scan_launches
-    refuse_grad("linear_attn_chunk", r, k, v, w_log, u, initial_state)
     args = (r, k, v, w_log, u, initial_state)
     check_operands(*args, chunk)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in args):
+        return LinearAttnChunk.apply(*args, chunk)
+    return _forward(*args, chunk)
+
+
+def _forward(r, k, v, w_log, u, initial_state, chunk: int):
+    """The plain version on the CPU, the kernel on CUDA (validated,
+    counted); operands already checked by the wrapper."""
+    global launches, scan_launches
+    args = (r, k, v, w_log, u, initial_state)
     if k.device.type == "cpu":
         return decay_attention_chunked(*args, chunk=chunk)
     if k.device.type != "cuda":
@@ -91,3 +109,39 @@ def linear_attn_bshd(r, k, v, w_log, u=None, initial_state=None, *,
     launches += 1
     scan_launches += 1
     return o, final_state
+
+
+class LinearAttnChunk(torch.autograd.Function):
+    """K6 with a gradient: the forward launches the kernel (the plain
+    version on the CPU), the backward recomputes the plain version in
+    fp32 on the saved operands and differentiates it."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w_log, u, initial_state, chunk: int):
+        global grad_launches
+        out = _forward(r, k, v, w_log, u, initial_state, chunk)
+        grad_launches += k.device.type == "cuda"
+        ctx.save_for_backward(r, k, v, w_log, u, initial_state)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_o, grad_state):
+        saved = [None if t is None else
+                 t.detach().float().requires_grad_(need)
+                 for t, need in zip(ctx.saved_tensors,
+                                    ctx.needs_input_grad[:6])]
+        wanted = [t for t in saved if t is not None and t.requires_grad]
+        given = [(i, g) for i, g in enumerate((grad_o, grad_state))
+                 if g is not None]
+        with torch.enable_grad():
+            outs = decay_attention_chunked(*saved, chunk=ctx.chunk)
+            grads = iter(torch.autograd.grad(
+                [outs[i] for i, _ in given], wanted,
+                [g.float() for _, g in given], allow_unused=True))
+        res = []
+        for t, src in zip(saved, ctx.saved_tensors):
+            g = next(grads) if t is not None and t.requires_grad else None
+            res.append(None if g is None else g.to(src.dtype))
+        return (*res, None)

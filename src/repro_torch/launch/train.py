@@ -9,15 +9,16 @@ Without ``--full-config`` the config is the reduced one in fp32, as in
 JAX; with it the published config in its own dtype.  Token archs train on
 the synthetic corpus (``data/synthetic.py``) through ``lm_loss``; the
 audio arch (hubert-xlarge) on a random masked-prediction batch through
-``masked_prediction_loss``.  The attention-only archs train: vicuna-tiny,
-gemma3-1b, minitron-4b, starcoder2-7b, qwen2.5-32b, chameleon-34b and
-hubert-xlarge.  rwkv6-1.6b and zamba2-1.2b need a gradient of K6 or of
-the Mamba2 SSD path, and the MoE archs the router's auxiliary loss: the
-launcher refuses them with a ``SystemExit`` naming ROADMAP §1.
+``masked_prediction_loss``.  Every arch of the registry trains; an MoE
+arch's loss adds its router's load-balance loss.  ``--full-config`` at
+the MoE archs' full depth does not fit one card (16B params and their
+fp32 AdamW moments): it needs a real cluster.
 
-Every K3 call of a step runs through its autograd wrapper
-(``kernels/flash_attention/ops.py::FlashAttention``).  Runs on CUDA
-unless ``--device cpu``; without a card it raises.
+Every K3 and K6 call of a step runs through its autograd wrapper
+(``kernels/flash_attention/ops.py::FlashAttention``,
+``kernels/linear_attn_chunk/ops.py::LinearAttnChunk``); Mamba2's SSD is
+plain PyTorch.  Runs on CUDA unless ``--device cpu``; without a card it
+raises.
 """
 from __future__ import annotations
 
@@ -41,17 +42,6 @@ from repro_torch.training.trainer import (TrainConfig, apply_update,
 # the step's recipe (``repro/launch/specs.py::make_train_step``)
 STEP_RECIPE = TrainConfig(peak_lr=1e-3, warmup=100, total_steps=10000,
                           clip_norm=1.0)
-
-
-def refusal(cfg: ModelConfig):
-    """Why the port cannot train ``cfg`` yet, or None."""
-    if cfg.block_kind == "rwkv6":
-        return "its K6 calls have no backward yet"
-    if cfg.block_kind == "mamba2":
-        return "its Mamba2 SSD path has no gradient yet"
-    if cfg.moe is not None:
-        return "the MoE router's aux_loss is not ported yet"
-    return None
 
 
 def make_train_step(cfg: ModelConfig):
@@ -105,15 +95,12 @@ def main(argv=None) -> list:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--full-config", action="store_true",
-                    help="use the production config")
+                    help="use the production config (needs a real "
+                    "cluster at the MoE archs' full depth)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
-    why = refusal(cfg)
-    if why:
-        raise SystemExit(f"{cfg.name}: the port cannot train it: {why} "
-                         "(ROADMAP §1, the next slice)")
     if not args.full_config:
         cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
     dev = resolve_device(args.device)

@@ -87,6 +87,7 @@ class ModelOutputs(NamedTuple):
     hidden: torch.Tensor                 # (B, T, d) final-norm hidden states
     logits: Optional[torch.Tensor]       # (B, T, V) fp32
     cache: Any                           # the (updated in place) cache
+    aux_loss: Optional[torch.Tensor] = None  # MoE aux, 0-d fp32 (want_aux)
 
 
 def group_program(cfg: ModelConfig):
@@ -401,19 +402,26 @@ def _mamba_group_fwd(gp, cfg, h, n: int, gc, *, is_verify: bool,
     return h, (cand if is_verify else gc)
 
 
-def _attn_layer_fwd(lp, cfg, h, ai: AttnInputs):
+def _attn_layer_fwd(lp, cfg, h, ai: AttnInputs, want_aux: bool):
+    """One pre-norm layer; returns (h, new k, new v, the MoE layer's aux
+    loss or None)."""
     fwd = mla_fwd if cfg.mla else gqa_fwd
     a, nk, nv = fwd(lp["attn"], cfg, rms_norm(h, lp["norm1"], cfg.rms_eps),
                     ai)
     h = h + a
     x2 = rms_norm(h, lp["norm2"], cfg.rms_eps)
-    f = moe_fwd(lp["moe"], cfg, x2) if "moe" in lp else mlp_fwd(lp["mlp"], x2)
-    return h + f, nk, nv
+    aux = None
+    if "moe" in lp:
+        f, aux = moe_fwd(lp["moe"], cfg, x2, want_aux=want_aux)
+    else:
+        f = mlp_fwd(lp["mlp"], x2)
+    return h + f, nk, nv, aux
 
 
 def forward(params, cfg: ModelConfig, inputs, positions, *, mode: str = "full",
             cache=None, cache_len=None, tree_mask=None, block_table=None,
-            valid_len=None, want_logits: bool = True) -> ModelOutputs:
+            valid_len=None, want_logits: bool = True,
+            want_aux: bool = False) -> ModelOutputs:
     """inputs: (B,T) int tokens, or (B,T,d) frame embeddings (an
     encoder's stub frontend; cast to the model dtype); positions: (B,T)
     absolute positions.  Attention is causal unless ``cfg.encoder_only``
@@ -441,11 +449,17 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, mode: str = "full",
     recurrent group length-masks its scan, so the state is carried past
     the pads unchanged, and takes its final states at ``valid_len - 1``.
 
+    With ``want_aux`` (set by ``lm_loss``, JAX's only reader of it)
+    ``aux_loss`` is the sum of the MoE layers' router load-balance losses,
+    0-d fp32, a zero for a config without MoE layers; otherwise it is None
+    and no MoE layer computes it, so prefill and the captured step do no
+    work for it.
+
     Grad mode is the caller's: the serving entry points call this under
     ``torch.no_grad()``, the training losses with grad on, where the full
-    path's K3 calls go through its autograd wrapper and every other kernel
-    (the verify paths, K3's chunk form, K6) refuses to run.  A cache is
-    written in place, so only a cache-free full forward trains.
+    path's K3 and K6 calls go through their autograd wrappers and every
+    other kernel (the verify paths, K3's chunk form) refuses to run.  A
+    cache is written in place, so only a cache-free full forward trains.
     """
     if mode not in ("full", "verify"):
         raise ValueError(f"mode must be 'full' or 'verify': {mode}")
@@ -466,6 +480,7 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, mode: str = "full",
         h = inputs.to(torch_dtype(cfg.dtype))
 
     out_cache = list(cache) if cache is not None else None
+    aux_terms = []
     layer_offset = 0
     for gi, (kind, n) in enumerate(group_program(cfg)):
         gp = params["groups"][gi]
@@ -500,8 +515,10 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, mode: str = "full",
                 window=windows[i], causal=causal,
                 block_table=block_table, windowed=win_group,
                 prefill=is_chunk)
-            h, nk, nv = _attn_layer_fwd(gp if shared else layer(gp, i), cfg,
-                                        h, ai)
+            h, nk, nv, aux = _attn_layer_fwd(gp if shared else layer(gp, i),
+                                             cfg, h, ai, want_aux)
+            if aux is not None:
+                aux_terms.append(aux)
             if gc is not None and not cached:     # prefill: write [0, T)
                 gc["k"][i, :, :T] = nk.to(gc["k"].dtype)
                 gc["v"][i, :, :T] = nv.to(gc["v"].dtype)
@@ -510,4 +527,9 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, mode: str = "full",
 
     h = rms_norm(h, params["final_norm"], cfg.rms_eps)
     logits = h.float() @ unembedding(params, cfg) if want_logits else None
-    return ModelOutputs(hidden=h, logits=logits, cache=out_cache)
+    aux_loss = None
+    if want_aux:
+        aux_loss = (torch.stack(aux_terms).sum() if aux_terms else
+                    torch.zeros((), dtype=torch.float32, device=h.device))
+    return ModelOutputs(hidden=h, logits=logits, cache=out_cache,
+                        aux_loss=aux_loss)

@@ -1,5 +1,6 @@
 """DeepSeek-style fine-grained MoE: shared experts + routed top-k experts
-(port of ``repro/models/moe.py``, inference only: no aux loss).
+(port of ``repro/models/moe.py``), with the router's Switch-style
+load-balance loss.
 
 Dispatch is sort/scatter-based, not one-hot-einsum, so routed FLOPs scale
 with E * C * d * d_e rather than N * E * C * d:
@@ -59,9 +60,16 @@ def init_moe(gen, cfg, dtype, device):
     return p
 
 
-def moe_fwd(p, cfg, x, *, capacity_factor: float = 1.25):
-    """x: (B, T, d) -> (B, T, d) in x's dtype.  Routed top-k + shared
-    experts."""
+def moe_fwd(p, cfg, x, *, capacity_factor: float = 1.25,
+            want_aux: bool = True):
+    """x: (B, T, d) -> (out (B, T, d) in x's dtype, aux).  Routed top-k +
+    shared experts.  ``aux`` is the router's load-balance loss, 0-d fp32,
+    E * sum_e(mean router prob of e * share of the top-k choices that
+    picked e) * ``router_aux_coef``, or None without ``want_aux`` (only
+    ``lm_loss`` reads it; serving computes none).  The dispatch stays on
+    the autograd graph: the token rows reach the experts through
+    ``index_add_`` and the combine weights ``top_w`` carry the router's
+    gradient."""
     mo = cfg.moe
     B, T, d = x.shape
     N = B * T
@@ -74,11 +82,17 @@ def moe_fwd(p, cfg, x, *, capacity_factor: float = 1.25):
     top_w, top_e = torch.topk(probs, K, dim=-1)              # (N, K)
     top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
 
+    flat_e = top_e.reshape(N * K)
+    onehot = F.one_hot(flat_e, E)                            # (NK, E)
+    aux = None
+    if want_aux:                              # Switch-style load balance
+        me = probs.mean(0)                                   # (E,)
+        ce = onehot.sum(0).float() / (N * K)  # JAX's scatter-add, no sync
+        aux = E * torch.sum(me * ce) * mo.router_aux_coef
+
     # capacity assignment: the rank of each (token, choice) within its
     # expert is the count of earlier choices of that expert
     C = capacity(N, cfg, capacity_factor)
-    flat_e = top_e.reshape(N * K)
-    onehot = F.one_hot(flat_e, E)                            # (NK, E)
     pos_in_e = torch.cumsum(onehot, dim=0) - onehot
     pos = pos_in_e.gather(1, flat_e[:, None])[:, 0]
     keep = pos < C
@@ -100,4 +114,4 @@ def moe_fwd(p, cfg, x, *, capacity_factor: float = 1.25):
     out = (eo[slot].float() * w[:, None]).reshape(N, K, d).sum(1)
     if "shared" in p:
         out = out + mlp_fwd(p["shared"], xf).float()
-    return out.reshape(B, T, d).to(x.dtype)
+    return out.reshape(B, T, d).to(x.dtype), aux

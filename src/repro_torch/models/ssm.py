@@ -11,12 +11,15 @@ Mamba2 has one decay per head and token, ``a_t = exp(dt_t * A_h)``, keys
 ``B`` and queries ``C`` shared by every head (one group), and the
 post-update readout ``o_t = C_t . S_t``.  Two execution paths each:
 
-* full mode (prefill): RWKV6's chunked scan through the wrapper of the
-  hand-written kernel K6 (``kernels/linear_attn_chunk``), which takes the
-  initial state and returns the final one; Mamba2's grouped SSD
-  (``mamba2_ssd_chunked``), which computes the (c, c) score matrix once
-  per group and never broadcasts B and C across heads.  No TPU kernel
-  computes the SSD (JAX runs it in jnp), so it is plain PyTorch;
+* full mode (prefill, and training): RWKV6's chunked scan through the
+  wrapper of the hand-written kernel K6 (``kernels/linear_attn_chunk``),
+  which takes the initial state and returns the final one, and under
+  autograd goes through K6's ``LinearAttnChunk`` (the backward recomputes
+  the plain version); Mamba2's grouped SSD (``mamba2_ssd_chunked``),
+  which computes the (c, c) score matrix once per group and never
+  broadcasts B and C across heads.  No TPU kernel computes the SSD (JAX
+  runs it in jnp), so it is plain PyTorch, and autograd differentiates
+  it and the causal conv directly (neither writes in place);
 * verify mode: ``decay_attention_seq``, the per-token scan that returns
   EVERY intermediate state, so a chain-speculative verify can roll back to
   the last accepted token by selecting a candidate (``serving/cache.py``).

@@ -1,7 +1,7 @@
 """Gradients through the port's kernels, and none where a kernel has no
 backward.  No JAX here, so the gpu cases run on the card as they are.
 
-* every kernel wrapper without a backward (K1, K2, K4, K5, K6 and K3's
+* every kernel wrapper without a backward (K1, K2, K4, K5 and K3's
   chunk form) raises when grad mode is on and an operand requires a
   gradient, never returning a result detached from the graph, and runs
   the same call under ``torch.no_grad()``: on the CPU (the plain
@@ -39,8 +39,6 @@ from repro_torch.kernels.attention_template.ops import \
 from repro_torch.kernels.flash_attention import ops as k3  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import \
     flash_attention_plain  # noqa: E402
-from repro_torch.kernels.linear_attn_chunk.ops import \
-    linear_attn_bshd  # noqa: E402
 from repro_torch.kernels.mla_attention.ops import \
     mla_attention_paged_bshd  # noqa: E402
 from repro_torch.kernels.tree_attention.dense_ops import \
@@ -60,8 +58,7 @@ needs_cuda = pytest.mark.skipif(not torch.cuda.is_available(),
 
 def _wrapper_call(name: str, device: str, g: torch.Generator):
     """(call, operands that may require a gradient) for one wrapper, at
-    shapes its kernel builds take (D=64; K5's latent 512 + rope 64; K6's
-    64-wide heads)."""
+    shapes its kernel builds take (D=64; K5's latent 512 + rope 64)."""
     dev = torch.device(device)
     rnd = lambda *s: torch.randn(s, generator=g).to(dev)
     tm = torch.ones((4, 4), dtype=torch.bool).tril().to(dev)
@@ -88,17 +85,13 @@ def _wrapper_call(name: str, device: str, g: torch.Generator):
         return (lambda: mla_attention_paged_bshd(
             ql, qr, pl, pr, tl, tr, tm, lens, table,
             scale=1 / math.sqrt(192))), (ql, tl)
-    if name == "K6":
-        r, k, v = rnd(1, 70, 2, 64), rnd(1, 70, 2, 64), rnd(1, 70, 2, 64)
-        w = -torch.rand((1, 70, 2, 64), generator=g).to(dev)
-        return (lambda: linear_attn_bshd(r, k, v, w)), (r, k, v)
     assert name == "K3 chunk"
     q, k, v = rnd(1, 16, 2, 64), rnd(1, 64, 1, 64), rnd(1, 64, 1, 64)
     return (lambda: k3.flash_attention_bshd(q, k, v, q_off=16,
                                             kv_valid_len=32)), (q, k, v)
 
 
-WRAPPERS = ["K1", "K2", "K4", "K5", "K6", "K3 chunk"]
+WRAPPERS = ["K1", "K2", "K4", "K5", "K3 chunk"]
 
 
 def _guarded(name: str, device: str):

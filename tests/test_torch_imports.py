@@ -1,7 +1,8 @@
 """Boundaries of the PyTorch port.
 
-* ``src/repro_torch`` imports neither JAX nor anything of the JAX package
-  ``repro`` (it keeps its own copies of the JAX-free modules);
+* ``src/repro_torch`` (and ``chip_smoke.py`` and the port's example)
+  imports neither JAX nor anything of the JAX package ``repro`` (it
+  keeps its own copies of the JAX-free modules);
 * its entry points (serving, and training's: EAGLE's params, the train
   launcher) run on CUDA by default and raise where CUDA is missing,
   unless the caller passes ``device="cpu"``: they never slip onto the
@@ -43,7 +44,8 @@ def _imported_modules(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [
-    REPO / "chip_smoke.py"], ids=lambda p: str(p.relative_to(REPO)))
+    REPO / "chip_smoke.py", REPO / "examples" / "torch_train_hydra_pp.py"],
+    ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_and_no_repro_imports(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax")]

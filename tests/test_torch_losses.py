@@ -183,9 +183,3 @@ def test_windowed_and_biased_configs_match_jax(name, kw):
     got = value_and_grad(lambda d: distill.head_train_loss(
         d, params, cfg, torch.from_numpy(toks), objective="distill"), dp)
     _check(want, got)
-
-
-def test_lm_loss_refuses_moe():
-    _, cfg = cfg_pair("deepseek-moe-16b")
-    with pytest.raises(NotImplementedError, match="aux_loss"):
-        distill.lm_loss({}, cfg, torch.zeros((1, 8), dtype=torch.long))

@@ -76,7 +76,8 @@ def test_moe_fwd_matches_jax(B, T, cf):
     jp, p = _params(jcfg)
     x = _x(B, T, cfg.d_model, seed=B * T)
     jout, _ = jax_moe.moe_fwd(jp, jcfg, jnp.asarray(x), capacity_factor=cf)
-    out = moe.moe_fwd(p, cfg, torch.from_numpy(x), capacity_factor=cf)
+    out, _ = moe.moe_fwd(p, cfg, torch.from_numpy(x),
+                         capacity_factor=cf)
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), **TOL)
     if cf < 1:
         assert _dropped(cfg, p, x, cf) > 0, "no token was dropped"
@@ -91,8 +92,8 @@ def test_right_pad_keeps_every_real_token(n):
     x = _x(1, 64, cfg.d_model, seed=n)
     x[:, n:] = _x(1, 64 - n, cfg.d_model, seed=100 + n)  # pad-slot junk
     assert moe.capacity(n, cfg) == moe.capacity(64, cfg)
-    exact = moe.moe_fwd(p, cfg, torch.from_numpy(x[:, :n])).numpy()
-    padded = moe.moe_fwd(p, cfg, torch.from_numpy(x)).numpy()[:, :n]
+    exact = moe.moe_fwd(p, cfg, torch.from_numpy(x[:, :n]))[0].numpy()
+    padded = moe.moe_fwd(p, cfg, torch.from_numpy(x))[0].numpy()[:, :n]
     np.testing.assert_allclose(padded, exact, atol=1e-6, rtol=1e-6)
     jpadded, _ = jax_moe.moe_fwd(jp, jcfg, jnp.asarray(x))
     np.testing.assert_allclose(padded, np.asarray(jpadded)[:, :n], **TOL)
@@ -116,7 +117,7 @@ def test_router_stays_fp32_in_a_bf16_model():
     lp = {k: (v[0] if not isinstance(v, dict)
               else {kk: vv[0] for kk, vv in v.items()})
           for k, v in mp.items()}
-    out = moe.moe_fwd(lp, cfg, torch.from_numpy(x).bfloat16())
+    out, _ = moe.moe_fwd(lp, cfg, torch.from_numpy(x).bfloat16())
     assert out.dtype == torch.bfloat16
     np.testing.assert_allclose(out.float().numpy(),
                                np.asarray(jout.astype(jnp.float32)),

@@ -14,8 +14,8 @@ CPU).
   unembedding is refreshed, and serving's first token equals the argmax
   of logits computed from ``embed`` directly;
 * ``python -m repro_torch.launch.train --device cpu`` prints JAX's
-  ``[train]`` lines with finite losses, and refuses rwkv6-1.6b,
-  zamba2-1.2b and the MoE archs with a ``SystemExit`` naming ROADMAP §1.
+  ``[train]`` lines with finite losses (the recurrent and MoE archs are
+  trained in ``tests/test_torch_train_archs.py``).
 """
 import re
 
@@ -184,10 +184,3 @@ def test_train_launcher_audio(capsys):
                    "--seq-len", "24", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "arch=hubert-xlarge-smoke" in out and "[train] done" in out
-
-
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-1.2b",
-                                  "deepseek-v2-lite-16b", "deepseek-moe-16b"])
-def test_train_launcher_refuses_the_next_slice(arch):
-    with pytest.raises(SystemExit, match="ROADMAP §1"):
-        launcher.main(["--arch", arch, "--steps", "1", "--device", "cpu"])
