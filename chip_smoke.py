@@ -14,7 +14,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    in its paged, windowed and dense forms and at 64 in its paged and
    dense forms (zamba2-1.2b's shared block), and its merge, K3 at (64,
    64), (80, 80) (hubert-xlarge's encoder), (128, 128), (256, 256) and
-   (192, 128), K5's split sweep over bf16
+   (192, 128), each at the key tile the committed autotuner cache
+   resolves (every key-tile instance's line is printed), K5's split
+   sweep over bf16
    pools at (512, 64) and its merge, K6's bf16 chunk kernel and scan at
    chunk 64) are each found in the report and show no spill; then fail
    unless
@@ -119,7 +121,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
       operands: relative L2 error at most 5e-3, and K3's output 1% off
       failing that bound; bf16 at S=1536 timed beside its bound (4 S^2 D H
       flops at the bf16 peak) and non-causal SDPA;
-4. tiny fp32 parity: ``minitron-4b.reduced()``, a reduced gemma3-1b
+   l. the autotuner (``kernels/autotune.py``): every key of
+      ``required_keys()`` (K3's key tile, at each registry config's
+      build, heads and mask) swept at S=1536, each candidate first held
+      against its plain version (bf16, 2e-2; a causal one also a chunk's
+      rows == the whole prefill's), then timed in turns over 7 rounds
+      (device time, medians); one JSON line of the winners and the µs
+      per candidate with the card and its power limit; then ``check`` of
+      the committed ``results/autotune.cuda.json`` (a missing key fails
+      the run; a winner that differs from this sweep's is printed, not
+      failed: timing noise);
+4. tiny fp32 parity (every phase runs in the autotuner's mode ``on``
+   under the committed cache; phases 4-6 print the winners each model
+   resolves): ``minitron-4b.reduced()``, a reduced gemma3-1b
    whose 16-token window binds, ``deepseek-v2-lite-16b.reduced()`` and
    ``rwkv6-1.6b.reduced()``, Hydra++ served through the paged engine
    (K1, K4, K5, K3; K6 on every bucket-padded prefill of rwkv6, with a
@@ -336,7 +350,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    each base leaf's gradient's relative L2 difference within
    ``K6_GRAD_BOUND``, a K6 whose odd output channels are 1% off failing
    them (a uniform scale would cancel in RWKV6's GroupNorm);
-7. a JSON line with each kernel's numbers (the launches of phases 5e-5g
+5h. the port's serving examples at their default steps, vicuna-tiny in
+   fp32 (``training/tiny.py``'s checkpoints in a fresh directory under
+   ``build/``): ``examples/torch_quickstart.py`` (its accepted length and
+   its speculative and autoregressive step counts, the greedy outputs
+   identical), ``examples/torch_serve_spec.py`` (AR, Medusa, Hydra and
+   Hydra++ through the continuous, paged and bucketed engines, their
+   rows; the three engines' greedy streams equal in each mode) and
+   ``examples/torch_tree_search.py`` (tok/s per tree and the chosen
+   size, the checkpoints restored, not retrained);
+7. a JSON line with each kernel's numbers (the launches of phases 5e-5h
    added to K3's, K2's and K6's entries, with ``grad_launches``, those
    under autograd, and ``launches_5g``, K3's in 5g by build) (K3's chunk form as its own
    entry, ``flash_attention_chunk``; K1 and K2 at each model past 64 rows
@@ -358,6 +381,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -445,7 +469,7 @@ def bound(nbytes: float, flops: float, dtype_name: str) -> tuple:
 KERNEL_PARAMS = {
     "tree_attention_split_kernel": ("", "D", "windowed", "dense"),
     "tree_attention_merge_kernel": ("", "dense"),
-    "flash_attention_kernel": ("", "DQK", "DV"),
+    "flash_attention_kernel": ("", "DQK", "DV", "KN"),
     "mla_attention_split_kernel": ("kv", "DL", "DR"),
     "mla_attention_merge_kernel": ("DL",),
     "linear_attn_chunk_kernel": ("", "C"),
@@ -576,9 +600,20 @@ TREE_VERIFY_BUILDS = frozenset({
     "tree_attention_split_kernel<bf16, D=256, dense>",
     "tree_attention_merge_kernel<bf16>",
     "tree_attention_merge_kernel<bf16, dense>"})
-K3_BUILDS = frozenset(
-    f"flash_attention_kernel<bf16, DQK={a}, DV={b}>"
-    for a, b in ((64, 64), (80, 80), (128, 128), (256, 256), (192, 128)))
+def k3_builds() -> frozenset:
+    """K3's bf16 instances the main path runs: each build at the key tile
+    each required key (a registry config's call of it) resolves under the
+    committed autotuner cache."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.flash_attention.ops import resolve_key_tile
+
+    tile = lambda s: resolve_key_tile(s["dqk"], s["dv"], s["hq"], s["hkv"],
+                                      bool(s["causal"]))
+    return frozenset(
+        f"flash_attention_kernel<bf16, DQK={s['dqk']}, DV={s['dv']}, "
+        f"KN={tile(s)}>" for _, s in autotune.required_keys().values())
+
+
 # K5's split sweep over bf16 pools at deepseek-v2-lite's widths and its
 # merge; K6's chunk kernel and scan in bf16 at rwkv6-1.6b's chunk of 64
 MLA_BUILDS = frozenset({
@@ -586,7 +621,6 @@ MLA_BUILDS = frozenset({
     "mla_attention_merge_kernel<DL=512>"})
 K6_BUILDS = frozenset({"linear_attn_chunk_kernel<bf16, C=64>",
                        "linear_attn_scan_kernel<bf16, C=64>"})
-MAIN_PATH_BUILDS = TREE_VERIFY_BUILDS | K3_BUILDS | MLA_BUILDS | K6_BUILDS
 # the bf16 builds that must run on the tensor cores (SASS check): every
 # build whose name starts so, and at least one of each
 TENSOR_CORE_KERNELS = ("tree_attention_split_kernel<bf16",
@@ -1968,6 +2002,62 @@ def check_k3_hubert(S_all=(37, 300, 1536), pad: int = 64) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3l: the autotuner's sweep, and the committed winner cache
+# ---------------------------------------------------------------------------
+
+SWEEP_OUT = SRC.parent / "build" / "autotune.sweep.cuda.json"
+
+
+def check_autotune() -> dict:
+    """Sweep every required key (each candidate held against its plain
+    version first: a wrong one raises), print the winners and µs per
+    candidate as one JSON line, then check the committed cache: a missing
+    key fails, a winner other than this sweep's is printed.  Returns the
+    sweep's entries."""
+    from repro_torch.kernels import autotune, autotune_cache_path
+
+    payload = autotune.sweep(log=lambda m: log(f"[3l] {m}"))
+    SWEEP_OUT.parent.mkdir(parents=True, exist_ok=True)
+    SWEEP_OUT.write_text(json.dumps(payload, indent=1, sort_keys=True))
+    log(json.dumps({"autotune_sweep": {
+        k: {"winner": {n: v for n, v in e.items() if n != "sweep_us"},
+            "us": e["sweep_us"]} for k, e in payload["entries"].items()},
+        "card": payload["card"], "torch": payload["torch"],
+        "cuda": payload["cuda"]}))
+    committed = autotune_cache_path()
+    missing = autotune.missing_keys(committed)
+    if missing:
+        raise AssertionError(f"the committed cache {committed} misses "
+                             f"{missing}")
+    with open(committed) as f:
+        data = json.load(f)
+    differ = []
+    for key, fresh in payload["entries"].items():
+        old = {n: v for n, v in data["entries"][key].items()
+               if n != "sweep_us"}
+        new = {n: v for n, v in fresh.items() if n != "sweep_us"}
+        if old != new:
+            differ.append(f"{key}: committed {old} ({data['card']}), this "
+                          f"sweep {new}")
+    log(f"[3l] check: {committed} covers all {len(payload['entries'])} "
+        f"required keys (swept on {data['card']}); winners that differ "
+        f"from this sweep ({CARD}; timing noise, not a failure): "
+        + ("; ".join(differ) if differ else "none"))
+    return payload["entries"]
+
+
+def log_resolved(cfg, phase: str) -> None:
+    """The winners ``cfg``'s tuned calls resolve (mode and cache in
+    force)."""
+    from repro_torch import kernels
+    from repro_torch.kernels import autotune
+
+    mode = os.environ.get(kernels.AUTOTUNE_ENV, "on")
+    log(f"[{phase}] {cfg.name} resolves (autotune mode {mode}): "
+        f"{autotune.resolve_calls(cfg)}")
+
+
+# ---------------------------------------------------------------------------
 # phase 4: tiny fp32 parity, paged engine (kernels) == dense generate()
 # ---------------------------------------------------------------------------
 
@@ -1991,6 +2081,7 @@ def check_tiny_parity(base, lens, budgets=(12, 14, 8, 10, 13, 9),
     from repro_torch.models.model import group_has_window, init_params
     from repro_torch.serving.engine import PagedSpeculativeEngine, Request
 
+    log_resolved(base, "4")
     counters = kernel_counters()
     # the kernels of the paged engine, and of the dense generate() it is
     # held against: K2 on the window-0 GQA layers (the Hydra++ prefix
@@ -2610,6 +2701,7 @@ def serve_full_width(wl: Workload) -> tuple:
         f"{unembed / 1e9:.2f} GB; allocated "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB of the card's "
         f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.2f}")
+    log_resolved(cfg, "full")
     pair_k2 = 0
     t_sub = time.perf_counter()
 
@@ -3794,13 +3886,12 @@ def _stream(row, n: int) -> list:
     return [int(x) for x in row.tolist() if x != PAD_TOKEN][:n]
 
 
-def _load_example():
-    """``examples/torch_train_hydra_pp.py`` as a module."""
+def _load_example(name: str = "torch_train_hydra_pp"):
+    """``examples/<name>.py`` as a module."""
     import importlib.util
 
-    path = SRC.parent / "examples" / "torch_train_hydra_pp.py"
-    spec = importlib.util.spec_from_file_location("torch_train_hydra_pp",
-                                                  path)
+    path = SRC.parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -3969,6 +4060,76 @@ def train_tiny_end_to_end() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 5h: the port's serving examples on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLES_CKPT = SRC.parent / "build" / "ckpt_examples"
+
+
+def run_examples() -> dict:
+    """Phase 5h: quickstart, serve_spec and tree_search through their own
+    ``main`` at their default steps, the checkpoints of ``training/
+    tiny.py`` in a fresh directory; returns the launch counts."""
+    import contextlib
+    import io
+    import shutil
+
+    from repro_torch import kernels
+    from repro_torch.training import tiny
+
+    shutil.rmtree(EXAMPLES_CKPT, ignore_errors=True)
+    tiny.CKPT_DIR = str(EXAMPLES_CKPT)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        qs = _load_example("torch_quickstart").main([])
+    log(f"[5h] examples/torch_quickstart.py ({CARD}): 150 base and 150 "
+        f"Hydra head steps, then 48 new tokens for 2 prompts: "
+        f"accept_len={qs['accept_len']:.3f}, speculative "
+        f"{qs['spec_steps']} steps against autoregressive "
+        f"{qs['ar_steps']} ({qs['ar_steps'] / max(qs['spec_steps'], 1):.2f}x "
+        f"fewer), greedy outputs identical: {qs['same']}; "
+        f"{time.perf_counter() - t0:.1f}s")
+    if not qs["same"] or qs["spec_steps"] >= qs["ar_steps"]:
+        raise AssertionError(f"quickstart: {qs}")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    mod = _load_example("torch_serve_spec")
+    with contextlib.redirect_stdout(buf):
+        runs = mod.main([])
+    for line in buf.getvalue().splitlines():
+        if " steps=" in line or "greedy streams" in line:
+            log(f"[5h] {line}")
+    for m in mod.MODES:
+        base = runs[(m, "continuous")][1]
+        for e in mod.ENGINES:
+            if runs[(m, e)][1] != base:
+                raise AssertionError(f"serve_spec {m}: the {e} engine's "
+                                     "greedy streams differ from the "
+                                     "continuous engine's")
+            if runs[(m, e)][0].tokens <= 0:
+                raise AssertionError(f"serve_spec {m} {e}: no token")
+    log(f"[5h] examples/torch_serve_spec.py ({CARD}): the three engines' "
+        f"greedy streams equal in each of {mod.MODES}; "
+        f"{time.perf_counter() - t0:.1f}s with training")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ts = _load_example("torch_tree_search").main([])
+    if "heads_hydra_data: restored from checkpoint" not in buf.getvalue():
+        raise AssertionError("tree_search retrained the heads")
+    log(f"[5h] examples/torch_tree_search.py ({CARD}): tok/s per tree "
+        + ", ".join(f"T={n}: {v:.1f} (accept {ts['accept'][n]:.2f})"
+                    for n, v in ts["tok_s"].items())
+        + f"; selected tree size {ts['selected']} (checkpoints restored); "
+        f"{time.perf_counter() - t0:.1f}s")
+    counts = kernels.launch_counts()
+    log(f"[5h] launches of the three examples: "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -4477,11 +4638,16 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     from repro_torch.configs import get_config, head_preserving
-    from repro_torch.kernels import build
+    from repro_torch.kernels import AUTOTUNE_ENV, build
+    # every phase under the committed winners (a K3 shape resolves its
+    # tile once a process, at its first call)
+    os.environ[AUTOTUNE_ENV] = "on"
     t0 = time.perf_counter()
     built = build.build()
     log(f"[build] {sorted(built) or 'nothing to build'} in "
         f"{time.perf_counter() - t0:.1f}s")
+    main_path_builds = TREE_VERIFY_BUILDS | k3_builds() | MLA_BUILDS \
+        | K6_BUILDS
     parsed = set()
     for name in sorted(build.SOURCES):
         if name in built:
@@ -4492,11 +4658,11 @@ def main() -> int:
             # keep their accumulators in registers
             inst = line.split(":")[0]
             parsed.add(inst)
-            if (inst in MAIN_PATH_BUILDS or "=256" in inst) \
+            if (inst in main_path_builds or "=256" in inst) \
                     and "0 bytes spill stores, 0 bytes spill loads" \
                     not in line:
                 raise AssertionError(f"a checked build spills: {line}")
-    missing = sorted(MAIN_PATH_BUILDS - parsed)
+    missing = sorted(main_path_builds - parsed)
     if missing:
         raise AssertionError(f"no ptxas line parsed for {missing}: the "
                              "spill check could not run")
@@ -4520,18 +4686,19 @@ def main() -> int:
     log("[ptxas] starcoder2-7b, qwen2.5-32b, chameleon-34b and "
         "deepseek-moe-16b run tree_attention_split_kernel<bf16, D=128> "
         "(and its dense form) and flash_attention_kernel<bf16, DQK=128, "
-        "DV=128>; zamba2-1.2b's shared block the D=64 forms and "
-        "flash_attention_kernel<bf16, DQK=64, DV=64>: all listed above "
-        "without a spill")
+        "DV=128, KN=..>; zamba2-1.2b's shared block the D=64 forms and "
+        "flash_attention_kernel<bf16, DQK=64, DV=64, KN=..>: all listed "
+        "above without a spill")
     d64 = sorted(k for k in checked if "D=64" in k or "DQK=64" in k)
     if len(d64) < 3 or not all(tensor_cores[k] for k in d64):
         raise AssertionError(f"SASS: the bf16 D=64 builds {d64} lack HMMA")
     log(f"[sass] zamba2-1.2b's bf16 D=64 builds on the tensor cores: {d64}")
-    d80 = "flash_attention_kernel<bf16, DQK=80, DV=80>"
-    if not tensor_cores.get(d80):
-        raise AssertionError(f"SASS: {d80} not found or without HMMA")
-    log(f"[ptxas] hubert-xlarge's encoder runs {d80}, listed above without "
-        f"a spill; [sass] it runs HMMA")
+    d80 = sorted(k for k in tensor_cores
+                 if k.startswith("flash_attention_kernel<bf16, DQK=80,"))
+    if len(d80) < 3 or not all(tensor_cores[k] for k in d80):
+        raise AssertionError(f"SASS: K3's (80, 80) builds {d80} lack HMMA")
+    log(f"[ptxas] hubert-xlarge's encoder runs one of {d80}, listed above "
+        f"without a spill; [sass] each runs HMMA")
     log(f"[time] phase 2 (builds and their checks) done at "
         f"{time.perf_counter() - t_start:.0f}s")
 
@@ -4550,6 +4717,10 @@ def main() -> int:
     rows = check_rows()
     zk = check_zamba2_kernels()
     hk = check_k3_hubert()
+    t_3l = time.perf_counter()
+    check_autotune()
+    log(f"[time] phase 3l (the autotuner's sweep): "
+        f"{time.perf_counter() - t_3l:.0f}s")
     log(f"[time] phase 3 (kernel checks) done at "
         f"{time.perf_counter() - t_start:.0f}s")
 
@@ -4616,7 +4787,8 @@ def main() -> int:
                         ("5f (i)-(ii) (EAGLE at minitron-4b)",
                          eagle_full_width),
                         ("5g (rwkv6-1.6b, zamba2-1.2b and the MoE archs "
-                         "training)", train_recurrent_and_moe)):
+                         "training)", train_recurrent_and_moe),
+                        ("5h (the serving examples)", run_examples)):
         t_ph = time.perf_counter()
         _add(launches, phase())
         log(f"[time] phase {what}: {time.perf_counter() - t_ph:.0f}s, "

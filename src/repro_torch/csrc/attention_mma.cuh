@@ -28,6 +28,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace tc {
 
 using bf16 = __nv_bfloat16;
@@ -208,10 +210,12 @@ __device__ __forceinline__ void tile_mma(const bf16* q, const bf16* k,
   }
 
   // online softmax: scale, mask by selection, row max over the quad;
-  // bit 4j + e of `keep` says whether s[j][e] was admitted
-  static_assert(KN / 8 * 4 <= 32, "one bit per score of the thread");
+  // bit 4j + e of `keep` says whether s[j][e] was admitted (64 bits past
+  // 64 keys, K3's key tile of 128)
+  using Keep = std::conditional_t<(KN > 64), uint64_t, uint32_t>;
+  static_assert(KN / 8 * 4 <= 64, "one bit per score of the thread");
   float mx[2] = {st.m[0], st.m[1]};
-  uint32_t keep = 0xffffffffu;
+  Keep keep = ~Keep(0);
 #pragma unroll
   for (int j = 0; j < KN / 8; ++j)
 #pragma unroll
@@ -220,7 +224,7 @@ __device__ __forceinline__ void tile_mma(const bf16* q, const bf16* k,
       float x = s[j][e] * scale_log2;
       if (masked && !admit(h, kk)) {
         x = kNegInf;
-        keep &= ~(1u << (j * 4 + e));
+        keep &= ~(Keep(1) << (j * 4 + e));
       }
       s[j][e] = x;
       mx[h] = fmaxf(mx[h], x);
@@ -240,7 +244,7 @@ __device__ __forceinline__ void tile_mma(const bf16* q, const bf16* k,
     for (int e = 0; e < 4; ++e) {
       const int h = e >> 1;
       const float p =
-          (keep >> (j * 4 + e)) & 1u ? ex2(s[j][e] - mx[h]) : 0.f;
+          (keep >> (j * 4 + e)) & Keep(1) ? ex2(s[j][e] - mx[h]) : 0.f;
       s[j][e] = p;
       st.l[h] += p;
     }

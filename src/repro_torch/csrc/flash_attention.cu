@@ -41,10 +41,14 @@
 //
 // Design (bf16), FlashAttention-2 on mma.sync: one block of four warps
 // per (tile of 64 query rows, b, query head); each warp owns 16 query
-// rows.  Q comes in once; key tiles of 64 (32 at DQK = 256, to keep the
-// accumulator in registers) come in through cp.async into a
-// double-buffered ring in shared memory, so the next tile loads while this
-// one computes.  S = Q K^T and O += P V run on mma.sync.m16n8k16 (bf16 in,
+// rows.  Q comes in once; key tiles of KN keys come in through cp.async
+// into a double-buffered ring in shared memory, so the next tile loads
+// while this one computes.  KN is a template parameter chosen at run time
+// (the `key_tile` argument; the wrapper resolves it through the
+// autotuner's cache, kernels/flash_attention/ops.py): 32, 64 or 128
+// wherever the ring fits the card's 227 KiB of shared memory a block
+// (every build but 128 at DQK = 256); by default 64, or 32 at DQK = 256
+// to keep the accumulator in registers.  S = Q K^T and O += P V run on mma.sync.m16n8k16 (bf16 in,
 // fp32 accumulate); P is re-packed to bf16 in registers as the A operand;
 // the online softmax and the accumulator stay in fp32 registers, with the
 // template's conventions (attention_mma.cuh).  GQA: the G query heads of
@@ -91,19 +95,21 @@ constexpr int kQTile = 16;     // fp32: query positions per block, at most
 constexpr int kMmaRows = 64;   // bf16: query positions per block
 constexpr int kMmaThreads = 128;
 
-template <int DQK>
-__host__ __device__ constexpr int mma_keys() {
-  return DQK >= 256 ? 32 : 64;
-}
+constexpr size_t kMaxSmem = 227 * 1024;  // opt-in shared memory a block
 
-// bf16 shared memory: q (64 rows of DQK), K ring (2 tiles of DQK), V ring
-// (2 tiles of DV); rows padded by 8 bf16
-template <int DQK, int DV>
+// bf16 shared memory: q (64 rows of DQK), K ring (2 tiles of KN keys of
+// DQK), V ring (2 tiles of KN keys of DV); rows padded by 8 bf16
+template <int DQK, int DV, int KN>
 __host__ __device__ constexpr size_t mma_smem_bytes() {
   return sizeof(bf16) *
-         (static_cast<size_t>(kMmaRows + 2 * mma_keys<DQK>()) *
-              (DQK + tc::kPad) +
-          static_cast<size_t>(2 * mma_keys<DQK>()) * (DV + tc::kPad));
+         (static_cast<size_t>(kMmaRows + 2 * KN) * (DQK + tc::kPad) +
+          static_cast<size_t>(2 * KN) * (DV + tc::kPad));
+}
+
+// whether a (DQK, DV) build has a key tile of KN: its ring fits
+template <int DQK, int DV, int KN>
+__host__ __device__ constexpr bool mma_fits() {
+  return mma_smem_bytes<DQK, DV, KN>() <= kMaxSmem;
 }
 
 struct Args {
@@ -140,10 +146,11 @@ __device__ __forceinline__ int query_offset(const Args& p, int b) {
   return p.q_off != nullptr ? p.q_off[b] : 0;
 }
 
-// bf16 body: grid n_qt * B * Hq, the last query tile first.
-template <int DQK, int DV>
+// bf16 body: grid n_qt * B * Hq, the last query tile first; key tiles of
+// KN keys.
+template <int DQK, int DV, int KN>
 __device__ void flash_mma(const Args& p, unsigned char* smem_raw) {
-  constexpr int KN = mma_keys<DQK>();
+  static_assert(mma_fits<DQK, DV, KN>(), "the K/V ring exceeds shared memory");
   constexpr int QS = DQK + tc::kPad, VS = DV + tc::kPad;
   const int G = p.Hq / p.Hkv;
   const int heads = p.B * p.Hq;
@@ -328,23 +335,28 @@ __device__ void flash_f32(const Args& p, float* smem) {
   }
 }
 
-template <typename T, int DQK, int DV>
+// KN: the bf16 body's key tile; the fp32 body's is kKeyTile (16)
+template <typename T, int DQK, int DV, int KN>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Args p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   if constexpr (std::is_same<T, float>::value) {
-    static_assert(DQK == DV, "the fp32 body takes one head dim");
+    static_assert(DQK == DV && KN == kKeyTile,
+                  "the fp32 body takes one head dim and 16-key tiles");
     flash_f32<DQK>(p, reinterpret_cast<float*>(smem_raw));
   } else {
-    flash_mma<DQK, DV>(p, smem_raw);
+    flash_mma<DQK, DV, KN>(p, smem_raw);
   }
 }
 
-template <typename T, int DQK, int DV>
+template <typename T, int DQK, int DV, int KN>
 int launch(const Args& a, cudaStream_t stream) {
   constexpr bool kF32 = std::is_same<T, float>::value;
-  const size_t smem = kF32 ? attn::smem_bytes((a.Hq / a.Hkv) * a.bq, DQK)
-                           : mma_smem_bytes<DQK, DV>();
-  auto kern = flash_attention_kernel<T, DQK, DV>;
+  size_t smem;
+  if constexpr (kF32)
+    smem = attn::smem_bytes((a.Hq / a.Hkv) * a.bq, DQK);
+  else
+    smem = mma_smem_bytes<DQK, DV, KN>();
+  auto kern = flash_attention_kernel<T, DQK, DV, KN>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -358,18 +370,36 @@ int launch(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// the bf16 (DQK, DV) build at key tile `key_tile`: 32, 64, or 128 where
+// its ring fits (mma_fits); anything else is refused
+template <int DQK, int DV>
+int launch_bf16(const Args& a, int key_tile, cudaStream_t stream) {
+  switch (key_tile) {
+    case 32: return launch<bf16, DQK, DV, 32>(a, stream);
+    case 64: return launch<bf16, DQK, DV, 64>(a, stream);
+    case 128:
+      if constexpr (mma_fits<DQK, DV, 128>())
+        return launch<bf16, DQK, DV, 128>(a, stream);
+      break;
+    default: break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16; causal: 0 or 1; window <= 0: no window.
 // q_off and kv_valid_len: (B,) int32 device arrays, or null (a whole
-// prefill: offset 0, every key valid).  Returns the CUDA error code of the
-// launch (0 on success); the wrapper raises on anything else.
+// prefill: offset 0, every key valid).  key_tile: the bf16 body's keys a
+// tile (32, 64 or 128 where the build's ring fits; ignored by fp32).
+// Returns the CUDA error code of the launch (0 on success); the wrapper
+// raises on anything else.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, const void* q_off,
                                const void* kv_valid_len, int B, int Sq,
                                int Skv, int Hq, int Hkv, int Dqk, int Dv,
-                               int causal, int window, int dtype, float scale,
-                               void* stream) {
+                               int causal, int window, int dtype,
+                               int key_tile, float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{q,      k,  v,   out, static_cast<const int*>(q_off),
@@ -377,11 +407,14 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
          B,      Sq, Skv, Hq,  Hkv, 0, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    if (Dqk == 64 && Dv == 64) return launch<bf16, 64, 64>(a, s);
-    if (Dqk == 80 && Dv == 80) return launch<bf16, 80, 80>(a, s);
-    if (Dqk == 128 && Dv == 128) return launch<bf16, 128, 128>(a, s);
-    if (Dqk == 256 && Dv == 256) return launch<bf16, 256, 256>(a, s);
-    if (Dqk == 192 && Dv == 128) return launch<bf16, 192, 128>(a, s);
+    if (Dqk == 64 && Dv == 64) return launch_bf16<64, 64>(a, key_tile, s);
+    if (Dqk == 80 && Dv == 80) return launch_bf16<80, 80>(a, key_tile, s);
+    if (Dqk == 128 && Dv == 128)
+      return launch_bf16<128, 128>(a, key_tile, s);
+    if (Dqk == 256 && Dv == 256)
+      return launch_bf16<256, 256>(a, key_tile, s);
+    if (Dqk == 192 && Dv == 128)
+      return launch_bf16<192, 128>(a, key_tile, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype != 0 || Dqk != Dv) return static_cast<int>(cudaErrorInvalidValue);
@@ -389,9 +422,9 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   a.bq = fit < kQTile ? fit : kQTile;
   if (a.bq < 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (Dqk) {
-    case 64: return launch<float, 64, 64>(a, s);
-    case 128: return launch<float, 128, 128>(a, s);
-    case 256: return launch<float, 256, 256>(a, s);
+    case 64: return launch<float, 64, 64, kKeyTile>(a, s);
+    case 128: return launch<float, 128, 128, kKeyTile>(a, s);
+    case 256: return launch<float, 256, 256, kKeyTile>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

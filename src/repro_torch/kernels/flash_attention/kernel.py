@@ -31,6 +31,27 @@ from repro_torch.models.layers import blocked_attention
 # (Dqk, Dv) of the bf16 (tensor-core) builds; (80, 80) is hubert-xlarge's
 # encoder, (192, 128) deepseek's MLA prefill at its own widths
 BF16_DIMS = ((64, 64), (80, 80), (128, 128), (256, 256), (192, 128))
+# the bf16 body's key tile (keys a shared-memory tile): the candidates, the
+# rows of a query tile, and the shared memory a block may take (the .cu's
+# kMaxSmem); a build has a tile where its ring fits (``mma_smem_bytes``)
+TILE_CANDIDATES = (32, 64, 128)
+MMA_ROWS = 64
+MAX_SMEM = 227 * 1024
+
+
+def mma_smem_bytes(dqk: int, dv: int, kn: int) -> int:
+    """The bf16 body's shared memory (the .cu's ``mma_smem_bytes``): q's
+    64 rows, then rings of two K and two V tiles of ``kn`` keys, each row
+    padded by 8 bf16."""
+    return 2 * ((MMA_ROWS + 2 * kn) * (dqk + 8) + 2 * kn * (dv + 8))
+
+
+# each bf16 build's key tiles (its template instances), and its default:
+# 64, or 32 at Dqk = 256, the tile every build ran before it was tunable
+KEY_TILES = {dims: tuple(n for n in TILE_CANDIDATES
+                         if mma_smem_bytes(*dims, n) <= MAX_SMEM)
+             for dims in BF16_DIMS}
+DEFAULT_KEY_TILE = {dims: 32 if dims[0] >= 256 else 64 for dims in BF16_DIMS}
 # fp32 (CUDA-core) builds, Dqk = Dv: head dim -> query rows one thread
 # block holds (G * the query tile): the G query heads of a kv head must fit
 MAX_ROWS = {64: 128, 128: 128, 256: 64}
@@ -43,19 +64,21 @@ def kernel_fn():
     fn = build.load("flash_attention").flash_attention
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
                        + [ctypes.c_float, ctypes.c_void_p])
     return fn
 
 
 def launch(q, k, v, out, *, causal: bool, window: int,
-           scale: float | None = None, q_off=None,
-           kv_valid_len=None) -> int:
+           scale: float | None = None, q_off=None, kv_valid_len=None,
+           key_tile: int = 0) -> int:
     """Launch the kernel on the current CUDA stream (no synchronisation).
     All arguments must already be validated by the wrapper; ``q_off`` and
     ``kv_valid_len`` are (B,) int32 on q's device, or None (offset 0,
-    every key valid).  ``scale`` defaults to 1/sqrt(Dqk).  Returns the
-    CUDA error code of the launch: 0 on success."""
+    every key valid).  ``scale`` defaults to 1/sqrt(Dqk).  ``key_tile``
+    selects the bf16 body's instance (one of ``KEY_TILES[(Dqk, Dv)]``;
+    fp32 ignores it).  Returns the CUDA error code of the launch: 0 on
+    success."""
     B, Sq, Hq, Dqk = q.shape
     Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -63,7 +86,7 @@ def launch(q, k, v, out, *, causal: bool, window: int,
     return kernel_fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         ptr(q_off), ptr(kv_valid_len), B, Sq, Skv, Hq, Hkv, Dqk, Dv,
-        int(causal), int(window), DTYPE_CODES[q.dtype],
+        int(causal), int(window), DTYPE_CODES[q.dtype], int(key_tile),
         1.0 / math.sqrt(Dqk) if scale is None else float(scale), stream)
 
 

@@ -17,6 +17,15 @@ i at position i) and the chunk form of a resumable prefill (``q_off``:
 the chunk's first position; ``kv_valid_len``: the keys written so far,
 the cache view past it is masked and never read by the kernel).
 
+A bf16 call runs the key tile ``resolve_key_tile`` gives: the autotuner's
+winner for ``flash|dqk=..|dv=..|hq=..|hkv=..|causal=..``
+(``kernels.tuned_block_sizes``), else the build's default (64; 32 at
+256).  The heads enter the key because the best tile is the one that
+fills the SMs, and the grid is query tiles times query heads.  A chunk
+and the whole prefill of one layer resolve the same key, and a tile's
+keys start at absolute multiples of the tile, so a chunk's rows keep the
+whole prefill's bits.  The fp32 builds are not tuned.
+
 Under autograd (grad mode on and q, k or v requiring a gradient) a whole
 prefill goes through ``FlashAttention``, a ``torch.autograd.Function``:
 its forward launches K3 as above, and its backward recomputes the plain
@@ -30,11 +39,12 @@ kernel wrapper without one does (``kernels.refuse_grad``).
 from __future__ import annotations
 
 import math
+from functools import lru_cache
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import refuse_grad, tuned_block_sizes
 from repro_torch.kernels.flash_attention import kernel as _k
 
 launches = 0                  # kernel launches since the last reset
@@ -91,6 +101,33 @@ def _check_cuda(q, k, v):
                          f"{_k.MAX_ROWS[D]} rows at head dim {D}")
 
 
+def tuning_shape(dqk: int, dv: int, Hq: int, Hkv: int,
+                 causal: bool) -> dict:
+    """The cache key's shape of a bf16 call: the build (Dqk, Dv), the
+    heads and the mask (the window stays out: one layer stack's local and
+    global layers share a key)."""
+    return {"dqk": dqk, "dv": dv, "hq": Hq, "hkv": Hkv,
+            "causal": int(causal)}
+
+
+@lru_cache(maxsize=None)
+def resolve_key_tile(dqk: int, dv: int, Hq: int, Hkv: int,
+                     causal: bool) -> int:
+    """The bf16 (Dqk, Dv) build's key tile at these heads: the cache's
+    winner, else ``DEFAULT_KEY_TILE``.  Resolved once a process per shape
+    (under the mode and cache in force at its first call), so an eager
+    call pays for the lookup once."""
+    return tuned_block_sizes(
+        "flash", tuning_shape(dqk, dv, Hq, Hkv, causal),
+        defaults={"key_tile": _k.DEFAULT_KEY_TILE[(dqk, dv)]})["key_tile"]
+
+
+def check_key_tile(dqk: int, dv: int, key_tile: int) -> None:
+    if key_tile not in _k.KEY_TILES[(dqk, dv)]:
+        raise ValueError(f"key tile {key_tile} not among the ({dqk}, {dv}) "
+                         f"build's {_k.KEY_TILES[(dqk, dv)]}")
+
+
 def _f32_dim(dqk: int, dv: int):
     """The fp32 build's head dim for (dqk, dv): the least that holds both
     (the fp32 body takes one head dim for q/k and v), or None."""
@@ -99,7 +136,7 @@ def _f32_dim(dqk: int, dv: int):
 
 def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0,
                          scale: float | None = None, q_off=0,
-                         kv_valid_len=None):
+                         kv_valid_len=None, key_tile: int | None = None):
     """q: (B,Sq,Hq,D); k: (B,Skv,Hkv,D); v: (B,Skv,Hkv,Dv), the model
     layout.  Whole prefill (``kv_valid_len`` None): Skv = Sq, query and
     key i sit at position i.  Chunk form (``kv_valid_len`` (B,) given):
@@ -110,7 +147,8 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0,
     fp32) gives its rows the whole prefill's bits.  ``window`` (int) > 0
     admits keys less than ``window`` positions back.  ``scale`` multiplies
     the scores (default 1/sqrt(D); MLA's prefill passes 1/sqrt(nd + rd)).
-    Returns (B,Sq,Hq,Dv) in q's dtype."""
+    ``key_tile`` forces a bf16 call's key tile (default:
+    ``resolve_key_tile``'s).  Returns (B,Sq,Hq,Dv) in q's dtype."""
     chunk = kv_valid_len is not None
     if not chunk and not (isinstance(q_off, int) and q_off == 0):
         raise ValueError("a query offset needs kv_valid_len (the chunk form)")
@@ -122,13 +160,14 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0,
         q_off = _row_ints(q_off, B, q.device, "q_off")
         kv_valid_len = _row_ints(kv_valid_len, B, q.device, "kv_valid_len")
     elif torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttention.apply(q, k, v, causal, window, scale)
+        return FlashAttention.apply(q, k, v, causal, window, scale, key_tile)
     return _forward(q, k, v, causal=causal, window=window, scale=scale,
-                    q_off=q_off, kv_valid_len=kv_valid_len)
+                    q_off=q_off, kv_valid_len=kv_valid_len,
+                    key_tile=key_tile)
 
 
 def _forward(q, k, v, *, causal: bool, window: int, scale, q_off=0,
-             kv_valid_len=None):
+             kv_valid_len=None, key_tile: int | None = None):
     """The plain version on the CPU, the kernel on CUDA (validated, counted);
     operands already checked by the wrapper."""
     global launches, chunk_launches
@@ -150,9 +189,15 @@ def _forward(q, k, v, *, causal: bool, window: int, scale, q_off=0,
         # output is sliced back; bf16 runs the (dqk, dv) build unpadded
         D = _f32_dim(dqk, dv)
         q, k, v = (F.pad(t, (0, D - t.shape[-1])) for t in (q, k, v))
+    if q.dtype == torch.bfloat16:
+        if key_tile is None:
+            key_tile = resolve_key_tile(dqk, dv, q.shape[2], k.shape[2],
+                                        causal)
+        check_key_tile(dqk, dv, key_tile)
     out = q.new_empty((*q.shape[:3], v.shape[-1]))
     rc = _k.launch(q, k, v, out, causal=causal, window=window, scale=scale,
-                   q_off=q_off if chunk else None, kv_valid_len=kv_valid_len)
+                   q_off=q_off if chunk else None, kv_valid_len=kv_valid_len,
+                   key_tile=key_tile or 0)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
     launches += 1
@@ -163,12 +208,14 @@ def _forward(q, k, v, *, causal: bool, window: int, scale, q_off=0,
 class FlashAttention(torch.autograd.Function):
     """K3's whole prefill with a gradient: the forward launches the kernel
     (the plain version on the CPU), the backward recomputes the plain
-    version on the saved q/k/v and differentiates it."""
+    version on the saved q/k/v and differentiates it.  The forward runs
+    the key tile a call without autograd resolves."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int, scale):
+    def forward(ctx, q, k, v, causal: bool, window: int, scale, key_tile):
         global grad_launches
-        out = _forward(q, k, v, causal=causal, window=window, scale=scale)
+        out = _forward(q, k, v, causal=causal, window=window, scale=scale,
+                       key_tile=key_tile)
         grad_launches += q.device.type == "cuda"
         ctx.save_for_backward(q, k, v)
         ctx.attrs = (causal, window, scale)
@@ -185,4 +232,4 @@ class FlashAttention(torch.autograd.Function):
                                            window=window, scale=scale)
             grads = iter(torch.autograd.grad(out, wanted, grad_out))
         return (*(next(grads) if t.requires_grad else None for t in saved),
-                None, None, None)
+                None, None, None, None)

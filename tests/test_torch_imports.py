@@ -1,8 +1,8 @@
 """Boundaries of the PyTorch port.
 
-* ``src/repro_torch`` (and ``chip_smoke.py`` and the port's example)
-  imports neither JAX nor anything of the JAX package ``repro`` (it
-  keeps its own copies of the JAX-free modules);
+* ``src/repro_torch`` (and ``chip_smoke.py`` and the port's examples,
+  ``examples/torch_*.py``) imports neither JAX nor anything of the JAX
+  package ``repro`` (it keeps its own copies of the JAX-free modules);
 * its entry points (serving, and training's: EAGLE's params, the train
   launcher) run on CUDA by default and raise where CUDA is missing,
   unless the caller passes ``device="cpu"``: they never slip onto the
@@ -44,7 +44,7 @@ def _imported_modules(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "examples" / "torch_train_hydra_pp.py"],
+    REPO / "chip_smoke.py"] + sorted((REPO / "examples").glob("torch_*.py")),
     ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_and_no_repro_imports(path):
     bad = [m for m in _imported_modules(path)
@@ -91,6 +91,32 @@ def test_training_entry_points_refuse_the_cpu_without_asking(monkeypatch,
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def test_tuning_and_example_entry_points_refuse_the_cpu_without_asking(
+        monkeypatch, tmp_path):
+    """The autotuner's sweep and the examples' substrate
+    (``training/tiny.py``) hold the same rule; ``check`` only reads a
+    file and runs anywhere."""
+    from repro_torch.kernels import autotune
+    from repro_torch.training import tiny
+
+    monkeypatch.setattr(tiny, "CKPT_DIR", str(tmp_path / "ckpt"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: autotune.main(["sweep", "--out", str(tmp_path / "a.json")]),
+        lambda: autotune.sweep_entry("flash", {
+            "dqk": 64, "dv": 64, "hq": 4, "hkv": 2, "causal": 1}),
+        lambda: tiny.base_setup(),
+        lambda: tiny.draft_setup("hydra"),
+        lambda: tiny.eval_prompts(1),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert not (tmp_path / "ckpt").exists()
+    assert not (tmp_path / "a.json").exists()
+    assert autotune.main(["check"]) == 0
 
 
 def test_rwkv6_entry_points_refuse_the_cpu_without_asking(monkeypatch):
