@@ -359,7 +359,31 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    rows; the three engines' greedy streams equal in each mode) and
    ``examples/torch_tree_search.py`` (tok/s per tree and the chosen
    size, the checkpoints restored, not retrained);
-7. a JSON line with each kernel's numbers (the launches of phases 5e-5h
+7. the dry run against the card (``repro_torch/launch/{dryrun,specs,
+   op_cost,roofline}.py``): (a) started once phase 2 has built the
+   kernels, in a process group of its own with no card visible, ``python
+   -m repro_torch.launch.dryrun --all --host --jobs 4`` counts one step of
+   each of the ten archs at each of the four input shapes on ``meta``
+   beside phases 3-5h; here every pair must be ``ok``, or ``skip`` with
+   JAX's reason, none ``error``, one line a pair (flops by dtype, bytes,
+   argument and peak live GiB, the compute and memory terms, the
+   bottleneck), and the sweep's own time and the wait for it printed;
+   (b) for phase 6's models (minitron-4b, gemma3-1b, rwkv6-1.6b, and
+   deepseek-v2-lite-16b at its 2 layers), weights drawn on the card: the
+   bytes the specs give for params, draft params and the decode state
+   (B=4, the workload's max_len) equal what the port allocates, exactly,
+   and the counter's peak live bytes of one eager paged decode step (and
+   minitron-4b's dense one) within 10% of the card's
+   ``max_memory_allocated`` growth over it; (c) the counter's roofline
+   ``t_roof = max(compute, bytes / HBM)`` of the same step on ``meta``
+   against its device time on the card (traced device busy of the
+   captured paged step from 4 joined prompts, a replay; of the eager
+   dense-cache step ``launch/specs.py::make_serve_step`` at minitron-4b;
+   of the eager prefill ``make_prefill_step`` of 1536 tokens at gemma3-1b
+   and rwkv6-1.6b): ``0 < t_roof / t_meas <= 1.05``, and each kernel
+   call's charge equal to the bound phase 3's function gives for its
+   shape at that capacity;
+8. a JSON line with each kernel's numbers (the launches of phases 5e-5h
    added to K3's, K2's and K6's entries, with ``grad_launches``, those
    under autograd, and ``launches_5g``, K3's in 5g by build) (K3's chunk form as its own
    entry, ``flash_attention_chunk``; K1 and K2 at each model past 64 rows
@@ -391,9 +415,6 @@ SRC = Path(__file__).resolve().parent / "src"
 # the card's name and power limit, as nvidia-smi gives them (set by main)
 CARD = ""
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 TOLS = (("float32", 1e-4), ("bfloat16", 2e-2))
 POISONS = (0.0, 1e4, -1e4, math.nan, math.inf)
 
@@ -452,14 +473,6 @@ def cycle(sets):
     """A function returning the operand sets in turn."""
     it = iter(range(10 ** 9))
     return lambda: sets[next(it) % len(sets)]
-
-
-def bound(nbytes: float, flops: float, dtype_name: str) -> tuple:
-    """(least ms, "bytes" or "operations"): the larger of the bytes over
-    the HBM rate and the operations over the type's peak rate."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # each kernel template's parameter names, in order, as the lines of
@@ -687,8 +700,10 @@ def paged_bound(c: PagedCase, T: int, dtype_name: str, table,
     (below cache_len, in a real block and, with a window, within reach of
     the root row at cache_len), each read once (``reads`` times: once per
     row group, what the kernel does past 64 rows), plus q, tree K/V and
-    the output, against the operations on those keys."""
-    elt = 2 if dtype_name != "float32" else 4
+    the output, against the operations on those keys
+    (``op_cost.paged_charge``)."""
+    from repro_torch.launch.op_cost import bound_ms, paged_charge
+
     tbl = table.cpu()
     keys = []
     for b, n in enumerate(c.lens):
@@ -696,11 +711,8 @@ def paged_bound(c: PagedCase, T: int, dtype_name: str, table,
         keys.append(sum(1 for p in range(lo, n)
                         if int(tbl[b, p // c.bs]) != 0))
     B = len(c.lens)
-    kv_bytes = sum(keys) * c.hkv * c.d * 2 * elt * reads
-    io_bytes = (2 * B * T * c.hq * c.d + 2 * B * T * c.hkv * c.d) * elt
-    small = B * c.m * 4 + B * 4 + T * T + (B * T * 4 if window else 0)
-    flops = sum(4 * c.hq * T * c.d * (k + T) for k in keys)
-    return bound(kv_bytes + io_bytes + small, flops, dtype_name)
+    return bound_ms(paged_charge(B, T, c.hq, c.hkv, c.d, dtype_name, keys,
+                                 B * c.m, window, reads))
 
 
 def paged_sdpa_args(c: PagedCase, args, q_pos=None, window: int = 0):
@@ -927,16 +939,6 @@ def check_splits() -> None:
 K3_HEADS = {"gemma3-1b": (4, 1, 256), "minitron-4b": (24, 8, 128)}
 
 
-def _k3_pairs(S: int, window: int, causal: bool = True) -> int:
-    """Admitted (query, key) pairs of an S x S run (causal, or both ways
-    without a window)."""
-    if not causal:
-        return S * S
-    if window <= 0:
-        return S * (S + 1) // 2
-    return sum(min(i + 1, window) for i in range(S))
-
-
 def check_k3(heads: dict = K3_HEADS, windows=(WINDOW, 0)) -> dict:
     """K3 against its plain version at each of ``heads`` ({model: (Hq,
     Hkv, D)}), S in {37, 300, 1536}, each of ``windows``; timed at S=1536
@@ -976,6 +978,17 @@ def check_k3(heads: dict = K3_HEADS, windows=(WINDOW, 0)) -> dict:
     return record
 
 
+def k3_bound(B: int, S: int, hq: int, hkv: int, dqk: int, dv: int,
+             dtype_name: str, window: int, causal: bool) -> tuple:
+    """Least time for one whole-prefill K3 call: q, k, v and the output,
+    each once, against the admitted (query, key) pairs
+    (``op_cost.flash_charge``)."""
+    from repro_torch.launch.op_cost import bound_ms, flash_charge, k3_pairs
+
+    return bound_ms(flash_charge(B, S, S, hq, hkv, dqk, dv, dtype_name,
+                                 k3_pairs(S, window, causal)))
+
+
 def _time_k3(q, k, v, w: int, dtype_name: str, causal: bool = True) -> dict:
     import torch
     import torch.nn.functional as F
@@ -1001,10 +1014,7 @@ def _time_k3(q, k, v, w: int, dtype_name: str, causal: bool = True) -> dict:
         lib = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True)
     lib_ms = device_ms(lib)
-    elt = 2 if dtype_name != "float32" else 4
-    nbytes = (2 * B * S * hq * d + 2 * B * S * hkv * d) * elt
-    flops = 4 * d * hq * B * _k3_pairs(S, w, causal)
-    bound_ms, bound_by = bound(nbytes, flops, dtype_name)
+    bound_ms, bound_by = k3_bound(B, S, hq, hkv, d, d, dtype_name, w, causal)
     return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
 
@@ -1022,16 +1032,6 @@ K3_CHUNK_CASES = (("gemma3-1b", 4, 1, 256, 256, WINDOW),
                   ("minitron-4b", 24, 8, 128, 128, 0),
                   ("deepseek MLA", MLA_HEADS, MLA_HEADS, MLA_NOPE + MLA_ROPE,
                    MLA_V, 0))
-
-
-def _chunk_rows(q_off: int, C: int, window: int) -> tuple:
-    """(admitted (query, key) pairs, distinct keys read) of C causal rows
-    at ``q_off``, ``q_off + 1``, ... over keys 0.. ."""
-    rows = range(q_off, q_off + C)
-    if window <= 0:
-        return sum(i + 1 for i in rows), q_off + C
-    return (sum(min(i + 1, window) for i in rows),
-            q_off + C - max(0, q_off - window + 1))
 
 
 def check_k3_chunk(cases=K3_CHUNK_CASES, offsets=K3_CHUNK_OFFSETS) -> dict:
@@ -1119,6 +1119,7 @@ def _time_k3_chunk(qc, k, v, q_off: int, kvl, w: int, scale: float,
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_plain)
+    from repro_torch.launch import op_cost
 
     C, hq, dk = qc.shape[1:]
     S, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
@@ -1135,10 +1136,9 @@ def _time_k3_chunk(qc, k, v, q_off: int, kvl, w: int, scale: float,
         mask &= i - j < w
     lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=hq != hkv))
-    elt = 2 if dtype_name != "float32" else 4
-    pairs, keys = _chunk_rows(q_off, C, w)
-    nbytes = (C * hq * (dk + dv) + keys * hkv * (dk + dv)) * elt
-    bound_ms, bound_by = bound(nbytes, 2 * (dk + dv) * hq * pairs, dtype_name)
+    pairs, keys = op_cost.chunk_rows(q_off, C, w)
+    bound_ms, bound_by = op_cost.bound_ms(op_cost.flash_charge(
+        1, C, keys, hq, hkv, dk, dv, dtype_name, pairs))
     return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
@@ -1182,10 +1182,8 @@ def check_k3_mla(S: int = 1536) -> dict:
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, scale=MLA_SCALE))
-        elt = 2 if dtype_name != "float32" else 4
-        nbytes = S * H * (2 * dk + 2 * dv) * elt
-        flops = 2 * (dk + dv) * H * _k3_pairs(S, 0)
-        bound_ms, bound_by = bound(nbytes, flops, dtype_name)
+        bound_ms, bound_by = k3_bound(1, S, H, H, dk, dv, dtype_name, 0,
+                                      True)
         rec = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                    bound_by=bound_by)
@@ -1242,17 +1240,16 @@ def mla_bound(c: PagedCase, T: int, dtype_name: str, table) -> tuple:
     """Least time for one K5 call: the cache positions this run's data
     needs (below cache_len, in a real block), each read once, plus q, the
     tree latents and the output, against (r + rd) + r multiply-adds per
-    admitted (head, row, key), the T tree keys included."""
-    elt = 2 if dtype_name != "float32" else 4
+    admitted (head, row, key), the T tree keys included
+    (``op_cost.mla_charge``)."""
+    from repro_torch.launch.op_cost import bound_ms, mla_charge
+
     tbl = table.cpu()
     keys = [sum(1 for p in range(n) if int(tbl[b, p // c.bs]) != 0)
             for b, n in enumerate(c.lens)]
-    B, dk = len(c.lens), MLA_LAT + MLA_ROPE
-    nbytes = (sum(keys) * dk * elt + B * T * c.hq * dk * 4
-              + B * T * dk * elt + B * T * c.hq * MLA_LAT * 4
-              + B * c.m * 4 + B * 4 + T * T)
-    flops = sum(2 * c.hq * T * (k + T) * (dk + MLA_LAT) for k in keys)
-    return bound(nbytes, flops, dtype_name)
+    B = len(c.lens)
+    return bound_ms(mla_charge(B, T, c.hq, MLA_LAT, MLA_ROPE, dtype_name,
+                               keys, B * c.m))
 
 
 def mla_sdpa_args(c: PagedCase, args):
@@ -1367,49 +1364,16 @@ def k6_inputs(S: int, dtype, seed: int, *, init: bool, strong: bool = False,
             r(K6_HEADS, K6_DIM) * 0.1, s0)
 
 
-def k6_flops(S: int, c: int) -> int:
-    """fp32 operations of one K6 call at B=1 in the pairwise chunked form
-    with chunk ``c`` (c = 1 is the sequential recurrence), per head: the
-    state read-out r S and the state update k v^T at 2 per multiply-add
-    (4 dk dv a token), the state's decay once a chunk (dk dv), the strict
-    lower pairs of each chunk at 5 per channel (difference, exponential,
-    two products, sum) plus 2 per column of A v, and per token the decay's
-    exponential and the u-bonus (4 dk + 2 dv)."""
-    d = K6_DIM
-    full, rest = divmod(S, c)
-    pairs = full * c * (c - 1) // 2 + rest * (rest - 1) // 2
-    per_head = (4 * S * d * d + -(-S // c) * d * d + pairs * (5 * d + 2 * d)
-                + S * (4 * d + 2 * d))
-    return K6_HEADS * per_head
-
-
-# the H100's special-function units: 16 a clock per SM (Hopper white
-# paper: 4 per SM sub-partition), 132 SMs, 1.98 GHz boost clock
-SFU_PER_S = 16 * 132 * 1.98e9
-
-
 def k6_bound(S: int, elt: int) -> tuple:
-    """Least time for one K6 call at B=1: r, k, v read and o written in
-    their type, the log-decay, both states and u in fp32, each once.
+    """Least time for one K6 call at B=1 (``op_cost.k6_charge``): r, k,
+    v read and o written in their type, the log-decay, both states and u
+    in fp32, each once; against the least fp32 operations over the exact
+    chunked forms (fp32), or the larger of the exponentials on the SFUs
+    and the state products on the tensor cores (bf16)."""
+    from repro_torch.launch.op_cost import bound_ms, k6_charge
 
-    fp32 (the CUDA-core build): against the least fp32 operations over
-    the exact forms, the chunked form at every chunk length 1..64
-    (``k6_flops``; least at chunk 4), on the CUDA cores' fp32 peak.
-    bf16: the kernel runs its products on the tensor cores, so the
-    least time for its operations is the larger of the exponentials the
-    function needs on the SFUs (one per token and channel: every decay
-    factor is a product of exp(w)) and its least products (the state
-    read-out and update, 4 dk dv a token) at the tensor cores' rate."""
-    H, d = K6_HEADS, K6_DIM
-    nbytes = (4 * S * H * d * elt + S * H * d * 4 + 2 * H * d * d * 4
-              + H * d * 4)
-    if elt == 4:
-        return bound(nbytes, min(k6_flops(S, c) for c in range(1, 65)),
-                     "float32")
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(S * H * d / SFU_PER_S,
-                4 * S * H * d * d / PEAK_FLOPS["bfloat16"]) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound_ms(k6_charge(1, S, K6_HEADS, K6_DIM,
+                              "float32" if elt == 4 else "bfloat16"))
 
 
 def check_k6() -> dict:
@@ -1548,13 +1512,12 @@ def dense_bound(c: DenseCase, T: int, dtype_name: str,
                 reads: int = 1) -> tuple:
     """Least time for one K2 call: each slot's keys below cache_len read
     once (``reads`` times: once per row group), plus q, the tree K/V and
-    the output, against the operations on those keys and the tree."""
-    elt = 2 if dtype_name != "float32" else 4
-    B = len(c.lens)
-    kv_bytes = sum(c.lens) * c.hkv * c.d * 2 * elt * reads
-    io_bytes = (2 * B * T * c.hq * c.d + 2 * B * T * c.hkv * c.d) * elt
-    flops = sum(4 * c.hq * T * c.d * (n + T) for n in c.lens)
-    return bound(kv_bytes + io_bytes + B * 4 + T * T, flops, dtype_name)
+    the output, against the operations on those keys and the tree
+    (``op_cost.dense_charge``)."""
+    from repro_torch.launch.op_cost import bound_ms, dense_charge
+
+    return bound_ms(dense_charge(len(c.lens), T, c.hq, c.hkv, c.d,
+                                 dtype_name, c.lens, reads))
 
 
 def dense_sdpa_args(c: DenseCase, args):
@@ -2660,7 +2623,10 @@ def _add(total: dict, counts: dict) -> None:
 
 
 def _nbytes(tree) -> int:
-    """The bytes of every tensor of a nested dict/list of params."""
+    """The bytes of every tensor of a nested dict/list/tuple (None
+    holds none)."""
+    if tree is None:
+        return 0
     if isinstance(tree, dict):
         return sum(_nbytes(v) for v in tree.values())
     if isinstance(tree, (list, tuple)):
@@ -3151,6 +3117,26 @@ def _clone(x):
     return x
 
 
+def joined_paged_state(wl: Workload, cfg, params, dp) -> tuple:
+    """(paged pool state, host block table): phase 5's first 4 prompts of
+    ``wl`` joined into a pool of ``SERVE_BATCH`` slots of ``wl.max_len``
+    positions in blocks of ``BLOCK``, each slot owning its own blocks."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.paged import init_paged_state, paged_join_slot
+
+    B, M = SERVE_BATCH, wl.max_len // BLOCK
+    table = (1 + np.arange(B * M, dtype=np.int32)).reshape(B, M)
+    state = init_paged_state(params, dp, cfg, B, 1 + B * M, BLOCK, "cuda")
+    for si, r in enumerate(workload_requests(wl, cfg)[:B]):
+        n = len(r.prompt)
+        prompt = torch.zeros(-(-n // 32) * 32, dtype=torch.long)
+        prompt[:n] = torch.from_numpy(r.prompt)
+        paged_join_slot(params, dp, cfg, state, prompt.cuda(), n, si,
+                        torch.as_tensor(table[si], device="cuda"))
+    return state, table
+
+
 def check_replay_step(wl: Workload, cfg, params, dp, steps: int = 3,
                       sampling: dict = None) -> None:
     """One captured step replayed against the eager step from the same
@@ -3166,21 +3152,12 @@ def check_replay_step(wl: Workload, cfg, params, dp, steps: int = 3,
     import torch
     from repro_torch.configs import tree_for
     from repro_torch.serving.graph import CapturedStep, step_in_place
-    from repro_torch.serving.paged import (init_paged_state,
-                                           paged_autoregressive_step,
-                                           paged_join_slot,
+    from repro_torch.serving.paged import (paged_autoregressive_step,
                                            paged_spec_decode_step)
 
     tree = tree_for(cfg)
-    B, M = SERVE_BATCH, wl.max_len // BLOCK
-    table = (1 + np.arange(B * M, dtype=np.int32)).reshape(B, M)
-    state = init_paged_state(params, dp, cfg, B, 1 + B * M, BLOCK, "cuda")
-    for si, r in enumerate(workload_requests(wl, cfg)[:B]):
-        n = len(r.prompt)
-        prompt = torch.zeros(-(-n // 32) * 32, dtype=torch.long)
-        prompt[:n] = torch.from_numpy(r.prompt)
-        paged_join_slot(params, dp, cfg, state, prompt.cuda(), n, si,
-                        torch.as_tensor(table[si], device="cuda"))
+    state, table = joined_paged_state(wl, cfg, params, dp)
+    B = SERVE_BATCH
     eager = _clone(state)
     sampling = dict(sampling or {})
     spec = sampling.pop("use_speculative", True)
@@ -3273,25 +3250,35 @@ def serve_once(eng, wl: Workload, cfg, source: bool = False) -> dict:
             "outs": [list(r.output) for r in reqs]}
 
 
-def traced_busy(eng, wl: Workload, cfg) -> tuple:
-    """One serve under ``torch.profiler``: (device busy seconds, the
-    traced serve's numbers).  One stream, so kernel and copy durations
-    add up to the busy time.  The durations are summed over the raw
-    trace (``kineto_results``): building the profiler's Python event
-    tree over a serve of captured steps (thousands of kernels a replay)
-    and eager prefills takes minutes."""
+def device_busy_s(fn, n: int) -> float:
+    """Device busy seconds of one ``fn()``: kernel and copy durations of
+    ``n`` calls under ``torch.profiler``, over ``n`` (one stream, so they
+    add up to the busy time).  The durations are summed over the raw
+    trace (``kineto_results``): building the profiler's Python event tree
+    over a serve of captured steps (thousands of kernels a replay) and
+    eager prefills takes minutes."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run = serve_once(eng, wl, cfg)
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
     busy_ns = sum(e.duration_ns()
                   for e in prof.profiler.kineto_results.events()
                   if e.device_type() == DeviceType.CUDA)
-    return busy_ns / 1e9, run
+    return busy_ns / 1e9 / n
+
+
+def traced_busy(eng, wl: Workload, cfg) -> tuple:
+    """One serve under ``torch.profiler`` (``device_busy_s``): (device
+    busy seconds, the traced serve's numbers)."""
+    runs = []
+    busy = device_busy_s(lambda: runs.append(serve_once(eng, wl, cfg)), 1)
+    return busy, runs[0]
 
 
 def serve_modes(wl: Workload, cfg, params, dp, per_step: dict,
@@ -4614,6 +4601,356 @@ def eagle_full_width() -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the dry run against the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_OUT = SRC.parent / "build" / "dryrun_torch"
+DRYRUN_JOBS = 4                   # the sweep's processes, beside the card's
+# phase 7(b)-(c): phase 6's models, deepseek-v2-lite-16b at phase 6's depth
+DRYRUN_MODELS = (("minitron-4b", None), ("gemma3-1b", None),
+                 ("rwkv6-1.6b", None), ("deepseek-v2-lite-16b", 2))
+PEAK_LIVE_TOL = 0.10              # counted peak live vs the card's growth
+SHARE_MAX = 1.05                  # t_roof / t_meas above it: a count is wrong
+DRYRUN_PREFILL_S = 1536
+TRACED_STEPS = 5
+
+
+def start_dryrun_sweep() -> tuple:
+    """Phase 7(a), started once the kernels are built: ``python -m
+    repro_torch.launch.dryrun --all --host`` in a process group of its own,
+    with no card visible (every step runs on ``meta``), beside the phases
+    on the card; (process, start time, log path)."""
+    DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
+    for f in DRYRUN_OUT.glob("*.json"):
+        f.unlink()
+    log_path = DRYRUN_OUT / "sweep.log"
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--host", "--jobs", str(DRYRUN_JOBS), "--out-dir",
+             str(DRYRUN_OUT)], stdout=out, stderr=subprocess.STDOUT,
+            env=env, start_new_session=True)
+    return proc, time.perf_counter(), log_path
+
+
+def stop_process_group(proc) -> None:
+    """Kill ``proc``'s process group (the sweep and its pool) if alive."""
+    import signal
+
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+    proc.wait()
+
+
+def finish_dryrun_sweep(proc, t0: float, log_path) -> dict:
+    """Phase 7(a): wait for the sweep; every (arch, shape) pair of the ten
+    archs and four shapes must be ``ok``, or ``skip`` with the reason
+    ``launch/specs.py::skip_reason`` gives (JAX's, held equal by
+    ``tests/test_torch_dryrun.py``), none ``error``; one line a pair."""
+    from repro_torch.configs import INPUT_SHAPES, get_config, list_configs
+    from repro_torch.launch.dryrun import line
+    from repro_torch.launch.specs import skip_reason
+
+    t_wait = time.perf_counter()
+    rc = proc.wait(timeout=900)
+    waited = time.perf_counter() - t_wait
+    text = log_path.read_text()
+    done = [ln for ln in text.splitlines() if ln.startswith("[dryrun] done")]
+    if rc != 0 or not done:
+        raise AssertionError(f"the dry-run sweep exited {rc}: "
+                             f"{text[-3000:]}")
+    n = {"ok": 0, "skip": 0}
+    for arch in (a for a in list_configs() if a != "vicuna-tiny"):
+        for shape in INPUT_SHAPES:
+            path = DRYRUN_OUT / f"{arch}__{shape}__host1x1.json"
+            rec = json.loads(path.read_text())
+            log("[7a] " + line(rec).removeprefix("[dryrun] "))
+            reason = skip_reason(get_config(arch), shape)
+            want = "skip" if reason else "ok"
+            if rec["status"] != want or rec.get("reason") != reason:
+                why = rec.get("reason") or rec.get("error")
+                raise AssertionError(f"{arch} x {shape}: {rec['status']} "
+                                     f"({why}), expected {want}")
+            n[want] += 1
+    log(f"[7a] the dry run of 10 archs x 4 shapes on the host mesh, on "
+        f"meta beside phases 3-5h ({DRYRUN_JOBS} processes): {n['ok']} ok, "
+        f"{n['skip']} skip, 0 error; {done[-1].split(' in ')[-1]} of its "
+        f"own, started {t_wait - t0:.0f}s before phase 7 waited "
+        f"{waited:.1f}s for it")
+    return n
+
+
+def count_on_meta(fn):
+    """The op counter over ``fn()`` on meta operands (once uncounted
+    first: the tree's index arrays are made once a process)."""
+    from repro_torch.launch.op_cost import OpCounter
+
+    fn()
+    with OpCounter() as oc:
+        fn()
+    return oc
+
+
+def check_argument_bytes(cfg, params, dp, max_len: int) -> None:
+    """Phase 7(b): the bytes the specs give on the host mesh for params,
+    draft params and the decode state at (``SERVE_BATCH``, ``max_len``)
+    equal those the port allocates on the card (the engines' own
+    allocations: ``init_params``, ``init_draft_params``, the continuous
+    engine's ``init_pool_state``), exactly."""
+    from repro_torch.core.speculative import init_pool_state
+    from repro_torch.distributed.sharding import (params_shardings,
+                                                  sharded_bytes)
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_host_mesh
+
+    host, B = make_host_mesh(), SERVE_BATCH
+    ps, ds = specs.param_structs(cfg), specs.draft_param_structs(cfg)
+    st = specs.decode_state_structs(cfg, B, max_len, "prefix" in ds)
+    hd = cfg.resolved_head_dim
+    spec_bytes = {
+        "params": sharded_bytes(ps, params_shardings(ps, host, head_dim=hd),
+                                host),
+        "draft params": sharded_bytes(
+            ds, params_shardings(ds, host, head_dim=hd), host),
+        "decode state": sharded_bytes(
+            st, specs.decode_state_shardings(cfg, host, st, B), host)}
+    state = init_pool_state(params, dp, cfg, B, max_len, "cuda")
+    real = {"params": _nbytes(params), "draft params": _nbytes(dp),
+            "decode state": _nbytes(state)}
+    del state
+    if spec_bytes != real:
+        raise AssertionError(f"{cfg.name}: argument bytes from the specs "
+                             f"{spec_bytes} != allocated {real}")
+    log(f"[7b] {cfg.name}: argument bytes from the specs equal the card's "
+        f"allocations: " + ", ".join(f"{k} {v}" for k, v in real.items()))
+
+
+def check_charges(oc, what: str) -> int:
+    """Phase 7(c): each kernel call the counter charged equals the bound
+    phase 3's function gives for the same shape at the same capacity."""
+    import torch
+    from repro_torch.launch.op_cost import bound_ms
+
+    for name, c, shape in oc.kernels:
+        B, T, dt = shape.get("B"), shape.get("T"), shape["dtype"]
+        if name in ("tree_attention_paged", "tree_attention_paged_windowed",
+                    "mla_attention_paged"):
+            M, bs = shape["table_entries"] // B, shape["block_size"]
+            table = torch.arange(1, 1 + B * M, dtype=torch.int32).reshape(B, M)
+            if name == "mla_attention_paged":
+                pc = PagedCase(shape["H"], 1, shape["r"] + shape["rd"],
+                               (M * bs,) * B, (), M, bs)
+                want = mla_bound(pc, T, dt, table)
+            else:
+                pc = PagedCase(shape["Hq"], shape["Hkv"], shape["D"],
+                               (M * bs,) * B, (), M, bs)
+                want = paged_bound(pc, T, dt, table, shape["window"])
+        elif name == "tree_attention_dense":
+            want = dense_bound(DenseCase(shape["Hq"], shape["Hkv"],
+                                         shape["D"], tuple(shape["keys"]),
+                                         shape["keys"][0]), T, dt)
+        elif name == "flash_attention" and not shape["chunk"]:
+            want = k3_bound(B, shape["Sq"], shape["Hq"], shape["Hkv"],
+                            shape["dqk"], shape["dv"], dt, shape["window"],
+                            shape["causal"])
+        elif name == "linear_attn_chunk" and (
+                B, shape["H"], shape["d"]) == (1, K6_HEADS, K6_DIM):
+            want = k6_bound(shape["S"], 4 if dt == "float32" else 2)
+        else:
+            raise AssertionError(f"{what}: no phase-3 bound for {name} "
+                                 f"{shape}")
+        if bound_ms(c) != want:
+            raise AssertionError(f"{what}: {name} {shape} charged "
+                                 f"{bound_ms(c)}, phase 3's bound {want}")
+    return len(oc.kernels)
+
+
+def roofline_case(what: str, oc, busy_s: float) -> dict:
+    """Phase 7(c): t_roof = max(compute, bytes / HBM) from the counter
+    against the card's device busy time of the same step; fails unless
+    0 < t_roof / t_meas <= ``SHARE_MAX`` or a kernel charge differs from
+    phase 3's bound."""
+    n = check_charges(oc, what)
+    share = oc.t_roof_s / busy_s
+    flops = ", ".join(f"{k} {v:.4e}" for k, v in sorted(oc.flops.items()))
+    kernels = {k: v["calls"] for k, v in oc.kernel_summary().items()}
+    log(f"[7c] {what}: counted flops {flops}, bytes {oc.bytes:.4e}; "
+        f"compute {oc.compute_s * 1e3:.4f} ms, memory "
+        f"{oc.memory_s * 1e3:.4f} ms -> t_roof {oc.t_roof_s * 1e3:.4f} ms "
+        f"({'compute' if oc.compute_s > oc.memory_s else 'memory'}); "
+        f"t_meas {busy_s * 1e3:.4f} ms (traced device busy); share "
+        f"{share:.4f}; {n} kernel charges {kernels} equal phase 3's bounds "
+        f"({CARD})")
+    if not 0 < share <= SHARE_MAX:
+        raise AssertionError(f"{what}: t_roof / t_meas = {share:.4f} is "
+                             f"outside (0, {SHARE_MAX}]")
+    return {"share": share, "t_roof_ms": oc.t_roof_s * 1e3,
+            "t_meas_ms": busy_s * 1e3}
+
+
+def check_peak_live(what: str, oc, growth: int) -> float:
+    """Phase 7(b): the counter's peak live bytes of one eager step within
+    ``PEAK_LIVE_TOL`` of the card's ``max_memory_allocated`` growth over
+    the same step."""
+    rel = abs(oc.peak_live_bytes - growth) / growth
+    log(f"[7b] {what}: peak live bytes counted on meta "
+        f"{oc.peak_live_bytes} ({oc.peak_live_bytes / 2 ** 20:.2f} MiB), "
+        f"the card's max_memory_allocated growth {growth} "
+        f"({growth / 2 ** 20:.2f} MiB): {rel:.2%} apart")
+    if rel > PEAK_LIVE_TOL:
+        raise AssertionError(f"{what}: peak live bytes {oc.peak_live_bytes} "
+                             f"vs the card's {growth}: {rel:.2%} > "
+                             f"{PEAK_LIVE_TOL:.0%}")
+    return rel
+
+
+def eager_growth(fn) -> int:
+    """Bytes ``max_memory_allocated`` grows by over one ``fn()`` (after a
+    warm-up call), its result held until measured."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    growth = torch.cuda.max_memory_allocated() - base
+    del out
+    return growth
+
+
+def dryrun_paged_decode(wl: Workload, cfg, params, dp) -> dict:
+    """Phase 7(b)-(c) on phase 6's paged decode step from 4 joined
+    prompts: peak live bytes of the eager step, then the captured step's
+    device busy per replay against the counter's roofline."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import tree_for
+    from repro_torch.launch import specs
+    from repro_torch.serving.graph import CapturedStep
+    from repro_torch.serving.paged import (init_paged_state,
+                                           paged_spec_decode_step)
+
+    tree = tree_for(cfg)
+    state, table = joined_paged_state(wl, cfg, params, dp)
+    B, M = table.shape
+    active = np.ones(B, dtype=bool)
+
+    def step(st, act, tbl):
+        return paged_spec_decode_step(params, dp, cfg, tree, st, tbl,
+                                      active=act)
+
+    growth = eager_growth(lambda: step(
+        state, torch.as_tensor(active, device="cuda"),
+        torch.as_tensor(table, device="cuda")))
+    cap = CapturedStep(step, state, B, table.shape)
+    busy = device_busy_s(lambda: cap(active, table), TRACED_STEPS)
+    del cap, state
+    mp, md = specs.param_structs(cfg), specs.draft_param_structs(cfg)
+    mstate = init_paged_state(mp, md, cfg, B, 1 + B * M, BLOCK, "meta")
+    mtable = torch.empty((B, M), dtype=torch.int32, device="meta")
+    mactive = torch.empty((B,), dtype=torch.bool, device="meta")
+    oc = count_on_meta(lambda: paged_spec_decode_step(
+        mp, md, cfg, tree, mstate, mtable, active=mactive))
+    what = (f"{cfg.name} ({cfg.n_layers} layers) paged decode step (B={B}, "
+            f"max_len {wl.max_len}, block {BLOCK}, captured)")
+    rec = roofline_case(what, oc, busy)
+    rec["peak_rel"] = check_peak_live(f"{cfg.name} eager paged decode step",
+                                      oc, growth)
+    return rec
+
+
+def dryrun_dense_decode(wl: Workload, cfg, params, dp) -> dict:
+    """Phase 7(c) on the dry run's own decode step
+    (``launch/specs.py::make_serve_step``, the dense cache, K2) from 4
+    joined prompts, eager, traced."""
+    import torch
+    from repro_torch.configs import tree_for
+    from repro_torch.core.speculative import init_pool_state, join_slot
+    from repro_torch.launch import specs
+
+    B, tree = SERVE_BATCH, tree_for(cfg)
+    state = init_pool_state(params, dp, cfg, B, wl.max_len, "cuda")
+    for si, r in enumerate(workload_requests(wl, cfg)[:B]):
+        n = len(r.prompt)
+        prompt = torch.zeros(-(-n // 32) * 32, dtype=torch.long)
+        prompt[:n] = torch.from_numpy(r.prompt)
+        state = join_slot(params, dp, cfg, state, prompt.cuda(), n, si)
+    serve = specs.make_serve_step(cfg, tree)
+    growth = eager_growth(lambda: serve(params, dp, state))
+    busy = device_busy_s(lambda: serve(params, dp, state), TRACED_STEPS)
+    del state
+    mp, md = specs.param_structs(cfg), specs.draft_param_structs(cfg)
+    mstate = specs.decode_state_structs(cfg, B, wl.max_len, "prefix" in md)
+    oc = count_on_meta(lambda: serve(mp, md, mstate))
+    rec = roofline_case(f"{cfg.name} dense-cache decode step, make_serve_step "
+                        f"(B={B}, max_len {wl.max_len}, eager)", oc, busy)
+    rec["peak_rel"] = check_peak_live(f"{cfg.name} eager dense decode step",
+                                      oc, growth)
+    return rec
+
+
+def dryrun_prefill(cfg, params) -> dict:
+    """Phase 7(c) on the dry run's prefill step (``launch/specs.py::
+    make_prefill_step``) of one prompt of ``DRYRUN_PREFILL_S`` tokens,
+    eager, traced."""
+    import torch
+    from repro_torch.launch import specs
+
+    S = DRYRUN_PREFILL_S
+    prefill = specs.make_prefill_step(cfg, S + 64)
+    g = torch.Generator(device="cuda").manual_seed(S)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, S), generator=g,
+                                     device="cuda", dtype=torch.int32)}
+    growth = eager_growth(lambda: prefill(params, batch))
+    busy = device_busy_s(lambda: prefill(params, batch), 3)
+    mp = specs.param_structs(cfg)
+    oc = count_on_meta(lambda: prefill(mp, specs.batch_structs(cfg, 1, S)))
+    rec = roofline_case(f"{cfg.name} prefill step, make_prefill_step (B=1, "
+                        f"S={S}, eager)", oc, busy)
+    rel = abs(oc.peak_live_bytes - growth) / growth
+    log(f"[7b] {cfg.name} eager prefill step (a reading): peak live bytes "
+        f"counted on meta {oc.peak_live_bytes}, the card's growth {growth}: "
+        f"{rel:.2%} apart")
+    return rec
+
+
+def dryrun_against_card() -> dict:
+    """Phase 7(b)-(c): for each of ``DRYRUN_MODELS``, from weights drawn
+    on the card, the argument bytes, the paged decode step (and, at
+    minitron-4b, the dense-cache decode step; at gemma3-1b and rwkv6-1.6b
+    the prefill) counted on meta against the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.heads import init_draft_params
+    from repro_torch.models.model import init_params
+
+    cases = {}
+    for arch, layers in DRYRUN_MODELS:
+        wl = next(w for w in WORKLOADS if w.arch == arch)
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        params = init_params(cfg, seed=0, device="cuda")
+        dp = init_draft_params(cfg, seed=1, device="cuda")
+        check_argument_bytes(cfg, params, dp, wl.max_len)
+        cases[f"{arch} paged decode"] = dryrun_paged_decode(wl, cfg, params,
+                                                            dp)
+        if arch == "minitron-4b":
+            cases[f"{arch} dense decode"] = dryrun_dense_decode(
+                wl, cfg, params, dp)
+        if arch in ("gemma3-1b", "rwkv6-1.6b"):
+            cases[f"{arch} prefill"] = dryrun_prefill(cfg, params)
+        del params, dp
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("[7] " + json.dumps({"card": CARD, "cases": cases}))
+    return cases
+
+
 def main() -> int:
     import torch
 
@@ -4701,6 +5038,18 @@ def main() -> int:
         f"without a spill; [sass] each runs HMMA")
     log(f"[time] phase 2 (builds and their checks) done at "
         f"{time.perf_counter() - t_start:.0f}s")
+    # phase 7(a) runs on the CPU beside the phases on the card
+    sweep = start_dryrun_sweep()
+    try:
+        return run_phases(t_start, sweep)
+    finally:
+        stop_process_group(sweep[0])
+
+
+def run_phases(t_start: float, sweep: tuple) -> int:
+    """Phases 3-7 and the result lines."""
+    import torch
+    from repro_torch.configs import get_config, head_preserving
 
     k1 = check_k1(MINITRON, "minitron D=128")
     check_k1(GEMMA3, "gemma3 D=256")
@@ -4793,6 +5142,13 @@ def main() -> int:
         _add(launches, phase())
         log(f"[time] phase {what}: {time.perf_counter() - t_ph:.0f}s, "
             f"done at {time.perf_counter() - t_start:.0f}s")
+
+    t_7 = time.perf_counter()
+    finish_dryrun_sweep(*sweep)
+    dryrun_against_card()
+    log(f"[time] phase 7 (the dry run against the card): "
+        f"{time.perf_counter() - t_7:.0f}s, done at "
+        f"{time.perf_counter() - t_start:.0f}s")
 
     def entry(name, source, replaces, rec, err):
         return {"name": name, "route": "cuda", "source": source,

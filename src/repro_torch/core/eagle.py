@@ -44,7 +44,7 @@ from repro_torch.core.speculative import (PAD_TOKEN, DecodeState, StepResult,
                                           _first_token, check_criterion)
 from repro_torch.core.trees import chain_tree
 from repro_torch.core.verify import greedy_verify, typical_verify
-from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.device import resolve_device, seeded_generator, torch_dtype
 from repro_torch.models.attention import AttnInputs, gqa_fwd, init_gqa
 from repro_torch.models.layers import dense_init, init_mlp, mlp_fwd, rms_norm
 from repro_torch.models.model import forward, init_cache, unembed_param
@@ -57,7 +57,7 @@ def init_eagle_params(cfg: ModelConfig, *, seed: int = 9, device="cuda"):
     dev = resolve_device(device)
     d = cfg.d_model
     dtype = torch_dtype(cfg.dtype)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = seeded_generator(dev, seed)
     zeros = lambda: torch.zeros((d,), dtype=dtype, device=dev)
     return {
         "fc": dense_init(gen, 2 * d, d, dtype, dev),

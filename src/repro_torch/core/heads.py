@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.trees import device_arrays
-from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.device import resolve_device, seeded_generator, torch_dtype
 from repro_torch.models.attention import AttnInputs, gqa_fwd, init_gqa
 from repro_torch.models.layers import dense_init, init_mlp, mlp_fwd, rms_norm
 from repro_torch.models.model import unembedding
@@ -42,7 +42,7 @@ def init_draft_params(cfg: ModelConfig, *, seed: int = 1, device="cuda"):
     dc = cfg.draft
     d, V = cfg.d_model, cfg.vocab_size
     dtype = torch_dtype(cfg.dtype)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = seeded_generator(dev, seed)
     heads = []
     for i in range(dc.n_heads):
         in_dim = d if dc.kind == "medusa" else (i + 2) * d

@@ -15,6 +15,15 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def seeded_generator(device: torch.device, seed: int):
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``; None on
+    the ``meta`` device, where an init draws nothing and only gives
+    shapes and dtypes (``torch.randn`` on ``meta`` takes no generator)."""
+    if device.type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def torch_dtype(name: str) -> torch.dtype:
     """``cfg.dtype`` ("bfloat16", "float32", ...) as a torch dtype."""
     dt = getattr(torch, name, None)

@@ -9,9 +9,11 @@ multiple of 8 as the JAX wrapper does (pad rows self-attend and sit at
 position 0; their outputs are sliced away), validates the operands with
 K1's checks, and dispatches on the device the tensors lie on: CPU tensors
 take the plain version (``ref.py``), CUDA tensors launch the kernel or
-raise.  ``launches`` counts kernel launches, and only those: one per call,
-the split cache sweep; ``merge_launches`` counts the merge launched after
-it.  The split length is K1's (the planner's unless forced).
+raise, ``meta`` tensors charge the cost counter one call (``launch/
+op_cost.py``) and return an empty output.  ``launches`` counts kernel
+launches, and only those: one per call, the split cache sweep;
+``merge_launches`` counts the merge launched after it.  The split length
+is K1's (the planner's unless forced).
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ from repro_torch.kernels.tree_attention import kernel as _k
 from repro_torch.kernels.tree_attention.ops import (check_cuda_operands,
                                                     check_operands,
                                                     check_split_len, pad_tree,
-                                                    planned_split_len)
+                                                    planned_split_len,
+                                                    record_paged_call)
 
 launches = 0                  # split-sweep launches since the last reset
 merge_launches = 0            # merge launches since the last reset
@@ -56,7 +59,7 @@ def tree_attention_paged_windowed_bshd(q, pool_k, pool_v, tree_k, tree_v,
     window = int(window)
     if q.device.type == "cpu":
         out = tree_attention_paged_windowed_plain(*args, q_pos, window)
-    elif q.device.type == "cuda":
+    elif q.device.type in ("cuda", "meta"):
         check_cuda_operands(*args)
         if q_pos.device != q.device:
             raise ValueError("q_pos must lie on the operands' device")
@@ -64,6 +67,10 @@ def tree_attention_paged_windowed_bshd(q, pool_k, pool_v, tree_k, tree_v,
             split_len = planned_split_len(q, pool_k.shape[2])
         check_split_len(split_len)
         out = torch.empty_like(q)
+        if q.device.type == "meta":
+            record_paged_call("tree_attention_paged_windowed", q, pool_k,
+                              block_table, T, split_len, window)
+            return out[:, :T]
         rc = _k.launch(*args, out, split_len=split_len,
                        q_pos=q_pos.contiguous(), window=window)
         if rc != 0:

@@ -4,7 +4,10 @@
 The wrapper validates what the kernel takes and dispatches on the device
 the tensors lie on: CPU tensors take the plain version, CUDA tensors
 launch the kernel or raise, for every length (the kernel cuts a ragged
-tail by its length; nothing is padded).  There is no fallback from one to
+tail by its length; nothing is padded), ``meta`` tensors charge the cost
+counter one call (``launch/op_cost.py``) and return an empty output
+(under autograd too; the backward is then counted as the plain version's
+ops, which is what it runs).  There is no fallback from one to
 the other.  ``launches`` counts kernel launches, and only those;
 ``chunk_launches`` counts those of them that ran the chunk form (a call
 with ``kv_valid_len``), ``grad_launches`` those made under autograd.  v
@@ -46,6 +49,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import refuse_grad, tuned_block_sizes
 from repro_torch.kernels.flash_attention import kernel as _k
+from repro_torch.launch.op_cost import (chunk_rows, dtype_name, flash_charge,
+                                        k3_pairs, record_kernel)
 
 launches = 0                  # kernel launches since the last reset
 chunk_launches = 0            # of which with a query offset / kv_valid_len
@@ -176,9 +181,12 @@ def _forward(q, k, v, *, causal: bool, window: int, scale, q_off=0,
         return _k.flash_attention_plain(q, k, v, causal=causal, window=window,
                                         scale=scale, q_off=q_off,
                                         kv_valid_len=kv_valid_len)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no flash_attention for device {q.device}")
     _check_cuda(q, k, v)
+    if q.device.type == "meta":
+        _record_meta_call(q, k, v, causal, window, chunk)
+        return q.new_empty((*q.shape[:3], v.shape[-1]))
     dqk, dv = q.shape[-1], v.shape[-1]
     if scale is None:
         scale = 1.0 / math.sqrt(dqk)
@@ -203,6 +211,22 @@ def _forward(q, k, v, *, causal: bool, window: int, scale, q_off=0,
     launches += 1
     chunk_launches += chunk
     return out[..., :dv] if out.shape[-1] != dv else out
+
+
+def _record_meta_call(q, k, v, causal: bool, window: int,
+                      chunk: bool) -> None:
+    """Charge a call on ``meta``: a whole prefill's admitted pairs, or a
+    chunk at capacity (its rows at the end of the key view)."""
+    B, Sq, Hq, dqk = q.shape
+    Skv = k.shape[1]
+    if chunk:
+        pairs, keys = chunk_rows(Skv - Sq, Sq, window)
+    else:
+        pairs, keys = k3_pairs(Sq, window, causal), Sq
+    shape = dict(B=B, Sq=Sq, keys=keys, Hq=Hq, Hkv=k.shape[2], dqk=dqk,
+                 dv=v.shape[-1], dtype=dtype_name(q.dtype), pairs=pairs)
+    record_kernel("flash_attention", flash_charge(**shape), chunk=chunk,
+                  window=window, causal=causal, **shape)
 
 
 class FlashAttention(torch.autograd.Function):

@@ -5,12 +5,14 @@ decay_attention_chunked`` adds).
 
 The wrapper validates its inputs and dispatches on the device the tensors
 lie on: CPU tensors take the plain version (``ref.py``), CUDA tensors
-launch the kernel or raise.  There is no fallback from one to the other.
-``launches`` counts kernel launches, and only those: one per call, the
-chunk-parallel pass; ``scan_launches`` counts the scan of the state that
-each call launches after it; ``grad_launches`` those calls made under
-autograd.  S need not be a
-chunk multiple: the plain version pads with k = 0, w_log = 0 (decay 1,
+launch the kernel or raise, ``meta`` tensors charge the cost counter one
+call (``launch/op_cost.py``) and return empty outputs (under autograd
+too; the backward is then counted as the plain version's ops).  There
+is no fallback from one to the other.  ``launches`` counts kernel
+launches, and only those: one per call, the chunk-parallel pass;
+``scan_launches`` counts the scan of the state that each call launches
+after it; ``grad_launches`` those calls made under autograd.  S need not
+be a chunk multiple: the plain version pads with k = 0, w_log = 0 (decay 1,
 nothing added; exact), and the kernel reads the same zeros past S.  The
 scalar decay of Mamba2 (``w_log`` of last dim 1) is not taken yet.
 
@@ -28,6 +30,7 @@ import torch
 
 from repro_torch.kernels.linear_attn_chunk import kernel as _k
 from repro_torch.kernels.linear_attn_chunk.ref import decay_attention_chunked
+from repro_torch.launch.op_cost import dtype_name, k6_charge, record_kernel
 
 launches = 0                  # chunk-kernel launches since the last reset
 scan_launches = 0             # scan launches since the last reset
@@ -96,13 +99,18 @@ def _forward(r, k, v, w_log, u, initial_state, chunk: int):
     args = (r, k, v, w_log, u, initial_state)
     if k.device.type == "cpu":
         return decay_attention_chunked(*args, chunk=chunk)
-    if k.device.type != "cuda":
+    if k.device.type not in ("cuda", "meta"):
         raise ValueError(f"no linear_attn_chunk for device {k.device}")
     check_cuda_operands(*args, chunk)
     B, S, H, dk = k.shape
     o = torch.empty_like(v)
     final_state = torch.empty((B, H, dk, v.shape[-1]), dtype=torch.float32,
                               device=k.device)
+    if k.device.type == "meta":
+        _k.scratch(B, S, H, chunk, k.device)     # as the launch allocates
+        shape = dict(B=B, S=S, H=H, d=dk, dtype=dtype_name(k.dtype))
+        record_kernel("linear_attn_chunk", k6_charge(**shape), **shape)
+        return o, final_state
     rc = _k.launch(*args, o, final_state, chunk=chunk)
     if rc != 0:
         raise RuntimeError(f"linear_attn_chunk launch failed: CUDA error {rc}")

@@ -6,12 +6,13 @@ The wrapper validates what the kernel takes and dispatches on the device
 the tensors lie on: CPU tensors take the plain version (``ref.py``), with
 the tree axis T padded to a multiple of 8 as the JAX wrapper pads it (pad
 rows self-attend; their outputs are sliced away); CUDA tensors launch the
-kernel, which takes any T up to 16 unpadded, or raise.  There is no
-fallback from one to the other.  ``launches`` counts kernel launches, and
-only those: one per call, the split cache sweep; ``merge_launches``
-counts the merge kernel each call launches after it.  The split length
-comes from ``kernels/tree_attention/split.py::plan_mla_split_len`` unless
-the caller forces one.  The JAX wrapper's window hook is not ported: no
+kernel, which takes any T up to 16 unpadded, or raise; ``meta`` tensors
+charge the cost counter one call (``launch/op_cost.py``) and return an
+empty output.  There is no fallback from one to the other.  ``launches``
+counts kernel launches, and only those: one per call, the split cache
+sweep; ``merge_launches`` counts the merge kernel each call launches
+after it.  The split length comes from ``kernels/tree_attention/
+split.py::plan_mla_split_len`` unless the caller forces one.  The JAX wrapper's window hook is not ported: no
 configuration runs windowed MLA.
 """
 from __future__ import annotations
@@ -25,6 +26,7 @@ from repro_torch.kernels.mla_attention.ref import mla_attention_paged_plain
 from repro_torch.kernels.tree_attention.ops import (T_PAD, check_split_len,
                                                     pad_tree_mask)
 from repro_torch.kernels.tree_attention.split import plan_mla_split_len
+from repro_torch.launch.op_cost import dtype_name, mla_charge, record_kernel
 
 launches = 0                  # split-sweep launches since the last reset
 merge_launches = 0            # merge launches since the last reset
@@ -119,7 +121,7 @@ def mla_attention_paged_bshd(q_lat, q_rope, pool_lat, pool_rope, tree_lat,
             q_lat, q_rope, pool_lat, pool_rope, tree_lat, tree_rope,
             tree_mask, cache_len, block_table, scale=scale)
         return out[:, :T]
-    if q_lat.device.type != "cuda":
+    if q_lat.device.type not in ("cuda", "meta"):
         raise ValueError(f"no mla_attention_paged for device "
                          f"{q_lat.device}")
     q_lat = q_lat.contiguous()
@@ -134,6 +136,17 @@ def mla_attention_paged_bshd(q_lat, q_rope, pool_lat, pool_rope, tree_lat,
     check_split_len(split_len)
     out = torch.empty((B, T, H, r), dtype=torch.float32,
                       device=q_lat.device)
+    if q_lat.device.type == "meta":
+        # at capacity, M blocks of block_size positions a slot; the
+        # merge's scratch is allocated as the launch allocates it
+        M, bs = block_table.shape[1], pool_lat.shape[1]
+        _k.scratch(B, T, H, r, M * bs, split_len, q_lat.device)
+        shape = dict(B=B, T=T, H=H, r=r, rd=q_rope.shape[-1],
+                     dtype=dtype_name(pool_lat.dtype), keys=[M * bs] * B,
+                     table_entries=B * M)
+        record_kernel("mla_attention_paged", mla_charge(**shape),
+                      block_size=bs, **shape)
+        return out
     rc = _k.launch(*args, out, scale=scale, split_len=split_len)
     if rc != 0:
         raise RuntimeError(f"mla_attention_paged launch failed: CUDA "

@@ -9,10 +9,12 @@ to a multiple of 8 as K1's does (pad rows self-attend; sliced away),
 validates the operands, and dispatches on the device the tensors lie on:
 CPU tensors take the plain version
 (``kernel.py::tree_attention_dense_plain``), CUDA tensors launch the
-kernel or raise.  ``launches`` counts kernel launches, and only those: one
-per call, the split cache sweep; ``merge_launches`` counts the merge
-launched after it.  A dense call gets the split a K1 call of the same
-shapes gets (``split.py``), whatever the two capacities.
+kernel or raise, ``meta`` tensors charge the cost counter one call
+(``launch/op_cost.py``) and return an empty output.  ``launches``
+counts kernel launches, and only those: one per call, the split cache
+sweep; ``merge_launches`` counts the merge launched after it.  A dense
+call gets the split a K1 call of the same shapes gets (``split.py``),
+whatever the two capacities.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from repro_torch.kernels.tree_attention.ops import (check_cuda_shape,
                                                     check_split_len,
                                                     pad_tree,
                                                     planned_split_len)
+from repro_torch.launch.op_cost import dense_charge, dtype_name, record_kernel
 
 launches = 0                  # split-sweep launches since the last reset
 merge_launches = 0            # merge launches since the last reset
@@ -78,12 +81,22 @@ def tree_attention_bshd(q, cache_k, cache_v, tree_k, tree_v, tree_mask,
     check_operands(*args)
     if q.device.type == "cpu":
         out = _k.tree_attention_dense_plain(*args)
-    elif q.device.type == "cuda":
+    elif q.device.type in ("cuda", "meta"):
         check_cuda_operands(*args)
         if split_len is None:
             split_len = planned_split_len(q, cache_k.shape[2])
         check_split_len(split_len)
         out = torch.empty_like(q)
+        if q.device.type == "meta":
+            # at capacity, every slot reads its whole row of S keys; the
+            # merge's scratch is allocated as the launch allocates it
+            B, S, Hkv, D = cache_k.shape
+            _k.scratch(q, Hkv, S, split_len)
+            shape = dict(B=B, T=T, Hq=q.shape[2], Hkv=Hkv, D=D,
+                         dtype=dtype_name(q.dtype), keys=[S] * B)
+            record_kernel("tree_attention_dense", dense_charge(**shape),
+                          **shape)
+            return out[:, :T]
         rc = _k.launch_dense(*args, out, split_len=split_len)
         if rc != 0:
             raise RuntimeError(f"tree_attention_dense launch failed: CUDA "

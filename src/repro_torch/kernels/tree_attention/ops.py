@@ -5,7 +5,9 @@ The wrapper pads the tree axis T (pad rows self-attend, so their softmax
 is well defined), validates what the kernel takes, and dispatches on the
 device the tensors lie on: CPU tensors take the plain version, CUDA
 tensors launch the kernel or raise.  There is no fallback from one to the
-other.  ``launches`` counts kernel launches, and only those: one per call,
+other.  ``meta`` tensors take neither: the call returns an empty output
+and charges the cost counter (``launch/op_cost.py``) one call.
+``launches`` counts kernel launches, and only those: one per call,
 the split cache sweep; ``merge_launches`` counts the merge kernel each call
 launches after it.  The split length comes from the planner
 (``split.py::plan_split_len``, through ``planned_split_len``) unless the
@@ -24,6 +26,7 @@ from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.tree_attention import kernel as _k
 from repro_torch.kernels.tree_attention.split import (plan_split_len,
                                                       row_groups)
+from repro_torch.launch.op_cost import dtype_name, paged_charge, record_kernel
 
 launches = 0                  # split-sweep launches since the last reset
 merge_launches = 0            # merge launches since the last reset
@@ -122,6 +125,23 @@ def check_split_len(split_len: int) -> None:
                          "multiple of 16")
 
 
+def record_paged_call(name: str, q, pool_k, block_table, T: int,
+                      split_len: int, window: int = 0) -> None:
+    """Charge a paged tree-verify call on ``meta`` (K1, or K4 with
+    ``window``) at the capacity its block table reaches: M blocks of
+    ``block_size`` keys a slot (at most ``window - 1`` with a window), T
+    the tree's real size; and allocate the merge's scratch the launch
+    allocates, so the counter sees it live."""
+    B, M = block_table.shape
+    _, bs, Hkv, D = pool_k.shape
+    _k.scratch(q, Hkv, M * bs, split_len)
+    cap = M * bs if window <= 0 else min(M * bs, window - 1)
+    shape = dict(B=B, T=T, Hq=q.shape[2], Hkv=Hkv, D=D,
+                 dtype=dtype_name(q.dtype), keys=[cap] * B,
+                 table_entries=B * M, window=window)
+    record_kernel(name, paged_charge(**shape), block_size=bs, **shape)
+
+
 def tree_attention_paged_bshd(q, pool_k, pool_v, tree_k, tree_v, tree_mask,
                               cache_len, block_table, *,
                               split_len: int | None = None):
@@ -139,12 +159,16 @@ def tree_attention_paged_bshd(q, pool_k, pool_v, tree_k, tree_v, tree_mask,
     check_operands(*args)
     if q.device.type == "cpu":
         out = _k.tree_attention_paged_plain(*args)
-    elif q.device.type == "cuda":
+    elif q.device.type in ("cuda", "meta"):
         check_cuda_operands(*args)
         if split_len is None:
             split_len = planned_split_len(q, pool_k.shape[2])
         check_split_len(split_len)
         out = torch.empty_like(q)
+        if q.device.type == "meta":
+            record_paged_call("tree_attention_paged", q, pool_k, block_table,
+                              T, split_len)
+            return out[:, :T]
         rc = _k.launch(*args, out, split_len=split_len)
         if rc != 0:
             raise RuntimeError(f"tree_attention_paged launch failed: CUDA "

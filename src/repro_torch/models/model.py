@@ -73,7 +73,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.device import resolve_device, seeded_generator, torch_dtype
 from repro_torch.models.attention import (AttnInputs, gqa_fwd, init_gqa,
                                           init_mla, mla_fwd)
 from repro_torch.models.layers import embed_init, init_mlp, mlp_fwd, rms_norm
@@ -243,7 +243,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     ``shared_attn`` group reads it."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = seeded_generator(dev, seed)
     params: dict = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, dev),
         "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),

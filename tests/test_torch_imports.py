@@ -7,6 +7,9 @@
   launcher) run on CUDA by default and raise where CUDA is missing,
   unless the caller passes ``device="cpu"``: they never slip onto the
   CPU;
+* the dry-run tools (``distributed/sharding.py``, ``launch/{mesh,specs,
+  op_cost,roofline,dryrun}.py``) need no card at all: they run on the
+  ``meta`` device, and ``device="meta"`` is asked for explicitly;
 * ``chip_smoke.py`` exits non-zero without a result line where CUDA is
   missing.
 """
@@ -25,7 +28,9 @@ from repro_torch.configs import get_config, tree_for  # noqa: E402
 from repro_torch.core.eagle import init_eagle_params  # noqa: E402
 from repro_torch.core.heads import init_draft_params  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
-from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.distributed import sharding  # noqa: E402
+from repro_torch.launch import (dryrun, mesh, op_cost, roofline,  # noqa: E402
+                                serve, specs, train)
 from repro_torch.models.model import init_params  # noqa: E402
 from repro_torch.serving.engine import (PagedSpeculativeEngine,  # noqa: E402
                                         SpeculativeEngine)
@@ -134,6 +139,23 @@ def test_rwkv6_entry_points_refuse_the_cpu_without_asking(monkeypatch):
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def test_dry_run_needs_no_card(monkeypatch, tmp_path, capsys):
+    """The dry run and its meta structures run with CUDA missing: every
+    tensor lies on ``meta``, nothing on the CPU or a card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("minitron-4b")
+    assert init_params(cfg, device="meta")["embed"].is_meta
+    assert init_draft_params(cfg, device="meta")["heads"][0]["w_in"].is_meta
+    spec = specs.build_step_spec(cfg, "decode_32k", mesh.make_host_mesh())
+    assert all(t.is_meta for _, t in sharding.tree_leaves_with_path(
+        spec.args))
+    dryrun.main(["--arch", "minitron-4b", "--shape", "decode_32k", "--host",
+                 "--out-dir", str(tmp_path)])
+    assert "done: 1 ok, 0 skip, 0 error" in capsys.readouterr().out
+    assert roofline.roofline_terms(1.0, 0.0)["bottleneck"] == "compute_s"
+    assert op_cost.OpCounter().peak_live_bytes == 0
 
 
 def test_entry_points_run_on_the_cpu_when_asked(tiny):
