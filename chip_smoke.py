@@ -18,10 +18,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    resolves (every key-tile instance's line is printed), K5's split
    sweep over bf16
    pools at (512, 64) and its merge, K6's bf16 chunk kernel and scan at
-   chunk 64) are each found in the report and show no spill; then fail
-   unless
+   chunk 64) and every instance of the backward kernels (K6's reverse
+   scan and gradient pass at chunks 16 and 64 in fp32 and bf16, its du
+   reduction; K3's delta, dK/dV and dQ kernels at each bf16 build and
+   fp32 head dim) are each found in the report and show no spill; then
+   fail unless
    ``cuobjdump -sass`` finds tensor-core instructions (``HMMA`` or
-   ``HGMMA``) in every bf16 build of K3, of the tree-verify split
+   ``HGMMA``) in every bf16 build of K3, of its backward's dK/dV and dQ
+   kernels, of the tree-verify split
    kernel, of K5's split sweep and of K6's two kernels (the models past
    64 query rows per kv head add no instantiation: row groups are a grid
    axis of the D=128 builds), the D = 64 ones and K3's (80, 80) among
@@ -131,6 +135,24 @@ Phases, each of which raises on failure (exit code != 0, no result line):
       the committed ``results/autotune.cuda.json`` (a missing key fails
       the run; a winner that differs from this sweep's is printed, not
       failed: timing noise);
+   m. the backward kernels (``csrc/linear_attn_chunk_bwd.cu``,
+      ``csrc/flash_attention_bwd.cu``; no TPU kernel had one) against
+      their plain versions in fp32 on the same operands
+      (``ref.py::decay_attention_chunked_bwd``, ``kernel.py::
+      flash_attention_bwd_plain``), at training's shapes: K6 at rwkv6-1.6b
+      (B=1, 32 heads, chunk 64, u; S=1024 and 500 in bf16, 500 in fp32),
+      K3 at gemma3-1b's (256, 256) 4/1 with windows 512 and 0,
+      zamba2-1.2b's (64, 64) 32/32, deepseek's (192, 128) 16/16 at MLA's
+      scale, (128, 128) 16/16, hubert's (80, 80) 16/16 bidirectional (bf16,
+      S=1024) and fp32 D=64 and 256 (S=512): every gradient within
+      relative L2 1e-4 (fp32) or 5e-3 (bf16), one off by 1% on its odd
+      channels past that bound, two identical calls bitwise equal; K3's
+      forward output bitwise the same with and without its log-sum-exp
+      pointer, the log-sum-exp within 1e-3 of its plain version; each
+      timed (device time of the backward's launches) beside its bound
+      (``op_cost.k6_bwd_charge``, ``flash_bwd_charge``), its plain
+      version and, for K3, SDPA's backward alone (``torch.autograd.grad``
+      of one SDPA output, graph retained);
 4. tiny fp32 parity (every phase runs in the autotuner's mode ``on``
    under the committed cache; phases 4-6 print the winners each model
    resolves): ``minitron-4b.reduced()``, a reduced gemma3-1b
@@ -293,10 +315,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 5e. training: (i) gemma3-1b in bf16 at full width through the train
    launcher's own ``main`` (``--full-config --steps 3 --batch 1
    --seq-len 1024``): 26 K3 launches a step, every one through K3's
-   autograd wrapper (``grad_launches``), finite losses, step time,
+   autograd wrapper (``grad_launches``) and each with one call of the
+   backward kernels (``bwd_launches``), finite losses, step time,
    tokens/s and peak memory printed; then three steps on one repeated
    batch (learning rate 0, 1e-3, 5e-4), whose loss must fall from the
-   second step to the third; (ii) gemma3-1b's Hydra++ heads (4 heads, 4
+   second step to the third; where a step's time goes (forward,
+   backward, K3's backward calls, update; the backward kernels' device
+   time in a traced step); (ii) gemma3-1b's Hydra++ heads (4 heads, 4
    MLP layers, prefix attention), ``distill``, the bf16 base frozen, B=2,
    S=512, 3 steps of ``train_heads``: 27 K3 launches a step (26 without a
    gradient, the prefix layer's under autograd), the base params bitwise
@@ -305,7 +330,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    through K3 against one with K3's plain version swapped in: the loss's
    relative difference and each draft leaf's gradient's relative L2
    difference within ``GRAD_CHECK_BOUND``, a K3 1% off at the prefix layer
-   failing them; (iv) vicuna-tiny in fp32, the JAX example's recipe: 300
+   failing them, and so a K3 whose backward's dk is 1% off on its odd
+   channels; (iv) vicuna-tiny in fp32, the JAX example's recipe: 300
    base steps and 300 Hydra head steps (``data``) on the synthetic corpus,
    a checkpoint of each loaded back into fresh params bitwise, four eval
    prompts of 32 tokens and 48 new tokens through ``generate`` and the
@@ -335,7 +361,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    random weights drawn on the card, 3 steps of (1, 1024) tokens each:
    (i) rwkv6-1.6b at full depth through the train launcher's own ``main``
    (``--full-config``): 24 K6 launches (and scans) a step, every one
-   through K6's autograd wrapper (``grad_launches``); (ii) zamba2-1.2b
+   through K6's autograd wrapper (``grad_launches``) and each with one
+   call of its backward kernels (``bwd_launches``), u's reduction among
+   them (``bwd_du_launches``), and
+   where a step's time goes (as 5e(i)); (ii) zamba2-1.2b
    the same way: 7 K3 launches at (64, 64) a step, all under autograd
    (its SSD is plain PyTorch, as JAX's is jnp); each then three steps on
    one repeated batch (learning rate 0, 1e-3, 5e-4), whose loss must fall
@@ -349,7 +378,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    with K6's plain version swapped in, the loss's relative difference and
    each base leaf's gradient's relative L2 difference within
    ``K6_GRAD_BOUND``, a K6 whose odd output channels are 1% off failing
-   them (a uniform scale would cancel in RWKV6's GroupNorm);
+   them (a uniform scale would cancel in RWKV6's GroupNorm), and so a K6
+   whose backward's dk is 1% off on its odd channels;
 5h. the port's serving examples at their default steps, vicuna-tiny in
    fp32 (``training/tiny.py``'s checkpoints in a fresh directory under
    ``build/``): ``examples/torch_quickstart.py`` (its accepted length and
@@ -391,8 +421,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    with the launches of that model's phase 5 and the bound with keys read
    once per row group beside ``bound_ms``; K1, K2 and K3 at zamba2-1.2b's
    shared block, ``...@zamba2-1.2b``; K3 at hubert-xlarge's encoder,
-   ``flash_attention@hubert-xlarge``, with phase 5d's launches), then the
-   result line.
+   ``flash_attention@hubert-xlarge``, with phase 5d's launches; the
+   backward kernels as ``linear_attn_chunk_bwd`` and
+   ``flash_attention_bwd``, with phase 3m's numbers at rwkv6-1.6b's
+   (1, 1024) and gemma3-1b's window-512 layer and the ``bwd_launches`` of
+   phases 5e-5h; their ``replaces`` names the JAX function whose gradient
+   they compute), then the result line.
    ``[time]`` lines give each phase's seconds.
 
 The script stands alone: it puts ``src/`` on ``sys.path`` itself, and it
@@ -487,17 +521,31 @@ KERNEL_PARAMS = {
     "mla_attention_merge_kernel": ("DL",),
     "linear_attn_chunk_kernel": ("", "C"),
     "linear_attn_scan_kernel": ("", "C"),
+    "linear_attn_bwd_scan_kernel": ("", "C"),
+    "linear_attn_bwd_chunk_kernel": ("", "C"),
+    "linear_attn_bwd_du_kernel": (),
+    "flash_bwd_delta_kernel": ("",),
+    "flash_bwd_kv_kernel": ("DQK", "DV"),
+    "flash_bwd_q_kernel": ("DQK", "DV", "KN"),
+    "flash_bwd_kv_f32_kernel": ("D",),
+    "flash_bwd_q_f32_kernel": ("D",),
 }
 
 
 def kernel_name(symbol: str):
     """A kernel instantiation's readable name from its mangled symbol
-    (``tree_attention_split_kernel<bf16, D=256, windowed>``), or None."""
+    (``tree_attention_split_kernel<bf16, D=256, windowed>``; a kernel that
+    is no template by its name alone), or None.  A name is found with its
+    length before it, as the mangling writes it (the anonymous namespace's
+    hash may end in a digit and hold underscores and digits itself)."""
     import re
 
-    m = re.search(r"\d+([a-z_]+_kernel)I", symbol)
-    if not m or m.group(1) not in KERNEL_PARAMS:
+    m = next((m for m in (re.search(rf"{len(n)}({n})([IE])", symbol)
+                          for n in KERNEL_PARAMS) if m), None)
+    if m is None:
         return None
+    if m.group(2) == "E":
+        return m.group(1) if not KERNEL_PARAMS[m.group(1)] else None
     rest, args = symbol[m.end():], []
     for pname in KERNEL_PARAMS[m.group(1)]:
         t = re.match(r"13__nv_bfloat16|f|Li(-?\d+)E|Lb([01])E", rest)
@@ -634,13 +682,37 @@ MLA_BUILDS = frozenset({
     "mla_attention_merge_kernel<DL=512>"})
 K6_BUILDS = frozenset({"linear_attn_chunk_kernel<bf16, C=64>",
                        "linear_attn_scan_kernel<bf16, C=64>"})
+
+
+def bwd_builds() -> frozenset:
+    """Every instance of the backward kernels (K6's: scan, gradient pass,
+    du's reduction; K3's: delta, dK/dV, dQ, bf16 at each build and fp32 at
+    each padded head dim): each must be found without a spill."""
+    from repro_torch.kernels.flash_attention.kernel import (BF16_DIMS,
+                                                            HEAD_DIMS)
+
+    k6 = {f"linear_attn_bwd_{k}_kernel<{t}, C={c}>" for k in ("scan", "chunk")
+          for t in ("f32", "bf16") for c in (16, 64)}
+    k3 = {f"flash_bwd_delta_kernel<{t}>" for t in ("f32", "bf16")}
+    for dqk, dv in BF16_DIMS:
+        k3 |= {f"flash_bwd_kv_kernel<DQK={dqk}, DV={dv}>",
+               f"flash_bwd_q_kernel<DQK={dqk}, DV={dv}, "
+               f"KN={32 if dqk > 128 else 64}>"}
+    for d in HEAD_DIMS:
+        k3 |= {f"flash_bwd_kv_f32_kernel<D={d}>",
+               f"flash_bwd_q_f32_kernel<D={d}>"}
+    return frozenset(k6 | k3 | {"linear_attn_bwd_du_kernel"})
+
+
 # the bf16 builds that must run on the tensor cores (SASS check): every
-# build whose name starts so, and at least one of each
+# build whose name starts so, and at least one of each (K6's backward runs
+# on the CUDA cores)
 TENSOR_CORE_KERNELS = ("tree_attention_split_kernel<bf16",
                        "flash_attention_kernel<bf16",
                        "mla_attention_split_kernel<kv bf16",
                        "linear_attn_chunk_kernel<bf16",
-                       "linear_attn_scan_kernel<bf16")
+                       "linear_attn_scan_kernel<bf16",
+                       "flash_bwd_kv_kernel<", "flash_bwd_q_kernel<")
 # the wrappers' second counters: each call of a two-launch kernel also
 # launches its merge (tree verify, K5) or its scan (K6)
 SECOND_COUNTERS = ("merge_launches", "scan_launches")
@@ -1961,6 +2033,192 @@ def check_k3_hubert(S_all=(37, 300, 1536), pad: int = 64) -> dict:
                     f"({rec['bound_by']}) plain={rec['plain_ms'] * 1e3:.1f}us "
                     f"sdpa={rec['library_ms'] * 1e3:.1f}us"
                     if "ms" in rec else ""))
+    return record
+
+
+# ---------------------------------------------------------------------------
+# phase 3m: the backward kernels of K6 and K3 against their plain versions
+# ---------------------------------------------------------------------------
+
+# relative L2 bounds of a backward kernel's gradients against its plain
+# version in fp32 on the same operands: fp32 1e-4, bf16 5e-3 (the bound of
+# K3's bf16 output, K3_BF16_REL_BOUND); each gradient off by K5_OFF on its
+# odd channels must fail them
+BWD_REL = {"float32": 1e-4, "bfloat16": 5e-3}
+# K6 at rwkv6-1.6b's training shapes, B=1: (dtype, S)
+K6_BWD_CASES = (("bfloat16", 1024), ("bfloat16", 500), ("float32", 500))
+# K3 at the training builds: (model, dtype, Hq, Hkv, Dqk, Dv, window,
+# causal, scale), bf16 at S = K3_BWD_S, fp32 (padded head dims) at 512
+K3_BWD_S = 1024
+K3_BWD_CASES = (
+    ("gemma3-1b", "bfloat16", 4, 1, 256, 256, WINDOW, True, None),
+    ("gemma3-1b", "bfloat16", 4, 1, 256, 256, 0, True, None),
+    ("zamba2-1.2b", "bfloat16", 32, 32, 64, 64, 0, True, None),
+    ("deepseek-v2-lite-16b", "bfloat16", 16, 16, 192, 128, 0, True,
+     MLA_SCALE),
+    ("deepseek-moe-16b", "bfloat16", 16, 16, 128, 128, 0, True, None),
+    ("hubert-xlarge", "bfloat16", 16, 16, 80, 80, 0, False, None),
+    ("fp32 D=64", "float32", 4, 4, 64, 64, 0, True, None),
+    ("fp32 D=256", "float32", 4, 1, 256, 256, WINDOW, True, None),
+)
+
+
+def _hold_grads(what: str, names, got, again, want, dtype_name: str):
+    """Each gradient finite, bitwise equal across two identical calls,
+    within ``BWD_REL`` of its plain version, and past it when off by
+    ``K5_OFF`` on its odd channels.  Returns (max abs error, largest
+    relative L2 error)."""
+    import torch
+
+    torch.cuda.synchronize()
+    bound, err, worst = BWD_REL[dtype_name], 0.0, 0.0
+    for name, a, b, ref in zip(names, got, again, want):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{what}: {name} not finite")
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: {name} differs between two "
+                                 "identical calls")
+        off = a.float().clone()
+        off[..., 1::2] *= K5_OFF
+        rel, rel_off = rel_l2(a, ref), rel_l2(off, ref)
+        if not rel <= bound < rel_off:
+            raise AssertionError(
+                f"{what}: {name} relative L2 error {rel:.3e} against the "
+                f"plain version, {rel_off:.3e} off by {K5_OFF} on its odd "
+                f"channels (bound {bound}: the first within, the second "
+                "past it)")
+        err = max(err, (a.float() - ref.float()).abs().max().item())
+        worst = max(worst, rel)
+    return err, worst
+
+
+def _sdpa_bwd_ms(q, k, v, do, w: int, causal: bool, scale):
+    """Device time of ``scaled_dot_product_attention``'s backward alone
+    (a yardstick the port never calls): its forward is run once with q, k,
+    v requiring a gradient, then ``torch.autograd.grad`` of that output,
+    the graph retained, is timed by ``device_ms``.  None (with the reason
+    printed) where SDPA refuses the shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    S = q.shape[1]
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    kw = dict(scale=scale, enable_gqa=True)
+    if w > 0:
+        i = torch.arange(S, device="cuda")
+        diff = i[:, None] - i[None, :]
+        kw["attn_mask"] = (diff >= 0) & (diff < w)
+    else:
+        kw["is_causal"] = causal
+    try:
+        with torch.enable_grad():
+            o = F.scaled_dot_product_attention(qt, kt, vt, **kw)
+            return device_ms(lambda: torch.autograd.grad(
+                o, (qt, kt, vt), dot, retain_graph=True), iters=10)
+    except RuntimeError as e:
+        log(f"[3m] SDPA's backward refused {tuple(q.shape)}: {e}")
+        return None
+
+
+def check_backward() -> dict:
+    """Phase 3m: K6's and K3's backward kernels against their plain
+    versions (``ref.py::decay_attention_chunked_bwd``, ``kernel.py::
+    flash_attention_bwd_plain``) in fp32 on the same operands, at
+    training's shapes, two identical calls bitwise equal, a gradient 1%
+    off failing the bound; K3's forward output bitwise the same with and
+    without its log-sum-exp pointer; each kernel timed beside its bound,
+    its plain version and, for K3, SDPA's backward."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as k3k
+    from repro_torch.kernels.flash_attention import ops as k3
+    from repro_torch.kernels.linear_attn_chunk import ops as k6
+    from repro_torch.kernels.linear_attn_chunk import ref as k6r
+    from repro_torch.launch.op_cost import (bound_ms, flash_bwd_charge,
+                                            k3_pairs, k6_bwd_charge)
+
+    record = {}
+    f32 = lambda t: None if t is None else t.float()
+    for dtype_name, S in K6_BWD_CASES:
+        dtype = getattr(torch, dtype_name)
+        r, k, v, w, u, _ = k6_inputs(S, dtype, seed=S + 11, init=False)
+        do = torch.randn(v.shape, generator=torch.Generator(
+            device="cuda").manual_seed(S), device="cuda").to(dtype)
+        args = (r, k, v, w, u, None)
+        _, _, states = k6._forward(*args, K6_CHUNK, states=True)
+        run = lambda: k6._backward(*args, states, do, None, K6_CHUNK)
+        got, again = run(), run()
+
+        def plain():
+            rf, kf, vf = f32(r), f32(k), f32(v)
+            st = k6r.chunk_states(kf, vf, w, None, K6_CHUNK)
+            return k6r.decay_attention_chunked_bwd(
+                rf, kf, vf, w, u, st, do.float(), None, chunk=K6_CHUNK)
+
+        what = f"K6 backward {dtype_name} S={S}"
+        err, rel = _hold_grads(what, ("dr", "dk", "dv", "dw", "du",
+                                      "d_initial_state"),
+                               got, again, plain(), dtype_name)
+        rec = dict(max_abs_err=err, rel_l2=rel)
+        rec["ms"] = device_ms(run)
+        rec["plain_ms"] = time_ms(plain, iters=3)
+        rec["library_ms"] = None
+        rec["bound_ms"], rec["bound_by"] = bound_ms(k6_bwd_charge(
+            1, S, K6_HEADS, K6_DIM, dtype_name, u=True))
+        record[("K6", dtype_name, S)] = rec
+        log(f"[3m] {what} (32 heads of 64, chunk {K6_CHUNK}, u, no state "
+            f"cotangent; {CARD}): max_abs_err={err:.3e} rel_l2={rel:.3e} "
+            f"(bound {BWD_REL[dtype_name]}), bitwise twice; "
+            f"kernels={rec['ms'] * 1e3:.1f}us bound="
+            f"{rec['bound_ms'] * 1e3:.2f}us ({rec['bound_by']}) "
+            f"plain={rec['plain_ms'] * 1e3:.1f}us (no library call)")
+    for model, dtype_name, hq, hkv, dqk, dv, w, causal, scale in \
+            K3_BWD_CASES:
+        dtype = getattr(torch, dtype_name)
+        S = K3_BWD_S if dtype == torch.bfloat16 else 512
+        g = torch.Generator(device="cuda").manual_seed(S + dqk + w)
+        mk = lambda h, d: torch.randn((1, S, h, d), generator=g,
+                                      device="cuda").to(dtype)
+        q, k, v, do = mk(hq, dqk), mk(hkv, dqk), mk(hkv, dv), mk(hq, dv)
+        kw = dict(causal=causal, window=w, scale=scale)
+        lse = torch.empty((1, hq, S), device="cuda")
+        out = k3._forward(q, k, v, lse=lse, **kw)
+        if not torch.equal(out, k3._forward(q, k, v, **kw)):
+            raise AssertionError(f"K3 {model} {dtype_name}: the output's "
+                                 "bits change with the log-sum-exp pointer")
+        run = lambda: k3._backward(q, k, v, out, lse, do, **kw)
+        got, again = run(), run()
+        qf, kf, vf = f32(q), f32(k), f32(v)
+        lse32 = k3k.flash_attention_lse_plain(qf, kf, **kw)
+        out32 = k3k.flash_attention_plain(qf, kf, vf, **kw)
+        lse_err = (lse - lse32).abs().max().item()
+        if not lse_err <= 1e-3:
+            raise AssertionError(f"K3 {model} {dtype_name}: log-sum-exp "
+                                 f"{lse_err:.3e} off its plain version")
+        plain = lambda: k3k.flash_attention_bwd_plain(qf, kf, vf, out32,
+                                                      lse32, do.float(),
+                                                      **kw)
+        what = (f"K3 backward {model} {dtype_name} ({hq} q over {hkv} kv "
+                f"heads, {dqk}/{dv}) S={S} window={w} "
+                f"{'causal' if causal else 'bidirectional'}")
+        err, rel = _hold_grads(what, ("dq", "dk", "dv"), got, again,
+                               plain(), dtype_name)
+        rec = dict(max_abs_err=err, rel_l2=rel, lse_err=lse_err)
+        rec["ms"] = device_ms(run)
+        rec["plain_ms"] = time_ms(plain, iters=3)
+        rec["library_ms"] = _sdpa_bwd_ms(q, k, v, do, w, causal, scale)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(flash_bwd_charge(
+            1, S, hq, hkv, dqk, dv, dtype_name, k3_pairs(S, w, causal)))
+        record[("K3", model, dtype_name, w)] = rec
+        sdpa = ("refused" if rec["library_ms"] is None
+                else f"{rec['library_ms'] * 1e3:.1f}us")
+        log(f"[3m] {what} ({CARD}): max_abs_err={err:.3e} rel_l2="
+            f"{rel:.3e} (bound {BWD_REL[dtype_name]}), lse max err "
+            f"{lse_err:.2e}, forward bits unchanged by the lse pointer, "
+            f"bitwise twice; kernels={rec['ms'] * 1e3:.1f}us bound="
+            f"{rec['bound_ms'] * 1e3:.2f}us ({rec['bound_by']}) "
+            f"plain={rec['plain_ms'] * 1e3:.1f}us sdpa backward={sdpa}")
     return record
 
 
@@ -3681,6 +3939,16 @@ def _counts_delta(before: dict, after: dict) -> dict:
     return {k: after[k] - before[k] for k in after if after[k] != before[k]}
 
 
+def _k3_counts(n: int, n_grad: int) -> dict:
+    """K3's launch counts for ``n`` whole-prefill calls, ``n_grad`` of them
+    under autograd, each of which also makes one backward call."""
+    out = {"flash_attention": n}
+    if n_grad:
+        out.update({f"flash_attention {c}": n_grad for c in (
+            "grad_launches", "bwd_launches")})
+    return out
+
+
 def _expect_counts(what: str, counts: dict, want: dict) -> None:
     """``counts`` (nonzero launch counters) must be exactly ``want``."""
     got = {k: n for k, n in counts.items() if n}
@@ -3700,6 +3968,7 @@ def train_full_width() -> dict:
     from repro_torch.core.distill import head_train_loss
     from repro_torch.core.heads import init_draft_params
     from repro_torch.data.synthetic import MarkovSpec, sample_corpus
+    from repro_torch.kernels.flash_attention import kernel as k3k
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_plain
     from repro_torch.launch import train
@@ -3724,8 +3993,8 @@ def train_full_width() -> dict:
         log(f"[5e] {line}")
     steps = len(history)
     n3 = cfg.n_layers * steps
-    _expect_counts(f"5e(i) {cfg.name} base steps", counts, {
-        "flash_attention": n3, "flash_attention grad_launches": n3})
+    _expect_counts(f"5e(i) {cfg.name} base steps", counts,
+                   _k3_counts(n3, n3))
     _add(total, counts)
     losses = [loss for loss, _ in history]
     later = [s for _, s in history[1:]]
@@ -3738,7 +4007,8 @@ def train_full_width() -> dict:
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB allocated; "
         f"{cfg.n_layers} K3 launches a step, all through the autograd "
         f"wrapper: {counts['flash_attention']} launches, "
-        f"{counts['flash_attention grad_launches']} under autograd")
+        f"{counts['flash_attention grad_launches']} under autograd, "
+        f"{counts['flash_attention bwd_launches']} of the backward kernels")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"5e(i): losses {losses} not finite")
     # the same step on a repeated batch at a learning rate that moves
@@ -3760,9 +4030,8 @@ def train_full_width() -> dict:
         params, opt, m = step(params, opt, batch)
         rep.append(float(m["loss"]))
     counts = kernels.launch_counts()
-    _expect_counts("5e(i) repeated batch", counts, {
-        "flash_attention": 3 * cfg.n_layers,
-        "flash_attention grad_launches": 3 * cfg.n_layers})
+    _expect_counts("5e(i) repeated batch", counts,
+                   _k3_counts(3 * cfg.n_layers, 3 * cfg.n_layers))
     _add(total, counts)
     log(f"[5e] (i) {cfg.name} bf16, one batch repeated, lr 0 then 1e-3 "
         f"then 5e-4: losses {rep}")
@@ -3770,6 +4039,8 @@ def train_full_width() -> dict:
         raise AssertionError(f"5e(i): losses {rep} do not fall on a "
                              "repeated batch")
     del params, opt, m
+    log(f"[5e] (i) {cfg.name} bf16, where a step of (1, 1024) goes "
+        f"({CARD}): {_step_breakdown(cfg)}")
     # (ii) Hydra++ head training, the bf16 base frozen
     gc.collect()
     torch.cuda.empty_cache()
@@ -3795,9 +4066,8 @@ def train_full_width() -> dict:
         log=stamp)
     counts = kernels.launch_counts()
     n_prefix = 1
-    _expect_counts(f"5e(ii) {cfg.name} Hydra++ head steps", counts, {
-        "flash_attention": 3 * (cfg.n_layers + n_prefix),
-        "flash_attention grad_launches": 3 * n_prefix})
+    _expect_counts(f"5e(ii) {cfg.name} Hydra++ head steps", counts,
+                   _k3_counts(3 * (cfg.n_layers + n_prefix), 3 * n_prefix))
     _add(total, counts)
     for a, b in zip(snapshot, tree_leaves(base)):
         if not torch.equal(a, b) or b.grad is not None:
@@ -3823,26 +4093,38 @@ def train_full_width() -> dict:
         MarkovSpec(vocab_size=cfg.vocab_size, seed=0), 1, GRAD_CHECK_S,
         seed=2), device="cuda")
     kernel_fn = attention.flash_attention_bshd
+    launch_bwd = k3k.launch_bwd
 
     def off_at_prefix(*a, **kw):      # the prefix layer is the grad call
         o = kernel_fn(*a, **kw)
         return o * K5_OFF if torch.is_grad_enabled() else o
 
-    def run(fn):
+    def dk_off(*a, **kw):             # the backward's dk, odd channels
+        rc = launch_bwd(*a, **kw)
+        a[7][..., 1::2] *= K5_OFF
+        return rc
+
+    def run(fn, bwd=launch_bwd):
         attention.flash_attention_bshd = fn
+        k3k.launch_bwd = bwd
         try:
             loss, _, grads = trainer.value_and_grad(
                 lambda d: head_train_loss(d, base, cfg32, toks,
                                           objective="distill"), dp)
         finally:
             attention.flash_attention_bshd = kernel_fn
+            k3k.launch_bwd = launch_bwd
         return float(loss), tree_leaves(grads)
 
     before = dict(kernels.launch_counts())
     ref_loss, ref_grads = run(flash_attention_plain)
-    for what, fn in (("K3", kernel_fn), (f"K3 off by {K5_OFF} at the "
-                                         "prefix layer", off_at_prefix)):
-        loss, grads = run(fn)
+    for what, fn, bwd in (
+            ("K3", kernel_fn, launch_bwd),
+            (f"K3 off by {K5_OFF} at the prefix layer", off_at_prefix,
+             launch_bwd),
+            (f"K3 with its backward's dk off by {K5_OFF} on the odd "
+             "channels", kernel_fn, dk_off)):
+        loss, grads = run(fn, bwd)
         lrel = abs(loss - ref_loss) / abs(ref_loss)
         grel = max(rel_l2(a, b) for a, b in zip(grads, ref_grads))
         ok = lrel <= GRAD_CHECK_BOUND[0] and grel <= GRAD_CHECK_BOUND[1]
@@ -4152,16 +4434,18 @@ K3_LAUNCHES_5G = {}
 def _train_launches(cfg, steps: int) -> dict:
     """The kernel launches ``steps`` base steps of ``cfg`` must make, every
     one under autograd: K6 (and its scan) a layer at RWKV6, K3 a shared-
-    block invocation at zamba2, K3 an attention layer otherwise."""
+    block invocation at zamba2, K3 an attention layer otherwise; each of
+    them also makes one backward call (K6's reducing u's gradient too)."""
     from repro_torch.models.model import group_program
 
     if cfg.block_kind == "rwkv6":
         n = cfg.n_layers * steps
-        return {"linear_attn_chunk": n, "linear_attn_chunk scan_launches": n,
-                "linear_attn_chunk grad_launches": n}
+        return {f"linear_attn_chunk{c}": n for c in (
+            "", " scan_launches", " grad_launches", " bwd_launches",
+            " bwd_du_launches")}
     n = steps * sum(n for kind, n in group_program(cfg)
                     if kind.startswith("attn_stack") or kind == "shared_attn")
-    return {"flash_attention": n, "flash_attention grad_launches": n}
+    return _k3_counts(n, n)
 
 
 def _step_line(what: str, steps_s: list, peak_gib: float) -> str:
@@ -4213,22 +4497,28 @@ def _repeated_batch(cfg, total: dict) -> list:
 
 def _step_breakdown(cfg) -> str:
     """Where one base step's time goes (a repeated batch, after a warm-up
-    step): the forward, the backward and, inside it, K6's recomputed
-    backward (CUDA-synchronised wall times), the update; then the wall
-    time of one untraced step, and the device busy time over one traced
-    step, whose idle share is taken against the untraced step's wall
-    time (the profiler slows the host)."""
+    step): the forward, the backward and, inside it, the kernel wrapper's
+    autograd backward calls (K6's at RWKV6, K3's otherwise: the backward
+    kernels and their allocations; CUDA-synchronised wall times), the
+    update; then the wall time of one untraced step, and the device busy
+    time over one traced step, with the backward kernels' share of it
+    (every CUDA kernel whose name holds ``_bwd_``), whose idle share is
+    taken against the untraced step's wall time (the profiler slows the
+    host)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.distill import lm_loss
     from repro_torch.data.synthetic import MarkovSpec, sample_corpus
+    from repro_torch.kernels.flash_attention import ops as k3
     from repro_torch.kernels.linear_attn_chunk import ops as k6
     from repro_torch.models.model import init_params, refresh_unembed_f32
     from repro_torch.training import trainer
     from repro_torch.training.optim import init_adamw
     from repro_torch.training.pytree import tree_leaves, tree_unflatten
 
+    fn_cls, kernel = ((k6.LinearAttnChunk, "K6") if cfg.block_kind == "rwkv6"
+                      else (k3.FlashAttention, "K3"))
     gc.collect()
     torch.cuda.empty_cache()
     params = init_params(cfg, seed=0, device="cuda")
@@ -4239,20 +4529,20 @@ def _step_breakdown(cfg) -> str:
         device="cuda")
     step = trainer.make_base_train_step(cfg, tc)
     params, opt, _ = step(params, opt, batch)               # warm-up
-    k6_s = []
-    backward = k6.LinearAttnChunk.backward
+    bwd_s = []
+    backward = fn_cls.backward
 
     def timed(ctx, *grads):
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = backward(ctx, *grads)
         torch.cuda.synchronize()
-        k6_s.append(time.perf_counter() - t)
+        bwd_s.append(time.perf_counter() - t)
         return out
 
     leaves = tree_leaves(params)
     stamps = [time.perf_counter()]
-    k6.LinearAttnChunk.backward = staticmethod(timed)
+    fn_cls.backward = staticmethod(timed)
     try:
         for p in leaves:
             p.requires_grad_(True)
@@ -4264,7 +4554,7 @@ def _step_breakdown(cfg) -> str:
             torch.cuda.synchronize()
             stamps.append(time.perf_counter())
     finally:
-        k6.LinearAttnChunk.backward = backward
+        fn_cls.backward = backward
         for p in leaves:
             p.requires_grad_(False)
     params, opt, _ = trainer.apply_update(tree_unflatten(params, list(grads)),
@@ -4283,16 +4573,20 @@ def _step_breakdown(cfg) -> str:
         params, opt, m = step(params, opt, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    busy = 1e-9 * sum(e.duration_ns()
-                      for e in prof.profiler.kineto_results.events()
-                      if e.device_type() == DeviceType.CUDA)
+    busy = bwd_dev = 0.0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            busy += 1e-9 * e.duration_ns()
+            if "_bwd_" in e.name():
+                bwd_dev += 1e-9 * e.duration_ns()
     ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
     del params, opt, m
-    return (f"forward {ms[0]:.1f} ms, backward {ms[1]:.1f} ms (of it K6's "
-            f"recomputed backward {1e3 * sum(k6_s):.1f} ms over "
-            f"{len(k6_s)} calls), update {ms[2]:.1f} ms; one untraced step "
-            f"{1e3 * untraced:.1f} ms; one traced step: device busy "
-            f"{1e3 * busy:.1f} ms ({1e3 * wall:.1f} ms wall traced), idle "
+    return (f"forward {ms[0]:.1f} ms, backward {ms[1]:.1f} ms (of it "
+            f"{kernel}'s autograd backward {1e3 * sum(bwd_s):.1f} ms wall "
+            f"over {len(bwd_s)} calls), update {ms[2]:.1f} ms; one "
+            f"untraced step {1e3 * untraced:.1f} ms; one traced step: "
+            f"device busy {1e3 * busy:.1f} ms, of it the backward kernels "
+            f"{1e3 * bwd_dev:.1f} ms ({1e3 * wall:.1f} ms wall traced), idle "
             f"share {1 - busy / untraced:.1%} against the untraced step")
 
 
@@ -4309,6 +4603,7 @@ def train_recurrent_and_moe() -> dict:
     from repro_torch.configs import get_config
     from repro_torch.core.distill import lm_loss
     from repro_torch.data.synthetic import MarkovSpec, sample_corpus
+    from repro_torch.kernels.linear_attn_chunk import kernel as k6k
     from repro_torch.kernels.linear_attn_chunk.ref import \
         decay_attention_chunked
     from repro_torch.launch import train
@@ -4400,6 +4695,12 @@ def train_recurrent_and_moe() -> dict:
         MarkovSpec(vocab_size=cfg32.vocab_size, seed=0), 1, K6_GRAD_S,
         seed=2), device="cuda")
     kernel_fn = ssm.linear_attn_bshd
+    launch_bwd = k6k.launch_bwd
+
+    def dk_off(*a, **kw):             # the backward's dk, odd channels
+        rc = launch_bwd(*a, **kw)
+        a[9][..., 1::2] *= K5_OFF
+        return rc
 
     def plain(r, k, v, w_log, u=None, initial_state=None, *, chunk=64):
         return decay_attention_chunked(r, k, v, w_log, u, initial_state,
@@ -4413,21 +4714,26 @@ def train_recurrent_and_moe() -> dict:
         scale[1::2] = K5_OFF
         return o * scale, st
 
-    def run(fn):
+    def run(fn, bwd=launch_bwd):
         ssm.linear_attn_bshd = fn
+        k6k.launch_bwd = bwd
         try:
             loss, _, grads = trainer.value_and_grad(
                 lambda p: lm_loss(p, cfg32, toks), params)
         finally:
             ssm.linear_attn_bshd = kernel_fn
+            k6k.launch_bwd = launch_bwd
         return float(loss), tree_leaves(grads)
 
     before = dict(kernels.launch_counts())
     ref_loss, ref_grads = run(plain)
-    for what, fn in (("K6", kernel_fn),
-                     (f"K6 with its odd output channels off by {K5_OFF}",
-                      off)):
-        loss, grads = run(fn)
+    for what, fn, bwd in (
+            ("K6", kernel_fn, launch_bwd),
+            (f"K6 with its odd output channels off by {K5_OFF}", off,
+             launch_bwd),
+            (f"K6 with its backward's dk off by {K5_OFF} on the odd "
+             "channels", kernel_fn, dk_off)):
+        loss, grads = run(fn, bwd)
         lrel = abs(loss - ref_loss) / abs(ref_loss)
         grel = max(rel_l2(a, b) for a, b in zip(grads, ref_grads)
                    if float(torch.linalg.vector_norm(b.float())) > 0)
@@ -4442,9 +4748,12 @@ def train_recurrent_and_moe() -> dict:
             raise AssertionError(f"5g(iv): {what} reads loss {lrel}, grads "
                                  f"{grel}: {where} the bounds")
     counts = _counts_delta(before, kernels.launch_counts())
-    if counts.get("linear_attn_chunk grad_launches") != 2 * K6_GRAD_LAYERS:
-        raise AssertionError(f"5g(iv): launches {counts}: K6 was not "
-                             "launched under autograd in each layer")
+    n = 3 * K6_GRAD_LAYERS                # three runs through the kernel
+    if any(counts.get(f"linear_attn_chunk {c}") != n for c in (
+            "grad_launches", "bwd_launches")):
+        raise AssertionError(f"5g(iv): launches {counts}: K6 and its "
+                             "backward were not launched under autograd "
+                             "in each layer of each run")
     _add(total, counts)
     del params
     gc.collect()
@@ -4984,7 +5293,7 @@ def main() -> int:
     log(f"[build] {sorted(built) or 'nothing to build'} in "
         f"{time.perf_counter() - t0:.1f}s")
     main_path_builds = TREE_VERIFY_BUILDS | k3_builds() | MLA_BUILDS \
-        | K6_BUILDS
+        | K6_BUILDS | bwd_builds()
     parsed = set()
     for name in sorted(build.SOURCES):
         if name in built:
@@ -5005,7 +5314,8 @@ def main() -> int:
                              "spill check could not run")
     tensor_cores = {}
     for name in ("tree_attention_paged", "flash_attention",
-                 "mla_attention_paged", "linear_attn_chunk"):
+                 "mla_attention_paged", "linear_attn_chunk",
+                 "flash_attention_bwd"):
         tensor_cores.update(sass_tensor_cores(build.library_path(name)))
     checked = sorted(k for k in tensor_cores
                      if k.startswith(TENSOR_CORE_KERNELS))
@@ -5016,8 +5326,9 @@ def main() -> int:
         raise AssertionError(f"SASS: bf16 builds without HMMA/HGMMA: "
                              f"{without}; no build of {unseen}; checked "
                              f"{checked}")
-    log(f"[sass] HMMA/HGMMA in every bf16 build of K3, the tree-verify "
-        f"split kernel, K5's split sweep and K6's two kernels: {checked}")
+    log(f"[sass] HMMA/HGMMA in every bf16 build of K3 and of its backward's "
+        f"dK/dV and dQ kernels, the tree-verify split kernel, K5's split "
+        f"sweep and K6's two kernels: {checked}")
     # row groups are a grid axis: the models past 64 rows per kv head run
     # the D=128 builds above, so there is no new instantiation to check
     log("[ptxas] starcoder2-7b, qwen2.5-32b, chameleon-34b and "
@@ -5066,6 +5377,10 @@ def run_phases(t_start: float, sweep: tuple) -> int:
     rows = check_rows()
     zk = check_zamba2_kernels()
     hk = check_k3_hubert()
+    t_3m = time.perf_counter()
+    bwd = check_backward()
+    log(f"[time] phase 3m (the backward kernels): "
+        f"{time.perf_counter() - t_3m:.0f}s")
     t_3l = time.perf_counter()
     check_autotune()
     log(f"[time] phase 3l (the autotuner's sweep): "
@@ -5199,6 +5514,32 @@ def run_phases(t_start: float, sweep: tuple) -> int:
               max(r["max_abs_err"] for key, r in k6.items()
                   if key[0] == "bfloat16")),
     ]
+    # the backward kernels (phase 3m), each an entry of its own: no TPU
+    # kernel; "replaces" names the JAX function whose gradient it computes,
+    # and its launches are those of the main path's training (5e-5h)
+    for name, source, replaces, rec, errs in (
+            ("linear_attn_chunk_bwd",
+             "src/repro_torch/csrc/linear_attn_chunk_bwd.cu",
+             "src/repro/models/ssm.py:67", bwd[("K6", "bfloat16", 1024)],
+             [r["max_abs_err"] for key, r in bwd.items()
+              if key[0] == "K6" and key[1] == "bfloat16"]),
+            ("flash_attention_bwd",
+             "src/repro_torch/csrc/flash_attention_bwd.cu",
+             "src/repro/models/layers.py:102",
+             bwd[("K3", "gemma3-1b", "bfloat16", WINDOW)],
+             [r["max_abs_err"] for key, r in bwd.items()
+              if key[0] == "K3" and key[2] == "bfloat16"])):
+        fwd = name.removesuffix("_bwd")
+        e = dict(entry(fwd, source, replaces, rec, max(errs)), name=name)
+        e.update(launches=launches.get(f"{fwd} bwd_launches", 0),
+                 tpu_kernel=None,
+                 note=f"the gradient of the JAX function at {replaces} "
+                      "(no TPU kernel had a backward)",
+                 rel_l2_vs_fp32=max(r["rel_l2"] for key, r in bwd.items()
+                                    if key[0] == ("K6" if "linear" in name
+                                                  else "K3")
+                                    and "bfloat16" in key))
+        kernels.append(e)
     # the launches under autograd (5e, 5g), and K3's in 5g by build
     for e in kernels:
         if e["name"] in ("flash_attention", "linear_attn_chunk"):

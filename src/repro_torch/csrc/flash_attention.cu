@@ -27,6 +27,10 @@
 // Layout (the model layout the wrapper receives), contiguous:
 //   q (B, Sq, Hq, DQK)   k (B, Skv, Hkv, DQK)   v (B, Skv, Hkv, DV)
 //   out (B, Sq, Hq, DV)  q_off, kv_valid_len (B,) int32 or null
+//   lse (B, Hq, Sq) fp32 or null: where given (a whole prefill under
+//   autograd), each row's log-sum-exp of its scaled scores, in natural
+//   units, for the backward (flash_attention_bwd.cu); its stores change no
+//   arithmetic, so out keeps its bits with or without it
 // q, k, v and out share one type.  bf16 builds: (DQK, DV) in (64, 64),
 // (80, 80), hubert-xlarge's heads (five k-steps of 16 for S = Q K^T, ten
 // n-tiles of 8 for P V, key tiles of 64 and rows of 80 + 8 in shared
@@ -117,6 +121,7 @@ struct Args {
   const void* k;
   const void* v;
   void* out;
+  float* lse;               // (B, Hq, Sq) row log-sum-exp, or null
   const int* q_off;         // (B,) first query position, or null: 0
   const int* kv_valid_len;  // (B,) keys at or past it masked, or null
   int B, Sq, Skv, Hq, Hkv, bq, causal, window;
@@ -250,6 +255,10 @@ __device__ void flash_mma(const Args& p, unsigned char* smem_raw) {
     for (int n = 0; n < DV / 8; ++n)
       *reinterpret_cast<uint32_t*>(o + n * 8 + 2 * t4) = tc::pack_bf16(
           st.o[n][2 * hh] * inv, st.o[n][2 * hh + 1] * inv);
+    // the running max is in base-2 units of the scaled scores
+    if (p.lse != nullptr && t4 == 0)
+      p.lse[(static_cast<size_t>(b) * p.Hq + hq) * p.Sq + i] =
+          (st.m[hh] + log2f(st.l[hh])) * tc::kLn2;
   }
 }
 
@@ -333,6 +342,13 @@ __device__ void flash_f32(const Args& p, float* smem) {
       }
     }
   }
+  if (p.lse != nullptr)
+    for (int r = threadIdx.x; r < R; r += kThreads) {
+      const int g = r / BQ, row = q0 + r % BQ;
+      if (row < p.Sq)
+        p.lse[(static_cast<size_t>(b) * p.Hq + h * G + g) * p.Sq + row] =
+            sm.m[r] + logf(sm.l[r]);
+    }
 }
 
 // KN: the bf16 body's key tile; the fp32 body's is kKeyTile (16)
@@ -389,22 +405,24 @@ int launch_bf16(const Args& a, int key_tile, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16; causal: 0 or 1; window <= 0: no window.
+// lse: (B, Hq, Sq) fp32, or null (see the layout above).
 // q_off and kv_valid_len: (B,) int32 device arrays, or null (a whole
 // prefill: offset 0, every key valid).  key_tile: the bf16 body's keys a
 // tile (32, 64 or 128 where the build's ring fits; ignored by fp32).
 // Returns the CUDA error code of the launch (0 on success); the wrapper
 // raises on anything else.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, const void* q_off,
+                               void* out, void* lse, const void* q_off,
                                const void* kv_valid_len, int B, int Sq,
                                int Skv, int Hq, int Hkv, int Dqk, int Dv,
                                int causal, int window, int dtype,
                                int key_tile, float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a{q,      k,  v,   out, static_cast<const int*>(q_off),
+  Args a{q, k, v, out, static_cast<float*>(lse),
+         static_cast<const int*>(q_off),
          static_cast<const int*>(kv_valid_len),
-         B,      Sq, Skv, Hq,  Hkv, 0, causal, window, scale};
+         B, Sq, Skv, Hq, Hkv, 0, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     if (Dqk == 64 && Dv == 64) return launch_bf16<64, 64>(a, key_tile, s);

@@ -28,6 +28,10 @@
 // s_out (B, H, 64, 64) fp32.  All contiguous.  dk = dv = 64 (RWKV6's head).
 // Scratch from the wrapper (fp32), per (b, h, chunk c): q_eff and o_intra
 // (C x 64 each), the state increment dS (64 x 64) and the decay (64).
+// Under autograd the wrapper also passes `states` (B, H, n_chunks, 64, 64)
+// fp32, and the scan writes there the state entering each chunk, which the
+// backward (linear_attn_chunk_bwd.cu) reads; null otherwise.  The stores
+// change no arithmetic: o and the final state keep their bits.
 //
 // Design: chunk-parallel, two launches.
 //  (a) linear_attn_chunk_kernel, one block of 16 warps per (chunk, h, b):
@@ -138,6 +142,7 @@ struct Args {
   float* o_intra;   // scratch (B, H, n_chunks, C, 64)
   float* dstate;    // scratch (B, H, n_chunks, 64, 64)
   float* decay;     // scratch (B, H, n_chunks, 64)
+  float* states;    // (B, H, n_chunks, 64, 64): S entering each chunk, or null
   int B, S, H;
 };
 
@@ -610,6 +615,16 @@ __global__ void __launch_bounds__(kScanThreads)
                         sum(2 * hh) + os[t * kOS + col],
                         sum(2 * hh + 1) + os[t * kOS + col + 1]);
           }
+        if (p.states != nullptr && mt == 0) {  // one warp a column group
+          float* sv = p.states + (bh * n_chunks + c) * kD * kD + e0;
+#pragma unroll
+          for (int kc = 0; kc < kD / 16; ++kc)
+#pragma unroll
+            for (int n = 0; n < NW; ++n)
+#pragma unroll
+              for (int x = 0; x < 4; ++x)
+                sv[st_d(kc, x) * kD + (cg * NW + n) * 8 + g] = st[kc][n][x];
+        }
         // S <- decay * S + dS
 #pragma unroll
         for (int kc = 0; kc < kD / 16; ++kc)
@@ -634,9 +649,12 @@ __global__ void __launch_bounds__(kScanThreads)
             e] = acc + os[t * kOS + e];
       }
       __syncthreads();
-      for (int d = rg; d < kD; d += kScanThreads / kSlice)
-        sst[d * (kSlice + 1) + e] =
-            sst[d * (kSlice + 1) + e] * dc[d] + dss[d * kSS + e];
+      for (int d = rg; d < kD; d += kScanThreads / kSlice) {
+        float* cell = sst + d * (kSlice + 1) + e;
+        if (p.states != nullptr)
+          p.states[((bh * n_chunks + c) * kD + d) * kD + e0 + e] = *cell;
+        *cell = *cell * dc[d] + dss[d * kSS + e];
+      }
     }
   }
 
@@ -698,20 +716,23 @@ int launch_chunk(const Args& a, int chunk, cudaStream_t stream) {
 
 // dtype of r, k, v and o: 0 float32, 1 bfloat16.  u and s0 may be null.
 // q_eff, o_intra, dstate, decay: the wrapper's fp32 scratch (see the
-// header) for ceil(S / chunk) chunks.  Returns the CUDA error code of the
+// header) for ceil(S / chunk) chunks; states: where the scan writes the
+// state entering each chunk, or null.  Returns the CUDA error code of the
 // two launches (0 on success); the wrapper raises on anything else.
 extern "C" int linear_attn_chunk(const void* r, const void* k, const void* v,
                                  const void* w, const void* u, const void* s0,
                                  void* o, void* s_out, void* q_eff,
                                  void* o_intra, void* dstate, void* decay,
-                                 int B, int S, int H, int chunk, int dtype,
+                                 void* states, int B, int S, int H,
+                                 int chunk, int dtype,
                                  void* stream) {
   if (B <= 0 || S <= 0 || H <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{r, k, v, static_cast<const float*>(w), static_cast<const float*>(u),
          static_cast<const float*>(s0), o, static_cast<float*>(s_out),
          static_cast<float*>(q_eff), static_cast<float*>(o_intra),
-         static_cast<float*>(dstate), static_cast<float*>(decay), B, S, H};
+         static_cast<float*>(dstate), static_cast<float*>(decay),
+         static_cast<float*>(states), B, S, H};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return launch_chunk<float>(a, chunk, s);

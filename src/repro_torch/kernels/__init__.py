@@ -11,7 +11,10 @@ graph's owner (``serving/graph.py::CapturedStep.replays``).
 Two wrappers have a backward: K3's whole prefill (``flash_attention/
 ops.py::FlashAttention``) and K6 (``linear_attn_chunk/ops.py::
 LinearAttnChunk``); each counts its calls under autograd in
-``grad_launches``.  Every other wrapper (K1, K2, K4, K5 and K3's chunk
+``grad_launches`` and, on CUDA, its backward's calls in
+``bwd_launches`` (each call launches all of the backward's kernels; K6
+counts its du reduction, launched only with u, in ``bwd_du_launches``).
+Every other wrapper (K1, K2, K4, K5 and K3's chunk
 form) refuses autograd: with grad mode on and an operand requiring a
 gradient it raises (``refuse_grad``) instead of returning a result
 detached from the graph.
@@ -57,7 +60,7 @@ _log = logging.getLogger("repro_torch.kernels")
 
 # the counters a wrapper may keep beside ``launches``
 SECOND_COUNTERS = ("merge_launches", "scan_launches", "chunk_launches",
-                   "grad_launches")
+                   "grad_launches", "bwd_launches", "bwd_du_launches")
 
 
 def refuse_grad(kernel: str, *tensors) -> None:

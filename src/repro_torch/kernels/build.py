@@ -30,7 +30,9 @@ BUILD_DIR = PKG_DIR.parents[1] / "build" / "kernels"
 SOURCES = {"tree_attention_paged": "tree_attention_paged.cu",
            "flash_attention": "flash_attention.cu",
            "mla_attention_paged": "mla_attention_paged.cu",
-           "linear_attn_chunk": "linear_attn_chunk.cu"}
+           "linear_attn_chunk": "linear_attn_chunk.cu",
+           "linear_attn_chunk_bwd": "linear_attn_chunk_bwd.cu",
+           "flash_attention_bwd": "flash_attention_bwd.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -15,8 +15,18 @@ against it on the card.
 
 Both take the MODEL layout: q ``(B, Sq, Hq, Dqk)``, k ``(B, Skv, Hkv,
 Dqk)``, v ``(B, Skv, Hkv, Dv)``, out ``(B, Sq, Hq, Dv)``; ``q_off`` and
-``kv_valid_len`` are ``(B,)`` int32.  The wrapper (``ops.py``) is the
-port's only caller of ``launch``.
+``kv_valid_len`` are ``(B,)`` int32.  Under autograd the launch also
+writes each row's log-sum-exp (``lse``, (B, Hq, Sq) fp32), which the
+backward reads.
+
+The backward of a whole prefill (``launch_bwd``, source
+``csrc/flash_attention_bwd.cu``, replacing no TPU kernel: JAX
+differentiates ``blocked_attention``) is three kernels: delta =
+rowsum(dO o), then dK/dV by key tiles and dQ by query tiles from the
+log-sum-exp.  ``flash_attention_lse_plain`` and
+``flash_attention_bwd_plain`` are its plain versions, in the same
+decomposition.  The wrapper (``ops.py``) is the port's only caller of
+``launch`` and ``launch_bwd``.
 """
 from __future__ import annotations
 
@@ -64,30 +74,142 @@ def kernel_fn():
     fn = build.load("flash_attention").flash_attention
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
+                       + [ctypes.c_float, ctypes.c_void_p])
+    return fn
+
+
+def bwd_fn():
+    """The C entry point of the built backward library."""
+    fn = build.load("flash_attention_bwd").flash_attention_bwd
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
     return fn
 
 
 def launch(q, k, v, out, *, causal: bool, window: int,
            scale: float | None = None, q_off=None, kv_valid_len=None,
-           key_tile: int = 0) -> int:
+           key_tile: int = 0, lse=None) -> int:
     """Launch the kernel on the current CUDA stream (no synchronisation).
     All arguments must already be validated by the wrapper; ``q_off`` and
     ``kv_valid_len`` are (B,) int32 on q's device, or None (offset 0,
     every key valid).  ``scale`` defaults to 1/sqrt(Dqk).  ``key_tile``
     selects the bf16 body's instance (one of ``KEY_TILES[(Dqk, Dv)]``;
-    fp32 ignores it).  Returns the CUDA error code of the launch: 0 on
-    success."""
+    fp32 ignores it).  ``lse`` (B, Hq, Sq) fp32, or None: where the
+    kernel writes each row's log-sum-exp.  Returns the CUDA error code of
+    the launch: 0 on success."""
     B, Sq, Hq, Dqk = q.shape
     Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     return kernel_fn()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ptr(lse),
         ptr(q_off), ptr(kv_valid_len), B, Sq, Skv, Hq, Hkv, Dqk, Dv,
         int(causal), int(window), DTYPE_CODES[q.dtype], int(key_tile),
         1.0 / math.sqrt(Dqk) if scale is None else float(scale), stream)
+
+
+def delta_buffer(B: int, S: int, Hq: int, device):
+    """The backward's fp32 scratch, delta = rowsum(dO o): (B, Hq, S)."""
+    return torch.empty((B, Hq, S), dtype=torch.float32, device=device)
+
+
+def launch_bwd(q, k, v, out, lse, do, dq, dk, dv, *, causal: bool,
+               window: int, scale: float) -> int:
+    """Launch the backward's kernels on the current CUDA stream (no
+    synchronisation): the gradients of a whole prefill's q, k and v into
+    ``dq``, ``dk``, ``dv`` from the forward's ``out`` and ``lse`` and the
+    output's cotangent ``do``.  All arguments must already be validated
+    (and, in fp32, padded to one head dim) by the wrapper.  Returns the
+    CUDA error code of the launches: 0 on success."""
+    B, S, Hq, Dqk = q.shape
+    Hkv, Dv = k.shape[2], v.shape[3]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    delta = delta_buffer(B, S, Hq, q.device)
+    return bwd_fn()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, S, Hq, Hkv, Dqk, Dv, int(causal),
+        int(window), DTYPE_CODES[q.dtype], float(scale), stream)
+
+
+def _admitted(q0: int, q1: int, k0: int, k1: int, causal: bool,
+              window: int, device):
+    """(q1 - q0, k1 - k0) bool: key j admitted by query i (positions)."""
+    dq = (torch.arange(q0, q1, device=device)[:, None]
+          - torch.arange(k0, k1, device=device)[None])
+    ok = torch.ones_like(dq, dtype=torch.bool)
+    if causal:
+        ok &= dq >= 0
+    if window > 0:
+        ok &= dq < window
+    return ok
+
+
+def flash_attention_lse_plain(q, k, *, causal: bool = True, window: int = 0,
+                              scale: float | None = None, tile: int = 64):
+    """A whole prefill's row log-sum-exp of the scaled scores over the
+    admitted keys, (B, Hq, S) fp32, by query tiles: what the kernel's
+    forward writes under autograd."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    qf = q.float().reshape(B, S, Hkv, Hq // Hkv, D)
+    out = []
+    for q0 in range(0, S, tile):
+        q1 = min(S, q0 + tile)
+        s = torch.einsum("bthgd,bshd->bthgs", qf[:, q0:q1], k.float()) * scale
+        ok = _admitted(q0, q1, 0, S, causal, window, q.device)
+        s = torch.where(ok[None, :, None, None], s, -math.inf)
+        out.append(torch.logsumexp(s, dim=-1))
+    return torch.cat(out, dim=1).reshape(B, S, Hq).transpose(1, 2)
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, do, *, causal: bool = True,
+                              window: int = 0, scale: float | None = None,
+                              tile: int = 64):
+    """The gradients (dq, dk, dv), fp32, of a whole prefill in the backward
+    kernel's decomposition: delta = rowsum(dO o); per (query tile, key
+    tile), P = exp(scale q k^T - lse) where admitted and dS = P (dO v^T -
+    delta); dK/dV summed per key tile over the G query heads and every
+    query tile, dQ per query tile over the key tiles."""
+    B, S, Hq, D = q.shape
+    Hkv, Dv = k.shape[2], v.shape[-1]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    qf = q.float().reshape(B, S, Hkv, G, D)
+    kf, vf = k.float(), v.float()
+    dof = do.float().reshape(B, S, Hkv, G, Dv)
+    delta = (dof * out.float().reshape(B, S, Hkv, G, Dv)).sum(-1)
+    lse_ = lse.float().reshape(B, Hkv, G, S).permute(0, 3, 1, 2)
+
+    def scores(q0, q1, k0, k1):
+        s = torch.einsum("bthgd,bshd->bthgs", qf[:, q0:q1],
+                         kf[:, k0:k1]) * scale
+        ok = _admitted(q0, q1, k0, k1, causal, window, q.device)
+        p = torch.where(ok[None, :, None, None],
+                        torch.exp(s - lse_[:, q0:q1, ..., None]), 0.0)
+        dp = torch.einsum("bthgv,bshv->bthgs", dof[:, q0:q1], vf[:, k0:k1])
+        return p, p * (dp - delta[:, q0:q1, ..., None])
+
+    dq, dk, dv = (torch.zeros_like(t, dtype=torch.float32)
+                  for t in (qf, kf, vf))
+    tiles = [(t0, min(S, t0 + tile)) for t0 in range(0, S, tile)]
+    for k0, k1 in tiles:                       # dK and dV by key tiles
+        for q0, q1 in tiles:
+            p, ds = scores(q0, q1, k0, k1)
+            dv[:, k0:k1] += torch.einsum("bthgs,bthgv->bshv", p,
+                                         dof[:, q0:q1])
+            dk[:, k0:k1] += scale * torch.einsum("bthgs,bthgd->bshd", ds,
+                                                 qf[:, q0:q1])
+    for q0, q1 in tiles:                       # dQ by query tiles
+        for k0, k1 in tiles:
+            _, ds = scores(q0, q1, k0, k1)
+            dq[:, q0:q1] += scale * torch.einsum("bthgs,bshd->bthgd", ds,
+                                                 kf[:, k0:k1])
+    return dq.reshape(B, S, Hq, D), dk, dv
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,

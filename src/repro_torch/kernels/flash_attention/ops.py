@@ -30,14 +30,18 @@ keys start at absolute multiples of the tile, so a chunk's rows keep the
 whole prefill's bits.  The fp32 builds are not tuned.
 
 Under autograd (grad mode on and q, k or v requiring a gradient) a whole
-prefill goes through ``FlashAttention``, a ``torch.autograd.Function``:
-its forward launches K3 as above, and its backward recomputes the plain
-version (``models/layers.py::blocked_attention``, the port of the jnp
-function JAX's trainer differentiates, recomputed as ``jax.checkpoint``
-recomputes it) on the saved q/k/v and returns its gradients.  JAX has no
-backward kernel either; a hand-written one is later speed work.  The
-chunk form has no backward and raises under autograd, as every other
-kernel wrapper without one does (``kernels.refuse_grad``).
+prefill goes through ``FlashAttention``, a ``torch.autograd.Function``.
+On CUDA its forward launches K3 as above, also writing each row's
+log-sum-exp, and its backward launches the backward kernels
+(``csrc/flash_attention_bwd.cu``: delta, dK/dV, dQ) on the saved q/k/v,
+output and log-sum-exp; ``bwd_launches`` counts its calls, each of
+which launches the three kernels once.  On the
+CPU the backward recomputes the plain version (``models/layers.py::
+blocked_attention``, the port of the jnp function JAX's trainer
+differentiates, recomputed as ``jax.checkpoint`` recomputes it) and
+returns its gradients.  JAX has no backward kernel.  The chunk form has
+no backward and raises under autograd, as every other kernel wrapper
+without one does (``kernels.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -49,12 +53,14 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import refuse_grad, tuned_block_sizes
 from repro_torch.kernels.flash_attention import kernel as _k
-from repro_torch.launch.op_cost import (chunk_rows, dtype_name, flash_charge,
+from repro_torch.launch.op_cost import (chunk_rows, dtype_name,
+                                        flash_bwd_charge, flash_charge,
                                         k3_pairs, record_kernel)
 
 launches = 0                  # kernel launches since the last reset
 chunk_launches = 0            # of which with a query offset / kv_valid_len
 grad_launches = 0             # of which under autograd (FlashAttention)
+bwd_launches = 0              # backward calls (FlashAttention)
 
 
 def _check(q, k, v, chunk: bool):
@@ -172,9 +178,10 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def _forward(q, k, v, *, causal: bool, window: int, scale, q_off=0,
-             kv_valid_len=None, key_tile: int | None = None):
+             kv_valid_len=None, key_tile: int | None = None, lse=None):
     """The plain version on the CPU, the kernel on CUDA (validated, counted);
-    operands already checked by the wrapper."""
+    operands already checked by the wrapper.  ``lse`` ((B, Hq, Sq) fp32,
+    CUDA only): where the kernel writes each row's log-sum-exp."""
     global launches, chunk_launches
     chunk = kv_valid_len is not None
     if q.device.type == "cpu":
@@ -205,7 +212,7 @@ def _forward(q, k, v, *, causal: bool, window: int, scale, q_off=0,
     out = q.new_empty((*q.shape[:3], v.shape[-1]))
     rc = _k.launch(q, k, v, out, causal=causal, window=window, scale=scale,
                    q_off=q_off if chunk else None, kv_valid_len=kv_valid_len,
-                   key_tile=key_tile or 0)
+                   key_tile=key_tile or 0, lse=lse)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
     launches += 1
@@ -229,27 +236,75 @@ def _record_meta_call(q, k, v, causal: bool, window: int,
                   window=window, causal=causal, **shape)
 
 
+def _backward(q, k, v, out, lse, grad_out, *, causal: bool, window: int,
+              scale):
+    """The backward kernels on CUDA (counted), one charged call on
+    ``meta``: (dq, dk, dv).  fp32 pads to its build's head dim, as the
+    forward does, and slices the gradients back."""
+    global bwd_launches
+    B, S, Hq, dqk = q.shape
+    dv_ = v.shape[-1]
+    do = grad_out.to(q.dtype).contiguous()
+    if q.device.type == "meta":
+        _k.delta_buffer(B, S, Hq, q.device)      # as the launch allocates
+        shape = dict(B=B, S=S, Hq=Hq, Hkv=k.shape[2], dqk=dqk, dv=dv_,
+                     dtype=dtype_name(q.dtype),
+                     pairs=k3_pairs(S, window, causal))
+        record_kernel("flash_attention_bwd", flash_bwd_charge(**shape),
+                      window=window, causal=causal, **shape)
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if scale is None:
+        scale = 1.0 / math.sqrt(dqk)
+    args = (q, k, v, out, do)
+    if q.dtype == torch.float32 and not dqk == dv_ == _f32_dim(dqk, dv_):
+        D = _f32_dim(dqk, dv_)
+        args = tuple(F.pad(t, (0, D - t.shape[-1])) for t in args)
+    q_, k_, v_, out_, do_ = args
+    grads = tuple(torch.empty_like(t) for t in (q_, k_, v_))
+    rc = _k.launch_bwd(q_, k_, v_, out_, lse, do_, *grads, causal=causal,
+                       window=window, scale=scale)
+    if rc != 0:
+        raise RuntimeError(
+            f"flash_attention backward launch failed: CUDA error {rc}")
+    bwd_launches += 1
+    dq, dk, dv = grads
+    return dq[..., :dqk], dk[..., :dqk], dv[..., :dv_]
+
+
 class FlashAttention(torch.autograd.Function):
-    """K3's whole prefill with a gradient: the forward launches the kernel
-    (the plain version on the CPU), the backward recomputes the plain
-    version on the saved q/k/v and differentiates it.  The forward runs
-    the key tile a call without autograd resolves."""
+    """K3's whole prefill with a gradient.  CUDA: the forward launches the
+    kernel, which also writes each row's log-sum-exp, and the backward
+    launches the backward kernels (``_backward``).  CPU: the forward runs
+    the plain version and the backward recomputes it on the saved q/k/v
+    and differentiates it.  The forward runs the key tile a call without
+    autograd resolves."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, scale, key_tile):
         global grad_launches
+        lse = None
+        if q.device.type != "cpu":
+            lse = torch.empty(q.shape[0], q.shape[2], q.shape[1],
+                              dtype=torch.float32, device=q.device)
         out = _forward(q, k, v, causal=causal, window=window, scale=scale,
-                       key_tile=key_tile)
+                       key_tile=key_tile, lse=lse)
         grad_launches += q.device.type == "cuda"
-        ctx.save_for_backward(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.attrs = (causal, window, scale)
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
         causal, window, scale = ctx.attrs
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.device.type != "cpu":
+            grads = _backward(q, k, v, out, lse, grad_out, causal=causal,
+                              window=window, scale=scale)
+            return (*(g if need else None for g, need in
+                      zip(grads, ctx.needs_input_grad[:3])),
+                    None, None, None, None)
         saved = [t.detach().requires_grad_(need) for t, need in
-                 zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+                 zip((q, k, v), ctx.needs_input_grad[:3])]
         wanted = [t for t in saved if t.requires_grad]
         with torch.enable_grad():
             out = _k.flash_attention_plain(*saved, causal=causal,

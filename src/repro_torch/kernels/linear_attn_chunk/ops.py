@@ -7,22 +7,29 @@ The wrapper validates its inputs and dispatches on the device the tensors
 lie on: CPU tensors take the plain version (``ref.py``), CUDA tensors
 launch the kernel or raise, ``meta`` tensors charge the cost counter one
 call (``launch/op_cost.py``) and return empty outputs (under autograd
-too; the backward is then counted as the plain version's ops).  There
-is no fallback from one to the other.  ``launches`` counts kernel
-launches, and only those: one per call, the chunk-parallel pass;
-``scan_launches`` counts the scan of the state that each call launches
-after it; ``grad_launches`` those calls made under autograd.  S need not
-be a chunk multiple: the plain version pads with k = 0, w_log = 0 (decay 1,
-nothing added; exact), and the kernel reads the same zeros past S.  The
-scalar decay of Mamba2 (``w_log`` of last dim 1) is not taken yet.
+too, and so does the backward: one call of the backward kernels, charged
+by ``k6_bwd_charge``).  There is no fallback from one to the other.
+``launches`` counts kernel launches, and only those: one per call, the
+chunk-parallel pass; ``scan_launches`` counts the scan of the state that
+each call launches after it; ``grad_launches`` those calls made under
+autograd.  S need not be a chunk multiple: the plain version pads with
+k = 0, w_log = 0 (decay 1, nothing added; exact), and the kernel reads the
+same zeros past S.  The scalar decay of Mamba2 (``w_log`` of last dim 1)
+is not taken yet.
 
 Under autograd (grad mode on and an operand requiring a gradient) a call
-goes through ``LinearAttnChunk``, a ``torch.autograd.Function``: its
-forward launches K6 as above, and its backward recomputes the plain
-version in fp32 on the saved operands and differentiates it.  JAX has no
-backward kernel either: its trainer differentiates the jnp
-``decay_attention_chunked`` that ``ref.py`` ports.  The final state's
-gradient may be absent (training never reads the state).
+goes through ``LinearAttnChunk``, a ``torch.autograd.Function``.  On CUDA
+its forward launches K6 with the scan writing the state entering each
+chunk, and its backward launches the backward kernels
+(``csrc/linear_attn_chunk_bwd.cu``) on the saved operands and states:
+``bwd_launches`` counts its calls, each of which launches the reverse
+scan of the state's gradient and the gradient pass once, and
+``bwd_du_launches`` those that also launch u's reduction (with u
+only).  On the CPU the backward differentiates the plain version in
+fp32.  JAX has no backward kernel:
+its trainer differentiates the jnp ``decay_attention_chunked`` that
+``ref.py`` ports.  The final state's gradient may be absent (training
+never reads the state).
 """
 from __future__ import annotations
 
@@ -30,11 +37,14 @@ import torch
 
 from repro_torch.kernels.linear_attn_chunk import kernel as _k
 from repro_torch.kernels.linear_attn_chunk.ref import decay_attention_chunked
-from repro_torch.launch.op_cost import dtype_name, k6_charge, record_kernel
+from repro_torch.launch.op_cost import (dtype_name, k6_bwd_charge, k6_charge,
+                                        record_kernel)
 
 launches = 0                  # chunk-kernel launches since the last reset
 scan_launches = 0             # scan launches since the last reset
 grad_launches = 0             # of which under autograd (LinearAttnChunk)
+bwd_launches = 0              # backward calls (LinearAttnChunk)
+bwd_du_launches = 0           # of which reducing u's gradient
 
 
 def check_operands(r, k, v, w_log, u, initial_state, chunk: int) -> None:
@@ -92,9 +102,11 @@ def linear_attn_bshd(r, k, v, w_log, u=None, initial_state=None, *,
     return _forward(*args, chunk)
 
 
-def _forward(r, k, v, w_log, u, initial_state, chunk: int):
+def _forward(r, k, v, w_log, u, initial_state, chunk: int, states=False):
     """The plain version on the CPU, the kernel on CUDA (validated,
-    counted); operands already checked by the wrapper."""
+    counted); operands already checked by the wrapper.  With ``states``
+    (CUDA or ``meta``) it returns the states entering each chunk as a
+    third output."""
     global launches, scan_launches
     args = (r, k, v, w_log, u, initial_state)
     if k.device.type == "cpu":
@@ -106,40 +118,85 @@ def _forward(r, k, v, w_log, u, initial_state, chunk: int):
     o = torch.empty_like(v)
     final_state = torch.empty((B, H, dk, v.shape[-1]), dtype=torch.float32,
                               device=k.device)
+    saved = _k.states_buffer(B, S, H, chunk, k.device) if states else None
     if k.device.type == "meta":
         _k.scratch(B, S, H, chunk, k.device)     # as the launch allocates
         shape = dict(B=B, S=S, H=H, d=dk, dtype=dtype_name(k.dtype))
         record_kernel("linear_attn_chunk", k6_charge(**shape), **shape)
-        return o, final_state
-    rc = _k.launch(*args, o, final_state, chunk=chunk)
+    else:
+        rc = _k.launch(*args, o, final_state, chunk=chunk, states=saved)
+        if rc != 0:
+            raise RuntimeError(
+                f"linear_attn_chunk launch failed: CUDA error {rc}")
+        launches += 1
+        scan_launches += 1
+    return (o, final_state, saved) if states else (o, final_state)
+
+
+def _backward(r, k, v, w_log, u, initial_state, states, grad_o, grad_state,
+              chunk: int):
+    """The backward kernels on CUDA (counted), one charged call on
+    ``meta``: (dr, dk, dv, dw, du or None, d_initial_state)."""
+    global bwd_launches, bwd_du_launches
+    B, S, H, dk = k.shape
+    do = (torch.zeros_like(v) if grad_o is None
+          else grad_o.to(v.dtype).contiguous())
+    d_state = None if grad_state is None else \
+        grad_state.float().contiguous()
+    grads = (torch.empty_like(r), torch.empty_like(k), torch.empty_like(v),
+             torch.empty_like(w_log),
+             None if u is None else torch.empty_like(u),
+             torch.empty((B, H, dk, v.shape[-1]), dtype=torch.float32,
+                         device=k.device))
+    if k.device.type == "meta":
+        _k.bwd_scratch(B, S, H, chunk, k.device, u is not None)
+        shape = dict(B=B, S=S, H=H, d=dk, dtype=dtype_name(k.dtype),
+                     u=u is not None, s0=initial_state is not None,
+                     d_state=d_state is not None)
+        record_kernel("linear_attn_chunk_bwd", k6_bwd_charge(**shape),
+                      **shape)
+        return grads
+    rc = _k.launch_bwd(r, k, v, w_log, u, states, do, d_state, *grads,
+                       chunk=chunk)
     if rc != 0:
-        raise RuntimeError(f"linear_attn_chunk launch failed: CUDA error {rc}")
-    launches += 1
-    scan_launches += 1
-    return o, final_state
+        raise RuntimeError(
+            f"linear_attn_chunk backward launch failed: CUDA error {rc}")
+    bwd_launches += 1
+    bwd_du_launches += u is not None
+    return grads
 
 
 class LinearAttnChunk(torch.autograd.Function):
-    """K6 with a gradient: the forward launches the kernel (the plain
-    version on the CPU), the backward recomputes the plain version in
-    fp32 on the saved operands and differentiates it."""
+    """K6 with a gradient.  CUDA: the forward launches the kernel, its scan
+    saving the state entering each chunk, and the backward launches the
+    backward kernels (``_backward``).  CPU: the forward runs the plain
+    version and the backward recomputes it in fp32 on the saved operands
+    and differentiates it."""
 
     @staticmethod
     def forward(ctx, r, k, v, w_log, u, initial_state, chunk: int):
         global grad_launches
-        out = _forward(r, k, v, w_log, u, initial_state, chunk)
+        args = (r, k, v, w_log, u, initial_state)
+        if k.device.type == "cpu":
+            out, states = _forward(*args, chunk), None
+        else:
+            *out, states = _forward(*args, chunk, states=True)
         grad_launches += k.device.type == "cuda"
-        ctx.save_for_backward(r, k, v, w_log, u, initial_state)
+        ctx.save_for_backward(*args, states)
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)
-        return out
+        return tuple(out)
 
     @staticmethod
     def backward(ctx, grad_o, grad_state):
+        *args, states = ctx.saved_tensors
+        if args[1].device.type != "cpu":
+            grads = _backward(*args, states, grad_o, grad_state, ctx.chunk)
+            return (*(g if need else None for g, need in
+                      zip(grads, ctx.needs_input_grad[:6])), None)
         saved = [None if t is None else
                  t.detach().float().requires_grad_(need)
-                 for t, need in zip(ctx.saved_tensors,
-                                    ctx.needs_input_grad[:6])]
+                 for t, need in zip(args, ctx.needs_input_grad[:6])]
         wanted = [t for t in saved if t is not None and t.requires_grad]
         given = [(i, g) for i, g in enumerate((grad_o, grad_state))
                  if g is not None]
@@ -149,7 +206,7 @@ class LinearAttnChunk(torch.autograd.Function):
                 [outs[i] for i, _ in given], wanted,
                 [g.float() for _, g in given], allow_unused=True))
         res = []
-        for t, src in zip(saved, ctx.saved_tensors):
+        for t, src in zip(saved, args):
             g = next(grads) if t is not None and t.requires_grad else None
             res.append(None if g is None else g.to(src.dtype))
         return (*res, None)

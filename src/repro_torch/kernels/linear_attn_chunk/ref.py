@@ -15,6 +15,14 @@ Hopper kernel.
   factored through the end of the earlier sub-chunk), then a scan of the
   state across chunks.  The CPU tests hold it against the other forms and
   JAX; nothing on the main path runs it.
+* ``chunk_states`` and ``decay_attention_chunked_bwd`` are the plain
+  versions of the backward kernels (``csrc/linear_attn_chunk_bwd.cu``):
+  the states entering each chunk (what the forward's scan saves under
+  autograd), then the gradients of ``decay_attention_chunked`` in the
+  kernels' decomposition.  The CPU tests hold them against ``jax.vjp``
+  and autograd, and ``chip_smoke.py`` holds the kernels against them on
+  the card; nothing on the main path runs them (the CPU backward
+  differentiates ``decay_attention_chunked`` itself).
 * ``linear_attn_ref`` is the sequential recurrence, a torch port of
   ``repro/kernels/linear_attn_chunk/ref.py::linear_attn_ref`` in its
   kernel layout ``(B, H, S, d)``; the tests keep it as an oracle.
@@ -146,6 +154,139 @@ def decay_attention_chunk_parallel(r, k, v, w_log, u=None,
         state = state * decay[:, c][..., None] + dstate[:, c]
     o = torch.stack(outs, dim=1).reshape(B, nc * chunk, H, dv)[:, :S]
     return o.to(v.dtype), state
+
+
+def _chunks(t, chunk: int):
+    """(B, S, H, d) -> fp32 (B, n_chunks, chunk, H, d), zero past S."""
+    S = t.shape[1]
+    pad = -S % chunk
+    return F.pad(t.float(), (0, 0, 0, 0, 0, pad)).reshape(
+        t.shape[0], (S + pad) // chunk, chunk, *t.shape[2:])
+
+
+def chunk_states(k, v, w_log, initial_state=None, chunk: int = 64):
+    """The fp32 state entering each chunk, (B, H, n_chunks, dk, dv): what
+    the kernel's forward scan writes under autograd (``S_in``)."""
+    B, _, H, dk = k.shape
+    kf, vf, wf = (_chunks(t, chunk) for t in (k, v, w_log))
+    lcw = torch.cumsum(wf, dim=2)
+    last = lcw[:, :, -1:]
+    dstate = torch.einsum("bnshd,bnshv->bnhdv", kf * torch.exp(last - lcw),
+                          vf)
+    decay = torch.exp(last[:, :, 0])[..., None]              # (B,n,H,dk,1)
+    state = (torch.zeros((B, H, dk, v.shape[-1]), device=k.device)
+             if initial_state is None else initial_state.float())
+    states = []
+    for c in range(kf.shape[1]):
+        states.append(state)
+        state = state * decay[:, c] + dstate[:, c]
+    return torch.stack(states, dim=2)
+
+
+def decay_attention_chunked_bwd(r, k, v, w_log, u, states, do, d_state=None,
+                                chunk: int = 64, sub: int = 16):
+    """The gradients of ``decay_attention_chunked`` in the backward
+    kernel's decomposition (``csrc/linear_attn_chunk_bwd.cu``), all fp32.
+
+    ``states`` are the states entering each chunk (``chunk_states``);
+    ``do`` the output's cotangent (B, S, H, dv); ``d_state`` the final
+    state's, or None (zero).  Per chunk, with L the inclusive cumulative
+    log-decay, E = L - w the exclusive one and L_last = L at the chunk's
+    end:
+
+    * the reverse scan: dS_out of the last chunk is ``d_state``;
+      dS_in = exp(L_last) dS_out + sum_t (r_t exp(E_t)) do_t^T, and
+      dS_in of chunk 0 is the initial state's gradient;
+    * dA[t, s] = do_t . v_s (s < t), and A recomputed; both of their
+      decay-weighted products by sub-chunks of ``sub``: a diagonal block
+      pairwise, exp(min(E_t - L_s, 0)), an off-diagonal one factored
+      through L at the end of the earlier sub-chunk (each factor <= 1);
+    * dv = A^T do + (r . u k) do + (k exp(L_last - L)) dS_out;
+      dr = [intra] + exp(E) S_in do + u k (do . v);
+      dk = [intra] + exp(L_last - L) dS_out v + u r (do . v);
+    * dw from the parts that carry a decay: gE_t = r_t dr_w, gL_s =
+      -k_s dk_w, plus, at the chunk's last position, sum_s k_s dk_state_s
+      + exp(L_last) sum_e dS_out S_in; dw_t = sum_{t' >= t} (gE + gL) -
+      gE_t (E_t sums the decays before t, L_t those up to t);
+    * du = sum over b and t of r_t k_t (do_t . v_t).
+
+    Returns (dr, dk, dv, dw, du or None, d_initial_state)."""
+    B, S, H, dk = k.shape
+    dv = v.shape[-1]
+    rf, kf, vf, wf, df = (_chunks(t, chunk) for t in (r, k, v, w_log, do))
+    nc = rf.shape[1]
+    L = torch.cumsum(wf, dim=2)
+    E = L - wf
+    last = L[:, :, -1:]
+    q_eff = rf * torch.exp(E)
+    k2 = kf * torch.exp(last - L)
+    decay = torch.exp(last[:, :, 0])[..., None]              # (B,n,H,dk,1)
+    s_in = states.float().transpose(1, 2)                    # (B,n,H,dk,dv)
+    # the reverse scan
+    g = (torch.zeros((B, H, dk, dv), device=k.device) if d_state is None
+         else d_state.float())
+    ds_out = [None] * nc
+    for c in reversed(range(nc)):
+        ds_out[c] = g
+        g = g * decay[:, c] + torch.einsum("bthd,bthv->bhdv", q_eff[:, c],
+                                           df[:, c])
+    d_s0 = g
+    ds_out = torch.stack(ds_out, dim=1)                      # (B,n,H,dk,dv)
+    # the chunk-parallel gradients
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=k.device).tril(-1)
+    dA = torch.where(tri, torch.einsum("bnthv,bnshv->bnhts", df, vf), 0.0)
+    A = torch.zeros_like(dA)
+    dr_w = torch.zeros_like(rf)
+    dk_w = torch.zeros_like(kf)
+    blk = lambda x, i: x[:, :, i * sub:(i + 1) * sub]
+    part = lambda x, i, j: x[..., i * sub:(i + 1) * sub,
+                             j * sub:(j + 1) * sub]
+    stri = torch.ones((sub, sub), dtype=torch.bool,
+                      device=k.device).tril(-1)
+    for i in range(chunk // sub):
+        sl = slice(i * sub, (i + 1) * sub)
+        dlt = blk(E, i)[:, :, :, None] - blk(L, i)[:, :, None]
+        fd = torch.where(stri[:, :, None, None],
+                         torch.exp(torch.clamp_max(dlt, 0.0)), 0.0)
+        ri, ki, da = blk(rf, i), blk(kf, i), part(dA, i, i)
+        A[..., sl, sl] = torch.einsum("bnthd,bnshd,bntshd->bnhts", ri, ki, fd)
+        dr_w[:, :, sl] += torch.einsum("bnhts,bnshd,bntshd->bnthd", da, ki,
+                                       fd)
+        dk_w[:, :, sl] += torch.einsum("bnhts,bnthd,bntshd->bnshd", da, ri,
+                                       fd)
+        for j in range(i):
+            sj = slice(j * sub, (j + 1) * sub)
+            ref = L[:, :, (j + 1) * sub - 1][:, :, None]     # (B,n,1,H,d)
+            fr = torch.exp(torch.clamp_max(blk(E, i) - ref, 0.0))
+            fk = torch.exp(torch.clamp_max(ref - blk(L, j), 0.0))
+            rs, ks, da = ri * fr, blk(kf, j) * fk, part(dA, i, j)
+            A[..., sl, sj] = torch.einsum("bnthd,bnshd->bnhts", rs, ks)
+            dr_w[:, :, sl] += fr * torch.einsum("bnhts,bnshd->bnthd", da, ks)
+            dk_w[:, :, sj] += fk * torch.einsum("bnhts,bnthd->bnshd", da, rs)
+    dov = (df * vf).sum(-1, keepdim=True)                    # (B,n,c,H,1)
+    d_v = (torch.einsum("bnhts,bnthv->bnshv", A, df)
+           + torch.einsum("bnshd,bnhdv->bnshv", k2, ds_out))
+    dr_w = dr_w + torch.exp(E) * torch.einsum("bnhdv,bnthv->bnthd", s_in, df)
+    dk_state = torch.exp(last - L) * torch.einsum("bnhdv,bnshv->bnshd",
+                                                  ds_out, vf)
+    dk_w = dk_w + dk_state
+    d_r, d_k, d_u = dr_w, dk_w, None
+    if u is not None:
+        uf = u.float()
+        d_v = d_v + (rf * uf * kf).sum(-1, keepdim=True) * df
+        d_r = d_r + uf * kf * dov
+        d_k = d_k + uf * rf * dov
+        d_u = (rf * kf * dov).sum(dim=(0, 1, 2))
+    gE = rf * dr_w
+    gL = -kf * dk_w
+    gL[:, :, -1] += (kf * dk_state).sum(2) + decay[..., 0] * (
+        ds_out * s_in).sum(-1)
+    tot = gE + gL
+    d_w = tot.flip(2).cumsum(2).flip(2) - gE
+    unchunk = lambda t: t.reshape(B, nc * chunk, H, t.shape[-1])[:, :S]
+    return (unchunk(d_r), unchunk(d_k), unchunk(d_v), unchunk(d_w), d_u,
+            d_s0)
 
 
 def linear_attn_ref(r, k, v, w_log, u=None):

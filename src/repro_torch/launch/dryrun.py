@@ -212,7 +212,7 @@ def main(argv=None) -> None:
 
         # the longest first: a Mamba2 prefill (its SSD runs a Python loop
         # over chunks of 64: 1.6M meta ops at prefill_32k), then the
-        # training steps (K3's backward recomputes the plain version)
+        # training steps (every layer's forward and backward ops)
         jobs.sort(key=_longest_first)
         ctx = multiprocessing.get_context("spawn")
         with ctx.Pool(args.jobs) as pool:

@@ -6,8 +6,9 @@ HLO; the port has no HLO).
 dispatches passes through it, and it charges
 
   * flops — each matmul-like op (``mm``, ``addmm``, ``bmm``,
-    ``baddbmm``, ``mv``, ``addmv``, ``dot``; ``matmul``, ``linear`` and
-    ``einsum`` reach the dispatcher as these) as 2·M·N·K, kept by operand
+    ``baddbmm``, ``mv``, ``addmv``; ``matmul``, ``linear`` and ``einsum``
+    reach the dispatcher as these; a vector ``dot`` is not counted) as
+    2·M·N·K, kept by operand
     dtype, since fp32 GEMMs run on the CUDA cores at 67 TFLOP/s and bf16
     ones on the tensor cores at 989;
   * bytes — operands plus result of each op that is not a view (an
@@ -28,7 +29,8 @@ dispatches passes through it, and it charges
 A hand-written kernel's wrapper on ``meta`` runs neither the kernel nor
 its plain version: it returns empty outputs of the kernel's shapes and
 charges one call through ``record_kernel``, by the kernel's charge
-function below.  Those functions are also the bounds ``chip_smoke.py``
+function below; under autograd its backward does the same for the
+backward kernels (``k6_bwd_charge``, ``flash_bwd_charge``).  Those functions are also the bounds ``chip_smoke.py``
 prints for each kernel (phase 3), so a call is charged what phase 3
 calls its least time.  A charge counts each operand read once and each
 output written once, at the lengths the call can read; on ``meta`` no
@@ -158,6 +160,43 @@ def flash_charge(B: int, Sq: int, keys: int, Hq: int, Hkv: int, dqk: int,
     nbytes = B * (Sq * Hq * (dqk + dv) + keys * Hkv * (dqk + dv)) * _elt(
         dtype)
     return charge(nbytes, 2 * (dqk + dv) * Hq * B * pairs, dtype)
+
+
+def flash_bwd_charge(B: int, S: int, Hq: int, Hkv: int, dqk: int, dv: int,
+                     dtype: str, pairs: int) -> KernelCharge:
+    """K3's backward over a whole prefill of S rows: q, k, v, the output,
+    its cotangent and the log-sum-exp (fp32) read once, dq, dk and dv
+    written once, against the products it cannot do without per admitted
+    (head, query, key) pair (``pairs`` per row of the batch): the scores
+    recomputed (2 dqk), dP = dO V^T (2 dv), dV += P^T dO (2 dv), dK +=
+    dS^T Q and dQ += dS K (2 dqk each)."""
+    elt = _elt(dtype)
+    nbytes = B * S * (Hq * (2 * dqk + 2 * dv) * elt + Hq * 4
+                      + 2 * Hkv * (dqk + dv) * elt)
+    return charge(nbytes, 2 * (3 * dqk + 2 * dv) * Hq * B * pairs, dtype)
+
+
+def k6_bwd_charge(B: int, S: int, H: int, d: int, dtype: str,
+                  u: bool = True, s0: bool = False,
+                  d_state: bool = False) -> KernelCharge:
+    """K6's backward (dk = dv = d), what the gradient needs: r, k, v and
+    the output's cotangent read in their type and the log-decay in fp32,
+    dr, dk, dv written in their type and dw in fp32, each once; u read
+    and du written (fp32) with ``u``, the initial state read and its
+    gradient written with ``s0``, the final state's cotangent read with
+    ``d_state``.  The states entering each chunk, which the forward saves
+    and the kernel reads, are left out: they follow from k, v and w.  Its
+    operations: one exponential per token and channel on the SFUs, and
+    its least products, 8 dk dv a token (the gradients of the state's
+    read-out and update), on the tensor cores in bf16 and the CUDA cores
+    in fp32."""
+    elt = _elt(dtype)
+    nbytes = (B * S * H * d * (7 * elt + 8)
+              + B * H * d * d * 4 * (2 * s0 + d_state)
+              + (2 * H * d * 4 if u else 0))
+    products = 8 * B * S * H * d * d
+    ops_s = max(B * S * H * d / SFU_PER_S, products / PEAK_FLOPS[dtype])
+    return KernelCharge(nbytes, products, dtype, ops_s)
 
 
 def k6_flops(S: int, c: int, H: int, d: int) -> int:

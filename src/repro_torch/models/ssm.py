@@ -14,7 +14,8 @@ post-update readout ``o_t = C_t . S_t``.  Two execution paths each:
 * full mode (prefill, and training): RWKV6's chunked scan through the
   wrapper of the hand-written kernel K6 (``kernels/linear_attn_chunk``),
   which takes the initial state and returns the final one, and under
-  autograd goes through K6's ``LinearAttnChunk`` (the backward recomputes
+  autograd goes through K6's ``LinearAttnChunk`` (on the card the
+  backward launches K6's backward kernels; on the CPU it differentiates
   the plain version); Mamba2's grouped SSD (``mamba2_ssd_chunked``),
   which computes the (c, c) score matrix once per group and never
   broadcasts B and C across heads.  No TPU kernel computes the SSD (JAX

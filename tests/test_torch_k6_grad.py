@@ -3,8 +3,9 @@ LinearAttnChunk``) against JAX's gradient of the function it computes.
 
 JAX's trainer differentiates the jnp ``decay_attention_chunked``
 (``repro/models/ssm.py``); the port's wrapper launches K6 in the forward
-(the plain version on the CPU) and recomputes the plain version in fp32
-in the backward.  On the CPU, fp32, inputs from a numpy seed:
+and the backward kernels (``csrc/linear_attn_chunk_bwd.cu``) in the
+backward on the card, and on the CPU runs the plain version and
+differentiates it in fp32.  On the CPU, fp32, inputs from a numpy seed:
 
 * the gradients of r, k, v, w_log, u and the initial state of a loss
   that reads the output and the final state, against ``jax.grad``:
@@ -22,8 +23,10 @@ in the backward.  On the CPU, fp32, inputs from a numpy seed:
 
 gpu-marked, on the card, without JAX: K6's output within its tolerance
 of the plain version, one launch, one scan and one ``grad_launches`` a
-call, and gradients equal bitwise to autograd through the plain version
-on the same operands (the backward is that recomputation):
+call, one backward call (``bwd_launches``; ``bwd_du_launches`` too
+where u is given), and gradients, each in its
+operand's dtype, within relative L2 1e-4 (fp32) or 5e-3 (bf16) of
+autograd through the plain version in fp32 on the same operands:
 
     python -m pytest --noconftest -m gpu tests/test_torch_k6_grad.py
 """
@@ -174,8 +177,12 @@ def test_k6_autograd_on_the_card(dtype, S, use_u, use_state, tol):
     kernels.reset_counts()
     o, st, g = _port_grads(ops.linear_attn_bshd, t, wo, ws, 64)
     assert (ops.launches, ops.scan_launches, ops.grad_launches) == (1, 1, 1)
-    ro, rst, rg = _port_grads(decay_attention_chunked, t, wo, ws, 64)
+    assert (ops.bwd_launches, ops.bwd_du_launches) == (1, int(use_u))
+    t32 = {k: None if x is None else x.float() for k, x in t.items()}
+    ro, rst, rg = _port_grads(decay_attention_chunked, t32, wo, ws, 64)
     torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(st, rst, atol=tol, rtol=tol)
+    bound = 1e-4 if dtype == torch.float32 else 5e-3
     for k in rg:
-        assert g[k].dtype == rg[k].dtype and torch.equal(g[k], rg[k]), k
+        assert g[k].dtype == t[k].dtype and torch.isfinite(g[k]).all(), k
+        assert _rel(g[k].float().cpu(), rg[k].cpu()) <= bound, k
