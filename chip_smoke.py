@@ -18,14 +18,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    resolves (every key-tile instance's line is printed), K5's split
    sweep over bf16
    pools at (512, 64) and its merge, K6's bf16 chunk kernel and scan at
-   chunk 64) and every instance of the backward kernels (K6's reverse
-   scan and gradient pass at chunks 16 and 64 in fp32 and bf16, its du
-   reduction; K3's delta, dK/dV and dQ kernels at each bf16 build and
-   fp32 head dim) are each found in the report and show no spill; then
+   chunk 64) and every instance of the backward kernels (K6's bf16
+   increment and gradient pass and fp32 reverse scan and gradient pass
+   at chunks 16 and 64, its carry and du reduction; K3's dK/dV and dQ
+   kernels at each bf16 build and fp32 head dim, fp32's delta, the
+   partials' sum) are each found in the report and show no spill; then
    fail unless
    ``cuobjdump -sass`` finds tensor-core instructions (``HMMA`` or
    ``HGMMA``) in every bf16 build of K3, of its backward's dK/dV and dQ
-   kernels, of the tree-verify split
+   kernels, of K6's backward's increment and gradient pass, of the
+   tree-verify split
    kernel, of K5's split sweep and of K6's two kernels (the models past
    64 query rows per kv head add no instantiation: row groups are a grid
    axis of the D=128 builds), the D = 64 ones and K3's (80, 80) among
@@ -152,7 +154,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
       timed (device time of the backward's launches) beside its bound
       (``op_cost.k6_bwd_charge``, ``flash_bwd_charge``), its plain
       version and, for K3, SDPA's backward alone (``torch.autograd.grad``
-      of one SDPA output, graph retained);
+      of one SDPA output, graph retained), and each of its launches timed
+      on its own with the blocks of its grid (``launch_split``: K3's
+      dQ with delta, dK/dV and the partials' sum, or in fp32 delta, dK/dV
+      and dQ; K6's increment, carry, gradient pass and du, or in fp32 its
+      scan, gradient pass and du);
 4. tiny fp32 parity (every phase runs in the autotuner's mode ``on``
    under the committed cache; phases 4-6 print the winners each model
    resolves): ``minitron-4b.reduced()``, a reduced gemma3-1b
@@ -274,10 +280,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    power limit; the four models of the rest of the registry in two
    modes, the synchronous eager loop and the default, one turn each, with
    the peak memory of the phase; zamba2-1.2b in the four modes, one
-   turn.  Two models run this phase at a cut depth, from weights of
+   turn.  Three models run this phase at a cut depth, from weights of
    their own (widths kept): deepseek-v2-lite-16b at 2 layers (phase
    5b's), zamba2-1.2b at 12 layers (two invocations of the shared
-   block).  Phases 4, 5, 5b and 5c serve through the engines' defaults
+   block), rwkv6-1.6b at 12 layers (to keep the script inside its time
+   limit).  Phases 4, 5, 5b and 5c serve through the engines' defaults
    (``inflight=2``, the step captured): the decode step's launches are
    counted at its capture and its eager warm-up, its replays by the
    capture;
@@ -503,6 +510,61 @@ def device_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def launch_split(fn, expect_ms: float = None, iters: int = 10,
+                 tries: int = 3) -> dict:
+    """Each kernel that ``fn()`` launches: {name (template arguments, no
+    namespace): (mean device µs a call, blocks of its grid)}, read from
+    the kernel events of a ``torch.profiler`` trace of ``iters`` calls
+    after a warm-up (the device's own start and end of each launch).  A
+    kernel launched twice a call counts both in its µs.  The profiler has
+    been seen to drop kernel events from a trace: given ``expect_ms``,
+    the call's device time, a trace whose launches add up to less than
+    80% of it is taken again, up to ``tries`` times in all."""
+    for _ in range(tries):
+        split = _trace_split(fn, iters)
+        total_ms = 1e-3 * sum(us for us, _ in split.values())
+        if expect_ms is None or total_ms >= 0.8 * expect_ms:
+            break
+    return split
+
+
+def _trace_split(fn, iters: int) -> dict:
+    """One trace of ``launch_split``."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    path = SRC.parent / "build" / "launch_split.trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    split = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        name = re.sub(r"\(anonymous namespace\)::|^void ", "", e["name"])
+        name = name.split("(", 1)[0]
+        grid = e.get("args", {}).get("grid", [0])
+        us, blocks = split.get(name, (0.0, 0))
+        split[name] = (us + e["dur"] / iters, math.prod(grid))
+    return split
+
+
+def split_text(split: dict) -> str:
+    """``launch_split``'s launches as one line: name, µs, blocks."""
+    return ", ".join(f"{name} {us:.1f}us x{blocks} blocks"
+                     for name, (us, blocks) in split.items())
+
+
 def cycle(sets):
     """A function returning the operand sets in turn."""
     it = iter(range(10 ** 9))
@@ -523,10 +585,16 @@ KERNEL_PARAMS = {
     "linear_attn_scan_kernel": ("", "C"),
     "linear_attn_bwd_scan_kernel": ("", "C"),
     "linear_attn_bwd_chunk_kernel": ("", "C"),
+    "linear_attn_bwd_inc_kernel": ("C",),
+    "linear_attn_bwd_carry_kernel": (),
+    "linear_attn_bwd_chunk_tc_kernel": ("C",),
     "linear_attn_bwd_du_kernel": (),
     "flash_bwd_delta_kernel": ("",),
     "flash_bwd_kv_kernel": ("DQK", "DV"),
-    "flash_bwd_q_kernel": ("DQK", "DV", "KN"),
+    "flash_bwd_kv_wgmma_kernel": ("DQK", "DV"),
+    "flash_bwd_q_wgmma_kernel": ("DQK", "DV"),
+    "flash_bwd_sum_kernel": (),
+    "flash_bwd_q_kernel": ("DQK", "DV"),
     "flash_bwd_kv_f32_kernel": ("D",),
     "flash_bwd_q_f32_kernel": ("D",),
 }
@@ -685,34 +753,43 @@ K6_BUILDS = frozenset({"linear_attn_chunk_kernel<bf16, C=64>",
 
 
 def bwd_builds() -> frozenset:
-    """Every instance of the backward kernels (K6's: scan, gradient pass,
-    du's reduction; K3's: delta, dK/dV, dQ, bf16 at each build and fp32 at
-    each padded head dim): each must be found without a spill."""
+    """Every instance of the backward kernels (K6's bf16 increment, carry
+    and gradient pass, its fp32 scan and gradient pass, du's reduction;
+    K3's dQ (with delta in bf16), dK/dV and the partials' sum at each bf16
+    build, delta, dK/dV and dQ at each padded fp32 head dim): each must be
+    found without a spill."""
     from repro_torch.kernels.flash_attention.kernel import (BF16_DIMS,
                                                             HEAD_DIMS)
 
-    k6 = {f"linear_attn_bwd_{k}_kernel<{t}, C={c}>" for k in ("scan", "chunk")
-          for t in ("f32", "bf16") for c in (16, 64)}
-    k3 = {f"flash_bwd_delta_kernel<{t}>" for t in ("f32", "bf16")}
+    k6 = {f"linear_attn_bwd_{k}_kernel<f32, C={c}>" for k in ("scan", "chunk")
+          for c in (16, 64)}
+    k6 |= {f"linear_attn_bwd_{k}_kernel<C={c}>" for k in ("inc", "chunk_tc")
+           for c in (16, 64)}
+    k3 = {"flash_bwd_delta_kernel<f32>"}
     for dqk, dv in BF16_DIMS:
-        k3 |= {f"flash_bwd_kv_kernel<DQK={dqk}, DV={dv}>",
-               f"flash_bwd_q_kernel<DQK={dqk}, DV={dv}, "
-               f"KN={32 if dqk > 128 else 64}>"}
+        kv = dqk % 64 == dv % 64 == 0          # the builds on wgmma
+        q = kv and dqk <= 192
+        k3 |= {f"flash_bwd_kv{'_wgmma' * kv}_kernel<DQK={dqk}, DV={dv}>",
+               f"flash_bwd_q{'_wgmma' * q}_kernel<DQK={dqk}, DV={dv}>"}
     for d in HEAD_DIMS:
         k3 |= {f"flash_bwd_kv_f32_kernel<D={d}>",
                f"flash_bwd_q_f32_kernel<D={d}>"}
-    return frozenset(k6 | k3 | {"linear_attn_bwd_du_kernel"})
+    return frozenset(k6 | k3 | {"linear_attn_bwd_du_kernel",
+                                "linear_attn_bwd_carry_kernel",
+                                "flash_bwd_sum_kernel"})
 
 
 # the bf16 builds that must run on the tensor cores (SASS check): every
-# build whose name starts so, and at least one of each (K6's backward runs
-# on the CUDA cores)
+# build whose name starts so, and at least one of each
 TENSOR_CORE_KERNELS = ("tree_attention_split_kernel<bf16",
                        "flash_attention_kernel<bf16",
                        "mla_attention_split_kernel<kv bf16",
                        "linear_attn_chunk_kernel<bf16",
                        "linear_attn_scan_kernel<bf16",
-                       "flash_bwd_kv_kernel<", "flash_bwd_q_kernel<")
+                       "flash_bwd_kv_kernel<", "flash_bwd_kv_wgmma_kernel<",
+                       "flash_bwd_q_kernel<", "flash_bwd_q_wgmma_kernel<",
+                       "linear_attn_bwd_inc_kernel<",
+                       "linear_attn_bwd_chunk_tc_kernel<")
 # the wrappers' second counters: each call of a two-launch kernel also
 # launches its merge (tree verify, K5) or its scan (K6)
 SECOND_COUNTERS = ("merge_launches", "scan_launches")
@@ -2162,6 +2239,7 @@ def check_backward() -> dict:
                                got, again, plain(), dtype_name)
         rec = dict(max_abs_err=err, rel_l2=rel)
         rec["ms"] = device_ms(run)
+        rec["split"] = launch_split(run, rec["ms"])
         rec["plain_ms"] = time_ms(plain, iters=3)
         rec["library_ms"] = None
         rec["bound_ms"], rec["bound_by"] = bound_ms(k6_bwd_charge(
@@ -2172,7 +2250,8 @@ def check_backward() -> dict:
             f"(bound {BWD_REL[dtype_name]}), bitwise twice; "
             f"kernels={rec['ms'] * 1e3:.1f}us bound="
             f"{rec['bound_ms'] * 1e3:.2f}us ({rec['bound_by']}) "
-            f"plain={rec['plain_ms'] * 1e3:.1f}us (no library call)")
+            f"plain={rec['plain_ms'] * 1e3:.1f}us (no library call); "
+            f"launches: {split_text(rec['split'])}")
     for model, dtype_name, hq, hkv, dqk, dv, w, causal, scale in \
             K3_BWD_CASES:
         dtype = getattr(torch, dtype_name)
@@ -2206,6 +2285,7 @@ def check_backward() -> dict:
                                plain(), dtype_name)
         rec = dict(max_abs_err=err, rel_l2=rel, lse_err=lse_err)
         rec["ms"] = device_ms(run)
+        rec["split"] = launch_split(run, rec["ms"])
         rec["plain_ms"] = time_ms(plain, iters=3)
         rec["library_ms"] = _sdpa_bwd_ms(q, k, v, do, w, causal, scale)
         rec["bound_ms"], rec["bound_by"] = bound_ms(flash_bwd_charge(
@@ -2218,7 +2298,8 @@ def check_backward() -> dict:
             f"{lse_err:.2e}, forward bits unchanged by the lse pointer, "
             f"bitwise twice; kernels={rec['ms'] * 1e3:.1f}us bound="
             f"{rec['bound_ms'] * 1e3:.2f}us ({rec['bound_by']}) "
-            f"plain={rec['plain_ms'] * 1e3:.1f}us sdpa backward={sdpa}")
+            f"plain={rec['plain_ms'] * 1e3:.1f}us sdpa backward={sdpa}; "
+            f"launches: {split_text(rec['split'])}")
     return record
 
 
@@ -2840,9 +2921,11 @@ WORKLOADS = (
              sampled=("paged", True, {"tree_attention_paged_windowed": 26,
                                       "tree_attention_paged": 1},
                       {"flash_attention": 27})),
+    # phase 6 at 12 layers: the script's time limit
     Workload("rwkv6-1.6b", (600, 1500), 2048, {"paged": {}},
              {"linear_attn_chunk": 24}, 1000,
              (None, {}, {"linear_attn_chunk": 24}),
+             modes_cut=(12, {}),
              sampled=("paged", True, {}, {"linear_attn_chunk": 24})),
     # chunked, and phase 6, at the bf16 depth of the MoE verify check: 2
     # layers (the dense one and one MoE layer) + the prefix layer
@@ -4496,6 +4579,20 @@ def _repeated_batch(cfg, total: dict) -> list:
 
 
 def _step_breakdown(cfg) -> str:
+    """``step_numbers`` as one line."""
+    n = step_numbers(cfg)
+    return (f"forward {n['forward_ms']:.1f} ms, backward "
+            f"{n['backward_ms']:.1f} ms (of it {n['kernel']}'s autograd "
+            f"backward {n['wrapper_bwd_ms']:.1f} ms wall over "
+            f"{n['wrapper_bwd_calls']} calls), update {n['update_ms']:.1f} "
+            f"ms; one untraced step {n['untraced_ms']:.1f} ms; one traced "
+            f"step: device busy {n['busy_ms']:.1f} ms, of it the backward "
+            f"kernels {n['bwd_kernels_ms']:.1f} ms ({n['traced_ms']:.1f} ms "
+            f"wall traced), idle share {n['idle']:.1%} against the untraced "
+            "step")
+
+
+def step_numbers(cfg) -> dict:
     """Where one base step's time goes (a repeated batch, after a warm-up
     step): the forward, the backward and, inside it, the kernel wrapper's
     autograd backward calls (K6's at RWKV6, K3's otherwise: the backward
@@ -4581,13 +4678,12 @@ def _step_breakdown(cfg) -> str:
                 bwd_dev += 1e-9 * e.duration_ns()
     ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
     del params, opt, m
-    return (f"forward {ms[0]:.1f} ms, backward {ms[1]:.1f} ms (of it "
-            f"{kernel}'s autograd backward {1e3 * sum(bwd_s):.1f} ms wall "
-            f"over {len(bwd_s)} calls), update {ms[2]:.1f} ms; one "
-            f"untraced step {1e3 * untraced:.1f} ms; one traced step: "
-            f"device busy {1e3 * busy:.1f} ms, of it the backward kernels "
-            f"{1e3 * bwd_dev:.1f} ms ({1e3 * wall:.1f} ms wall traced), idle "
-            f"share {1 - busy / untraced:.1%} against the untraced step")
+    return {"kernel": kernel, "forward_ms": ms[0], "backward_ms": ms[1],
+            "wrapper_bwd_ms": 1e3 * sum(bwd_s),
+            "wrapper_bwd_calls": len(bwd_s), "update_ms": ms[2],
+            "untraced_ms": 1e3 * untraced, "busy_ms": 1e3 * busy,
+            "bwd_kernels_ms": 1e3 * bwd_dev, "traced_ms": 1e3 * wall,
+            "idle": 1 - busy / untraced}
 
 
 def train_recurrent_and_moe() -> dict:
@@ -5315,7 +5411,7 @@ def main() -> int:
     tensor_cores = {}
     for name in ("tree_attention_paged", "flash_attention",
                  "mla_attention_paged", "linear_attn_chunk",
-                 "flash_attention_bwd"):
+                 "flash_attention_bwd", "linear_attn_chunk_bwd"):
         tensor_cores.update(sass_tensor_cores(build.library_path(name)))
     checked = sorted(k for k in tensor_cores
                      if k.startswith(TENSOR_CORE_KERNELS))
@@ -5532,6 +5628,8 @@ def run_phases(t_start: float, sweep: tuple) -> int:
         fwd = name.removesuffix("_bwd")
         e = dict(entry(fwd, source, replaces, rec, max(errs)), name=name)
         e.update(launches=launches.get(f"{fwd} bwd_launches", 0),
+                 split={k: {"us": us, "blocks": n}
+                        for k, (us, n) in rec["split"].items()},
                  tpu_kernel=None,
                  note=f"the gradient of the JAX function at {replaces} "
                       "(no TPU kernel had a backward)",

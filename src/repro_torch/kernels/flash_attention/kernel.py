@@ -21,12 +21,16 @@ backward reads.
 
 The backward of a whole prefill (``launch_bwd``, source
 ``csrc/flash_attention_bwd.cu``, replacing no TPU kernel: JAX
-differentiates ``blocked_attention``) is three kernels: delta =
-rowsum(dO o), then dK/dV by key tiles and dQ by query tiles from the
-log-sum-exp.  ``flash_attention_lse_plain`` and
+differentiates ``blocked_attention``) is, in bf16, dQ by query tiles
+(which also writes delta = rowsum(dO o)), then dK/dV by key tiles and
+query heads and, with more query than kv heads or a split walk
+(``bwd_split``), the sum of the fp32 partials; in fp32 delta, dK/dV and
+dQ.  ``flash_attention_lse_plain`` and
 ``flash_attention_bwd_plain`` are its plain versions, in the same
-decomposition.  The wrapper (``ops.py``) is the port's only caller of
-``launch`` and ``launch_bwd``.
+decomposition (each kv head's dK/dV summed over its query heads in
+order, as the kernels sum their per-head partials).  The wrapper
+(``ops.py``) is the port's only caller of ``launch`` and
+``launch_bwd``.
 """
 from __future__ import annotations
 
@@ -47,6 +51,8 @@ BF16_DIMS = ((64, 64), (80, 80), (128, 128), (256, 256), (192, 128))
 TILE_CANDIDATES = (32, 64, 128)
 MMA_ROWS = 64
 MAX_SMEM = 227 * 1024
+SMS = 132                      # the H100 SXM's streaming multiprocessors
+WGMMA_DQ_MAX = 192             # the widest dQ on wgmma (the .cu's kWgmmaDqMax)
 
 
 def mma_smem_bytes(dqk: int, dv: int, kn: int) -> int:
@@ -84,7 +90,7 @@ def bwd_fn():
     fn = build.load("flash_attention_bwd").flash_attention_bwd
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_void_p])
     return fn
 
@@ -111,9 +117,33 @@ def launch(q, k, v, out, *, causal: bool, window: int,
         1.0 / math.sqrt(Dqk) if scale is None else float(scale), stream)
 
 
-def delta_buffer(B: int, S: int, Hq: int, device):
-    """The backward's fp32 scratch, delta = rowsum(dO o): (B, Hq, S)."""
-    return torch.empty((B, Hq, S), dtype=torch.float32, device=device)
+def bwd_split(B: int, S: int, Hq: int, dqk: int, dv: int, dtype) -> int:
+    """The blocks sharing one key tile's queries (dK/dV) and one query
+    tile's keys (dQ) in the bf16 kernels on wgmma (head dims multiples of
+    64): 2 where one block per (query head, 64 positions) would leave SMs
+    idle (gemma3-1b's 4 query heads at S = 1024: 64 blocks), else 1; 1
+    for every other build."""
+    if dtype != torch.bfloat16 or dqk % 64 or dv % 64:
+        return 1
+    return 2 if B * Hq * -(-S // 64) < SMS else 1
+
+
+def bwd_scratch(B: int, S: int, Hq: int, Hkv: int, dqk: int, dv: int,
+                dtype, device):
+    """The backward's fp32 scratch: delta = rowsum(dO o), (B, Hq, S), and,
+    for a bf16 call with Hq > Hkv or a split (``bwd_split``), the partials
+    before their sum (None otherwise): each query head's and share's dK
+    and dV, B * S * Hq * split * (dqk + dv) floats, and with a split of
+    the dQ kernel on wgmma (dqk <= ``WGMMA_DQ_MAX``) each share's dQ,
+    B * S * Hq * split * dqk more."""
+    delta = torch.empty((B, Hq, S), dtype=torch.float32, device=device)
+    split = bwd_split(B, S, Hq, dqk, dv, dtype)
+    part = None
+    if dtype == torch.bfloat16 and (Hq != Hkv or split > 1):
+        dq = dqk if split > 1 and dqk <= WGMMA_DQ_MAX else 0
+        part = torch.empty((B * S * Hq * split * (dqk + dv + dq),),
+                           dtype=torch.float32, device=device)
+    return delta, part
 
 
 def launch_bwd(q, k, v, out, lse, do, dq, dk, dv, *, causal: bool,
@@ -127,12 +157,14 @@ def launch_bwd(q, k, v, out, lse, do, dq, dk, dv, *, causal: bool,
     B, S, Hq, Dqk = q.shape
     Hkv, Dv = k.shape[2], v.shape[3]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    delta = delta_buffer(B, S, Hq, q.device)
+    delta, part = bwd_scratch(B, S, Hq, Hkv, Dqk, Dv, q.dtype, q.device)
     return bwd_fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, S, Hq, Hkv, Dqk, Dv, int(causal),
-        int(window), DTYPE_CODES[q.dtype], float(scale), stream)
+        dk.data_ptr(), dv.data_ptr(), None if part is None else
+        part.data_ptr(), B, S, Hq, Hkv, Dqk, Dv, int(causal), int(window),
+        DTYPE_CODES[q.dtype], bwd_split(B, S, Hq, Dqk, Dv, q.dtype),
+        float(scale), stream)
 
 
 def _admitted(q0: int, q1: int, k0: int, k1: int, causal: bool,
@@ -171,10 +203,11 @@ def flash_attention_bwd_plain(q, k, v, out, lse, do, *, causal: bool = True,
                               window: int = 0, scale: float | None = None,
                               tile: int = 64):
     """The gradients (dq, dk, dv), fp32, of a whole prefill in the backward
-    kernel's decomposition: delta = rowsum(dO o); per (query tile, key
+    kernels' decomposition: delta = rowsum(dO o); per (query tile, key
     tile), P = exp(scale q k^T - lse) where admitted and dS = P (dO v^T -
-    delta); dK/dV summed per key tile over the G query heads and every
-    query tile, dQ per query tile over the key tiles."""
+    delta); dK/dV per key tile and query head over every query tile, then
+    each kv head's G query heads summed in order (g = 0 first); dQ per
+    query tile over the key tiles."""
     B, S, Hq, D = q.shape
     Hkv, Dv = k.shape[2], v.shape[-1]
     G = Hq // Hkv
@@ -194,17 +227,22 @@ def flash_attention_bwd_plain(q, k, v, out, lse, do, *, causal: bool = True,
         dp = torch.einsum("bthgv,bshv->bthgs", dof[:, q0:q1], vf[:, k0:k1])
         return p, p * (dp - delta[:, q0:q1, ..., None])
 
-    dq, dk, dv = (torch.zeros_like(t, dtype=torch.float32)
-                  for t in (qf, kf, vf))
+    dq = torch.zeros_like(qf)
+    dk_h = torch.zeros((B, S, Hkv, G, D), device=q.device)
+    dv_h = torch.zeros((B, S, Hkv, G, Dv), device=q.device)
     tiles = [(t0, min(S, t0 + tile)) for t0 in range(0, S, tile)]
-    for k0, k1 in tiles:                       # dK and dV by key tiles
+    for k0, k1 in tiles:                 # dK and dV by key tiles and heads
         for q0, q1 in tiles:
             p, ds = scores(q0, q1, k0, k1)
-            dv[:, k0:k1] += torch.einsum("bthgs,bthgv->bshv", p,
-                                         dof[:, q0:q1])
-            dk[:, k0:k1] += scale * torch.einsum("bthgs,bthgd->bshd", ds,
-                                                 qf[:, q0:q1])
-    for q0, q1 in tiles:                       # dQ by query tiles
+            dv_h[:, k0:k1] += torch.einsum("bthgs,bthgv->bshgv", p,
+                                           dof[:, q0:q1])
+            dk_h[:, k0:k1] += scale * torch.einsum("bthgs,bthgd->bshgd", ds,
+                                                   qf[:, q0:q1])
+    dk, dv = dk_h[..., 0, :].clone(), dv_h[..., 0, :].clone()
+    for g in range(1, G):                # the group's sum, in order
+        dk += dk_h[..., g, :]
+        dv += dv_h[..., g, :]
+    for q0, q1 in tiles:                 # dQ by query tiles
         for k0, k1 in tiles:
             _, ds = scores(q0, q1, k0, k1)
             dq[:, q0:q1] += scale * torch.einsum("bthgs,bshd->bthgd", ds,

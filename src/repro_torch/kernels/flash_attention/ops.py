@@ -33,9 +33,12 @@ Under autograd (grad mode on and q, k or v requiring a gradient) a whole
 prefill goes through ``FlashAttention``, a ``torch.autograd.Function``.
 On CUDA its forward launches K3 as above, also writing each row's
 log-sum-exp, and its backward launches the backward kernels
-(``csrc/flash_attention_bwd.cu``: delta, dK/dV, dQ) on the saved q/k/v,
-output and log-sum-exp; ``bwd_launches`` counts its calls, each of
-which launches the three kernels once.  On the
+(``csrc/flash_attention_bwd.cu``: in bf16 dQ, which also writes delta,
+then dK/dV per query head and, with more query than kv heads or a
+split walk (``kernel.py::bwd_split``), the partials' sum; in fp32 delta,
+dK/dV, dQ) on the saved q/k/v, output and
+log-sum-exp; ``bwd_launches`` counts its calls, each of which launches
+each of those kernels once.  On the
 CPU the backward recomputes the plain version (``models/layers.py::
 blocked_attention``, the port of the jnp function JAX's trainer
 differentiates, recomputed as ``jax.checkpoint`` recomputes it) and
@@ -246,7 +249,8 @@ def _backward(q, k, v, out, lse, grad_out, *, causal: bool, window: int,
     dv_ = v.shape[-1]
     do = grad_out.to(q.dtype).contiguous()
     if q.device.type == "meta":
-        _k.delta_buffer(B, S, Hq, q.device)      # as the launch allocates
+        # the scratch the launch allocates
+        _k.bwd_scratch(B, S, Hq, k.shape[2], dqk, dv_, q.dtype, q.device)
         shape = dict(B=B, S=S, Hq=Hq, Hkv=k.shape[2], dqk=dqk, dv=dv_,
                      dtype=dtype_name(q.dtype),
                      pairs=k3_pairs(S, window, causal))

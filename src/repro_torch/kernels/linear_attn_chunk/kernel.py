@@ -13,9 +13,12 @@ given ``states`` (``states_buffer``), the scan also writes the state
 entering each chunk there, for the backward.
 
 The backward (``launch_bwd``, source ``csrc/linear_attn_chunk_bwd.cu``,
-replacing no TPU kernel) is three kernels: the reverse scan of the
-state's gradient, the chunk-parallel gradient pass and, with u, du's
-reduction, joined by the fp32 scratch ``bwd_scratch`` allocates.  Its
+replacing no TPU kernel) is, in bf16, four kernels: each chunk's
+increment of the state's gradient, the carry of that gradient across the
+chunks, the chunk-parallel gradient pass on the tensor cores and, with u,
+du's reduction; in fp32 three (the reverse scan, the gradient pass and
+du's reduction, on the CUDA cores); all joined by the fp32 scratch
+``bwd_scratch`` allocates.  Its
 plain version is ``ref.py::decay_attention_chunked_bwd``.  The wrapper
 (``ops.py``) is the port's only caller of ``launch`` and ``launch_bwd``.
 """
@@ -47,7 +50,7 @@ def bwd_fn():
     fn = build.load("linear_attn_chunk_bwd").linear_attn_chunk_bwd
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
     return fn
 
@@ -73,12 +76,15 @@ def states_buffer(B: int, S: int, H: int, chunk: int, device):
 
 def bwd_scratch(B: int, S: int, H: int, chunk: int, device, with_u: bool):
     """The backward's fp32 scratch: each chunk's dS_out (B, H, n_chunks,
-    64, 64), which the reverse scan writes and the gradient pass reads,
-    and, with u, du's per-chunk partials (B, H, n_chunks, 64)."""
+    64, 64), which the reverse scan writes and the gradient pass reads (in
+    bf16 each chunk's increment of it first), each chunk's decay exp(L_last)
+    (B, H, n_chunks, 64), which bf16's increment kernel writes for the
+    scan, and, with u, du's per-chunk partials (B, H, n_chunks, 64)."""
     nc = -(-S // chunk)
     f = lambda *s: torch.empty((B, H, nc, *s), dtype=torch.float32,
                                device=device)
-    return f(HEAD_DIM, HEAD_DIM), f(HEAD_DIM) if with_u else None
+    return (f(HEAD_DIM, HEAD_DIM), f(HEAD_DIM),
+            f(HEAD_DIM) if with_u else None)
 
 
 def launch(r, k, v, w_log, u, initial_state, o, final_state, *,
@@ -110,10 +116,11 @@ def launch_bwd(r, k, v, w_log, u, states, do, d_state, dr, dk, dv, dw, du,
     B, S, H, _ = k.shape
     stream = torch.cuda.current_stream(k.device).cuda_stream
     ptr = lambda t: 0 if t is None else t.data_ptr()
-    ds_out, du_part = bwd_scratch(B, S, H, chunk, k.device, u is not None)
+    ds_out, decay, du_part = bwd_scratch(B, S, H, chunk, k.device,
+                                         u is not None)
     return bwd_fn()(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(), ptr(u),
         states.data_ptr(), do.data_ptr(), ptr(d_state), dr.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), ptr(du),
-        d_s0.data_ptr(), ds_out.data_ptr(), ptr(du_part), B, S, H,
-        int(chunk), DTYPE_CODES[k.dtype], stream)
+        d_s0.data_ptr(), ds_out.data_ptr(), decay.data_ptr(), ptr(du_part),
+        B, S, H, int(chunk), DTYPE_CODES[k.dtype], stream)

@@ -22,10 +22,11 @@ goes through ``LinearAttnChunk``, a ``torch.autograd.Function``.  On CUDA
 its forward launches K6 with the scan writing the state entering each
 chunk, and its backward launches the backward kernels
 (``csrc/linear_attn_chunk_bwd.cu``) on the saved operands and states:
-``bwd_launches`` counts its calls, each of which launches the reverse
-scan of the state's gradient and the gradient pass once, and
-``bwd_du_launches`` those that also launch u's reduction (with u
-only).  On the CPU the backward differentiates the plain version in
+``bwd_launches`` counts its calls, each of which launches the
+carry of the state's gradient across the chunks (in bf16 after each
+chunk's increment of it; in fp32 the reverse scan) and the gradient
+pass once, and ``bwd_du_launches`` those that also launch u's
+reduction (with u only).  On the CPU the backward differentiates the plain version in
 fp32.  JAX has no backward kernel:
 its trainer differentiates the jnp ``decay_attention_chunked`` that
 ``ref.py`` ports.  The final state's gradient may be absent (training

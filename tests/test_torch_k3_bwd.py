@@ -7,9 +7,11 @@ blocked_attention``) and against autograd through the port's plain
 forward, in fp32 on the CPU, operands and the output's cotangent from a
 numpy seed: relative L2 within 1e-4 for each of dq, dk and dv.  Cases:
 the five widths of K3's bf16 builds, (64, 64), (80, 80), (128, 128),
-(256, 256) and (192, 128), run in fp32; G = 1, 3 and 4; causal and
-bidirectional; window 0 and 512 at S past the window; S not a multiple
-of the tile; MLA's scale 1/sqrt(nd + rd).
+(256, 256) and (192, 128), run in fp32; G = 1, 3, 4 and 8 (one kv head:
+each query head's dK/dV summed over the group in order, as the kernels
+sum their per-head partials); causal and bidirectional; window 0 and 512
+at S past the window, and windows that cross a tile's edge or mask whole
+key tiles; S not a multiple of the tiles; MLA's scale 1/sqrt(nd + rd).
 
 gpu-marked, on the card, without JAX (the file imports JAX inside a
 ``try``): the backward kernels (``csrc/flash_attention_bwd.cu``) against
@@ -59,6 +61,17 @@ CASES = [
     ("256 G4 global", 4, 1, 256, 256, 530, True, 0, None),
     ("192/128 G1 MLA scale", 2, 2, 192, 128, 150, True, 0, MLA_SCALE),
     ("64 G4 window 512 ragged", 4, 1, 64, 64, 555, True, 512, None),
+    # the per-head dK/dV partials and their group sum: Hkv = 1 at G = 4
+    # and 8, S past a multiple of the kernels' tiles (32 and 64), windows
+    # that cross a tile's edge, and query tiles whose first key tiles are
+    # wholly masked (window 16 against keys 0-63 from query 80 on)
+    ("256 G8 window 40 ragged", 8, 1, 256, 256, 150, True, 40, None),
+    ("64 G4 window 16 masked first tile", 4, 1, 64, 64, 100, True, 16,
+     None),
+    ("128 G8 window 70 ragged", 8, 1, 128, 128, 233, True, 70, None),
+    ("80 G4 causal ragged", 4, 1, 80, 80, 97, True, 0, None),
+    ("192/128 G4 window 33 MLA scale", 4, 1, 192, 128, 129, True, 33,
+     MLA_SCALE),
 ]
 
 
@@ -147,6 +160,17 @@ GPU_CASES = [
      None),
     ("fp32 192/128 -> 256 MLA", torch.float32, 4, 4, 192, 128, 200, True,
      0, MLA_SCALE),
+    # the per-head (and per-share) partials and their sum: gemma3-1b's
+    # heads at S past the tiles with its window, and G = 8 over one kv head
+    ("gemma3 bf16 256 S=1000 window 512", torch.bfloat16, 4, 1, 256, 256,
+     1000, True, 512, None),
+    ("bf16 128 G8 window 100", torch.bfloat16, 8, 1, 128, 128, 777, True,
+     100, None),
+    ("bf16 64 G8 over 2", torch.bfloat16, 16, 2, 64, 64, 300, True, 0, None),
+    # two blocks share each key tile's queries (too few blocks for the
+    # card), one query head per kv head: the shares' partials and their sum
+    ("bf16 128 G1 split", torch.bfloat16, 2, 2, 128, 128, 300, True, 0,
+     None),
 ]
 
 

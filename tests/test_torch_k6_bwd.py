@@ -17,7 +17,8 @@ gpu-marked, on the card, without JAX (the file imports JAX inside a
 the plain backward on the same operands, fp32 within relative L2 1e-4 and
 bf16 within 5e-3 of the plain version in fp32 on the same bf16 operands
 (a gradient 1% off failing that bound), two identical calls bitwise
-equal; and the autograd wrapper on CUDA with the plain functions patched
+equal, bf16 also at chunk 16 and two sequences (the tensor-core design's
+increment, carry and gradient pass); and the autograd wrapper on CUDA with the plain functions patched
 to raise, so that its gradients can only come from the kernels:
 
     python -m pytest --noconftest -m gpu tests/test_torch_k6_bwd.py
@@ -81,7 +82,9 @@ CASES = [(128, 64, True, True, True, False),
          (45, 16, True, False, False, False),
          (100, 64, False, True, True, False),
          (300, 64, True, True, False, True),
-         (96, 16, False, True, True, True)]
+         (96, 16, False, True, True, True),
+         (257, 64, True, False, True, False),
+         (200, 16, True, True, True, True)]
 IDS = [f"S{c[0]}-c{c[1]}{'-u' if c[2] else ''}{'-s0' if c[3] else ''}"
        f"{'-dS' if c[4] else ''}{'-strong' if c[5] else ''}" for c in CASES]
 
@@ -205,6 +208,41 @@ def test_k6_backward_kernels_against_plain(case):
         off = got[k].float().clone()
         off[..., 1::2] *= 1.01
         assert _rel(off.cpu(), want[k].cpu()) > bound, f"{k}: 1% passes"
+
+
+# the bf16 design's increment, carry and tensor-core gradient pass at
+# chunk 16 (one row tile, eight column groups), two sequences (the carry's
+# and the chunk grid's batch index), strong decay: (B, S, H, chunk, use_u,
+# use_s0, d_state, strong)
+BF16_CASES = [(1, 300, 8, 16, True, True, True, False),
+              (2, 45, 4, 16, False, False, False, True),
+              (2, 200, 4, 64, True, True, True, True)]
+
+
+@gpu
+@needs_cuda
+@pytest.mark.parametrize("case", BF16_CASES, ids=str)
+def test_k6_bf16_backward_decomposition(case):
+    B, S, H, chunk, use_u, use_s0, d_state, strong = case
+    x, do, ds = _operands(S + B, B, S, H, use_u=use_u, use_s0=use_s0,
+                          d_state=d_state, strong=strong)
+    t = {k: None if v is None else torch.from_numpy(v).cuda()
+         for k, v in x.items()}
+    for k in ("r", "k", "v"):
+        t[k] = t[k].to(torch.bfloat16)
+    do = torch.from_numpy(do).cuda().to(torch.bfloat16)
+    ds = None if ds is None else torch.from_numpy(ds).cuda()
+    got, again = kernel_bwd(t, do, ds, chunk), kernel_bwd(t, do, ds, chunk)
+    torch.cuda.synchronize()
+    t32 = {k: None if v is None else v.float() for k, v in t.items()}
+    want = _plain_bwd(t32, do.float(), ds, chunk)
+    for k in GRADS:
+        if want[k] is None:
+            assert got[k] is None, k
+            continue
+        assert torch.equal(got[k], again[k]), f"{k}: not bitwise"
+        rel = _rel(got[k].float().cpu(), want[k].cpu())
+        assert rel <= BF16_REL, (k, rel)
 
 
 @gpu

@@ -300,10 +300,10 @@ def test_cpu_call_is_the_plain_version_bit_for_bit(case):
 
 
 @pytest.mark.parametrize("which", ["flash_attention", "linear_attn_chunk"])
-def test_meta_autograd_charges_forward_and_counts_the_plain_backward(which):
+def test_meta_autograd_charges_forward_and_backward_kernels_no_plain_ops(
+        which):
     """Under autograd on ``meta``: one forward charge and one charge of
-    the backward kernels, which replaced the plain backward's ops that
-    this test once counted (its name is kept)."""
+    the backward kernels, and no op of the plain backward dispatched."""
     if which == "flash_attention":
         args = _k3_args("meta", grad=True)
         fwd = lambda: k3.flash_attention_bshd(*args)
