@@ -21,13 +21,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    chunk 64) and every instance of the backward kernels (K6's bf16
    increment and gradient pass and fp32 reverse scan and gradient pass
    at chunks 16 and 64, its carry and du reduction; K3's dK/dV and dQ
-   kernels at each bf16 build and fp32 head dim, fp32's delta, the
-   partials' sum) are each found in the report and show no spill; then
-   fail unless
+   kernels at each bf16 and each fp32 build, the partials' sum) are
+   each found in the report and show no spill; then fail unless
    ``cuobjdump -sass`` finds tensor-core instructions (``HMMA`` or
-   ``HGMMA``) in every bf16 build of K3, of its backward's dK/dV and dQ
-   kernels, of K6's backward's increment and gradient pass, of the
-   tree-verify split
+   ``HGMMA``) in every bf16 and fp32 build of K3 (fp32 in 3xTF32), of
+   its backward's dK/dV and dQ kernels, of K6's backward's increment and
+   gradient pass, of the tree-verify split
    kernel, of K5's split sweep and of K6's two kernels (the models past
    64 query rows per kv head add no instantiation: row groups are a grid
    axis of the D=128 builds), the D = 64 ones and K3's (80, 80) among
@@ -67,9 +66,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
       heads (windows 512 and 0), minitron-4b's and the MLA widths, against
       its plain version; poison (NaN, inf, +-1e4) past ``kv_valid_len``
       must change no bit, and the chunk's rows must equal the same rows
-      of one whole-prefill call on the same operands bit for bit; bf16 at
-      offset 1280 timed against its bound and SDPA with a boolean (C,
-      view) mask;
+      of one whole-prefill call on the same operands bit for bit; each
+      dtype at offset 1280 timed against its bound and SDPA with a
+      boolean (C, view) mask; each fp32 timing also beside the 3xTF32
+      bound (its operations at 495 / 3 TFLOP/s) with each launch's µs
+      and blocks;
    e. K5, absorbed-MLA paged verify (split sweep + merge), at
       deepseek-v2-lite shapes (B=4, 16 heads, latent 512, rope 64, block
       16, T=16, lens 0/37/700/1500, NULL holes): fp32 throughout, then
@@ -120,13 +121,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
       window 0, S in {37, 300, 1536} and its chunk form (C=256 at offset
       1280 over 2048 keys), as in d;
    k. K3 at hubert-xlarge's encoder heads (16 over 16, D=80,
-      bidirectional), S in {37, 300, 1536}, fp32 (padded to its 128
-      build) and bf16 (the (80, 80) build) against its plain version;
+      bidirectional), S in {37, 300, 1536}, fp32 and bf16 (the (80, 80)
+      build of each) against its plain version;
       poison (0, +-1e4, NaN, inf) in memory past the sequence changes no
       bit; bf16 also against the plain version in fp32 on the same bf16
       operands: relative L2 error at most 5e-3, and K3's output 1% off
-      failing that bound; bf16 at S=1536 timed beside its bound (4 S^2 D H
-      flops at the bf16 peak) and non-causal SDPA;
+      failing that bound; each dtype at S=1536 timed beside its bound (4
+      S^2 D H flops at its peak) and non-causal SDPA;
    l. the autotuner (``kernels/autotune.py``): every key of
       ``required_keys()`` (K3's key tile, at each registry config's
       build, heads and mask) swept at S=1536, each candidate first held
@@ -146,7 +147,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
       K3 at gemma3-1b's (256, 256) 4/1 with windows 512 and 0,
       zamba2-1.2b's (64, 64) 32/32, deepseek's (192, 128) 16/16 at MLA's
       scale, (128, 128) 16/16, hubert's (80, 80) 16/16 bidirectional (bf16,
-      S=1024) and fp32 D=64 and 256 (S=512): every gradient within
+      S=1024) and fp32 at D=64, 256, (80, 80) and (192, 128) (S=512):
+      every gradient within
       relative L2 1e-4 (fp32) or 5e-3 (bf16), one off by 1% on its odd
       channels past that bound, two identical calls bitwise equal; K3's
       forward output bitwise the same with and without its log-sum-exp
@@ -156,8 +158,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
       version and, for K3, SDPA's backward alone (``torch.autograd.grad``
       of one SDPA output, graph retained), and each of its launches timed
       on its own with the blocks of its grid (``launch_split``: K3's
-      dQ with delta, dK/dV and the partials' sum, or in fp32 delta, dK/dV
-      and dQ; K6's increment, carry, gradient pass and du, or in fp32 its
+      dQ with delta, dK/dV and the partials' sum, in either dtype; K6's
+      increment, carry, gradient pass and du, or in fp32 its
       scan, gradient pass and du);
 4. tiny fp32 parity (every phase runs in the autotuner's mode ``on``
    under the committed cache; phases 4-6 print the winners each model
@@ -433,7 +435,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    ``flash_attention_bwd``, with phase 3m's numbers at rwkv6-1.6b's
    (1, 1024) and gemma3-1b's window-512 layer and the ``bwd_launches`` of
    phases 5e-5h; their ``replaces`` names the JAX function whose gradient
-   they compute), then the result line.
+   they compute; K3's fp32 builds as ``flash_attention@fp32`` and
+   ``flash_attention_bwd@fp32``, with the fp32 launches (backward calls)
+   of phases 5-5h, the 3xTF32 bound beside the CUDA-core one, and each
+   case's µs, bounds, plain and SDPA times and launches' µs and blocks),
+   then the result line.
    ``[time]`` lines give each phase's seconds.
 
 The script stands alone: it puts ``src/`` on ``sys.path`` itself, and it
@@ -589,14 +595,13 @@ KERNEL_PARAMS = {
     "linear_attn_bwd_carry_kernel": (),
     "linear_attn_bwd_chunk_tc_kernel": ("C",),
     "linear_attn_bwd_du_kernel": (),
-    "flash_bwd_delta_kernel": ("",),
     "flash_bwd_kv_kernel": ("DQK", "DV"),
     "flash_bwd_kv_wgmma_kernel": ("DQK", "DV"),
     "flash_bwd_q_wgmma_kernel": ("DQK", "DV"),
-    "flash_bwd_sum_kernel": (),
+    "flash_bwd_sum_kernel": ("",),
     "flash_bwd_q_kernel": ("DQK", "DV"),
-    "flash_bwd_kv_f32_kernel": ("D",),
-    "flash_bwd_q_f32_kernel": ("D",),
+    "flash_bwd_kv_f32_kernel": ("DQK", "DV"),
+    "flash_bwd_q_f32_kernel": ("DQK", "DV"),
 }
 
 
@@ -755,34 +760,34 @@ K6_BUILDS = frozenset({"linear_attn_chunk_kernel<bf16, C=64>",
 def bwd_builds() -> frozenset:
     """Every instance of the backward kernels (K6's bf16 increment, carry
     and gradient pass, its fp32 scan and gradient pass, du's reduction;
-    K3's dQ (with delta in bf16), dK/dV and the partials' sum at each bf16
-    build, delta, dK/dV and dQ at each padded fp32 head dim): each must be
-    found without a spill."""
-    from repro_torch.kernels.flash_attention.kernel import (BF16_DIMS,
-                                                            HEAD_DIMS)
+    K3's dQ (writing delta), dK/dV and the partials' sum at each bf16 and
+    each fp32 build): each must be found without a spill."""
+    from repro_torch.kernels.flash_attention.kernel import DIMS, F32_DIMS
 
     k6 = {f"linear_attn_bwd_{k}_kernel<f32, C={c}>" for k in ("scan", "chunk")
           for c in (16, 64)}
     k6 |= {f"linear_attn_bwd_{k}_kernel<C={c}>" for k in ("inc", "chunk_tc")
            for c in (16, 64)}
-    k3 = {"flash_bwd_delta_kernel<f32>"}
-    for dqk, dv in BF16_DIMS:
+    k3 = {"flash_bwd_sum_kernel<bf16>", "flash_bwd_sum_kernel<f32>"}
+    for dqk, dv in DIMS:
         kv = dqk % 64 == dv % 64 == 0          # the builds on wgmma
         q = kv and dqk <= 192
         k3 |= {f"flash_bwd_kv{'_wgmma' * kv}_kernel<DQK={dqk}, DV={dv}>",
                f"flash_bwd_q{'_wgmma' * q}_kernel<DQK={dqk}, DV={dv}>"}
-    for d in HEAD_DIMS:
-        k3 |= {f"flash_bwd_kv_f32_kernel<D={d}>",
-               f"flash_bwd_q_f32_kernel<D={d}>"}
+    for dqk, dv in F32_DIMS:
+        k3 |= {f"flash_bwd_kv_f32_kernel<DQK={dqk}, DV={dv}>",
+               f"flash_bwd_q_f32_kernel<DQK={dqk}, DV={dv}>"}
     return frozenset(k6 | k3 | {"linear_attn_bwd_du_kernel",
-                                "linear_attn_bwd_carry_kernel",
-                                "flash_bwd_sum_kernel"})
+                                "linear_attn_bwd_carry_kernel"})
 
 
-# the bf16 builds that must run on the tensor cores (SASS check): every
-# build whose name starts so, and at least one of each
+# the builds that must run on the tensor cores (SASS check): every build
+# whose name starts so, and at least one of each (K3's fp32 builds too:
+# their products run in 3xTF32)
 TENSOR_CORE_KERNELS = ("tree_attention_split_kernel<bf16",
                        "flash_attention_kernel<bf16",
+                       "flash_attention_kernel<f32",
+                       "flash_bwd_kv_f32_kernel<", "flash_bwd_q_f32_kernel<",
                        "mla_attention_split_kernel<kv bf16",
                        "linear_attn_chunk_kernel<bf16",
                        "linear_attn_scan_kernel<bf16",
@@ -1123,7 +1128,7 @@ def check_k3(heads: dict = K3_HEADS, windows=(WINDOW, 0)) -> dict:
                             f"({rec['bound_by']}) "
                             f"plain={rec['plain_ms'] * 1e3:.1f}us "
                             f"sdpa={rec['library_ms'] * 1e3:.1f}us"
-                            if "ms" in rec else ""))
+                            + f32_text(rec) if "ms" in rec else ""))
     return record
 
 
@@ -1136,6 +1141,36 @@ def k3_bound(B: int, S: int, hq: int, hkv: int, dqk: int, dv: int,
 
     return bound_ms(flash_charge(B, S, S, hq, hkv, dqk, dv, dtype_name,
                                  k3_pairs(S, window, causal)))
+
+
+# fp32 work done as three TF32 passes on the tensor cores (495 TFLOP/s):
+# the fp32 K3 builds' rate, beside the CUDA cores' 67 TFLOP/s that
+# ``op_cost`` charges fp32 at
+TF32X3_FLOPS = 495e12 / 3
+
+
+def tf32x3_bound_ms(c) -> float:
+    """The least ms of a charge whose operations run as 3xTF32: the larger
+    of its bytes over the HBM rate and its flops at ``TF32X3_FLOPS``."""
+    from repro_torch.launch.mesh import HBM_BW
+
+    return 1e3 * max(c.nbytes / HBM_BW, c.flops / TF32X3_FLOPS)
+
+
+def f32_extras(rec: dict, charge, run) -> dict:
+    """An fp32 K3 record's 3xTF32 bound and its launches' µs and blocks
+    (``launch_split`` of ``run``), beside its CUDA-core bound."""
+    rec["bound_3xtf32_ms"] = tf32x3_bound_ms(charge)
+    rec["split"] = launch_split(run, rec["ms"])
+    return rec
+
+
+def f32_text(rec: dict) -> str:
+    """An fp32 record's 3xTF32 bound and launches, for its log line."""
+    if "bound_3xtf32_ms" not in rec:
+        return ""
+    return (f" bound_3xtf32={rec['bound_3xtf32_ms'] * 1e3:.2f}us; "
+            f"launches: {split_text(rec['split'])}")
 
 
 def _time_k3(q, k, v, w: int, dtype_name: str, causal: bool = True) -> dict:
@@ -1164,8 +1199,15 @@ def _time_k3(q, k, v, w: int, dtype_name: str, causal: bool = True) -> dict:
             qt, kt, vt, is_causal=causal, enable_gqa=True)
     lib_ms = device_ms(lib)
     bound_ms, bound_by = k3_bound(B, S, hq, hkv, d, d, dtype_name, w, causal)
-    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+    rec = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=bound_ms, bound_by=bound_by)
+    if dtype_name == "float32":
+        from repro_torch.launch.op_cost import flash_charge, k3_pairs
+
+        f32_extras(rec, flash_charge(B, S, S, hq, hkv, d, d, dtype_name,
+                                     k3_pairs(S, w, causal)),
+                   lambda: ops.flash_attention_bshd(q, k, v, **kw))
+    return rec
 
 
 # deepseek-v2-lite-16b's MLA widths: 16 heads, nope 128 + rope 64 for q/k,
@@ -1192,9 +1234,9 @@ def check_k3_chunk(cases=K3_CHUNK_CASES, offsets=K3_CHUNK_OFFSETS) -> dict:
     ``kv_valid_len`` is poisoned (NaN, inf, +-1e4), and the chunk's rows
     bitwise equal to the same rows of one whole-prefill call on the same
     operands (the offsets are multiples of the query tile, and key tiles
-    start at absolute multiples of the key tile).  bf16 at offset 1280 is
-    timed against its bound (the admitted pairs' operations, the keys
-    they read) and one SDPA call with a boolean (C, view) mask."""
+    start at absolute multiples of the key tile).  Each dtype at offset
+    1280 is timed against its bound (the admitted pairs' operations, the
+    keys they read) and one SDPA call with a boolean (C, view) mask."""
     import torch
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.kernel import (
@@ -1243,7 +1285,7 @@ def check_k3_chunk(cases=K3_CHUNK_CASES, offsets=K3_CHUNK_OFFSETS) -> dict:
                                          f"whole prefill's by {diff:.3e}")
                 rec = dict(max_abs_err=err, whole_bitwise=bitwise,
                            whole_diff=diff)
-                if dtype_name == "bfloat16" and q_off == K3_CHUNK_OFFSETS[-1]:
+                if q_off == K3_CHUNK_OFFSETS[-1]:
                     rec.update(_time_k3_chunk(qc, k, v, q_off, kvl, w, scale,
                                               dtype_name))
                 record[(model, dtype_name, q_off, w)] = rec
@@ -1257,7 +1299,7 @@ def check_k3_chunk(cases=K3_CHUNK_CASES, offsets=K3_CHUNK_OFFSETS) -> dict:
                         f"({rec['bound_by']}) "
                         f"plain={rec['plain_ms'] * 1e3:.1f}us "
                         f"sdpa={rec['library_ms'] * 1e3:.1f}us"
-                        if "ms" in rec else ""))
+                        + f32_text(rec) if "ms" in rec else ""))
     return record
 
 
@@ -1286,18 +1328,23 @@ def _time_k3_chunk(qc, k, v, q_off: int, kvl, w: int, scale: float,
     lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=hq != hkv))
     pairs, keys = op_cost.chunk_rows(q_off, C, w)
-    bound_ms, bound_by = op_cost.bound_ms(op_cost.flash_charge(
-        1, C, keys, hq, hkv, dk, dv, dtype_name, pairs))
-    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    charge = op_cost.flash_charge(1, C, keys, hq, hkv, dk, dv, dtype_name,
+                                  pairs)
+    bound_ms, bound_by = op_cost.bound_ms(charge)
+    rec = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=bound_ms, bound_by=bound_by)
+    if dtype_name == "float32":
+        f32_extras(rec, charge,
+                   lambda: ops.flash_attention_bshd(qc, k, v, **kw))
+    return rec
 
 
 def check_k3_mla(S: int = 1536) -> dict:
     """K3 at deepseek's MLA prefill: q/k (192) and v (128) at their own
     widths, 16 heads over 16 kv heads (G = 1), scale 1/sqrt(192), through
     the port's prefill helper, against ``blocked_attention``; then the K3
-    call timed unpadded (bf16 runs the (192, 128) build; fp32 pads to the
-    CUDA-core body's one head dim inside the wrapper)."""
+    call timed at its own widths (the (192, 128) build in either dtype,
+    fp32 in 3xTF32), unpadded."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
@@ -1336,14 +1383,19 @@ def check_k3_mla(S: int = 1536) -> dict:
         rec = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                    bound_by=bound_by)
+        if dtype_name == "float32":
+            from repro_torch.launch.op_cost import flash_charge, k3_pairs
+
+            f32_extras(rec, flash_charge(1, S, S, H, H, dk, dv, dtype_name,
+                                         k3_pairs(S, 0, True)),
+                       lambda: ops.flash_attention_bshd(q, k, v,
+                                                        scale=MLA_SCALE))
         record[dtype_name] = rec
-        how = ("unpadded" if dtype_name == "bfloat16"
-               else "padded to 256 in the wrapper")
-        log(f"[k3 mla] {dtype_name} S={S} heads={H} D={dk}/{dv} {how}: "
+        log(f"[k3 mla] {dtype_name} S={S} heads={H} D={dk}/{dv} unpadded: "
             f"max_abs_err={err:.3e} kernel={ms * 1e3:.1f}us "
             f"(call {call_ms * 1e3:.1f}us) bound={bound_ms * 1e3:.2f}us "
             f"({bound_by}) plain={plain_ms * 1e3:.1f}us "
-            f"sdpa={lib_ms * 1e3:.1f}us")
+            f"sdpa={lib_ms * 1e3:.1f}us" + f32_text(rec))
     return record
 
 
@@ -2055,14 +2107,14 @@ def k3_bf16_rel(out, q, k, v, what: str, **kw) -> tuple:
 
 
 def check_k3_hubert(S_all=(37, 300, 1536), pad: int = 64) -> dict:
-    """K3 bidirectional at ``HUBERT_HEADS``, fp32 (padded by the wrapper
-    to its 128 build) and bf16 (the (80, 80) build), against its plain
-    version.  The operands are the first S rows of buffers of S + ``pad``
+    """K3 bidirectional at ``HUBERT_HEADS``, fp32 and bf16 (the (80, 80)
+    build of each, unpadded), against its plain version.  The operands are the first S rows of buffers of S + ``pad``
     rows (B = 1, so the view is contiguous): the rows past the sequence
     are poisoned with 0, +-1e4, NaN and inf, which must change no bit.
     bf16 is also held against the plain version in fp32 on its operands
     (``k3_bf16_rel``), beside the bf16 plain version's reading (not held),
-    and timed at the longest S beside its bound and non-causal SDPA.
+    and each dtype timed at the longest S beside its bound and non-causal
+    SDPA.
     Returns {(dtype, S): record}."""
     import torch
     from repro_torch.kernels.flash_attention import ops
@@ -2093,7 +2145,7 @@ def check_k3_hubert(S_all=(37, 300, 1536), pad: int = 64) -> dict:
                     b[:, S:] = fill
                 outs.append(ops.flash_attention_bshd(q, k, v, causal=False))
             assert_bitwise(outs, f"{what}: poison past the sequence")
-            if dtype_name == "bfloat16" and S == max(S_all):
+            if S == max(S_all):
                 rec.update(_time_k3(q, k, v, 0, dtype_name, causal=False))
             record[(dtype_name, S)] = rec
             log(f"[k3 hubert] {hq} over {hkv} heads, D={d}, {dtype_name} "
@@ -2108,7 +2160,7 @@ def check_k3_hubert(S_all=(37, 300, 1536), pad: int = 64) -> dict:
                     f"(call {rec['call_ms'] * 1e3:.1f}us) "
                     f"bound={rec['bound_ms'] * 1e3:.2f}us "
                     f"({rec['bound_by']}) plain={rec['plain_ms'] * 1e3:.1f}us "
-                    f"sdpa={rec['library_ms'] * 1e3:.1f}us"
+                    f"sdpa={rec['library_ms'] * 1e3:.1f}us" + f32_text(rec)
                     if "ms" in rec else ""))
     return record
 
@@ -2125,7 +2177,8 @@ BWD_REL = {"float32": 1e-4, "bfloat16": 5e-3}
 # K6 at rwkv6-1.6b's training shapes, B=1: (dtype, S)
 K6_BWD_CASES = (("bfloat16", 1024), ("bfloat16", 500), ("float32", 500))
 # K3 at the training builds: (model, dtype, Hq, Hkv, Dqk, Dv, window,
-# causal, scale), bf16 at S = K3_BWD_S, fp32 (padded head dims) at 512
+# causal, scale), bf16 at S = K3_BWD_S, fp32 at 512 (its own builds,
+# 3xTF32)
 K3_BWD_S = 1024
 K3_BWD_CASES = (
     ("gemma3-1b", "bfloat16", 4, 1, 256, 256, WINDOW, True, None),
@@ -2137,6 +2190,8 @@ K3_BWD_CASES = (
     ("hubert-xlarge", "bfloat16", 16, 16, 80, 80, 0, False, None),
     ("fp32 D=64", "float32", 4, 4, 64, 64, 0, True, None),
     ("fp32 D=256", "float32", 4, 1, 256, 256, WINDOW, True, None),
+    ("fp32 (80, 80)", "float32", 16, 16, 80, 80, 0, False, None),
+    ("fp32 (192, 128)", "float32", 16, 16, 192, 128, 0, True, MLA_SCALE),
 )
 
 
@@ -2288,8 +2343,11 @@ def check_backward() -> dict:
         rec["split"] = launch_split(run, rec["ms"])
         rec["plain_ms"] = time_ms(plain, iters=3)
         rec["library_ms"] = _sdpa_bwd_ms(q, k, v, do, w, causal, scale)
-        rec["bound_ms"], rec["bound_by"] = bound_ms(flash_bwd_charge(
-            1, S, hq, hkv, dqk, dv, dtype_name, k3_pairs(S, w, causal)))
+        charge = flash_bwd_charge(1, S, hq, hkv, dqk, dv, dtype_name,
+                                  k3_pairs(S, w, causal))
+        rec["bound_ms"], rec["bound_by"] = bound_ms(charge)
+        if dtype_name == "float32":
+            rec["bound_3xtf32_ms"] = tf32x3_bound_ms(charge)
         record[("K3", model, dtype_name, w)] = rec
         sdpa = ("refused" if rec["library_ms"] is None
                 else f"{rec['library_ms'] * 1e3:.1f}us")
@@ -2298,7 +2356,9 @@ def check_backward() -> dict:
             f"{lse_err:.2e}, forward bits unchanged by the lse pointer, "
             f"bitwise twice; kernels={rec['ms'] * 1e3:.1f}us bound="
             f"{rec['bound_ms'] * 1e3:.2f}us ({rec['bound_by']}) "
-            f"plain={rec['plain_ms'] * 1e3:.1f}us sdpa backward={sdpa}; "
+            + (f"bound_3xtf32={rec['bound_3xtf32_ms'] * 1e3:.2f}us "
+               if "bound_3xtf32_ms" in rec else "")
+            + f"plain={rec['plain_ms'] * 1e3:.1f}us sdpa backward={sdpa}; "
             f"launches: {split_text(rec['split'])}")
     return record
 
@@ -5356,6 +5416,58 @@ def dryrun_against_card() -> dict:
     return cases
 
 
+def f32_entries(entry, main_launches, k3, k3_mla, k3_chunk, zk, hk,
+                bwd) -> list:
+    """The JSON line's fp32 K3 entries: the forward (3d, 3j, 3k and the
+    MLA and chunk cases) and the backward (3m), each with its launches on
+    the main path (phases 5-5h), its CUDA-core and 3xTF32 bounds and, per
+    case, each launch's µs and blocks."""
+    fwd = {f"{m} S={S} window={w}": r for (m, dt, S, w), r in k3.items()
+           if dt == "float32" and "ms" in r}
+    fwd.update({f"{ZAMBA2} S={S} window={w}": r
+                for (_, dt, S, w), r in zk["K3"].items()
+                if dt == "float32" and "ms" in r})
+    fwd.update({f"{HUBERT} S={S} bidirectional": r
+                for (dt, S), r in hk.items() if dt == "float32" and "ms" in r})
+    fwd["deepseek MLA (192, 128) S=1536"] = k3_mla["float32"]
+    chunks = {**k3_chunk, **zk["K3 chunk"]}
+    fwd.update({f"{m} chunk C={K3_CHUNK} q_off={o} window={w}": r
+                for (m, dt, o, w), r in chunks.items()
+                if dt == "float32" and "ms" in r})
+    back = {f"{key[1]} S=512 window={key[3]}": r for key, r in bwd.items()
+            if key[0] == "K3" and key[2] == "float32"}
+
+    def cases(recs):
+        return {what: {"us": 1e3 * r["ms"], "bound_ms": r["bound_ms"],
+                       "bound_3xtf32_ms": r["bound_3xtf32_ms"],
+                       "plain_ms": r["plain_ms"],
+                       "library_ms": r["library_ms"],
+                       "max_abs_err": r["max_abs_err"],
+                       "launches": {k: {"us": us, "blocks": n} for k, (us, n)
+                                    in r["split"].items()}}
+                for what, r in recs.items()}
+
+    out = []
+    for name, source, replaces, main, recs, n in (
+            ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:23",
+             fwd["gemma3-1b S=1536 window=0"], fwd, main_launches[0]),
+            ("flash_attention_bwd",
+             "src/repro_torch/csrc/flash_attention_bwd.cu",
+             "src/repro/models/layers.py:102",
+             back[f"fp32 D=256 S=512 window={WINDOW}"], back,
+             main_launches[1])):
+        e = entry("flash_attention", source, replaces, main,
+                  max(r["max_abs_err"] for r in recs.values()))
+        e.update(name=f"{name}@fp32", launches=n,
+                 bound_3xtf32_ms=main["bound_3xtf32_ms"],
+                 note="the fp32 builds: every product in 3xTF32 on the "
+                      "tensor cores; launches of an fp32 build (backward: "
+                      "calls) in phases 5-5h", cases=cases(recs))
+        out.append(e)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5419,12 +5531,12 @@ def main() -> int:
     unseen = [p for p in TENSOR_CORE_KERNELS
               if not any(k.startswith(p) for k in checked)]
     if len(checked) < 8 or without or unseen:
-        raise AssertionError(f"SASS: bf16 builds without HMMA/HGMMA: "
+        raise AssertionError(f"SASS: builds without HMMA/HGMMA: "
                              f"{without}; no build of {unseen}; checked "
                              f"{checked}")
-    log(f"[sass] HMMA/HGMMA in every bf16 build of K3 and of its backward's "
-        f"dK/dV and dQ kernels, the tree-verify split kernel, K5's split "
-        f"sweep and K6's two kernels: {checked}")
+    log(f"[sass] HMMA/HGMMA in every bf16 and fp32 build of K3 and of its "
+        f"backward's dK/dV and dQ kernels, the tree-verify split kernel, "
+        f"K5's split sweep and K6's two kernels: {checked}")
     # row groups are a grid axis: the models past 64 rows per kv head run
     # the D=128 builds above, so there is no new instantiation to check
     log("[ptxas] starcoder2-7b, qwen2.5-32b, chameleon-34b and "
@@ -5500,9 +5612,9 @@ def run_phases(t_start: float, sweep: tuple) -> int:
         (16, 23, 32, 9, 40, 12), budgets=(30,) * 6, num_blocks=8)
     # the rest of the registry at their head-preserving narrow forms (the
     # published head counts, so a verify step has 144, 80, 128 and 16
-    # rows per kv head, and K3's fp32 body packs G query tiles of up to
-    # 128 rows: 14 positions at G = 9), short prompts that make two slots
-    # share the pool, whole and in chunks of 8 (two a prompt)
+    # rows per kv head; K3's fp32 blocks are per query head at any G),
+    # short prompts that make two slots share the pool, whole and in
+    # chunks of 8 (two a prompt)
     for arch in ("starcoder2-7b", "qwen2.5-32b", "chameleon-34b",
                  "deepseek-moe-16b"):
         check_tiny_parity(dataclasses.replace(
@@ -5519,6 +5631,11 @@ def run_phases(t_start: float, sweep: tuple) -> int:
                           num_blocks=8, chunks=(16,))
     log(f"[time] phase 4 (tiny fp32 parity) done at "
         f"{time.perf_counter() - t_start:.0f}s")
+    from repro_torch.kernels.flash_attention import ops as k3_ops
+
+    # the fp32 K3 launches of phases 5-5h (the wrapper's own counters,
+    # which kernels.reset_counts leaves alone)
+    k3_ops.f32_launches = k3_ops.f32_bwd_launches = 0
     launches, per_arch = {}, {}
     for wl in WORKLOADS:
         t_wl = time.perf_counter()
@@ -5554,6 +5671,7 @@ def run_phases(t_start: float, sweep: tuple) -> int:
         log(f"[time] phase {what}: {time.perf_counter() - t_ph:.0f}s, "
             f"done at {time.perf_counter() - t_start:.0f}s")
 
+    f32_main = (k3_ops.f32_launches, k3_ops.f32_bwd_launches)
     t_7 = time.perf_counter()
     finish_dryrun_sweep(*sweep)
     dryrun_against_card()
@@ -5700,6 +5818,7 @@ def run_phases(t_start: float, sweep: tuple) -> int:
              rel_l2_vs_fp32=max([hubert["rel"]] + [
                  r["rel"] for r in hk.values() if "rel" in r]))
     kernels.append(e)
+    kernels += f32_entries(entry, f32_main, k3, k3_mla, k3_chunk, zk, hk, bwd)
     log(json.dumps({"kernels": kernels}))
     log(f"[time] total {time.perf_counter() - t_start:.0f}s")
     print(json.dumps({"ok": True, "device": {

@@ -1,34 +1,49 @@
-"""Time K3's and K6's backward kernels at phase 3m's cases of
-``chip_smoke.py``, each launch on its own, on one NVIDIA card.
+"""Time K3's kernels (the fp32 and bf16 forward at phase 3's cases, the
+backward at phase 3m's) and K6's backward, each launch on its own, on one
+NVIDIA card.
 
     PYTHONPATH=src python scripts/time_bwd_kernels.py \
-        [--old DIR] [--steps] [--out build/bwd_times.json]
+        [--old DIR] [--steps] [--out build/k3_times.json]
 
-For each case (K6 at rwkv6-1.6b's (1, S), 32 heads of 64; K3 at the
-training builds, ``chip_smoke.K3_BWD_CASES``) it prints the whole
-backward's device time (``chip_smoke.device_ms``) and each launch's mean
-device time and blocks, read from a ``torch.profiler`` trace
-(``chip_smoke.launch_split``), together with the registers and spills
-``ptxas -v`` reports for every backward kernel.
+For each case it prints the device time of one call
+(``chip_smoke.device_ms``) and each launch's mean device time and blocks,
+read from a ``torch.profiler`` trace (``chip_smoke.launch_split``),
+together with the registers and spills ``ptxas -v`` reports for K3's two
+libraries.  Forward cases: gemma3-1b (4 over 1 heads of 256) at windows 0
+and 512, zamba2-1.2b (32 over 32 of 64), deepseek-v2-lite's MLA prefill
+(16 heads, q/k 192, v 128), minitron-4b (24 over 8 of 128) at S = 1536 and
+300, hubert-xlarge (16 over 16 of 80, bidirectional), S = 1536 unless
+named, fp32 and bf16.  Backward cases: ``chip_smoke.K3_BWD_CASES`` and
+``K6_BWD_CASES``.
 
 ``--old DIR``: DIR holds another copy of ``src/repro_torch/csrc`` (for
 example the parent commit's, unpacked with ``git archive`` into an
-ignored directory).  Its two backward sources are built as second
-libraries under ``build/old_kernels/`` and called through their C
-entry points with the argument lists of that version (``OLD_ABI``);
-each case then runs old, new, new, old, and the line gives both times
-and the old time over the new.  Each old gradient is also held against
-the new one (relative L2), so that a comparison of two different
-functions shows.  With ``--steps`` it then times a base training step at
-(1, 1024) of gemma3-1b and of rwkv6-1.6b (``chip_smoke.step_numbers``:
-the backward kernels' device ms in a traced step, the untraced step's
-wall time) under the old and the new backward kernels in turns.
+ignored directory).  Its K3 sources (``flash_attention.cu``,
+``flash_attention_bwd.cu``) are built as second libraries under
+``build/old_kernels/`` and called through their C entry points, whose
+argument lists are this version's.  Where the old fp32 build takes one
+head dim of 64, 128 or 256 (the first fp32 bodies), the operands are
+zero-padded to it and the outputs sliced back, as that version's wrapper
+did; the pads are part of the old time.  Each K3 case then runs old,
+new, new, old, and the line gives both times and the old time over the
+new; each old output is also held against the new one (max abs
+difference, relative L2), so that a comparison of two different
+functions shows.
+
+``--steps`` (with ``--old``): two fp32 runs through the model, under the
+old and the new K3 in turns (old, new, new, old; the launches the
+wrapper makes patched to the old library): gemma3-1b's fp32 Hydra++ head
+step of phase 5e(iii) (``head_train_loss`` and its gradient, B = 1, S =
+512: K3's forward at every layer and, at the prefix layer, its backward)
+and zamba2-1.2b's fp32 whole prefill of phase 5b (38 layers, 1000
+tokens, 7 K3 calls), each the mean wall time of synchronised calls.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import json
+import math
 import subprocess
 import sys
 import time
@@ -41,20 +56,33 @@ sys.path.insert(0, str(ROOT / "src"))
 import chip_smoke as cs  # noqa: E402
 
 OLD_DIR = ROOT / "build" / "old_kernels"
-# the C entry points of the backward libraries before the Hopper redesign:
-# (library, symbol, pointer arguments, int arguments, trailing float)
-OLD_ABI = {"flash_attention_bwd": ("flash_attention_bwd", 10, 9, True),
-           "linear_attn_chunk_bwd": ("linear_attn_chunk_bwd", 16, 5, False)}
+# K3's C entry points: (symbol, pointer arguments, int arguments); both
+# take a trailing float (the scale) and the stream
+K3_ABI = {"flash_attention": ("flash_attention", 7, 11),
+          "flash_attention_bwd": ("flash_attention_bwd", 11, 10)}
+# the old fp32 bodies' head dims: operands are padded to the least that
+# holds both widths
+OLD_F32_DIMS = (64, 128, 256)
+# forward cases: (name, Hq, Hkv, Dqk, Dv, S, window, causal, scale)
+FWD_CASES = (
+    ("gemma3-1b window 0", 4, 1, 256, 256, 1536, 0, True, None),
+    ("gemma3-1b window 512", 4, 1, 256, 256, 1536, 512, True, None),
+    ("zamba2-1.2b", 32, 32, 64, 64, 1536, 0, True, None),
+    ("deepseek MLA", 16, 16, 192, 128, 1536, 0, True, cs.MLA_SCALE),
+    ("minitron-4b", 24, 8, 128, 128, 1536, 0, True, None),
+    ("minitron-4b S=300", 24, 8, 128, 128, 300, 0, True, None),
+    ("hubert-xlarge", 16, 16, 80, 80, 1536, 0, False, None),
+)
 
 
 def build_old(src_dir: Path) -> dict:
-    """Build the backward sources of ``src_dir`` into ``OLD_DIR``, both
-    nvcc processes at once: {library: ctypes function}."""
+    """Build K3's sources of ``src_dir`` into ``OLD_DIR``, both nvcc
+    processes at once: {library: ctypes function}."""
     from repro_torch.kernels import build
 
     OLD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in OLD_ABI:
+    for name in K3_ABI:
         out = OLD_DIR / f"lib{name}.so"
         cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out),
                str(src_dir / build.SOURCES[name])]
@@ -67,125 +95,142 @@ def build_old(src_dir: Path) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for the old {name}:\n{log}")
         for line in cs.ptxas_lines(log):
-            cs.log(f"[ptxas old] {line}")
-        sym, n_ptr, n_int, has_float = OLD_ABI[name]
+            if "f32" in line:
+                cs.log(f"[ptxas old] {line}")
+        sym, n_ptr, n_int = K3_ABI[name]
         fn = getattr(ctypes.CDLL(str(out)), sym)
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_float] * has_float + [ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_void_p])
         fns[name] = fn
     return fns
 
 
-def old_k6_launch(fn):
-    """``linear_attn_chunk/kernel.py::launch_bwd``'s signature, launching
-    the old K6 backward (its C entry's argument list and scratch)."""
+def _padded(dqk: int, dv: int, dtype):
+    """The head dim the old fp32 body ran (dqk, dv) at, or None (bf16, or
+    a width of its own)."""
     import torch
 
-    def launch_bwd(r, k, v, w_log, u, states, do, d_state, dr, dk, dv, dw,
-                   du, d_s0, *, chunk):
-        B, S, H, D = k.shape
-        nc = -(-S // chunk)
-        f = lambda *s: torch.empty(s, dtype=torch.float32, device=k.device)
-        ds_out = f(B, H, nc, D, D)
-        du_part = None if u is None else f(B, H, nc, D)
+    if dtype != torch.float32:
+        return None
+    D = min(d for d in OLD_F32_DIMS if d >= max(dqk, dv))
+    return None if dqk == dv == D else D
+
+
+def old_launch(fn):
+    """``flash_attention/kernel.py::launch``'s signature, launching the
+    old forward (fp32 padded to its one head dim, as its wrapper did)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as k3k
+
+    def launch(q, k, v, out, *, causal, window, scale=None, q_off=None,
+               kv_valid_len=None, key_tile=0, lse=None):
+        D = _padded(q.shape[-1], v.shape[-1], q.dtype)
+        dst = out
+        if D is not None:
+            q, k, v = (F.pad(t, (0, D - t.shape[-1])) for t in (q, k, v))
+            dst = out.new_empty((*out.shape[:3], D))
         ptr = lambda t: None if t is None else t.data_ptr()
-        return fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
-                  ptr(u), states.data_ptr(), do.data_ptr(), ptr(d_state),
-                  dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
-                  ptr(du), d_s0.data_ptr(), ds_out.data_ptr(), ptr(du_part),
-                  B, S, H, chunk, 0 if k.dtype == torch.float32 else 1,
-                  torch.cuda.current_stream().cuda_stream)
+        B, Sq, Hq, Dqk = q.shape
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dst.data_ptr(),
+                ptr(lse), ptr(q_off), ptr(kv_valid_len), B, Sq, k.shape[1],
+                Hq, k.shape[2], Dqk, v.shape[3], int(causal), int(window),
+                k3k.DTYPE_CODES[q.dtype], int(key_tile),
+                1.0 / math.sqrt(Dqk) if scale is None else float(scale),
+                torch.cuda.current_stream().cuda_stream)
+        if D is not None:
+            out.copy_(dst[..., :out.shape[-1]])
+        return rc
 
-    return launch_bwd
+    return launch
 
 
-def old_k3_launch(fn):
+def old_launch_bwd(fn):
     """``flash_attention/kernel.py::launch_bwd``'s signature, launching
-    the old K3 backward (its C entry's argument list and scratch)."""
+    the old backward: bf16 with this version's scratch and split (its
+    rules are unchanged), fp32 padded to its one head dim without a split
+    or partials, as that version ran it."""
     import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as k3k
 
     def launch_bwd(q, k, v, out, lse, do, dq, dk, dv, *, causal, window,
                    scale):
-        B, S, Hq, Dqk = q.shape
-        Hkv, Dv = k.shape[2], v.shape[3]
-        delta = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
-        return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, Hq, Hkv,
-                  Dqk, Dv, int(causal), int(window),
-                  0 if q.dtype == torch.float32 else 1, float(scale),
-                  torch.cuda.current_stream().cuda_stream)
+        B, S, Hq, dqk = q.shape
+        Hkv, dv_ = k.shape[2], v.shape[3]
+        D = _padded(dqk, dv_, q.dtype)
+        grads = (dq, dk, dv)
+        if D is not None:
+            q, k, v, out, do = (F.pad(t, (0, D - t.shape[-1]))
+                                for t in (q, k, v, out, do))
+            grads = tuple(torch.empty_like(t) for t in (q, k, v))
+        if q.dtype == torch.float32:
+            delta = torch.empty((B, Hq, S), dtype=torch.float32,
+                                device=q.device)
+            part, split = None, 1
+        else:
+            delta, part = k3k.bwd_scratch(B, S, Hq, Hkv, dqk, dv_, q.dtype,
+                                          q.device)
+            split = k3k.bwd_split(B, S, Hq, dqk, dv_, q.dtype)
+        Dqk, Dv = q.shape[-1], v.shape[-1]
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                *(g.data_ptr() for g in grads),
+                None if part is None else part.data_ptr(), B, S, Hq, Hkv,
+                Dqk, Dv, int(causal), int(window), k3k.DTYPE_CODES[q.dtype],
+                split, float(scale), torch.cuda.current_stream().cuda_stream)
+        if D is not None:
+            for g, p in zip((dq, dk, dv), grads):
+                g.copy_(p[..., :g.shape[-1]])
+        return rc
 
     return launch_bwd
 
 
-def old_k6(fn, r, k, v, w, u, states, do, chunk):
-    """The old K6 backward's gradients."""
+class Patched:
+    """Within the block, K3's wrapper launches the old libraries."""
+
+    def __init__(self, old_fns: dict):
+        self.old = old_fns
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import kernel as k3k
+
+        self.saved = (k3k.launch, k3k.launch_bwd)
+        k3k.launch = old_launch(self.old["flash_attention"])
+        k3k.launch_bwd = old_launch_bwd(self.old["flash_attention_bwd"])
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.flash_attention import kernel as k3k
+
+        k3k.launch, k3k.launch_bwd = self.saved
+
+
+def fwd_cases():
+    """(name, library, call) of each forward case."""
     import torch
+    from repro_torch.kernels.flash_attention import ops as k3
 
-    B, S, H, D = k.shape
-    grads = (torch.empty_like(r), torch.empty_like(k), torch.empty_like(v),
-             torch.empty_like(w), torch.empty_like(u),
-             torch.empty((B, H, D, D), dtype=torch.float32, device="cuda"))
-    rc = old_k6_launch(fn)(r, k, v, w, u, states, do, None, *grads,
-                           chunk=chunk)
-    if rc != 0:
-        raise RuntimeError(f"old K6 backward: CUDA error {rc}")
-    return grads
-
-
-def old_k3(fn, q, k, v, out, lse, do, causal, window, scale):
-    """The old K3 backward's gradients."""
-    import math
-
-    import torch
-
-    grads = tuple(torch.empty_like(t) for t in (q, k, v))
-    rc = old_k3_launch(fn)(
-        q, k, v, out, lse, do, *grads, causal=causal, window=window,
-        scale=1.0 / math.sqrt(q.shape[-1]) if scale is None else scale)
-    if rc != 0:
-        raise RuntimeError(f"old K3 backward: CUDA error {rc}")
-    return grads
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        for name, hq, hkv, dqk, dv, S, w, causal, scale in FWD_CASES:
+            g = torch.Generator(device="cuda").manual_seed(S + w + dqk)
+            mk = lambda h, d: torch.randn((1, S, h, d), generator=g,
+                                          device="cuda").to(dtype)
+            q, k, v = mk(hq, dqk), mk(hkv, dqk), mk(hkv, dv)
+            kw = dict(window=w, causal=causal, scale=scale)
+            yield (f"K3 forward {dtype_name} {name} ({hq}/{hkv}, "
+                   f"{dqk}/{dv}) S={S}", "flash_attention",
+                   lambda a=(q, k, v), kw=kw: k3.flash_attention_bshd(*a,
+                                                                     **kw))
 
 
-def steps(old_fns: dict) -> list:
-    """A base training step at (1, 1024) of gemma3-1b (K3) and rwkv6-1.6b
-    (K6), full configs, through ``chip_smoke.step_numbers``: old, new,
-    new, old, the old backward launched in place of the new one by
-    patching the launch the wrapper calls.  Returns one record a step."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import kernel as k3k
-    from repro_torch.kernels.linear_attn_chunk import kernel as k6k
-
-    records = []
-    for arch, mod, lib, make in (
-            ("gemma3-1b", k3k, "flash_attention_bwd", old_k3_launch),
-            ("rwkv6-1.6b", k6k, "linear_attn_chunk_bwd", old_k6_launch)):
-        cfg = get_config(arch)
-        new = mod.launch_bwd
-        for key in ("old", "new", "new", "old"):
-            mod.launch_bwd = make(old_fns[lib]) if key == "old" else new
-            try:
-                n = cs.step_numbers(cfg)
-            finally:
-                mod.launch_bwd = new
-            records.append({"arch": arch, "kernels": key, "card": cs.CARD,
-                            **n})
-            cs.log(f"[step] {arch} {key} backward kernels "
-                   f"({cs.CARD}): {n['bwd_kernels_ms']:.2f} ms of "
-                   f"{n['busy_ms']:.1f} ms device busy; untraced step "
-                   f"{n['untraced_ms']:.1f} ms; the wrapper's backward "
-                   f"calls {n['wrapper_bwd_ms']:.1f} ms wall")
-    return records
-
-
-def cases():
-    """(name, new backward, old backward or None given the old library)
-    for phase 3m's cases, on operands made as ``check_backward`` makes
-    them; K3's fp32 cases run at padded head dims only in the wrapper, so
-    the old one is not called there."""
+def bwd_cases():
+    """(name, library or None, call) of each backward case, on
+    operands made as ``check_backward`` makes them."""
     import torch
     from repro_torch.kernels.flash_attention import ops as k3
     from repro_torch.kernels.linear_attn_chunk import ops as k6
@@ -197,11 +242,9 @@ def cases():
             device="cuda").manual_seed(S), device="cuda").to(dtype)
         args = (r, k, v, w, u, None)
         _, _, states = k6._forward(*args, cs.K6_CHUNK, states=True)
-        new = (lambda a=args, st=states, d=do:
+        yield (f"K6 backward {dtype_name} S={S}", None,
+               lambda a=args, st=states, d=do:
                k6._backward(*a, st, d, None, cs.K6_CHUNK))
-        old = (lambda fn, r=r, k=k, v=v, w=w, u=u, st=states, d=do:
-               old_k6(fn, r, k, v, w, u, st, d, cs.K6_CHUNK))
-        yield f"K6 {dtype_name} S={S}", "linear_attn_chunk_bwd", new, old
     for model, dtype_name, hq, hkv, dqk, dv, w, causal, scale in \
             cs.K3_BWD_CASES:
         dtype = getattr(torch, dtype_name)
@@ -213,15 +256,123 @@ def cases():
         kw = dict(causal=causal, window=w, scale=scale)
         lse = torch.empty((1, hq, S), device="cuda")
         out = k3._forward(q, k, v, lse=lse, **kw)
-        new = (lambda a=(q, k, v, out, lse, do), kw=kw:
+        yield (f"K3 backward {model} {dtype_name} {hq}/{hkv} {dqk}/{dv} "
+               f"S={S} window={w} {'causal' if causal else 'bidirectional'}",
+               "flash_attention_bwd",
+               lambda a=(q, k, v, out, lse, do), kw=kw:
                k3._backward(*a, **kw))
-        old = None
-        if dtype == torch.bfloat16:
-            old = (lambda fn, a=(q, k, v, out, lse, do), kw=kw:
-                   old_k3(fn, *a, kw["causal"], kw["window"], kw["scale"]))
-        yield (f"K3 {model} {dtype_name} {hq}/{hkv} {dqk}/{dv} S={S} "
-               f"window={w} {'causal' if causal else 'bidirectional'}",
-               "flash_attention_bwd", new, old)
+
+
+def _agree(a, b) -> tuple:
+    """(max abs difference, largest relative L2) of two outputs or two
+    tuples of gradients."""
+    if not isinstance(a, tuple):
+        a, b = (a,), (b,)
+    pairs = [(x, y) for x, y in zip(a, b) if x is not None]
+    return (max((x.float() - y.float()).abs().max().item() for x, y in pairs),
+            max(cs.rel_l2(x, y) for x, y in pairs))
+
+
+def time_case(what, lib, call, old_fns) -> dict:
+    rec = {"case": what, "card": cs.CARD}
+    runs = {"new": call}
+    if lib in old_fns:
+        def old(c=call):
+            with Patched(old_fns):
+                return c()
+        runs["old"] = old
+        a, b = call(), old()
+        rec["max_abs_old_vs_new"], rec["rel_l2_old_vs_new"] = _agree(a, b)
+    order = ("old", "new", "new", "old") if "old" in runs else ("new",)
+    for key in order:
+        rec.setdefault(f"{key}_us", []).append(1e3 * cs.device_ms(runs[key]))
+    for key, fn in runs.items():
+        rec[f"{key}_split"] = cs.launch_split(fn, 1e-3 * min(rec[f"{key}_us"]))
+    line = (f"[k3] {what} ({cs.CARD}): new "
+            f"{', '.join(f'{x:.1f}' for x in rec['new_us'])}us "
+            f"[{cs.split_text(rec['new_split'])}]")
+    if "old" in runs:
+        ratio = sum(rec["old_us"]) / sum(rec["new_us"])
+        line += (f"; old {', '.join(f'{x:.1f}' for x in rec['old_us'])}us "
+                 f"[{cs.split_text(rec['old_split'])}]; old/new "
+                 f"{ratio:.2f}x; old vs new max abs "
+                 f"{rec['max_abs_old_vs_new']:.2e}, rel L2 "
+                 f"{rec['rel_l2_old_vs_new']:.2e}")
+    cs.log(line)
+    return rec
+
+
+def _wall_ms(fn, reps: int = 3) -> float:
+    """Mean wall ms of ``reps`` synchronised calls after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def steps(old_fns: dict) -> list:
+    """5e(iii)'s fp32 head step at gemma3-1b and 5b's fp32 zamba2 prefill
+    under the old and the new K3, in turns."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.distill import head_train_loss
+    from repro_torch.core.heads import init_draft_params
+    from repro_torch.data.synthetic import MarkovSpec, sample_corpus
+    from repro_torch.models.model import forward, init_params
+    from repro_torch.training import trainer
+
+    records = []
+
+    def turns(what, fn):
+        for key in ("old", "new", "new", "old"):
+            if key == "old":
+                with Patched(old_fns):
+                    ms = _wall_ms(fn)
+            else:
+                ms = _wall_ms(fn)
+            records.append({"run": what, "kernels": key, "card": cs.CARD,
+                            "wall_ms": ms})
+            cs.log(f"[step] {what}, {key} K3 ({cs.CARD}): {ms:.2f} ms")
+
+    cfg = dataclasses.replace(get_config(cs.TRAIN_ARCH), dtype="float32")
+    base = init_params(cfg, seed=0, device="cuda")
+    dp = init_draft_params(cfg, seed=1, device="cuda")
+    toks = torch.as_tensor(sample_corpus(
+        MarkovSpec(vocab_size=cfg.vocab_size, seed=0), 1, cs.GRAD_CHECK_S,
+        seed=2), device="cuda")
+    turns(f"5e(iii) {cfg.name} fp32 head_train_loss and its gradient, B=1 "
+          f"S={cs.GRAD_CHECK_S}",
+          lambda: trainer.value_and_grad(lambda d: head_train_loss(
+              d, base, cfg, toks, objective="distill"), dp))
+    del base, dp
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(cs.ZAMBA2), dtype="float32")
+    params = init_params(cfg, seed=0, device="cuda")
+    P = 1000
+    tokens = torch.randint(0, cfg.vocab_size, (1, P), generator=torch.Generator(
+        device="cuda").manual_seed(P + 1), device="cuda")
+    pos = torch.arange(P, device="cuda")[None]
+
+    @torch.no_grad()
+    def prefill():
+        return forward(params, cfg, tokens, pos, mode="full",
+                       want_logits=False)
+
+    turns(f"5b {cfg.name} fp32 whole prefill, {cfg.n_layers} layers, {P} "
+          "tokens", prefill)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return records
 
 
 def main() -> int:
@@ -231,15 +382,16 @@ def main() -> int:
     ap.add_argument("--old", type=Path, default=None,
                     help="a directory holding another copy of csrc/")
     ap.add_argument("--out", type=Path,
-                    default=ROOT / "build" / "bwd_times.json")
+                    default=ROOT / "build" / "k3_times.json")
     ap.add_argument("--steps", action="store_true",
-                    help="with --old: also a training step of gemma3-1b "
-                         "and rwkv6-1.6b under each backward, in turns")
+                    help="with --old: 5e(iii)'s fp32 head step and 5b's "
+                         "zamba2 fp32 prefill under each K3, in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_bwd_kernels: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     cs.CARD = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -248,44 +400,21 @@ def main() -> int:
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    build.build(["flash_attention", "linear_attn_chunk", *OLD_ABI])
+    build.build(["linear_attn_chunk", "linear_attn_chunk_bwd", *K3_ABI])
     old_fns = build_old(args.old) if args.old else {}
     cs.log(f"[build] {time.perf_counter() - t0:.1f}s")
-    for name in OLD_ABI:
+    for name in K3_ABI:
         for line in cs.ptxas_lines(build.ptxas_report(name)):
             cs.log(f"[ptxas] {line}")
     records = []
-    for what, lib, new, old in cases():
-        rec = {"case": what, "card": cs.CARD}
-        runs = {"new": new}
-        if old is not None and lib in old_fns:
-            runs["old"] = lambda o=old, fn=old_fns[lib]: o(fn)
-            a, b = runs["new"](), runs["old"]()
-            rec["rel_l2_old_vs_new"] = max(
-                cs.rel_l2(x, y) for x, y in zip(a, b) if x is not None)
-        order = ("old", "new", "new", "old") if "old" in runs else ("new",)
-        for key in order:
-            rec.setdefault(f"{key}_us", []).append(
-                1e3 * cs.device_ms(runs[key]))
-        for key, fn in runs.items():
-            rec[f"{key}_split"] = cs.launch_split(
-                fn, 1e-3 * min(rec[f"{key}_us"]))
-        records.append(rec)
-        line = (f"[bwd] {what} ({cs.CARD}): new "
-                f"{', '.join(f'{x:.1f}' for x in rec['new_us'])}us "
-                f"[{cs.split_text(rec['new_split'])}]")
-        if "old" in runs:
-            ratio = sum(rec["old_us"]) / sum(rec["new_us"])
-            line += (f"; old {', '.join(f'{x:.1f}' for x in rec['old_us'])}"
-                     f"us [{cs.split_text(rec['old_split'])}]; old/new "
-                     f"{ratio:.2f}x; rel L2 old vs new "
-                     f"{rec['rel_l2_old_vs_new']:.2e}")
-        cs.log(line)
+    for cases in (fwd_cases, bwd_cases):
+        for what, lib, call in cases():
+            records.append(time_case(what, lib, call, old_fns))
     if args.steps and old_fns:
         records += steps(old_fns)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(records, indent=1))
-    cs.log(f"[bwd] wrote {args.out}")
+    cs.log(f"[k3] wrote {args.out}")
     return 0
 
 

@@ -31,13 +31,13 @@
 //   autograd), each row's log-sum-exp of its scaled scores, in natural
 //   units, for the backward (flash_attention_bwd.cu); its stores change no
 //   arithmetic, so out keeps its bits with or without it
-// q, k, v and out share one type.  bf16 builds: (DQK, DV) in (64, 64),
-// (80, 80), hubert-xlarge's heads (five k-steps of 16 for S = Q K^T, ten
-// n-tiles of 8 for P V, key tiles of 64 and rows of 80 + 8 in shared
-// memory: nothing padded to 128), (128, 128), (256, 256) and (192, 128),
-// deepseek-v2-lite's MLA prefill (nope 128 + rope 64 for q/k, 128 for v)
-// at its own widths.  fp32 builds take DQK = DV in {64, 128, 256}; the
-// wrapper pads other widths (80 to 128) for fp32 alone.
+// q, k, v and out share one type.  Builds, in bf16 and in fp32: (DQK, DV)
+// in (64, 64), (80, 80), hubert-xlarge's heads (five k-steps of 16 for S =
+// Q K^T, ten n-tiles of 8 for P V, key tiles of 64 and rows of 80 + 8 in
+// shared memory: nothing padded to 128), (128, 128), (256, 256) and (192,
+// 128), deepseek-v2-lite's MLA prefill (nope 128 + rope 64 for q/k, 128
+// for v) at its own widths; fp32 also (48, 32), its reduced MLA widths
+// (the narrow fp32 runs on the card).
 //
 // Bound: operations at the prompt lengths the models prefill (S in the
 // hundreds to thousands): 2*(DQK + DV) flops per admitted (query head,
@@ -60,17 +60,38 @@
 // side) share through L2.  Key tiles start at absolute multiples of the
 // key tile, from position 0, whatever q_off: a query row walks the same
 // tiles in the same order in a chunk as in the whole prefill, so where
-// q_off is a multiple of the query tile (64; 16 for fp32) the chunk's rows
-// equal the whole prefill's rows bit for bit.  Tiles are skipped in
+// q_off is a multiple of the query tile (64) the chunk's rows equal the
+// whole prefill's rows bit for bit.  Tiles are skipped in
 // absolute positions: causal tiles past the query tile's last position,
 // with a window tiles wholly before q0 - window + 1, and tiles wholly at
 // or past kv_valid_len; only the tiles that cross a mask boundary (or the
 // valid end) are masked element by element.  Query tiles are launched
 // longest causal chain first.
 //
-// fp32 keeps the first version's CUDA-core body: one thread block per
-// (b, kv head, tile of at most 16 query positions) holding the G*BQ rows
-// that share the kv head, 16-key tiles through online_softmax.cuh.
+// Design (fp32, redesigned for the H100): the bf16 body's grid, query
+// tiles, cp.async ring and masks, with both products on the tensor cores
+// at fp32 accuracy: mma.sync.m16n8k8 in 3xTF32 (tf32_mma.cuh: each operand
+// split into a TF32 high part and the TF32 of its residual, hi lo + lo hi
+// + hi hi summed in fp32; single-pass TF32 would keep three digits).
+// Tiles are fp32 in shared memory, rows padded by 4 floats, so the wide
+// builds fill it at one block an SM; four warps would then leave one warp
+// a scheduler and the mma chains' latency bare (measured: 1.2-1.5x
+// slower at the wide builds).  So a block runs 8 warps in 4 pairs: the
+// two warps of a pair
+// share 16 query rows and split each key tile, each computing S over its
+// half of the keys, the pair exchanging row maxima and its halves of P
+// through shared memory (two 64-thread barriers a tile), each summing P V
+// over all the tile's keys for its half of the value columns; each keeps
+// its keys' share of the denominator, and the two are added at the end.
+// One key tile a build, the widest whose ring fits: 64 keys, 32 at (256,
+// 256) and (192, 128) (195 and 131 KiB of ring; every build that fits 64
+// ran as fast or faster at 64 than at 32).  Bound: operations; the tensor
+// cores' TF32 rate (495 TFLOP/s) over three passes is 165 TFLOP/s of fp32
+// work, above the CUDA cores' 67.  The fp32 body has no limit on G (its
+// blocks are per query head) and no padding: every (DQK, DV) above is its
+// own build.  As in bf16, a chunk's rows equal the whole prefill's rows
+// bit for bit where q_off is a multiple of the query tile, 64 (the first
+// version's fp32 tile was 16).
 //
 // Every warp reads each K/V tile from shared memory (ldmatrix) for its 16
 // rows, so a block's key tiles cost shared-memory bandwidth in proportion
@@ -84,36 +105,43 @@
 #include <type_traits>
 
 #include "attention_mma.cuh"
-#include "online_softmax.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
-using attn::kKeyTile;
-using attn::kNegInf;
-using attn::kThreads;
-using attn::Smem;
 using tc::bf16;
 
-constexpr int kRowCap = 128;   // fp32: G * BQ query rows per block
-constexpr int kQTile = 16;     // fp32: query positions per block, at most
-constexpr int kMmaRows = 64;   // bf16: query positions per block
-constexpr int kMmaThreads = 128;
+constexpr int kMmaRows = 64;   // query positions per block
+constexpr int kMmaThreads = 128;  // bf16: 4 warps
+constexpr int kF32Threads = 256;  // fp32: 4 pairs of warps
+
+template <typename T>
+__host__ __device__ constexpr int threads() {
+  return std::is_same<T, float>::value ? kF32Threads : kMmaThreads;
+}
 
 constexpr size_t kMaxSmem = 227 * 1024;  // opt-in shared memory a block
 
-// bf16 shared memory: q (64 rows of DQK), K ring (2 tiles of KN keys of
-// DQK), V ring (2 tiles of KN keys of DV); rows padded by 8 bf16
-template <int DQK, int DV, int KN>
+// shared memory of the (T, DQK, DV) build at key tile KN: q (64 rows of
+// DQK), K ring (2 tiles of KN keys of DQK), V ring (2 tiles of KN keys of
+// DV); rows padded by 8 bf16 or 4 floats; fp32 adds each pair's P (16
+// rows of KN + 8) and the 8 warps' row maxima (16 each)
+template <typename T, int DQK, int DV, int KN>
 __host__ __device__ constexpr size_t mma_smem_bytes() {
-  return sizeof(bf16) *
-         (static_cast<size_t>(kMmaRows + 2 * KN) * (DQK + tc::kPad) +
-          static_cast<size_t>(2 * KN) * (DV + tc::kPad));
+  constexpr bool f32 = std::is_same<T, float>::value;
+  constexpr int pad = f32 ? tf::kPad : tc::kPad;
+  return sizeof(T) *
+         (static_cast<size_t>(kMmaRows + 2 * KN) * (DQK + pad) +
+          static_cast<size_t>(2 * KN) * (DV + pad) +
+          (f32 ? 4 * 16 * (KN + tf::kPadP) + 8 * 16 : 0));
 }
 
-// whether a (DQK, DV) build has a key tile of KN: its ring fits
-template <int DQK, int DV, int KN>
+// whether a (T, DQK, DV) build has a key tile of KN: its ring fits (and,
+// in fp32, its keep mask: at most 64 keys)
+template <typename T, int DQK, int DV, int KN>
 __host__ __device__ constexpr bool mma_fits() {
-  return mma_smem_bytes<DQK, DV, KN>() <= kMaxSmem;
+  return mma_smem_bytes<T, DQK, DV, KN>() <= kMaxSmem &&
+         (!std::is_same<T, float>::value || KN <= 64);
 }
 
 struct Args {
@@ -124,7 +152,7 @@ struct Args {
   float* lse;               // (B, Hq, Sq) row log-sum-exp, or null
   const int* q_off;         // (B,) first query position, or null: 0
   const int* kv_valid_len;  // (B,) keys at or past it masked, or null
-  int B, Sq, Skv, Hq, Hkv, bq, causal, window;
+  int B, Sq, Skv, Hq, Hkv, causal, window;
   float scale;
 };
 
@@ -155,7 +183,8 @@ __device__ __forceinline__ int query_offset(const Args& p, int b) {
 // KN keys.
 template <int DQK, int DV, int KN>
 __device__ void flash_mma(const Args& p, unsigned char* smem_raw) {
-  static_assert(mma_fits<DQK, DV, KN>(), "the K/V ring exceeds shared memory");
+  static_assert(mma_fits<bf16, DQK, DV, KN>(),
+                "the K/V ring exceeds shared memory");
   constexpr int QS = DQK + tc::kPad, VS = DV + tc::kPad;
   const int G = p.Hq / p.Hkv;
   const int heads = p.B * p.Hq;
@@ -262,116 +291,150 @@ __device__ void flash_mma(const Args& p, unsigned char* smem_raw) {
   }
 }
 
-// fp32 body (CUDA cores): grid n_qt * B * Hkv, the last query tile first.
-template <int D>
-__device__ void flash_f32(const Args& p, float* smem) {
-  constexpr int DP = D + 1;
-  constexpr int NRG = kThreads / D;
-  constexpr int KMAX = attn::max_rows(D, kRowCap) / NRG;
+// fp32 body (3xTF32 on the tensor cores): grid n_qt * B * Hq, the last
+// query tile first; 64 query rows a block of 8 warps in 4 pairs: warps w
+// and w + 4 share rows 16 (w % 4).. and split each key tile of KN keys
+// (half h = w / 4 takes keys h KN / 2..): each computes its half of S,
+// the pair exchanges its row maxima and its half of P through shared
+// memory (two pair barriers a tile), and each sums O += P V over all KN
+// keys for its half of the value columns.  Both warps of a pair hold the
+// same running max; each keeps its keys' share of the denominator, and
+// the two are added at the end.  Twice the warps of a 4-warp body at the
+// same shared memory: the fp32 tiles fill it at one block an SM for the
+// wide builds, and one warp a scheduler leaves the mma chains' latency
+// bare.
+template <int DQK, int DV, int KN>
+__device__ void flash_tf32(const Args& p, unsigned char* smem_raw) {
+  static_assert(mma_fits<float, DQK, DV, KN>(),
+                "the K/V ring exceeds shared memory");
+  constexpr int QS = DQK + tf::kPad, VS = DV + tf::kPad;
+  constexpr int NT = kF32Threads;
   const int G = p.Hq / p.Hkv;
-  const int BQ = p.bq;
-  const int R = G * BQ;
-  const int heads = p.B * p.Hkv;
-  const int n_qt = (p.Sq + BQ - 1) / BQ;
+  const int heads = p.B * p.Hq;
+  const int n_qt = (p.Sq + kMmaRows - 1) / kMmaRows;
   const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / heads;
-  const int b = (blockIdx.x % heads) / p.Hkv;
-  const int h = blockIdx.x % p.Hkv;
-  const int q0 = qt * BQ;
-  const int off = query_offset(p, b);
+  const int b = (blockIdx.x % heads) / p.Hq;
+  const int hq = blockIdx.x % p.Hq;
+  const int hk = hq / G;
+  const int q0 = qt * kMmaRows;                 // first row of the tile
+  const int off = query_offset(p, b);           // row i sits at off + i
 
-  const Smem sm = attn::carve_smem<D>(smem, R);
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* ks = qs + kMmaRows * QS;
+  float* vs = ks + 2 * KN * QS;
+  float* pb = vs + 2 * KN * VS;                 // P of each pair's rows
+  float* mb = pb + 4 * 16 * (KN + tf::kPadP);   // maxima, then sums
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int pair = warp % 4, half = warp / 4;
   const float* q = static_cast<const float*>(p.q);
   const float* k = static_cast<const float*>(p.k);
   const float* v = static_cast<const float*>(p.v);
 
-  for (int i = threadIdx.x; i < R * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const int g = r / BQ, row = q0 + r % BQ;
-    float x = 0.f;  // rows past Sq are computed on zeros and never stored
-    if (row < p.Sq)
-      x = q[((static_cast<size_t>(b) * p.Sq + row) * p.Hq + h * G + g) * D +
-            d] *
-          p.scale;
-    sm.q[r * DP + d] = x;
-  }
-  for (int r = threadIdx.x; r < R; r += kThreads) {
-    sm.m[r] = kNegInf;
-    sm.l[r] = 0.f;
-    sm.pos[r] = off + q0 + r % BQ;  // absolute
-  }
-  float acc[KMAX];
-#pragma unroll
-  for (int kk = 0; kk < KMAX; ++kk) acc[kk] = 0.f;
-  __syncthreads();
+  // rows past Sq are computed on zeros and never stored
+  tf::load_rows<DQK, kMmaRows, NT>(qs, tid, q, [&](int r) -> const float* {
+    const int i = q0 + r;
+    if (i >= p.Sq) return nullptr;
+    return q + ((static_cast<size_t>(b) * p.Sq + i) * p.Hq + hq) * DQK;
+  });
 
   const bool causal = p.causal != 0;
   const int w = p.window;
-  const KeyRange kr = key_range(p, b, off + q0,
-                                off + min(q0 + BQ, p.Sq) - 1, kKeyTile);
-  const int k_end = kr.end;
-  for (int k0 = kr.begin; k0 < k_end; k0 += kKeyTile) {
-    const int n = min(kKeyTile, k_end - k0);
-    for (int i = threadIdx.x; i < n * D; i += kThreads) {
-      const int kk = i / D, d = i % D;
-      const size_t o =
-          ((static_cast<size_t>(b) * p.Skv + k0 + kk) * p.Hkv + h) * D + d;
-      sm.k[kk * DP + d] = k[o];
-      sm.v[kk * DP + d] = v[o];
+  const int q_first = off + q0;                             // absolute
+  const int q_last = off + min(q0 + kMmaRows, p.Sq) - 1;    // absolute
+  const KeyRange kr = key_range(p, b, q_first, q_last, KN);
+  const int k_begin = kr.begin, k_end = kr.end;
+  const int ntiles = k_end > k_begin ? (k_end - k_begin + KN - 1) / KN : 0;
+  auto kv_row = [&](int pos) {
+    return (static_cast<size_t>(b) * p.Skv + pos) * p.Hkv + hk;
+  };
+  auto issue = [&](int i) {
+    const int sg = i & 1, pos0 = k_begin + i * KN;
+    tf::load_rows<DQK, KN, NT>(
+        ks + sg * KN * QS, tid, k, [&](int kk) -> const float* {
+          const int pos = pos0 + kk;
+          return pos < k_end ? k + kv_row(pos) * DQK : nullptr;
+        });
+    tf::load_rows<DV, KN, NT>(
+        vs + sg * KN * VS, tid, v, [&](int kk) -> const float* {
+          const int pos = pos0 + kk;
+          return pos < k_end ? v + kv_row(pos) * DV : nullptr;
+        });
+    tc::cp_async_commit();
+  };
+
+  tc::RowState<DV / 2> st;   // the half's value columns
+  st.init();
+  const int i0 = pair * tc::kWarpRows + lane / 4;  // local row g; g+8: +8
+  const int a0 = q_first + i0;                      // its absolute position
+  const float scale_log2 = p.scale * tc::kLog2e;
+  const tf::Pair pr{pb + pair * 16 * (KN + tf::kPadP), mb, warp, half,
+                    1 + pair};
+  if (ntiles > 0) {
+    issue(0);  // the first group carries q as well
+  } else {     // no key to read (kv_valid_len 0): the rows stay zero
+    tc::cp_async_commit();
+    tc::cp_async_wait<0>();
+  }
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) {
+      issue(it + 1);
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
     }
     __syncthreads();
-    auto admit = [sm, causal, w, k0](int r, int kk) {
-      const int dq = sm.pos[r] - (k0 + kk);
-      return (!causal || dq >= 0) && (w <= 0 || dq < w);
+    const int sg = it & 1, pos0 = k_begin + it * KN;
+    // a tile needs element masks only where it crosses the key range's
+    // end, the diagonal or the window's far edge
+    const bool masked = pos0 + KN > k_end ||
+                        (causal && pos0 + KN - 1 > q_first) ||
+                        (w > 0 && q_last - pos0 >= w);
+    auto admit = [&](int hh, int kk) {
+      const int key = pos0 + kk, dq = a0 + 8 * hh - key;
+      return key < k_end && (!causal || dq >= 0) && (w <= 0 || dq < w);
     };
-    attn::tile_update<D, KMAX>(R, n, sm, acc, admit);
+    tf::tile_pair<DQK, DV, KN>(qs + pair * tc::kWarpRows * QS,
+                               ks + sg * KN * QS, vs + sg * KN * VS,
+                               scale_log2, st, masked, admit, pr);
+    __syncthreads();  // the next issue overwrites this stage
   }
 
+  st.reduce_l();
+  float l[2];
+  pr.total(st.l, l);
   float* out = static_cast<float*>(p.out);
-  const int d = threadIdx.x % D;
-  const int rg = threadIdx.x / D;
+  const int t4 = lane & 3;
 #pragma unroll
-  for (int kk = 0; kk < KMAX; ++kk) {
-    const int r = rg + kk * NRG;
-    if (r < R) {
-      const int g = r / BQ, row = q0 + r % BQ;
-      if (row < p.Sq) {
-        const size_t o =
-            ((static_cast<size_t>(b) * p.Sq + row) * p.Hq + h * G + g) * D +
-            d;
-        out[o] = acc[kk] / fmaxf(sm.l[r], 1e-30f);
-      }
-    }
+  for (int hh = 0; hh < 2; ++hh) {
+    const int i = q0 + i0 + 8 * hh;
+    if (i >= p.Sq) continue;
+    const float inv = 1.f / fmaxf(l[hh], 1e-30f);
+    float* o = out + ((static_cast<size_t>(b) * p.Sq + i) * p.Hq + hq) * DV +
+               half * (DV / 2);
+#pragma unroll
+    for (int n = 0; n < DV / 16; ++n)
+      *reinterpret_cast<float2*>(o + n * 8 + 2 * t4) = make_float2(
+          st.o[n][2 * hh] * inv, st.o[n][2 * hh + 1] * inv);
+    // the running max is in base-2 units of the scaled scores
+    if (p.lse != nullptr && t4 == 0 && half == 0)
+      p.lse[(static_cast<size_t>(b) * p.Hq + hq) * p.Sq + i] =
+          (st.m[hh] + log2f(l[hh])) * tc::kLn2;
   }
-  if (p.lse != nullptr)
-    for (int r = threadIdx.x; r < R; r += kThreads) {
-      const int g = r / BQ, row = q0 + r % BQ;
-      if (row < p.Sq)
-        p.lse[(static_cast<size_t>(b) * p.Hq + h * G + g) * p.Sq + row] =
-            sm.m[r] + logf(sm.l[r]);
-    }
 }
 
-// KN: the bf16 body's key tile; the fp32 body's is kKeyTile (16)
 template <typename T, int DQK, int DV, int KN>
-__global__ void __launch_bounds__(kThreads) flash_attention_kernel(Args p) {
+__global__ void __launch_bounds__(threads<T>())
+    flash_attention_kernel(Args p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  if constexpr (std::is_same<T, float>::value) {
-    static_assert(DQK == DV && KN == kKeyTile,
-                  "the fp32 body takes one head dim and 16-key tiles");
-    flash_f32<DQK>(p, reinterpret_cast<float*>(smem_raw));
-  } else {
+  if constexpr (std::is_same<T, float>::value)
+    flash_tf32<DQK, DV, KN>(p, smem_raw);
+  else
     flash_mma<DQK, DV, KN>(p, smem_raw);
-  }
 }
 
 template <typename T, int DQK, int DV, int KN>
 int launch(const Args& a, cudaStream_t stream) {
-  constexpr bool kF32 = std::is_same<T, float>::value;
-  size_t smem;
-  if constexpr (kF32)
-    smem = attn::smem_bytes((a.Hq / a.Hkv) * a.bq, DQK);
-  else
-    smem = mma_smem_bytes<DQK, DV, KN>();
+  const size_t smem = mma_smem_bytes<T, DQK, DV, KN>();
   auto kern = flash_attention_kernel<T, DQK, DV, KN>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -379,26 +442,50 @@ int launch(const Args& a, cudaStream_t stream) {
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int rows = kF32 ? a.bq : kMmaRows;
-  const int n_qt = (a.Sq + rows - 1) / rows;
-  const int blocks = n_qt * a.B * (kF32 ? a.Hkv : a.Hq);
-  kern<<<blocks, kF32 ? kThreads : kMmaThreads, smem, stream>>>(a);
+  const int n_qt = (a.Sq + kMmaRows - 1) / kMmaRows;
+  kern<<<n_qt * a.B * a.Hq, threads<T>(), smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the bf16 (DQK, DV) build at key tile `key_tile`: 32, 64, or 128 where
-// its ring fits (mma_fits); anything else is refused
-template <int DQK, int DV>
-int launch_bf16(const Args& a, int key_tile, cudaStream_t stream) {
-  switch (key_tile) {
-    case 32: return launch<bf16, DQK, DV, 32>(a, stream);
-    case 64: return launch<bf16, DQK, DV, 64>(a, stream);
-    case 128:
-      if constexpr (mma_fits<DQK, DV, 128>())
-        return launch<bf16, DQK, DV, 128>(a, stream);
-      break;
-    default: break;
+// the (T, DQK, DV) build: bf16 at key tile `key_tile`, 32, 64, or 128
+// where its ring fits (mma_fits), anything else refused; fp32 at its one
+// key tile, the widest that fits up to 64 (32 at (256, 256) and (192,
+// 128)), `key_tile` ignored
+template <typename T, int DQK, int DV>
+int launch_build(const Args& a, int key_tile, cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr int kn = mma_fits<T, DQK, DV, 64>() ? 64 : 32;
+    return launch<T, DQK, DV, kn>(a, stream);
+  } else {
+    switch (key_tile) {
+      case 32: return launch<T, DQK, DV, 32>(a, stream);
+      case 64:
+        if constexpr (mma_fits<T, DQK, DV, 64>())
+          return launch<T, DQK, DV, 64>(a, stream);
+        break;
+      case 128:
+        if constexpr (mma_fits<T, DQK, DV, 128>())
+          return launch<T, DQK, DV, 128>(a, stream);
+        break;
+      default: break;
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <typename T>
+int launch_dims(const Args& a, int Dqk, int Dv, int key_tile,
+                cudaStream_t s) {
+  if (Dqk == 64 && Dv == 64) return launch_build<T, 64, 64>(a, key_tile, s);
+  if (Dqk == 80 && Dv == 80) return launch_build<T, 80, 80>(a, key_tile, s);
+  if (Dqk == 128 && Dv == 128)
+    return launch_build<T, 128, 128>(a, key_tile, s);
+  if (Dqk == 256 && Dv == 256)
+    return launch_build<T, 256, 256>(a, key_tile, s);
+  if (Dqk == 192 && Dv == 128)
+    return launch_build<T, 192, 128>(a, key_tile, s);
+  if constexpr (std::is_same<T, float>::value)
+    if (Dqk == 48 && Dv == 32) return launch_build<T, 48, 32>(a, key_tile, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -422,27 +509,9 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   Args a{q, k, v, out, static_cast<float*>(lse),
          static_cast<const int*>(q_off),
          static_cast<const int*>(kv_valid_len),
-         B, Sq, Skv, Hq, Hkv, 0, causal, window, scale};
+         B, Sq, Skv, Hq, Hkv, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    if (Dqk == 64 && Dv == 64) return launch_bf16<64, 64>(a, key_tile, s);
-    if (Dqk == 80 && Dv == 80) return launch_bf16<80, 80>(a, key_tile, s);
-    if (Dqk == 128 && Dv == 128)
-      return launch_bf16<128, 128>(a, key_tile, s);
-    if (Dqk == 256 && Dv == 256)
-      return launch_bf16<256, 256>(a, key_tile, s);
-    if (Dqk == 192 && Dv == 128)
-      return launch_bf16<192, 128>(a, key_tile, s);
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (dtype != 0 || Dqk != Dv) return static_cast<int>(cudaErrorInvalidValue);
-  const int fit = attn::max_rows(Dqk, kRowCap) / (Hq / Hkv);
-  a.bq = fit < kQTile ? fit : kQTile;
-  if (a.bq < 1) return static_cast<int>(cudaErrorInvalidValue);
-  switch (Dqk) {
-    case 64: return launch<float, 64, 64, kKeyTile>(a, s);
-    case 128: return launch<float, 128, 128, kKeyTile>(a, s);
-    case 256: return launch<float, 256, 256, kKeyTile>(a, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (dtype == 1) return launch_dims<bf16>(a, Dqk, Dv, key_tile, s);
+  if (dtype == 0) return launch_dims<float>(a, Dqk, Dv, key_tile, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

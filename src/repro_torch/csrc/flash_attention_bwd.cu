@@ -26,10 +26,10 @@
 // Layout (the model layout), contiguous: q (B, S, Hq, DQK), k (B, S, Hkv,
 // DQK), v (B, S, Hkv, DV), o and dO (B, S, Hq, DV), lse (B, Hq, S) fp32;
 // dq, dk, dv as q, k, v; delta (B, Hq, S) fp32 scratch from the wrapper,
-// and for bf16 with G = Hq / Hkv > 1 `part`, fp32 scratch of B S Hq (DQK
-// + DV) floats.  bf16 builds: (DQK, DV) in (64, 64), (80, 80), (128,
-// 128), (256, 256), (192, 128), the forward's; fp32 builds DQK = DV in
-// {64, 128, 256} (the wrapper pads other widths, as for the forward).
+// and with G = Hq / Hkv > 1 or a split walk `part`, fp32 scratch (see the
+// entry point).  Builds, in bf16 and in fp32: (DQK, DV) in (64, 64), (80,
+// 80), (128, 128), (256, 256), (192, 128), the forward's, none padded;
+// fp32 also (48, 32), as the forward.
 //
 // Design (bf16, redesigned for the H100), no atomics: each gradient
 // element is summed by one block, or by the partials' sum, in a fixed
@@ -77,16 +77,45 @@
 //  (iv)  flash_bwd_sum_kernel sums each row's partials in order (dK/dV of
 //        a kv head over its G query heads, each over its shares; dQ over
 //        its key shares).
-//  fp32: flash_bwd_delta_kernel (a warp a row), then dK/dV and dQ on the
-//        CUDA cores, tiles of 16 keys and 16 queries in shared memory (not
-//        redesigned).
+// Design (fp32, redesigned for the H100): the bf16 structure above with
+// every product in 3xTF32 on mma.sync.m16n8k8 (tf32_mma.cuh: each operand
+// a TF32 high part and the TF32 of its residual, hi lo + lo hi + hi hi
+// summed in fp32), so P and dS are never rounded below fp32:
+//  (iii) flash_bwd_q_f32_kernel: one block per (R query rows, b, query
+//        head[, key share]), R = 64 (32 at (256, 256)), 8 warps; delta of
+//        its rows first (written by the first share), then per step of 32
+//        keys S (warps 0-3) and dP (warps 4-7) at once, once a block, P
+//        and then dS in fp32 through shared memory, dQ += dS K per warp
+//        and column group; with key shares, fp32 partials;
+//  (ii)  flash_bwd_kv_f32_kernel: one block per (query head, R keys, b[,
+//        query share]), 8 warps; per step of 32 queries S^T (warps 0-3)
+//        and dP^T (warps 4-7) at once, P^T and then dS^T in fp32 through
+//        shared memory, dV += P^T dO and dK += dS^T Q per warp and column
+//        group; with G = 1 and one share it writes dK and dV, else its
+//        head's and share's partials;
+//  (iv)  flash_bwd_sum_kernel<float>, as in bf16.
+//  Splitting the score phase by product gives each warp a 16 x 8 NS
+//  piece with NS = 2 or 4 (so each A fragment, split once, serves NS
+//  products) where one piece of each product per warp had NS = 1 at (256,
+//  256); with the TF32 split by truncation this took gemma3-1b's fp32
+//  backward from 168.7 to 114.1 µs (tf32_mma.cuh).  Each step's dV, dK
+//  and dQ products are summed in fresh accumulators and added into the
+//  running sums in fp32 (tf32_mma.cuh: the tensor cores' accumulation
+//  drifts over long chains).
+//  Two blocks share a tile's walk where B Hq ceil(S / R) blocks would not
+//  fill the card (gemma3-1b's 4 heads at S = 512: 64 -> 128 blocks).  The
+//  sums over the permuted k axis (tf32_mma.cuh) read each fp32 operand
+//  tile in place: no transposed copy.  Shared memory 210 KiB at (256,
+//  256), 185 at (192, 128), 105 at (80, 80); two blocks an SM at (64,
+//  64) and (48, 32) (f32_min_blocks).
 // The narrow builds ((64, 64), (80, 80)) run two blocks an SM.  Q, K, V
 // and dO come in through cp.async, not TMA.
 //
 // Bound: operations at the prompt lengths training runs (S = 512-4096):
 // 2 (3 DQK + 2 DV) flops per admitted (query head, query, key) pair (the
 // scores recomputed, dP, dV, dK and dQ), against q, k, v, o, dO, lse read
-// and dq, dk, dv written once.  This design computes S and dP twice (once
+// and dq, dk, dv written once; in fp32 at the CUDA cores' 67 TFLOP/s, or
+// at 165 TFLOP/s as three TF32 passes on the tensor cores (495).  This design computes S and dP twice (once
 // for dK/dV, once for dQ, which avoids a float sum across blocks): 2 (5
 // DQK + 4 DV) flops a pair, 1.4x the least at DQK = DV, as
 // FlashAttention-2 without atomics; the partials add fp32 traffic (16.8 MB
@@ -94,7 +123,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "attention_mma.cuh"
+#include "tf32_mma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -118,8 +150,22 @@ template <int DQK>
 __host__ __device__ constexpr int min_blocks() {
   return DQK <= 80 ? 2 : 1;
 }
-constexpr int kT = 16;            // fp32: keys or queries a tile
-constexpr int kF32Threads = 256;  // fp32: one thread a (query, key) pair
+// fp32 (3xTF32 on mma.sync, tf32_mma.cuh): the block's own rows (keys for
+// dK/dV, queries for dQ), 64, or 32 at DQK = 256, walked in steps of 32
+// of the other side
+template <int DQK>
+__host__ __device__ constexpr int f32_rows() {
+  return DQK >= 256 ? 32 : 64;
+}
+constexpr int kF32Step = 32;
+constexpr int kF32SP = kF32Step + tf::kPadP;  // staged scores' row stride
+// blocks an SM the fp32 kernels are built for: two where both fit 128
+// registers a thread ((64, 64), (48, 32)); at (80, 80) the dK/dV kernel's
+// per-step accumulators spill at 128, so one
+template <int DQK, int DV>
+__host__ __device__ constexpr int f32_min_blocks() {
+  return DQK + DV <= 128 ? 2 : 1;
+}
 
 struct Args {
   const void* q;
@@ -132,14 +178,13 @@ struct Args {
   void* dq;
   void* dk;
   void* dv;
-  float* part;       // bf16, G > 1 or nsplit > 1: dK then dV per query
-                     // head and query share, fp32
+  float* part;       // G > 1 or nsplit > 1: dK then dV per query head
+                     // and query share (then dQ per key share), fp32
   int B, S, Hq, Hkv, causal, window;
-  int nsplit;        // wgmma dK/dV: blocks sharing a key tile's queries
+  int nsplit;        // blocks sharing a key tile's queries (dK/dV) or a
+                     // query tile's keys (dQ): bf16 wgmma and fp32
   float scale;
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
 
 // whether key kj is admitted by query qi (both below S)
 __device__ __forceinline__ bool admit(const Args& p, int qi, int kj) {
@@ -171,26 +216,6 @@ __device__ __forceinline__ void key_range(const Args& p, int q0, int q_last,
                                           int tile, int* begin, int* end) {
   *end = p.causal != 0 ? min(q_last + 1, p.S) : p.S;
   *begin = p.window > 0 ? max(0, q0 - p.window + 1) / tile * tile : 0;
-}
-
-// (i) fp32: delta, one warp a row of the model layout, (b * S + i) * Hq + h
-template <typename T>
-__global__ void __launch_bounds__(256) flash_bwd_delta_kernel(Args p,
-                                                              int DV) {
-  const int row = (blockIdx.x * 256 + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= p.B * p.S * p.Hq) return;
-  const T* o = static_cast<const T*>(p.o) + static_cast<size_t>(row) * DV;
-  const T* d = static_cast<const T*>(p.dout) + static_cast<size_t>(row) * DV;
-  float s = 0.f;
-  for (int e = lane; e < DV; e += 32) s += to_f32(o[e]) * to_f32(d[e]);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) {
-    const int h = row % p.Hq, i = row / p.Hq % p.S, b = row / (p.Hq * p.S);
-    p.delta[(static_cast<size_t>(b) * p.Hq + h) * p.S + i] = s;
-  }
 }
 
 // ldmatrix lane offsets: A (rows, k) and a transposed B (k rows, n), and a
@@ -934,18 +959,19 @@ __global__ void __launch_bounds__(kWgThreads)
   }
 }
 
-// (iv) bf16 with G > 1 or nsplit > 1: each gradient row from its fp32
-// partials, summed in order, two columns a thread: dK and dV of a kv head
-// over its G query heads, each over its nsplit shares of the queries (head
-// g = 0 first, each head's shares in order); with nsplit > 1, dQ of a
-// query head over its nsplit shares of the keys
+// (iv) with G > 1 or nsplit > 1: each gradient row from its fp32
+// partials, summed in order, two columns a thread, written in T: dK and
+// dV of a kv head over its G query heads, each over its nsplit shares of
+// the queries (head g = 0 first, each head's shares in order); with
+// `dq_parts`, dQ of a query head over its nsplit shares of the keys
+template <typename T>
 __global__ void __launch_bounds__(256)
-    flash_bwd_sum_kernel(Args p, int Dqk, int Dv) {
+    flash_bwd_sum_kernel(Args p, int Dqk, int Dv, int dq_parts) {
   const long kv_rows = static_cast<long>(p.B) * p.S * p.Hkv;
   const long hq_rows = static_cast<long>(p.B) * p.S * p.Hq;
   const int nkv = p.Hq / p.Hkv * p.nsplit;   // partials of a dK/dV row
   const long n0 = kv_rows * (Dqk / 2), n1 = n0 + kv_rows * (Dv / 2);
-  const bool dq = p.nsplit > 1 && Dqk <= kWgmmaDqMax;  // dQ's partials
+  const bool dq = dq_parts != 0;  // dQ's partials follow dK's and dV's
   const long n2 = n1 + (dq ? hq_rows * (Dqk / 2) : 0);
   const float* pk = p.part;
   const float* pv = pk + hq_rows * p.nsplit * Dqk;
@@ -964,9 +990,12 @@ __global__ void __launch_bounds__(256)
       x0 += x.x;
       x1 += x.y;
     }
-    void* dst = seg == 0 ? p.dk : seg == 1 ? p.dv : p.dq;
-    *reinterpret_cast<uint32_t*>(static_cast<bf16*>(dst) + row * D + c) =
-        tc::pack_bf16(x0, x1);
+    T* dst = static_cast<T*>(seg == 0 ? p.dk : seg == 1 ? p.dv : p.dq) +
+             row * D + c;
+    if constexpr (std::is_same<T, float>::value)
+      *reinterpret_cast<float2*>(dst) = make_float2(x0, x1);
+    else
+      *reinterpret_cast<uint32_t*>(dst) = tc::pack_bf16(x0, x1);
   }
 }
 
@@ -1134,180 +1163,447 @@ __global__ void __launch_bounds__(kThreads, min_blocks<DQK>())
   }
 }
 
-template <int D>
+// the fp32 kernels' shared memory: the block's own R rows of DQK and DV,
+// a ring of two steps of 32 of each, two staged score tiles (R x 40), and
+// lse and delta of two steps
+template <int DQK, int DV>
 __host__ __device__ constexpr size_t f32_smem_bytes() {
-  return sizeof(float) * (4 * static_cast<size_t>(kT) * (D + 1) +
-                          2 * kT * (kT + 1) + 2 * kT);
+  return sizeof(float) *
+         (static_cast<size_t>(f32_rows<DQK>() + 2 * kF32Step) *
+              (DQK + DV + 2 * tf::kPad) +
+          2 * static_cast<size_t>(f32_rows<DQK>()) * kF32SP + 4 * kF32Step);
 }
 
-// (ii) fp32: grid (ceil(S / 16), B * Hkv).  Thread tid owns column
-// d = tid % D of key rows tid / D, + 256 / D, ...
-template <int D>
-__global__ void __launch_bounds__(kF32Threads)
+// a warp's 16 x NS 8 score tile (C fragments, rows r0 and r0 + 8 of the
+// thread) into a staged tile of stride kF32SP at columns c0..
+template <int NS>
+__device__ __forceinline__ void stage_rows(float* dst, const float (&x)[NS][4],
+                                           int r0, int c0, int t4) {
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<float2*>(dst + (r0 + 8 * hh) * kF32SP + c0 + j * 8 +
+                                 2 * t4) =
+          make_float2(x[j][2 * hh], x[j][2 * hh + 1]);
+}
+
+// (ii) fp32: grid (B * Hq, ceil(S / R), nsplit), one query head, R keys
+// (f32_rows) and share of the query steps a block, 8 warps.  Per step of
+// 32 queries, S^T = K Q^T on warps 0-3 and dP^T = V dO^T on warps 4-7 at
+// once (a role's 4 warps tile the step's R x 32 scores, each warp 16 x 8
+// NS, so each A fragment serves NS products: tf::dot_rows), P^T and then
+// dS^T staged in fp32 shared memory; then each warp sums dV += P^T dO and
+// dK += dS^T Q for its 16 keys (RT row tiles) and its column group (NCG);
+// every product in 3xTF32.
+template <int DQK, int DV>
+__global__ void __launch_bounds__(kThreads, f32_min_blocks<DQK, DV>())
     flash_bwd_kv_f32_kernel(Args p) {
-  constexpr int DP = D + 1, NRG = kF32Threads / D, RPT = kT / NRG;
-  extern __shared__ float sm[];
-  float* ks = sm;
-  float* vs = ks + kT * DP;
-  float* qs = vs + kT * DP;
-  float* dos = qs + kT * DP;
-  float* ps = dos + kT * DP;      // P (query x key)
-  float* dss = ps + kT * (kT + 1);  // dS
-  float* ls = dss + kT * (kT + 1);  // lse
-  float* dl = ls + kT;            // delta
+  constexpr int QS = DQK + tf::kPad, VS = DV + tf::kPad;
+  constexpr int KT = f32_rows<DQK>(), QT = kF32Step;
+  constexpr int RT = KT / 16;            // row tiles of keys
+  constexpr int NCG = kWarps / RT;       // column groups (the sums)
+  constexpr int NK = DQK / 8 / NCG, NV = DV / 8 / NCG;  // its 8-col tiles
+  constexpr int NCS = 4 / RT;            // column groups (a role's scores)
+  constexpr int NS = QT / 8 / NCS;       // a warp's 8-query score tiles
+  static_assert(NS >= 1 && DQK / 8 % NCG == 0 && DV / 8 % NCG == 0,
+                "column groups split evenly");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ks = reinterpret_cast<float*>(smem_raw);
+  float* vs = ks + KT * QS;
+  float* qs = vs + KT * VS;            // ring of two query steps
+  float* dos = qs + 2 * QT * QS;       // ring of two
+  float* pts = dos + 2 * QT * VS;      // P^T (keys x queries)
+  float* dst = pts + KT * kF32SP;      // dS^T
+  float* ls = dst + KT * kF32SP;       // lse log2 e, two stages
+  float* dl = ls + 2 * QT;             // delta, two stages
+
   const int G = p.Hq / p.Hkv;
-  const int k0 = blockIdx.x * kT;
-  const int b = blockIdx.y / p.Hkv, hk = blockIdx.y % p.Hkv;
-  const int tid = threadIdx.x, d = tid % D, rg = tid / D;
+  const int b = blockIdx.x / p.Hq, hq = blockIdx.x % p.Hq, hk = hq / G;
+  const int k0 = blockIdx.y * KT;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rt = warp % RT, cg = warp / RT;  // row tile, column group
+  // the score phase: warps 0-3 S^T and P^T, warps 4-7 dP^T and dS^T, each
+  // its row tile rs of keys and NS x 8 queries from c0
+  const int role = warp / 4, rs = warp % 4 % RT;
+  const int c0 = warp % 4 / RT * NS * 8;
+  const int g4 = lane / 4, t4 = lane % 4;
   const float* q = static_cast<const float*>(p.q);
   const float* k = static_cast<const float*>(p.k);
   const float* v = static_cast<const float*>(p.v);
   const float* dout = static_cast<const float*>(p.dout);
-  for (int i = tid; i < kT * D; i += kF32Threads) {
-    const int r = i / D, c = i % D, pos = k0 + r;
-    const size_t o = ((static_cast<size_t>(b) * p.S + pos) * p.Hkv + hk) * D + c;
-    ks[r * DP + c] = pos < p.S ? k[o] : 0.f;
-    vs[r * DP + c] = pos < p.S ? v[o] : 0.f;
-  }
-  float ak[RPT], av[RPT];
-#pragma unroll
-  for (int x = 0; x < RPT; ++x) ak[x] = av[x] = 0.f;
+  auto kv_row = [&](int pos) {
+    return (static_cast<size_t>(b) * p.S + pos) * p.Hkv + hk;
+  };
+  auto q_row = [&](int i) {
+    return (static_cast<size_t>(b) * p.S + i) * p.Hq + hq;
+  };
+  // keys past S are zero-filled (and never admitted)
+  tf::load_rows<DQK, KT, kThreads>(ks, tid, k, [&](int r) -> const float* {
+    return k0 + r < p.S ? k + kv_row(k0 + r) * DQK : nullptr;
+  });
+  tf::load_rows<DV, KT, kThreads>(vs, tid, v, [&](int r) -> const float* {
+    return k0 + r < p.S ? v + kv_row(k0 + r) * DV : nullptr;
+  });
+  // the block's share (blockIdx.z of nsplit) of the admitted query steps
   int q_begin, q_end;
-  query_range(p, k0, kT, kT, &q_begin, &q_end);
-  const int qi = tid / kT, kj = tid % kT;  // the thread's pair
-  for (int g = 0; g < G; ++g) {
-    const int hq = hk * G + g;
-    for (int q0 = q_begin; q0 < q_end; q0 += kT) {
-      __syncthreads();  // the last step is done with the query tiles
-      for (int i = tid; i < kT * D; i += kF32Threads) {
-        const int r = i / D, c = i % D, row = q0 + r;
-        const size_t o = (static_cast<size_t>(b) * p.S + row) * p.Hq + hq;
-        qs[r * DP + c] = row < p.S ? q[o * D + c] : 0.f;
-        dos[r * DP + c] = row < p.S ? dout[o * D + c] : 0.f;
-      }
-      if (tid < kT) {
-        const int row = q0 + tid;
-        const size_t o = (static_cast<size_t>(b) * p.Hq + hq) * p.S + row;
-        ls[tid] = row < p.S ? p.lse[o] : 0.f;
-        dl[tid] = row < p.S ? p.delta[o] : 0.f;
-      }
-      __syncthreads();
-      float pr = 0.f, ds = 0.f;
-      if (admit(p, q0 + qi, k0 + kj)) {
-        float s = 0.f, dp = 0.f;
-        for (int c = 0; c < D; ++c) {
-          s += qs[qi * DP + c] * ks[kj * DP + c];
-          dp += dos[qi * DP + c] * vs[kj * DP + c];
-        }
-        pr = expf(s * p.scale - ls[qi]);
-        ds = pr * (dp - dl[qi]);
-      }
-      ps[qi * (kT + 1) + kj] = pr;
-      dss[qi * (kT + 1) + kj] = ds;
-      __syncthreads();
+  query_range(p, k0, KT, QT, &q_begin, &q_end);
+  const int all = q_end > q_begin ? (q_end - q_begin + QT - 1) / QT : 0;
+  const int share = (all + p.nsplit - 1) / p.nsplit;
+  const int it0 = min(all, static_cast<int>(blockIdx.z) * share);
+  const int steps = min(all - it0, share);
+  q_begin += it0 * QT;
+  auto issue = [&](int it) {  // one commit group (the first carries K, V)
+    const int sg = it & 1, q0 = q_begin + it * QT;
+    tf::load_rows<DQK, QT, kThreads>(
+        qs + sg * QT * QS, tid, q, [&](int r) -> const float* {
+          return q0 + r < p.S ? q + q_row(q0 + r) * DQK : nullptr;
+        });
+    tf::load_rows<DV, QT, kThreads>(
+        dos + sg * QT * VS, tid, dout, [&](int r) -> const float* {
+          return q0 + r < p.S ? dout + q_row(q0 + r) * DV : nullptr;
+        });
+    if (tid < QT) {
+      const int i = q0 + tid;
+      const size_t o = (static_cast<size_t>(b) * p.Hq + hq) * p.S + i;
+      ls[sg * QT + tid] = i < p.S ? p.lse[o] * tc::kLog2e : 0.f;
+      dl[sg * QT + tid] = i < p.S ? p.delta[o] : 0.f;
+    }
+    tc::cp_async_commit();
+  };
+
+  float acc_v[NV][4], acc_k[NK][4];
+  zero(acc_v);
+  zero(acc_k);
+  const float scale_log2 = p.scale * tc::kLog2e;
+  // the role's A operand: K (S^T) or V (dP^T), its rows rs
+  const float* ar = role == 0 ? ks + rs * 16 * QS : vs + rs * 16 * VS;
+  issue(0);
+  for (int it = 0; it < steps; ++it) {
+    tc::cp_async_wait<0>();  // step it has landed
+    // one barrier: step it is visible, and every warp is done with step
+    // it - 1 (its stage, P^T and dS^T), which the next issue overwrites
+    __syncthreads();
+    if (it + 1 < steps) issue(it + 1);
+    const int sg = it & 1, q0 = q_begin + it * QT;
+    const float* qt = qs + sg * QT * QS;
+    const float* dt = dos + sg * QT * VS;
+    const float* l2 = ls + sg * QT;
+    const float* dlt = dl + sg * QT;
+    const bool inside = tile_inside(p, q0, QT, k0, KT);
+    // S^T = K Q^T (role 0) or dP^T = V dO^T (role 1) over the warp's 16
+    // keys and NS x 8 queries, once a block (small products and hi hi
+    // apart: tf::mma3); role 0 writes P^T, then role 1 reads it and
+    // writes dS^T = P^T (dP^T - delta)
+    float s[NS][4], sb[NS][4];
+    if (role == 0)
+      tf::dot_rows<DQK, QS, NS>(s, sb, ar, qt + c0 * QS, g4, t4);
+    else
+      tf::dot_rows<DV, VS, NS>(s, sb, ar, dt + c0 * VS, g4, t4);
+    const int kr0 = rs * 16 + g4;  // the thread's key rows: kr0, kr0 + 8
 #pragma unroll
-      for (int x = 0; x < RPT; ++x) {
-        const int r = rg + x * NRG;
-        float a = 0.f, c = 0.f;
-        for (int i = 0; i < kT; ++i) {
-          a += ps[i * (kT + 1) + r] * dos[i * DP + d];
-          c += dss[i * (kT + 1) + r] * qs[i * DP + d];
-        }
-        av[x] += a;
-        ak[x] += c;
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = c0 + j * 8 + 2 * t4 + (e & 1);
+        const float x = sb[j][e] + s[j][e];
+        if (role == 0)
+          s[j][e] = inside || admit(p, q0 + c, k0 + kr0 + 8 * (e >> 1))
+                        ? tc::ex2(x * scale_log2 - l2[c])
+                        : 0.f;
+        else
+          s[j][e] = x - dlt[c];
       }
+    if (role == 0) stage_rows<NS>(pts, s, kr0, c0, t4);
+    __syncthreads();  // P^T is written
+    if (role == 1) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float2 pr = *reinterpret_cast<const float2*>(
+              pts + (kr0 + 8 * hh) * kF32SP + c0 + j * 8 + 2 * t4);
+          s[j][2 * hh] *= pr.x;
+          s[j][2 * hh + 1] *= pr.y;
+        }
+      stage_rows<NS>(dst, s, kr0, c0, t4);
+    }
+    __syncthreads();
+    // dV += P^T dO and dK += dS^T Q over the warp's 16 keys and columns,
+    // the queries (k) permuted: each step's sum in fresh accumulators,
+    // then one fp32 add (tf32_mma.cuh)
+    {
+      float step[NV][4];
+      zero(step);
+#pragma unroll
+      for (int kc = 0; kc < QT / 8; ++kc) {
+        tf::FragA a;
+        tf::load_a_perm<kF32SP>(a, pts + rt * 16 * kF32SP + kc * 8, g4, t4);
+#pragma unroll
+        for (int n = 0; n < NV; ++n) {
+          tf::FragB f;
+          tf::load_b_perm<VS>(f, dt + kc * 8 * VS + (cg * NV + n) * 8, g4,
+                              t4);
+          tf::mma3(step[n], a, f);
+        }
+      }
+      tf::add(acc_v, step);
+    }
+    {
+      float step[NK][4];
+      zero(step);
+#pragma unroll
+      for (int kc = 0; kc < QT / 8; ++kc) {
+        tf::FragA a;
+        tf::load_a_perm<kF32SP>(a, dst + rt * 16 * kF32SP + kc * 8, g4, t4);
+#pragma unroll
+        for (int n = 0; n < NK; ++n) {
+          tf::FragB f;
+          tf::load_b_perm<QS>(f, qt + kc * 8 * QS + (cg * NK + n) * 8, g4,
+                              t4);
+          tf::mma3(step[n], a, f);
+        }
+      }
+      tf::add(acc_k, step);
     }
   }
-  float* dk = static_cast<float*>(p.dk);
-  float* dv = static_cast<float*>(p.dv);
+  if (steps == 0) tc::cp_async_wait<0>();
+
+  // G = 1 and one share: dK and dV in fp32; else this head's and share's
+  // partial (dK then dV in `part`), summed by flash_bwd_sum_kernel
+  const bool part = G > 1 || p.nsplit > 1;
+  const size_t dk_all =
+      static_cast<size_t>(p.B) * p.S * p.Hq * p.nsplit * DQK;
 #pragma unroll
-  for (int x = 0; x < RPT; ++x) {
-    const int pos = k0 + rg + x * NRG;
-    if (pos < p.S) {
-      const size_t o =
-          ((static_cast<size_t>(b) * p.S + pos) * p.Hkv + hk) * D + d;
-      dk[o] = ak[x] * p.scale;
-      dv[o] = av[x];
+  for (int hh = 0; hh < 2; ++hh) {
+    const int pos = k0 + rt * 16 + g4 + 8 * hh;
+    if (pos >= p.S) continue;
+    float* dk_row;
+    float* dv_row;
+    if (part) {
+      const size_t r =
+          ((static_cast<size_t>(b) * p.S + pos) * p.Hq + hq) * p.nsplit +
+          blockIdx.z;
+      dk_row = p.part + r * DQK;
+      dv_row = p.part + dk_all + r * DV;
+    } else {
+      dk_row = static_cast<float*>(p.dk) + kv_row(pos) * DQK;
+      dv_row = static_cast<float*>(p.dv) + kv_row(pos) * DV;
     }
+#pragma unroll
+    for (int n = 0; n < NV; ++n)
+      *reinterpret_cast<float2*>(dv_row + (cg * NV + n) * 8 + 2 * t4) =
+          make_float2(acc_v[n][2 * hh], acc_v[n][2 * hh + 1]);
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+      *reinterpret_cast<float2*>(dk_row + (cg * NK + n) * 8 + 2 * t4) =
+          make_float2(acc_k[n][2 * hh] * p.scale,
+                      acc_k[n][2 * hh + 1] * p.scale);
   }
 }
 
-// (iii) fp32: grid (ceil(S / 16), B * Hq).  Thread tid owns column
-// d = tid % D of query rows tid / D, + 256 / D, ...
-template <int D>
-__global__ void __launch_bounds__(kF32Threads)
+// (iii) fp32, launched first: grid (n_qt * B * Hq, nsplit), R query rows
+// (f32_rows) of one query head and a share of their key steps a block
+// (the last query tiles first), 8 warps.  delta = rowsum(dO o) of its
+// rows (O from device memory, dO from its tile), written for (ii) by the
+// first share; then per step of 32 keys S = Q K^T on warps 0-3 and dP =
+// dO V^T on warps 4-7 at once, P and then dS = P (dP - delta) staged in
+// fp32 shared memory, dQ += dS K per warp (RQ row tiles of 16) and
+// column group (NCG), in 3xTF32.
+template <int DQK, int DV>
+__global__ void __launch_bounds__(kThreads, f32_min_blocks<DQK, DV>())
     flash_bwd_q_f32_kernel(Args p) {
-  constexpr int DP = D + 1, NRG = kF32Threads / D, RPT = kT / NRG;
-  extern __shared__ float sm[];
-  float* ks = sm;
-  float* vs = ks + kT * DP;
-  float* qs = vs + kT * DP;
-  float* dos = qs + kT * DP;
-  float* dss = dos + kT * DP;       // dS (query x key)
-  float* ls = dss + kT * (kT + 1);
-  float* dl = ls + kT;
+  constexpr int QS = DQK + tf::kPad, VS = DV + tf::kPad;
+  constexpr int QR = f32_rows<DQK>(), KS = kF32Step;
+  constexpr int RQ = QR / 16;            // row tiles of queries
+  constexpr int NCG = kWarps / RQ;       // column groups (dQ's sum)
+  constexpr int NQ = DQK / 8 / NCG;      // its 8-column tiles of dQ
+  constexpr int NCS = 4 / RQ;            // column groups (a role's scores)
+  constexpr int NS = KS / 8 / NCS;       // a warp's 8-key score tiles
+  static_assert(NS >= 1 && DQK / 8 % NCG == 0, "column groups split evenly");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* dos = qs + QR * QS;
+  float* ks = dos + QR * VS;           // ring of two key steps
+  float* vs = ks + 2 * KS * QS;        // ring of two
+  float* pss = vs + 2 * KS * VS;       // P (queries x keys)
+  float* dss = pss + QR * kF32SP;      // dS
+  float* dls = dss + QR * kF32SP;      // delta
+
   const int G = p.Hq / p.Hkv;
-  const int q0 = blockIdx.x * kT;
-  const int b = blockIdx.y / p.Hq, hq = blockIdx.y % p.Hq, hk = hq / G;
-  const int tid = threadIdx.x, d = tid % D, rg = tid / D;
+  const int heads = p.B * p.Hq;
+  const int n_qt = (p.S + QR - 1) / QR;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / heads;
+  const int b = (blockIdx.x % heads) / p.Hq, hq = blockIdx.x % p.Hq;
+  const int hk = hq / G;
+  const int q0 = qt * QR;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rt = warp % RQ, cg = warp / RQ;
+  // the score phase: warps 0-3 S and P, warps 4-7 dP and dS, each its row
+  // tile rs of queries and NS x 8 keys from c0
+  const int role = warp / 4, rs = warp % 4 % RQ;
+  const int c0 = warp % 4 / RQ * NS * 8;
+  const int g4 = lane / 4, t4 = lane % 4;
   const float* q = static_cast<const float*>(p.q);
   const float* k = static_cast<const float*>(p.k);
   const float* v = static_cast<const float*>(p.v);
   const float* dout = static_cast<const float*>(p.dout);
-  for (int i = tid; i < kT * D; i += kF32Threads) {
-    const int r = i / D, c = i % D, row = q0 + r;
-    const size_t o = (static_cast<size_t>(b) * p.S + row) * p.Hq + hq;
-    qs[r * DP + c] = row < p.S ? q[o * D + c] : 0.f;
-    dos[r * DP + c] = row < p.S ? dout[o * D + c] : 0.f;
-  }
-  if (tid < kT) {
-    const int row = q0 + tid;
-    const size_t o = (static_cast<size_t>(b) * p.Hq + hq) * p.S + row;
-    ls[tid] = row < p.S ? p.lse[o] : 0.f;
-    dl[tid] = row < p.S ? p.delta[o] : 0.f;
-  }
-  float aq[RPT];
+  auto q_row = [&](int i) {
+    return (static_cast<size_t>(b) * p.S + i) * p.Hq + hq;
+  };
+  auto kv_row = [&](int pos) {
+    return (static_cast<size_t>(b) * p.S + pos) * p.Hkv + hk;
+  };
+  tf::load_rows<DQK, QR, kThreads>(qs, tid, q, [&](int r) -> const float* {
+    return q0 + r < p.S ? q + q_row(q0 + r) * DQK : nullptr;
+  });
+  tf::load_rows<DV, QR, kThreads>(dos, tid, dout,
+                                  [&](int r) -> const float* {
+    return q0 + r < p.S ? dout + q_row(q0 + r) * DV : nullptr;
+  });
+  tc::cp_async_commit();
+  const int i0 = rt * 16 + g4;      // the thread's dQ rows: i0, i0 + 8
+  const int is0 = rs * 16 + g4;     // its score rows: is0, is0 + 8
+  const size_t row0 = (static_cast<size_t>(b) * p.Hq + hq) * p.S + q0;
+  float l2[2], dlt[2];
 #pragma unroll
-  for (int x = 0; x < RPT; ++x) aq[x] = 0.f;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int i = q0 + is0 + 8 * hh;
+    l2[hh] = i < p.S ? p.lse[row0 + is0 + 8 * hh] * tc::kLog2e : 0.f;
+  }
+  // the block's share (blockIdx.y of nsplit) of the admitted key steps
   int k_begin, k_end;
-  key_range(p, q0, min(q0 + kT, p.S) - 1, kT, &k_begin, &k_end);
-  const int qi = tid / kT, kj = tid % kT;
-  for (int k0 = k_begin; k0 < k_end; k0 += kT) {
-    __syncthreads();  // the last tile is read
-    for (int i = tid; i < kT * D; i += kF32Threads) {
-      const int r = i / D, c = i % D, pos = k0 + r;
-      const size_t o =
-          ((static_cast<size_t>(b) * p.S + pos) * p.Hkv + hk) * D + c;
-      ks[r * DP + c] = pos < p.S ? k[o] : 0.f;
-      vs[r * DP + c] = pos < p.S ? v[o] : 0.f;
+  key_range(p, q0, min(q0 + QR, p.S) - 1, KS, &k_begin, &k_end);
+  const int all = k_end > k_begin ? (k_end - k_begin + KS - 1) / KS : 0;
+  const int share = (all + p.nsplit - 1) / p.nsplit;
+  const int it0 = min(all, static_cast<int>(blockIdx.y) * share);
+  const int ntiles = min(all - it0, share);
+  k_begin += it0 * KS;
+  auto issue = [&](int it) {  // one commit group a key step
+    const int sg = it & 1, pos0 = k_begin + it * KS;
+    tf::load_rows<DQK, KS, kThreads>(
+        ks + sg * KS * QS, tid, k, [&](int r) -> const float* {
+          return pos0 + r < k_end ? k + kv_row(pos0 + r) * DQK : nullptr;
+        });
+    tf::load_rows<DV, KS, kThreads>(
+        vs + sg * KS * VS, tid, v, [&](int r) -> const float* {
+          return pos0 + r < k_end ? v + kv_row(pos0 + r) * DV : nullptr;
+        });
+    tc::cp_async_commit();
+  };
+
+  float acc[NQ][4];
+  zero(acc);
+  const float scale_log2 = p.scale * tc::kLog2e;
+  issue(0);
+  // delta of the block's rows, TPR threads a row: O from device memory,
+  // dO from its tile (rows past S: zero)
+  tc::cp_async_wait<1>();  // Q and dO have landed
+  __syncthreads();
+  {
+    constexpr int TPR = kThreads / QR, PER = DV / TPR;
+    static_assert(DV % TPR == 0, "delta's columns split evenly");
+    const int r = tid / TPR, c0 = tid % TPR * PER;
+    const float* o = static_cast<const float*>(p.o) + q_row(q0 + r) * DV;
+    float x = 0.f;
+    if (q0 + r < p.S) {
+#pragma unroll 4
+      for (int e = c0; e < c0 + PER; ++e) x += o[e] * dos[r * VS + e];
     }
-    __syncthreads();
-    float ds = 0.f;
-    if (admit(p, q0 + qi, k0 + kj)) {
-      float s = 0.f, dp = 0.f;
-      for (int c = 0; c < D; ++c) {
-        s += qs[qi * DP + c] * ks[kj * DP + c];
-        dp += dos[qi * DP + c] * vs[kj * DP + c];
-      }
-      ds = expf(s * p.scale - ls[qi]) * (dp - dl[qi]);
-    }
-    dss[qi * (kT + 1) + kj] = ds;
-    __syncthreads();
 #pragma unroll
-    for (int x = 0; x < RPT; ++x) {
-      const int r = rg + x * NRG;
-      float a = 0.f;
-      for (int j = 0; j < kT; ++j) a += dss[r * (kT + 1) + j] * ks[j * DP + d];
-      aq[x] += a;
+    for (int off = 1; off < TPR; off <<= 1)
+      x += __shfl_xor_sync(0xffffffffu, x, off);
+    if (tid % TPR == 0) {
+      dls[r] = x;
+      if (q0 + r < p.S && blockIdx.y == 0) p.delta[row0 + r] = x;
     }
   }
-  float* dq = static_cast<float*>(p.dq);
+  __syncthreads();
 #pragma unroll
-  for (int x = 0; x < RPT; ++x) {
-    const int row = q0 + rg + x * NRG;
-    if (row < p.S)
-      dq[((static_cast<size_t>(b) * p.S + row) * p.Hq + hq) * D + d] =
-          aq[x] * p.scale;
+  for (int hh = 0; hh < 2; ++hh) dlt[hh] = dls[is0 + 8 * hh];
+  // the role's A operand: Q (S) or dO (dP), its rows rs
+  const float* ar = role == 0 ? qs + rs * 16 * QS : dos + rs * 16 * VS;
+  for (int it = 0; it < ntiles; ++it) {
+    tc::cp_async_wait<0>();  // step it has landed
+    __syncthreads();         // ... and every warp is done with step it - 1
+    if (it + 1 < ntiles) issue(it + 1);
+    const int sg = it & 1, pos0 = k_begin + it * KS;
+    const float* kt = ks + sg * KS * QS;
+    const float* vt = vs + sg * KS * VS;
+    const bool inside = tile_inside(p, q0, QR, pos0, KS);
+    // S = Q K^T (role 0) or dP = dO V^T (role 1) over the warp's 16 rows
+    // and NS x 8 keys, once a block (small products and hi hi apart:
+    // tf::mma3); role 0 writes P, then role 1 reads it and writes dS = P
+    // (dP - delta)
+    float s[NS][4], sb[NS][4];
+    if (role == 0)
+      tf::dot_rows<DQK, QS, NS>(s, sb, ar, kt + c0 * QS, g4, t4);
+    else
+      tf::dot_rows<DV, VS, NS>(s, sb, ar, vt + c0 * VS, g4, t4);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hh = e >> 1;
+        const int kj = pos0 + c0 + j * 8 + 2 * t4 + (e & 1);
+        const float x = sb[j][e] + s[j][e];
+        if (role == 0)
+          s[j][e] = inside || admit(p, q0 + is0 + 8 * hh, kj)
+                        ? tc::ex2(x * scale_log2 - l2[hh])
+                        : 0.f;
+        else
+          s[j][e] = x - dlt[hh];
+      }
+    if (role == 0) stage_rows<NS>(pss, s, is0, c0, t4);
+    __syncthreads();  // P is written
+    if (role == 1) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float2 pr = *reinterpret_cast<const float2*>(
+              pss + (is0 + 8 * hh) * kF32SP + c0 + j * 8 + 2 * t4);
+          s[j][2 * hh] *= pr.x;
+          s[j][2 * hh + 1] *= pr.y;
+        }
+      stage_rows<NS>(dss, s, is0, c0, t4);
+    }
+    __syncthreads();
+    // dQ += dS K over the warp's 16 rows and columns, the keys permuted:
+    // the step's sum in fresh accumulators, then one fp32 add
+    float step[NQ][4];
+    zero(step);
+#pragma unroll
+    for (int kc = 0; kc < KS / 8; ++kc) {
+      tf::FragA a;
+      tf::load_a_perm<kF32SP>(a, dss + rt * 16 * kF32SP + kc * 8, g4, t4);
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        tf::FragB f;
+        tf::load_b_perm<QS>(f, kt + kc * 8 * QS + (cg * NQ + n) * 8, g4, t4);
+        tf::mma3(step[n], a, f);
+      }
+    }
+    tf::add(acc, step);
+  }
+  if (ntiles == 0) tc::cp_async_wait<0>();
+
+  // one share: dQ; else this share's partial, after the dK and dV
+  // partials in `part`
+  const size_t rows = static_cast<size_t>(p.B) * p.S * p.Hq;
+  float* pq = p.part + rows * p.nsplit * (DQK + DV);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int i = q0 + i0 + 8 * hh;
+    if (i >= p.S) continue;
+    float* row = p.nsplit > 1
+                     ? pq + (q_row(i) * p.nsplit + blockIdx.y) * DQK
+                     : static_cast<float*>(p.dq) + q_row(i) * DQK;
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+      *reinterpret_cast<float2*>(row + (cg * NQ + n) * 8 + 2 * t4) =
+          make_float2(acc[n][2 * hh] * p.scale,
+                      acc[n][2 * hh + 1] * p.scale);
   }
 }
 
@@ -1318,11 +1614,15 @@ cudaError_t allow_smem(K kern, size_t smem) {
                               static_cast<int>(smem));
 }
 
+// (iv)'s launch: a grid-stride loop over the summed rows' column pairs
 template <typename T>
-int launch_delta(const Args& a, int DV, cudaStream_t stream) {
-  const long rows = static_cast<long>(a.B) * a.S * a.Hq;
-  flash_bwd_delta_kernel<T><<<static_cast<unsigned>((rows + 7) / 8), 256, 0,
-                              stream>>>(a, DV);
+int launch_sum(const Args& a, int Dqk, int Dv, bool dq_parts,
+               cudaStream_t stream) {
+  const long pairs = static_cast<long>(a.B) * a.S * a.Hq * (Dqk + Dv) / 2;
+  const long blocks = (pairs + 255) / 256;
+  flash_bwd_sum_kernel<T><<<static_cast<unsigned>(
+                                blocks < 2112 ? blocks : 2112),
+                            256, 0, stream>>>(a, Dqk, Dv, dq_parts);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1364,46 +1664,45 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
   }
   e = cudaGetLastError();
   if (e != cudaSuccess || a.part == nullptr) return static_cast<int>(e);
-  const long pairs = static_cast<long>(a.B) * a.S * a.Hq * (DQK + DV) / 2;
-  const long blocks = (pairs + 255) / 256;
-  flash_bwd_sum_kernel<<<static_cast<unsigned>(blocks < 2112 ? blocks : 2112),
-                         256, 0, stream>>>(a, DQK, DV);
-  return static_cast<int>(cudaGetLastError());
+  return launch_sum<bf16>(a, DQK, DV,
+                         a.nsplit > 1 && DQK <= kWgmmaDqMax, stream);
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_f32(const Args& a, cudaStream_t stream) {
-  int rc = launch_delta<float>(a, D, stream);
-  if (rc != 0) return rc;
-  const size_t smem = f32_smem_bytes<D>();
-  const int n_t = (a.S + kT - 1) / kT;
-  auto kv = flash_bwd_kv_f32_kernel<D>;
-  cudaError_t e = allow_smem(kv, smem);
+  constexpr int R = f32_rows<DQK>();
+  const size_t smem = f32_smem_bytes<DQK, DV>();
+  auto qk = flash_bwd_q_f32_kernel<DQK, DV>;
+  cudaError_t e = allow_smem(qk, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kv<<<dim3(n_t, a.B * a.Hkv), kF32Threads, smem, stream>>>(a);
+  qk<<<dim3((a.S + R - 1) / R * a.B * a.Hq, a.nsplit), kThreads, smem,
+       stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  auto qk = flash_bwd_q_f32_kernel<D>;
-  e = allow_smem(qk, smem);
+  auto kv = flash_bwd_kv_f32_kernel<DQK, DV>;
+  e = allow_smem(kv, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  qk<<<dim3(n_t, a.B * a.Hq), kF32Threads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  kv<<<dim3(a.B * a.Hq, (a.S + R - 1) / R, a.nsplit), kThreads, smem,
+       stream>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || a.part == nullptr) return static_cast<int>(e);
+  return launch_sum<float>(a, DQK, DV, a.nsplit > 1, stream);
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16; causal: 0 or 1; window <= 0: no window.
 // lse: the forward's (B, Hq, S); delta: the wrapper's (B, Hq, S) fp32
-// scratch; nsplit: the wgmma kernels' blocks a key tile (dK/dV) or a
-// query tile (dQ): 1, or 2 where B Hq ceil(S / 64) blocks would not fill
-// the card (the wrapper's rule, kernel.py::bwd_split); part: the wrapper's
-// fp32 scratch for bf16 with Hq > Hkv or nsplit > 1, else null: B S Hq
-// nsplit (Dqk + Dv) floats (the per-head and per-share dK, then dV), and
-// with nsplit > 1 B S Hq nsplit Dqk more (dQ's per-share partials).
-// Launches, in bf16, the dQ kernel (writing delta), the dK/dV kernel and,
-// with part, the partials' sum; in fp32 delta's kernel, dK/dV and dQ.
-// Returns the CUDA error code of the launches (0 on success); the wrapper
-// raises on anything else.
+// scratch; nsplit: the blocks a key tile (dK/dV) or a query tile (dQ) of
+// the bf16 wgmma builds and of every fp32 build: 1, or 2 where B Hq
+// ceil(S / rows) blocks would not fill the card (the wrapper's rule,
+// kernel.py::bwd_split); part: the wrapper's fp32 scratch where Hq > Hkv
+// or nsplit > 1, else null: B S Hq nsplit (Dqk + Dv) floats (the per-head
+// and per-share dK, then dV), and with nsplit > 1 B S Hq nsplit Dqk more
+// (dQ's per-share partials).  Launches the dQ kernel (writing delta), the
+// dK/dV kernel and, with part, the partials' sum.  Returns the CUDA error
+// code of the launches (0 on success); the wrapper raises on anything
+// else.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* lse,
@@ -1414,26 +1713,25 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    void* stream) {
   const bool wgmma_kv = Dqk % 64 == 0 && Dv % 64 == 0;
   if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || nsplit < 1 ||
-      (nsplit > 1 && (dtype != 1 || !wgmma_kv)) ||
-      (dtype == 1 && (Hq != Hkv || nsplit > 1) != (part != nullptr)))
+      (dtype != 0 && dtype != 1) ||
+      (nsplit > 1 && dtype == 1 && !wgmma_kv) ||
+      (Hq != Hkv || nsplit > 1) != (part != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{q,  k,  v,  o, dout, static_cast<const float*>(lse),
          static_cast<float*>(delta), dq, dk, dv, static_cast<float*>(part),
          B, S, Hq, Hkv, causal, window, nsplit, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    if (Dqk == 64 && Dv == 64) return launch_bf16<64, 64>(a, s);
-    if (Dqk == 80 && Dv == 80) return launch_bf16<80, 80>(a, s);
-    if (Dqk == 128 && Dv == 128) return launch_bf16<128, 128>(a, s);
-    if (Dqk == 256 && Dv == 256) return launch_bf16<256, 256>(a, s);
-    if (Dqk == 192 && Dv == 128) return launch_bf16<192, 128>(a, s);
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (dtype != 0 || Dqk != Dv) return static_cast<int>(cudaErrorInvalidValue);
-  switch (Dqk) {
-    case 64: return launch_f32<64>(a, s);
-    case 128: return launch_f32<128>(a, s);
-    case 256: return launch_f32<256>(a, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const bool b16 = dtype == 1;
+  if (Dqk == 64 && Dv == 64)
+    return b16 ? launch_bf16<64, 64>(a, s) : launch_f32<64, 64>(a, s);
+  if (Dqk == 80 && Dv == 80)
+    return b16 ? launch_bf16<80, 80>(a, s) : launch_f32<80, 80>(a, s);
+  if (Dqk == 128 && Dv == 128)
+    return b16 ? launch_bf16<128, 128>(a, s) : launch_f32<128, 128>(a, s);
+  if (Dqk == 256 && Dv == 256)
+    return b16 ? launch_bf16<256, 256>(a, s) : launch_f32<256, 256>(a, s);
+  if (Dqk == 192 && Dv == 128)
+    return b16 ? launch_bf16<192, 128>(a, s) : launch_f32<192, 128>(a, s);
+  if (Dqk == 48 && Dv == 32 && !b16) return launch_f32<48, 32>(a, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -88,7 +88,7 @@ def calls_for(cfg) -> list:
         if cfg.draft.prefix_attention:
             shapes.append(gqa)
     return [("flash", s) for s in shapes
-            if (s["dqk"], s["dv"]) in flash_kernel.BF16_DIMS]
+            if (s["dqk"], s["dv"]) in flash_kernel.DIMS]
 
 
 def resolve_calls(cfg) -> dict:

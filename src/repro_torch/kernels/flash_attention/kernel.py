@@ -21,11 +21,13 @@ backward reads.
 
 The backward of a whole prefill (``launch_bwd``, source
 ``csrc/flash_attention_bwd.cu``, replacing no TPU kernel: JAX
-differentiates ``blocked_attention``) is, in bf16, dQ by query tiles
-(which also writes delta = rowsum(dO o)), then dK/dV by key tiles and
-query heads and, with more query than kv heads or a split walk
-(``bwd_split``), the sum of the fp32 partials; in fp32 delta, dK/dV and
-dQ.  ``flash_attention_lse_plain`` and
+differentiates ``blocked_attention``) is dQ by query tiles (which also
+writes delta = rowsum(dO o)), then dK/dV by key tiles and query heads
+and, with more query than kv heads or a split walk (``bwd_split``), the
+sum of the fp32 partials, in bf16 and in fp32 alike.  Every (Dqk, Dv) of
+``DIMS`` has a build in both types (``F32_DIMS`` in fp32); nothing is
+padded.
+``flash_attention_lse_plain`` and
 ``flash_attention_bwd_plain`` are its plain versions, in the same
 decomposition (each kv head's dK/dV summed over its query heads in
 order, as the kernels sum their per-head partials).  The wrapper
@@ -42,10 +44,14 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.models.layers import blocked_attention
 
-# (Dqk, Dv) of the bf16 (tensor-core) builds; (80, 80) is hubert-xlarge's
-# encoder, (192, 128) deepseek's MLA prefill at its own widths
-BF16_DIMS = ((64, 64), (80, 80), (128, 128), (256, 256), (192, 128))
-# the bf16 body's key tile (keys a shared-memory tile): the candidates, the
+# (Dqk, Dv) of the builds, in bf16 and in fp32 (both on the tensor cores,
+# fp32 in 3xTF32); (80, 80) is hubert-xlarge's encoder, (192, 128)
+# deepseek's MLA prefill at its own widths.  fp32 also builds (48, 32),
+# deepseek-v2-lite's reduced MLA widths, which the narrow fp32 runs on
+# the card take (``chip_smoke.py`` phase 4, the captured-step tests)
+DIMS = ((64, 64), (80, 80), (128, 128), (256, 256), (192, 128))
+F32_DIMS = DIMS + ((48, 32),)
+# the body's key tile (keys a shared-memory tile): the candidates, the
 # rows of a query tile, and the shared memory a block may take (the .cu's
 # kMaxSmem); a build has a tile where its ring fits (``mma_smem_bytes``)
 TILE_CANDIDATES = (32, 64, 128)
@@ -55,24 +61,35 @@ SMS = 132                      # the H100 SXM's streaming multiprocessors
 WGMMA_DQ_MAX = 192             # the widest dQ on wgmma (the .cu's kWgmmaDqMax)
 
 
-def mma_smem_bytes(dqk: int, dv: int, kn: int) -> int:
-    """The bf16 body's shared memory (the .cu's ``mma_smem_bytes``): q's
-    64 rows, then rings of two K and two V tiles of ``kn`` keys, each row
-    padded by 8 bf16."""
-    return 2 * ((MMA_ROWS + 2 * kn) * (dqk + 8) + 2 * kn * (dv + 8))
+def mma_smem_bytes(dqk: int, dv: int, kn: int, dtype=torch.bfloat16) -> int:
+    """The body's shared memory (the .cu's ``mma_smem_bytes``): q's 64
+    rows, then rings of two K and two V tiles of ``kn`` keys, each row
+    padded by 8 bf16 or 4 floats; fp32 adds each of its 4 warp pairs' P
+    (16 rows of kn + 8 floats) and 8 warps' 16 row maxima."""
+    if dtype != torch.float32:
+        return 2 * ((MMA_ROWS + 2 * kn) * (dqk + 8) + 2 * kn * (dv + 8))
+    return 4 * ((MMA_ROWS + 2 * kn) * (dqk + 4) + 2 * kn * (dv + 4)
+                + 4 * 16 * (kn + 8) + 8 * 16)
 
 
 # each bf16 build's key tiles (its template instances), and its default:
-# 64, or 32 at Dqk = 256, the tile every build ran before it was tunable
+# 64, or 32 at Dqk = 256, the tile every build ran before it was tunable.
+# Each fp32 build has one key tile, not tuned: the widest whose ring fits,
+# at most 64 (one mask bit a score of a thread; the .cu's
+# ``launch_build``)
 KEY_TILES = {dims: tuple(n for n in TILE_CANDIDATES
                          if mma_smem_bytes(*dims, n) <= MAX_SMEM)
-             for dims in BF16_DIMS}
-DEFAULT_KEY_TILE = {dims: 32 if dims[0] >= 256 else 64 for dims in BF16_DIMS}
-# fp32 (CUDA-core) builds, Dqk = Dv: head dim -> query rows one thread
-# block holds (G * the query tile): the G query heads of a kv head must fit
-MAX_ROWS = {64: 128, 128: 128, 256: 64}
-HEAD_DIMS = tuple(MAX_ROWS)
+             for dims in DIMS}
+DEFAULT_KEY_TILE = {dims: 32 if dims[0] >= 256 else 64 for dims in DIMS}
+F32_KEY_TILE = {dims: 64 if mma_smem_bytes(*dims, 64, torch.float32)
+                <= MAX_SMEM else 32 for dims in F32_DIMS}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def f32_rows(dqk: int) -> int:
+    """The fp32 backward kernels' rows a block (keys for dK/dV, queries
+    for dQ; the .cu's ``f32_rows``): 64, or 32 at Dqk = 256."""
+    return 32 if dqk >= 256 else 64
 
 
 def kernel_fn():
@@ -103,7 +120,8 @@ def launch(q, k, v, out, *, causal: bool, window: int,
     ``kv_valid_len`` are (B,) int32 on q's device, or None (offset 0,
     every key valid).  ``scale`` defaults to 1/sqrt(Dqk).  ``key_tile``
     selects the bf16 body's instance (one of ``KEY_TILES[(Dqk, Dv)]``;
-    fp32 ignores it).  ``lse`` (B, Hq, Sq) fp32, or None: where the
+    fp32 ignores it: ``F32_KEY_TILE``).  ``lse`` (B, Hq, Sq) fp32, or
+    None: where the
     kernel writes each row's log-sum-exp.  Returns the CUDA error code of
     the launch: 0 on success."""
     B, Sq, Hq, Dqk = q.shape
@@ -119,11 +137,14 @@ def launch(q, k, v, out, *, causal: bool, window: int,
 
 def bwd_split(B: int, S: int, Hq: int, dqk: int, dv: int, dtype) -> int:
     """The blocks sharing one key tile's queries (dK/dV) and one query
-    tile's keys (dQ) in the bf16 kernels on wgmma (head dims multiples of
-    64): 2 where one block per (query head, 64 positions) would leave SMs
-    idle (gemma3-1b's 4 query heads at S = 1024: 64 blocks), else 1; 1
-    for every other build."""
-    if dtype != torch.bfloat16 or dqk % 64 or dv % 64:
+    tile's keys (dQ): 2 where one block per (query head, tile) would leave
+    SMs idle, else 1.  The tile is 64 positions in the bf16 kernels on
+    wgmma (head dims multiples of 64; gemma3-1b's 4 query heads at S =
+    1024: 64 blocks) and ``f32_rows`` in fp32 (every build; gemma3-1b at
+    S = 512: 64 blocks of 32 keys); 1 for the other bf16 builds."""
+    if dtype == torch.float32:
+        return 2 if B * Hq * -(-S // f32_rows(dqk)) < SMS else 1
+    if dqk % 64 or dv % 64:
         return 1
     return 2 if B * Hq * -(-S // 64) < SMS else 1
 
@@ -131,16 +152,17 @@ def bwd_split(B: int, S: int, Hq: int, dqk: int, dv: int, dtype) -> int:
 def bwd_scratch(B: int, S: int, Hq: int, Hkv: int, dqk: int, dv: int,
                 dtype, device):
     """The backward's fp32 scratch: delta = rowsum(dO o), (B, Hq, S), and,
-    for a bf16 call with Hq > Hkv or a split (``bwd_split``), the partials
-    before their sum (None otherwise): each query head's and share's dK
-    and dV, B * S * Hq * split * (dqk + dv) floats, and with a split of
-    the dQ kernel on wgmma (dqk <= ``WGMMA_DQ_MAX``) each share's dQ,
-    B * S * Hq * split * dqk more."""
+    with Hq > Hkv or a split (``bwd_split``), the partials before their
+    sum (None otherwise): each query head's and share's dK and dV, B * S *
+    Hq * split * (dqk + dv) floats, and with a split of a dQ kernel that
+    takes one (fp32; bf16 on wgmma, dqk <= ``WGMMA_DQ_MAX``) each share's
+    dQ, B * S * Hq * split * dqk more."""
     delta = torch.empty((B, Hq, S), dtype=torch.float32, device=device)
     split = bwd_split(B, S, Hq, dqk, dv, dtype)
     part = None
-    if dtype == torch.bfloat16 and (Hq != Hkv or split > 1):
-        dq = dqk if split > 1 and dqk <= WGMMA_DQ_MAX else 0
+    if Hq != Hkv or split > 1:
+        dq_split = dtype == torch.float32 or dqk <= WGMMA_DQ_MAX
+        dq = dqk if split > 1 and dq_split else 0
         part = torch.empty((B * S * Hq * split * (dqk + dv + dq),),
                            dtype=torch.float32, device=device)
     return delta, part
@@ -152,8 +174,8 @@ def launch_bwd(q, k, v, out, lse, do, dq, dk, dv, *, causal: bool,
     synchronisation): the gradients of a whole prefill's q, k and v into
     ``dq``, ``dk``, ``dv`` from the forward's ``out`` and ``lse`` and the
     output's cotangent ``do``.  All arguments must already be validated
-    (and, in fp32, padded to one head dim) by the wrapper.  Returns the
-    CUDA error code of the launches: 0 on success."""
+    by the wrapper.  Returns the CUDA error code of the launches: 0 on
+    success."""
     B, S, Hq, Dqk = q.shape
     Hkv, Dv = k.shape[2], v.shape[3]
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -10,10 +10,13 @@ counter one call (``launch/op_cost.py``) and return an empty output
 ops, which is what it runs).  There is no fallback from one to
 the other.  ``launches`` counts kernel launches, and only those;
 ``chunk_launches`` counts those of them that ran the chunk form (a call
-with ``kv_valid_len``), ``grad_launches`` those made under autograd.  v
-may have a head dim of its own (deepseek's MLA prefill: q/k 192, v 128)
-where a bf16 build takes it; fp32 pads a width without a build of its
-own (hubert's 80) to the next one.
+with ``kv_valid_len``), ``grad_launches`` those made under autograd;
+``f32_launches`` and ``f32_bwd_launches`` count the fp32 builds' launches
+and backward calls, for a caller that resets them itself.  v
+may have a head dim of its own (deepseek's MLA prefill: q/k 192, v 128):
+each (Dqk, Dv) of ``kernel.DIMS`` has a build in bf16 and in fp32
+(``kernel.F32_DIMS`` in fp32), and nothing is padded: other widths are
+refused.
 
 Two forms, one kernel: the whole prefill (q and k/v of one length, query
 i at position i) and the chunk form of a resumable prefill (``q_off``:
@@ -27,19 +30,19 @@ winner for ``flash|dqk=..|dv=..|hq=..|hkv=..|causal=..``
 fills the SMs, and the grid is query tiles times query heads.  A chunk
 and the whole prefill of one layer resolve the same key, and a tile's
 keys start at absolute multiples of the tile, so a chunk's rows keep the
-whole prefill's bits.  The fp32 builds are not tuned.
+whole prefill's bits.  The fp32 builds are not tuned: each has one key
+tile (``kernel.F32_KEY_TILE``).
 
 Under autograd (grad mode on and q, k or v requiring a gradient) a whole
 prefill goes through ``FlashAttention``, a ``torch.autograd.Function``.
 On CUDA its forward launches K3 as above, also writing each row's
 log-sum-exp, and its backward launches the backward kernels
-(``csrc/flash_attention_bwd.cu``: in bf16 dQ, which also writes delta,
-then dK/dV per query head and, with more query than kv heads or a
-split walk (``kernel.py::bwd_split``), the partials' sum; in fp32 delta,
-dK/dV, dQ) on the saved q/k/v, output and
-log-sum-exp; ``bwd_launches`` counts its calls, each of which launches
-each of those kernels once.  On the
-CPU the backward recomputes the plain version (``models/layers.py::
+(``csrc/flash_attention_bwd.cu``: dQ, which also writes delta, then
+dK/dV per query head and, with more query than kv heads or a split walk
+(``kernel.py::bwd_split``), the partials' sum, in bf16 and in fp32) on
+the saved q/k/v, output and log-sum-exp; ``bwd_launches`` counts its
+calls, each of which launches each of those kernels once.  On the CPU
+the backward recomputes the plain version (``models/layers.py::
 blocked_attention``, the port of the jnp function JAX's trainer
 differentiates, recomputed as ``jax.checkpoint`` recomputes it) and
 returns its gradients.  JAX has no backward kernel.  The chunk form has
@@ -52,7 +55,6 @@ import math
 from functools import lru_cache
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels import refuse_grad, tuned_block_sizes
 from repro_torch.kernels.flash_attention import kernel as _k
@@ -64,6 +66,8 @@ launches = 0                  # kernel launches since the last reset
 chunk_launches = 0            # of which with a query offset / kv_valid_len
 grad_launches = 0             # of which under autograd (FlashAttention)
 bwd_launches = 0              # backward calls (FlashAttention)
+f32_launches = 0              # launches of an fp32 build (not reset by
+f32_bwd_launches = 0          # kernels.reset_counts), and fp32 backward calls
 
 
 def _check(q, k, v, chunk: bool):
@@ -100,19 +104,14 @@ def _check_cuda(q, k, v):
         raise ValueError("q, k and v must share one dtype")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the kernel takes contiguous operands only")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the kernel reads 16 bytes a thread: q, k and v "
+                         "must start on a 16-byte boundary")
     dims = (q.shape[-1], v.shape[-1])
-    if q.dtype == torch.bfloat16:
-        if dims not in _k.BF16_DIMS:
-            raise ValueError(f"head dims (q/k, v) {dims} not in "
-                             f"{_k.BF16_DIMS}")
-        return
-    D = _f32_dim(*dims)
-    if D is None:
-        raise ValueError(f"head dims {dims} exceed {max(_k.HEAD_DIMS)}")
-    G = q.shape[2] // k.shape[2]
-    if G > _k.MAX_ROWS[D]:
-        raise ValueError(f"{G} query heads per kv head exceed the kernel's "
-                         f"{_k.MAX_ROWS[D]} rows at head dim {D}")
+    builds = _k.F32_DIMS if q.dtype == torch.float32 else _k.DIMS
+    if dims not in builds:
+        raise ValueError(f"head dims (q/k, v) {dims} not among the {q.dtype} "
+                         f"builds {builds}")
 
 
 def tuning_shape(dqk: int, dv: int, Hq: int, Hkv: int,
@@ -142,12 +141,6 @@ def check_key_tile(dqk: int, dv: int, key_tile: int) -> None:
                          f"build's {_k.KEY_TILES[(dqk, dv)]}")
 
 
-def _f32_dim(dqk: int, dv: int):
-    """The fp32 build's head dim for (dqk, dv): the least that holds both
-    (the fp32 body takes one head dim for q/k and v), or None."""
-    return min((d for d in _k.HEAD_DIMS if d >= max(dqk, dv)), default=None)
-
-
 def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0,
                          scale: float | None = None, q_off=0,
                          kv_valid_len=None, key_tile: int | None = None):
@@ -157,12 +150,13 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0,
     query i of row b sits at position ``q_off[b] + i`` (``q_off`` an int
     or a (B,) integer tensor), key j of the cache view at position j, and
     keys at or past ``kv_valid_len[b]`` are masked (never read by the
-    kernel); a chunk whose first position is a multiple of 64 (16 in
-    fp32) gives its rows the whole prefill's bits.  ``window`` (int) > 0
+    kernel); a chunk whose first position is a multiple of 64 (the query
+    tile, in bf16 and fp32) gives its rows the whole prefill's bits.  ``window`` (int) > 0
     admits keys less than ``window`` positions back.  ``scale`` multiplies
     the scores (default 1/sqrt(D); MLA's prefill passes 1/sqrt(nd + rd)).
     ``key_tile`` forces a bf16 call's key tile (default:
-    ``resolve_key_tile``'s).  Returns (B,Sq,Hq,Dv) in q's dtype."""
+    ``resolve_key_tile``'s; an fp32 build has one).  Returns
+    (B,Sq,Hq,Dv) in q's dtype."""
     chunk = kv_valid_len is not None
     if not chunk and not (isinstance(q_off, int) and q_off == 0):
         raise ValueError("a query offset needs kv_valid_len (the chunk form)")
@@ -185,7 +179,7 @@ def _forward(q, k, v, *, causal: bool, window: int, scale, q_off=0,
     """The plain version on the CPU, the kernel on CUDA (validated, counted);
     operands already checked by the wrapper.  ``lse`` ((B, Hq, Sq) fp32,
     CUDA only): where the kernel writes each row's log-sum-exp."""
-    global launches, chunk_launches
+    global launches, chunk_launches, f32_launches
     chunk = kv_valid_len is not None
     if q.device.type == "cpu":
         return _k.flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -200,19 +194,12 @@ def _forward(q, k, v, *, causal: bool, window: int, scale, q_off=0,
     dqk, dv = q.shape[-1], v.shape[-1]
     if scale is None:
         scale = 1.0 / math.sqrt(dqk)
-    if q.dtype == torch.float32 and not dqk == dv == _f32_dim(dqk, dv):
-        # the fp32 body takes one head dim of its builds: for fp32 alone,
-        # q/k and v are zero-padded to it (zero columns add exact zeros to
-        # every score and leave the padded output columns at zero) and the
-        # output is sliced back; bf16 runs the (dqk, dv) build unpadded
-        D = _f32_dim(dqk, dv)
-        q, k, v = (F.pad(t, (0, D - t.shape[-1])) for t in (q, k, v))
     if q.dtype == torch.bfloat16:
         if key_tile is None:
             key_tile = resolve_key_tile(dqk, dv, q.shape[2], k.shape[2],
                                         causal)
         check_key_tile(dqk, dv, key_tile)
-    out = q.new_empty((*q.shape[:3], v.shape[-1]))
+    out = q.new_empty((*q.shape[:3], dv))
     rc = _k.launch(q, k, v, out, causal=causal, window=window, scale=scale,
                    q_off=q_off if chunk else None, kv_valid_len=kv_valid_len,
                    key_tile=key_tile or 0, lse=lse)
@@ -220,7 +207,8 @@ def _forward(q, k, v, *, causal: bool, window: int, scale, q_off=0,
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
     launches += 1
     chunk_launches += chunk
-    return out[..., :dv] if out.shape[-1] != dv else out
+    f32_launches += q.dtype == torch.float32
+    return out
 
 
 def _record_meta_call(q, k, v, causal: bool, window: int,
@@ -242,9 +230,8 @@ def _record_meta_call(q, k, v, causal: bool, window: int,
 def _backward(q, k, v, out, lse, grad_out, *, causal: bool, window: int,
               scale):
     """The backward kernels on CUDA (counted), one charged call on
-    ``meta``: (dq, dk, dv).  fp32 pads to its build's head dim, as the
-    forward does, and slices the gradients back."""
-    global bwd_launches
+    ``meta``: (dq, dk, dv)."""
+    global bwd_launches, f32_bwd_launches
     B, S, Hq, dqk = q.shape
     dv_ = v.shape[-1]
     do = grad_out.to(q.dtype).contiguous()
@@ -259,20 +246,15 @@ def _backward(q, k, v, out, lse, grad_out, *, causal: bool, window: int,
         return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if scale is None:
         scale = 1.0 / math.sqrt(dqk)
-    args = (q, k, v, out, do)
-    if q.dtype == torch.float32 and not dqk == dv_ == _f32_dim(dqk, dv_):
-        D = _f32_dim(dqk, dv_)
-        args = tuple(F.pad(t, (0, D - t.shape[-1])) for t in args)
-    q_, k_, v_, out_, do_ = args
-    grads = tuple(torch.empty_like(t) for t in (q_, k_, v_))
-    rc = _k.launch_bwd(q_, k_, v_, out_, lse, do_, *grads, causal=causal,
+    grads = tuple(torch.empty_like(t) for t in (q, k, v))
+    rc = _k.launch_bwd(q, k, v, out, lse, do, *grads, causal=causal,
                        window=window, scale=scale)
     if rc != 0:
         raise RuntimeError(
             f"flash_attention backward launch failed: CUDA error {rc}")
     bwd_launches += 1
-    dq, dk, dv = grads
-    return dq[..., :dqk], dk[..., :dqk], dv[..., :dv_]
+    f32_bwd_launches += q.dtype == torch.float32
+    return grads
 
 
 class FlashAttention(torch.autograd.Function):

@@ -145,7 +145,7 @@ def test_the_defaults_are_the_old_constants(tmp_path, monkeypatch, how):
         monkeypatch.setenv(kernels.AUTOTUNE_ENV, "off")
     _clear()
     try:
-        for dims in k3.BF16_DIMS:
+        for dims in k3.DIMS:
             want = 32 if dims[0] == 256 else 64
             for hq, hkv in ((16, 16), (24, 8), (64, 8)):
                 assert k3_ops.resolve_key_tile(*dims, hq, hkv, True) == want
@@ -247,7 +247,7 @@ def test_configs_sharing_a_build_keep_their_own_keys():
         "chameleon-34b": ["flash|dqk=128|dv=128|hq=64|hkv=8|causal=1"]}
 
 
-@pytest.mark.parametrize("dims", k3.BF16_DIMS)
+@pytest.mark.parametrize("dims", k3.DIMS)
 def test_a_forced_key_tile_is_checked(dims):
     tiles = k3.KEY_TILES[dims]
     for n in tiles:
@@ -334,7 +334,7 @@ def test_every_candidate_matches_its_plain_version(card, key):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dims", k3.BF16_DIMS)
+@pytest.mark.parametrize("dims", k3.DIMS)
 def test_k3_chunk_equals_whole_under_each_key_tile(card, dims):
     dqk, dv = dims
     g = torch.Generator(device="cuda").manual_seed(0)

@@ -190,7 +190,7 @@ def test_k3_wrapper_takes_the_80_build_only():
 @pytest.mark.parametrize("seq", [37, 300])
 def test_cuda_flash_attention_at_head_dim_80(monkeypatch, dtype, tol, seq):
     """K3 at hubert's heads (16 over 16, D = 80), bidirectional, against
-    its plain version; fp32 pads 80 to its 128 build."""
+    its plain version; fp32 runs its own (80, 80) build, unpadded."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from repro_torch.kernels.flash_attention.kernel import \

@@ -6,8 +6,8 @@ function it differentiates (``repro/models/layers.py::
 blocked_attention``) and against autograd through the port's plain
 forward, in fp32 on the CPU, operands and the output's cotangent from a
 numpy seed: relative L2 within 1e-4 for each of dq, dk and dv.  Cases:
-the five widths of K3's bf16 builds, (64, 64), (80, 80), (128, 128),
-(256, 256) and (192, 128), run in fp32; G = 1, 3, 4 and 8 (one kv head:
+the five widths of K3's builds, (64, 64), (80, 80), (128, 128), (256,
+256) and (192, 128), and fp32's (48, 32), run in fp32; G = 1, 3, 4 and 8 (one kv head:
 each query head's dK/dV summed over the group in order, as the kernels
 sum their per-head partials); causal and bidirectional; window 0 and 512
 at S past the window, and windows that cross a tile's edge or mask whole
@@ -72,6 +72,8 @@ CASES = [
     ("80 G4 causal ragged", 4, 1, 80, 80, 97, True, 0, None),
     ("192/128 G4 window 33 MLA scale", 4, 1, 192, 128, 129, True, 33,
      MLA_SCALE),
+    # the fp32 build of deepseek-v2-lite's reduced MLA widths
+    ("48/32 G2 reduced MLA", 4, 2, 48, 32, 90, True, 0, 1 / math.sqrt(48)),
 ]
 
 
@@ -140,7 +142,7 @@ needs_cuda = pytest.mark.skipif(not torch.cuda.is_available(),
                                 reason="needs an NVIDIA card (CUDA)")
 
 # every K3 build training runs: (name, dtype, Hq, Hkv, Dqk, Dv, S, causal,
-# window, scale); fp32 at the padded head dims 64, 128 and 256
+# window, scale); fp32 at every build, unpadded
 GPU_CASES = [
     ("gemma3 bf16 256 window 512", torch.bfloat16, 4, 1, 256, 256, 1024,
      True, 512, None),
@@ -154,12 +156,12 @@ GPU_CASES = [
     ("hubert bf16 80 bidirectional", torch.bfloat16, 16, 16, 80, 80, 700,
      False, 0, None),
     ("fp32 64 G4", torch.float32, 8, 2, 64, 64, 300, True, 0, None),
-    ("fp32 80 -> 128 bidirectional", torch.float32, 4, 4, 80, 80, 200,
-     False, 0, None),
+    ("fp32 80 bidirectional", torch.float32, 4, 4, 80, 80, 200, False, 0,
+     None),
     ("fp32 256 window", torch.float32, 4, 1, 256, 256, 333, True, 100,
      None),
-    ("fp32 192/128 -> 256 MLA", torch.float32, 4, 4, 192, 128, 200, True,
-     0, MLA_SCALE),
+    ("fp32 192/128 MLA", torch.float32, 4, 4, 192, 128, 200, True, 0,
+     MLA_SCALE),
     # the per-head (and per-share) partials and their sum: gemma3-1b's
     # heads at S past the tiles with its window, and G = 8 over one kv head
     ("gemma3 bf16 256 S=1000 window 512", torch.bfloat16, 4, 1, 256, 256,
@@ -171,6 +173,17 @@ GPU_CASES = [
     # card), one query head per kv head: the shares' partials and their sum
     ("bf16 128 G1 split", torch.bfloat16, 2, 2, 128, 128, 300, True, 0,
      None),
+    # fp32 (3xTF32): the split (B Hq ceil(S / rows) < 132) with G > 1 and
+    # G = 1, no split with G = 1 (dK/dV written directly), gemma3-1b's
+    # global layer at the 5e(iii) check's S, the reduced MLA widths
+    ("fp32 128 G3 split", torch.float32, 6, 2, 128, 128, 300, True, 0,
+     None),
+    ("fp32 256 G4 global split", torch.float32, 4, 1, 256, 256, 512, True,
+     0, None),
+    ("fp32 64 G1 no split", torch.float32, 32, 32, 64, 64, 512, True, 0,
+     None),
+    ("fp32 48/32 reduced MLA", torch.float32, 4, 4, 48, 32, 150, True, 0,
+     1 / math.sqrt(48)),
 ]
 
 

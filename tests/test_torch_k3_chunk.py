@@ -21,7 +21,8 @@ plain version, the port's ``blocked_attention`` with those positions:
 The CUDA kernel's chunk form against its plain version, bitwise
 unchanged by poison (NaN, inf, +-1e4) past ``kv_valid_len``, and its
 chunk rows bitwise equal to a whole prefill's at offsets that are
-multiples of 64 are the ``gpu``-marked cases; they skip without a card:
+multiples of 64 (the query tile, in bf16 and fp32: every fp32 build at
+64 and 192 too) are the ``gpu``-marked cases; they skip without a card:
 
     python -m pytest --noconftest -m gpu tests/test_torch_k3_chunk.py
 """
@@ -335,3 +336,31 @@ def test_cuda_chunk_matches_plain(dtype, tol, heads, window, q_off):
             kv_valid_len=kvl))
     whole = ops.flash_attention_bshd(q, k, v, window=window, scale=scale)
     assert torch.equal(out, whole[:, q_off:n])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", [(64, 64), (80, 80), (128, 128),
+                                  (256, 256), (192, 128), (48, 32)])
+@pytest.mark.parametrize("q_off", [64, 192])
+def test_cuda_fp32_chunk_rows_at_the_query_tile(dims, q_off):
+    """fp32 (3xTF32): a chunk of 64 rows at an offset that is a multiple of
+    the query tile (64), not of 128 or 256, equals the same rows of the
+    whole prefill bit for bit at every fp32 build, GQA 8 over 2, with a
+    window; the chunk against its plain version within 1e-4."""
+    _cuda()
+    dk, dv = dims
+    C, S, n = 64, 640, q_off + 64
+    g = torch.Generator(device="cuda").manual_seed(q_off + dk)
+    mk = lambda h, d: torch.randn((1, S, h, d), generator=g, device="cuda")
+    q, k, v = mk(8, dk), mk(2, dk), mk(2, dv)
+    kw = dict(window=100, scale=1.0 / math.sqrt(dk))
+    qc = q[:, q_off:n].contiguous()
+    kvl = torch.tensor([n], dtype=torch.int32, device="cuda")
+    out = ops.flash_attention_bshd(qc, k, v, q_off=q_off, kv_valid_len=kvl,
+                                   **kw)
+    whole = ops.flash_attention_bshd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, whole[:, q_off:n])
+    ref = flash_attention_plain(qc, k, v, q_off=q_off, kv_valid_len=kvl,
+                                **kw)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
