@@ -27,7 +27,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    ``HGMMA``) in every bf16 and fp32 build of K3 (fp32 in 3xTF32), of
    its backward's dK/dV and dQ kernels, of K6's backward's increment and
    gradient pass, of the tree-verify split
-   kernel, of K5's split sweep and of K6's two kernels (the models past
+   kernel (bf16 and fp32: its fp32 builds run 3xTF32 too, and the D=64
+   ones the main path runs, with the fp32 merges, must show no spill), of
+   K5's split sweep and of K6's two kernels (the models past
    64 query rows per kv head add no instantiation: row groups are a grid
    axis of the D=128 builds), the D = 64 ones and K3's (80, 80) among
    them;
@@ -35,7 +37,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    with TF32 off (atol = rtol = 1e-4) and bf16 (atol = rtol = 2e-2), and
    time the kernel, its plain version and ``scaled_dot_product_attention``
    (a yardstick the port never calls) beside the least time the card
-   needs for the same work (kernel and SDPA: device time of calls queued
+   needs for the same work (fp32 tree verify and K3 also beside the
+   3xTF32 bound, with each launch's µs and blocks; each fp32 tree-verify
+   case also against its plain version run in fp64, the difference
+   printed) (kernel and SDPA: device time of calls queued
    back to back behind a sleep kernel, ``device_ms``; the kernel's wrapper
    call with its host work and the plain version: CUDA events around
    back-to-back calls, ``time_ms``):
@@ -44,6 +49,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
       below ``cache_len``, block 0 poisoned with 0, +-1e4, NaN and inf
       (outputs must be bitwise equal);
    b. K1 at gemma3-1b head shapes (Hq=4, Hkv=1, D=256; the prefix layer);
+      and at vicuna-tiny's (B=4, 4 over 4 heads of 64, T=16, block 16,
+      lens 32/48/64/80 and 0/37/300/500; the paper's fp32 loop), two
+      identical calls bitwise equal in each;
    c. K4, windowed paged verify, at gemma3-1b head shapes (B=4, block 16,
       T=16 and T=5, lens 0/37/700/1500, NULL holes, windows 0 and 512):
       outputs bitwise equal with block 0 poisoned and with every pool
@@ -92,9 +100,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    g. K2, dense tree verify, at minitron-4b shapes (B=4, 24 q over 8 kv
       heads, D=128, dense S=512, lens 0/37/144/300, T=16 and T=5) and at
       gemma3-1b's global-layer shapes (4 over 1, D=256, S=1536, lens
-      0/37/700/1500): cache positions at or past ``cache_len`` poisoned
-      with 0, +-1e4, NaN and inf (outputs bitwise equal); SDPA on the
-      dense cache with a boolean mask as the yardstick;
+      0/37/700/1500), and at vicuna-tiny's (T=16, S=640, 3b's lens):
+      cache positions at or past ``cache_len`` poisoned with 0, +-1e4,
+      NaN and inf, and two identical calls (outputs bitwise equal); SDPA
+      on the dense cache with a boolean mask as the yardstick;
    h. K1 at deepseek-v2-lite's prefix-layer shapes (B=4, 16 q over 16 kv
       heads, D=128, T=5, lens 0/37/700/1500), timed;
    i. the tree-verify kernel past 64 query rows per kv head: K1 and K2 at
@@ -438,7 +447,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    they compute; K3's fp32 builds as ``flash_attention@fp32`` and
    ``flash_attention_bwd@fp32``, with the fp32 launches (backward calls)
    of phases 5-5h, the 3xTF32 bound beside the CUDA-core one, and each
-   case's µs, bounds, plain and SDPA times and launches' µs and blocks),
+   case's µs, bounds, plain and SDPA times and launches' µs and blocks;
+   the tree-verify kernel's fp32 builds as ``tree_attention_paged@fp32``,
+   ``tree_attention_dense@fp32`` and
+   ``tree_attention_paged_windowed@fp32``, with the fp32 launches of
+   phases 4-5h (vicuna-tiny's serves among them; each form must have
+   some), the same per-case numbers and the fp64 difference),
    then the result line.
    ``[time]`` lines give each phase's seconds.
 
@@ -733,7 +747,14 @@ TREE_VERIFY_BUILDS = frozenset({
     "tree_attention_split_kernel<bf16, D=128, dense>",
     "tree_attention_split_kernel<bf16, D=256, dense>",
     "tree_attention_merge_kernel<bf16>",
-    "tree_attention_merge_kernel<bf16, dense>"})
+    "tree_attention_merge_kernel<bf16, dense>"}) | frozenset(
+    # the fp32 builds (3xTF32) the main path runs, all at D=64: vicuna-tiny's
+    # K1 and K2 in phases 5e(iv) and 5h, and every form in phase 4's fp32
+    # parity (each reduced config has heads of 64), and their merges
+    [f"tree_attention_split_kernel<f32, D=64{form}>"
+     for form in ("", ", windowed", ", dense")]
+    + ["tree_attention_merge_kernel<f32>",
+       "tree_attention_merge_kernel<f32, dense>"])
 def k3_builds() -> frozenset:
     """K3's bf16 instances the main path runs: each build at the key tile
     each required key (a registry config's call of it) resolves under the
@@ -785,6 +806,7 @@ def bwd_builds() -> frozenset:
 # whose name starts so, and at least one of each (K3's fp32 builds too:
 # their products run in 3xTF32)
 TENSOR_CORE_KERNELS = ("tree_attention_split_kernel<bf16",
+                       "tree_attention_split_kernel<f32",
                        "flash_attention_kernel<bf16",
                        "flash_attention_kernel<f32",
                        "flash_bwd_kv_f32_kernel<", "flash_bwd_q_f32_kernel<",
@@ -848,15 +870,15 @@ def poison_behind_window(args, window: int, fill: float):
     return (q, pool_k, pool_v, tk, tv, tm, lens, table)
 
 
-def paged_bound(c: PagedCase, T: int, dtype_name: str, table,
-                window: int = 0, reads: int = 1) -> tuple:
-    """Least time for one call: the cache positions this run's data needs
+def paged_charge_of(c: PagedCase, T: int, dtype_name: str, table,
+                    window: int = 0, reads: int = 1):
+    """The work of one call: the cache positions this run's data needs
     (below cache_len, in a real block and, with a window, within reach of
     the root row at cache_len), each read once (``reads`` times: once per
     row group, what the kernel does past 64 rows), plus q, tree K/V and
-    the output, against the operations on those keys
+    the output, and the operations on those keys
     (``op_cost.paged_charge``)."""
-    from repro_torch.launch.op_cost import bound_ms, paged_charge
+    from repro_torch.launch.op_cost import paged_charge
 
     tbl = table.cpu()
     keys = []
@@ -865,8 +887,27 @@ def paged_bound(c: PagedCase, T: int, dtype_name: str, table,
         keys.append(sum(1 for p in range(lo, n)
                         if int(tbl[b, p // c.bs]) != 0))
     B = len(c.lens)
-    return bound_ms(paged_charge(B, T, c.hq, c.hkv, c.d, dtype_name, keys,
-                                 B * c.m, window, reads))
+    return paged_charge(B, T, c.hq, c.hkv, c.d, dtype_name, keys, B * c.m,
+                        window, reads)
+
+
+def paged_bound(c: PagedCase, T: int, dtype_name: str, table,
+                window: int = 0, reads: int = 1) -> tuple:
+    """Least time for one call (``paged_charge_of``): its bytes over the
+    HBM rate against its operations at the rate of their type."""
+    from repro_torch.launch.op_cost import bound_ms
+
+    return bound_ms(paged_charge_of(c, T, dtype_name, table, window, reads))
+
+
+def fp64_err(out, plain, *args) -> float:
+    """Max abs difference of an fp32 kernel output from its plain version
+    run in fp64 on the same operands (cast up)."""
+    import torch
+
+    a64 = [a.double() if torch.is_tensor(a) and a.dtype == torch.float32
+           else a for a in args]
+    return (out.double() - plain(*a64)).abs().max().item()
 
 
 def paged_sdpa_args(c: PagedCase, args, q_pos=None, window: int = 0):
@@ -921,13 +962,24 @@ def _time_paged(c, T, dtype, dtype_name, kernel, plain, window=0,
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
     lib_ms = device_ms(sdpa)
+    charge = paged_charge_of(c, T, dtype_name, sets[0][0][-1], window)
     bound_ms, bound_by = paged_bound(c, T, dtype_name, sets[0][0][-1], window)
-    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+    rec = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+    if dtype_name == "float32":
+        f32_extras(rec, charge, lambda: kernel(*pick()))
+    return rec
 
 
-def check_k1(c: PagedCase, tag: str) -> dict:
-    """K1 against its plain version at the head shapes of ``c``."""
+def fp64_text(rec: dict) -> str:
+    """An fp32 record's difference from the plain version in fp64."""
+    return (f" (fp64 plain: {rec['err_fp64']:.3e})" if "err_fp64" in rec
+            else "")
+
+
+def check_k1(c: PagedCase, tag: str, Ts=(16, 5)) -> dict:
+    """K1 against its plain version at the head shapes of ``c`` (fp32
+    also against the plain version in fp64), timed."""
     import torch
     from repro_torch.kernels.tree_attention import ops
     from repro_torch.kernels.tree_attention.kernel import (
@@ -936,26 +988,30 @@ def check_k1(c: PagedCase, tag: str) -> dict:
     record = {}
     for dtype_name, tol in TOLS:
         dtype = getattr(torch, dtype_name)
-        for T in (16, 5):
+        for T in Ts:
             outs = []
             for poison in POISONS:
                 args, _ = paged_inputs(c, T, dtype, seed=T, poison=poison)
                 outs.append(ops.tree_attention_paged_bshd(*args))
+            outs.append(ops.tree_attention_paged_bshd(*args))
             assert_bitwise(outs, f"K1 {tag} {dtype_name} T={T}: poisoned "
-                                 "NULL block")
+                                 "NULL block, two calls")
             err = compare(outs[0], tree_attention_paged_plain(*args), tol,
                           f"K1 {tag} {dtype_name} T={T}")
             rec = dict(max_abs_err=err, **_time_paged(
                 c, T, dtype, dtype_name,
                 lambda *a: ops.tree_attention_paged_bshd(*a[0]),
                 lambda *a: tree_attention_paged_plain(*a[0])))
+            if dtype_name == "float32":
+                rec["err_fp64"] = fp64_err(outs[0], tree_attention_paged_plain,
+                                           *args)
             record[(dtype_name, T)] = rec
-            log(f"[k1 {tag}] {dtype_name} T={T}: max_abs_err={err:.3e} "
-                f"kernel={rec['ms'] * 1e3:.1f}us "
+            log(f"[k1 {tag}] {dtype_name} T={T}: max_abs_err={err:.3e}"
+                f"{fp64_text(rec)} kernel={rec['ms'] * 1e3:.1f}us "
                 f"(call {rec['call_ms'] * 1e3:.1f}us) "
                 f"bound={rec['bound_ms'] * 1e3:.2f}us ({rec['bound_by']}) "
                 f"plain={rec['plain_ms'] * 1e3:.1f}us "
-                f"sdpa={rec['library_ms'] * 1e3:.1f}us")
+                f"sdpa={rec['library_ms'] * 1e3:.1f}us{f32_text(rec)}")
     return record
 
 
@@ -993,20 +1049,27 @@ def check_k4(c: PagedCase = GEMMA3) -> dict:
                                    f"{what}: K4 against K1")
                 err = compare(outs[0], tree_attention_paged_windowed_plain(
                     *args, q_pos, w), tol, what)
+                assert_bitwise([outs[0], wops.tree_attention_paged_windowed_bshd(
+                    *args, q_pos, w)], f"{what}: two identical calls")
                 rec = dict(max_abs_err=err, **_time_paged(
                     c, T, dtype, dtype_name,
                     lambda a, qp: wops.tree_attention_paged_windowed_bshd(
                         *a, qp, w),
                     lambda a, qp: tree_attention_paged_windowed_plain(
                         *a, qp, w), window=w))
+                if dtype_name == "float32":
+                    rec["err_fp64"] = fp64_err(
+                        outs[0], lambda *a: tree_attention_paged_windowed_plain(
+                            *a, w), *args, q_pos)
                 record[(dtype_name, T, w)] = rec
                 log(f"[k4] {dtype_name} T={T} window={w}: "
-                    f"max_abs_err={err:.3e} kernel={rec['ms'] * 1e3:.1f}us "
+                    f"max_abs_err={err:.3e}{fp64_text(rec)} "
+                    f"kernel={rec['ms'] * 1e3:.1f}us "
                     f"(call {rec['call_ms'] * 1e3:.1f}us) "
                     f"bound={rec['bound_ms'] * 1e3:.2f}us "
                     f"({rec['bound_by']}) "
                     f"plain={rec['plain_ms'] * 1e3:.1f}us "
-                    f"sdpa={rec['library_ms'] * 1e3:.1f}us")
+                    f"sdpa={rec['library_ms'] * 1e3:.1f}us{f32_text(rec)}")
     log("[k4] poisoned NULL block and poison behind the window: bitwise "
         "equal; K4 at window 0 == K1 bitwise")
     return record
@@ -1685,6 +1748,14 @@ class DenseCase:
 
 K2_CASES = {"minitron": DenseCase(24, 8, 128, (0, 37, 144, 300), 512),
             "gemma3": DenseCase(4, 1, 256, (0, 37, 700, 1500), 1536)}
+# vicuna-tiny's verify (the paper's fp32 loop, 5e(iv) and 5h): B=4, 4 q
+# over 4 kv heads of 64, T=16, block 16, short and mixed lengths, a table
+# of 40 blocks (K1) or a dense cache of 640 positions (K2)
+VICUNA_LENS = {"lens 32-80": (32, 48, 64, 80), "lens 0-500": (0, 37, 300, 500)}
+VICUNA_K1 = {tag: PagedCase(4, 4, 64, lens, (), 40)
+             for tag, lens in VICUNA_LENS.items()}
+VICUNA_K2 = {f"vicuna-tiny {tag}": DenseCase(4, 4, 64, lens, 640)
+             for tag, lens in VICUNA_LENS.items()}
 
 
 def dense_inputs(c: DenseCase, T: int, dtype, seed: int,
@@ -1709,16 +1780,23 @@ def dense_inputs(c: DenseCase, T: int, dtype, seed: int,
             torch.as_tensor(tree.ancestor_mask, device="cuda"), lens)
 
 
+def dense_charge_of(c: DenseCase, T: int, dtype_name: str, reads: int = 1):
+    """The work of one K2 call: each slot's keys below cache_len read once
+    (``reads`` times: once per row group), plus q, the tree K/V and the
+    output, and the operations on those keys and the tree
+    (``op_cost.dense_charge``)."""
+    from repro_torch.launch.op_cost import dense_charge
+
+    return dense_charge(len(c.lens), T, c.hq, c.hkv, c.d, dtype_name,
+                        c.lens, reads)
+
+
 def dense_bound(c: DenseCase, T: int, dtype_name: str,
                 reads: int = 1) -> tuple:
-    """Least time for one K2 call: each slot's keys below cache_len read
-    once (``reads`` times: once per row group), plus q, the tree K/V and
-    the output, against the operations on those keys and the tree
-    (``op_cost.dense_charge``)."""
-    from repro_torch.launch.op_cost import bound_ms, dense_charge
+    """Least time for one K2 call (``dense_charge_of``)."""
+    from repro_torch.launch.op_cost import bound_ms
 
-    return bound_ms(dense_charge(len(c.lens), T, c.hq, c.hkv, c.d,
-                                 dtype_name, c.lens, reads))
+    return bound_ms(dense_charge_of(c, T, dtype_name, reads))
 
 
 def dense_sdpa_args(c: DenseCase, args):
@@ -1742,40 +1820,49 @@ def dense_sdpa_args(c: DenseCase, args):
             cv.transpose(1, 2).contiguous(), mask[:, None])
 
 
-def check_k2() -> dict:
+def check_k2(cases=None, Ts=(16, 5)) -> dict:
     """K2 against its plain version (``masked_attention`` under the
-    verify mask), bitwise invariance under poison at or past cache_len,
-    then kernel, plain and SDPA times."""
+    verify mask; fp32 also in fp64) at each of ``cases`` (default
+    ``K2_CASES``), bitwise invariance under poison at or past cache_len
+    and across two identical calls, then kernel, plain and SDPA times."""
     import torch
     from repro_torch.kernels.tree_attention import dense_ops
     from repro_torch.kernels.tree_attention.kernel import (
         tree_attention_dense_plain)
 
     record = {}
-    for tag, c in K2_CASES.items():
+    for tag, c in (cases or K2_CASES).items():
         for dtype_name, tol in TOLS:
             dtype = getattr(torch, dtype_name)
-            for T in (16, 5):
+            for T in Ts:
                 what = f"K2 {tag} D={c.d} {dtype_name} T={T}"
                 outs = [dense_ops.tree_attention_bshd(
                     *dense_inputs(c, T, dtype, seed=T, poison=f))
                     for f in POISONS]
-                assert_bitwise(outs, f"{what}: poison at or past cache_len")
                 # masked_attention multiplies masked weights by the values:
                 # it is held on the unpoisoned (zero) operands
-                err = compare(outs[0], tree_attention_dense_plain(
-                    *dense_inputs(c, T, dtype, seed=T)), tol, what)
+                args = dense_inputs(c, T, dtype, seed=T)
+                outs.append(dense_ops.tree_attention_bshd(*args))
+                assert_bitwise(outs, f"{what}: poison at or past cache_len, "
+                                     "two calls")
+                err = compare(outs[0], tree_attention_dense_plain(*args), tol,
+                              what)
                 rec = dict(max_abs_err=err,
                            **_time_dense(c, T, dtype, dtype_name))
+                if dtype_name == "float32":
+                    rec["err_fp64"] = fp64_err(
+                        outs[0], tree_attention_dense_plain, *args)
                 record[(tag, dtype_name, T)] = rec
                 log(f"[k2] {tag} D={c.d} {dtype_name} T={T}: "
-                    f"max_abs_err={err:.3e} kernel={rec['ms'] * 1e3:.1f}us "
+                    f"max_abs_err={err:.3e}{fp64_text(rec)} "
+                    f"kernel={rec['ms'] * 1e3:.1f}us "
                     f"(call {rec['call_ms'] * 1e3:.1f}us) "
                     f"bound={rec['bound_ms'] * 1e3:.2f}us "
                     f"({rec['bound_by']}) "
                     f"plain={rec['plain_ms'] * 1e3:.1f}us "
-                    f"sdpa={rec['library_ms'] * 1e3:.1f}us")
-    log("[k2] poison at or past cache_len: bitwise equal")
+                    f"sdpa={rec['library_ms'] * 1e3:.1f}us{f32_text(rec)}")
+    log("[k2] poison at or past cache_len and two identical calls: bitwise "
+        "equal")
     return record
 
 
@@ -1804,8 +1891,12 @@ def _time_dense(c: DenseCase, T: int, dtype, dtype_name: str,
 
     lib_ms = device_ms(sdpa)
     bound_ms, bound_by = dense_bound(c, T, dtype_name)
-    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    rec = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=bound_ms, bound_by=bound_by)
+    if dtype_name == "float32":
+        f32_extras(rec, dense_charge_of(c, T, dtype_name),
+                   lambda: dense_ops.tree_attention_bshd(*pick()))
+    return rec
 
 
 # deepseek-v2-lite's Hydra++ prefix layer: GQA 16 over 16, D=128, T=5
@@ -1950,13 +2041,23 @@ def check_rows(T: int = 16) -> dict:
                 lambda q, n: dense_ops.tree_attention_bshd(q, *dargs[1:],
                                                            split_len=n),
                 dargs[0], c.hkv, planned, what2)
+            e64 = {}
+            if dtype_name == "float32":
+                e64 = {"K1": fp64_err(outs[0], tree_attention_paged_plain,
+                                      *args),
+                       "K2": fp64_err(douts[0], tree_attention_dense_plain,
+                                      *dargs)}
             for key, err in (("K1", err1), ("K2", err2)):
                 record[(arch, key, dtype_name)] = dict(
                     max_abs_err=err, rows=rows, groups=groups,
                     split_len=planned)
+                if key in e64:
+                    record[(arch, key, dtype_name)]["err_fp64"] = e64[key]
+            fp64 = (f" (fp64 plain: K1 {e64['K1']:.3e}, K2 {e64['K2']:.3e})"
+                    if e64 else "")
             log(f"[rows] {arch} {c.hq} q over {c.hkv} kv heads, {rows} rows "
                 f"({groups} row groups), {dtype_name} T={T}: K1 "
-                f"max_abs_err={err1:.3e}, K2 max_abs_err={err2:.3e}; "
+                f"max_abs_err={err1:.3e}, K2 max_abs_err={err2:.3e}{fp64}; "
                 f"poison, splits (capacity, planner {planned}, 16), two "
                 f"identical calls and the first {ROW_SUBSET} heads of each "
                 "kv head alone: bitwise")
@@ -2041,9 +2142,18 @@ def check_zamba2_kernels() -> dict:
                        what2)
         record[("K1", dtype_name)] = dict(max_abs_err=err1)
         record[("K2", dtype_name)] = dict(max_abs_err=err2)
+        fp64 = ""
+        if dtype_name == "float32":
+            record[("K1", dtype_name)]["err_fp64"] = fp64_err(
+                outs[0], tree_attention_paged_plain, *args)
+            record[("K2", dtype_name)]["err_fp64"] = fp64_err(
+                douts[0], tree_attention_dense_plain, *dargs)
+            fp64 = (f" (fp64 plain: K1 "
+                    f"{record[('K1', dtype_name)]['err_fp64']:.3e}, K2 "
+                    f"{record[('K2', dtype_name)]['err_fp64']:.3e})")
         log(f"[zamba2] {c.hq} q over {c.hkv} kv heads, D={c.d}, chain T={T}, "
             f"{dtype_name}: K1 max_abs_err={err1:.3e}, K2 "
-            f"max_abs_err={err2:.3e}; poison and two identical calls "
+            f"max_abs_err={err2:.3e}{fp64}; poison and two identical calls "
             "bitwise")
     timed = {
         "K1": _time_paged(c, T, torch.bfloat16, "bfloat16",
@@ -5468,6 +5578,52 @@ def f32_entries(entry, main_launches, k3, k3_mla, k3_chunk, zk, hk,
     return out
 
 
+def tree_f32_entries(entry, f32_counts, k1s, k4, k2s) -> list:
+    """The JSON line's fp32 tree-verify entries (3xTF32): K1 (3a-b and
+    vicuna-tiny's cases), K2 (3g, vicuna-tiny's too) and K4 (3c), each
+    with the fp32 launches of phases 4-5h, its main case's numbers and,
+    per case, µs, bounds, plain and SDPA times, errors (against the plain
+    version and its fp64 run) and each launch's µs and blocks."""
+    def cases(recs):
+        return {what: {"us": 1e3 * r["ms"], "bound_ms": r["bound_ms"],
+                       "bound_3xtf32_ms": r["bound_3xtf32_ms"],
+                       "plain_ms": r["plain_ms"],
+                       "library_ms": r["library_ms"],
+                       "max_abs_err": r["max_abs_err"],
+                       "err_fp64": r["err_fp64"],
+                       "launches": {k: {"us": us, "blocks": n} for k, (us, n)
+                                    in r["split"].items()}}
+                for what, r in recs.items()}
+
+    k1 = {f"{tag} T={T}": r for tag, recs in k1s.items()
+          for (dt, T), r in recs.items() if dt == "float32"}
+    k2 = {f"{tag} T={T}": r for (tag, dt, T), r in k2s.items()
+          if dt == "float32"}
+    k4 = {f"gemma3 T={T} window={w}": r for (dt, T, w), r in k4.items()
+          if dt == "float32"}
+    out = []
+    for name, replaces, main, recs in (
+            ("tree_attention_paged",
+             "src/repro/kernels/tree_attention/kernel.py:63",
+             k1["minitron D=128 T=16"], k1),
+            ("tree_attention_dense",
+             "src/repro/kernels/tree_attention/kernel.py:47",
+             k2["minitron T=16"], k2),
+            ("tree_attention_paged_windowed",
+             "src/repro/kernels/attention_template/ops.py:37",
+             k4[f"gemma3 T=16 window={WINDOW}"], k4)):
+        e = entry(name, "src/repro_torch/csrc/tree_attention_paged.cu",
+                  replaces, main, max(r["max_abs_err"] for r in recs.values()))
+        e.update(name=f"{name}@fp32", launches=f32_counts[name],
+                 bound_3xtf32_ms=main["bound_3xtf32_ms"],
+                 err_fp64=max(r["err_fp64"] for r in recs.values()),
+                 note="the fp32 build: both products in 3xTF32 on the tensor "
+                      "cores; launches of the fp32 build in phases 4-5h "
+                      "(vicuna-tiny's serves among them)", cases=cases(recs))
+        out.append(e)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5547,8 +5703,9 @@ def main() -> int:
         "above without a spill")
     d64 = sorted(k for k in checked if "D=64" in k or "DQK=64" in k)
     if len(d64) < 3 or not all(tensor_cores[k] for k in d64):
-        raise AssertionError(f"SASS: the bf16 D=64 builds {d64} lack HMMA")
-    log(f"[sass] zamba2-1.2b's bf16 D=64 builds on the tensor cores: {d64}")
+        raise AssertionError(f"SASS: the D=64 builds {d64} lack HMMA")
+    log(f"[sass] the D=64 builds (zamba2-1.2b's bf16, vicuna-tiny's fp32 "
+        f"tree verify) on the tensor cores: {d64}")
     d80 = sorted(k for k in tensor_cores
                  if k.startswith("flash_attention_kernel<bf16, DQK=80,"))
     if len(d80) < 3 or not all(tensor_cores[k] for k in d80):
@@ -5571,7 +5728,11 @@ def run_phases(t_start: float, sweep: tuple) -> int:
     from repro_torch.configs import get_config, head_preserving
 
     k1 = check_k1(MINITRON, "minitron D=128")
-    check_k1(GEMMA3, "gemma3 D=256")
+    k1s = {"minitron D=128": k1, "gemma3 D=256": check_k1(GEMMA3,
+                                                          "gemma3 D=256")}
+    k1s.update({f"vicuna-tiny {tag}": check_k1(c, f"vicuna-tiny {tag}",
+                                               Ts=(16,))
+                for tag, c in VICUNA_K1.items()})
     k4 = check_k4()
     check_splits()
     k3 = check_k3()
@@ -5581,6 +5742,7 @@ def run_phases(t_start: float, sweep: tuple) -> int:
     k6 = check_k6()
     check_k6_boundary()
     k2 = check_k2()
+    k2s = {**k2, **check_k2(VICUNA_K2, Ts=(16,))}
     check_k1_prefix()
     rows = check_rows()
     zk = check_zamba2_kernels()
@@ -5595,6 +5757,17 @@ def run_phases(t_start: float, sweep: tuple) -> int:
         f"{time.perf_counter() - t_3l:.0f}s")
     log(f"[time] phase 3 (kernel checks) done at "
         f"{time.perf_counter() - t_start:.0f}s")
+    from repro_torch.kernels.attention_template import ops as k4_ops
+    from repro_torch.kernels.tree_attention import dense_ops as k2_ops
+    from repro_torch.kernels.tree_attention import ops as k1_ops
+
+    # the fp32 tree-verify launches of phases 4-5h (the wrappers' own
+    # counters, which kernels.reset_counts leaves alone)
+    tree_f32 = {"tree_attention_paged": k1_ops,
+                "tree_attention_paged_windowed": k4_ops,
+                "tree_attention_dense": k2_ops}
+    for mod in tree_f32.values():
+        mod.f32_launches = 0
 
     check_tiny_parity(dataclasses.replace(
         get_config("minitron-4b").reduced(), dtype="float32"),
@@ -5672,6 +5845,11 @@ def run_phases(t_start: float, sweep: tuple) -> int:
             f"done at {time.perf_counter() - t_start:.0f}s")
 
     f32_main = (k3_ops.f32_launches, k3_ops.f32_bwd_launches)
+    tree_f32_counts = {k: m.f32_launches for k, m in tree_f32.items()}
+    log(f"[5] fp32 tree-verify launches in phases 4-5h: {tree_f32_counts}")
+    if not all(tree_f32_counts.values()):
+        raise AssertionError(f"an fp32 tree-verify form was never launched "
+                             f"in phases 4-5h: {tree_f32_counts}")
     t_7 = time.perf_counter()
     finish_dryrun_sweep(*sweep)
     dryrun_against_card()
@@ -5819,6 +5997,7 @@ def run_phases(t_start: float, sweep: tuple) -> int:
                  r["rel"] for r in hk.values() if "rel" in r]))
     kernels.append(e)
     kernels += f32_entries(entry, f32_main, k3, k3_mla, k3_chunk, zk, hk, bwd)
+    kernels += tree_f32_entries(entry, tree_f32_counts, k1s, k4, k2s)
     log(json.dumps({"kernels": kernels}))
     log(f"[time] total {time.perf_counter() - t_start:.0f}s")
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """Time K3's kernels (the fp32 and bf16 forward at phase 3's cases, the
-backward at phase 3m's) and K6's backward, each launch on its own, on one
-NVIDIA card.
+backward at phase 3m's), K6's backward and the tree-verify kernel (K1,
+K2, K4), each launch on its own, on one NVIDIA card.
 
-    PYTHONPATH=src python scripts/time_bwd_kernels.py \
-        [--old DIR] [--steps] [--out build/k3_times.json]
+    PYTHONPATH=src python scripts/time_bwd_kernels.py [--cases all|k3|tree] \
+        [--old DIR [--set NAME=VALUE ...] [--label LABEL]] [--steps] \
+        [--out build/k3_times.json]
 
 For each case it prints the device time of one call
 (``chip_smoke.device_ms``) and each launch's mean device time and blocks,
@@ -37,6 +38,27 @@ step of phase 5e(iii) (``head_train_loss`` and its gradient, B = 1, S =
 512: K3's forward at every layer and, at the prefix layer, its backward)
 and zamba2-1.2b's fp32 whole prefill of phase 5b (38 layers, 1000
 tokens, 7 K3 calls), each the mean wall time of synchronised calls.
+
+The tree-verify cases (``--cases tree``): the fp32 table's K1 (minitron-4b
+24 over 8 heads of 128; gemma3-1b 4 over 1 of 256), K2 (the same heads
+over dense caches) and K4 (gemma3-1b, window 512) at T = 16, and
+vicuna-tiny's K1 and K2 (B = 4, 4 over 4 heads of 64, T = 16, block 16,
+lens 32/48/64/80 and 0/37/300/500), fp32 and bf16, each over 32 operand
+sets (``chip_smoke.py``'s inputs).  With ``--old``, DIR's
+``tree_attention_paged.cu`` is built as a second library (its C entry
+points take this version's arguments) and each case runs old, new, new,
+old; the old output on the same operands is held against the new one
+(bf16 must come out bit for bit the same).  ``--set NAME=VALUE`` first
+sets ``constexpr int NAME = ...;`` in a copy of DIR's tree-verify source
+to VALUE (with ``--old src/repro_torch/csrc``: a variant of this
+version's constant, such as ``kF32SliceWarps``, timed against it);
+``--label`` names the second library in the lines.  With ``--steps``,
+also vicuna-tiny's captured decode step in the paged engine (fp32,
+trained Hydra heads from ``training/tiny.py``'s recipe, checkpoints under
+``build/``, ``default_tree(16, 4, 4)``, 4 prompts of 32 tokens, 48 new
+tokens) under each library in turns: a fresh engine serves once (the
+capture), then once under ``torch.profiler``; the line gives device
+busy a step and the tree-verify split and merge kernels' µs a step.
 """
 from __future__ import annotations
 
@@ -60,6 +82,10 @@ OLD_DIR = ROOT / "build" / "old_kernels"
 # take a trailing float (the scale) and the stream
 K3_ABI = {"flash_attention": ("flash_attention", 7, 11),
           "flash_attention_bwd": ("flash_attention_bwd", 11, 10)}
+# the tree-verify library: its wrappers find their entry points through
+# ``build.load``, so the old library stands in for the whole of it
+TREE_LIB = "tree_attention_paged"
+LABEL = "old"                  # the second library's name in the lines
 # the old fp32 bodies' head dims: operands are padded to the least that
 # holds both widths
 OLD_F32_DIMS = (64, 128, 256)
@@ -75,21 +101,45 @@ FWD_CASES = (
 )
 
 
-def build_old(src_dir: Path) -> dict:
-    """Build K3's sources of ``src_dir`` into ``OLD_DIR``, both nvcc
-    processes at once: {library: ctypes function}."""
+def set_constants(text: str, sets: dict) -> str:
+    """``text`` with each ``constexpr int NAME = N;`` of ``sets`` (NAME ->
+    VALUE) set to VALUE; raises unless each occurs exactly once."""
+    import re
+
+    for name, value in sets.items():
+        pat = rf"constexpr int {name} = -?\d+;"
+        if len(re.findall(pat, text)) != 1:
+            raise ValueError(f"constexpr int {name} not found once")
+        text = re.sub(pat, f"constexpr int {name} = {int(value)};", text)
+    return text
+
+
+def build_old(src_dir: Path, names, sets: dict = None) -> dict:
+    """Build ``names``'s sources of ``src_dir`` into ``OLD_DIR``, all nvcc
+    processes at once: {library: ctypes library}.  ``sets``: constants of
+    the tree-verify source to change first (``set_constants``), in a copy
+    of ``src_dir`` beside its headers."""
+    import shutil
+
     from repro_torch.kernels import build
 
     OLD_DIR.mkdir(parents=True, exist_ok=True)
+    if sets:
+        copy = OLD_DIR / "csrc"
+        shutil.rmtree(copy, ignore_errors=True)
+        shutil.copytree(src_dir, copy)
+        src = copy / build.SOURCES[TREE_LIB]
+        src.write_text(set_constants(src.read_text(), sets))
+        src_dir = copy
     procs = {}
-    for name in K3_ABI:
+    for name in names:
         out = OLD_DIR / f"lib{name}.so"
         cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out),
                str(src_dir / build.SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        out)
-    fns = {}
+    libs = {}
     for name, (proc, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
@@ -97,13 +147,18 @@ def build_old(src_dir: Path) -> dict:
         for line in cs.ptxas_lines(log):
             if "f32" in line:
                 cs.log(f"[ptxas old] {line}")
-        sym, n_ptr, n_int = K3_ABI[name]
-        fn = getattr(ctypes.CDLL(str(out)), sym)
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fns[name] = fn
-    return fns
+        libs[name] = ctypes.CDLL(str(out))
+    return libs
+
+
+def k3_fn(lib, name: str):
+    """K3's C entry point ``name`` of ``lib`` with its argument types."""
+    sym, n_ptr, n_int = K3_ABI[name]
+    fn = getattr(lib, sym)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                   + [ctypes.c_float, ctypes.c_void_p])
+    return fn
 
 
 def _padded(dqk: int, dv: int, dtype):
@@ -191,22 +246,35 @@ def old_launch_bwd(fn):
 
 
 class Patched:
-    """Within the block, K3's wrapper launches the old libraries."""
+    """Within the block, K3's wrapper and the tree-verify wrappers launch
+    the old libraries (those of them that were built)."""
 
-    def __init__(self, old_fns: dict):
-        self.old = old_fns
+    def __init__(self, old_libs: dict):
+        self.old = old_libs
 
     def __enter__(self):
+        from repro_torch.kernels import build
         from repro_torch.kernels.flash_attention import kernel as k3k
 
-        self.saved = (k3k.launch, k3k.launch_bwd)
-        k3k.launch = old_launch(self.old["flash_attention"])
-        k3k.launch_bwd = old_launch_bwd(self.old["flash_attention_bwd"])
+        self.saved = (k3k.launch, k3k.launch_bwd,
+                      build._loaded.get(TREE_LIB))
+        if "flash_attention" in self.old:
+            k3k.launch = old_launch(k3_fn(self.old["flash_attention"],
+                                          "flash_attention"))
+            k3k.launch_bwd = old_launch_bwd(k3_fn(
+                self.old["flash_attention_bwd"], "flash_attention_bwd"))
+        if TREE_LIB in self.old:
+            build._loaded[TREE_LIB] = self.old[TREE_LIB]
 
     def __exit__(self, *exc):
+        from repro_torch.kernels import build
         from repro_torch.kernels.flash_attention import kernel as k3k
 
-        k3k.launch, k3k.launch_bwd = self.saved
+        k3k.launch, k3k.launch_bwd, tree = self.saved
+        if tree is None:
+            build._loaded.pop(TREE_LIB, None)
+        else:
+            build._loaded[TREE_LIB] = tree
 
 
 def fwd_cases():
@@ -263,6 +331,64 @@ def bwd_cases():
                k3._backward(*a, **kw))
 
 
+# vicuna-tiny's verify: B = 4, 4 over 4 heads of 64, T = 16, block 16, at
+# short and at mixed lengths (a table of 40 blocks: 640 positions)
+VICUNA = {lens: cs.PagedCase(4, 4, 64, lens, (), 40)
+          for lens in ((32, 48, 64, 80), (0, 37, 300, 500))}
+
+
+def tree_cases():
+    """(name, library, call, same) of each tree-verify case: ``call``
+    cycles over 32 operand sets, ``same`` runs the first set (the old and
+    new outputs are compared on it)."""
+    import torch
+    from repro_torch.kernels.attention_template import ops as wops
+    from repro_torch.kernels.tree_attention import dense_ops, ops
+
+    paged = {"minitron-4b 24/8 D=128": cs.MINITRON,
+             "gemma3-1b 4/1 D=256": cs.GEMMA3,
+             **{f"vicuna-tiny 4/4 D=64 lens {'/'.join(map(str, lens))}": c
+                for lens, c in VICUNA.items()}}
+    dense = {"minitron-4b 24/8 D=128 S=512": cs.K2_CASES["minitron"],
+             "gemma3-1b 4/1 D=256 S=1536": cs.K2_CASES["gemma3"],
+             **{f"vicuna-tiny 4/4 D=64 S=640 lens "
+                f"{'/'.join(map(str, lens))}":
+                cs.DenseCase(4, 4, 64, lens, 640) for lens in VICUNA}}
+    T = 16
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        for name, c in paged.items():
+            sets = [cs.paged_inputs(c, T, dtype, seed=100 + i)[0]
+                    for i in range(32)]
+            pick = cs.cycle(sets)
+            yield (f"K1 {dtype_name} {name} T={T}", TREE_LIB,
+                   lambda p=pick: ops.tree_attention_paged_bshd(*p()),
+                   lambda a=sets[0]: ops.tree_attention_paged_bshd(*a))
+        for name, c in dense.items():
+            sets = [cs.dense_inputs(c, T, dtype, seed=100 + i)
+                    for i in range(32)]
+            pick = cs.cycle(sets)
+            yield (f"K2 {dtype_name} {name} T={T}", TREE_LIB,
+                   lambda p=pick: dense_ops.tree_attention_bshd(*p()),
+                   lambda a=sets[0]: dense_ops.tree_attention_bshd(*a))
+        sets = [cs.paged_inputs(cs.GEMMA3, T, dtype, seed=100 + i)
+                for i in range(32)]
+        pick = cs.cycle(sets)
+        w = cs.WINDOW
+        yield (f"K4 {dtype_name} gemma3-1b 4/1 D=256 T={T} window {w}",
+               TREE_LIB,
+               lambda p=pick: wops.tree_attention_paged_windowed_bshd(
+                   *_windowed(p), w),
+               lambda a=sets[0]: wops.tree_attention_paged_windowed_bshd(
+                   *a[0], a[1], w))
+
+
+def _windowed(pick):
+    """One operand set of ``paged_inputs`` as K4's arguments."""
+    args, q_pos = pick()
+    return (*args, q_pos)
+
+
 def _agree(a, b) -> tuple:
     """(max abs difference, largest relative L2) of two outputs or two
     tuples of gradients."""
@@ -273,33 +399,54 @@ def _agree(a, b) -> tuple:
             max(cs.rel_l2(x, y) for x, y in pairs))
 
 
-def time_case(what, lib, call, old_fns) -> dict:
-    rec = {"case": what, "card": cs.CARD}
+def time_case(what, lib, call, old_fns, same=None) -> dict:
+    """``call`` under the new library and, where ``lib`` was built from
+    ``--old``, under the old one, in turns; ``same`` (default ``call``)
+    gives the outputs the two are compared on."""
+    same = same or call
+    rec = {"case": what, "card": cs.CARD, "old_label": LABEL}
     runs = {"new": call}
     if lib in old_fns:
         def old(c=call):
             with Patched(old_fns):
                 return c()
+
+        def old_same(c=same):
+            with Patched(old_fns):
+                return c()
         runs["old"] = old
-        a, b = call(), old()
+        a, b = same(), old_same()
         rec["max_abs_old_vs_new"], rec["rel_l2_old_vs_new"] = _agree(a, b)
+        rec["bitwise_old_vs_new"] = all(
+            torch_equal(x, y) for x, y in zip(
+                a if isinstance(a, tuple) else (a,),
+                b if isinstance(b, tuple) else (b,)) if x is not None)
     order = ("old", "new", "new", "old") if "old" in runs else ("new",)
     for key in order:
         rec.setdefault(f"{key}_us", []).append(1e3 * cs.device_ms(runs[key]))
     for key, fn in runs.items():
         rec[f"{key}_split"] = cs.launch_split(fn, 1e-3 * min(rec[f"{key}_us"]))
-    line = (f"[k3] {what} ({cs.CARD}): new "
+    tag = "tree" if lib == TREE_LIB else "k3"
+    line = (f"[{tag}] {what} ({cs.CARD}): new "
             f"{', '.join(f'{x:.1f}' for x in rec['new_us'])}us "
             f"[{cs.split_text(rec['new_split'])}]")
     if "old" in runs:
         ratio = sum(rec["old_us"]) / sum(rec["new_us"])
-        line += (f"; old {', '.join(f'{x:.1f}' for x in rec['old_us'])}us "
-                 f"[{cs.split_text(rec['old_split'])}]; old/new "
-                 f"{ratio:.2f}x; old vs new max abs "
+        line += (f"; {LABEL} "
+                 f"{', '.join(f'{x:.1f}' for x in rec['old_us'])}us "
+                 f"[{cs.split_text(rec['old_split'])}]; {LABEL}/new "
+                 f"{ratio:.2f}x; {LABEL} vs new max abs "
                  f"{rec['max_abs_old_vs_new']:.2e}, rel L2 "
-                 f"{rec['rel_l2_old_vs_new']:.2e}")
+                 f"{rec['rel_l2_old_vs_new']:.2e}"
+                 + (", bitwise" if rec["bitwise_old_vs_new"] else ""))
     cs.log(line)
     return rec
+
+
+def torch_equal(x, y) -> bool:
+    import torch
+
+    return bool(torch.equal(x, y))
 
 
 def _wall_ms(fn, reps: int = 3) -> float:
@@ -375,18 +522,107 @@ def steps(old_fns: dict) -> list:
     return records
 
 
+def tiny_steps(old_libs: dict) -> list:
+    """vicuna-tiny's captured decode step in the paged engine under the
+    old and the new tree-verify library, in turns: device busy a step and
+    the split and merge kernels' µs a step from a traced serve."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.trees import default_tree
+    from repro_torch.serving.engine import PagedSpeculativeEngine, Request
+    from repro_torch.training import tiny
+
+    tiny.CKPT_DIR = str(ROOT / "build" / "ckpt_tree_steps")
+    c2, dp = tiny.draft_setup("hydra")
+    cfg, params, pipe = tiny.base_setup()
+    prompts = pipe.eval_batch(4)[:, :32]
+    tree = default_tree(16, 4, 4)
+    records = []
+    for key in ("old", "new", "new", "old"):
+        ctx = Patched(old_libs) if key == "old" else _Nothing()
+        with ctx:
+            eng = PagedSpeculativeEngine(params, dp, c2, tree, max_len=512)
+            reqs = lambda: [Request(prompt=np.asarray(p, np.int32),
+                                    max_new_tokens=48) for p in prompts]
+            eng.serve(reqs(), max_batch=4)           # the capture
+            st = eng.stats
+            steps0, wall0 = st.steps, st.wall_s
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                eng.serve(reqs(), max_batch=4)
+                torch.cuda.synchronize()
+            n = st.steps - steps0
+            busy = split = merge = 0
+            for e in prof.profiler.kineto_results.events():
+                if e.device_type() != DeviceType.CUDA:
+                    continue
+                busy += e.duration_ns()
+                if "tree_attention_split_kernel" in e.name():
+                    split += e.duration_ns()
+                elif "tree_attention_merge_kernel" in e.name():
+                    merge += e.duration_ns()
+            rec = {"run": "vicuna-tiny fp32 captured paged decode step",
+                   "kernels": key if key == "new" else LABEL,
+                   "card": cs.CARD, "steps": n,
+                   "busy_us_a_step": busy / 1e3 / n,
+                   "split_us_a_step": split / 1e3 / n,
+                   "merge_us_a_step": merge / 1e3 / n,
+                   "wall_ms_a_step": 1e3 * (st.wall_s - wall0) / n,
+                   "captures": st.captures}
+            records.append(rec)
+            cs.log(f"[tree step] {rec['run']} (4 prompts of 32, 48 new "
+                   f"tokens, default_tree(16, 4, 4)), {rec['kernels']} "
+                   f"library ({cs.CARD}): {n} steps, device busy "
+                   f"{rec['busy_us_a_step']:.1f} us a step, tree-verify "
+                   f"split {rec['split_us_a_step']:.1f} + merge "
+                   f"{rec['merge_us_a_step']:.1f} us a step "
+                   f"({100 * (split + merge) / busy:.1f}%), wall "
+                   f"{rec['wall_ms_a_step']:.2f} ms a step")
+            del eng
+            gc.collect()
+    return records
+
+
+class _Nothing:
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
 def main() -> int:
     import torch
 
+    global LABEL
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", type=Path, default=None,
                     help="a directory holding another copy of csrc/")
+    ap.add_argument("--cases", choices=("all", "k3", "tree"), default="all",
+                    help="K3's and K6's cases, the tree-verify ones, or all")
+    ap.add_argument("--set", action="append", default=[],
+                    metavar="NAME=VALUE",
+                    help="with --old: a constexpr int of the tree-verify "
+                         "source set to VALUE in the copy built")
+    ap.add_argument("--label", default="old",
+                    help="the second library's name in the lines")
     ap.add_argument("--out", type=Path,
                     default=ROOT / "build" / "k3_times.json")
     ap.add_argument("--steps", action="store_true",
                     help="with --old: 5e(iii)'s fp32 head step and 5b's "
-                         "zamba2 fp32 prefill under each K3, in turns")
+                         "zamba2 fp32 prefill under each K3 and (tree "
+                         "cases) vicuna-tiny's captured decode step under "
+                         "each tree-verify library, in turns")
     args = ap.parse_args()
+    LABEL = args.label
     if not torch.cuda.is_available():
         print("time_bwd_kernels: no CUDA device", file=sys.stderr)
         return 1
@@ -399,22 +635,34 @@ def main() -> int:
     cs.log(cs.CARD)
     from repro_torch.kernels import build
 
+    k3 = args.cases in ("all", "k3")
+    tree = args.cases in ("all", "tree")
+    libs = ((["linear_attn_chunk", "linear_attn_chunk_bwd", *K3_ABI]
+             if k3 else []) + ([TREE_LIB] if tree else []))
+    old_names = [n for n in libs if n in K3_ABI or n == TREE_LIB]
+    sets = dict(a.split("=", 1) for a in args.set)
     t0 = time.perf_counter()
-    build.build(["linear_attn_chunk", "linear_attn_chunk_bwd", *K3_ABI])
-    old_fns = build_old(args.old) if args.old else {}
+    build.build(libs)
+    old_libs = build_old(args.old, old_names, sets) if args.old else {}
     cs.log(f"[build] {time.perf_counter() - t0:.1f}s")
-    for name in K3_ABI:
+    for name in old_names:
         for line in cs.ptxas_lines(build.ptxas_report(name)):
             cs.log(f"[ptxas] {line}")
     records = []
-    for cases in (fwd_cases, bwd_cases):
+    for cases in ((fwd_cases, bwd_cases) if k3 else ()):
         for what, lib, call in cases():
-            records.append(time_case(what, lib, call, old_fns))
-    if args.steps and old_fns:
-        records += steps(old_fns)
+            records.append(time_case(what, lib, call, old_libs))
+    if tree:
+        for what, lib, call, same in tree_cases():
+            records.append(time_case(what, lib, call, old_libs, same))
+    if args.steps and old_libs:
+        if k3:
+            records += steps(old_libs)
+        if tree:
+            records += tiny_steps(old_libs)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(records, indent=1))
-    cs.log(f"[k3] wrote {args.out}")
+    cs.log(f"[time] wrote {args.out}")
     return 0
 
 

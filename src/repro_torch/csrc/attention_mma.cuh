@@ -19,7 +19,7 @@
 //
 // The online softmax stays in fp32 registers, with the conventions of the
 // Pallas template (src/repro/kernels/attention_template/kernel.py::
-// _softmax_update) that online_softmax.cuh keeps for the fp32 bodies: a
+// _softmax_update), which the fp32 bodies keep as well (tf32_mma.cuh): a
 // rejected key scores -1e30 and gets weight exactly 0 by selection, the
 // running max starts at -1e30, and the caller floors the denominator at
 // 1e-30.  Row max and sum are reduced over the 4 threads of a quad.

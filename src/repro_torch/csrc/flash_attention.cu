@@ -367,7 +367,7 @@ __device__ void flash_tf32(const Args& p, unsigned char* smem_raw) {
   const int i0 = pair * tc::kWarpRows + lane / 4;  // local row g; g+8: +8
   const int a0 = q_first + i0;                      // its absolute position
   const float scale_log2 = p.scale * tc::kLog2e;
-  const tf::Pair pr{pb + pair * 16 * (KN + tf::kPadP), mb, warp, half,
+  const tf::Slice<2> pr{pb + pair * 16 * (KN + tf::kPadP), mb, warp, half,
                     1 + pair};
   if (ntiles > 0) {
     issue(0);  // the first group carries q as well
@@ -393,9 +393,9 @@ __device__ void flash_tf32(const Args& p, unsigned char* smem_raw) {
       const int key = pos0 + kk, dq = a0 + 8 * hh - key;
       return key < k_end && (!causal || dq >= 0) && (w <= 0 || dq < w);
     };
-    tf::tile_pair<DQK, DV, KN>(qs + pair * tc::kWarpRows * QS,
-                               ks + sg * KN * QS, vs + sg * KN * VS,
-                               scale_log2, st, masked, admit, pr);
+    tf::tile_slice<DQK, DV, KN, 2>(qs + pair * tc::kWarpRows * QS,
+                                   ks + sg * KN * QS, vs + sg * KN * VS,
+                                   scale_log2, st, masked, admit, pr);
     __syncthreads();  // the next issue overwrites this stage
   }
 

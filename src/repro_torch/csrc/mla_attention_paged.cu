@@ -80,11 +80,10 @@
 #include <type_traits>
 
 #include "attention_mma.cuh"
-#include "online_softmax.cuh"
 
 namespace {
 
-using attn::kNegInf;
+using tc::kNegInf;
 using tc::bf16;
 
 constexpr int kKeys = 16;          // keys per tile (both bodies)

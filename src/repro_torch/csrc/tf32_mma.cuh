@@ -1,7 +1,9 @@
 // Tensor-core pieces of the port's fp32 attention kernels at fp32
 // accuracy ("3xTF32", CUTLASS's OpMultiplyAddFastF32):
-//   flash_attention.cu      (K3 prefill attention, fp32 builds)
-//   flash_attention_bwd.cu  (K3's backward, fp32 builds)
+//   flash_attention.cu       (K3 prefill attention, fp32 builds)
+//   flash_attention_bwd.cu   (K3's backward, fp32 builds)
+//   tree_attention_paged.cu  (the tree-verify kernel K1 / K4 / K2, fp32
+//                             builds)
 //
 // Each fp32 operand x is split into a TF32 high part hi and the TF32 of
 // its residual lo = x - hi (`split`), so hi + lo carries x to about 21
@@ -221,82 +223,111 @@ __device__ __forceinline__ void load_rows(float* dst, int tid,
   }
 }
 
-// A pair of warps sharing 16 query rows (flash_attention.cu's fp32 body):
-// `p`, the pair's P (16 rows of KN + kPadP floats); `m`, the 8 warps' row
-// values (16 each: maxima, then denominators); this warp, its half of
-// each key tile (0 or 1; its partner is warp ^ 4) and the pair's named
-// barrier (64 threads).
-struct Pair {
+// NK warps sharing 16 query rows, a "slice" (NK = 2: flash_attention.cu's
+// fp32 body, its pairs; tree_attention_paged.cu's fp32 body): a block holds
+// kSlices slices, and warp w is part w / kSlices of slice w % kSlices.
+// `p`, the slice's P (16 rows of KN + kPadP floats); `m`, every warp's
+// row values (16 each: maxima, then denominators); this warp, its part of
+// each key tile (0 .. NK - 1) and the slice's named barrier (NK warps).
+template <int NK>
+struct Slice {
+  static constexpr int kSlices = 4;
   float* p;
   float* m;
-  int warp, half, bar;
+  int warp, part, bar;
 
   __device__ __forceinline__ void sync() const {
-    asm volatile("bar.sync %0, 64;\n" ::"r"(bar) : "memory");
+    if constexpr (NK == 1)
+      __syncwarp();
+    else
+      asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "n"(32 * NK) : "memory");
   }
-  // x (this thread's rows g and g + 8, the same in its quad) out, the
-  // partner's in.  Both warps write, meet, then read; a warp writes again
-  // only after the pair's next meeting, which its partner reaches after
-  // its read.
-  __device__ __forceinline__ void exchange(const float (&x)[2],
-                                           float (&other)[2]) const {
+  // the value of part i for this thread's rows g and g + 8 (the same in
+  // its quad), once `put` and a meeting have passed
+  __device__ __forceinline__ void put(const float (&x)[2]) const {
     const int lane = threadIdx.x & 31, g = lane >> 2;
     if ((lane & 3) == 0) {
       m[warp * 16 + g] = x[0];
       m[warp * 16 + g + 8] = x[1];
     }
-    sync();
-    other[0] = m[(warp ^ 4) * 16 + g];
-    other[1] = m[(warp ^ 4) * 16 + g + 8];
   }
-  // the rows' denominators: this warp's keys' share plus its partner's
-  // (a sum of two, the same bits in both warps)
+  __device__ __forceinline__ float got(int i, int h) const {
+    const int g = (threadIdx.x & 31) >> 2;
+    return m[(warp % kSlices + kSlices * i) * 16 + g + 8 * h];
+  }
+  // x becomes the slice's maximum of it.  All NK warps write, meet, then
+  // read; a warp writes again only after the slice's next meeting, which
+  // the others reach after their reads.
+  __device__ __forceinline__ void row_max(float (&x)[2]) const {
+    if constexpr (NK > 1) {
+      put(x);
+      sync();
+#pragma unroll
+      for (int i = 0; i < NK; ++i)
+        if (i != part)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) x[h] = fmaxf(x[h], got(i, h));
+    }
+  }
+  // the rows' denominators: the NK warps' shares of the keys added in
+  // part order (the same bits in every warp of the slice)
   __device__ __forceinline__ void total(const float (&l)[2],
                                         float (&sum)[2]) const {
-    float other[2];
-    exchange(l, other);
-    sum[0] = l[0] + other[0];
-    sum[1] = l[1] + other[1];
+    if constexpr (NK == 1) {
+      sum[0] = l[0];
+      sum[1] = l[1];
+    } else {
+      put(l);
+      sync();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        sum[h] = part == 0 ? l[h] : got(0, h);
+#pragma unroll
+        for (int i = 1; i < NK; ++i) sum[h] += i == part ? l[h] : got(i, h);
+      }
+    }
   }
 };
 
-// One key tile of KN keys for a pair's 16 rows in fp32, this warp's share
+// One key tile of KN keys for a slice's 16 rows in fp32, this warp's share
 // (the counterpart of tc::tile_mma, with its softmax conventions): S = Q
-// K^T over its half of the keys in 3xTF32 (the small products and hi hi
-// in accumulators of their own: twice the independent mma chains), the
-// pair's row maxima exchanged, its half of P written for both warps, then
-// O += P V over all KN keys for its half of the value columns (P's A
-// fragments from shared memory, k permuted; V's rows 2t, 2t+1 as B).
-// q: the pair's 16 rows (stride DQK + kPad); k: KN rows (stride DQK +
+// K^T over its KN / NK of the keys in 3xTF32 (the small products and hi
+// hi in accumulators of their own: twice the independent mma chains), the
+// slice's row maxima exchanged, its part of P written for all NK warps,
+// then O += P V over all KN keys for its DV / NK of the value columns (P's
+// A fragments from shared memory, k permuted; V's rows 2t, 2t+1 as B).
+// q: the slice's 16 rows (stride DQK + kPad); k: KN rows (stride DQK +
 // kPad); v: KN rows (stride DV + kPad); st: the running max, this warp's
-// keys' share of the denominator, and its DV / 2 value columns.
-template <int DQK, int DV, int KN, typename Admit>
-__device__ __forceinline__ void tile_pair(const float* q, const float* k,
-                                          const float* v, float scale_log2,
-                                          tc::RowState<DV / 2>& st,
-                                          bool masked, Admit admit,
-                                          const Pair& pr) {
+// keys' share of the denominator, and its DV / NK value columns.  A row's
+// arithmetic reads only its own scores and the tile's keys: it never
+// depends on the slice's other rows.
+template <int DQK, int DV, int KN, int NK, typename Admit>
+__device__ __forceinline__ void tile_slice(const float* q, const float* k,
+                                           const float* v, float scale_log2,
+                                           tc::RowState<DV / NK>& st,
+                                           bool masked, Admit admit,
+                                           const Slice<NK>& sl) {
   constexpr int QS = DQK + kPad, VS = DV + kPad, PS = KN + kPadP;
-  constexpr int KH = KN / 2;
-  static_assert(DQK % 8 == 0 && DV % 16 == 0 && KH % 8 == 0, "tiles");
+  constexpr int KH = KN / NK, DW = DV / NK;
+  static_assert(DQK % 16 == 0 && DW % 8 == 0 && KH % 8 == 0, "tiles");
   static_assert(KH / 8 * 4 <= 32, "one bit per score of the thread");
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const float* kh = k + pr.half * KH * QS;
+  const float* kh = k + sl.part * KH * QS;
 
   // S = Q K^T over the head dim, 8 at a time
   float s[KH / 8][4], sb[KH / 8][4];
   dot_rows<DQK, QS, KH / 8>(s, sb, q, kh, g, t);
 
   // online softmax: scale, mask by selection, row max over the quad and
-  // the pair; bit 4j + e of `keep` says whether s[j][e] was admitted
+  // the slice; bit 4j + e of `keep` says whether s[j][e] was admitted
   float mx[2] = {st.m[0], st.m[1]};
   uint32_t keep = ~0u;
 #pragma unroll
   for (int j = 0; j < KH / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int h = e >> 1, kk = pr.half * KH + j * 8 + 2 * t + (e & 1);
+      const int h = e >> 1, kk = sl.part * KH + j * 8 + 2 * t + (e & 1);
       float x = (sb[j][e] + s[j][e]) * scale_log2;
       if (masked && !admit(h, kk)) {
         x = tc::kNegInf;
@@ -310,11 +341,10 @@ __device__ __forceinline__ void tile_pair(const float* q, const float* k,
     mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
     mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
   }
-  float other[2], corr[2];
-  pr.exchange(mx, other);
+  sl.row_max(mx);
+  float corr[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    mx[h] = fmaxf(mx[h], other[h]);
     corr[h] = tc::ex2(st.m[h] - mx[h]);
     st.m[h] = mx[h];
     st.l[h] *= corr[h];
@@ -329,32 +359,32 @@ __device__ __forceinline__ void tile_pair(const float* q, const float* k,
       s[j][e] = pe;
       st.l[h] += pe;
     }
-    const int col = pr.half * KH + j * 8 + 2 * t;
-    *reinterpret_cast<float2*>(pr.p + g * PS + col) =
+    const int col = sl.part * KH + j * 8 + 2 * t;
+    *reinterpret_cast<float2*>(sl.p + g * PS + col) =
         make_float2(s[j][0], s[j][1]);
-    *reinterpret_cast<float2*>(pr.p + (g + 8) * PS + col) =
+    *reinterpret_cast<float2*>(sl.p + (g + 8) * PS + col) =
         make_float2(s[j][2], s[j][3]);
   }
 #pragma unroll
-  for (int n = 0; n < DV / 16; ++n) {
+  for (int n = 0; n < DW / 8; ++n) {
     st.o[n][0] *= corr[0];
     st.o[n][1] *= corr[0];
     st.o[n][2] *= corr[1];
     st.o[n][3] *= corr[1];
   }
-  pr.sync();  // both halves of P are written
+  sl.sync();  // every part of P is written
 
-  // O += P V over the tile's KN keys, 8 at a time, for this half's
+  // O += P V over the tile's KN keys, 8 at a time, for this warp's
   // columns: the tile's sum in fresh accumulators, then one fp32 add
-  const float* vh = v + pr.half * (DV / 2);
-  float pv[DV / 16][4];
+  const float* vh = v + sl.part * DW;
+  float pv[DW / 8][4];
   zero(pv);
 #pragma unroll
   for (int j = 0; j < KN / 8; ++j) {
     FragA a;
-    load_a_perm<PS>(a, pr.p + j * 8, g, t);
+    load_a_perm<PS>(a, sl.p + j * 8, g, t);
 #pragma unroll
-    for (int n = 0; n < DV / 16; ++n) {
+    for (int n = 0; n < DW / 8; ++n) {
       FragB b;
       load_b_perm<VS>(b, vh + j * 8 * VS + n * 8, g, t);
       mma3(pv[n], a, b);

@@ -82,9 +82,25 @@
 //     (attention_mma.cuh); P enters P V as two bf16 parts (~16-bit
 //     weights, at twice P V's products, which a load-bound kernel can
 //     spare), so the verify stays close to the fp32-weight softmax of the
-//     dense path it is compared with.  fp32: 256 threads on the CUDA cores, 16-key
-//     tiles (online_softmax.cuh), which keeps fp32 exact to the
-//     template's per-tile algorithm.
+//     dense path it is compared with.
+//     fp32 (split_tf32): the same grid, ring, flags, masks and partials,
+//     with Q K^T and P V on mma.sync.m16n8k8 in 3xTF32 (tf32_mma.cuh:
+//     each operand a TF32 high part plus the TF32 of its residual, three
+//     products summed in fp32: fp32 accuracy).  Tiles are fp32 in shared
+//     memory at a row stride of D + 4 floats: 64 keys a tile at D = 64
+//     and 128, 32 at D = 256 (q, the two-stage K/V ring, P, the row
+//     values, flags and positions: 106,752, 188,672 and 210,944 bytes of
+//     the 227 KB a block may take).  Each 16-row slice is shared by
+//     kF32SliceWarps warps (tf::Slice): each computes the scores of its
+//     share of the tile's keys, the slice trades row maxima and writes P
+//     through shared memory (written from C fragments, read back as A
+//     fragments on the permuted k axis), and each sums P V over all the
+//     tile's keys for its share of the value columns; each P V sum is
+//     taken in fresh accumulators a tile and added in fp32 (the tensor
+//     cores' accumulation drifts over long chains).  The denominators'
+//     shares are added in part order at the end.  Every score, weight and
+//     column sum of a row reads only that row and the tile, so a row's
+//     bits never depend on the slice's other rows.
 //  2. tree_attention_merge_kernel, one block per (row, b, kv head): folds
 //     the partials in split order, up to the last split below cache_len,
 //     then the tree partial, then divides (denominator floored at 1e-30)
@@ -99,28 +115,53 @@
 // same positions, and tiles start at the same positions inside a split,
 // whatever their capacities and whatever the pool block size: a paged
 // split may start and end inside a pool block (the sweep clamps each
-// block's keys to the split).  split_len is a multiple of 16; the grid
-// covers the capacity, n_splits = ceil(capacity / split_len).
+// block's keys to the split).  Inside a split, both bodies take tiles at
+// positions lo + i * (keys a tile), gathering each key through the block
+// table, so K1 over a pool of any block size (a multiple of 8) and K2
+// over the same keys as a dense cache fold the same tiles in the same
+// order, bit for bit, in bf16 and in fp32.  split_len is a multiple of
+// 16; the grid covers the capacity, n_splits = ceil(capacity /
+// split_len).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 #include "attention_mma.cuh"
-#include "online_softmax.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
-using attn::from_f32;
-using attn::kKeyTile;
-using attn::kNegInf;
-using attn::kThreads;
-using attn::Smem;
 using tc::bf16;
+using tc::kNegInf;
 
 constexpr int kGroupRows = 64;    // query rows a split block holds
 constexpr int kMmaThreads = 128;  // bf16: four warps of 16 rows
 constexpr int kMaxGrid = 65535;   // the grid's y and z extents
+constexpr int kSplitUnit = 16;    // split_len is a multiple of this
+constexpr int kBoundThreads = 256;  // the bf16 kernel's launch bound
+constexpr size_t kMaxSmem = 227 * 1024;  // opt-in shared memory a block
+
+// fp32: each 16-row slice of the group is shared by kF32SliceWarps warps
+// (tf::Slice), each taking that share of every key tile's scores and of
+// the value columns.  On an H100 (scripts/time_bwd_kernels.py --set
+// kF32SliceWarps=N), one warp a slice ran 1.10-1.39x slower than two
+// (one warp a scheduler at the wide builds' one block an SM), and four
+// (512 threads, registers capped at 128) within 7% either way, no faster
+// over vicuna-tiny's calls
+constexpr int kSlices = kGroupRows / tc::kWarpRows;
+constexpr int kF32SliceWarps = 2;
+constexpr int kF32Threads = kSlices * kF32SliceWarps * 32;
+static_assert(kSlices == tf::Slice<kF32SliceWarps>::kSlices, "slices");
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
+  return __float2bfloat16(x);
+}
 
 // keys per bf16 tile: 16 at D = 256 keeps the accumulator (128 registers
 // a thread), the scores and the split weights in registers
@@ -138,6 +179,32 @@ __host__ __device__ constexpr size_t mma_smem_bytes() {
              (D + tc::kPad) +
          sizeof(int) * static_cast<size_t>(2 * mma_keys<D>() + kGroupRows);
 }
+
+// keys per fp32 tile: 64, or 32 at D = 256, where a ring of 64 would not
+// fit shared memory
+template <int D>
+__host__ __device__ constexpr int f32_keys() {
+  return D >= 256 ? 32 : 64;
+}
+
+// fp32 shared memory: q (64 rows), then K and V rings (2 tiles each), all
+// rows D + 4 floats; each slice's P (16 rows of keys + 8 floats); every
+// warp's 16 row values; then 2 tiles of key flags and 64 row positions
+// (int)
+template <int D>
+__host__ __device__ constexpr size_t f32_smem_bytes() {
+  return sizeof(float) *
+             (static_cast<size_t>(kGroupRows + 4 * f32_keys<D>()) *
+                  (D + tf::kPad) +
+              static_cast<size_t>(kGroupRows) * (f32_keys<D>() + tf::kPadP) +
+              static_cast<size_t>(kSlices * kF32SliceWarps) *
+                  tc::kWarpRows) +
+         sizeof(int) * static_cast<size_t>(2 * f32_keys<D>() + kGroupRows);
+}
+static_assert(f32_smem_bytes<64>() <= kMaxSmem &&
+                  f32_smem_bytes<128>() <= kMaxSmem &&
+                  f32_smem_bytes<256>() <= kMaxSmem,
+              "an fp32 ring exceeds shared memory");
 
 struct Args {
   const void* q;
@@ -321,13 +388,18 @@ __device__ void split_mma(const Args& p, unsigned char* smem_raw) {
   }
 }
 
-// fp32 body of one split (or the tree block): CUDA cores, the template's
-// 16-key tiles (online_softmax.cuh), the same split and partials.
+// fp32 body of one split (or the tree block): split_mma's structure (the
+// positional ring, the flags, the masks and the partials) with both
+// products in 3xTF32 on mma.sync.m16n8k8 (tf32_mma.cuh): 64 rows a block
+// in four 16-row slices of kF32SliceWarps warps each; the warps of a slice
+// split each key tile's scores and the value columns (tf::tile_slice).
 template <int D, bool kWindowed, bool kDense>
-__device__ void split_f32(const Args& p, float* smem) {
-  constexpr int DP = D + 1;
-  constexpr int NRG = kThreads / D;
-  constexpr int KMAX = kGroupRows / NRG;
+__device__ void split_tf32(const Args& p, unsigned char* smem_raw) {
+  constexpr int KN = f32_keys<D>();
+  constexpr int NK = kF32SliceWarps;
+  constexpr int RS = D + tf::kPad;  // shared row stride, floats
+  constexpr int kChunks = D / 4;    // 16-byte chunks per row
+  constexpr int NT = kF32Threads;
   const int s = blockIdx.x, row0 = blockIdx.y * kGroupRows, bh = blockIdx.z;
   const int b = bh / p.Hkv, h = bh % p.Hkv;
   const int G = p.Hq / p.Hkv, T_ = p.n_tree, R = G * T_;
@@ -341,110 +413,127 @@ __device__ void split_f32(const Args& p, float* smem) {
     return;
   }
 
-  // shared row r holds the group's row row0 + r, r < RG
-  const int RG = min(kGroupRows, R - row0);
-  const Smem sm = attn::carve_smem<D>(smem, RG);
+  // shared row r holds the group's row row0 + r
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* ks = qs + kGroupRows * RS;
+  float* vs = ks + 2 * KN * RS;
+  float* pb = vs + 2 * KN * RS;                    // P of each slice
+  float* mb = pb + kGroupRows * (KN + tf::kPadP);  // row maxima, then sums
+  int* kok = reinterpret_cast<int*>(mb + kSlices * NK * tc::kWarpRows);
+  int* qpos = kok + 2 * KN;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int slice = warp % kSlices, part = warp / kSlices;
   const float* q = static_cast<const float*>(p.q);
+  tf::load_rows<D, kGroupRows, NT>(qs, tid, q, [&](int r) -> const float* {
+    if (row0 + r >= R) return nullptr;  // padding: zeros
+    const int g = (row0 + r) / T_, t = (row0 + r) % T_;
+    return q + ((static_cast<size_t>(b) * T_ + t) * p.Hq + h * G + g) * D;
+  });
+  for (int r = tid; r < kGroupRows; r += NT)
+    qpos[r] =
+        kWindowed && row0 + r < R ? p.q_pos[b * T_ + (row0 + r) % T_] : 0;
+
   const float* kb = static_cast<const float*>(tree ? p.tree_k : p.pool_k);
   const float* vb = static_cast<const float*>(tree ? p.tree_v : p.pool_v);
-  for (int i = threadIdx.x; i < RG * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const int g = (row0 + r) / T_, t = (row0 + r) % T_;
-    const size_t off =
-        ((static_cast<size_t>(b) * T_ + t) * p.Hq + h * G + g) * D + d;
-    sm.q[r * DP + d] = q[off] * p.scale;
-  }
-  for (int r = threadIdx.x; r < RG; r += kThreads) {
-    sm.m[r] = kNegInf;
-    sm.l[r] = 0.f;
-    sm.pos[r] = kWindowed ? p.q_pos[b * T_ + (row0 + r) % T_] : 0;
-  }
-  float acc[KMAX];
-#pragma unroll
-  for (int k = 0; k < KMAX; ++k) acc[k] = 0.f;
-  __syncthreads();
+  const int* table = p.block_table + static_cast<size_t>(b) * p.M;
+  // as split_mma: a key below hi is loaded unless its entry is NULL or
+  // (w > 0) it sits at or behind cache_len - w
+  auto key_ok = [&](int pos) {
+    if (tree) return true;
+    if (!kDense && table[pos / p.bs] == 0) return false;
+    return w <= 0 || pos > len - w;
+  };
+  auto key_row = [&](int pos) -> size_t {
+    if (tree) return static_cast<size_t>(b) * T_ + pos;
+    if (kDense) return static_cast<size_t>(b) * p.S + pos;
+    return static_cast<size_t>(table[pos / p.bs]) * p.bs + pos % p.bs;
+  };
+  auto issue = [&](int i) {
+    const int sg = i & 1, pos0 = lo + i * KN, n = min(KN, hi - pos0);
+    for (int c = tid; c < KN * kChunks; c += NT) {
+      const int kk = c / kChunks, ch = c % kChunks;
+      const bool ok = kk < n && key_ok(pos0 + kk);
+      const size_t off =
+          ok ? (key_row(pos0 + kk) * p.Hkv + h) * D + ch * 4 : 0;
+      tc::cp_async16(ks + (sg * KN + kk) * RS + ch * 4, kb + off, ok);
+      tc::cp_async16(vs + (sg * KN + kk) * RS + ch * 4, vb + off, ok);
+    }
+    for (int kk = tid; kk < KN; kk += NT)
+      kok[sg * KN + kk] = kk < n && key_ok(pos0 + kk);
+    tc::cp_async_commit();
+  };
 
-  // n keys of rows row0 + kk (the (rows, Hkv, D) layout) into sm.k/sm.v;
-  // a key with `zero(kk)` is loaded as zeros, never read
-  auto load = [&](size_t row0, int n, auto zero) {
-    for (int i = threadIdx.x; i < n * D; i += kThreads) {
-      const int kk = i / D, d = i % D;
-      float kx = 0.f, vx = 0.f;
-      if (!zero(kk)) {
-        const size_t off = ((row0 + kk) * p.Hkv + h) * D + d;
-        kx = kb[off];
-        vx = vb[off];
-      }
-      sm.k[kk * DP + d] = kx;
-      sm.v[kk * DP + d] = vx;
+  const float scale_log2 = p.scale * tc::kLog2e;
+  tc::RowState<D / NK> st;  // this warp's value columns
+  st.init();
+  const bool live = row0 + slice * tc::kWarpRows < R;  // padding only?
+  const int r0 = slice * tc::kWarpRows + lane / 4;
+  const tf::Slice<NK> sl{pb + slice * tc::kWarpRows * (KN + tf::kPadP), mb,
+                         warp, part, 1 + slice};
+  const int ntiles = (hi - lo + KN - 1) / KN;
+  issue(0);  // the first group carries q as well
+  for (int i = 0; i < ntiles; ++i) {
+    if (i + 1 < ntiles) {
+      issue(i + 1);
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
     }
     __syncthreads();
-  };
-  if (tree) {
-    // the T new K/V under the ancestor mask; tree token j sits at
-    // position cache_len + j
-    for (int k0 = 0; k0 < T_; k0 += kKeyTile) {
-      const int n = min(kKeyTile, T_ - k0);
-      load(static_cast<size_t>(b) * T_ + k0, n, [](int) { return false; });
+    if (live) {
+      const int sg = i & 1, pos0 = lo + i * KN;
+      const int* ok = kok + sg * KN;
+      // a loaded key, under the ancestor mask for tree token j (which sits
+      // at position cache_len + j), and (w > 0) within the row's window;
+      // one call site for the cache and the tree (`tree` is uniform)
       const uint8_t* tm = p.tree_mask;
-      attn::tile_update<D, KMAX>(RG, n, sm, acc, [&](int r, int kk) {
-        return tm[((row0 + r) % T_) * T_ + k0 + kk] != 0 &&
-               (w <= 0 || sm.pos[r] - (len + k0 + kk) < w);
-      });
+      tf::tile_slice<D, D, KN, NK>(
+          qs + slice * tc::kWarpRows * RS, ks + sg * KN * RS,
+          vs + sg * KN * RS, scale_log2, st, true,
+          [&](int hh, int kk) {
+            const int r = r0 + 8 * hh, j = pos0 + kk;
+            if (!ok[kk] || (tree && tm[((row0 + r) % T_) * T_ + j] == 0))
+              return false;
+            return w <= 0 || qpos[r] - (tree ? len + j : j) < w;
+          },
+          sl);
     }
-  } else if (kDense) {
-    for (int pos0 = lo; pos0 < hi; pos0 += kKeyTile) {
-      const int n = min(kKeyTile, hi - pos0);
-      load(static_cast<size_t>(b) * p.S + pos0, n, [](int) { return false; });
-      attn::tile_update<D, KMAX>(RG, n, sm, acc,
-                                 [](int, int) { return true; });
-    }
-  } else {
-    // table entries of the split, NULL entries skipped, and (windowed,
-    // w > 0) entries wholly at or behind cache_len - w skipped; inside an
-    // entry, keys at or behind cache_len - w are loaded as zeros
-    const int* table = p.block_table + static_cast<size_t>(b) * p.M;
-    // the split may start and end inside an entry: its keys are clamped
-    // to [lo, hi), so the tiles start at lo as the dense form's do
-    for (int j = lo / p.bs; j * p.bs < hi; ++j) {
-      const int blk = table[j];
-      if (blk == 0) continue;  // uniform across the block: no divergence
-      if (w > 0 && (j + 1) * p.bs - 1 <= len - w) continue;
-      for (int k0 = max(lo - j * p.bs, 0); k0 < p.bs; k0 += kKeyTile) {
-        const int pos0 = j * p.bs + k0;
-        if (pos0 >= hi) break;
-        const int n = min(min(kKeyTile, p.bs - k0), hi - pos0);
-        load(static_cast<size_t>(blk) * p.bs + k0, n,
-             [&](int kk) { return w > 0 && pos0 + kk <= len - w; });
-        attn::tile_update<D, KMAX>(RG, n, sm, acc, [&](int r, int kk) {
-          return w <= 0 || sm.pos[r] - (pos0 + kk) < w;
-        });
-      }
-    }
+    __syncthreads();  // the next issue overwrites this stage
   }
 
-  const int d = threadIdx.x % D;
-  const int rg = threadIdx.x / D;
+  if (!live) return;  // a slice's warps are all live or all padding
+  st.reduce_l();
+  float l[2];
+  sl.total(st.l, l);
+  const int t4 = lane & 3;
 #pragma unroll
-  for (int k = 0; k < KMAX; ++k) {
-    const int r = rg + k * NRG;
-    if (r < RG) p.part_acc[(base + row0 + r) * D + d] = acc[k];
-  }
-  for (int r = threadIdx.x; r < RG; r += kThreads) {
-    p.part_ml[2 * (base + row0 + r)] = sm.m[r];
-    p.part_ml[2 * (base + row0 + r) + 1] = sm.l[r];
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row0 + r0 + 8 * hh;
+    if (r >= R) continue;
+    float* acc = p.part_acc + (base + r) * D + part * (D / NK);
+#pragma unroll
+    for (int n = 0; n < D / NK / 8; ++n)
+      *reinterpret_cast<float2*>(acc + n * 8 + 2 * t4) =
+          make_float2(st.o[n][2 * hh], st.o[n][2 * hh + 1]);
+    if (t4 == 0 && part == 0) {  // the max in natural units, as split_mma
+      p.part_ml[2 * (base + r)] =
+          st.m[hh] == kNegInf ? kNegInf : st.m[hh] * tc::kLn2;
+      p.part_ml[2 * (base + r) + 1] = l[hh];
+    }
   }
 }
 
 // grid (n_splits + 1, row groups, B * Hkv): blockIdx.x = split, the last
 // is the tree; blockIdx.y = row group
 template <typename T, int D, bool kWindowed, bool kDense>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(
+    std::is_same<T, float>::value ? kF32Threads : kBoundThreads)
     tree_attention_split_kernel(Args p) {
   static_assert(!(kWindowed && kDense), "no dense windowed form");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   if constexpr (std::is_same<T, float>::value)
-    split_f32<D, kWindowed, kDense>(p, reinterpret_cast<float*>(smem_raw));
+    split_tf32<D, kWindowed, kDense>(p, smem_raw);
   else
     split_mma<D, kWindowed, kDense>(p, smem_raw);
 }
@@ -493,9 +582,7 @@ int launch(const Args& a, cudaStream_t stream) {
   constexpr bool kF32 = std::is_same<T, float>::value;
   const int R = (a.Hq / a.Hkv) * a.n_tree;
   const int groups = (R + kGroupRows - 1) / kGroupRows;
-  const size_t smem = kF32 ? attn::smem_bytes(R < kGroupRows ? R : kGroupRows,
-                                              D)
-                           : mma_smem_bytes<D>();
+  const size_t smem = kF32 ? f32_smem_bytes<D>() : mma_smem_bytes<D>();
   auto split = tree_attention_split_kernel<T, D, kWindowed, kDense>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -504,7 +591,7 @@ int launch(const Args& a, cudaStream_t stream) {
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   split<<<dim3(a.n_splits + 1, groups, a.B * a.Hkv),
-          kF32 ? kThreads : kMmaThreads, smem, stream>>>(a);
+          kF32 ? kF32Threads : kMmaThreads, smem, stream>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   tree_attention_merge_kernel<T, kDense>
@@ -535,7 +622,7 @@ int dispatch(const Args& a, int dtype, void* stream) {
   if (kDense ? a.S <= 0 : (a.bs <= 0 || a.M <= 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const int cap = kDense ? a.S : a.M * a.bs;
-  if (a.split_len <= 0 || a.split_len % kKeyTile != 0 ||
+  if (a.split_len <= 0 || a.split_len % kSplitUnit != 0 ||
       a.n_splits != (cap + a.split_len - 1) / a.split_len)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -32,6 +32,8 @@ from repro_torch.kernels.tree_attention.ops import (check_cuda_operands,
 
 launches = 0                  # split-sweep launches since the last reset
 merge_launches = 0            # merge launches since the last reset
+f32_launches = 0              # launches of an fp32 build (not reset by
+                              # kernels.reset_counts)
 
 
 def tree_attention_paged_windowed_bshd(q, pool_k, pool_v, tree_k, tree_v,
@@ -46,7 +48,7 @@ def tree_attention_paged_windowed_bshd(q, pool_k, pool_v, tree_k, tree_v,
     local and global layers).  Precondition: every real query row sits
     at ``q_pos >= cache_len``.  ``split_len`` forces the kernel's split
     (default: the planner's).  Returns (B,T,Hq,D) in q's dtype."""
-    global launches, merge_launches
+    global launches, merge_launches, f32_launches
     refuse_grad("tree_attention_paged_windowed", q, pool_k, pool_v, tree_k, tree_v)
     q, tree_k, tree_v, tree_mask, T = pad_tree(q, tree_k, tree_v, tree_mask)
     args = (q, pool_k, pool_v, tree_k, tree_v, tree_mask, cache_len,
@@ -78,6 +80,7 @@ def tree_attention_paged_windowed_bshd(q, pool_k, pool_v, tree_k, tree_v,
                                f"failed: CUDA error {rc}")
         launches += 1
         merge_launches += 1
+        f32_launches += q.dtype == torch.float32
     else:
         raise ValueError(f"no tree_attention_paged_windowed for device "
                          f"{q.device}")

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.kernels.tree_attention.kernel import (
     NULL_BLOCK, tree_attention_paged_plain)
+from repro_torch.models.layers import work_dtype
 
 
 def tree_attention_paged_windowed_plain(q, pool_k, pool_v, tree_k, tree_v,
@@ -33,7 +34,8 @@ def tree_attention_paged_windowed_plain(q, pool_k, pool_v, tree_k, tree_v,
     """q: (B,T,Hq,D); pool_k/v: (N,bs,Hkv,D); tree_k/v: (B,T,Hkv,D);
     tree_mask: (T,T) bool; cache_len: (B,) int; block_table: (B,M) int;
     q_pos: (B,T) int absolute query positions; window: int (<= 0 off).
-    Returns (B,T,Hq,D) in q's dtype."""
+    Returns (B,T,Hq,D) in q's dtype, computed in fp32 (fp64 for fp64
+    operands)."""
     if window <= 0:
         return tree_attention_paged_plain(q, pool_k, pool_v, tree_k, tree_v,
                                           tree_mask, cache_len, block_table)
@@ -53,12 +55,13 @@ def tree_attention_paged_windowed_plain(q, pool_k, pool_v, tree_k, tree_v,
                         cache_len[:, None].long()
                         + torch.arange(T, device=dev)[None, :]], dim=1)
     mask = mask & (q_pos.long()[:, :, None] - abs_kv[:, None, :] < window)
+    wt = work_dtype(q)
     kx = torch.cat([pool_k[table].reshape(B, S, Hkv, D), tree_k],
-                   dim=1).float()                                   # (B,S+T,..)
+                   dim=1).to(wt)                                    # (B,S+T,..)
     vx = torch.cat([pool_v[table].reshape(B, S, Hkv, D), tree_v],
-                   dim=1).float()
+                   dim=1).to(wt)
     m5 = mask[:, :, None, None, :]
-    qf = q.float().reshape(B, T, Hkv, G, D)
+    qf = q.to(wt).reshape(B, T, Hkv, G, D)
     s = torch.einsum("bthgd,bshd->bthgs", qf, kx) / math.sqrt(D)
     s = torch.where(m5, s, -math.inf)
     p = torch.where(m5, torch.softmax(s, dim=-1), 0.0)

@@ -30,6 +30,8 @@ from repro_torch.launch.op_cost import dense_charge, dtype_name, record_kernel
 
 launches = 0                  # split-sweep launches since the last reset
 merge_launches = 0            # merge launches since the last reset
+f32_launches = 0              # launches of an fp32 build (not reset by
+                              # kernels.reset_counts)
 
 
 def check_operands(q, cache_k, cache_v, tree_k, tree_v, tree_mask,
@@ -74,7 +76,7 @@ def tree_attention_bshd(q, cache_k, cache_v, tree_k, tree_v, tree_mask,
     tree_mask (T,T) bool.  ``split_len`` forces the kernel's split (a
     multiple of 16; default: the planner's).  Returns (B,T,Hq,D) in q's
     dtype."""
-    global launches, merge_launches
+    global launches, merge_launches, f32_launches
     refuse_grad("tree_attention_dense", q, cache_k, cache_v, tree_k, tree_v)
     q, tree_k, tree_v, tree_mask, T = pad_tree(q, tree_k, tree_v, tree_mask)
     args = (q, cache_k, cache_v, tree_k, tree_v, tree_mask, cache_len)
@@ -103,6 +105,7 @@ def tree_attention_bshd(q, cache_k, cache_v, tree_k, tree_v, tree_mask,
                                f"error {rc}")
         launches += 1
         merge_launches += 1
+        f32_launches += q.dtype == torch.float32
     else:
         raise ValueError(f"no tree_attention_dense for device {q.device}")
     return out[:, :T]

@@ -38,13 +38,45 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.tree_attention.split import n_splits
-from repro_torch.models.layers import masked_attention
+from repro_torch.models.layers import masked_attention, work_dtype
 
 NULL_BLOCK = 0                 # physical pool block 0 is never read unmasked
 HEAD_DIMS = (64, 128, 256)     # the head dims the CUDA source instantiates
 MAX_GRID = 65535               # the grid's extent over (b, kv head) pairs
                                # and over row groups (the .cu's kMaxGrid)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The split kernel's blocks, mirrored from the .cu (tests/
+# test_torch_tree_f32_rules.py holds them against its text): 64 query rows
+# a block, in four 16-row slices; bf16 runs a warp a slice, fp32 (3xTF32)
+# F32_SLICE_WARPS warps a slice, each taking that share of every key
+# tile's scores and of the value columns.
+GROUP_ROWS = 64
+SLICES = 4
+BF16_THREADS = 128
+F32_SLICE_WARPS = 2
+F32_THREADS = SLICES * F32_SLICE_WARPS * 32
+MAX_SMEM = 227 * 1024          # shared memory a block may opt into
+F32_PAD, F32_PAD_P = 4, 8      # floats of row padding (tf32_mma.cuh)
+
+
+def f32_keys(D: int) -> int:
+    """Keys a tile of the fp32 build at head dim D (the .cu's
+    ``f32_keys``): 64, or 32 at D = 256."""
+    return 32 if D >= 256 else 64
+
+
+def f32_smem_bytes(D: int) -> int:
+    """Shared memory a block of the fp32 build at head dim D takes (the
+    .cu's ``f32_smem_bytes``): q's 64 rows and the two-stage K and V rings
+    at a row stride of D + 4 floats, each slice's P (16 rows of keys + 8),
+    every warp's 16 row values, then the key flags of two tiles and 64 row
+    positions (int)."""
+    kn = f32_keys(D)
+    floats = ((GROUP_ROWS + 4 * kn) * (D + F32_PAD)
+              + GROUP_ROWS * (kn + F32_PAD_P)
+              + SLICES * F32_SLICE_WARPS * 16)
+    return 4 * floats + 4 * (2 * kn + GROUP_ROWS)
 
 
 def _entry(name: str, n_ptr: int, n_int: int):
@@ -129,7 +161,8 @@ def tree_attention_dense_plain(q, cache_k, cache_v, tree_k, tree_v,
                                tree_mask, cache_len):
     """q: (B,T,Hq,D); cache_k/v: (B,S,Hkv,D); tree_k/v: (B,T,Hkv,D);
     tree_mask: (T,T) bool; cache_len: (B,) int.  Returns (B,T,Hq,D) in
-    q's dtype.
+    q's dtype (computed as ``masked_attention`` computes: fp32, or fp64
+    for fp64 operands).
 
     The tree K/V go into a copy of the cache at ``[cache_len, cache_len +
     T)`` (writes past S dropped), then ``masked_attention`` runs under
@@ -161,7 +194,9 @@ def tree_attention_paged_plain(q, pool_k, pool_v, tree_k, tree_v, tree_mask,
                                cache_len, block_table):
     """q: (B,T,Hq,D); pool_k/v: (N,bs,Hkv,D); tree_k/v: (B,T,Hkv,D);
     tree_mask: (T,T) bool; cache_len: (B,) int; block_table: (B,M) int.
-    Returns (B,T,Hq,D) in q's dtype.
+    Returns (B,T,Hq,D) in q's dtype, computed in fp32 (fp64 for fp64
+    operands: the reference ``chip_smoke.py`` reports the fp32 kernel's
+    difference from).
 
     Excluded positions are removed by selection, never by multiplication:
     scores become -inf and weights 0 through ``torch.where``, and the
@@ -181,12 +216,13 @@ def tree_attention_paged_plain(q, pool_k, pool_v, tree_k, tree_v, tree_mask,
     keep = torch.cat([in_cache, torch.ones((B, T), dtype=torch.bool,
                                            device=q.device)], dim=1)
     keep4 = keep[:, :, None, None]
-    kx = torch.where(keep4, torch.cat([ck, tree_k], dim=1).float(), 0.0)
-    vx = torch.where(keep4, torch.cat([cv, tree_v], dim=1).float(), 0.0)
+    wt = work_dtype(q)
+    kx = torch.where(keep4, torch.cat([ck, tree_k], dim=1).to(wt), 0.0)
+    vx = torch.where(keep4, torch.cat([cv, tree_v], dim=1).to(wt), 0.0)
     mask = torch.cat([in_cache[:, None, :].expand(B, T, S),
                       tree_mask[None].expand(B, T, T)], dim=2)      # (B,T,S+T)
     mask = mask[:, :, None, None, :]
-    qf = q.float().reshape(B, T, Hkv, G, D)
+    qf = q.to(wt).reshape(B, T, Hkv, G, D)
     s = torch.einsum("bthgd,bshd->bthgs", qf, kx) / math.sqrt(D)
     s = torch.where(mask, s, -math.inf)
     p = torch.where(mask, torch.softmax(s, dim=-1), 0.0)

@@ -9,7 +9,9 @@ other.  ``meta`` tensors take neither: the call returns an empty output
 and charges the cost counter (``launch/op_cost.py``) one call.
 ``launches`` counts kernel launches, and only those: one per call,
 the split cache sweep; ``merge_launches`` counts the merge kernel each call
-launches after it.  The split length comes from the planner
+launches after it; ``f32_launches`` counts the calls on the fp32 build (3xTF32
+on the tensor cores), which ``kernels.reset_counts`` leaves alone, as the
+windowed and dense wrappers' do.  The split length comes from the planner
 (``split.py::plan_split_len``, through ``planned_split_len``) unless the
 caller forces one.  Any number of query rows per kv head is taken: the
 kernel cuts them into row groups of 64.  The padding, the checks and the
@@ -30,6 +32,8 @@ from repro_torch.launch.op_cost import dtype_name, paged_charge, record_kernel
 
 launches = 0                  # split-sweep launches since the last reset
 merge_launches = 0            # merge launches since the last reset
+f32_launches = 0              # launches of an fp32 build (not reset by
+                              # kernels.reset_counts)
 T_PAD = 8                     # the tree axis is padded to a multiple of this
 
 
@@ -151,7 +155,7 @@ def tree_attention_paged_bshd(q, pool_k, pool_v, tree_k, tree_v, tree_mask,
     (B, M) int32.  ``split_len`` forces the kernel's split (a multiple of
     16; default: the planner's).  Returns
     (B,T,Hq,D) in q's dtype."""
-    global launches, merge_launches
+    global launches, merge_launches, f32_launches
     refuse_grad("tree_attention_paged", q, pool_k, pool_v, tree_k, tree_v)
     q, tree_k, tree_v, tree_mask, T = pad_tree(q, tree_k, tree_v, tree_mask)
     args = (q, pool_k, pool_v, tree_k, tree_v, tree_mask, cache_len,
@@ -175,6 +179,7 @@ def tree_attention_paged_bshd(q, pool_k, pool_v, tree_k, tree_v, tree_mask,
                                f"error {rc}")
         launches += 1
         merge_launches += 1
+        f32_launches += q.dtype == torch.float32
     else:
         raise ValueError(f"no tree_attention_paged for device {q.device}")
     return out[:, :T]

@@ -177,19 +177,27 @@ def _blocked_attention_inner(q, k, v, q_pos, kv_pos, *, window, causal,
     return out.reshape(B, Tq, Hq, Dv).to(q.dtype)
 
 
+def work_dtype(x) -> torch.dtype:
+    """The type the plain attention versions compute in: fp32, or fp64
+    for fp64 operands (a reference for the fp32 kernels on the card)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def masked_attention(q, k, v, mask, scale: float | None = None):
     """Small-T attention with an explicit mask (decode / dense verify).
 
-    q: (B, T, Hq, D); k/v: (B, S, Hkv, D); mask: (B, T, S) bool."""
+    q: (B, T, Hq, D); k/v: (B, S, Hkv, D); mask: (B, T, S) bool.
+    Computed in fp32 (fp64 for fp64 operands)."""
     B, T, Hq, D = q.shape
     Hkv = k.shape[2]
     Dv = v.shape[-1]
     G = Hq // Hkv
+    wt = work_dtype(q)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    qf = (q * scale).float().reshape(B, T, Hkv, G, D)
-    s = torch.einsum("bthgd,bshd->bthgs", qf, k.float())
+    qf = (q * scale).to(wt).reshape(B, T, Hkv, G, D)
+    s = torch.einsum("bthgd,bshd->bthgs", qf, k.to(wt))
     s = torch.where(mask[:, :, None, None, :], s, -math.inf)
     p = torch.softmax(s, dim=-1)
     p = torch.where(torch.isnan(p), 0.0, p)
-    out = torch.einsum("bthgs,bshd->bthgd", p, v.float())
+    out = torch.einsum("bthgs,bshd->bthgd", p, v.to(wt))
     return out.reshape(B, T, Hq, Dv).to(q.dtype)

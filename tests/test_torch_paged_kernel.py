@@ -190,3 +190,63 @@ def test_cuda_kernel_matches_plain(dtype, tol, T):
     assert ops.launches == before + 1
     ref = tree_attention_paged_plain(*args)
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lens", [(32, 48, 64, 80), (0, 37, 300, 500)])
+def test_cuda_f32_at_vicuna_tiny_heads(lens):
+    """fp32 K1 (3xTF32 on the tensor cores) at vicuna-tiny's verify: 4 q
+    over 4 kv heads of 64, T=16, block 16, against its plain version at
+    1e-4, with a hole below cache_len and a NaN-poisoned NULL block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, T, H, D, bs, M, N = 4, 16, 4, 64, 16, 40, 80
+    c = _case(11, B, T, H, H, D, N, bs)
+    c["pool_k"][0] = np.nan
+    c["pool_v"][0] = np.nan
+    table = torch.from_numpy(_cover_tables(lens, T, bs, M, N,
+                                           holes=[(3, 1)])).cuda()
+    t = {k: torch.from_numpy(v).cuda() for k, v in c.items()}
+    tm = torch.from_numpy(default_tree(T, 4, 4).ancestor_mask).cuda()
+    args = (t["q"], t["pool_k"], t["pool_v"], t["tree_k"], t["tree_v"], tm,
+            torch.tensor(lens, dtype=torch.int32, device="cuda"), table)
+    before = ops.f32_launches
+    out = ops.tree_attention_paged_bshd(*args)
+    torch.cuda.synchronize()
+    assert ops.f32_launches == before + 1
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, tree_attention_paged_plain(*args),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Hq,Hkv,D", [(24, 8, 128), (4, 1, 256), (4, 4, 64)])
+def test_cuda_f32_poisoned_null_block_and_repeat(Hq, Hkv, D):
+    """fp32 K1: the NULL block filled with 0, +-1e4, NaN, inf or -inf
+    changes no bit of the output, and two identical calls are bitwise
+    equal (no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    B, T, bs, M, N = 4, 16, 16, 16, 80
+    lens = [0, 37, bs * 5, 200]
+    table = torch.from_numpy(_cover_tables(lens, T, bs, M, N,
+                                           holes=[(2, 1), (3, 0)])).cuda()
+    tm = torch.from_numpy(default_tree(T, 4, 4).ancestor_mask).cuda()
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    outs = []
+    for fill in (0.0, 1e4, -1e4, np.nan, np.inf, -np.inf):
+        c = _case(12, B, T, Hq, Hkv, D, N, bs)
+        c["pool_k"][0] = fill
+        c["pool_v"][0] = fill
+        t = {k: torch.from_numpy(v).cuda() for k, v in c.items()}
+        outs.append(ops.tree_attention_paged_bshd(
+            t["q"], t["pool_k"], t["pool_v"], t["tree_k"], t["tree_v"], tm,
+            lens_t, table))
+    outs.append(ops.tree_attention_paged_bshd(
+        t["q"], t["pool_k"], t["pool_v"], t["tree_k"], t["tree_v"], tm,
+        lens_t, table))
+    torch.cuda.synchronize()
+    assert torch.isfinite(outs[0]).all()
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])

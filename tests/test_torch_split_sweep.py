@@ -313,3 +313,58 @@ def test_cuda_paged_equals_dense_at_block_128(dtype):
                                           view(t["pool_v"]), *common)
     torch.cuda.synchronize()
     assert torch.equal(paged, dense)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs", [8, 16, 128])
+def test_cuda_f32_paged_equals_dense_at_any_block(bs):
+    """fp32 K1 over a pool of ``bs``-position blocks and K2 over the same
+    keys as a dense cache, at minitron-4b's heads and T=16: both take
+    their key tiles at the split's own positions, gathering each key
+    through the table, so they are equal bit for bit whatever the block
+    size (the first fp32 body cut its tiles at the pool's block edges)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.tree_attention import dense_ops
+
+    c, tm, lens, table, _ = _paged_case(13, [0, 37, 300, 200], 16, 24, 8,
+                                        128, bs=bs)
+    t = {k: torch.from_numpy(v).cuda() for k, v in c.items()}
+    tbl = torch.from_numpy(table).cuda()
+    B, M = table.shape
+    view = lambda pool: pool[tbl.long()].reshape(
+        B, M * bs, *pool.shape[2:]).contiguous()
+    common = (t["tree_k"], t["tree_v"], torch.from_numpy(tm).cuda(),
+              torch.from_numpy(lens).cuda())
+    paged = ops.tree_attention_paged_bshd(t["q"], t["pool_k"], t["pool_v"],
+                                          *common, tbl)
+    dense = dense_ops.tree_attention_bshd(t["q"], view(t["pool_k"]),
+                                          view(t["pool_v"]), *common)
+    torch.cuda.synchronize()
+    assert torch.isfinite(paged).all()
+    assert torch.equal(paged, dense)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Hq,Hkv,D", [(4, 1, 256), (24, 8, 128), (4, 4, 64)])
+def test_cuda_f32_windowed_at_window_0_is_k1(Hq, Hkv, D):
+    """fp32 K4 at window 0 (and at a negative window) equals K1 bit for
+    bit, with holes and a NaN-poisoned NULL block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.attention_template import ops as wops
+
+    c, tm, lens, table, q_pos = _paged_case(14, [0, 37, 700, 300], 16, Hq,
+                                            Hkv, D, [(2, 20), (3, 0)])
+    t = {k: torch.from_numpy(v).cuda() for k, v in c.items()}
+    args = (t["q"], t["pool_k"], t["pool_v"], t["tree_k"], t["tree_v"],
+            torch.from_numpy(tm).cuda(), torch.from_numpy(lens).cuda(),
+            torch.from_numpy(table).cuda())
+    qp = torch.from_numpy(q_pos).cuda()
+    k1 = ops.tree_attention_paged_bshd(*args)
+    outs = [wops.tree_attention_paged_windowed_bshd(*args, qp, w)
+            for w in (0, -3)]
+    torch.cuda.synchronize()
+    assert torch.isfinite(k1).all()
+    for o in outs:
+        assert torch.equal(o, k1)

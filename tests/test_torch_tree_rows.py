@@ -301,3 +301,36 @@ def test_cuda_head_subset_is_bitwise_a_call_on_it(arch, dtype):
     torch.cuda.synchronize()
     assert torch.equal(pick(full), part)
     assert torch.equal(pick(dfull), dpart)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sub", [1, 2])
+@pytest.mark.parametrize("arch", HEADS)
+def test_cuda_f32_slice_subset_is_bitwise_a_call_on_it(arch, sub):
+    """fp32: the first ``sub`` query heads of each kv head (16 or 32 rows
+    at T = 16: one or two of a group's four 16-row slices) out of a full
+    call equal a call on those heads alone bit for bit, at the full
+    call's split: a row's arithmetic never depends on the other rows of
+    its group, whatever the warps of the other slices do.  K1 and K2,
+    head dim 128."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    Hq, Hkv = HEADS[arch]
+    G, T = Hq // Hkv, 16
+    c, tm, lens, table, _ = _case(15, Hq, Hkv, T, lens=[0, 37, 300, 80],
+                                  d=128)
+    args = _cuda(_torch(c, tm, lens, table), torch.float32)
+    B = args[0].shape[0]
+    pick = lambda x: x.reshape(B, T, Hkv, G, -1)[:, :, :, :sub].reshape(
+        B, T, Hkv * sub, -1).contiguous()
+    n = ops.planned_split_len(args[0], Hkv)
+    full = ops.tree_attention_paged_bshd(*args, split_len=n)
+    part = ops.tree_attention_paged_bshd(pick(args[0]), *args[1:],
+                                         split_len=n)
+    dargs = _dense_view(args)
+    dfull = dense_ops.tree_attention_bshd(*dargs, split_len=n)
+    dpart = dense_ops.tree_attention_bshd(pick(dargs[0]), *dargs[1:],
+                                          split_len=n)
+    torch.cuda.synchronize()
+    assert torch.equal(pick(full), part)
+    assert torch.equal(pick(dfull), dpart)
