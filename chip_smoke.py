@@ -18,19 +18,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    resolves (every key-tile instance's line is printed), K5's split
    sweep over bf16
    pools at (512, 64) and its merge, K6's bf16 chunk kernel and scan at
-   chunk 64) and every instance of the backward kernels (K6's bf16
-   increment and gradient pass and fp32 reverse scan and gradient pass
-   at chunks 16 and 64, its carry and du reduction; K3's dK/dV and dQ
-   kernels at each bf16 and each fp32 build, the partials' sum) are
-   each found in the report and show no spill; then fail unless
+   chunk 64 and their fp32 builds at chunks 16 and 64) and every
+   instance of the backward kernels (K6's increment and gradient pass,
+   bf16 and fp32, at chunks 16 and 64, its carry and du reduction; K3's
+   dK/dV and dQ kernels at each bf16 and each fp32 build, the partials'
+   sum) are each found in the report and show no spill; then fail unless
    ``cuobjdump -sass`` finds tensor-core instructions (``HMMA`` or
    ``HGMMA``) in every bf16 and fp32 build of K3 (fp32 in 3xTF32), of
    its backward's dK/dV and dQ kernels, of K6's backward's increment and
-   gradient pass, of the tree-verify split
+   gradient pass (bf16 and fp32), of the tree-verify split
    kernel (bf16 and fp32: its fp32 builds run 3xTF32 too, and the D=64
    ones the main path runs, with the fp32 merges, must show no spill), of
-   K5's split sweep and of K6's two kernels (the models past
-   64 query rows per kv head add no instantiation: row groups are a grid
+   K5's split sweep and of K6's two kernels (bf16 and fp32; the models
+   past 64 query rows per kv head add no instantiation: row groups are a grid
    axis of the D=128 builds), the D = 64 ones and K3's (80, 80) among
    them;
 3. hold each kernel against its plain PyTorch version on the card, fp32
@@ -89,8 +89,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    f. K6, chunked decay linear attention, at rwkv6-1.6b shapes (B=1,
       32 heads, dk = dv = 64, chunk 64): S in {37, 300, 1536}, with and
       without an initial state, strong-decay cases (log-decay down to
-      -20 a step; S=300 and 1536) and a B=2 case; output and final
-      state; one chunk launch and one scan launch a call; a
+      -20 a step; S=300 and 1536) and a B=2 case, and in fp32 also at
+      reduced rwkv6-1.6b's 4 heads and chunk 16 (S 9, 40 and, B=2 with
+      strong decay, 300); output and final state; each fp32 case's
+      margin, the worst err / (atol + rtol |ref|), printed, and two
+      identical fp32 calls bitwise equal; one chunk launch and one scan
+      launch a call; a
       length-masked pad tail
       (k = 0, w = 0 past the real length) bitwise equal to the
       exact-length call; no PyTorch call computes it (no yardstick); and
@@ -152,7 +156,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
       their plain versions in fp32 on the same operands
       (``ref.py::decay_attention_chunked_bwd``, ``kernel.py::
       flash_attention_bwd_plain``), at training's shapes: K6 at rwkv6-1.6b
-      (B=1, 32 heads, chunk 64, u; S=1024 and 500 in bf16, 500 in fp32),
+      (B=1, 32 heads, chunk 64, u; S=1024 and 500 in bf16, 500 in fp32;
+      fp32 also at 4 heads, chunk 16: S=40, and S=300 at B=2 with strong
+      decay),
       K3 at gemma3-1b's (256, 256) 4/1 with windows 512 and 0,
       zamba2-1.2b's (64, 64) 32/32, deepseek's (192, 128) 16/16 at MLA's
       scale, (128, 128) 16/16, hubert's (80, 80) 16/16 bidirectional (bf16,
@@ -452,7 +458,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    ``tree_attention_dense@fp32`` and
    ``tree_attention_paged_windowed@fp32``, with the fp32 launches of
    phases 4-5h (vicuna-tiny's serves among them; each form must have
-   some), the same per-case numbers and the fp64 difference),
+   some), the same per-case numbers and the fp64 difference; K6's fp32
+   builds as ``linear_attn_chunk@fp32`` and ``linear_attn_chunk_bwd@fp32``,
+   with the fp32 calls of phases 4-5h (each must have some), those of
+   their kernel checks (3f, 3m) apart, each launch's µs and blocks and
+   the forward's worst margin ``tol_ratio``),
    then the result line.
    ``[time]`` lines give each phase's seconds.
 
@@ -603,9 +613,9 @@ KERNEL_PARAMS = {
     "mla_attention_merge_kernel": ("DL",),
     "linear_attn_chunk_kernel": ("", "C"),
     "linear_attn_scan_kernel": ("", "C"),
-    "linear_attn_bwd_scan_kernel": ("", "C"),
-    "linear_attn_bwd_chunk_kernel": ("", "C"),
     "linear_attn_bwd_inc_kernel": ("C",),
+    "linear_attn_bwd_inc_f32_kernel": ("C",),
+    "linear_attn_bwd_chunk_f32_kernel": ("C",),
     "linear_attn_bwd_carry_kernel": (),
     "linear_attn_bwd_chunk_tc_kernel": ("C",),
     "linear_attn_bwd_du_kernel": (),
@@ -770,25 +780,26 @@ def k3_builds() -> frozenset:
 
 
 # K5's split sweep over bf16 pools at deepseek-v2-lite's widths and its
-# merge; K6's chunk kernel and scan in bf16 at rwkv6-1.6b's chunk of 64
+# merge; K6's chunk kernel and scan in bf16 at rwkv6-1.6b's chunk of 64,
+# and their fp32 builds (3xTF32) at both chunks (the reduced configs' 16)
 MLA_BUILDS = frozenset({
     "mla_attention_split_kernel<kv bf16, DL=512, DR=64>",
     "mla_attention_merge_kernel<DL=512>"})
 K6_BUILDS = frozenset({"linear_attn_chunk_kernel<bf16, C=64>",
-                       "linear_attn_scan_kernel<bf16, C=64>"})
+                       "linear_attn_scan_kernel<bf16, C=64>"} | {
+    f"linear_attn_{k}_kernel<f32, C={c}>" for k in ("chunk", "scan")
+    for c in (16, 64)})
 
 
 def bwd_builds() -> frozenset:
-    """Every instance of the backward kernels (K6's bf16 increment, carry
-    and gradient pass, its fp32 scan and gradient pass, du's reduction;
+    """Every instance of the backward kernels (K6's increment and
+    gradient pass in bf16 and in fp32, its carry, du's reduction;
     K3's dQ (writing delta), dK/dV and the partials' sum at each bf16 and
     each fp32 build): each must be found without a spill."""
     from repro_torch.kernels.flash_attention.kernel import DIMS, F32_DIMS
 
-    k6 = {f"linear_attn_bwd_{k}_kernel<f32, C={c}>" for k in ("scan", "chunk")
-          for c in (16, 64)}
-    k6 |= {f"linear_attn_bwd_{k}_kernel<C={c}>" for k in ("inc", "chunk_tc")
-           for c in (16, 64)}
+    k6 = {f"linear_attn_bwd_{k}_kernel<C={c}>" for k in (
+        "inc", "chunk_tc", "inc_f32", "chunk_f32") for c in (16, 64)}
     k3 = {"flash_bwd_sum_kernel<bf16>", "flash_bwd_sum_kernel<f32>"}
     for dqk, dv in DIMS:
         kv = dqk % 64 == dv % 64 == 0          # the builds on wgmma
@@ -813,10 +824,14 @@ TENSOR_CORE_KERNELS = ("tree_attention_split_kernel<bf16",
                        "mla_attention_split_kernel<kv bf16",
                        "linear_attn_chunk_kernel<bf16",
                        "linear_attn_scan_kernel<bf16",
+                       "linear_attn_chunk_kernel<f32",
+                       "linear_attn_scan_kernel<f32",
                        "flash_bwd_kv_kernel<", "flash_bwd_kv_wgmma_kernel<",
                        "flash_bwd_q_kernel<", "flash_bwd_q_wgmma_kernel<",
                        "linear_attn_bwd_inc_kernel<",
-                       "linear_attn_bwd_chunk_tc_kernel<")
+                       "linear_attn_bwd_chunk_tc_kernel<",
+                       "linear_attn_bwd_inc_f32_kernel<",
+                       "linear_attn_bwd_chunk_f32_kernel<")
 # the wrappers' second counters: each call of a two-launch kernel also
 # launches its merge (tree verify, K5) or its scan (K6)
 SECOND_COUNTERS = ("merge_launches", "scan_launches")
@@ -1606,26 +1621,34 @@ def check_k5(c: PagedCase = MLA_CASE, T: int = 16) -> dict:
 
 # rwkv6-1.6b's wkv heads and chunk
 K6_HEADS, K6_DIM, K6_CHUNK = 32, 64, 64
+# reduced rwkv6-1.6b's (``reduced()``: 4 heads of 64, chunk 16; phase 4's
+# fp32 parity runs it), fp32: (S, initial state, strong decay, B)
+K6_REDUCED_HEADS, K6_REDUCED_CHUNK = 4, 16
+K6_REDUCED_CASES = ((9, False, False, 1), (40, True, False, 1),
+                    (40, True, False, 2), (300, True, True, 2))
+# the fp32 K6 calls of the kernel checks (3f's, 3m's), apart from the
+# main path's (phases 4-5h), for the JSON line
+K6_F32_CALLS = {}
 # the real lengths of the pad-tail check and the bucket each is padded to
 K6_PAD_TAILS = ((37, 64), (37, 128), (300, 320), (1500, 1536))
 
 
 def k6_inputs(S: int, dtype, seed: int, *, init: bool, strong: bool = False,
-              B: int = 1):
-    """K6 operands on the card at rwkv6-1.6b shapes (B=1 unless given):
-    r, k, v in ``dtype``; log-decay, bonus and initial state fp32.
-    ``strong`` draws log-decays down to -20 a step (tests/test_kernels.py's
-    strong-decay regime)."""
+              B: int = 1, H: int = K6_HEADS):
+    """K6 operands on the card at rwkv6-1.6b shapes (B=1 and its 32 heads
+    unless given): r, k, v in ``dtype``; log-decay, bonus and initial
+    state fp32.  ``strong`` draws log-decays down to -20 a step
+    (tests/test_kernels.py's strong-decay regime)."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    shape = (B, S, K6_HEADS, K6_DIM)
+    shape = (B, S, H, K6_DIM)
     r = lambda *s_: torch.randn(s_, generator=g, device="cuda")
     w = torch.clamp_min(-torch.exp(r(*shape) * 1.5 + 1.0), -20.0) if strong \
         else -torch.exp(r(*shape) * 0.5)
-    s0 = r(B, K6_HEADS, K6_DIM, K6_DIM) * 0.1 if init else None
+    s0 = r(B, H, K6_DIM, K6_DIM) * 0.1 if init else None
     return (r(*shape).to(dtype), r(*shape).to(dtype), r(*shape).to(dtype), w,
-            r(K6_HEADS, K6_DIM) * 0.1, s0)
+            r(H, K6_DIM) * 0.1, s0)
 
 
 def k6_bound(S: int, elt: int) -> tuple:
@@ -1640,39 +1663,68 @@ def k6_bound(S: int, elt: int) -> tuple:
                               "float32" if elt == 4 else "bfloat16"))
 
 
+def tol_ratio(out, ref, tol: float) -> float:
+    """The worst err / (tol + tol |ref|) over the elements:
+    ``compare``'s margin (it passes at <= 1)."""
+    d = (out.double() - ref.double()).abs()
+    return (d / (tol + tol * ref.double().abs())).max().item()
+
+
 def check_k6() -> dict:
     """K6 against its plain version: output and final state, fp32 and
     bf16, with and without an initial state, strong decay, two sequences
-    (the engines prefill one at a time; ``generate()`` takes a batch),
-    the pad tail bitwise; then kernel and plain times at S=1536."""
+    (the engines prefill one at a time; ``generate()`` takes a batch), in
+    fp32 also at reduced rwkv6-1.6b's 4 heads and chunk 16 (phase 4's
+    build), each fp32 case's margin (``tol_ratio``) printed and two
+    identical fp32 calls bitwise equal; the pad tail bitwise; then kernel
+    and plain times at S=1536."""
     import torch
     from repro_torch.kernels.linear_attn_chunk import ops
     from repro_torch.kernels.linear_attn_chunk.ref import (
         decay_attention_chunked)
 
     record = {}
+    f32_calls = ops.f32_launches
     for dtype_name, tol in TOLS:
         dtype = getattr(torch, dtype_name)
-        cases = [(S, init, False, 1) for S in (37, 300, 1536)
-                 for init in (False, True)] + [(300, True, True, 1),
-                                               (1536, True, True, 1),
-                                               (300, True, False, 2)]
-        for S, init, strong, B in cases:
+        cases = [(S, init, False, 1, K6_HEADS, K6_CHUNK)
+                 for S in (37, 300, 1536) for init in (False, True)] + [
+            (300, True, True, 1, K6_HEADS, K6_CHUNK),
+            (1536, True, True, 1, K6_HEADS, K6_CHUNK),
+            (300, True, False, 2, K6_HEADS, K6_CHUNK)]
+        if dtype == torch.float32:
+            cases += [(*c, K6_REDUCED_HEADS, K6_REDUCED_CHUNK)
+                      for c in K6_REDUCED_CASES]
+        for S, init, strong, B, H, C in cases:
             what = (f"K6 {dtype_name} B={B} S={S} init={init}"
-                    f"{' strong decay' if strong else ''}")
+                    f"{' strong decay' if strong else ''}"
+                    f"{'' if C == K6_CHUNK else f' {H} heads chunk {C}'}")
             args = k6_inputs(S, dtype, seed=S + 7 * strong + B, init=init,
-                             strong=strong, B=B)
+                             strong=strong, B=B, H=H)
             before = (ops.launches, ops.scan_launches)
-            o, st = ops.linear_attn_bshd(*args, chunk=K6_CHUNK)
+            o, st = ops.linear_attn_bshd(*args, chunk=C)
             if (ops.launches - before[0], ops.scan_launches - before[1]) \
                     != (1, 1):
                 raise AssertionError(f"{what}: not one chunk launch and "
                                      "one scan")
-            ref_o, ref_st = decay_attention_chunked(*args, chunk=K6_CHUNK)
+            ref_o, ref_st = decay_attention_chunked(*args, chunk=C)
             err = max(compare(o, ref_o, tol, what + " output"),
                       compare(st, ref_st, tol, what + " final state"))
-            record[(dtype_name, S, init, strong, B)] = dict(max_abs_err=err)
-            log(f"[k6] {what}: max_abs_err={err:.3e}")
+            key = (dtype_name, S, init, strong, B) if C == K6_CHUNK \
+                else (dtype_name, S, init, strong, B, H, C)
+            record[key] = dict(max_abs_err=err)
+            if dtype != torch.float32:
+                log(f"[k6] {what}: max_abs_err={err:.3e}")
+                continue
+            ratio = max(tol_ratio(o, ref_o, tol), tol_ratio(st, ref_st, tol))
+            o2, st2 = ops.linear_attn_bshd(*args, chunk=C)
+            assert_bitwise([torch.cat([o.flatten(), st.flatten()]),
+                            torch.cat([o2.flatten(), st2.flatten()])],
+                           what + ", two identical calls")
+            record[key]["tol_ratio"] = ratio
+            log(f"[k6] {what}: max_abs_err={err:.3e} worst err/(atol + "
+                f"rtol |ref|)={ratio:.3f} (passes at <= 1); two identical "
+                "calls bitwise equal")
         for n, padded in K6_PAD_TAILS:
             r, k, v, w, u, s0 = k6_inputs(padded, dtype, seed=n, init=True)
             real = [t[:, :n].contiguous() for t in (r, k, v, w)]
@@ -1698,10 +1750,16 @@ def check_k6() -> dict:
                                       else 4)
         rec = record[(dtype_name, 1536, True, False, 1)]
         rec.update(ms=ms, plain_ms=plain_ms, library_ms=None,
-                   bound_ms=bound_ms, bound_by=bound_by)
-        log(f"[k6] {dtype_name} S=1536: kernel={ms * 1e3:.1f}us "
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   split=launch_split(lambda: ops.linear_attn_bshd(
+                       *pick(), chunk=K6_CHUNK), ms))
+        log(f"[k6] {dtype_name} S=1536 ({CARD}): kernel={ms * 1e3:.1f}us "
             f"bound={bound_ms * 1e3:.2f}us ({bound_by}) "
-            f"plain={plain_ms * 1e3:.1f}us (no library call)")
+            f"plain={plain_ms * 1e3:.1f}us (no library call); launches: "
+            f"{split_text(rec['split'])}")
+    K6_F32_CALLS["3f forward"] = ops.f32_launches - f32_calls
+    log(f"[k6] fp32 K6 calls in phase 3f (checks and timing): "
+        f"{K6_F32_CALLS['3f forward']}")
     return record
 
 
@@ -2286,6 +2344,9 @@ def check_k3_hubert(S_all=(37, 300, 1536), pad: int = 64) -> dict:
 BWD_REL = {"float32": 1e-4, "bfloat16": 5e-3}
 # K6 at rwkv6-1.6b's training shapes, B=1: (dtype, S)
 K6_BWD_CASES = (("bfloat16", 1024), ("bfloat16", 500), ("float32", 500))
+# and in fp32 at reduced rwkv6-1.6b's 4 heads, chunk 16 (phase 4's build),
+# checked, not timed: (S, strong decay, B)
+K6_BWD_REDUCED = ((40, False, 1), (300, True, 2))
 # K3 at the training builds: (model, dtype, Hq, Hkv, Dqk, Dv, window,
 # causal, scale), bf16 at S = K3_BWD_S, fp32 at 512 (its own builds,
 # 3xTF32)
@@ -2382,27 +2443,41 @@ def check_backward() -> dict:
 
     record = {}
     f32 = lambda t: None if t is None else t.float()
-    for dtype_name, S in K6_BWD_CASES:
+    f32_calls = k6.f32_bwd_launches
+    cases = [(dtype_name, S, False, 1, K6_HEADS, K6_CHUNK)
+             for dtype_name, S in K6_BWD_CASES] + [
+        ("float32", S, strong, B, K6_REDUCED_HEADS, K6_REDUCED_CHUNK)
+        for S, strong, B in K6_BWD_REDUCED]
+    for dtype_name, S, strong, B, H, C in cases:
         dtype = getattr(torch, dtype_name)
-        r, k, v, w, u, _ = k6_inputs(S, dtype, seed=S + 11, init=False)
+        r, k, v, w, u, _ = k6_inputs(S, dtype, seed=S + 11, init=False,
+                                     strong=strong, B=B, H=H)
         do = torch.randn(v.shape, generator=torch.Generator(
             device="cuda").manual_seed(S), device="cuda").to(dtype)
         args = (r, k, v, w, u, None)
-        _, _, states = k6._forward(*args, K6_CHUNK, states=True)
-        run = lambda: k6._backward(*args, states, do, None, K6_CHUNK)
+        _, _, states = k6._forward(*args, C, states=True)
+        run = lambda: k6._backward(*args, states, do, None, C)
         got, again = run(), run()
 
         def plain():
             rf, kf, vf = f32(r), f32(k), f32(v)
-            st = k6r.chunk_states(kf, vf, w, None, K6_CHUNK)
+            st = k6r.chunk_states(kf, vf, w, None, C)
             return k6r.decay_attention_chunked_bwd(
-                rf, kf, vf, w, u, st, do.float(), None, chunk=K6_CHUNK)
+                rf, kf, vf, w, u, st, do.float(), None, chunk=C)
 
-        what = f"K6 backward {dtype_name} S={S}"
+        what = (f"K6 backward {dtype_name} S={S}"
+                + ("" if C == K6_CHUNK else f" B={B}"
+                   f"{' strong decay' if strong else ''} {H} heads"))
         err, rel = _hold_grads(what, ("dr", "dk", "dv", "dw", "du",
                                       "d_initial_state"),
                                got, again, plain(), dtype_name)
         rec = dict(max_abs_err=err, rel_l2=rel)
+        if C != K6_CHUNK:
+            record[("K6", dtype_name, S, B, H, C)] = rec
+            log(f"[3m] {what} (chunk {C}, u, no state cotangent): "
+                f"max_abs_err={err:.3e} rel_l2={rel:.3e} (bound "
+                f"{BWD_REL[dtype_name]}), bitwise twice")
+            continue
         rec["ms"] = device_ms(run)
         rec["split"] = launch_split(run, rec["ms"])
         rec["plain_ms"] = time_ms(plain, iters=3)
@@ -2417,6 +2492,9 @@ def check_backward() -> dict:
             f"{rec['bound_ms'] * 1e3:.2f}us ({rec['bound_by']}) "
             f"plain={rec['plain_ms'] * 1e3:.1f}us (no library call); "
             f"launches: {split_text(rec['split'])}")
+    K6_F32_CALLS["3m backward"] = k6.f32_bwd_launches - f32_calls
+    log(f"[3m] fp32 K6 backward calls in phase 3m (checks and timing): "
+        f"{K6_F32_CALLS['3m backward']}")
     for model, dtype_name, hq, hkv, dqk, dv, w, causal, scale in \
             K3_BWD_CASES:
         dtype = getattr(torch, dtype_name)
@@ -4678,6 +4756,28 @@ K6_GRAD_S = 500
 # bound 5.5x that); K6 with its odd output channels 1% off read 1.34e-5
 # and 2.03e-2, failing both
 K6_GRAD_BOUND = (1e-6, 3e-5)
+
+
+def k6_grad_setup():
+    """(iv)'s model and data: rwkv6-1.6b in fp32 at ``K6_GRAD_LAYERS``
+    layers, its weights from seed 0, one sequence of ``K6_GRAD_S`` tokens.
+    Returns (cfg, params, step), ``step()`` the loss and its gradient by
+    ``trainer.value_and_grad`` of ``lm_loss``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.distill import lm_loss
+    from repro_torch.data.synthetic import MarkovSpec, sample_corpus
+    from repro_torch.models.model import init_params
+    from repro_torch.training import trainer
+
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b"), dtype="float32",
+                              n_layers=K6_GRAD_LAYERS)
+    params = init_params(cfg, seed=0, device="cuda")
+    toks = torch.as_tensor(sample_corpus(
+        MarkovSpec(vocab_size=cfg.vocab_size, seed=0), 1, K6_GRAD_S,
+        seed=2), device="cuda")
+    return cfg, params, lambda: trainer.value_and_grad(
+        lambda p: lm_loss(p, cfg, toks), params)
 # K3's launches in 5g by arch and build, for the JSON line
 K3_BUILDS_5G = {ZAMBA2: "(64, 64)", "deepseek-v2-lite-16b": "(192, 128)",
                 "deepseek-moe-16b": "(128, 128)"}
@@ -4867,15 +4967,12 @@ def train_recurrent_and_moe() -> dict:
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get_config
-    from repro_torch.core.distill import lm_loss
-    from repro_torch.data.synthetic import MarkovSpec, sample_corpus
     from repro_torch.kernels.linear_attn_chunk import kernel as k6k
     from repro_torch.kernels.linear_attn_chunk.ref import \
         decay_attention_chunked
     from repro_torch.launch import train
     from repro_torch.models import ssm
     from repro_torch.models.model import init_params
-    from repro_torch.training import trainer
     from repro_torch.training.optim import init_adamw
     from repro_torch.training.pytree import tree_leaves
 
@@ -4954,12 +5051,7 @@ def train_recurrent_and_moe() -> dict:
     # (iv) the fp32 gradient check through K6
     gc.collect()
     torch.cuda.empty_cache()
-    cfg32 = dataclasses.replace(get_config("rwkv6-1.6b"), dtype="float32",
-                                n_layers=K6_GRAD_LAYERS)
-    params = init_params(cfg32, seed=0, device="cuda")
-    toks = torch.as_tensor(sample_corpus(
-        MarkovSpec(vocab_size=cfg32.vocab_size, seed=0), 1, K6_GRAD_S,
-        seed=2), device="cuda")
+    cfg32, params, step = k6_grad_setup()
     kernel_fn = ssm.linear_attn_bshd
     launch_bwd = k6k.launch_bwd
 
@@ -4984,8 +5076,7 @@ def train_recurrent_and_moe() -> dict:
         ssm.linear_attn_bshd = fn
         k6k.launch_bwd = bwd
         try:
-            loss, _, grads = trainer.value_and_grad(
-                lambda p: lm_loss(p, cfg32, toks), params)
+            loss, _, grads = step()
         finally:
             ssm.linear_attn_bshd = kernel_fn
             k6k.launch_bwd = launch_bwd
@@ -5021,7 +5112,7 @@ def train_recurrent_and_moe() -> dict:
                              "backward were not launched under autograd "
                              "in each layer of each run")
     _add(total, counts)
-    del params
+    del params, step
     gc.collect()
     torch.cuda.empty_cache()
     return total
@@ -5578,6 +5669,40 @@ def f32_entries(entry, main_launches, k3, k3_mla, k3_chunk, zk, hk,
     return out
 
 
+def k6_f32_entries(entry, f32_counts, k6, bwd) -> list:
+    """The JSON line's fp32 K6 entries (3xTF32): the forward at S=1536
+    (3f) and the backward at S=500 (3m), each with the fp32 calls of
+    phases 4-5h, those of its kernel check apart, and each launch's µs
+    and blocks; the forward with its cases' worst margin."""
+    out = []
+    for name, source, replaces, rec, errs, n, checks in (
+            ("linear_attn_chunk", "src/repro_torch/csrc/linear_attn_chunk.cu",
+             "src/repro/kernels/linear_attn_chunk/kernel.py:74",
+             k6[("float32", 1536, True, False, 1)],
+             [r["max_abs_err"] for key, r in k6.items()
+              if key[0] == "float32"], f32_counts[0],
+             K6_F32_CALLS["3f forward"]),
+            ("linear_attn_chunk_bwd",
+             "src/repro_torch/csrc/linear_attn_chunk_bwd.cu",
+             "src/repro/models/ssm.py:67", bwd[("K6", "float32", 500)],
+             [r["max_abs_err"] for key, r in bwd.items()
+              if key[:2] == ("K6", "float32")], f32_counts[1],
+             K6_F32_CALLS["3m backward"])):
+        e = dict(entry("linear_attn_chunk", source, replaces, rec,
+                       max(errs)), name=f"{name}@fp32", launches=n)
+        e.update(note="the fp32 builds: every product in 3xTF32 on the "
+                      "tensor cores; calls of an fp32 build in phases "
+                      "4-5h",
+                 calls_in_kernel_check=checks,
+                 split={k: {"us": us, "blocks": b}
+                        for k, (us, b) in rec["split"].items()})
+        if name == "linear_attn_chunk":
+            e["tol_ratio"] = max(r["tol_ratio"] for key, r in k6.items()
+                                 if key[0] == "float32")
+        out.append(e)
+    return out
+
+
 def tree_f32_entries(entry, f32_counts, k1s, k4, k2s) -> list:
     """The JSON line's fp32 tree-verify entries (3xTF32): K1 (3a-b and
     vicuna-tiny's cases), K2 (3g, vicuna-tiny's too) and K4 (3c), each
@@ -5692,7 +5817,8 @@ def main() -> int:
                              f"{checked}")
     log(f"[sass] HMMA/HGMMA in every bf16 and fp32 build of K3 and of its "
         f"backward's dK/dV and dQ kernels, the tree-verify split kernel, "
-        f"K5's split sweep and K6's two kernels: {checked}")
+        f"K5's split sweep, K6's two kernels and its backward's increment "
+        f"and gradient pass, bf16 and fp32: {checked}")
     # row groups are a grid axis: the models past 64 rows per kv head run
     # the D=128 builds above, so there is no new instantiation to check
     log("[ptxas] starcoder2-7b, qwen2.5-32b, chameleon-34b and "
@@ -5739,6 +5865,8 @@ def run_phases(t_start: float, sweep: tuple) -> int:
     k3_mla = check_k3_mla()
     k3_chunk = check_k3_chunk()
     k5 = check_k5()
+    from repro_torch.kernels.linear_attn_chunk import ops as k6_ops
+
     k6 = check_k6()
     check_k6_boundary()
     k2 = check_k2()
@@ -5761,13 +5889,15 @@ def run_phases(t_start: float, sweep: tuple) -> int:
     from repro_torch.kernels.tree_attention import dense_ops as k2_ops
     from repro_torch.kernels.tree_attention import ops as k1_ops
 
-    # the fp32 tree-verify launches of phases 4-5h (the wrappers' own
-    # counters, which kernels.reset_counts leaves alone)
+    # the fp32 tree-verify launches and fp32 K6 calls (forward, backward)
+    # of phases 4-5h (the wrappers' own counters, which
+    # kernels.reset_counts leaves alone)
     tree_f32 = {"tree_attention_paged": k1_ops,
                 "tree_attention_paged_windowed": k4_ops,
                 "tree_attention_dense": k2_ops}
     for mod in tree_f32.values():
         mod.f32_launches = 0
+    k6_ops.f32_launches = k6_ops.f32_bwd_launches = 0
 
     check_tiny_parity(dataclasses.replace(
         get_config("minitron-4b").reduced(), dtype="float32"),
@@ -5845,6 +5975,13 @@ def run_phases(t_start: float, sweep: tuple) -> int:
             f"done at {time.perf_counter() - t_start:.0f}s")
 
     f32_main = (k3_ops.f32_launches, k3_ops.f32_bwd_launches)
+    k6_f32 = (k6_ops.f32_launches, k6_ops.f32_bwd_launches)
+    log(f"[5] fp32 K6 calls in phases 4-5h: {k6_f32[0]} forward, "
+        f"{k6_f32[1]} backward (the kernel checks besides: "
+        f"{K6_F32_CALLS})")
+    if not all(k6_f32):
+        raise AssertionError(f"fp32 K6 was never launched in phases 4-5h: "
+                             f"{k6_f32} (forward, backward)")
     tree_f32_counts = {k: m.f32_launches for k, m in tree_f32.items()}
     log(f"[5] fp32 tree-verify launches in phases 4-5h: {tree_f32_counts}")
     if not all(tree_f32_counts.values()):
@@ -5998,6 +6135,7 @@ def run_phases(t_start: float, sweep: tuple) -> int:
     kernels.append(e)
     kernels += f32_entries(entry, f32_main, k3, k3_mla, k3_chunk, zk, hk, bwd)
     kernels += tree_f32_entries(entry, tree_f32_counts, k1s, k4, k2s)
+    kernels += k6_f32_entries(entry, k6_f32, k6, bwd)
     log(json.dumps({"kernels": kernels}))
     log(f"[time] total {time.perf_counter() - t_start:.0f}s")
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Time K3's kernels (the fp32 and bf16 forward at phase 3's cases, the
-backward at phase 3m's), K6's backward and the tree-verify kernel (K1,
-K2, K4), each launch on its own, on one NVIDIA card.
+backward at phase 3m's), K6's (forward and backward) and the tree-verify
+kernel (K1, K2, K4), each launch on its own, on one NVIDIA card.
 
-    PYTHONPATH=src python scripts/time_bwd_kernels.py [--cases all|k3|tree] \
+    PYTHONPATH=src python scripts/time_bwd_kernels.py \
+        [--cases all|k3|k6|tree] \
         [--old DIR [--set NAME=VALUE ...] [--label LABEL]] [--steps] \
         [--out build/k3_times.json]
 
@@ -14,8 +15,7 @@ libraries.  Forward cases: gemma3-1b (4 over 1 heads of 256) at windows 0
 and 512, zamba2-1.2b (32 over 32 of 64), deepseek-v2-lite's MLA prefill
 (16 heads, q/k 192, v 128), minitron-4b (24 over 8 of 128) at S = 1536 and
 300, hubert-xlarge (16 over 16 of 80, bidirectional), S = 1536 unless
-named, fp32 and bf16.  Backward cases: ``chip_smoke.K3_BWD_CASES`` and
-``K6_BWD_CASES``.
+named, fp32 and bf16.  Backward cases: ``chip_smoke.K3_BWD_CASES``.
 
 ``--old DIR``: DIR holds another copy of ``src/repro_torch/csrc`` (for
 example the parent commit's, unpacked with ``git archive`` into an
@@ -59,6 +59,20 @@ trained Hydra heads from ``training/tiny.py``'s recipe, checkpoints under
 tokens) under each library in turns: a fresh engine serves once (the
 capture), then once under ``torch.profiler``; the line gives device
 busy a step and the tree-verify split and merge kernels' µs a step.
+
+K6's cases (``--cases k6``): the forward at rwkv6-1.6b's 32 heads of 64,
+S = 1536, chunk 64, with an initial state and u, fp32 and bf16, over 4
+operand sets (``chip_smoke.check_k6``'s), and the backward at
+``chip_smoke.K6_BWD_CASES`` (phase 3m's operands, the states from this
+version's forward).  With ``--old``, DIR's ``linear_attn_chunk.cu`` and
+``linear_attn_chunk_bwd.cu`` are built as second libraries (their C
+entry points take this version's arguments, and stand in for the whole
+of each library) and each case runs old, new, new, old; the old outputs
+(forward: output and final state; backward: every gradient) are held
+against the new ones, and a bf16 case whose bits differ fails the run.
+With ``--steps``, also the wall time of phase 5g(iv)'s fp32 gradient
+check (rwkv6-1.6b at full width, 2 layers, B = 1, S = 500: ``lm_loss``
+and its gradient, through K6 in each layer) under each library in turns.
 """
 from __future__ import annotations
 
@@ -82,9 +96,12 @@ OLD_DIR = ROOT / "build" / "old_kernels"
 # take a trailing float (the scale) and the stream
 K3_ABI = {"flash_attention": ("flash_attention", 7, 11),
           "flash_attention_bwd": ("flash_attention_bwd", 11, 10)}
-# the tree-verify library: its wrappers find their entry points through
-# ``build.load``, so the old library stands in for the whole of it
+# the tree-verify library and K6's two: their wrappers find their entry
+# points through ``build.load``, so an old library stands in for the whole
+# of it
 TREE_LIB = "tree_attention_paged"
+K6_LIBS = ("linear_attn_chunk", "linear_attn_chunk_bwd")
+SWAPPED = (TREE_LIB, *K6_LIBS)
 LABEL = "old"                  # the second library's name in the lines
 # the old fp32 bodies' head dims: operands are padded to the least that
 # holds both widths
@@ -246,8 +263,8 @@ def old_launch_bwd(fn):
 
 
 class Patched:
-    """Within the block, K3's wrapper and the tree-verify wrappers launch
-    the old libraries (those of them that were built)."""
+    """Within the block, K3's wrapper, the tree-verify wrappers and K6's
+    launch the old libraries (those of them that were built)."""
 
     def __init__(self, old_libs: dict):
         self.old = old_libs
@@ -257,24 +274,26 @@ class Patched:
         from repro_torch.kernels.flash_attention import kernel as k3k
 
         self.saved = (k3k.launch, k3k.launch_bwd,
-                      build._loaded.get(TREE_LIB))
+                      {n: build._loaded.get(n) for n in SWAPPED})
         if "flash_attention" in self.old:
             k3k.launch = old_launch(k3_fn(self.old["flash_attention"],
                                           "flash_attention"))
             k3k.launch_bwd = old_launch_bwd(k3_fn(
                 self.old["flash_attention_bwd"], "flash_attention_bwd"))
-        if TREE_LIB in self.old:
-            build._loaded[TREE_LIB] = self.old[TREE_LIB]
+        for name in SWAPPED:
+            if name in self.old:
+                build._loaded[name] = self.old[name]
 
     def __exit__(self, *exc):
         from repro_torch.kernels import build
         from repro_torch.kernels.flash_attention import kernel as k3k
 
-        k3k.launch, k3k.launch_bwd, tree = self.saved
-        if tree is None:
-            build._loaded.pop(TREE_LIB, None)
-        else:
-            build._loaded[TREE_LIB] = tree
+        k3k.launch, k3k.launch_bwd, libs = self.saved
+        for name, lib in libs.items():
+            if lib is None:
+                build._loaded.pop(name, None)
+            else:
+                build._loaded[name] = lib
 
 
 def fwd_cases():
@@ -297,22 +316,11 @@ def fwd_cases():
 
 
 def bwd_cases():
-    """(name, library or None, call) of each backward case, on
-    operands made as ``check_backward`` makes them."""
+    """(name, library, call) of each K3 backward case, on operands made
+    as ``check_backward`` makes them."""
     import torch
     from repro_torch.kernels.flash_attention import ops as k3
-    from repro_torch.kernels.linear_attn_chunk import ops as k6
 
-    for dtype_name, S in cs.K6_BWD_CASES:
-        dtype = getattr(torch, dtype_name)
-        r, k, v, w, u, _ = cs.k6_inputs(S, dtype, seed=S + 11, init=False)
-        do = torch.randn(v.shape, generator=torch.Generator(
-            device="cuda").manual_seed(S), device="cuda").to(dtype)
-        args = (r, k, v, w, u, None)
-        _, _, states = k6._forward(*args, cs.K6_CHUNK, states=True)
-        yield (f"K6 backward {dtype_name} S={S}", None,
-               lambda a=args, st=states, d=do:
-               k6._backward(*a, st, d, None, cs.K6_CHUNK))
     for model, dtype_name, hq, hkv, dqk, dv, w, causal, scale in \
             cs.K3_BWD_CASES:
         dtype = getattr(torch, dtype_name)
@@ -329,6 +337,61 @@ def bwd_cases():
                "flash_attention_bwd",
                lambda a=(q, k, v, out, lse, do), kw=kw:
                k3._backward(*a, **kw))
+
+
+def k6_cases():
+    """(name, library, call, same) of each K6 case: the forward over 4
+    operand sets in turn (``same``: the first), the backward on phase
+    3m's operands and this version's states."""
+    import torch
+    from repro_torch.kernels.linear_attn_chunk import ops as k6
+
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        sets = [cs.k6_inputs(1536, dtype, seed=200 + i, init=True)
+                for i in range(4)]
+        pick = cs.cycle(sets)
+        yield (f"K6 forward {dtype_name} 32 heads of 64, S=1536, chunk "
+               f"{cs.K6_CHUNK}, u, initial state", K6_LIBS[0],
+               lambda p=pick: k6.linear_attn_bshd(*p(), chunk=cs.K6_CHUNK),
+               lambda a=sets[0]: k6.linear_attn_bshd(*a, chunk=cs.K6_CHUNK))
+    for dtype_name, S in cs.K6_BWD_CASES:
+        dtype = getattr(torch, dtype_name)
+        r, k, v, w, u, _ = cs.k6_inputs(S, dtype, seed=S + 11, init=False)
+        do = torch.randn(v.shape, generator=torch.Generator(
+            device="cuda").manual_seed(S), device="cuda").to(dtype)
+        args = (r, k, v, w, u, None)
+        _, _, states = k6._forward(*args, cs.K6_CHUNK, states=True)
+        run = (lambda a=args, st=states, d=do:
+               k6._backward(*a, st, d, None, cs.K6_CHUNK))
+        yield (f"K6 backward {dtype_name} 32 heads of 64, S={S}, chunk "
+               f"{cs.K6_CHUNK}, u", K6_LIBS[1], run, run)
+
+
+def k6_grad_check(old_libs: dict) -> list:
+    """Phase 5g(iv)'s fp32 gradient check (rwkv6-1.6b, 2 layers, B = 1, S
+    = 500: ``lm_loss`` and its gradient, K6 and its backward in each
+    layer) under the old and the new K6 libraries in turns: mean wall
+    ms of synchronised calls."""
+    import gc
+
+    import torch
+
+    cfg, params, fn = cs.k6_grad_setup()
+    what = (f"5g(iv) {cfg.name} fp32 lm_loss and its gradient, "
+            f"{cfg.n_layers} layers, B=1 S={cs.K6_GRAD_S}")
+    records = []
+    for key in ("old", "new", "new", "old"):
+        with Patched(old_libs) if key == "old" else _Nothing():
+            ms = _wall_ms(fn)
+        records.append({"run": what, "kernels": LABEL if key == "old"
+                        else "new", "card": cs.CARD, "wall_ms": ms})
+        cs.log(f"[k6 step] {what}, {records[-1]['kernels']} K6 "
+               f"({cs.CARD}): {ms:.2f} ms")
+    del params, fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return records
 
 
 # vicuna-tiny's verify: B = 4, 4 over 4 heads of 64, T = 16, block 16, at
@@ -402,7 +465,8 @@ def _agree(a, b) -> tuple:
 def time_case(what, lib, call, old_fns, same=None) -> dict:
     """``call`` under the new library and, where ``lib`` was built from
     ``--old``, under the old one, in turns; ``same`` (default ``call``)
-    gives the outputs the two are compared on."""
+    gives the outputs the two are compared on.  A bf16 K6 case whose old
+    and new outputs differ in a bit raises."""
     same = same or call
     rec = {"case": what, "card": cs.CARD, "old_label": LABEL}
     runs = {"new": call}
@@ -421,12 +485,17 @@ def time_case(what, lib, call, old_fns, same=None) -> dict:
             torch_equal(x, y) for x, y in zip(
                 a if isinstance(a, tuple) else (a,),
                 b if isinstance(b, tuple) else (b,)) if x is not None)
+        if lib in K6_LIBS and "bfloat16" in what \
+                and not rec["bitwise_old_vs_new"]:
+            raise AssertionError(f"{what}: the bf16 build's bits changed "
+                                 f"({LABEL} vs new max abs "
+                                 f"{rec['max_abs_old_vs_new']:.3e})")
     order = ("old", "new", "new", "old") if "old" in runs else ("new",)
     for key in order:
         rec.setdefault(f"{key}_us", []).append(1e3 * cs.device_ms(runs[key]))
     for key, fn in runs.items():
         rec[f"{key}_split"] = cs.launch_split(fn, 1e-3 * min(rec[f"{key}_us"]))
-    tag = "tree" if lib == TREE_LIB else "k3"
+    tag = {TREE_LIB: "tree", **dict.fromkeys(K6_LIBS, "k6")}.get(lib, "k3")
     line = (f"[{tag}] {what} ({cs.CARD}): new "
             f"{', '.join(f'{x:.1f}' for x in rec['new_us'])}us "
             f"[{cs.split_text(rec['new_split'])}]")
@@ -606,8 +675,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", type=Path, default=None,
                     help="a directory holding another copy of csrc/")
-    ap.add_argument("--cases", choices=("all", "k3", "tree"), default="all",
-                    help="K3's and K6's cases, the tree-verify ones, or all")
+    ap.add_argument("--cases", choices=("all", "k3", "k6", "tree"),
+                    default="all",
+                    help="K3's cases, K6's, the tree-verify ones, or all")
     ap.add_argument("--set", action="append", default=[],
                     metavar="NAME=VALUE",
                     help="with --old: a constexpr int of the tree-verify "
@@ -618,9 +688,10 @@ def main() -> int:
                     default=ROOT / "build" / "k3_times.json")
     ap.add_argument("--steps", action="store_true",
                     help="with --old: 5e(iii)'s fp32 head step and 5b's "
-                         "zamba2 fp32 prefill under each K3 and (tree "
+                         "zamba2 fp32 prefill under each K3, (tree "
                          "cases) vicuna-tiny's captured decode step under "
-                         "each tree-verify library, in turns")
+                         "each tree-verify library and (K6 cases) 5g(iv)'s "
+                         "fp32 gradient check under each K6, in turns")
     args = ap.parse_args()
     LABEL = args.label
     if not torch.cuda.is_available():
@@ -636,16 +707,16 @@ def main() -> int:
     from repro_torch.kernels import build
 
     k3 = args.cases in ("all", "k3")
+    k6 = args.cases in ("all", "k6")
     tree = args.cases in ("all", "tree")
-    libs = ((["linear_attn_chunk", "linear_attn_chunk_bwd", *K3_ABI]
-             if k3 else []) + ([TREE_LIB] if tree else []))
-    old_names = [n for n in libs if n in K3_ABI or n == TREE_LIB]
+    libs = ([*K3_ABI] if k3 else []) + ([TREE_LIB] if tree else []) \
+        + (list(K6_LIBS) if k6 else [])
     sets = dict(a.split("=", 1) for a in args.set)
     t0 = time.perf_counter()
     build.build(libs)
-    old_libs = build_old(args.old, old_names, sets) if args.old else {}
+    old_libs = build_old(args.old, libs, sets) if args.old else {}
     cs.log(f"[build] {time.perf_counter() - t0:.1f}s")
-    for name in old_names:
+    for name in libs:
         for line in cs.ptxas_lines(build.ptxas_report(name)):
             cs.log(f"[ptxas] {line}")
     records = []
@@ -655,11 +726,16 @@ def main() -> int:
     if tree:
         for what, lib, call, same in tree_cases():
             records.append(time_case(what, lib, call, old_libs, same))
+    if k6:
+        for what, lib, call, same in k6_cases():
+            records.append(time_case(what, lib, call, old_libs, same))
     if args.steps and old_libs:
         if k3:
             records += steps(old_libs)
         if tree:
             records += tiny_steps(old_libs)
+        if k6:
+            records += k6_grad_check(old_libs)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(records, indent=1))
     cs.log(f"[time] wrote {args.out}")

@@ -50,23 +50,36 @@
 //      so nothing overflows however strong the decay, and L depends on
 //      nothing past the sequence (w = 0 there).  A factorisation against
 //      the chunk start would overflow (log-decay down to -20 a step).  At
-//      C = 64 a chunk takes 48,192 exponentials in fp32 (30,720 of them
-//      in the diagonal blocks; 51,264 in bf16, whose tensor cores take the
-//      factors straight from the tiles, unstaged, so that two blocks fit
-//      an SM) where the first design's all-pairs form took 137,280.
+//      C = 64 a chunk takes 51,264 exponentials (30,720 of them in the
+//      diagonal blocks; the tensor cores take the off-diagonal factors
+//      straight from the tiles, unstaged, so that two blocks fit an SM)
+//      where the first design's all-pairs form took 137,280.
 //  (b) linear_attn_scan_kernel, one block per (slice of 16 state columns,
 //      h, b): 128 blocks at B = 1, H = 32.  It carries its 64 x 16 slice
 //      of the fp32 state through the chunks in order: o = o_intra +
 //      q_eff S, then S <- decay * S + dS, and writes the final state.  A
 //      chunk's operands come in through cp.async, a ring of three stages:
-//      the next two chunks' load while this one computes.
-// bf16 (r, k, v in bf16): the off-diagonal sub-block products, A v, dS and
-// q_eff S run on mma.sync.m16n8k16 with fp32 accumulation.  Their fp32
-// operands (the scaled factors, A, k2, q_eff, the state) enter as two
-// bf16 parts, the rounded value and what the rounding dropped (about 16
-// bits), in three products (big x big, big x small, small x big); v is
-// bf16 already and enters whole.  fp32: the same decomposition on the
-// CUDA cores (products as fp32 sums), the same two launches.
+//      the next two chunks' load while this one computes.  The state
+//      slice stays in registers as the products' B fragments.
+// Every product (the off-diagonal sub-blocks, A v, dS and q_eff S) runs on
+// the tensor cores with fp32 accumulation; the diagonal blocks stay
+// pairwise on the CUDA cores.
+//  bf16 (r, k, v in bf16): mma.sync.m16n8k16.  The fp32 operands (the
+//      scaled factors, A, k2, q_eff, the state) enter as two bf16 parts,
+//      the rounded value and what the rounding dropped (about 16 bits), in
+//      three products (big x big, big x small, small x big); v is bf16
+//      already and enters whole.  Exponentials on the SFUs (__expf).
+//  fp32: mma.sync.m16n8k8 in 3xTF32 (tf32_mma.cuh): every operand, r, k
+//      and v too, enters as a TF32 high part and the TF32 of its residual,
+//      in three products (lo hi, hi lo, hi hi).  A sum over the channels
+//      keeps the small products and hi hi in accumulators of their own; a
+//      sum over positions takes fresh ones every 16 and adds them in fp32
+//      (the tensor cores accumulate without IEEE rounding: a long chain
+//      drifts).  The accurate expf.  Where a product's k axis is a row
+//      index of a tile (A v, dS) it is permuted (slot t takes 2t, slot
+//      t + 4 takes 2t + 1), so that the fragments' loads fall on distinct
+//      banks.  The same grid, warps and two blocks an SM as bf16 ((a):
+//      106 KB of shared memory at C = 64).
 //
 // Bound: bytes.  At B = 1, H = 32, S = 1536 the function reads r, k, v
 // (bf16), w (fp32), u and the initial state once and writes o and the
@@ -75,7 +88,11 @@
 // decay factor is a product of exp(w_t)), 3.1e6 on the SFUs (16 a clock
 // per SM, 132 SMs, ~1.98 GHz: 0.8 us), and its products at least the
 // state read-out and update, 4 dk dv a token, 0.81 GFLOP (0.8 us at the
-// tensor cores' 989 TFLOP/s).  chip_smoke.py's k6_bound counts this.  The
+// tensor cores' 989 TFLOP/s).  chip_smoke.py's k6_bound counts this.  In
+// fp32 the bytes double (r, k, v and o in fp32: 19.1 us at S = 1536) and
+// stay the bound: op_cost.k6_charge's least fp32 operations at the CUDA
+// cores' 67 TFLOP/s fall below them, and the kernel's own products, three
+// TF32 passes, are the bf16 build's work at half its peak rate.  The
 // scratch this design writes (~38 MB at that shape) and reads back (~75
 // MB: q_eff once per slice), much of it through the 50 MB L2, is its
 // price for filling the card.
@@ -86,6 +103,7 @@
 #include <type_traits>
 
 #include "attention_mma.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -93,7 +111,8 @@ using tc::bf16;
 
 constexpr int kD = 64;          // dk = dv
 constexpr int kP = kD + 4;      // fp32 shared row stride of (a): rows
-                                // 16-byte aligned for float4 reads
+                                // 16-byte aligned for float4 reads, and
+                                // 4 mod 32 (tf32_mma.cuh's kPad)
 constexpr int kSub = 16;        // secondary chunk
 constexpr int kThreads = 512;   // (a): 16 warps
 constexpr int kColGroups = kThreads / 32 / 4;  // (a): 4 row tiles x these
@@ -147,21 +166,20 @@ struct Args {
 };
 
 // (a)'s shared memory at chunk C: r, k (then k2), v, lcw, lcw_excl
-// (C x kP each), A (C x (C + 1)), the diagonal (C), u (kD); fp32 also
-// stages the k and r factors of the off-diagonal sub-blocks (16 x kP
-// each), which the tensor cores take straight from the tiles (so two bf16
-// blocks fit an SM)
+// (C x kP each), A (C x CP), the diagonal (C), u (kD), in fp32 in both
+// builds; the tensor cores take the off-diagonal blocks' factors straight
+// from the tiles, unstaged, so that two blocks fit an SM (104 KB in bf16,
+// 106 KB in fp32 at C = 64).  A's row stride: C + 1 in bf16; C + 8 in
+// fp32, so that a permuted A fragment's 8-byte loads (rows g, columns 2t
+// and 2t + 1) fall on distinct banks
 template <typename T, int C>
 struct Chunk {
-  static constexpr bool kTC = std::is_same<T, bf16>::value;
+  static constexpr bool kBF = std::is_same<T, bf16>::value;
   static constexpr int NS = C / kSub;                // sub-chunks
-  static constexpr int NK = kTC ? 0 : NS - 1;        // staged k factors
   static constexpr int NPAIR = NS * (NS - 1) / 2;    // off-diagonal blocks
-  static constexpr int NR = kTC ? 0 : NPAIR;         // staged r factors
-  static constexpr int CP = C + 1;
-  static constexpr size_t floats =
-      5 * static_cast<size_t>(C) * kP + static_cast<size_t>(C) * CP +
-      static_cast<size_t>(NK + NR) * kSub * kP + C + kD;
+  static constexpr int CP = kBF ? C + 1 : C + tf::kPadP;
+  static constexpr size_t floats = 5 * static_cast<size_t>(C) * kP +
+                                   static_cast<size_t>(C) * CP + C + kD;
 };
 
 // off-diagonal block p -> (i, j), i > j: p = i (i - 1) / 2 + j
@@ -201,7 +219,7 @@ template <typename T, int C>
 __global__ void __launch_bounds__(kThreads, 2)
     linear_attn_chunk_kernel(Args p) {
   using L = Chunk<T, C>;
-  constexpr bool kTC = L::kTC;
+  constexpr bool kBF = L::kBF;
   constexpr int CP = L::CP;
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int n_chunks = gridDim.x;
@@ -215,70 +233,88 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* ls = vs + C * kP;       // lcw (inclusive)
   float* xs = ls + C * kP;       // w, then lcw_excl = lcw - w
   float* as = xs + C * kP;       // A
-  float* kt = as + C * CP;       // k factors: NK tiles of 16 rows
-  float* rt = kt + L::NK * kSub * kP;  // r factors: NR tiles
-  float* dg = rt + L::NR * kSub * kP;  // r[t] . (u * k[t])
+  float* dg = as + C * CP;       // r[t] . (u * k[t])
   float* us = dg + C;            // u
 
   const T* r = static_cast<const T*>(p.r);
   const T* k = static_cast<const T*>(p.k);
   const T* v = static_cast<const T*>(p.v);
-  // 16-byte loads, all of a thread's issued before its stores, so their
-  // latencies overlap; rows at or past S read as zeros
   const int t0 = c * C;
-  constexpr int kPer = 16 / sizeof(T);               // r, k, v: per load
-  constexpr int kN = C * kD / kPer, kNw = C * kD / 4;
-  constexpr int kU = (kN + kThreads - 1) / kThreads;
-  constexpr int kUw = (kNw + kThreads - 1) / kThreads;
   auto row = [&](int t) {
     return ((static_cast<size_t>(b) * p.S + t0 + t) * p.H + h) * kD;
   };
-  uint4 lr[kU], lk[kU], lv[kU];
-  float4 lw[kUw];
+  if constexpr (kBF) {
+    // 16-byte loads, all of a thread's issued before its stores, so their
+    // latencies overlap; rows at or past S read as zeros
+    constexpr int kPer = 16 / sizeof(T);               // r, k, v: per load
+    constexpr int kN = C * kD / kPer, kNw = C * kD / 4;
+    constexpr int kU = (kN + kThreads - 1) / kThreads;
+    constexpr int kUw = (kNw + kThreads - 1) / kThreads;
+    uint4 lr[kU], lk[kU], lv[kU];
+    float4 lw[kUw];
 #pragma unroll
-  for (int u = 0; u < kU; ++u) {
-    const int i = tid + u * kThreads, t = i / (kD / kPer);
-    const int col = i % (kD / kPer) * kPer;
-    lr[u] = lk[u] = lv[u] = make_uint4(0u, 0u, 0u, 0u);
-    if (i < kN && t0 + t < p.S) {
-      lr[u] = *reinterpret_cast<const uint4*>(r + row(t) + col);
-      lk[u] = *reinterpret_cast<const uint4*>(k + row(t) + col);
-      lv[u] = *reinterpret_cast<const uint4*>(v + row(t) + col);
+    for (int u = 0; u < kU; ++u) {
+      const int i = tid + u * kThreads, t = i / (kD / kPer);
+      const int col = i % (kD / kPer) * kPer;
+      lr[u] = lk[u] = lv[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (i < kN && t0 + t < p.S) {
+        lr[u] = *reinterpret_cast<const uint4*>(r + row(t) + col);
+        lk[u] = *reinterpret_cast<const uint4*>(k + row(t) + col);
+        lv[u] = *reinterpret_cast<const uint4*>(v + row(t) + col);
+      }
     }
-  }
 #pragma unroll
-  for (int u = 0; u < kUw; ++u) {
-    const int i = tid + u * kThreads, t = i / (kD / 4);
-    lw[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (i < kNw && t0 + t < p.S)
-      lw[u] = *reinterpret_cast<const float4*>(p.w + row(t) + i % (kD / 4) * 4);
-  }
-#pragma unroll
-  for (int u = 0; u < kU; ++u) {
-    const int i = tid + u * kThreads, t = i / (kD / kPer);
-    const int col = i % (kD / kPer) * kPer;
-    if (i >= kN) break;
-    const T* er = reinterpret_cast<const T*>(&lr[u]);
-    const T* ek = reinterpret_cast<const T*>(&lk[u]);
-    const T* ev = reinterpret_cast<const T*>(&lv[u]);
-#pragma unroll
-    for (int x = 0; x < kPer; ++x) {
-      rs[t * kP + col + x] = to_f32(er[x]);
-      ks[t * kP + col + x] = to_f32(ek[x]);
-      vs[t * kP + col + x] = to_f32(ev[x]);
+    for (int u = 0; u < kUw; ++u) {
+      const int i = tid + u * kThreads, t = i / (kD / 4);
+      lw[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i < kNw && t0 + t < p.S)
+        lw[u] = *reinterpret_cast<const float4*>(p.w + row(t) +
+                                                 i % (kD / 4) * 4);
     }
-  }
 #pragma unroll
-  for (int u = 0; u < kUw; ++u) {
-    const int i = tid + u * kThreads, t = i / (kD / 4);
-    const int col = i % (kD / 4) * 4;
-    if (i >= kNw) break;
-    xs[t * kP + col] = lw[u].x;
-    xs[t * kP + col + 1] = lw[u].y;
-    xs[t * kP + col + 2] = lw[u].z;
-    xs[t * kP + col + 3] = lw[u].w;
+    for (int u = 0; u < kU; ++u) {
+      const int i = tid + u * kThreads, t = i / (kD / kPer);
+      const int col = i % (kD / kPer) * kPer;
+      if (i >= kN) break;
+      const T* er = reinterpret_cast<const T*>(&lr[u]);
+      const T* ek = reinterpret_cast<const T*>(&lk[u]);
+      const T* ev = reinterpret_cast<const T*>(&lv[u]);
+#pragma unroll
+      for (int x = 0; x < kPer; ++x) {
+        rs[t * kP + col + x] = to_f32(er[x]);
+        ks[t * kP + col + x] = to_f32(ek[x]);
+        vs[t * kP + col + x] = to_f32(ev[x]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUw; ++u) {
+      const int i = tid + u * kThreads, t = i / (kD / 4);
+      const int col = i % (kD / 4) * 4;
+      if (i >= kNw) break;
+      xs[t * kP + col] = lw[u].x;
+      xs[t * kP + col + 1] = lw[u].y;
+      xs[t * kP + col + 2] = lw[u].z;
+      xs[t * kP + col + 3] = lw[u].w;
+    }
+  } else {
+    // fp32: straight into the tiles through cp.async, 16 bytes a thread,
+    // rows at or past S zero-filled without a read
+    auto load = [&](float* dst, const float* src) {
+      for (int i = tid; i < C * (kD / 4); i += kThreads) {
+        const int t = i / (kD / 4), ch = i % (kD / 4);
+        const bool in = t0 + t < p.S;
+        tc::cp_async16(dst + t * kP + ch * 4, in ? src + row(t) + ch * 4 : src,
+                       in);
+      }
+    };
+    load(rs, r);
+    load(ks, k);
+    load(vs, v);
+    load(xs, p.w);
+    tc::cp_async_commit();
   }
   if (tid < kD) us[tid] = p.u ? p.u[h * kD + tid] : 0.f;
+  if constexpr (!kBF) tc::cp_async_wait<0>();
   __syncthreads();
 
   // cumulative log-decay, one thread per column; the u-bonus diagonal on
@@ -320,10 +356,10 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll 4
     for (int d4 = 0; d4 < kD / 4; ++d4) {
       const float4 rv = r4[d4], xv = x4[d4], kv = k4[d4], lv = l4[d4];
-      a += rv.x * kv.x * ex<kTC>(fminf(xv.x - lv.x, 0.f));
-      a += rv.y * kv.y * ex<kTC>(fminf(xv.y - lv.y, 0.f));
-      a += rv.z * kv.z * ex<kTC>(fminf(xv.z - lv.z, 0.f));
-      a += rv.w * kv.w * ex<kTC>(fminf(xv.w - lv.w, 0.f));
+      a += rv.x * kv.x * ex<kBF>(fminf(xv.x - lv.x, 0.f));
+      a += rv.y * kv.y * ex<kBF>(fminf(xv.y - lv.y, 0.f));
+      a += rv.z * kv.z * ex<kBF>(fminf(xv.z - lv.z, 0.f));
+      a += rv.w * kv.w * ex<kBF>(fminf(xv.w - lv.w, 0.f));
     }
     as[t * CP + s] = a;
   }
@@ -332,30 +368,13 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int t = i / C, s = i % C;
     if (s >= t) as[t * CP + s] = 0.f;
   }
-  // fp32: the factors of the off-diagonal blocks staged, against L = lcw
-  // at the end of sub-chunk j: k[s] exp(L - lcw[s]) for s in j,
-  // r[t] exp(lcw_excl[t] - L) for t in i > j; both at most 1 (the min
-  // absorbs rounding).  bf16 computes them into its fragments below.
-  for (int i = tid; i < L::NK * kSub * kD; i += kThreads) {
-    const int j = i / (kSub * kD), s = j * kSub + (i / kD) % kSub,
-              d = i % kD;
-    const float ref = ls[(j * kSub + kSub - 1) * kP + d];
-    kt[(i / kD) * kP + d] =
-        ks[s * kP + d] * ex<kTC>(fminf(ref - ls[s * kP + d], 0.f));
-  }
-  for (int i = tid; i < L::NR * kSub * kD; i += kThreads) {
-    const int pr = i / (kSub * kD), tt = (i / kD) % kSub, d = i % kD;
-    int bi, bj;
-    pair_of(pr, &bi, &bj);
-    const int t = bi * kSub + tt;
-    const float ref = ls[(bj * kSub + kSub - 1) * kP + d];
-    rt[(i / kD) * kP + d] =
-        rs[t * kP + d] * ex<kTC>(fminf(excl(t, d) - ref, 0.f));
-  }
   __syncthreads();
 
-  // the off-diagonal blocks; meanwhile q_eff and the decay
-  if constexpr (kTC) {
+  // the off-diagonal blocks, against L = lcw at the end of sub-chunk j:
+  // k[s] exp(L - lcw[s]) for s in j, r[t] exp(lcw_excl[t] - L) for t in
+  // i > j, both at most 1 (the min absorbs rounding); meanwhile q_eff and
+  // the decay
+  if constexpr (kBF) {
     // warp p: block p's factors computed into its fragments, straight
     // from the tiles
     if (warp < L::NPAIR) {
@@ -390,38 +409,59 @@ __global__ void __launch_bounds__(kThreads, 2)
              2 * t4 + (e & 1)] = acc[nt][e];
     }
   } else {
-    for (int i = tid; i < L::NPAIR * kSub * kSub; i += kThreads) {
-      const int pr = i / (kSub * kSub), tt = (i / kSub) % kSub,
-                ss = i % kSub;
+    // fp32, warp p: block p in 3xTF32, the factors computed into the
+    // fragments (k the channel, not permuted); the sum over the channels
+    // in two accumulators, the small products and hi hi
+    if (warp < L::NPAIR) {
       int bi, bj;
-      pair_of(pr, &bi, &bj);
-      const float* rr = rt + (pr * kSub + tt) * kP;
-      const float* kr = kt + (bj * kSub + ss) * kP;
-      float a = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < kD; ++d) a += rr[d] * kr[d];
-      as[(bi * kSub + tt) * CP + bj * kSub + ss] = a;
+      pair_of(warp, &bi, &bj);
+      const float* ref = ls + (bj * kSub + kSub - 1) * kP;  // L
+      float small[2][4] = {}, big[2][4] = {};
+#pragma unroll 2
+      for (int d0 = 0; d0 < kD; d0 += 8) {
+        tf::FragA fa;
+        tf::frag_a<false>(fa, [&](int i, int j) {
+          const int t = bi * kSub + i, d = d0 + j;
+          return rs[t * kP + d] * ex<false>(fminf(excl(t, d) - ref[d], 0.f));
+        });
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          tf::FragB fb;  // B[d][s] = k[s][d] exp(L - lcw[s])
+          tf::frag_b<false>(fb, [&](int j, int n) {
+            const int s = bj * kSub + nt * 8 + n, d = d0 + j;
+            return ks[s * kP + d] *
+                   ex<false>(fminf(ref[d] - ls[s * kP + d], 0.f));
+          });
+          tf::mma3(small[nt], big[nt], fa, fb);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          as[(bi * kSub + g + 8 * (e >> 1)) * CP + bj * kSub + nt * 8 +
+             2 * t4 + (e & 1)] = big[nt][e] + small[nt][e];
     }
   }
   const size_t bhc = (static_cast<size_t>(b) * p.H + h) * n_chunks + c;
   float* qe = p.q_eff + bhc * C * kD;
   for (int i = tid; i < C * kD; i += kThreads)
-    qe[i] = rs[(i / kD) * kP + i % kD] * ex<kTC>(excl(i / kD, i % kD));
+    qe[i] = rs[(i / kD) * kP + i % kD] * ex<kBF>(excl(i / kD, i % kD));
   if (tid < kD) p.decay[bhc * kD + tid] = expf(ls[(C - 1) * kP + tid]);
   __syncthreads();
   // k2 in place: the off-diagonal blocks have read k
   for (int i = tid; i < C * kD; i += kThreads) {
     const int t = i / kD, d = i % kD;
-    ks[t * kP + d] *= ex<kTC>(ls[(C - 1) * kP + d] - ls[t * kP + d]);
+    ks[t * kP + d] *= ex<kBF>(ls[(C - 1) * kP + d] - ls[t * kP + d]);
   }
   __syncthreads();
 
   // o_intra = A v + diag v (rows t, columns e) and dS = k2^T v (rows d)
   float* oi = p.o_intra + bhc * C * kD;
   float* ds = p.dstate + bhc * kD * kD;
-  if constexpr (kTC) {
-    const int mt = warp % 4, ng = warp / 4;  // row tile, column group
-    constexpr int NT = kGroupCols / 8;
+  const int mt = warp % 4, ng = warp / 4;  // row tile, column group
+  constexpr int NT = kGroupCols / 8;
+  if constexpr (kBF) {
     // v as the B operand (k = s, n = e): bf16 already, exact
     auto frag_v = [&](int s0, int e, uint32_t& b0, uint32_t& b1) {
       b0 = tc::pack_bf16(vs[s0 * kP + e], vs[(s0 + 1) * kP + e]);
@@ -471,19 +511,68 @@ __global__ void __launch_bounds__(kThreads, 2)
         ds[(mt * 16 + g + 8 * (e >> 1)) * kD + ng * kGroupCols + n * 8 +
            2 * t4 + (e & 1)] = acc[n][e];
   } else {
-    for (int i = tid; i < C * kD; i += kThreads) {
-      const int t = i / kD, e = i % kD;
-      float acc = 0.f;
-      for (int s = 0; s < t; ++s) acc += as[t * CP + s] * vs[s * kP + e];
-      oi[i] = acc + dg[t] * vs[t * kP + e];
+    // fp32, 3xTF32 with k = s permuted: v's rows 2t, 2t + 1 as B (stride
+    // 4 mod 32: conflict-free), A's as one 8-byte load (stride 8 mod 32)
+    // and k2^T's columns likewise; each 16 positions of s summed in fresh
+    // accumulators, then added in fp32
+    const float* vg = vs + ng * kGroupCols;  // the group's columns
+    if (mt < C / 16) {
+      float acc[NT][4] = {};
+      for (int kc = 0; kc <= mt; ++kc) {  // s < t: tiles on or below
+        float small[NT][4] = {}, big[NT][4] = {};
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int s0 = kc * 16 + hh * 8;
+          tf::FragA fa;
+          tf::load_a_perm<CP>(fa, as + mt * 16 * CP + s0, g, t4);
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            tf::FragB fb;
+            tf::load_b_perm<kP>(fb, vg + s0 * kP + n * 8, g, t4);
+            tf::mma3(small[n], big[n], fa, fb);
+          }
+        }
+        tf::add(acc, big, small);
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int t = mt * 16 + g + 8 * hh;
+          const int col = ng * kGroupCols + n * 8 + 2 * t4;
+          *reinterpret_cast<float2*>(oi + t * kD + col) =
+              make_float2(acc[n][2 * hh] + dg[t] * vs[t * kP + col],
+                          acc[n][2 * hh + 1] + dg[t] * vs[t * kP + col + 1]);
+        }
     }
-    for (int i = tid; i < kD * kD; i += kThreads) {
-      const int d = i / kD, e = i % kD;
-      float acc = 0.f;
-#pragma unroll 8
-      for (int s = 0; s < C; ++s) acc += ks[s * kP + d] * vs[s * kP + e];
-      ds[i] = acc;
+    float acc[NT][4] = {};
+    // not unrolled: unrolled, it spills at C = 64 (64 registers a thread)
+#pragma unroll 1
+    for (int kc = 0; kc < C / 16; ++kc) {
+      float small[NT][4] = {}, big[NT][4] = {};
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int s0 = kc * 16 + hh * 8;
+        tf::FragA fa;  // A[d][s] = k2[s][d]
+        tf::frag_a<true>(fa, [&](int i, int j) {
+          return ks[(s0 + j) * kP + mt * 16 + i];
+        });
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          tf::FragB fb;
+          tf::load_b_perm<kP>(fb, vg + s0 * kP + n * 8, g, t4);
+          tf::mma3(small[n], big[n], fa, fb);
+        }
+      }
+      tf::add(acc, big, small);
     }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float2*>(
+            ds + (mt * 16 + g + 8 * hh) * kD + ng * kGroupCols + n * 8 +
+            2 * t4) = make_float2(acc[n][2 * hh], acc[n][2 * hh + 1]);
   }
 }
 
@@ -500,14 +589,13 @@ __host__ __device__ constexpr size_t stage_floats() {
 template <typename T, int C>
 __global__ void __launch_bounds__(kScanThreads)
     linear_attn_scan_kernel(Args p) {
-  constexpr bool kTC = std::is_same<T, bf16>::value;
+  constexpr bool kBF = std::is_same<T, bf16>::value;
   constexpr int kStage = stage_floats<C>();
   const int e0 = blockIdx.x * kSlice, h = blockIdx.y, b = blockIdx.z;
   const int n_chunks = (p.S + C - 1) / C;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t4 = lane % 4;
-  extern __shared__ __align__(16) float stage[];  // the ring, then fp32 S
-  float* sst = stage + kStages * kStage;          // fp32: S slice 64 x 17
+  extern __shared__ __align__(16) float stage[];  // the ring
   const size_t bh = static_cast<size_t>(b) * p.H + h;
 
   auto issue = [&](int c) {  // one commit group, empty past the last chunk
@@ -540,18 +628,21 @@ __global__ void __launch_bounds__(kScanThreads)
     tc::cp_async_commit();
   };
 
-  // the state: tensor cores keep it in registers as B fragments of the
-  // warp's NW column tiles of 8 (the warps of a column group hold the same
-  // copy); fp32 keeps it in shared memory.  st[kc][n][x] holds
-  // S[kc*16 + 2t + (x & 1) + 8 (x >> 1)][(cg*NW + n)*8 + g]
+  // the state in registers, as B fragments of the warp's NW column tiles
+  // of 8 (the warps of a column group hold the same copy).  bf16:
+  // st[kc][n][x] holds S[kc*16 + 2t + (x & 1) + 8 (x >> 1)][(cg*NW + n)*8
+  // + g] (m16n8k16); fp32: sf[kc][n][x] holds S[kc*8 + 2t + x][...]
+  // (m16n8k8, k permuted: tf32_mma.cuh)
   constexpr int NW = kSlice / 16;  // column tiles of a warp
   const int mt = warp % 4, cg = warp / 4;
   float st[kD / 16][NW][4];
+  float sf[kD / 8][NW][2];
   auto st_d = [&](int kc, int x) {
     return kc * 16 + 2 * t4 + (x & 1) + 8 * (x >> 1);
   };
+  auto sf_d = [&](int kc, int x) { return kc * 8 + 2 * t4 + x; };
   const float* s0 = p.s0 ? p.s0 + bh * kD * kD + e0 : nullptr;
-  if constexpr (kTC) {
+  if constexpr (kBF) {
 #pragma unroll
     for (int kc = 0; kc < kD / 16; ++kc)
 #pragma unroll
@@ -561,9 +652,14 @@ __global__ void __launch_bounds__(kScanThreads)
           st[kc][n][x] =
               s0 ? s0[st_d(kc, x) * kD + (cg * NW + n) * 8 + g] : 0.f;
   } else {
-    for (int i = tid; i < kD * kSlice; i += kScanThreads)
-      sst[(i / kSlice) * (kSlice + 1) + i % kSlice] =
-          s0 ? s0[(i / kSlice) * kD + i % kSlice] : 0.f;
+#pragma unroll
+    for (int kc = 0; kc < kD / 8; ++kc)
+#pragma unroll
+      for (int n = 0; n < NW; ++n)
+#pragma unroll
+        for (int x = 0; x < 2; ++x)
+          sf[kc][n][x] =
+              s0 ? s0[sf_d(kc, x) * kD + (cg * NW + n) * 8 + g] : 0.f;
   }
 
   T* o = static_cast<T*>(p.o);
@@ -580,7 +676,7 @@ __global__ void __launch_bounds__(kScanThreads)
     const float* dss = os + C * kOS;
     const float* dc = dss + kD * kSS;
     const int t0 = c * C;
-    if constexpr (kTC) {
+    if constexpr (kBF) {
       if (live) {
         // o = o_intra + q_eff S over the warp's 16 rows and NW x 8
         // columns: the three products in accumulators of their own
@@ -637,30 +733,65 @@ __global__ void __launch_bounds__(kScanThreads)
                              dss[d * kSS + (cg * NW + n) * 8 + g];
             }
       }
-    } else {
-      const int e = tid % kSlice, rg = tid / kSlice;
-      for (int t = rg; t < C; t += kScanThreads / kSlice) {
-        float acc = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < kD; ++d)
-          acc += qs[t * kQS + d] * sst[d * (kSlice + 1) + e];
-        if (t0 + t < p.S)
-          o[((static_cast<size_t>(b) * p.S + t0 + t) * p.H + h) * kD + e0 +
-            e] = acc + os[t * kOS + e];
+    } else if (live) {
+      // fp32: o = o_intra + q_eff S in 3xTF32 (q_eff's rows g, columns
+      // 2t, 2t + 1 one 8-byte load, stride 8 mod 32); the sum over the
+      // channels in fresh accumulators a chunk, hi hi in two (even and
+      // odd steps)
+      float small[NW][4] = {}, big[NW][4] = {}, big1[NW][4] = {};
+#pragma unroll
+      for (int kc = 0; kc < kD / 8; ++kc) {
+        tf::FragA fa;
+        tf::load_a_perm<kQS>(fa, qs + mt * 16 * kQS + kc * 8, g, t4);
+#pragma unroll
+        for (int n = 0; n < NW; ++n) {
+          tf::FragB fb;
+          tf::split(sf[kc][n][0], fb.hi[0], fb.lo[0]);
+          tf::split(sf[kc][n][1], fb.hi[1], fb.lo[1]);
+          tf::mma3(small[n], kc % 2 ? big1[n] : big[n], fa, fb);
+        }
       }
-      __syncthreads();
-      for (int d = rg; d < kD; d += kScanThreads / kSlice) {
-        float* cell = sst + d * (kSlice + 1) + e;
-        if (p.states != nullptr)
-          p.states[((bh * n_chunks + c) * kD + d) * kD + e0 + e] = *cell;
-        *cell = *cell * dc[d] + dss[d * kSS + e];
+      tf::add(big, big1);
+#pragma unroll
+      for (int n = 0; n < NW; ++n)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int t = mt * 16 + g + 8 * hh;
+          const int col = (cg * NW + n) * 8 + 2 * t4;
+          auto sum = [&](int e) { return big[n][e] + small[n][e]; };
+          if (t0 + t < p.S)
+            store2<T>(o + ((static_cast<size_t>(b) * p.S + t0 + t) * p.H +
+                           h) * kD + e0 + col,
+                      sum(2 * hh) + os[t * kOS + col],
+                      sum(2 * hh + 1) + os[t * kOS + col + 1]);
+        }
+      if (p.states != nullptr && mt == 0) {  // one warp a column group
+        float* sv = p.states + (bh * n_chunks + c) * kD * kD + e0;
+#pragma unroll
+        for (int kc = 0; kc < kD / 8; ++kc)
+#pragma unroll
+          for (int n = 0; n < NW; ++n)
+#pragma unroll
+            for (int x = 0; x < 2; ++x)
+              sv[sf_d(kc, x) * kD + (cg * NW + n) * 8 + g] = sf[kc][n][x];
       }
+      // S <- decay * S + dS
+#pragma unroll
+      for (int kc = 0; kc < kD / 8; ++kc)
+#pragma unroll
+        for (int n = 0; n < NW; ++n)
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int d = sf_d(kc, x);
+            sf[kc][n][x] = sf[kc][n][x] * dc[d] +
+                           dss[d * kSS + (cg * NW + n) * 8 + g];
+          }
     }
   }
 
   float* so = p.s_out + bh * kD * kD + e0;
-  if constexpr (kTC) {
-    if (mt == 0) {  // one warp of each column group
+  if (mt == 0) {  // one warp of each column group
+    if constexpr (kBF) {
 #pragma unroll
       for (int kc = 0; kc < kD / 16; ++kc)
 #pragma unroll
@@ -668,11 +799,15 @@ __global__ void __launch_bounds__(kScanThreads)
 #pragma unroll
           for (int x = 0; x < 4; ++x)
             so[st_d(kc, x) * kD + (cg * NW + n) * 8 + g] = st[kc][n][x];
+    } else {
+#pragma unroll
+      for (int kc = 0; kc < kD / 8; ++kc)
+#pragma unroll
+        for (int n = 0; n < NW; ++n)
+#pragma unroll
+          for (int x = 0; x < 2; ++x)
+            so[sf_d(kc, x) * kD + (cg * NW + n) * 8 + g] = sf[kc][n][x];
     }
-  } else {
-    for (int i = tid; i < kD * kSlice; i += kScanThreads)
-      so[(i / kSlice) * kD + i % kSlice] =
-          sst[(i / kSlice) * (kSlice + 1) + i % kSlice];
   }
 }
 
@@ -690,8 +825,7 @@ int launch(const Args& a, cudaStream_t stream) {
   chunk<<<dim3(n_chunks, a.H, a.B), kThreads, smem, stream>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const size_t scan_smem =
-      (kStages * stage_floats<C>() + kD * (kSlice + 1)) * sizeof(float);
+  const size_t scan_smem = kStages * stage_floats<C>() * sizeof(float);
   auto scan = linear_attn_scan_kernel<T, C>;
   if (scan_smem > 48 * 1024) {
     e = cudaFuncSetAttribute(scan,

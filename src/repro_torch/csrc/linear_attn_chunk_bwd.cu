@@ -39,57 +39,62 @@
 // 64, 64), each chunk's decay exp(L_last) (B, H, n_chunks, 64) and, with
 // u, du's per-chunk partials (B, H, n_chunks, 64).
 //
-// Design, bf16 (redesigned for the H100: rwkv6-1.6b trains in bf16), four
-// launches, no atomics, so two identical calls give the same bits:
-//  (a) linear_attn_bwd_inc_kernel, one block of 8 warps per (chunk, h, b):
-//      the chunk's increment of the state's gradient, q_eff^T do with
-//      q_eff = r exp(E), computed once (its exponentials too) on the
-//      tensor cores, into the chunk's dS_out slot, and exp(L_last).
+// Design, four launches in either dtype, no atomics, so two identical
+// calls give the same bits:
+//  (a) the increment, one block of 8 warps per (chunk, h, b): the chunk's
+//      increment of the state's gradient, q_eff^T do with q_eff = r
+//      exp(E), computed once (its exponentials too) on the tensor cores,
+//      into the chunk's dS_out slot, and exp(L_last).
 //  (b) linear_attn_bwd_carry_kernel, one thread per state entry (b, h, d,
 //      e), from the last chunk: dS_out written over the increment, then
 //      dS <- exp(L_last) dS + increment (four chunks' loads in flight);
 //      dS_in of chunk 0 is the initial state's gradient.  Every state
 //      entry walks the chunks at once, and no exponential is taken twice:
-//      8.4 MB read and written at rwkv6's (1, 1024).
-//  (c) linear_attn_bwd_chunk_tc_kernel, one block of 8 warps per (chunk,
-//      h, b), two blocks an SM (107 KB of shared memory: r, k, v, do in
-//      bf16, L and E in fp32, one C x C tile that holds A and then dA, one
-//      64 x 64 tile that holds S_in and then dS_out).  Warp w owns 16 rows
-//      and C / 4 columns of each of dr, dk and dv in fp32 registers.  The
-//      products run on mma.sync.m16n8k16 (bf16 in, fp32 accumulate) in the
-//      forward's decomposition: A rebuilt by secondary chunks of 16
-//      (diagonal blocks pairwise on the CUDA cores, off-diagonal ones
-//      factored through L at the end of the earlier sub-chunk, both
-//      factors <= 1), dA = do v^T, A^T do, the decayed dA k and dA^T r
-//      (their diagonal blocks pairwise for the thread's own elements), and
-//      the S_in do, dS_out v and k2 dS_out terms.  An fp32 operand (the
-//      states, A, dA, the decayed factors) enters as two bf16 parts (the
-//      rounded value, then what the rounding dropped), r, k, v and do
-//      whole; every exponent is <= 0.  dw by a reverse cumulative sum down
-//      each channel, du's partial by column sums in a fixed order.
+//      8.4 MB read and written at rwkv6's (1, 1024).  Both dtypes.
+//  (c) the gradient pass, one block per (chunk, h, b).  Warp w owns 16
+//      rows and a group of columns of each of dr, dk and dv in fp32
+//      registers.  The products run on the tensor cores in the forward's
+//      decomposition: A rebuilt by secondary chunks of 16 (diagonal blocks
+//      pairwise on the CUDA cores, off-diagonal ones factored through L at
+//      the end of the earlier sub-chunk, both factors <= 1), dA = do v^T,
+//      A^T do, the decayed dA k and dA^T r (their diagonal blocks pairwise,
+//      each pair's exponential serving both), and the S_in do, dS_out v
+//      and k2 dS_out terms; every exponent is <= 0.  dw by a reverse
+//      cumulative sum down each channel, du's partial by column sums in a
+//      fixed order.
 //  (d) linear_attn_bwd_du_kernel sums du's partials over b and the chunks
 //      in a fixed order (launched only with u).
-// fp32 (not redesigned): three launches on the CUDA cores in fp32.
-//  (b') linear_attn_bwd_scan_kernel, one block per (16 state columns, h,
-//      b), walks the chunks from the last: it writes each chunk's dS_out,
-//      then dS <- exp(L_last) dS + q_eff^T do, recomputing q_eff =
-//      r exp(E) from r and w, and writes dS_in of chunk 0.
-//  (c') linear_attn_bwd_chunk_kernel, one block of 16 warps per (chunk, h,
-//      b), as (c) with fp32 sums in shared memory (one block an SM); each
-//      thread owns C * 64 / 512 (t, channel) elements of dr, dk and dv;
-//  (d) as above.
+// bf16 (redesigned for the H100: rwkv6-1.6b trains in bf16):
+//  linear_attn_bwd_inc_kernel and linear_attn_bwd_chunk_tc_kernel on
+//  mma.sync.m16n8k16 (bf16 in, fp32 accumulate).  (c) runs two blocks of 8
+//  warps an SM (107 KB of shared memory: r, k, v, do in bf16, L and E in
+//  fp32, one C x C tile that holds A and then dA, one 64 x 64 tile that
+//  holds S_in and then dS_out); an fp32 operand (the states, A, dA, the
+//  decayed factors) enters as two bf16 parts (the rounded value, then what
+//  the rounding dropped), r, k, v and do whole; exponentials on the SFUs.
+// fp32: linear_attn_bwd_inc_f32_kernel and linear_attn_bwd_chunk_f32_kernel
+//  on mma.sync.m16n8k8 in 3xTF32 (tf32_mma.cuh): every operand, r, k, v
+//  and do too, enters as a TF32 high part and the TF32 of its residual,
+//  in three products; a sum over the channels keeps the small products and
+//  hi hi in accumulators of their own, a sum over positions takes fresh
+//  ones every 16 and adds them in fp32 (the tensor cores accumulate
+//  without IEEE rounding); the accurate expf.  (c) keeps every tile in
+//  fp32: 142 KB at C = 64, so one block an SM, and 16 warps a block, four
+//  to a row tile, each with 16 columns of dr, dk and dv (at C = 16, 49 KB
+//  and 8 warps, as bf16).
 //
 // Bound: bytes.  At rwkv6-1.6b's (1, 1024), 32 heads, bf16, the function
 // reads r, k, v, do (bf16) and w (fp32) and writes dr, dk, dv (bf16) and
-// dw (fp32): ~46 MB, ~14 us at 3.35 TB/s (the kernel also reads the 8.4 MB
-// of states the forward saved, which follow from k, v and w, so the bound
-// leaves them out); its least products (8 dk dv a token: the gradients of
-// the state's read-out and update) are 1.1 GFLOP, ~1 us on the tensor
-// cores.  chip_smoke.py's phase 3m prints launch/op_cost.py::
-// k6_bwd_charge.  The bf16 design's own traffic is above that: the
-// increments and dS_out (8.4 MB each, written and read through the 50 MB
-// L2) and the states; its exponentials (the diagonal blocks' pairs, three
-// times: A, dr, dk) sit on the SFUs.
+// dw (fp32): ~46 MB, ~14 us at 3.35 TB/s; in fp32 at (1, 500), ~37 MB,
+// 11.0 us.  The kernel also reads the 8.4 MB of states the forward saved,
+// which follow from k, v and w, so the bound leaves them out.  Its least
+// products (8 dk dv a token: the gradients of the state's read-out and
+// update) are 1.1 GFLOP, ~1 us on the tensor cores in bf16, ~7 us in three
+// TF32 passes at (1, 1024).  chip_smoke.py's phase 3m prints
+// launch/op_cost.py::k6_bwd_charge.  The design's own traffic is above
+// that: the increments and dS_out (8.4 MB each at (1, 1024), written and
+// read through the 50 MB L2) and the states; its exponentials (the
+// diagonal blocks' pairs, three times: A, dr, dk) sit on the SFUs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -97,27 +102,14 @@
 #include <type_traits>
 
 #include "attention_mma.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
 constexpr int kD = 64;              // dk = dv
-constexpr int kP = kD + 1;          // row stride (floats) of a (t, d) tile
 constexpr int kSub = 16;            // secondary chunk
-constexpr int kThreads = 512;       // (c): 16 warps
-constexpr int kScanThreads = 256;   // (b)
-constexpr int kSlice = 16;          // (b): state columns per block
-constexpr int kSlices = kD / kSlice;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
 
 struct Args {
   const void* r;
@@ -135,310 +127,13 @@ struct Args {
   float* du;             // (H, 64), or null
   float* d_s0;           // (B, H, 64, 64)
   float* ds_out;         // scratch (B, H, n_chunks, 64, 64)
-  float* decay;          // scratch (B, H, n_chunks, 64): bf16's exp(L_last)
+  float* decay;          // scratch (B, H, n_chunks, 64): exp(L_last)
   float* du_part;        // scratch (B, H, n_chunks, 64), or null
   int B, S, H;
 };
 
 __device__ __forceinline__ size_t tok(const Args& p, int b, int t, int h) {
   return ((static_cast<size_t>(b) * p.S + t) * p.H + h) * kD;
-}
-
-// (b): grid (kSlices, H, B).  Thread tid holds dS[d][e0 + e] for e =
-// tid % 16 and d = tid / 16 + 16 i, i < 4.
-template <typename T, int C>
-__global__ void __launch_bounds__(kScanThreads)
-    linear_attn_bwd_scan_kernel(Args p) {
-  __shared__ float qs[C * kP];      // r, then q_eff = r exp(E)
-  __shared__ float ws[C * kP];      // w
-  __shared__ float ds[C * (kSlice + 1)];  // do's slice
-  __shared__ float dc[kD];          // exp(L_last)
-  const int e0 = blockIdx.x * kSlice, h = blockIdx.y, b = blockIdx.z;
-  const int n_chunks = (p.S + C - 1) / C;
-  const int tid = threadIdx.x, e = tid % kSlice, d0 = tid / kSlice;
-  const size_t bh = static_cast<size_t>(b) * p.H + h;
-  const T* r = static_cast<const T*>(p.r);
-  const T* dout = static_cast<const T*>(p.dout);
-  constexpr int NR = kD * kSlice / kScanThreads;
-  float g[NR];
-#pragma unroll
-  for (int i = 0; i < NR; ++i)
-    g[i] = p.d_state ? p.d_state[(bh * kD + d0 + 16 * i) * kD + e0 + e] : 0.f;
-  for (int c = n_chunks - 1; c >= 0; --c) {
-    const int t0 = c * C;
-    float* so = p.ds_out + (bh * n_chunks + c) * kD * kD + e0;
-#pragma unroll
-    for (int i = 0; i < NR; ++i) so[(d0 + 16 * i) * kD + e] = g[i];
-    for (int i = tid; i < C * kD; i += kScanThreads) {
-      const int t = i / kD, d = i % kD;
-      const bool in = t0 + t < p.S;
-      qs[t * kP + d] = in ? to_f32(r[tok(p, b, t0 + t, h) + d]) : 0.f;
-      ws[t * kP + d] = in ? p.w[tok(p, b, t0 + t, h) + d] : 0.f;
-    }
-    for (int i = tid; i < C * kSlice; i += kScanThreads) {
-      const int t = i / kSlice, x = i % kSlice;
-      ds[t * (kSlice + 1) + x] =
-          t0 + t < p.S ? to_f32(dout[tok(p, b, t0 + t, h) + e0 + x]) : 0.f;
-    }
-    __syncthreads();
-    if (tid < kD) {  // the cumulative log-decay down channel tid
-      float acc = 0.f;
-      for (int t = 0; t < C; ++t) {
-        const float wv = ws[t * kP + tid];
-        acc += wv;
-        qs[t * kP + tid] *= expf(acc - wv);
-      }
-      dc[tid] = expf(acc);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < NR; ++i) {
-      const int d = d0 + 16 * i;
-      float s = 0.f;
-      for (int t = 0; t < C; ++t)
-        s += qs[t * kP + d] * ds[t * (kSlice + 1) + e];
-      g[i] = g[i] * dc[d] + s;
-    }
-    __syncthreads();  // the next chunk's loads overwrite the tiles
-  }
-#pragma unroll
-  for (int i = 0; i < NR; ++i)
-    p.d_s0[(bh * kD + d0 + 16 * i) * kD + e0 + e] = g[i];
-}
-
-// (c)'s shared memory at chunk C: r, k, v, do, L, E and a staging tile
-// (C x kP each), A and dA (C x (C + 1) each), S_in and dS_out transposed
-// (64 x kP each: [e][d]), the u-diagonal, do . v, u and a column sum
-template <int C>
-struct Grad {
-  static constexpr int NS = C / kSub;
-  static constexpr size_t floats = 7 * static_cast<size_t>(C) * kP +
-                                   2 * static_cast<size_t>(C) * (C + 1) +
-                                   2 * static_cast<size_t>(kD) * kP + 2 * C +
-                                   2 * kD;
-};
-
-// (c): grid (n_chunks, H, B).  Thread tid owns the (t, d) elements
-// i = tid + 512 m (t = i / 64, d = i % 64) of dr, dk, dv and dw.
-template <typename T, int C>
-__global__ void __launch_bounds__(kThreads, 1)
-    linear_attn_bwd_chunk_kernel(Args p) {
-  constexpr int CP = C + 1;
-  constexpr int NE = C * kD / kThreads;
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int n_chunks = gridDim.x;
-  const int tid = threadIdx.x;
-
-  extern __shared__ float smem[];
-  float* rs = smem;           // r
-  float* ks = rs + C * kP;    // k
-  float* vs = ks + C * kP;    // v
-  float* gs = vs + C * kP;    // do
-  float* ls = gs + C * kP;    // L (inclusive)
-  float* xs = ls + C * kP;    // w, then E = L - w
-  float* st = xs + C * kP;    // staged factors, then k2
-  float* as = st + C * kP;    // A
-  float* das = as + C * CP;   // dA
-  float* si = das + C * CP;   // S_in^T
-  float* so = si + kD * kP;   // dS_out^T
-  float* dg = so + kD * kP;   // r[t] . (u * k[t])
-  float* dov = dg + C;        // do[t] . v[t]
-  float* us = dov + C;        // u
-  float* col = us + kD;       // exp(L_last) sum_e dS_out S_in, per d
-
-  const T* r = static_cast<const T*>(p.r);
-  const T* k = static_cast<const T*>(p.k);
-  const T* v = static_cast<const T*>(p.v);
-  const T* dout = static_cast<const T*>(p.dout);
-  const int t0 = c * C;
-  for (int i = tid; i < C * kD; i += kThreads) {
-    const int t = i / kD, d = i % kD;
-    const bool in = t0 + t < p.S;
-    const size_t o = in ? tok(p, b, t0 + t, h) + d : 0;
-    rs[t * kP + d] = in ? to_f32(r[o]) : 0.f;
-    ks[t * kP + d] = in ? to_f32(k[o]) : 0.f;
-    vs[t * kP + d] = in ? to_f32(v[o]) : 0.f;
-    gs[t * kP + d] = in ? to_f32(dout[o]) : 0.f;
-    xs[t * kP + d] = in ? p.w[o] : 0.f;
-  }
-  const size_t bhc = (static_cast<size_t>(b) * p.H + h) * n_chunks + c;
-  const float* s_in = p.states + bhc * kD * kD;
-  const float* s_out = p.ds_out + bhc * kD * kD;
-  for (int i = tid; i < kD * kD; i += kThreads) {
-    const int d = i / kD, e = i % kD;
-    si[e * kP + d] = s_in[i];
-    so[e * kP + d] = s_out[i];
-  }
-  if (tid < kD) us[tid] = p.u ? p.u[h * kD + tid] : 0.f;
-  __syncthreads();
-
-  // the cumulative log-decay, one thread a channel; the u-diagonal and
-  // do . v on the next threads meanwhile
-  if (tid < kD) {
-    float acc = 0.f;
-    for (int t = 0; t < C; ++t) {
-      const float wv = xs[t * kP + tid];
-      acc += wv;
-      ls[t * kP + tid] = acc;
-      xs[t * kP + tid] = acc - wv;
-    }
-  } else if (tid < kD + C) {
-    const int t = tid - kD;
-    float s = 0.f;
-    for (int d = 0; d < kD; ++d) s += rs[t * kP + d] * us[d] * ks[t * kP + d];
-    dg[t] = s;
-  } else if (tid < kD + 2 * C) {
-    const int t = tid - kD - C;
-    float s = 0.f;
-    for (int e = 0; e < kD; ++e) s += gs[t * kP + e] * vs[t * kP + e];
-    dov[t] = s;
-  }
-  __syncthreads();
-
-  // dA (strict lower) and A's diagonal sub-blocks, pairwise
-  for (int i = tid; i < C * C; i += kThreads) {
-    const int t = i / C, s = i % C;
-    float da = 0.f, a = 0.f;
-    if (s < t) {
-      for (int e = 0; e < kD; ++e) da += gs[t * kP + e] * vs[s * kP + e];
-      if (s / kSub == t / kSub)
-        for (int d = 0; d < kD; ++d)
-          a += rs[t * kP + d] * ks[s * kP + d] *
-               expf(fminf(xs[t * kP + d] - ls[s * kP + d], 0.f));
-    }
-    das[t * CP + s] = da;
-    as[t * CP + s] = a;  // the off-diagonal blocks are set below
-  }
-  __syncthreads();
-
-  // the decayed intra-chunk products of dr and dk: the diagonal blocks
-  // pairwise, for the elements the thread owns
-  float dr_a[NE], dk_a[NE];
-#pragma unroll
-  for (int m = 0; m < NE; ++m) {
-    const int i = tid + m * kThreads, t = i / kD, d = i % kD;
-    const int s0 = t / kSub * kSub, s1 = s0 + kSub;
-    const float xt = xs[t * kP + d], lt = ls[t * kP + d];
-    float a = 0.f, bk = 0.f;
-    for (int s = s0; s < t; ++s)
-      a += das[t * CP + s] * ks[s * kP + d] *
-           expf(fminf(xt - ls[s * kP + d], 0.f));
-    for (int u = t + 1; u < s1; ++u)
-      bk += das[u * CP + t] * rs[u * kP + d] *
-            expf(fminf(xs[u * kP + d] - lt, 0.f));
-    dr_a[m] = a;
-    dk_a[m] = bk;
-  }
-  // the off-diagonal blocks, one reference at a time: L at the end of
-  // sub-chunk j; r's factor for the rows past j, k's for the rows of j
-  for (int j = 0; j + 1 < Grad<C>::NS; ++j) {
-    const int j0 = j * kSub, j1 = j0 + kSub;
-    for (int i = tid; i < C * kD; i += kThreads) {
-      const int t = i / kD, d = i % kD;
-      const float ref = ls[(j1 - 1) * kP + d];
-      if (t >= j1)
-        st[t * kP + d] =
-            rs[t * kP + d] * expf(fminf(xs[t * kP + d] - ref, 0.f));
-      else if (t >= j0)
-        st[t * kP + d] =
-            ks[t * kP + d] * expf(fminf(ref - ls[t * kP + d], 0.f));
-    }
-    __syncthreads();
-    for (int i = tid; i < (C - j1) * kSub; i += kThreads) {
-      const int t = j1 + i / kSub, s = j0 + i % kSub;
-      float a = 0.f;
-      for (int d = 0; d < kD; ++d) a += st[t * kP + d] * st[s * kP + d];
-      as[t * CP + s] = a;
-    }
-#pragma unroll
-    for (int m = 0; m < NE; ++m) {
-      const int i = tid + m * kThreads, t = i / kD, d = i % kD;
-      const float ref = ls[(j1 - 1) * kP + d];
-      if (t >= j1) {
-        float x = 0.f;
-        for (int s = j0; s < j1; ++s) x += das[t * CP + s] * st[s * kP + d];
-        dr_a[m] += expf(fminf(xs[t * kP + d] - ref, 0.f)) * x;
-      } else if (t >= j0) {
-        float x = 0.f;
-        for (int u = j1; u < C; ++u) x += das[u * CP + t] * st[u * kP + d];
-        dk_a[m] += expf(fminf(ref - ls[t * kP + d], 0.f)) * x;
-      }
-    }
-    __syncthreads();  // the next reference restages st; A is complete
-  }
-
-  // k2 = k exp(L_last - L) for dv's state term
-  for (int i = tid; i < C * kD; i += kThreads) {
-    const int t = i / kD, d = i % kD;
-    st[t * kP + d] =
-        ks[t * kP + d] * expf(ls[(C - 1) * kP + d] - ls[t * kP + d]);
-  }
-  if (tid < kD) {  // the last position's S_in term of dw, per channel
-    float x = 0.f;
-    for (int e = 0; e < kD; ++e) x += so[e * kP + tid] * si[e * kP + tid];
-    col[tid] = expf(ls[(C - 1) * kP + tid]) * x;
-  }
-  __syncthreads();
-
-  T* dr = static_cast<T*>(p.dr);
-  T* dk = static_cast<T*>(p.dk);
-  T* dv = static_cast<T*>(p.dv);
-  float ge[NE], gl[NE], kds[NE], rkd[NE];
-#pragma unroll
-  for (int m = 0; m < NE; ++m) {
-    const int i = tid + m * kThreads, t = i / kD, d = i % kD;
-    const bool in = t0 + t < p.S;
-    const size_t o = in ? tok(p, b, t0 + t, h) + d : 0;
-    // dv (row t, column e = d)
-    float x = dg[t] * gs[t * kP + d];
-    for (int u = t + 1; u < C; ++u) x += as[u * CP + t] * gs[u * kP + d];
-    for (int f = 0; f < kD; ++f) x += st[t * kP + f] * so[d * kP + f];
-    // the state terms of dr and dk
-    float sd = 0.f, sk = 0.f;
-    for (int e = 0; e < kD; ++e) {
-      sd += si[e * kP + d] * gs[t * kP + e];
-      sk += so[e * kP + d] * vs[t * kP + e];
-    }
-    const float drw = dr_a[m] + expf(xs[t * kP + d]) * sd;
-    const float dks = expf(ls[(C - 1) * kP + d] - ls[t * kP + d]) * sk;
-    const float dkw = dk_a[m] + dks;
-    const float rt = rs[t * kP + d], kt = ks[t * kP + d];
-    const float bonus = us[d] * dov[t];
-    if (in) {
-      dv[o] = from_f32<T>(x);
-      dr[o] = from_f32<T>(drw + bonus * kt);
-      dk[o] = from_f32<T>(dkw + bonus * rt);
-    }
-    ge[m] = rt * drw;
-    gl[m] = -kt * dkw;
-    kds[m] = kt * dks;
-    rkd[m] = rt * kt * dov[t];
-  }
-  __syncthreads();  // every tile read: L, E, k2 and r take the sums
-#pragma unroll
-  for (int m = 0; m < NE; ++m) {
-    const int i = tid + m * kThreads, t = i / kD, d = i % kD;
-    ls[t * kP + d] = gl[m];
-    xs[t * kP + d] = ge[m] + gl[m];
-    st[t * kP + d] = kds[m];
-    rs[t * kP + d] = rkd[m];
-  }
-  __syncthreads();
-  if (tid < kD) {  // dw down channel tid, from the chunk's end; du's partial
-    const int d = tid;
-    float last = col[d], du = 0.f;
-    for (int t = 0; t < C; ++t) {
-      last += st[t * kP + d];
-      du += rs[t * kP + d];
-    }
-    float acc = 0.f;
-    for (int t = C - 1; t >= 0; --t) {
-      const float add = t == C - 1 ? last : 0.f;
-      if (t0 + t < p.S) p.dw[tok(p, b, t0 + t, h) + d] = acc + ls[t * kP + d] + add;
-      acc += xs[t * kP + d] + add;
-    }
-    if (p.du_part) p.du_part[bhc * kD + d] = du;
-  }
 }
 
 // (d): grid H, 64 threads; du[h][d] = sum over b, then chunks, in order
@@ -1122,6 +817,555 @@ __global__ void __launch_bounds__(kTC, 2)
   }
 }
 
+// ---------------------------------------------------------------------------
+// fp32: the same design in 3xTF32 (tf32_mma.cuh)
+// ---------------------------------------------------------------------------
+
+// (a) fp32's shared memory at chunk C: w then E, r then q_eff, do (C x kQ
+// fp32 each)
+template <int C>
+__host__ __device__ constexpr size_t inc_f32_smem_bytes() {
+  return sizeof(float) * 3 * static_cast<size_t>(C) * kQ;
+}
+
+// (a) fp32: grid (n_chunks, H, B), as (a) bf16 with r and do in fp32 and
+// the product in 3xTF32 (k = t permuted: q_eff^T's and do's rows 2t, 2t +
+// 1, stride 4 mod 32, conflict-free), each 16 positions summed in fresh
+// accumulators, then added in fp32
+template <int C>
+__global__ void __launch_bounds__(kTC) linear_attn_bwd_inc_f32_kernel(Args p) {
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int n_chunks = gridDim.x, t0 = c * C;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g4 = lane / 4, t4 = lane % 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* xs = reinterpret_cast<float*>(smem_raw);  // w, then E
+  float* qe = xs + C * kQ;                         // r, then q_eff
+  float* gs = qe + C * kQ;                         // do
+  load_f32_rows(xs, p.w, p, b, t0, h, C);
+  load_f32_rows(qe, static_cast<const float*>(p.r), p, b, t0, h, C);
+  load_f32_rows(gs, static_cast<const float*>(p.dout), p, b, t0, h, C);
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  const size_t bhc = (static_cast<size_t>(b) * p.H + h) * n_chunks + c;
+  if (tid < kD) {  // the cumulative log-decay down channel tid
+    float acc = 0.f;
+    for (int t = 0; t < C; ++t) {
+      const float wv = xs[t * kQ + tid];
+      acc += wv;
+      xs[t * kQ + tid] = acc - wv;
+    }
+    p.decay[bhc * kD + tid] = expf(acc);
+  }
+  __syncthreads();
+  for (int i = tid; i < C * kD; i += kTC) {
+    const int t = i / kD, d = i % kD;
+    qe[t * kQ + d] *= expf(xs[t * kQ + d]);
+  }
+  __syncthreads();
+  // inc[d][e] = sum_t q_eff[t][d] do[t][e]: warp w owns rows 16 (w % 4)
+  // and columns 32 (w / 4) of the 64 x 64 increment
+  const int rd = warp % 4, eg = warp / 4;
+  float acc[4][4] = {};
+#pragma unroll
+  for (int kc = 0; kc < C / 16; ++kc) {
+    float small[4][4] = {}, big[4][4] = {};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int s0 = kc * 16 + hh * 8;
+      tf::FragA fa;  // A[d][t] = q_eff[t][d]
+      tf::frag_a<true>(fa, [&](int i, int j) {
+        return qe[(s0 + j) * kQ + rd * 16 + i];
+      });
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        tf::FragB fb;
+        tf::load_b_perm<kQ>(fb, gs + s0 * kQ + eg * 32 + n * 8, g4, t4);
+        tf::mma3(small[n], big[n], fa, fb);
+      }
+    }
+    tf::add(acc, big, small);
+  }
+  float* inc = p.ds_out + bhc * kD * kD;
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<float2*>(inc + (rd * 16 + g4 + 8 * hh) * kD +
+                                 eg * 32 + n * 8 + 2 * t4) =
+          make_float2(acc[n][2 * hh], acc[n][2 * hh + 1]);
+}
+
+// (c) fp32's shared memory at chunk C: r, k, v, do, L (w until the
+// cumulative sum), E and X, A then dA (C x kQ fp32 each); Z, S_in then
+// dS_out (64 x kQ); u, the u-diagonal, do . v, the S_in term of dw, and
+// two column sums per row tile.  142 KB at C = 64, so one block an SM,
+// and so 16 warps, four to a row tile (two blocks of 8 warps at C = 16)
+template <int C>
+struct GradF32 {
+  static constexpr int W = C == 64 ? 16 : 8;  // warps
+  static constexpr int RT = C / 16;           // row tiles of the chunk
+  static constexpr int NCG = W / RT;          // column groups of the 64
+  static constexpr int CW = kD / NCG;         // columns of a group
+  static constexpr int NT = CW / 8;           // 8-column tiles of a warp
+  static constexpr int NS = C / kSub;         // sub-chunks
+  static constexpr int NPAIR = NS * (NS - 1) / 2;
+  static constexpr size_t bytes =
+      sizeof(float) * (7 * static_cast<size_t>(C) * kQ +
+                       static_cast<size_t>(kD) * kQ + 4 * kD +
+                       2 * static_cast<size_t>(RT) * kD);
+  static_assert(CW % 8 == 0 && NPAIR <= W && RT * (RT + 1) / 2 <= W &&
+                    NS * kD <= W * 32,
+                "a warp for each block and tile, a thread a channel");
+};
+
+// (c) fp32: grid (n_chunks, H, B), as (c) bf16 with every operand in fp32
+// and every product in 3xTF32.  Warp w owns rows 16 (w % RT) .. + 15 and
+// columns CW (w / RT) .. of each of dr, dk and dv in fp32 registers.  A
+// sum over the channels (or state columns) keeps the small products and hi
+// hi in accumulators of their own; a sum over positions takes fresh ones
+// every 16 and adds them in fp32.  Where a product's k axis is a row
+// index of its tiles it is permuted (tf32_mma.cuh), so that the loads of
+// both operands fall on distinct banks (stride 4 mod 32); the decayed
+// factors of the off-diagonal dr products and the dS_out operand of dv
+// are read with two-way conflicts.
+template <int C>
+__global__ void __launch_bounds__(GradF32<C>::W * 32, 1)
+    linear_attn_bwd_chunk_f32_kernel(Args p) {
+  using L = GradF32<C>;
+  constexpr int NT = L::NT, kN = L::W * 32;
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int n_chunks = gridDim.x, t0 = c * C;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g4 = lane / 4, t4 = lane % 4;
+  const int rt = warp % L::RT, col0 = (warp / L::RT) * L::CW;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* rs = reinterpret_cast<float*>(smem_raw);
+  float* ks = rs + C * kQ;
+  float* vs = ks + C * kQ;
+  float* gs = vs + C * kQ;                         // do
+  float* ls = gs + C * kQ;                         // w, then L
+  float* xs = ls + C * kQ;                         // E = L - w
+  float* xa = xs + C * kQ;                         // A, then dA
+  float* zs = xa + C * kQ;                         // S_in, then dS_out
+  float* us = zs + kD * kQ;                        // u
+  float* dg = us + kD;                             // r[t] . (u * k[t])
+  float* dov = dg + kD;                            // do[t] . v[t]
+  float* col = dov + kD;                           // dw's S_in term
+  float* kd_red = col + kD;                        // sum_t k dks, per tile
+  float* du_red = kd_red + L::RT * kD;             // sum_t r k do.v
+
+  const size_t bhc = (static_cast<size_t>(b) * p.H + h) * n_chunks + c;
+  load_f32_rows(rs, static_cast<const float*>(p.r), p, b, t0, h, C);
+  load_f32_rows(ks, static_cast<const float*>(p.k), p, b, t0, h, C);
+  load_f32_rows(vs, static_cast<const float*>(p.v), p, b, t0, h, C);
+  load_f32_rows(gs, static_cast<const float*>(p.dout), p, b, t0, h, C);
+  load_f32_rows(ls, p.w, p, b, t0, h, C);
+  const float* s_in = p.states + bhc * kD * kD;
+  const float* s_out = p.ds_out + bhc * kD * kD;
+  for (int i = tid; i < kD * (kD / 4); i += kN)
+    tc::cp_async16(zs + (i / 16) * kQ + i % 16 * 4, s_in + i * 4, true);
+  tc::cp_async_commit();
+  if (tid < kD) us[tid] = p.u ? p.u[h * kD + tid] : 0.f;
+  tc::cp_async_wait<0>();
+  __syncthreads();
+
+  // the cumulative log-decay, one thread a channel; the u-diagonal and
+  // do . v on the next threads meanwhile
+  if (tid < kD) {
+    float acc = 0.f;
+    for (int t = 0; t < C; ++t) {
+      const float wv = ls[t * kQ + tid];
+      acc += wv;
+      ls[t * kQ + tid] = acc;
+      xs[t * kQ + tid] = acc - wv;
+    }
+  } else if (tid < kD + C) {
+    const int t = tid - kD;
+    float s = 0.f;
+    for (int d = 0; d < kD; ++d) s += rs[t * kQ + d] * us[d] * ks[t * kQ + d];
+    dg[t] = s;
+  } else if (tid < kD + 2 * C) {
+    const int t = tid - kD - C;
+    float s = 0.f;
+    for (int e = 0; e < kD; ++e) s += gs[t * kQ + e] * vs[t * kQ + e];
+    dov[t] = s;
+  }
+  __syncthreads();
+  auto at_l = [&](int t, int d) { return ls[t * kQ + d]; };
+  auto at_e = [&](int t, int d) { return xs[t * kQ + d]; };
+  const float* l_last = ls + (C - 1) * kQ;
+  // the thread's elements: rows rt*16 + g4 + 8 hh, columns col0 + 8 n +
+  // 2 t4 + (e & 1)
+  auto row_of = [&](int e) { return rt * 16 + g4 + 8 * (e >> 1); };
+  auto col_of = [&](int n, int e) { return col0 + n * 8 + 2 * t4 + (e & 1); };
+  // C[rows][cols] (small, big) = sum over 64 k of a(i, k) b(k, n): the
+  // warp's 16 rows and NC tiles of 8 columns, k not permuted
+  auto dot64 = [&](auto a, auto bt, auto& small, auto& big) {
+    tf::zero(small);
+    tf::zero(big);
+#pragma unroll 2
+    for (int k0 = 0; k0 < kD; k0 += 8) {
+      tf::FragA fa;
+      tf::frag_a<false>(fa, [&](int i, int j) { return a(i, k0 + j); });
+#pragma unroll
+      for (int n = 0; n < static_cast<int>(sizeof(small) / sizeof(small[0]));
+           ++n) {
+        tf::FragB fb;
+        tf::frag_b<false>(fb, [&](int j, int nn) { return bt(k0 + j, n, nn); });
+        tf::mma3(small[n], big[n], fa, fb);
+      }
+    }
+  };
+
+  // A's diagonal sub-blocks pairwise (zero on and above the diagonal) and
+  // its off-diagonal blocks factored through L at the end of the earlier
+  // sub-chunk, both factors <= 1, as the forward builds A
+  constexpr int kSubPairs = kSub * (kSub - 1) / 2;
+  for (int i = tid; i < C * C; i += kN) {
+    const int t = i / C, s = i % C;
+    if (s >= t) xa[t * kQ + s] = 0.f;
+  }
+  for (int pi = tid; pi < L::NS * kSubPairs; pi += kN) {
+    const int sb = pi / kSubPairs, q = pi % kSubPairs;
+    int tt = static_cast<int>((1.f + sqrtf(1.f + 8.f * q)) * 0.5f);
+    while (tt * (tt - 1) / 2 > q) --tt;
+    while (tt * (tt + 1) / 2 <= q) ++tt;
+    const int t = sb * kSub + tt, s = sb * kSub + q - tt * (tt - 1) / 2;
+    float a = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < kD; ++d)
+      a += rs[t * kQ + d] * ks[s * kQ + d] *
+           expf(fminf(at_e(t, d) - at_l(s, d), 0.f));
+    xa[t * kQ + s] = a;
+  }
+  if (warp < L::NPAIR) {
+    int bi, bj;
+    pair_of(warp, &bi, &bj);
+    const float* ref = ls + (bj * kSub + kSub - 1) * kQ;
+    float small[2][4], big[2][4];
+    dot64([&](int i, int d) {
+      const int t = bi * kSub + i;
+      return rs[t * kQ + d] * expf(fminf(at_e(t, d) - ref[d], 0.f));
+    }, [&](int d, int n, int nn) {  // B[d][s] = k[s][d] exp(L_ref - L[s])
+      const int s = bj * kSub + n * 8 + nn;
+      return ks[s * kQ + d] * expf(fminf(ref[d] - at_l(s, d), 0.f));
+    }, small, big);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        xa[(bi * kSub + g4 + 8 * (e >> 1)) * kQ + bj * kSub + nt * 8 +
+           2 * t4 + (e & 1)] = big[nt][e] + small[nt][e];
+  }
+
+  // the state term of dr: exp(E) (do S_in^T)
+  float dr[NT][4], dk[NT][4], dv[NT][4] = {};
+  {
+    float small[NT][4], big[NT][4];
+    dot64([&](int i, int e) { return gs[(rt * 16 + i) * kQ + e]; },
+          [&](int e, int n, int nn) {  // B[e][d] = S_in[d][e]
+            return zs[(col0 + n * 8 + nn) * kQ + e];
+          }, small, big);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dr[n][e] = (big[n][e] + small[n][e]) *
+                   expf(at_e(row_of(e), col_of(n, e)));
+  }
+  __syncthreads();  // S_in read: dS_out takes its place; A complete
+
+  for (int i = tid; i < kD * (kD / 4); i += kN)
+    tc::cp_async16(zs + (i / 16) * kQ + i % 16 * 4, s_out + i * 4, true);
+  tc::cp_async_commit();
+  // dw's S_in term at the chunk's end, exp(L_last) sum_e dS_out S_in per
+  // channel, read from device memory: four threads a channel
+  {
+    const int d = tid / 4, part = tid % 4;
+    float x = 0.f;
+    if (d < kD) {
+#pragma unroll
+      for (int e = part * 16; e < part * 16 + 16; e += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(s_in + d * kD + e);
+        const float4 o = *reinterpret_cast<const float4*>(s_out + d * kD + e);
+        x += a.x * o.x + a.y * o.y + a.z * o.z + a.w * o.w;
+      }
+    }
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    x += __shfl_xor_sync(0xffffffffu, x, 2);
+    if (part == 0 && d < kD) col[d] = expf(l_last[d]) * x;
+  }
+  // dv = A^T do (tiles of t on or below s's; k = t permuted) ...
+  for (int kc = rt; kc < L::RT; ++kc) {
+    float small[NT][4] = {}, big[NT][4] = {};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int s0 = kc * 16 + hh * 8;
+      tf::FragA fa;  // A^T[s][t] = A[t][s]
+      tf::frag_a<true>(fa, [&](int i, int j) {
+        return xa[(s0 + j) * kQ + rt * 16 + i];
+      });
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        tf::FragB fb;
+        tf::load_b_perm<kQ>(fb, gs + s0 * kQ + col0 + n * 8, g4, t4);
+        tf::mma3(small[n], big[n], fa, fb);
+      }
+    }
+    tf::add(dv, big, small);
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();  // dS_out landed
+  // ... + k2 dS_out, k2 = k exp(L_last - L)
+  {
+    float small[NT][4], big[NT][4];
+    dot64([&](int i, int f) {
+      const int s = rt * 16 + i;
+      return ks[s * kQ + f] * expf(l_last[f] - at_l(s, f));
+    }, [&](int f, int n, int nn) { return zs[f * kQ + col0 + n * 8 + nn]; },
+          small, big);
+    tf::add(dv, big, small);
+  }
+  // dv is complete with its u-diagonal: written now
+  float* dv_o = static_cast<float*>(p.dv);
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int t = rt * 16 + g4 + 8 * hh, d = col_of(n, 2 * hh);
+      const float g = dg[t];
+      if (t0 + t < p.S)
+        *reinterpret_cast<float2*>(dv_o + tok(p, b, t0 + t, h) + d) =
+            make_float2(dv[n][2 * hh] + g * gs[t * kQ + d],
+                        dv[n][2 * hh + 1] + g * gs[t * kQ + d + 1]);
+    }
+  // the state term of dk, dks = exp(L_last - L) (v dS_out^T)
+  {
+    float small[NT][4], big[NT][4];
+    dot64([&](int i, int e) { return vs[(rt * 16 + i) * kQ + e]; },
+          [&](int e, int n, int nn) {  // B[e][d] = dS_out[d][e]
+            return zs[(col0 + n * 8 + nn) * kQ + e];
+          }, small, big);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[n][e] = big[n][e] + small[n][e];
+  }
+  // the column sums of k dks and of r k (do . v) over the warp's 16 rows
+  // (a fixed order: the quad's rows by shuffles, then the row tiles)
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      float kd = 0.f, rk = 0.f;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int e = 2 * hh + x, t = row_of(e), d = col_of(n, e);
+        dk[n][e] *= expf(l_last[d] - at_l(t, d));
+        kd += ks[t * kQ + d] * dk[n][e];
+        rk += rs[t * kQ + d] * ks[t * kQ + d] * dov[t];
+      }
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        kd += __shfl_xor_sync(0xffffffffu, kd, off);
+        rk += __shfl_xor_sync(0xffffffffu, rk, off);
+      }
+      if (g4 == 0) {
+        kd_red[rt * kD + col_of(n, x)] = kd;
+        du_red[rt * kD + col_of(n, x)] = rk;
+      }
+    }
+  __syncthreads();  // A read: dA takes its place
+
+  // dA = do v^T, the tiles on and below the diagonal
+  for (int tile = warp; tile < L::RT * (L::RT + 1) / 2; tile += L::W) {
+    int ti = 0;
+    while ((ti + 1) * (ti + 2) / 2 <= tile) ++ti;
+    const int tj = tile - ti * (ti + 1) / 2;
+    float small[2][4], big[2][4];
+    dot64([&](int i, int e) { return gs[(ti * 16 + i) * kQ + e]; },
+          [&](int e, int n, int nn) {  // B[e][s] = v[s][e]
+            return vs[(tj * 16 + n * 8 + nn) * kQ + e];
+          }, small, big);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        xa[(ti * 16 + g4 + 8 * (e >> 1)) * kQ + tj * 16 + nt * 8 + 2 * t4 +
+           (e & 1)] = big[nt][e] + small[nt][e];
+  }
+  __syncthreads();
+
+  // the decayed intra-chunk products of dr and dk: the diagonal sub-blocks
+  // pairwise, thread i on channel i % 64 of sub-chunk i / 64, each pair's
+  // exponential serving both dr (row t) and dk (row s); the sums reach
+  // the fragments' owners through zs, free since dS_out's last product ...
+  {
+    const bool on = tid < L::NS * kD;
+    const int b0 = (tid / kD) * kSub, d = tid % kD;
+    float dra[kSub] = {}, dka[kSub] = {};
+    if (on) {
+      float lr[kSub], kr[kSub];
+#pragma unroll
+      for (int x = 0; x < kSub; ++x) {
+        lr[x] = at_l(b0 + x, d);
+        kr[x] = ks[(b0 + x) * kQ + d];
+      }
+#pragma unroll
+      for (int tt = 1; tt < kSub; ++tt) {
+        const float et = at_e(b0 + tt, d), rv = rs[(b0 + tt) * kQ + d];
+        const float* da = xa + (b0 + tt) * kQ + b0;
+#pragma unroll
+        for (int ss = 0; ss < tt; ++ss) {
+          const float e = expf(fminf(et - lr[ss], 0.f)) * da[ss];
+          dra[tt] += kr[ss] * e;
+          dka[ss] += rv * e;
+        }
+      }
+#pragma unroll
+      for (int x = 0; x < kSub; ++x) zs[(b0 + x) * kQ + d] = dra[x];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dr[n][e] += zs[row_of(e) * kQ + col_of(n, e)];
+    __syncthreads();
+    if (on) {
+#pragma unroll
+      for (int x = 0; x < kSub; ++x) zs[(b0 + x) * kQ + d] = dka[x];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[n][e] += zs[row_of(e) * kQ + col_of(n, e)];
+  }
+  // ... and the off-diagonal blocks through L_ref at the end of sub-chunk
+  // j: dr's rows (sub-chunk rt) over each earlier j, dA times k exp(L_ref
+  // - L), then times exp(E - L_ref) ...
+  for (int j = 0; j < rt; ++j) {
+    const float* ref = ls + (j * kSub + kSub - 1) * kQ;
+    float small[NT][4] = {}, big[NT][4] = {};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int s0 = j * 16 + hh * 8;
+      tf::FragA fa;
+      tf::frag_a<false>(fa, [&](int i, int jj) {
+        return xa[(rt * 16 + i) * kQ + s0 + jj];
+      });
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        tf::FragB fb;
+        tf::frag_b<false>(fb, [&](int jj, int nn) {
+          const int s = s0 + jj, d = col0 + n * 8 + nn;
+          return ks[s * kQ + d] * expf(fminf(ref[d] - at_l(s, d), 0.f));
+        });
+        tf::mma3(small[n], big[n], fa, fb);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = col_of(n, e);
+        dr[n][e] += expf(fminf(at_e(row_of(e), d) - ref[d], 0.f)) *
+                    (big[n][e] + small[n][e]);
+      }
+  }
+  // ... dk's rows (sub-chunk rt) over each later i: dA^T times r exp(E -
+  // L_ref) (k = t permuted), summed over i, then times exp(L_ref - L)
+  if (rt + 1 < L::RT) {
+    const float* ref = ls + (rt * kSub + kSub - 1) * kQ;
+    float tmp[NT][4] = {};
+    for (int i = rt + 1; i < L::RT; ++i) {
+      float small[NT][4] = {}, big[NT][4] = {};
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int s0 = i * 16 + hh * 8;
+        tf::FragA fa;  // dA^T[s][t]
+        tf::frag_a<true>(fa, [&](int ii, int jj) {
+          return xa[(s0 + jj) * kQ + rt * 16 + ii];
+        });
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          tf::FragB fb;
+          tf::frag_b<true>(fb, [&](int jj, int nn) {
+            const int t = s0 + jj, d = col0 + n * 8 + nn;
+            return rs[t * kQ + d] * expf(fminf(at_e(t, d) - ref[d], 0.f));
+          });
+          tf::mma3(small[n], big[n], fa, fb);
+        }
+      }
+      tf::add(tmp, big, small);
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = col_of(n, e);
+        dk[n][e] += expf(fminf(ref[d] - at_l(row_of(e), d), 0.f)) * tmp[n][e];
+      }
+  }
+
+  // dr and dk with their u-terms; dw's parts
+  float* dr_o = static_cast<float*>(p.dr);
+  float* dk_o = static_cast<float*>(p.dk);
+  float ge[NT][4], gl[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int t = row_of(e), d = col_of(n, e);
+      const float rt_ = rs[t * kQ + d], kt = ks[t * kQ + d];
+      const float bonus = us[d] * dov[t];
+      ge[n][e] = rt_ * dr[n][e];
+      gl[n][e] = -kt * dk[n][e];
+      dr[n][e] += bonus * kt;
+      dk[n][e] += bonus * rt_;
+    }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int t = rt * 16 + g4 + 8 * hh, d = col_of(n, 2 * hh);
+      if (t0 + t >= p.S) continue;
+      const size_t o = tok(p, b, t0 + t, h) + d;
+      *reinterpret_cast<float2*>(dr_o + o) =
+          make_float2(dr[n][2 * hh], dr[n][2 * hh + 1]);
+      *reinterpret_cast<float2*>(dk_o + o) =
+          make_float2(dk[n][2 * hh], dk[n][2 * hh + 1]);
+    }
+  __syncthreads();  // L and E read: they take gL and gE + gL
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int t = row_of(e), d = col_of(n, e);
+      ls[t * kQ + d] = gl[n][e];
+      xs[t * kQ + d] = ge[n][e] + gl[n][e];
+    }
+  __syncthreads();
+  if (tid < kD) {  // dw down channel tid, from the chunk's end; du's partial
+    const int d = tid;
+    float last = col[d], du = 0.f;
+    for (int r = 0; r < L::RT; ++r) {
+      last += kd_red[r * kD + d];
+      du += du_red[r * kD + d];
+    }
+    float acc = 0.f;
+    for (int t = C - 1; t >= 0; --t) {
+      const float add = t == C - 1 ? last : 0.f;
+      if (t0 + t < p.S)
+        p.dw[tok(p, b, t0 + t, h) + d] = acc + ls[t * kQ + d] + add;
+      acc += xs[t * kQ + d] + add;
+    }
+    if (p.du_part) p.du_part[bhc * kD + d] = du;
+  }
+}
+
 template <typename K>
 cudaError_t allow_smem(K kern, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -1129,29 +1373,16 @@ cudaError_t allow_smem(K kern, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// fp32: the reverse scan, the gradient pass, du's sum
-template <int C>
-int launch_f32(const Args& a, cudaStream_t stream) {
-  const int n_chunks = (a.S + C - 1) / C;
-  linear_attn_bwd_scan_kernel<float, C>
-      <<<dim3(kSlices, a.H, a.B), kScanThreads, 0, stream>>>(a);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const size_t smem = Grad<C>::floats * sizeof(float);
-  auto chunk = linear_attn_bwd_chunk_kernel<float, C>;
-  e = allow_smem(chunk, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  chunk<<<dim3(n_chunks, a.H, a.B), kThreads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// bf16: each chunk's increment, the carry of dS, the gradient pass
-template <int C>
-int launch_bf16(const Args& a, cudaStream_t stream) {
+// each chunk's increment, the carry of dS, the gradient pass; du's sum
+// with u
+template <typename T, int C>
+int launch(const Args& a, cudaStream_t stream) {
+  constexpr bool kBF = std::is_same<T, bf16>::value;
   const int n_chunks = (a.S + C - 1) / C;
   const dim3 grid(n_chunks, a.H, a.B);
-  auto inc = linear_attn_bwd_inc_kernel<C>;
-  size_t smem = inc_smem_bytes<C>();
+  auto inc = kBF ? linear_attn_bwd_inc_kernel<C>
+                 : linear_attn_bwd_inc_f32_kernel<C>;
+  size_t smem = kBF ? inc_smem_bytes<C>() : inc_f32_smem_bytes<C>();
   cudaError_t e = allow_smem(inc, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   inc<<<grid, kTC, smem, stream>>>(a);
@@ -1162,21 +1393,16 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
                                  256, 0, stream>>>(a, n_chunks);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  auto chunk = linear_attn_bwd_chunk_tc_kernel<C>;
-  smem = GradTC<C>::bytes;
+  auto chunk = kBF ? linear_attn_bwd_chunk_tc_kernel<C>
+                   : linear_attn_bwd_chunk_f32_kernel<C>;
+  smem = kBF ? GradTC<C>::bytes : GradF32<C>::bytes;
   e = allow_smem(chunk, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  chunk<<<grid, kTC, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int C>
-int launch(const Args& a, cudaStream_t stream) {
-  const int rc = std::is_same<T, bf16>::value ? launch_bf16<C>(a, stream)
-                                              : launch_f32<C>(a, stream);
-  if (rc != 0 || a.u == nullptr) return rc;
-  linear_attn_bwd_du_kernel<<<a.H, kD, 0, stream>>>(
-      a.du_part, a.du, a.B, a.H, (a.S + C - 1) / C);
+  chunk<<<grid, kBF ? kTC : GradF32<C>::W * 32, smem, stream>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || a.u == nullptr) return static_cast<int>(e);
+  linear_attn_bwd_du_kernel<<<a.H, kD, 0, stream>>>(a.du_part, a.du, a.B,
+                                                    a.H, n_chunks);
   return static_cast<int>(cudaGetLastError());
 }
 

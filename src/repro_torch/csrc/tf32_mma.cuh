@@ -4,6 +4,8 @@
 //   flash_attention_bwd.cu   (K3's backward, fp32 builds)
 //   tree_attention_paged.cu  (the tree-verify kernel K1 / K4 / K2, fp32
 //                             builds)
+//   linear_attn_chunk.cu     (K6, fp32 builds)
+//   linear_attn_chunk_bwd.cu (K6's backward, fp32 builds)
 //
 // Each fp32 operand x is split into a TF32 high part hi and the TF32 of
 // its residual lo = x - hi (`split`), so hi + lo carries x to about 21
@@ -152,6 +154,28 @@ __device__ __forceinline__ void load_b_perm(FragB& f, const float* p, int g,
   split(p[(2 * t + 1) * S + g], f.hi[1], f.lo[1]);
 }
 
+// The fragments of a matrix read through `at`, the 16 x 8 block at(i, j)
+// of A (i the row, j the k index) or the 8 x 8 block at(j, n) of B: for
+// operands computed as they are read (a decayed factor) or read through an
+// index map of their own (a transpose).  kPerm: k permuted as above (slot
+// t takes index 2t, slot t + 4 index 2t + 1); A and B of one product
+// must agree.
+template <bool kPerm, typename At>
+__device__ __forceinline__ void frag_a(FragA& f, At at) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int k0 = kPerm ? 2 * t : t, k1 = kPerm ? 2 * t + 1 : t + 4;
+  split(at(g, k0), f.hi[0], f.lo[0]);
+  split(at(g + 8, k0), f.hi[1], f.lo[1]);
+  split(at(g, k1), f.hi[2], f.lo[2]);
+  split(at(g + 8, k1), f.hi[3], f.lo[3]);
+}
+template <bool kPerm, typename At>
+__device__ __forceinline__ void frag_b(FragB& f, At at) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  split(at(kPerm ? 2 * t : t, g), f.hi[0], f.lo[0]);
+  split(at(kPerm ? 2 * t + 1 : t + 4, g), f.hi[1], f.lo[1]);
+}
+
 template <int N>
 __device__ __forceinline__ void zero(float (&x)[N][4]) {
 #pragma unroll
@@ -168,6 +192,18 @@ __device__ __forceinline__ void add(float (&acc)[N][4],
   for (int n = 0; n < N; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] += x[n][e];
+}
+
+// acc += big + small, in fp32 adds: a sum's fresh accumulators (the hi
+// hi products and the small ones) into its running total
+template <int N>
+__device__ __forceinline__ void add(float (&acc)[N][4],
+                                    const float (&big)[N][4],
+                                    const float (&small)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += big[n][e] + small[n][e];
 }
 
 // (small, big) = A B^T over K (a multiple of 16) in 3xTF32: A the warp's

@@ -10,14 +10,15 @@ rule (k = 0, w_log = 0) done by the kernel's loads, with no padded copy.
 Each launch is two kernels, the chunk-parallel pass and the scan of the
 state across chunks, joined by fp32 scratch that ``scratch`` allocates;
 given ``states`` (``states_buffer``), the scan also writes the state
-entering each chunk there, for the backward.
+entering each chunk there, for the backward.  Both run their products on
+the tensor cores: bf16 on mma.sync.m16n8k16 (fp32 operands as two bf16
+parts), fp32 on m16n8k8 in 3xTF32 (``csrc/tf32_mma.cuh``).
 
 The backward (``launch_bwd``, source ``csrc/linear_attn_chunk_bwd.cu``,
-replacing no TPU kernel) is, in bf16, four kernels: each chunk's
+replacing no TPU kernel) is four kernels in either dtype: each chunk's
 increment of the state's gradient, the carry of that gradient across the
-chunks, the chunk-parallel gradient pass on the tensor cores and, with u,
-du's reduction; in fp32 three (the reverse scan, the gradient pass and
-du's reduction, on the CUDA cores); all joined by the fp32 scratch
+chunks, the chunk-parallel gradient pass on the tensor cores (fp32 in
+3xTF32) and, with u, du's reduction; all joined by the fp32 scratch
 ``bwd_scratch`` allocates.  Its
 plain version is ``ref.py::decay_attention_chunked_bwd``.  The wrapper
 (``ops.py``) is the port's only caller of ``launch`` and ``launch_bwd``.
@@ -76,10 +77,11 @@ def states_buffer(B: int, S: int, H: int, chunk: int, device):
 
 def bwd_scratch(B: int, S: int, H: int, chunk: int, device, with_u: bool):
     """The backward's fp32 scratch: each chunk's dS_out (B, H, n_chunks,
-    64, 64), which the reverse scan writes and the gradient pass reads (in
-    bf16 each chunk's increment of it first), each chunk's decay exp(L_last)
-    (B, H, n_chunks, 64), which bf16's increment kernel writes for the
-    scan, and, with u, du's per-chunk partials (B, H, n_chunks, 64)."""
+    64, 64), which holds the chunk's increment of it until the carry
+    writes dS_out there for the gradient pass, each chunk's decay
+    exp(L_last) (B, H, n_chunks, 64), which the increment kernel writes
+    for the carry, and, with u, du's per-chunk partials (B, H, n_chunks,
+    64)."""
     nc = -(-S // chunk)
     f = lambda *s: torch.empty((B, H, nc, *s), dtype=torch.float32,
                                device=device)

@@ -12,22 +12,23 @@ by ``k6_bwd_charge``).  There is no fallback from one to the other.
 ``launches`` counts kernel launches, and only those: one per call, the
 chunk-parallel pass; ``scan_launches`` counts the scan of the state that
 each call launches after it; ``grad_launches`` those calls made under
-autograd.  S need not be a chunk multiple: the plain version pads with
-k = 0, w_log = 0 (decay 1, nothing added; exact), and the kernel reads the
-same zeros past S.  The scalar decay of Mamba2 (``w_log`` of last dim 1)
-is not taken yet.
+autograd; ``f32_launches`` and ``f32_bwd_launches`` the calls on the
+fp32 builds, forward and backward (3xTF32 on the tensor cores; not reset
+by ``kernels.reset_counts``).  S need not be a chunk multiple: the plain
+version pads with k = 0, w_log = 0 (decay 1, nothing added; exact), and
+the kernel reads the same zeros past S.  The scalar decay of Mamba2
+(``w_log`` of last dim 1) is not taken yet.
 
 Under autograd (grad mode on and an operand requiring a gradient) a call
-goes through ``LinearAttnChunk``, a ``torch.autograd.Function``.  On CUDA
-its forward launches K6 with the scan writing the state entering each
-chunk, and its backward launches the backward kernels
+goes through ``LinearAttnChunk``, a ``torch.autograd.Function``.  On
+CUDA its forward launches K6 with the scan writing the state entering
+each chunk, and its backward launches the backward kernels
 (``csrc/linear_attn_chunk_bwd.cu``) on the saved operands and states:
-``bwd_launches`` counts its calls, each of which launches the
-carry of the state's gradient across the chunks (in bf16 after each
-chunk's increment of it; in fp32 the reverse scan) and the gradient
-pass once, and ``bwd_du_launches`` those that also launch u's
-reduction (with u only).  On the CPU the backward differentiates the plain version in
-fp32.  JAX has no backward kernel:
+``bwd_launches`` counts its calls, each of which launches each chunk's
+increment of the state's gradient, the carry of that gradient across the
+chunks and the gradient pass once, and ``bwd_du_launches`` those that
+also launch u's reduction (with u only).  On the CPU the backward
+differentiates the plain version in fp32.  JAX has no backward kernel:
 its trainer differentiates the jnp ``decay_attention_chunked`` that
 ``ref.py`` ports.  The final state's gradient may be absent (training
 never reads the state).
@@ -46,6 +47,8 @@ scan_launches = 0             # scan launches since the last reset
 grad_launches = 0             # of which under autograd (LinearAttnChunk)
 bwd_launches = 0              # backward calls (LinearAttnChunk)
 bwd_du_launches = 0           # of which reducing u's gradient
+f32_launches = 0              # calls on an fp32 build (not reset by
+f32_bwd_launches = 0          # kernels.reset_counts), forward, backward
 
 
 def check_operands(r, k, v, w_log, u, initial_state, chunk: int) -> None:
@@ -108,7 +111,7 @@ def _forward(r, k, v, w_log, u, initial_state, chunk: int, states=False):
     counted); operands already checked by the wrapper.  With ``states``
     (CUDA or ``meta``) it returns the states entering each chunk as a
     third output."""
-    global launches, scan_launches
+    global launches, scan_launches, f32_launches
     args = (r, k, v, w_log, u, initial_state)
     if k.device.type == "cpu":
         return decay_attention_chunked(*args, chunk=chunk)
@@ -131,6 +134,7 @@ def _forward(r, k, v, w_log, u, initial_state, chunk: int, states=False):
                 f"linear_attn_chunk launch failed: CUDA error {rc}")
         launches += 1
         scan_launches += 1
+        f32_launches += k.dtype == torch.float32
     return (o, final_state, saved) if states else (o, final_state)
 
 
@@ -138,7 +142,7 @@ def _backward(r, k, v, w_log, u, initial_state, states, grad_o, grad_state,
               chunk: int):
     """The backward kernels on CUDA (counted), one charged call on
     ``meta``: (dr, dk, dv, dw, du or None, d_initial_state)."""
-    global bwd_launches, bwd_du_launches
+    global bwd_launches, bwd_du_launches, f32_bwd_launches
     B, S, H, dk = k.shape
     do = (torch.zeros_like(v) if grad_o is None
           else grad_o.to(v.dtype).contiguous())
@@ -164,6 +168,7 @@ def _backward(r, k, v, w_log, u, initial_state, states, grad_o, grad_state,
             f"linear_attn_chunk backward launch failed: CUDA error {rc}")
     bwd_launches += 1
     bwd_du_launches += u is not None
+    f32_bwd_launches += k.dtype == torch.float32
     return grads
 
 

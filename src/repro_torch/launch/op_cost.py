@@ -218,9 +218,11 @@ def k6_charge(B: int, S: int, H: int, d: int, dtype: str) -> KernelCharge:
     """K6 (dk = dv = d): r, k, v read and o written in their type, the
     log-decay, both states and u in fp32, each once.
 
-    fp32 (the CUDA-core build): against the least fp32 operations over
-    the exact forms, the chunked form at every chunk length 1..64
-    (``k6_flops``; least at chunk 4), on the CUDA cores' fp32 peak.
+    fp32: against the least fp32 operations over the exact forms, the
+    chunked form at every chunk length 1..64 (``k6_flops``; least at
+    chunk 4), on the CUDA cores' fp32 peak (the kernel runs its products
+    in 3xTF32 on the tensor cores, so this is conservative; the bytes
+    bound it either way).
     bf16: the kernel runs its products on the tensor cores, so the least
     time for its operations is the larger of the exponentials the
     function needs on the SFUs (one per token and channel: every decay

@@ -17,9 +17,11 @@ gpu-marked, on the card, without JAX (the file imports JAX inside a
 the plain backward on the same operands, fp32 within relative L2 1e-4 and
 bf16 within 5e-3 of the plain version in fp32 on the same bf16 operands
 (a gradient 1% off failing that bound), two identical calls bitwise
-equal, bf16 also at chunk 16 and two sequences (the tensor-core design's
-increment, carry and gradient pass); and the autograd wrapper on CUDA with the plain functions patched
-to raise, so that its gradients can only come from the kernels:
+equal, bf16 and fp32 (3xTF32) also at chunk 16 and two sequences, strong
+decay and S not a chunk multiple (the tensor-core designs' increment,
+carry and gradient pass); and the autograd wrapper on CUDA with the plain
+functions patched to raise, so that its gradients can only come from the
+kernels, fp32 also at both chunks and two sequences:
 
     python -m pytest --noconftest -m gpu tests/test_torch_k6_bwd.py
 """
@@ -243,6 +245,71 @@ def test_k6_bf16_backward_decomposition(case):
         assert torch.equal(got[k], again[k]), f"{k}: not bitwise"
         rel = _rel(got[k].float().cpu(), want[k].cpu())
         assert rel <= BF16_REL, (k, rel)
+
+
+# the fp32 design (3xTF32: increment, carry, a gradient pass of 16 warps
+# at C = 64, 8 at C = 16) at both chunks, two sequences, strong decay, S
+# not a chunk multiple: (B, S, H, chunk, use_u, use_s0, d_state, strong)
+F32_CASES = [(2, 300, 8, 16, True, True, True, False),
+             (2, 45, 4, 16, False, False, False, True),
+             (2, 200, 4, 64, True, True, True, True),
+             (2, 333, 8, 64, True, False, True, False)]
+
+
+@gpu
+@needs_cuda
+@pytest.mark.parametrize("case", F32_CASES, ids=str)
+def test_k6_f32_backward_decomposition(case):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S, H, chunk, use_u, use_s0, d_state, strong = case
+    x, do, ds = _operands(S + B + 1, B, S, H, use_u=use_u, use_s0=use_s0,
+                          d_state=d_state, strong=strong)
+    t = {k: None if v is None else torch.from_numpy(v).cuda()
+         for k, v in x.items()}
+    do = torch.from_numpy(do).cuda()
+    ds = None if ds is None else torch.from_numpy(ds).cuda()
+    before = ops.f32_bwd_launches
+    got, again = kernel_bwd(t, do, ds, chunk), kernel_bwd(t, do, ds, chunk)
+    torch.cuda.synchronize()
+    assert ops.f32_bwd_launches == before + 2
+    want = _plain_bwd(t, do, ds, chunk)
+    for k in GRADS:
+        if want[k] is None:
+            assert got[k] is None, k
+            continue
+        assert torch.equal(got[k], again[k]), f"{k}: not bitwise"
+        assert got[k].dtype == torch.float32 and torch.isfinite(got[k]).all()
+        rel = _rel(got[k].cpu(), want[k].cpu())
+        assert rel <= REL, (k, rel)
+
+
+@gpu
+@needs_cuda
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_k6_f32_autograd_never_calls_the_plain_versions(chunk, monkeypatch):
+    """fp32 through the autograd wrapper, two sequences, S not a chunk
+    multiple, strong decay, u and an initial state: the gradients come
+    from the kernels alone and agree with the plain backward."""
+    def refuse(*a, **kw):
+        raise AssertionError("a plain K6 version ran on the card")
+
+    x, do, _ = _operands(chunk, 2, 3 * chunk + 5, 4, use_u=True,
+                         use_s0=True, d_state=False, strong=True)
+    t = {k: torch.from_numpy(v).cuda() for k, v in x.items()}
+    do = torch.from_numpy(do).cuda()
+    want = _plain_bwd(t, do, None, chunk)
+    for mod in (ops, ref):
+        monkeypatch.setattr(mod, "decay_attention_chunked", refuse)
+    monkeypatch.setattr(ref, "decay_attention_chunked_bwd", refuse)
+    leaves = [t[k].clone().requires_grad_() for k in GRADS]
+    kernels.reset_counts()
+    o, _ = ops.linear_attn_bshd(*leaves, chunk=chunk)
+    grads = torch.autograd.grad((o * do).sum(), leaves)
+    assert (ops.grad_launches, ops.bwd_launches,
+            ops.bwd_du_launches) == (1, 1, 1)
+    for k, g in zip(GRADS, grads):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all()
+        assert _rel(g.cpu(), want[k].cpu()) <= REL, k
 
 
 @gpu

@@ -9,9 +9,10 @@ u on and off, strong decay, S not a chunk multiple), with the same
 relative bound (max |o - ref| / max |ref| below 1e-4; 1e-3 for strong
 decay, as there).  Then the wrapper's validation, and that the CPU path
 launches nothing.  The CUDA kernel against the plain version is the
-``gpu``-marked case; it skips without a card.  The JAX side is imported
-inside the helper that runs it, so the ``gpu`` case also runs where JAX
-is not installed:
+``gpu``-marked cases (the fp32 build, 3xTF32, also at chunk 16, two
+sequences and a chunk of pure padding); they skip without a card.  The
+JAX side is imported inside the helper that runs it, so the ``gpu`` case
+also runs where JAX is not installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_linear_attn_kernel.py
 """
@@ -213,3 +214,45 @@ def test_cuda_kernel_matches_plain(dtype, tol, S, init, strong):
                                      s0, chunk=64)
     torch.cuda.synchronize()
     assert torch.equal(o_m[:, :S], o) and torch.equal(st_m, st)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [16, 64])
+@pytest.mark.parametrize("strong", [False, True], ids=["decay", "strong"])
+def test_cuda_f32_kernel_chunks_batch_and_padding(chunk, strong):
+    """The fp32 build (every product in 3xTF32 on the tensor cores) at
+    both chunks, two sequences, S not a chunk multiple, with u and an
+    initial state, also under strong decay (log-decay down to -20 a
+    step, chip_smoke.py's regime): output and final state within 1e-4 of
+    the plain version; two identical calls bitwise equal; the sequence
+    padded past its last chunk with a whole chunk of k = w = 0 (r and v
+    random) gives the same outputs and leaves the final state bit for
+    bit; each call counted in ``f32_launches``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    B, H, S = 2, 8, 5 * chunk + 7
+    pad = -S % chunk + chunk                      # the tail, then a chunk
+    rs = np.random.default_rng(chunk + strong)
+    n = lambda *s_: rs.standard_normal(s_, dtype=np.float32)
+    w = (np.maximum(-np.exp(n(B, S + pad, H, 64) * 1.5 + 1.0), -20.0)
+         if strong else -np.exp(n(B, S + pad, H, 64) * 0.5))
+    t = {name: torch.from_numpy(x.astype(np.float32)).cuda() for name, x in
+         (("r", n(B, S + pad, H, 64)), ("k", n(B, S + pad, H, 64)),
+          ("v", n(B, S + pad, H, 64)), ("w", w), ("u", n(H, 64) * 0.1),
+          ("s0", n(B, H, 64, 64) * 0.1))}
+    real = [t[x][:, :S].contiguous() for x in "rkvw"]
+    before = ops.f32_launches
+    o, st = ops.linear_attn_bshd(*real, t["u"], t["s0"], chunk=chunk)
+    o2, st2 = ops.linear_attn_bshd(*real, t["u"], t["s0"], chunk=chunk)
+    keep = torch.arange(S + pad, device="cuda")[None, :, None, None] < S
+    o_p, st_p = ops.linear_attn_bshd(
+        t["r"], torch.where(keep, t["k"], 0.0), t["v"],
+        torch.where(keep, t["w"], 0.0), t["u"], t["s0"], chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.f32_launches == before + 3
+    assert torch.equal(o, o2) and torch.equal(st, st2)
+    assert torch.equal(o_p[:, :S], o) and torch.equal(st_p, st)
+    ro, rst = decay_attention_chunked(*real, t["u"], t["s0"], chunk=chunk)
+    assert torch.isfinite(o).all() and torch.isfinite(st).all()
+    torch.testing.assert_close(o, ro, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(st, rst, atol=1e-4, rtol=1e-4)
