@@ -15,10 +15,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    dense forms (zamba2-1.2b's shared block), and its merge, K3 at (64,
    64), (80, 80) (hubert-xlarge's encoder), (128, 128), (256, 256) and
    (192, 128), each at the key tile the committed autotuner cache
-   resolves (every key-tile instance's line is printed), K5's split
-   sweep over bf16
-   pools at (512, 64) and its merge, K6's bf16 chunk kernel and scan at
-   chunk 64 and their fp32 builds at chunks 16 and 64) and every
+   resolves (every key-tile instance's line is printed), every K5
+   instance (its split sweep over bf16 and fp32 pools at (512, 64) and
+   (64, 16), windowed or not, and its merges), K6's bf16 chunk kernel
+   and scan at chunk 64 and their fp32 builds at chunks 16 and 64) and every
    instance of the backward kernels (K6's increment and gradient pass,
    bf16 and fp32, at chunks 16 and 64, its carry and du reduction; K3's
    dK/dV and dQ kernels at each bf16 and each fp32 build, the partials'
@@ -29,7 +29,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    gradient pass (bf16 and fp32), of the tree-verify split
    kernel (bf16 and fp32: its fp32 builds run 3xTF32 too, and the D=64
    ones the main path runs, with the fp32 merges, must show no spill), of
-   K5's split sweep and of K6's two kernels (bf16 and fp32; the models
+   K5's split sweep (bf16 and fp32, windowed or not) and of K6's two
+   kernels (bf16 and fp32; the models
    past 64 query rows per kv head add no instantiation: row groups are a grid
    axis of the D=128 builds), the D = 64 ones and K3's (80, 80) among
    them;
@@ -84,8 +85,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
       16, T=16, lens 0/37/700/1500, NULL holes): fp32 throughout, then
       bf16 pools, with block 0 poisoned (outputs bitwise equal), the
       split forced to one split, the planner's and 16 (two identical
-      calls bitwise equal at each); SDPA on the gathered view (Dk 576,
-      Dv 512, a boolean mask) as the yardstick;
+      calls bitwise equal at each); fp32 (3xTF32) also against the plain
+      version in fp64, with the margin worst err / (atol + rtol |ref|),
+      and timed beside the 3xTF32 bound with each launch's µs and
+      blocks; the windowed form (q_pos = cache_len + depth) at windows
+      512 and 1, fp32 and bf16, against its plain version at the
+      planner's split and 16, bitwise equal under poison in the NULL
+      block and behind the window and across two identical calls, and
+      timed; window 0 bitwise equal to the unwindowed call; SDPA on the
+      gathered view (Dk 576, Dv 512, a boolean mask) as the yardstick;
    f. K6, chunked decay linear attention, at rwkv6-1.6b shapes (B=1,
       32 heads, dk = dv = 64, chunk 64): S in {37, 300, 1536}, with and
       without an initial state, strong-decay cases (log-decay down to
@@ -462,7 +470,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    builds as ``linear_attn_chunk@fp32`` and ``linear_attn_chunk_bwd@fp32``,
    with the fp32 calls of phases 4-5h (each must have some), those of
    their kernel checks (3f, 3m) apart, each launch's µs and blocks and
-   the forward's worst margin ``tol_ratio``),
+   the forward's worst margin ``tol_ratio``; K5's fp32 build as
+   ``mla_attention_paged@fp32``, with the fp32 launches of phases 4-5h
+   (it must have some), both bounds, its fp64 difference and margins,
+   each launch's µs and blocks and the windowed cases),
    then the result line.
    ``[time]`` lines give each phase's seconds.
 
@@ -609,7 +620,7 @@ KERNEL_PARAMS = {
     "tree_attention_split_kernel": ("", "D", "windowed", "dense"),
     "tree_attention_merge_kernel": ("", "dense"),
     "flash_attention_kernel": ("", "DQK", "DV", "KN"),
-    "mla_attention_split_kernel": ("kv", "DL", "DR"),
+    "mla_attention_split_kernel": ("kv", "DL", "DR", "windowed"),
     "mla_attention_merge_kernel": ("DL",),
     "linear_attn_chunk_kernel": ("", "C"),
     "linear_attn_scan_kernel": ("", "C"),
@@ -779,12 +790,16 @@ def k3_builds() -> frozenset:
         f"KN={tile(s)}>" for _, s in autotune.required_keys().values())
 
 
-# K5's split sweep over bf16 pools at deepseek-v2-lite's widths and its
-# merge; K6's chunk kernel and scan in bf16 at rwkv6-1.6b's chunk of 64,
-# and their fp32 builds (3xTF32) at both chunks (the reduced configs' 16)
-MLA_BUILDS = frozenset({
-    "mla_attention_split_kernel<kv bf16, DL=512, DR=64>",
-    "mla_attention_merge_kernel<DL=512>"})
+# every K5 instance: its split sweep over bf16 pools (deepseek-v2-lite's
+# serving) and fp32 ones (3xTF32; phase 4's reduced deepseek runs (64, 16))
+# at both widths, windowed or not, and its merges; K6's chunk kernel and
+# scan in bf16 at rwkv6-1.6b's chunk of 64, and their fp32 builds (3xTF32)
+# at both chunks (the reduced configs' 16)
+MLA_BUILDS = frozenset(
+    f"mla_attention_split_kernel<kv {dt}, DL={dl}, DR={dr}{form}>"
+    for dt in ("bf16", "f32") for dl, dr in ((512, 64), (64, 16))
+    for form in ("", ", windowed")) | frozenset(
+    f"mla_attention_merge_kernel<DL={dl}>" for dl in (512, 64))
 K6_BUILDS = frozenset({"linear_attn_chunk_kernel<bf16, C=64>",
                        "linear_attn_scan_kernel<bf16, C=64>"} | {
     f"linear_attn_{k}_kernel<f32, C={c}>" for k in ("chunk", "scan")
@@ -822,6 +837,7 @@ TENSOR_CORE_KERNELS = ("tree_attention_split_kernel<bf16",
                        "flash_attention_kernel<f32",
                        "flash_bwd_kv_f32_kernel<", "flash_bwd_q_f32_kernel<",
                        "mla_attention_split_kernel<kv bf16",
+                       "mla_attention_split_kernel<kv f32",
                        "linear_attn_chunk_kernel<bf16",
                        "linear_attn_scan_kernel<bf16",
                        "linear_attn_chunk_kernel<f32",
@@ -869,20 +885,24 @@ def paged_inputs(c: PagedCase, T: int, dtype, seed: int,
             table.cuda()), q_pos.to(torch.int32)
 
 
-def poison_behind_window(args, window: int, fill: float):
+def poison_behind_window(args, window: int, fill: float, pools=(1, 2)):
     """A copy of the operands with every pool position at or behind
-    ``cache_len - window`` of each slot set to ``fill``."""
-    q, pool_k, pool_v, tk, tv, tm, lens, table = args
-    pool_k, pool_v = pool_k.clone(), pool_v.clone()
-    bs = pool_k.shape[1]
+    ``cache_len - window`` of each slot set to ``fill``: the pools are
+    ``args[i]`` for i in ``pools`` (K1's K and V; K5's latent and rope
+    key: 2, 3), cache_len and the block table the last two."""
+    args = list(args)
+    lens, table = args[-2], args[-1]
+    for i in pools:
+        args[i] = args[i].clone()
+    bs = args[pools[0]].shape[1]
     tbl = table.cpu()
     for b, n in enumerate(lens.tolist()):
         for p in range(0, n - window + 1):
             blk = int(tbl[b, p // bs])
             if blk != 0:
-                pool_k[blk, p % bs] = fill
-                pool_v[blk, p % bs] = fill
-    return (q, pool_k, pool_v, tk, tv, tm, lens, table)
+                for i in pools:
+                    args[i][blk, p % bs] = fill
+    return tuple(args)
 
 
 def paged_charge_of(c: PagedCase, T: int, dtype_name: str, table,
@@ -1484,11 +1504,19 @@ def check_k3_mla(S: int = 1536) -> dict:
 # deepseek-v2-lite heads, 4 slots, max_len 1536, NULL holes below cache_len
 MLA_CASE = PagedCase(MLA_HEADS, 1, MLA_LAT + MLA_ROPE, (0, 37, 700, 1500),
                      ((2, 20), (3, 70), (3, 0)), 96)
+# reduced deepseek-v2-lite-16b (``reduced()``: 4 heads, latent 64, rope 16,
+# nope 32, the tree of 8), the K5 build phase 4's fp32 parity runs, at
+# MLA_CASE's slots and NULL holes
+MLA_REDUCED_WIDTHS = (64, 16)
+MLA_REDUCED_CASE = dataclasses.replace(MLA_CASE, hq=4, d=sum(MLA_REDUCED_WIDTHS))
+MLA_REDUCED_T = 8
+MLA_REDUCED_SCALE = 1.0 / math.sqrt(32 + 16)
 
 
-def mla_inputs(c: PagedCase, T: int, dtype, seed: int, poison: float = 0.0):
-    """K5 operands on the card (model layout): q fp32, pools and tree
-    latents in ``dtype``."""
+def mla_inputs(c: PagedCase, T: int, dtype, seed: int, poison: float = 0.0,
+               widths: tuple = (MLA_LAT, MLA_ROPE)):
+    """K5 operands on the card (model layout) at latent and rope
+    ``widths``: q fp32, pools and tree latents in ``dtype``."""
     import torch
     from repro_torch.core.trees import default_tree
 
@@ -1503,32 +1531,40 @@ def mla_inputs(c: PagedCase, T: int, dtype, seed: int, poison: float = 0.0):
         table[b, j] = 0
     g = torch.Generator(device="cuda").manual_seed(seed)
     r = lambda *s: torch.randn(s, generator=g, device="cuda")
-    pool_lat = r(nxt, c.bs, MLA_LAT).to(dtype)
-    pool_rope = r(nxt, c.bs, MLA_ROPE).to(dtype)
+    dl, dr = widths
+    pool_lat = r(nxt, c.bs, dl).to(dtype)
+    pool_rope = r(nxt, c.bs, dr).to(dtype)
     pool_lat[0] = poison
     pool_rope[0] = poison
     tree = default_tree(T, 4, 4)
-    return (r(B, T, c.hq, MLA_LAT), r(B, T, c.hq, MLA_ROPE), pool_lat,
-            pool_rope, r(B, T, MLA_LAT).to(dtype), r(B, T, MLA_ROPE).to(dtype),
+    return (r(B, T, c.hq, dl), r(B, T, c.hq, dr), pool_lat,
+            pool_rope, r(B, T, dl).to(dtype), r(B, T, dr).to(dtype),
             torch.as_tensor(tree.ancestor_mask, device="cuda"),
             torch.tensor(c.lens, dtype=torch.int32, device="cuda"),
             table.cuda())
 
 
-def mla_bound(c: PagedCase, T: int, dtype_name: str, table) -> tuple:
-    """Least time for one K5 call: the cache positions this run's data
-    needs (below cache_len, in a real block), each read once, plus q, the
-    tree latents and the output, against (r + rd) + r multiply-adds per
-    admitted (head, row, key), the T tree keys included
-    (``op_cost.mla_charge``)."""
-    from repro_torch.launch.op_cost import bound_ms, mla_charge
+def mla_charge_of(c: PagedCase, T: int, dtype_name: str, table):
+    """The work of one K5 call: the cache positions this run's data needs
+    (below cache_len, in a real block), each read once, plus q, the tree
+    latents and the output, and (r + rd) + r multiply-adds per admitted
+    (head, row, key), the T tree keys included (``op_cost.mla_charge``)."""
+    from repro_torch.launch.op_cost import mla_charge
 
     tbl = table.cpu()
     keys = [sum(1 for p in range(n) if int(tbl[b, p // c.bs]) != 0)
             for b, n in enumerate(c.lens)]
     B = len(c.lens)
-    return bound_ms(mla_charge(B, T, c.hq, MLA_LAT, MLA_ROPE, dtype_name,
-                               keys, B * c.m))
+    return mla_charge(B, T, c.hq, MLA_LAT, MLA_ROPE, dtype_name, keys,
+                      B * c.m)
+
+
+def mla_bound(c: PagedCase, T: int, dtype_name: str, table) -> tuple:
+    """Least time for one K5 call (``mla_charge_of``): its bytes over the
+    HBM rate against its operations at the rate of their type."""
+    from repro_torch.launch.op_cost import bound_ms
+
+    return bound_ms(mla_charge_of(c, T, dtype_name, table))
 
 
 def mla_sdpa_args(c: PagedCase, args):
@@ -1554,12 +1590,37 @@ def mla_sdpa_args(c: PagedCase, args):
     return q, k, lat[:, None].contiguous(), mask
 
 
-def check_k5(c: PagedCase = MLA_CASE, T: int = 16) -> dict:
-    """K5 against its plain version: fp32 and bf16 pools, block 0
-    poisoned (bitwise equal outputs); the split forced to one split over
-    the capacity, to the planner's and to 16, each against the plain
-    version and two identical calls bitwise equal; then kernel, plain
-    and SDPA times."""
+# K5's windowed form: windows held against the plain version in 3e (no
+# configuration runs windowed MLA; JAX's wrapper takes the hook)
+MLA_WINDOWS = (512, 1)
+
+
+def mla_q_pos(c: PagedCase, T: int):
+    """The verify positions ``cache_len + depth`` of ``mla_inputs``'s
+    tree, (B, T) int32 on the card."""
+    import torch
+    from repro_torch.core.trees import default_tree
+
+    depth = torch.as_tensor(default_tree(T, 4, 4).depth, device="cuda")
+    lens = torch.tensor(c.lens, dtype=torch.int32, device="cuda")
+    return (lens[:, None] + depth[None]).to(torch.int32)
+
+
+def check_k5(c: PagedCase = MLA_CASE, T: int = 16,
+             widths: tuple = (MLA_LAT, MLA_ROPE), scale: float = MLA_SCALE,
+             timed: bool = True) -> dict:
+    """K5 at latent and rope ``widths`` against its plain version: fp32
+    and bf16 pools, block 0 poisoned (bitwise equal outputs); the split
+    forced to one split over the capacity, to the planner's and to 16,
+    each against the plain version and two identical calls bitwise
+    equal; fp32 also against the plain version in fp64, with its margin
+    err / (atol + rtol |ref|); the windowed form at ``MLA_WINDOWS``
+    against its plain version (poison in the NULL block and behind the
+    window, two identical calls and the forced split of 16, bitwise or
+    within the tolerance), window 0 bitwise the unwindowed call; then,
+    if ``timed``, kernel, plain and SDPA times, fp32 beside the 3xTF32
+    bound with each launch's µs and blocks, and the windowed form's
+    times."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.mla_attention import ops
@@ -1568,16 +1629,19 @@ def check_k5(c: PagedCase = MLA_CASE, T: int = 16) -> dict:
     from repro_torch.kernels.tree_attention.split import plan_mla_split_len
 
     kernel = lambda *a, **kw: ops.mla_attention_paged_bshd(
-        *a, scale=MLA_SCALE, **kw)
-    plain = lambda *a: mla_attention_paged_plain(*a, scale=MLA_SCALE)
-    planned = plan_mla_split_len(len(c.lens), c.hq, T, MLA_LAT, MLA_ROPE)
+        *a, scale=scale, **kw)
+    plain = lambda *a, **kw: mla_attention_paged_plain(*a, scale=scale, **kw)
+    planned = plan_mla_split_len(len(c.lens), c.hq, T, *widths)
+    q_pos = mla_q_pos(c, T)
     record = {}
     for dtype_name, tol in TOLS:
         dtype = getattr(torch, dtype_name)
-        what = f"K5 {dtype_name} T={T}"
+        f32 = dtype == torch.float32
+        what = f"K5 {dtype_name} {c.hq} heads {widths} T={T}"
         outs = []
         for poison in POISONS:
-            args = mla_inputs(c, T, dtype, seed=T, poison=poison)
+            args = mla_inputs(c, T, dtype, seed=T, poison=poison,
+                              widths=widths)
             outs.append(kernel(*args))
         assert_bitwise(outs, f"{what}: poisoned NULL block")
         ref = plain(*args)
@@ -1590,7 +1654,52 @@ def check_k5(c: PagedCase = MLA_CASE, T: int = 16) -> dict:
         log(f"[k5] {what}: splits (capacity, planner {planned}, 16) "
             f"max_abs_err " + " / ".join(f"{e:.3e}" for e in errs)
             + "; two identical calls bitwise equal")
-        err = max([err] + errs)
+        rec = dict(max_abs_err=max([err] + errs))
+        if f32:
+            ref64 = plain(*(a.double() if a.dtype == torch.float32 else a
+                            for a in args))
+            rec.update(err_fp64=(outs[0].double() - ref64).abs().max().item(),
+                       tol_ratio=tol_ratio(outs[0], ref, tol),
+                       tol_ratio_fp64=tol_ratio(outs[0], ref64, tol))
+            log(f"[k5] {what}: max_abs_err {err:.3e} (forced splits "
+                f"{max(errs):.3e}), against the plain version in fp64 "
+                f"{rec['err_fp64']:.3e}; worst err/(atol + rtol |ref|) "
+                f"{rec['tol_ratio']:.3f}, against fp64 "
+                f"{rec['tol_ratio_fp64']:.3f} (passes at <= 1)")
+        # the windowed form
+        off = kernel(*args, q_pos=q_pos, window=0)
+        assert_bitwise([outs[0], off], f"{what}: window 0 against the "
+                                       "unwindowed call")
+        windowed = {}
+        for w in MLA_WINDOWS:
+            ww = f"{what} window={w}"
+            wouts = [kernel(*mla_inputs(c, T, dtype, seed=T, poison=f,
+                                        widths=widths),
+                            q_pos=q_pos, window=w) for f in POISONS]
+            wouts += [kernel(*args, q_pos=q_pos, window=w)]
+            wouts += [kernel(*poison_behind_window(args, w, f, pools=(2, 3)),
+                             q_pos=q_pos, window=w)
+                      for f in (math.nan, math.inf)]
+            assert_bitwise(wouts, f"{ww}: poisoned NULL block, poison behind "
+                                  "the window, two identical calls")
+            wref = plain(*args, q_pos=q_pos, window=w)
+            werr = compare(wouts[0], wref, tol, ww)
+            pair = [kernel(*args, q_pos=q_pos, window=w, split_len=16)
+                    for _ in range(2)]
+            assert_bitwise(pair, f"{ww} split 16: two identical calls")
+            werr = max(werr, compare(pair[0], wref, tol, f"{ww} split 16"))
+            windowed[w] = dict(max_abs_err=werr)
+            if f32:
+                windowed[w]["tol_ratio"] = tol_ratio(wouts[0], wref, tol)
+            log(f"[k5] {ww}: max_abs_err={werr:.3e} (planner's split and "
+                "16)" + (f", worst err/(atol + rtol |ref|) "
+                         f"{windowed[w]['tol_ratio']:.3f}" if f32 else "")
+                + "; poison in the NULL block and behind the window, two "
+                  "identical calls: bitwise equal")
+        rec["windowed"] = windowed
+        record[(dtype_name, T)] = rec
+        if not timed:
+            continue
         sets = [mla_inputs(c, T, dtype, seed=100 + i) for i in range(32)]
         pick = cycle(sets)
         ms = device_ms(lambda: kernel(*pick()))
@@ -1604,14 +1713,23 @@ def check_k5(c: PagedCase = MLA_CASE, T: int = 16) -> dict:
 
         lib_ms = device_ms(sdpa)
         bound_ms, bound_by = mla_bound(c, T, dtype_name, sets[0][-1])
-        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
-        record[(dtype_name, T)] = rec
-        log(f"[k5] {dtype_name} T={T}: max_abs_err={err:.3e} "
+        rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=bound_ms, bound_by=bound_by)
+        if f32:
+            f32_extras(rec, mla_charge_of(c, T, dtype_name, sets[0][-1]),
+                       lambda: kernel(*pick()))
+        for w in MLA_WINDOWS:
+            windowed[w]["ms"] = device_ms(
+                lambda: kernel(*pick(), q_pos=q_pos, window=w))
+        log(f"[k5] {dtype_name} T={T} ({CARD}): max_abs_err="
+            f"{rec['max_abs_err']:.3e}{fp64_text(rec)} "
             f"kernel={ms * 1e3:.1f}us bound={bound_ms * 1e3:.2f}us "
             f"({bound_by}) plain={plain_ms * 1e3:.1f}us "
-            f"sdpa={lib_ms * 1e3:.1f}us")
-    log("[k5] poisoned NULL block: bitwise equal")
+            f"sdpa={lib_ms * 1e3:.1f}us; windowed "
+            + ", ".join(f"{w}: {windowed[w]['ms'] * 1e3:.1f}us"
+                        for w in MLA_WINDOWS) + f32_text(rec))
+    log(f"[k5] {c.hq} heads {widths} T={T}: poisoned NULL block bitwise "
+        "equal; window 0 == the unwindowed call bitwise")
     return record
 
 
@@ -5749,6 +5867,39 @@ def tree_f32_entries(entry, f32_counts, k1s, k4, k2s) -> list:
     return out
 
 
+def k5_f32_entry(entry, f32_count: int, k5) -> dict:
+    """The JSON line's fp32 K5 entry (3xTF32): phase 3e's T=16 case with
+    the fp32 launches of phases 4-5h, both bounds, its errors (against the
+    plain version, its fp64 run, and the margin), each launch's µs and
+    blocks, the windowed cases, and the reduced deepseek case (the build
+    phase 4 runs; errors only)."""
+    rec, red = k5[("float32", 16)], k5[("float32", MLA_REDUCED_T)]
+    errs = [r["max_abs_err"] for r in (rec, red)] + [
+        w["max_abs_err"] for r in (rec, red) for w in r["windowed"].values()]
+    e = entry("mla_attention_paged",
+              "src/repro_torch/csrc/mla_attention_paged.cu",
+              "src/repro/kernels/attention_template/ops.py:70", rec, max(errs))
+    cases = {f"deepseek 16 heads (512, 64) T=16 window={w}": {
+        "us": 1e3 * r["ms"], "max_abs_err": r["max_abs_err"],
+        "tol_ratio": r["tol_ratio"]} for w, r in rec["windowed"].items()}
+    reduced = (f"reduced deepseek {MLA_REDUCED_CASE.hq} heads "
+               f"{MLA_REDUCED_WIDTHS} T={MLA_REDUCED_T}")
+    cases[reduced] = {k: red[k] for k in ("max_abs_err", "err_fp64",
+                                          "tol_ratio", "tol_ratio_fp64")}
+    cases.update({f"{reduced} window={w}": r
+                  for w, r in red["windowed"].items()})
+    e.update(name="mla_attention_paged@fp32", launches=f32_count,
+             bound_3xtf32_ms=rec["bound_3xtf32_ms"], err_fp64=rec["err_fp64"],
+             tol_ratio=rec["tol_ratio"], tol_ratio_fp64=rec["tol_ratio_fp64"],
+             split={k: {"us": us, "blocks": n}
+                    for k, (us, n) in rec["split"].items()},
+             note="the fp32 build: both products in 3xTF32 on the tensor "
+                  "cores; launches of the fp32 build in phases 4-5h (phase "
+                  "4's reduced deepseek-v2-lite-16b, held against the plain "
+                  "version at its shapes in 3e)", cases=cases)
+    return e
+
+
 def main() -> int:
     import torch
 
@@ -5865,6 +6016,8 @@ def run_phases(t_start: float, sweep: tuple) -> int:
     k3_mla = check_k3_mla()
     k3_chunk = check_k3_chunk()
     k5 = check_k5()
+    k5.update(check_k5(MLA_REDUCED_CASE, MLA_REDUCED_T, MLA_REDUCED_WIDTHS,
+                       MLA_REDUCED_SCALE, timed=False))
     from repro_torch.kernels.linear_attn_chunk import ops as k6_ops
 
     k6 = check_k6()
@@ -5889,8 +6042,8 @@ def run_phases(t_start: float, sweep: tuple) -> int:
     from repro_torch.kernels.tree_attention import dense_ops as k2_ops
     from repro_torch.kernels.tree_attention import ops as k1_ops
 
-    # the fp32 tree-verify launches and fp32 K6 calls (forward, backward)
-    # of phases 4-5h (the wrappers' own counters, which
+    # the fp32 tree-verify and K5 launches and fp32 K6 calls (forward,
+    # backward) of phases 4-5h (the wrappers' own counters, which
     # kernels.reset_counts leaves alone)
     tree_f32 = {"tree_attention_paged": k1_ops,
                 "tree_attention_paged_windowed": k4_ops,
@@ -5898,6 +6051,9 @@ def run_phases(t_start: float, sweep: tuple) -> int:
     for mod in tree_f32.values():
         mod.f32_launches = 0
     k6_ops.f32_launches = k6_ops.f32_bwd_launches = 0
+    from repro_torch.kernels.mla_attention import ops as k5_ops
+
+    k5_ops.f32_launches = 0
 
     check_tiny_parity(dataclasses.replace(
         get_config("minitron-4b").reduced(), dtype="float32"),
@@ -5987,6 +6143,10 @@ def run_phases(t_start: float, sweep: tuple) -> int:
     if not all(tree_f32_counts.values()):
         raise AssertionError(f"an fp32 tree-verify form was never launched "
                              f"in phases 4-5h: {tree_f32_counts}")
+    k5_f32 = k5_ops.f32_launches
+    log(f"[5] fp32 K5 launches in phases 4-5h: {k5_f32}")
+    if not k5_f32:
+        raise AssertionError("fp32 K5 was never launched in phases 4-5h")
     t_7 = time.perf_counter()
     finish_dryrun_sweep(*sweep)
     dryrun_against_card()
@@ -6030,7 +6190,9 @@ def run_phases(t_start: float, sweep: tuple) -> int:
         entry("mla_attention_paged",
               "src/repro_torch/csrc/mla_attention_paged.cu",
               "src/repro/kernels/attention_template/ops.py:70",
-              k5[("bfloat16", 16)], k5[("bfloat16", 16)]["max_abs_err"]),
+              k5[("bfloat16", 16)],
+              max(r["max_abs_err"] for key, r in k5.items()
+                  if key[0] == "bfloat16")),
         entry("tree_attention_dense",
               "src/repro_torch/csrc/tree_attention_paged.cu",
               "src/repro/kernels/tree_attention/kernel.py:47",
@@ -6136,6 +6298,7 @@ def run_phases(t_start: float, sweep: tuple) -> int:
     kernels += f32_entries(entry, f32_main, k3, k3_mla, k3_chunk, zk, hk, bwd)
     kernels += tree_f32_entries(entry, tree_f32_counts, k1s, k4, k2s)
     kernels += k6_f32_entries(entry, k6_f32, k6, bwd)
+    kernels.append(k5_f32_entry(entry, k5_f32, k5))
     log(json.dumps({"kernels": kernels}))
     log(f"[time] total {time.perf_counter() - t_start:.0f}s")
     print(json.dumps({"ok": True, "device": {

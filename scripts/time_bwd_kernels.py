@@ -1,9 +1,10 @@
 """Time K3's kernels (the fp32 and bf16 forward at phase 3's cases, the
-backward at phase 3m's), K6's (forward and backward) and the tree-verify
-kernel (K1, K2, K4), each launch on its own, on one NVIDIA card.
+backward at phase 3m's), K6's (forward and backward), the tree-verify
+kernel (K1, K2, K4) and K5 (with its windowed form), each launch on its
+own, on one NVIDIA card.
 
     PYTHONPATH=src python scripts/time_bwd_kernels.py \
-        [--cases all|k3|k6|tree] \
+        [--cases all|k3|k6|tree|k5] \
         [--old DIR [--set NAME=VALUE ...] [--label LABEL]] [--steps] \
         [--out build/k3_times.json]
 
@@ -73,6 +74,18 @@ against the new ones, and a bf16 case whose bits differ fails the run.
 With ``--steps``, also the wall time of phase 5g(iv)'s fp32 gradient
 check (rwkv6-1.6b at full width, 2 layers, B = 1, S = 500: ``lm_loss``
 and its gradient, through K6 in each layer) under each library in turns.
+
+K5's cases (``--cases k5``): phase 3e's (``chip_smoke.MLA_CASE``:
+deepseek-v2-lite's 16 heads, latent 512 + rope 64, B = 4, block 16, lens
+0/37/700/1500, NULL holes, T = 16) over 32 operand sets, fp32 and bf16
+pools, at the planner's split; then the windowed form at windows 512 and
+1 (``chip_smoke.MLA_WINDOWS``, ``q_pos = cache_len + depth``).  With
+``--old``, DIR's ``mla_attention_paged.cu`` is built as a second library
+(its C entry point takes this version's arguments) and each unwindowed
+case runs old, new, new, old; the old output on the same operands is held
+against the new one, and a bf16 case whose bits differ fails the run.
+The windowed form runs under the new library alone (an older source may
+have no windowed entry point).
 """
 from __future__ import annotations
 
@@ -101,7 +114,8 @@ K3_ABI = {"flash_attention": ("flash_attention", 7, 11),
 # of it
 TREE_LIB = "tree_attention_paged"
 K6_LIBS = ("linear_attn_chunk", "linear_attn_chunk_bwd")
-SWAPPED = (TREE_LIB, *K6_LIBS)
+MLA_LIB = "mla_attention_paged"
+SWAPPED = (TREE_LIB, *K6_LIBS, MLA_LIB)
 LABEL = "old"                  # the second library's name in the lines
 # the old fp32 bodies' head dims: operands are padded to the least that
 # holds both widths
@@ -446,6 +460,31 @@ def tree_cases():
                    *a[0], a[1], w))
 
 
+def k5_cases():
+    """(name, library, call, same) of each K5 case: ``call`` cycles over
+    32 operand sets, ``same`` runs the first set; the windowed form's
+    library is named apart, so it runs under the new library alone."""
+    import torch
+    from repro_torch.kernels.mla_attention import ops
+
+    c, T = cs.MLA_CASE, 16
+    q_pos = cs.mla_q_pos(c, T)
+    run = lambda a, **kw: ops.mla_attention_paged_bshd(*a, scale=cs.MLA_SCALE,
+                                                       **kw)
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        sets = [cs.mla_inputs(c, T, dtype, seed=100 + i) for i in range(32)]
+        pick = cs.cycle(sets)
+        what = (f"K5 {dtype_name} deepseek-v2-lite 16 heads (512, 64) T={T} "
+                f"lens {'/'.join(map(str, c.lens))}")
+        yield (what, MLA_LIB, lambda p=pick: run(p()),
+               lambda a=sets[0]: run(a))
+        for w in cs.MLA_WINDOWS:
+            yield (f"{what} window {w}", f"{MLA_LIB} windowed",
+                   lambda p=pick, w=w: run(p(), q_pos=q_pos, window=w),
+                   lambda a=sets[0], w=w: run(a, q_pos=q_pos, window=w))
+
+
 def _windowed(pick):
     """One operand set of ``paged_inputs`` as K4's arguments."""
     args, q_pos = pick()
@@ -485,7 +524,7 @@ def time_case(what, lib, call, old_fns, same=None) -> dict:
             torch_equal(x, y) for x, y in zip(
                 a if isinstance(a, tuple) else (a,),
                 b if isinstance(b, tuple) else (b,)) if x is not None)
-        if lib in K6_LIBS and "bfloat16" in what \
+        if lib in (*K6_LIBS, MLA_LIB) and "bfloat16" in what \
                 and not rec["bitwise_old_vs_new"]:
             raise AssertionError(f"{what}: the bf16 build's bits changed "
                                  f"({LABEL} vs new max abs "
@@ -495,7 +534,8 @@ def time_case(what, lib, call, old_fns, same=None) -> dict:
         rec.setdefault(f"{key}_us", []).append(1e3 * cs.device_ms(runs[key]))
     for key, fn in runs.items():
         rec[f"{key}_split"] = cs.launch_split(fn, 1e-3 * min(rec[f"{key}_us"]))
-    tag = {TREE_LIB: "tree", **dict.fromkeys(K6_LIBS, "k6")}.get(lib, "k3")
+    tag = {TREE_LIB: "tree", **dict.fromkeys(K6_LIBS, "k6")}.get(
+        lib, "k5" if lib.startswith(MLA_LIB) else "k3")
     line = (f"[{tag}] {what} ({cs.CARD}): new "
             f"{', '.join(f'{x:.1f}' for x in rec['new_us'])}us "
             f"[{cs.split_text(rec['new_split'])}]")
@@ -675,9 +715,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", type=Path, default=None,
                     help="a directory holding another copy of csrc/")
-    ap.add_argument("--cases", choices=("all", "k3", "k6", "tree"),
+    ap.add_argument("--cases", choices=("all", "k3", "k6", "tree", "k5"),
                     default="all",
-                    help="K3's cases, K6's, the tree-verify ones, or all")
+                    help="K3's cases, K6's, the tree-verify ones, K5's, "
+                         "or all")
     ap.add_argument("--set", action="append", default=[],
                     metavar="NAME=VALUE",
                     help="with --old: a constexpr int of the tree-verify "
@@ -709,8 +750,9 @@ def main() -> int:
     k3 = args.cases in ("all", "k3")
     k6 = args.cases in ("all", "k6")
     tree = args.cases in ("all", "tree")
+    k5 = args.cases in ("all", "k5")
     libs = ([*K3_ABI] if k3 else []) + ([TREE_LIB] if tree else []) \
-        + (list(K6_LIBS) if k6 else [])
+        + (list(K6_LIBS) if k6 else []) + ([MLA_LIB] if k5 else [])
     sets = dict(a.split("=", 1) for a in args.set)
     t0 = time.perf_counter()
     build.build(libs)
@@ -728,6 +770,9 @@ def main() -> int:
             records.append(time_case(what, lib, call, old_libs, same))
     if k6:
         for what, lib, call, same in k6_cases():
+            records.append(time_case(what, lib, call, old_libs, same))
+    if k5:
+        for what, lib, call, same in k5_cases():
             records.append(time_case(what, lib, call, old_libs, same))
     if args.steps and old_libs:
         if k3:

@@ -4,6 +4,7 @@
 //   flash_attention_bwd.cu   (K3's backward, fp32 builds)
 //   tree_attention_paged.cu  (the tree-verify kernel K1 / K4 / K2, fp32
 //                             builds)
+//   mla_attention_paged.cu   (K5 and its windowed form, fp32 builds)
 //   linear_attn_chunk.cu     (K6, fp32 builds)
 //   linear_attn_chunk_bwd.cu (K6's backward, fp32 builds)
 //

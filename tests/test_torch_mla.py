@@ -10,8 +10,13 @@ against the JAX reference.
   oracle ``mla_attention_paged_ref``, at block 16 and 128, with NULL
   holes, ``atol = rtol = 2e-5`` (fp32, the sums run in different
   orders); poison in the NULL block (0, +-1e4, NaN, inf) changes no
-  output bit; the wrapper pads T on the CPU path and refuses the window
-  hook (the split sweep's plain version: ``test_torch_mla_split.py``);
+  output bit; the wrapper pads T on the CPU path (the split sweep's
+  plain version: ``test_torch_mla_split.py``);
+* the window hook: the wrapper's plain path against JAX's wrapper
+  (interpret mode) and oracle at windows 0, -1, 1, 5, 64 and past every
+  length, ``q_pos = cache_len + depth``, NULL holes and a poisoned NULL
+  block, ``atol = rtol = 2e-5``; a window <= 0 bitwise the unwindowed
+  call; a window without ``q_pos`` raises ``ValueError``;
 * the MLA prefill: q/k (nd + rd) and v (vd) through K3's plain version
   at their own widths (K3's bf16 build takes deepseek's 192/128 unpadded;
   the test keeps its first name) with the scale 1/sqrt(nd + rd), against
@@ -141,19 +146,111 @@ def test_poisoned_null_block_never_reaches_output(fill):
 
 
 def test_wrapper_pads_T_and_refuses_the_window():
-    """T = 13 is padded to 16 around the plain version and sliced back;
-    the window hook is not ported and raises."""
+    """T = 13 is padded to 16 around the plain version and sliced back."""
     c = _k5_case(5, 16, T=13)
     c["tree_mask"] = default_tree(13, 4, 4).ancestor_mask
     out = _port_k5(c)
     assert out.shape == (3, 13, 4, 64)
     np.testing.assert_allclose(out, _jax_k5("ref", c), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# K5's window hook: the plain version against JAX's wrapper and oracle
+# ---------------------------------------------------------------------------
+
+# windows: off (0, -1), one position, a few, a block's worth, and past
+# every length of the case (lens up to 2 * 16 + 3 plus a tree of 13)
+WINDOWS = (0, -1, 1, 5, 64, 1000)
+
+
+def _windowed_case(seed, T=13):
+    """``_k5_case`` with T = 13 (padded to 16 on the CPU path), a NULL hole
+    below cache_len and the verify positions q_pos = cache_len + depth of
+    ``default_tree(13, 4, 4)``."""
+    c = _k5_case(seed, 16, T=T, holes=((2, 1),))
+    tree = default_tree(T, 4, 4)
+    c["tree_mask"] = tree.ancestor_mask
+    q_pos = (c["cache_len"][:, None] + tree.depth[None, :]).astype(np.int32)
+    return c, q_pos
+
+
+def _poisoned(c):
+    """``c`` with NaN and inf in the NULL block (which JAX's oracle, a
+    gather and a product, would carry into its output)."""
+    c = dict(c, pool_lat=c["pool_lat"].copy(),
+             pool_rope=c["pool_rope"].copy())
+    c["pool_lat"][0] = np.nan
+    c["pool_rope"][0] = np.inf
+    return c
+
+
+def _port_k5_windowed(c, q_pos, window):
     t = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v)
          for k, v in c.items()}
     scale = t.pop("scale")
-    with pytest.raises(NotImplementedError, match="windowed MLA"):
-        ops.mla_attention_paged_bshd(*t.values(), scale=scale,
-                                     q_pos=torch.zeros((3, 13)), window=64)
+    return ops.mla_attention_paged_bshd(
+        *t.values(), scale=scale, q_pos=torch.from_numpy(q_pos),
+        window=window).numpy()
+
+
+def _jax_k5_windowed(name, c, q_pos, window):
+    import jax.numpy as jnp
+    from repro.kernels.attention_template.ops import mla_attention_paged_bshd
+    from repro.kernels.attention_template.ref import mla_attention_paged_ref
+
+    args = {k: (jnp.asarray(v) if isinstance(v, np.ndarray) else v)
+            for k, v in c.items()}
+    scale = args.pop("scale")
+    if name == "kernel":
+        return np.asarray(mla_attention_paged_bshd(
+            *args.values(), scale=scale, q_pos=jnp.asarray(q_pos),
+            window=window, interpret=True))
+    return np.asarray(mla_attention_paged_ref(
+        *args.values(), scale=scale, q_pos=jnp.asarray(q_pos),
+        window=window))
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+def test_window_matches_jax_kernel_and_ref(window):
+    """The port's wrapper (plain path) with ``q_pos = cache_len + depth``
+    against JAX's wrapper in interpret mode and its oracle at each window,
+    with a NULL hole, ``atol = rtol = 2e-5`` (fp32, the sums in different
+    orders); NaN and inf in the NULL block change no output bit (JAX's
+    oracle is given the clean pool)."""
+    c, q_pos = _windowed_case(10)
+    out = _port_k5_windowed(_poisoned(c), q_pos, window)
+    assert out.shape == (3, 13, 4, 64) and np.isfinite(out).all()
+    np.testing.assert_array_equal(out, _port_k5_windowed(c, q_pos, window))
+    np.testing.assert_allclose(
+        out, _jax_k5_windowed("kernel", _poisoned(c), q_pos, window), **TOL)
+    np.testing.assert_allclose(
+        out, _jax_k5_windowed("ref", c, q_pos, window), **TOL)
+
+
+@pytest.mark.parametrize("window", [0, -1, -64])
+def test_window_off_is_the_unwindowed_call(window):
+    """A window <= 0 is an exact no-op: bit for bit the unwindowed call."""
+    c, q_pos = _windowed_case(11)
+    np.testing.assert_array_equal(_port_k5_windowed(c, q_pos, window),
+                                  _port_k5(c))
+
+
+@pytest.mark.parametrize("window", [1, 5])
+def test_window_changes_the_result(window):
+    """A short window drops keys (the window is applied, not ignored)."""
+    c, q_pos = _windowed_case(12)
+    assert np.max(np.abs(_port_k5_windowed(c, q_pos, window)
+                         - _port_k5(c))) > 1e-3
+
+
+def test_window_without_q_pos_raises():
+    """As JAX's wrapper: a window needs q_pos."""
+    c, _ = _windowed_case(13)
+    t = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v)
+         for k, v in c.items()}
+    scale = t.pop("scale")
+    with pytest.raises(ValueError, match="q_pos"):
+        ops.mla_attention_paged_bshd(*t.values(), scale=scale, window=64)
 
 
 def test_cpu_path_launches_no_kernel():
@@ -344,3 +441,46 @@ def test_cuda_kernel_matches_plain(dtype, tol, T, H, r, rd, split_len):
     n = split_len or plan_mla_split_len(3, H, T, r, rd)
     ref = mla_attention_paged_split(*t.values(), scale=scale, split_len=n)
     torch.testing.assert_close(outs[-1], ref, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("T,H,r,rd", [(16, 16, 512, 64), (5, 4, 64, 16)],
+                         ids=["deepseek", "reduced"])
+def test_cuda_windowed_kernel_matches_plain(dtype, tol, T, H, r, rd):
+    """K5's windowed form against its plain version on the card at windows
+    1, 5 and 512, the planner's split and 16 (a split wholly behind the
+    window at 1 and 5), with a poisoned NULL block; window 0 bitwise the
+    unwindowed call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    c = _k5_case(8, 16, B=3, T=T, H=H, r=r, rd=rd, holes=((2, 1),))
+    tree = default_tree(T, 4, 4)
+    c["tree_mask"] = tree.ancestor_mask
+    c["pool_lat"][0] = np.nan
+    c["pool_rope"][0] = np.inf
+    q_pos = torch.from_numpy((c["cache_len"][:, None] + tree.depth[None, :])
+                             .astype(np.int32)).cuda()
+    t = {k: (torch.from_numpy(v).cuda() if isinstance(v, np.ndarray)
+             else v) for k, v in c.items()}
+    for k in ("pool_lat", "pool_rope", "tree_lat", "tree_rope"):
+        t[k] = t[k].to(getattr(torch, dtype))
+    scale = t.pop("scale")
+    args = list(t.values())
+    off = ops.mla_attention_paged_bshd(*args, scale=scale, q_pos=q_pos,
+                                       window=0)
+    assert torch.equal(off, ops.mla_attention_paged_bshd(*args,
+                                                         scale=scale))
+    for window in (1, 5, 512):
+        ref = mla_attention_paged_plain(*args, scale=scale, q_pos=q_pos,
+                                        window=window)
+        for split_len in (None, 16):
+            out = ops.mla_attention_paged_bshd(
+                *args, scale=scale, q_pos=q_pos, window=window,
+                split_len=split_len)
+            again = ops.mla_attention_paged_bshd(
+                *args, scale=scale, q_pos=q_pos, window=window,
+                split_len=split_len)
+            assert torch.equal(out, again)
+            torch.testing.assert_close(out, ref, atol=tol, rtol=tol)

@@ -11,8 +11,12 @@ differs) against the unsplit plain version and against the JAX kernel
 whole capacity, the planner's and 16; NULL holes below ``cache_len``;
 T = 5 and T = 16; pool block sizes 16 and 128 (a split starts inside a
 128-position block).  A poisoned NULL block changes no output bit, and
-the planner's rule is checked at deepseek-v2-lite's shapes.  The kernel
-at forced splits is ``tests/test_torch_mla.py``'s ``gpu``-marked case.
+the planner's rule is checked at deepseek-v2-lite's shapes.  The windowed
+split version (``q_pos = cache_len + depth``) matches the unsplit plain
+version at the same forced splits, windows 1 to past every length,
+including splits wholly behind the window, whose empty partial is the
+kernel's skip.  The kernel at forced splits is ``tests/test_torch_mla.py``'s
+``gpu``-marked case.
 """
 import math
 
@@ -128,3 +132,53 @@ def test_mla_planner():
                  (3, H, 5, R_LAT, R_ROPE)):
         n = split.plan_mla_split_len(*args)
         assert n % 64 == 0 and 64 <= n <= 1024
+
+
+@pytest.mark.parametrize("window", [1, 5, 40, 64, 1000])
+@pytest.mark.parametrize("bs,T", [(16, 16), (128, 5)])
+def test_windowed_split_matches_plain(window, bs, T):
+    """The windowed split version against the unsplit windowed plain
+    version at one split, the planner's and 16, ``q_pos = cache_len +
+    depth``; at windows under a slot's length the first splits lie wholly
+    behind the window (checked), and a window <= 0 is bitwise the
+    unwindowed split."""
+    c, scale = _case(bs + T + window, bs, T)
+    depth = default_tree(T, 4, 4).depth
+    q_pos = torch.from_numpy((c["cache_len"][:, None] + depth[None, :])
+                             .astype(np.int32))
+    args = _torch(c)
+    plain = mla_attention_paged_plain(*args, scale=scale, q_pos=q_pos,
+                                      window=window)
+    assert torch.isfinite(plain).all()
+    for split_len in _splits(c, T):
+        out = mla_attention_paged_split(*args, scale=scale,
+                                        split_len=split_len, q_pos=q_pos,
+                                        window=window)
+        torch.testing.assert_close(out, plain, **TOL)
+    lens = c["cache_len"]
+    if window < 16:
+        # the last slot's first split of 16 sits wholly behind the window
+        assert 16 - 1 <= lens[-1] - window
+    for w in (0, -3):
+        assert torch.equal(
+            mla_attention_paged_split(*args, scale=scale, split_len=16,
+                                      q_pos=q_pos, window=w),
+            mla_attention_paged_split(*args, scale=scale, split_len=16))
+
+
+def test_split_behind_the_window_is_skipped():
+    """A split wholly behind the window leaves the empty partial: the
+    result equals the one with those keys' blocks punched to NULL."""
+    c, scale = _case(21, 16, 5, holes=())
+    depth = default_tree(5, 4, 4).depth
+    q_pos = torch.from_numpy((c["cache_len"][:, None] + depth[None, :])
+                             .astype(np.int32))
+    window = 20
+    out = mla_attention_paged_split(*_torch(c), scale=scale, split_len=16,
+                                    q_pos=q_pos, window=window)
+    # slot 2 (len 69): positions 0..47 lie at or behind 69 - 20, blocks 0-2
+    punched = dict(c, block_table=c["block_table"].copy())
+    punched["block_table"][2, :3] = 0
+    ref = mla_attention_paged_split(*_torch(punched), scale=scale,
+                                    split_len=16, q_pos=q_pos, window=window)
+    assert torch.equal(out[2], ref[2])

@@ -9,7 +9,8 @@ branches (CPU; nothing is allocated).
   of 2 layers (F(4) - F(2) = 2 (F(2) - F(1))): eager code runs every
   layer.
 * Each kernel wrapper's ``meta`` call (K1, K4, K2, K3 whole and chunk,
-  K5, K6; K3 and K6 under autograd too) returns meta outputs of the
+  K5 and its windowed form, K6; K3 and K6 under autograd too) returns
+  meta outputs of the
   kernel's shapes, charges one call by the kernel's charge function (the
   bound ``chip_smoke.py`` prints), dispatches no aten op of its plain
   version and counts no launch; a ``cpu`` call gives what the plain
@@ -236,6 +237,15 @@ def _cases():
          op_cost.mla_charge(B=B, T=T, H=4, r=512, rd=64, dtype="bfloat16",
                             keys=[M * bs] * B, table_entries=B * M),
          lambda: mla_attention_paged_plain(*_mla_args("cpu"), scale=0.1)),
+        # the windowed form is charged as the unwindowed call, at capacity
+        ("mla_attention_paged", k5,
+         prep(k5.mla_attention_paged_bshd, _mla_args, scale=0.1, q_pos=qpos,
+              window=16),
+         op_cost.mla_charge(B=B, T=T, H=4, r=512, rd=64, dtype="bfloat16",
+                            keys=[M * bs] * B, table_entries=B * M),
+         lambda: mla_attention_paged_plain(
+             *_mla_args("cpu"), scale=0.1,
+             q_pos=qpos("cpu").to(torch.int32), window=16)),
         ("flash_attention", k3,
          prep(k3.flash_attention_bshd, _k3_args, window=48),
          op_cost.flash_charge(B=1, Sq=128, keys=128, Hq=4, Hkv=2, dqk=64,
