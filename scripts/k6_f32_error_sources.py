@@ -23,7 +23,16 @@ recurrence in fp64: the max abs error over the output and the final
 state, and the worst ratio err / (atol + rtol |ref|) at atol = rtol =
 1e-4 (``torch.testing.assert_close`` passes at <= 1).
 
+With ``--draws`` it runs instead ``chip_smoke.py``'s strong-decay draws
+(``K6_STRONG_SEEDS``, the very numpy operands phase 3f puts on the card)
+through JAX's fp32 ``repro/models/ssm.py::decay_attention_chunked`` and
+the port's plain fp32 version, and prints each one's margin against the
+fp64 recurrence: what the card's readings of the kernel on the same
+draws are set beside.
+
     PYTHONPATH=src python scripts/k6_f32_error_sources.py [--heads 32]
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/k6_f32_error_sources.py \
+        --draws
 """
 from __future__ import annotations
 
@@ -38,7 +47,10 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO / "tests"))
 sys.path.insert(0, str(REPO / "src"))
+sys.path.insert(0, str(REPO))
 
+from chip_smoke import (K6_STRONG_SEEDS, k6_numpy_draw,  # noqa: E402
+                        k6_recurrence_fp64)
 from repro_torch.kernels.linear_attn_chunk.ref import (  # noqa: E402
     decay_attention_chunked)
 from test_torch_k6_f32_rules import Arith, model_forward  # noqa: E402
@@ -65,22 +77,6 @@ def operands(S, init, strong, B, H, seed):
     return r, k, v, w, n(H, 64) * 0.1, n(B, H, 64, 64) * 0.1 if init else None
 
 
-def recurrence_fp64(r, k, v, w, u, s0):
-    """o_t = r_t S + (r_t . u k_t) v_t, S <- diag(exp w_t) S + k_t v_t^T."""
-    r, k, v, w, u = (t.double() for t in (r, k, v, w, u))
-    B, S, H, d = k.shape
-    state = torch.zeros((B, H, d, d), dtype=torch.float64) if s0 is None \
-        else s0.double()
-    outs = []
-    for i in range(S):
-        o = torch.einsum("bhd,bhde->bhe", r[:, i], state)
-        outs.append(o + (r[:, i] * u * k[:, i]).sum(-1, keepdim=True)
-                    * v[:, i])
-        state = state * torch.exp(w[:, i])[..., None] + \
-            k[:, i, :, :, None] * v[:, i, :, None, :]
-    return torch.stack(outs, 1), state
-
-
 def errors(o, st, ref_o, ref_st):
     """(max abs error, worst err / (1e-4 + 1e-4 |ref|))."""
     err, ratio = 0.0, 0.0
@@ -92,17 +88,47 @@ def errors(o, st, ref_o, ref_st):
     return err, ratio
 
 
+def draws() -> None:
+    """JAX's fp32 chunked form and the port's plain version against the
+    fp64 recurrence on each of phase 3f's strong-decay draws."""
+    import jax.numpy as jnp
+    from repro.models.ssm import decay_attention_chunked as jax_chunked
+
+    for seed in K6_STRONG_SEEDS:
+        x = k6_numpy_draw(seed)
+        t = [torch.from_numpy(a) for a in x]
+        exact = k6_recurrence_fp64(*t)
+        jo, jst = jax_chunked(*(jnp.asarray(a) for a in x[:4]),
+                              u=jnp.asarray(x[4]),
+                              initial_state=jnp.asarray(x[5]), chunk=64)
+        j_err, j_ratio = errors(torch.from_numpy(np.array(jo)),
+                                torch.from_numpy(np.array(jst)), *exact)
+        p_err, p_ratio = errors(*decay_attention_chunked(*t, chunk=64),
+                                *exact)
+        print(f"numpy seed {seed} (B=1 S={x[0].shape[1]} {x[0].shape[2]} "
+              f"heads, strong decay, initial state): against fp64, JAX fp32 "
+              f"{j_err:.3e} (margin {j_ratio:.3f}), the port's plain fp32 "
+              f"{p_err:.3e} (margin {p_ratio:.3f})", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--heads", type=int, default=32)
+    ap.add_argument("--draws", action="store_true",
+                    help="phase 3f's strong-decay draws through JAX's fp32 "
+                         "path and the plain version, against fp64")
     args = ap.parse_args()
     torch.set_num_threads(4)
     t0 = time.perf_counter()
+    if args.draws:
+        draws()
+        print(f"{time.perf_counter() - t0:.0f}s")
+        return 0
     worst = {}
     for S, init, strong, B in CASES:
         x = operands(S, init, strong, B, args.heads, S + 7 * strong + B)
         plain = decay_attention_chunked(*x, chunk=64)
-        exact = recurrence_fp64(*x)
+        exact = k6_recurrence_fp64(*x)
         p_err, p_ratio = errors(*plain, *exact)
         print(f"B={B} S={S} init={init}{' strong decay' if strong else ''}"
               f" ({args.heads} heads): plain fp32 against fp64 "

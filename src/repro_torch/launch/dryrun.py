@@ -21,6 +21,11 @@ from JAX's records:
     argument and output bytes are per device on every mesh, from the
     specs' shard shapes;
   * ``collective_bytes_per_dev`` is null (``launch/roofline.py``).
+
+``scripts/torch_opt_sweep.py`` runs the same ``run_one`` on pod16x16
+with the ragged-head archs' query heads padded to 16 (JAX's opt sweep),
+into ``results/dryrun_torch_opt/``; ``launch/roofline_table.py`` renders
+either directory as JAX's table.
 """
 from __future__ import annotations
 
@@ -159,6 +164,16 @@ def _save(rec: dict, out_dir: str) -> None:
         json.dump(rec, f, indent=1, default=str)
 
 
+def recorded(out_dir: str, arch: str, shape: str, mesh: str) -> bool:
+    """The pair's record in ``out_dir`` is ``ok`` or ``skip`` (JAX's
+    resume rule: such a pair is not run again)."""
+    f = os.path.join(out_dir, f"{arch}__{shape}__{mesh}.json")
+    if not os.path.exists(f):
+        return False
+    with open(f) as fh:
+        return json.load(fh).get("status") in ("ok", "skip")
+
+
 def _longest_first(job: tuple) -> int:
     kind = INPUT_SHAPES[job[1]].kind
     if kind == "prefill" and get_config(job[0]).block_kind == "mamba2":
@@ -169,6 +184,22 @@ def _longest_first(job: tuple) -> int:
 def _run_pair(job: tuple) -> dict:
     arch, shape, mesh, out_dir = job
     return run_one(arch, shape, mesh, out_dir)
+
+
+def run_jobs(fn, jobs: list, n_jobs: int) -> list:
+    """``[fn(job) for job in jobs]`` (each job an (arch, shape, ...)
+    tuple), in ``n_jobs`` spawned processes when it is above 1, the
+    longest pairs first: a Mamba2 prefill (its SSD runs a Python loop
+    over chunks of 64: 1.6M meta ops at prefill_32k), then the training
+    steps (every layer's forward and backward ops)."""
+    if n_jobs <= 1:
+        return [fn(j) for j in jobs]
+    import multiprocessing
+
+    jobs = sorted(jobs, key=_longest_first)
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(n_jobs) as pool:
+        return pool.map(fn, jobs, chunksize=1)
 
 
 def main(argv=None) -> None:
@@ -195,30 +226,11 @@ def main(argv=None) -> None:
         ap.error("pass --arch or --all")
 
     mesh = mesh_name(host=args.host, multi_pod=args.multi_pod)
-    jobs = []
-    for arch in archs:
-        for shape in shapes:
-            if args.skip_done:
-                f = os.path.join(args.out_dir,
-                                 f"{arch}__{shape}__{mesh}.json")
-                if os.path.exists(f):
-                    with open(f) as fh:
-                        if json.load(fh).get("status") in ("ok", "skip"):
-                            continue
-            jobs.append((arch, shape, mesh, args.out_dir))
+    jobs = [(arch, shape, mesh, args.out_dir) for arch in archs
+            for shape in shapes if not (
+                args.skip_done and recorded(args.out_dir, arch, shape, mesh))]
     t0 = time.time()
-    if args.jobs > 1:
-        import multiprocessing
-
-        # the longest first: a Mamba2 prefill (its SSD runs a Python loop
-        # over chunks of 64: 1.6M meta ops at prefill_32k), then the
-        # training steps (every layer's forward and backward ops)
-        jobs.sort(key=_longest_first)
-        ctx = multiprocessing.get_context("spawn")
-        with ctx.Pool(args.jobs) as pool:
-            recs = pool.map(_run_pair, jobs, chunksize=1)
-    else:
-        recs = [_run_pair(j) for j in jobs]
+    recs = run_jobs(_run_pair, jobs, args.jobs)
     n = {s: sum(r["status"] == s for r in recs)
          for s in ("ok", "skip", "error")}
     print(f"[dryrun] done: {n['ok']} ok, {n['skip']} skip, {n['error']} "

@@ -1,8 +1,9 @@
 """Boundaries of the PyTorch port.
 
-* ``src/repro_torch`` (and ``chip_smoke.py`` and the port's examples,
-  ``examples/torch_*.py``) imports neither JAX nor anything of the JAX
-  package ``repro`` (it keeps its own copies of the JAX-free modules);
+* ``src/repro_torch`` (and ``chip_smoke.py``, the port's examples,
+  ``examples/torch_*.py``, and its scripts, ``scripts/torch_*.py``)
+  imports neither JAX nor anything of the JAX package ``repro`` (it
+  keeps its own copies of the JAX-free modules);
 * its entry points (serving, and training's: EAGLE's params, the train
   launcher) run on CUDA by default and raise where CUDA is missing,
   unless the caller passes ``device="cpu"``: they never slip onto the
@@ -49,7 +50,8 @@ def _imported_modules(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [
-    REPO / "chip_smoke.py"] + sorted((REPO / "examples").glob("torch_*.py")),
+    REPO / "chip_smoke.py"] + sorted((REPO / "examples").glob("torch_*.py"))
+    + sorted((REPO / "scripts").glob("torch_*.py")),
     ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_and_no_repro_imports(path):
     bad = [m for m in _imported_modules(path)
