@@ -24,7 +24,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    dK/dV and dQ kernels at each bf16 and each fp32 build, the partials'
    sum) are each found in the report and show no spill; then fail unless
    ``cuobjdump -sass`` finds tensor-core instructions (``HMMA`` or
-   ``HGMMA``) in every bf16 and fp32 build of K3 (fp32 in 3xTF32), of
+   ``HGMMA``) in every bf16 and fp32 build of K3 (bf16 on wgmma, its
+   SASS holding ``HGMMA`` and the TMA load ``UTMALDG``; fp32 in 3xTF32), of
    its backward's dK/dV and dQ kernels, of K6's backward's increment and
    gradient pass (bf16 and fp32), of the tree-verify split
    kernel (bf16 and fp32: its fp32 builds run 3xTF32 too, and the D=64
@@ -710,9 +711,10 @@ def ptxas_lines(report: str) -> list:
     return out
 
 
-def sass_tensor_cores(lib_path) -> dict:
-    """{kernel name: whether its SASS holds a tensor-core instruction
-    (HMMA or HGMMA)}, from ``cuobjdump -sass`` of a built library."""
+def sass_tensor_cores(lib_path, ops=("HMMA", "HGMMA")) -> dict:
+    """{kernel name: whether its SASS holds one of ``ops`` (by default a
+    tensor-core instruction, HMMA or HGMMA)}, from ``cuobjdump -sass`` of
+    a built library."""
     from repro_torch.kernels import build
 
     cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
@@ -725,7 +727,7 @@ def sass_tensor_cores(lib_path) -> dict:
             name = kernel_name(ln.split("Function :", 1)[1].strip())
             if name:
                 found[name] = False
-        elif name and ("HMMA" in ln or "HGMMA" in ln):
+        elif name and any(op in ln for op in ops):
             found[name] = True
     return found
 
@@ -6292,9 +6294,22 @@ def main() -> int:
     d80 = sorted(k for k in tensor_cores
                  if k.startswith("flash_attention_kernel<bf16, DQK=80,"))
     if len(d80) < 3 or not all(tensor_cores[k] for k in d80):
-        raise AssertionError(f"SASS: K3's (80, 80) builds {d80} lack HMMA")
+        raise AssertionError(f"SASS: K3's (80, 80) builds {d80} lack "
+                             "HGMMA")
     log(f"[ptxas] hubert-xlarge's encoder runs one of {d80}, listed above "
-        f"without a spill; [sass] each runs HMMA")
+        f"without a spill; [sass] each runs HGMMA")
+    # K3's bf16 body: both products on wgmma, every load a TMA copy
+    lib = build.library_path("flash_attention")
+    wgmma, tma = (sass_tensor_cores(lib, (op,)) for op in ("HGMMA",
+                                                           "UTMALDG"))
+    k3_bf16 = sorted(k for k in wgmma
+                     if k.startswith("flash_attention_kernel<bf16"))
+    lacking = [k for k in k3_bf16 if not (wgmma[k] and tma[k])]
+    if len(k3_bf16) < len(k3_builds()) or lacking:
+        raise AssertionError(f"SASS: K3's bf16 builds without HGMMA or "
+                             f"UTMALDG: {lacking} of {k3_bf16}")
+    log(f"[sass] K3's bf16 builds run HGMMA (wgmma) and UTMALDG (TMA "
+        f"loads): {k3_bf16}")
     log(f"[time] phase 2 (builds and their checks) done at "
         f"{time.perf_counter() - t_start:.0f}s")
     # phase 7(a) runs on the CPU beside the phases on the card

@@ -24,9 +24,10 @@ ignored directory).  Its K3 sources (``flash_attention.cu``,
 ``flash_attention_bwd.cu``) are built as second libraries under
 ``build/old_kernels/`` and called through their C entry points, whose
 argument lists are this version's.  Where the old fp32 build takes one
-head dim of 64, 128 or 256 (the first fp32 bodies), the operands are
-zero-padded to it and the outputs sliced back, as that version's wrapper
-did; the pads are part of the old time.  Each K3 case then runs old,
+head dim of 64, 128 or 256 (the first fp32 bodies: the old source has no
+``flash_tf32``), the operands are zero-padded to it and the outputs
+sliced back, as that version's wrapper did; the pads are part of the old
+time.  An old source with the 3xTF32 bodies takes every width as it is.  Each K3 case then runs old,
 new, new, old, and the line gives both times and the old time over the
 new; each old output is also held against the new one (max abs
 difference, relative L2), so that a comparison of two different
@@ -118,8 +119,11 @@ MLA_LIB = "mla_attention_paged"
 SWAPPED = (TREE_LIB, *K6_LIBS, MLA_LIB)
 LABEL = "old"                  # the second library's name in the lines
 # the old fp32 bodies' head dims: operands are padded to the least that
-# holds both widths
+# holds both widths, where the old source's fp32 builds take one head dim
+# (the first fp32 bodies: no ``flash_tf32`` in it; ``main`` sets
+# OLD_PADS from the source)
 OLD_F32_DIMS = (64, 128, 256)
+OLD_PADS = True
 # forward cases: (name, Hq, Hkv, Dqk, Dv, S, window, causal, scale)
 FWD_CASES = (
     ("gemma3-1b window 0", 4, 1, 256, 256, 1536, 0, True, None),
@@ -197,7 +201,7 @@ def _padded(dqk: int, dv: int, dtype):
     a width of its own)."""
     import torch
 
-    if dtype != torch.float32:
+    if dtype != torch.float32 or not OLD_PADS:
         return None
     D = min(d for d in OLD_F32_DIMS if d >= max(dqk, dv))
     return None if dqk == dv == D else D
@@ -235,9 +239,9 @@ def old_launch(fn):
 
 def old_launch_bwd(fn):
     """``flash_attention/kernel.py::launch_bwd``'s signature, launching
-    the old backward: bf16 with this version's scratch and split (its
-    rules are unchanged), fp32 padded to its one head dim without a split
-    or partials, as that version ran it."""
+    the old backward with this version's scratch and split (its rules are
+    unchanged), but a first fp32 body (``OLD_PADS``): padded to its one
+    head dim without a split or partials, as that version ran it."""
     import torch
     import torch.nn.functional as F
 
@@ -253,7 +257,7 @@ def old_launch_bwd(fn):
             q, k, v, out, do = (F.pad(t, (0, D - t.shape[-1]))
                                 for t in (q, k, v, out, do))
             grads = tuple(torch.empty_like(t) for t in (q, k, v))
-        if q.dtype == torch.float32:
+        if q.dtype == torch.float32 and OLD_PADS:
             delta = torch.empty((B, Hq, S), dtype=torch.float32,
                                 device=q.device)
             part, split = None, 1
@@ -711,7 +715,7 @@ class _Nothing:
 def main() -> int:
     import torch
 
-    global LABEL
+    global LABEL, OLD_PADS
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", type=Path, default=None,
                     help="a directory holding another copy of csrc/")
@@ -757,6 +761,9 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build(libs)
     old_libs = build_old(args.old, libs, sets) if args.old else {}
+    if args.old and k3:
+        OLD_PADS = "flash_tf32" not in (
+            args.old / build.SOURCES["flash_attention"]).read_text()
     cs.log(f"[build] {time.perf_counter() - t0:.1f}s")
     for name in libs:
         for line in cs.ptxas_lines(build.ptxas_report(name)):

@@ -1,6 +1,13 @@
 // Hopper's warpgroup matrix multiply (wgmma, sm_90a) for the port's bf16
 // kernels: descriptors of 128-byte-swizzled shared-memory tiles and the
-// m64nNk16 products the kernels issue (bf16 in, fp32 accumulate).
+// m64nNk16 products the kernels issue (bf16 in, fp32 accumulate):
+//   ss_n{32,64,128}_t0  A and B from shared memory, B K-major: S = Q K^T
+//                       at K3's key tiles of 32, 64 and 128
+//                       (flash_attention.cu; n64 also the backward's)
+//   rs_n{64,80,128,192,256}_t1  A from registers, B MN-major: O += P V
+//                       at K3's value widths (80: hubert-xlarge's), the
+//                       backward's dK and dV
+// and ss_t0<N>, rs_t1<N>, which pick one of them by N.
 //
 // A tile of R rows and a multiple of 64 bf16 columns is stored as blocks
 // of 64 columns, R x 128 bytes each; within a block, row r's 16-byte chunk
@@ -92,6 +99,60 @@ __device__ __forceinline__ void ss_n64_t0(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (64 x 32, fp32) (+)= A B: A and B from shared-memory descriptors
+// (B K-major); scale_d 0 overwrites d, 1 adds to it
+__device__ __forceinline__ void ss_n32_t0(float (&d)[16], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128, fp32) (+)= A B: A and B from shared-memory descriptors
+// (B K-major); scale_d 0 overwrites d, 1 adds to it
+__device__ __forceinline__ void ss_n128_t0(float (&d)[64], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d (64 x 64, fp32) += A B: A from registers (the m16n8k16 A layout, warp
 // w of the warpgroup holding rows 16 w ..), B from a shared-memory
 // descriptor (MN-major)
@@ -115,6 +176,36 @@ __device__ __forceinline__ void rs_n64_t1(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 80, fp32) += A B: A from registers (the m16n8k16 A layout, warp
+// w of the warpgroup holding rows 16 w ..), B from a shared-memory
+// descriptor (MN-major; its 80 columns span a 64-column block and 16 of
+// the next)
+__device__ __forceinline__ void rs_n80_t1(float (&d)[40],
+                                          const uint32_t (&a)[4],
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -266,6 +357,36 @@ __device__ __forceinline__ void rs_n256_t1(float (&d)[128],
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// the products above by N
+template <int N>
+__device__ __forceinline__ void ss_t0(float (&d)[N / 2], uint64_t da,
+                                      uint64_t db, int scale_d) {
+  if constexpr (N == 32) {
+    ss_n32_t0(d, da, db, scale_d);
+  } else if constexpr (N == 64) {
+    ss_n64_t0(d, da, db, scale_d);
+  } else {
+    static_assert(N == 128, "no ss product of this width");
+    ss_n128_t0(d, da, db, scale_d);
+  }
+}
+template <int N>
+__device__ __forceinline__ void rs_t1(float (&d)[N / 2],
+                                      const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 64) {
+    rs_n64_t1(d, a, db);
+  } else if constexpr (N == 80) {
+    rs_n80_t1(d, a, db);
+  } else if constexpr (N == 128) {
+    rs_n128_t1(d, a, db);
+  } else if constexpr (N == 192) {
+    rs_n192_t1(d, a, db);
+  } else {
+    static_assert(N == 256, "no rs product of this width");
+    rs_n256_t1(d, a, db);
+  }
 }
 
 }  // namespace wg

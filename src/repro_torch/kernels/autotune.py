@@ -6,11 +6,12 @@ serves on the card and records the winners in ``results/autotune.cuda.json``,
 which the wrappers consult through ``repro_torch.kernels.
 tuned_block_sizes``.  The port has one tunable, not Pallas's:
 
-* ``flash`` (K3's bf16 builds): ``key_tile``, the keys a shared-memory
-  tile, where the build's ring fits (``flash_attention/kernel.py::
-  KEY_TILES``).  Key ``flash|dqk=..|dv=..|hq=..|hkv=..|causal=..``: each
-  config is timed at its own heads.  The query tile stays at 64, fixed
-  by the four-warp body; the fp32 builds are not tuned.
+* ``flash`` (K3's bf16 builds): ``key_tile``, the keys a stage of the
+  TMA-fed K/V ring, where the build's ring and accumulators fit
+  (``flash_attention/kernel.py::KEY_TILES``).  Key
+  ``flash|dqk=..|dv=..|hq=..|hkv=..|causal=..``: each config is timed at
+  its own heads.  The query tile stays at 64, fixed by the body's one
+  consumer warpgroup; the fp32 builds are not tuned.
 
 JAX's other tunables have no counterpart.  The tree-verify kernels' pad
 of the tree axis (K1, K2, K4) and K5's split length were swept on the

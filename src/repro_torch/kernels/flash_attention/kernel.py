@@ -52,35 +52,109 @@ from repro_torch.models.layers import blocked_attention
 DIMS = ((64, 64), (80, 80), (128, 128), (256, 256), (192, 128))
 F32_DIMS = DIMS + ((48, 32),)
 # the body's key tile (keys a shared-memory tile): the candidates, the
-# rows of a query tile, and the shared memory a block may take (the .cu's
-# kMaxSmem); a build has a tile where its ring fits (``mma_smem_bytes``)
+# rows of a query tile (a consumer warpgroup's: the granularity at which a
+# chunk's rows equal the whole prefill's bit for bit), and the shared
+# memory a block may take (the .cu's kMaxSmem); a build has a tile where
+# its ring fits (``mma_smem_bytes``) and, in bf16, its accumulators
+# (``ACC_FLOATS``)
 TILE_CANDIDATES = (32, 64, 128)
 MMA_ROWS = 64
 MAX_SMEM = 227 * 1024
 SMS = 132                      # the H100 SXM's streaming multiprocessors
 WGMMA_DQ_MAX = 192             # the widest dQ on wgmma (the .cu's kWgmmaDqMax)
+# the bf16 body (the .cu's constants): one or two consumer warpgroups of
+# 64 rows each a block (beside one producer warp issuing the TMA loads),
+# a ring of STAGES K/V stages, and the fp32 registers a thread may give
+# O, S and P (``acc_floats``) with one consumer warpgroup and with two
+MAX_WARPGROUPS = 2
+STAGES = 2
+ACC_FLOATS = 176
+TWO_WG_FLOATS = 120
+
+
+def _blocks(d: int) -> int:
+    """The 64-column blocks of a width in the bf16 body's tiles."""
+    return -(-d // 64)
+
+
+def acc_floats(dv: int, kn: int) -> int:
+    """The registers O, S and P take a bf16 thread at key tile ``kn``
+    (the .cu's ``acc_floats``): O, S, and P in bf16 pairs, 64 rows over
+    a warpgroup's 128 threads."""
+    return dv // 2 + kn // 2 + kn // 4
+
+
+def warpgroups(dv: int, kn: int) -> int:
+    """A bf16 instance's consumer warpgroups (the .cu's ``warpgroups``):
+    two, each of 64 query positions, reading each K/V tile once for 128,
+    where O, S and P take at most ``TWO_WG_FLOATS`` floats a thread (a
+    block of 288 threads counts as three warpgroups: 168 registers a
+    thread); else one, and one at dv = 64, whose 64-row blocks fit two an
+    SM."""
+    return (MAX_WARPGROUPS if dv > 64 and acc_floats(dv, kn) <= TWO_WG_FLOATS
+            else 1)
 
 
 def mma_smem_bytes(dqk: int, dv: int, kn: int, dtype=torch.bfloat16) -> int:
-    """The body's shared memory (the .cu's ``mma_smem_bytes``): q's 64
+    """The body's shared memory (the .cu's ``mma_smem_bytes``).  bf16
+    (``WgLayout``): 1024 bytes of alignment slack, each consumer
+    warpgroup's 64 rows of q, then ``STAGES`` stages of K and of V tiles
+    of ``kn`` keys, every tile in blocks of 64 columns (80 takes two) x
+    128 bytes a row, and the stages' four mbarriers each (K and V
+    arrived, K and V given back) and q's, 8 bytes each.  fp32: q's 64
     rows, then rings of two K and two V tiles of ``kn`` keys, each row
-    padded by 8 bf16 or 4 floats; fp32 adds each of its 4 warp pairs' P
-    (16 rows of kn + 8 floats) and 8 warps' 16 row maxima."""
+    padded by 4 floats, each of its 4 warp pairs' P (16 rows of kn + 8
+    floats) and 8 warps' 16 row maxima."""
     if dtype != torch.float32:
-        return 2 * ((MMA_ROWS + 2 * kn) * (dqk + 8) + 2 * kn * (dv + 8))
+        return (1024 + warpgroups(dv, kn) * MMA_ROWS * 128 * _blocks(dqk)
+                + STAGES * kn * 128 * (_blocks(dqk) + _blocks(dv))
+                + 8 * (4 * STAGES + 1))
     return 4 * ((MMA_ROWS + 2 * kn) * (dqk + 4) + 2 * kn * (dv + 4)
                 + 4 * 16 * (kn + 8) + 8 * 16)
 
 
+def tile_fits(dqk: int, dv: int, kn: int) -> bool:
+    """Whether the bf16 (dqk, dv) build has a key tile of ``kn`` (the
+    .cu's ``mma_fits``): its ring fits a block's shared memory, and O, S
+    and P hold at most ``ACC_FLOATS`` floats a thread (128 keys at dv =
+    256 would spill)."""
+    return (mma_smem_bytes(dqk, dv, kn) <= MAX_SMEM
+            and acc_floats(dv, kn) <= ACC_FLOATS)
+
+
+def check_tma(name: str, shape, strides, data_ptr: int,
+              itemsize: int) -> None:
+    """Raise unless a bf16 operand of ``shape`` and element ``strides``
+    at address ``data_ptr`` is what the body's TMA loads take: contiguous
+    (the C entry point encodes its tensor map from the shape alone), its
+    base on a 16-byte boundary, and every stride of the map (a row of
+    ``shape[-1]`` elements and its multiples) a multiple of 16 bytes."""
+    want, n = [], 1
+    for d in reversed(shape):
+        want.append(n)
+        n *= d
+    want.reverse()
+    if any(d > 1 and s != w for d, s, w in zip(shape, strides, want)):
+        raise ValueError(f"{name}: the kernel's TMA loads take contiguous "
+                         f"operands only, got strides {tuple(strides)} at "
+                         f"shape {tuple(shape)}")
+    if data_ptr % 16:
+        raise ValueError(f"{name}: the kernel's TMA loads need a base on a "
+                         f"16-byte boundary, got {data_ptr:#x}")
+    if shape[-1] * itemsize % 16:
+        raise ValueError(f"{name}: the kernel's TMA loads need rows of a "
+                         f"multiple of 16 bytes, got {shape[-1]} x "
+                         f"{itemsize}")
+
+
 # each bf16 build's key tiles (its template instances), and its default:
-# 64, or 32 at Dqk = 256, the tile every build ran before it was tunable.
+# 64, the autotuner's winner at most of the registry's keys.
 # Each fp32 build has one key tile, not tuned: the widest whose ring fits,
 # at most 64 (one mask bit a score of a thread; the .cu's
 # ``launch_build``)
-KEY_TILES = {dims: tuple(n for n in TILE_CANDIDATES
-                         if mma_smem_bytes(*dims, n) <= MAX_SMEM)
+KEY_TILES = {dims: tuple(n for n in TILE_CANDIDATES if tile_fits(*dims, n))
              for dims in DIMS}
-DEFAULT_KEY_TILE = {dims: 32 if dims[0] >= 256 else 64 for dims in DIMS}
+DEFAULT_KEY_TILE = {dims: 64 for dims in DIMS}
 F32_KEY_TILE = {dims: 64 if mma_smem_bytes(*dims, 64, torch.float32)
                 <= MAX_SMEM else 32 for dims in F32_DIMS}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -25,8 +25,8 @@ the cache view past it is masked and never read by the kernel).
 
 A bf16 call runs the key tile ``resolve_key_tile`` gives: the autotuner's
 winner for ``flash|dqk=..|dv=..|hq=..|hkv=..|causal=..``
-(``kernels.tuned_block_sizes``), else the build's default (64; 32 at
-256).  The heads enter the key because the best tile is the one that
+(``kernels.tuned_block_sizes``), else the build's default (64).  The
+heads enter the key because the best tile is the one that
 fills the SMs, and the grid is query tiles times query heads.  A chunk
 and the whole prefill of one layer resolve the same key, and a tile's
 keys start at absolute multiples of the tile, so a chunk's rows keep the
@@ -107,6 +107,10 @@ def _check_cuda(q, k, v):
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the kernel reads 16 bytes a thread: q, k and v "
                          "must start on a 16-byte boundary")
+    if q.dtype == torch.bfloat16:   # the bf16 body loads through TMA
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _k.check_tma(name, t.shape, t.stride(), t.data_ptr(),
+                         t.element_size())
     dims = (q.shape[-1], v.shape[-1])
     builds = _k.F32_DIMS if q.dtype == torch.float32 else _k.DIMS
     if dims not in builds:
